@@ -1,0 +1,41 @@
+"""Cross weights and adapters over from the JAX package through numpy.
+
+``jax.random`` draws cannot be reproduced in torch, so a comparison of the
+two packages runs both on the same numbers: the JAX tree or pack is turned
+into numpy arrays (``jax.tree.map(np.asarray, tree)``) and handed to these
+functions. Nothing here imports JAX.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.adapters import AdapterPack
+
+
+def params_from_numpy(tree, device="cuda"):
+    """A nested dict/list/tuple of numpy arrays -> the same structure of
+    torch tensors on ``device`` (f32 stays f32, int32 stays int32). The
+    stacked (L, ...) layer leaves keep their leading dim."""
+    if isinstance(tree, dict):
+        return {k: params_from_numpy(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(params_from_numpy(v, device) for v in tree)
+    if tree is None:
+        return None
+    return torch.from_numpy(np.array(tree, copy=True)).to(device)
+
+
+def pack_from_numpy(name: str, entries: Dict[str, Tuple[np.ndarray,
+                                                        np.ndarray]],
+                    alpha: float = 1.0, device="cuda") -> AdapterPack:
+    """An ``AdapterPack`` from a JAX pack's entries given as numpy
+    (path -> (flat indices (..., K), values (..., K)))."""
+    return AdapterPack(
+        name=name,
+        entries={p: (params_from_numpy(i, device).to(torch.int32),
+                     params_from_numpy(v, device).to(torch.float32))
+                 for p, (i, v) in entries.items()},
+        alpha=alpha)

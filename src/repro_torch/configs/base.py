@@ -1,0 +1,75 @@
+"""Configuration dataclasses for models and adapters.
+
+A copy of ``repro/configs/base.py``'s ``ModelConfig`` and ``AdapterConfig``,
+so the port reads configurations without importing the JAX package. The
+sub-configs of the other families (MoE, MLA, SSM) are not copied: those
+families wait for ROADMAP item A9, and ``models.lm`` raises for them.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Tuple
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                    # dense | moe | ssm | hybrid | vlm | audio
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0              # 0 => d_model // num_heads
+    attn_type: str = "gqa"         # gqa | mla | none
+    qkv_bias: bool = False
+    rope_theta: float = 10_000.0
+    norm_eps: float = 1e-5
+    act: str = "silu"              # silu (SwiGLU) | gelu (vanilla MLP)
+    tie_embeddings: bool = False
+    causal: bool = True
+    encoder_only: bool = False
+    logit_softcap: float = 0.0
+    modality: str = "text"         # text | vision | audio
+    num_prefix_embeds: int = 0
+    # Head-group padding: q heads per kv group (and kv heads) padded with
+    # zero-initialised dead heads; the model function is unchanged.
+    pad_heads_to: int = 0
+    pad_kv_to: int = 0
+    attn_repeat_kv: bool = False
+
+    @property
+    def padded_vocab(self) -> int:
+        """Embedding tables are padded to a multiple of 256; pad logits are
+        masked to -1e30."""
+        m = 256
+        return ((self.vocab_size + m - 1) // m) * m
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or (self.d_model // self.num_heads)
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class AdapterConfig:
+    """The paper's contribution, as a first-class config."""
+
+    kind: str = "none"             # none | shira (lora/dora wait)
+    mask: str = "wm"               # rand (others wait: lax.top_k tie order)
+    sparsity: float = 0.99         # fraction of *zeros* in the mask
+    rank: int = 32
+    alpha: float = 1.0             # inference-time strength W + alpha * S
+    lora_alpha: float = 64.0
+    target_modules: Tuple[str, ...] = (
+        "wq", "wk", "wv", "wo", "w_up", "w_gate", "w_down",
+        "in_proj", "out_proj", "w_dkv", "w_uk", "w_uv",
+    )
+    struct_rows: int = 8
+    struct_cols: int = 8
+    packed: bool = True
+    sparse_grad_sync: bool = False

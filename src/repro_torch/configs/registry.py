@@ -1,0 +1,43 @@
+"""Architecture registry: ``--arch <id>`` -> ModelConfig.
+
+The port serves the dense GQA family. The other architectures of the JAX
+registry are known ids whose configs raise until their family is ported
+(ROADMAP item A9).
+"""
+from __future__ import annotations
+
+from repro_torch.configs import starcoder2_7b
+from repro_torch.configs.base import ModelConfig
+
+ARCH_IDS = [
+    "mamba2-780m",
+    "granite-moe-1b-a400m",
+    "deepseek-v2-lite-16b",
+    "zamba2-2.7b",
+    "paligemma-3b",
+    "hubert-xlarge",
+    "qwen1.5-32b",
+    "starcoder2-7b",
+    "deepseek-coder-33b",
+    "granite-34b",
+]
+
+_PORTED = {"starcoder2-7b": starcoder2_7b}
+
+
+def _module(arch: str):
+    if arch not in ARCH_IDS:
+        raise KeyError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
+    if arch not in _PORTED:
+        raise NotImplementedError(
+            f"{arch} is not ported yet (ROADMAP A9, other families); "
+            f"ported: {sorted(_PORTED)}")
+    return _PORTED[arch]
+
+
+def get_config(arch: str) -> ModelConfig:
+    return _module(arch).CONFIG
+
+
+def get_smoke_config(arch: str) -> ModelConfig:
+    return _module(arch).SMOKE_CONFIG

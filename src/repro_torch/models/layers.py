@@ -1,0 +1,224 @@
+"""Basic building blocks: norms, embeddings, RoPE, MLPs, init helpers.
+
+Port of ``repro/models/layers.py``. Modules are plain functions over dicts
+of tensors. Matmuls run in ``compute_dtype`` (bf16 by default); norms,
+RoPE and the side delta run in f32. Parameters stay in f32 and ``pdot``
+casts each weight to the compute dtype at every call, as the reference
+does; that cast is the largest non-kernel cost of a decode step (PERF.md).
+Leaf names follow the reference's convention (``wq wk wv wo w_up w_gate
+w_down emb lm_head scale b*``), which the adapter machinery keys off.
+"""
+from __future__ import annotations
+
+import contextlib
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.ops import sidedelta
+
+COMPUTE_DTYPE = torch.bfloat16  # default; see compute_precision()
+
+
+def compute_dtype() -> torch.dtype:
+    """The current matmul/activation dtype."""
+    return COMPUTE_DTYPE
+
+
+@contextlib.contextmanager
+def compute_precision(dtype: torch.dtype):
+    """Temporarily override the compute dtype (default bf16). Parity checks
+    run under ``torch.float32``, as the reference's do under
+    ``jnp.float32``."""
+    global COMPUTE_DTYPE
+    prev = COMPUTE_DTYPE
+    COMPUTE_DTYPE = dtype
+    try:
+        yield
+    finally:
+        COMPUTE_DTYPE = prev
+
+
+def cast_compute(tree):
+    """Cast every >=2D float tensor of a nested dict/list to the compute
+    dtype; other leaves pass through."""
+    if isinstance(tree, dict):
+        return {k: cast_compute(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(cast_compute(v) for v in tree)
+    if (isinstance(tree, torch.Tensor) and tree.ndim >= 2
+            and tree.is_floating_point()):
+        return tree.to(compute_dtype())
+    return tree
+
+
+# ---------------------------------------------------------------------------
+# Side-delta weights (multi-tenant serving)
+# ---------------------------------------------------------------------------
+# A weight leaf may be replaced by a dict bundling the shared base matrix
+# with the per-adapter sparse-delta table (the column-sorted layout built by
+# ``kernels.ops.sidedelta_table``) and the batch's per-request adapter ids
+# (see repro_torch/serving/multitenant.py). ``pdot`` then computes the base
+# matmul once for the whole batch plus each request's sparse correction via
+# the sidedelta kernel. Every entry carries the weight's leading layer dims,
+# so slicing a stacked layer slices the bundle too.
+
+SIDEDELTA_KEY = "sd.base"
+
+
+def sidedelta_weight(base: torch.Tensor, rows: torch.Tensor,
+                     vals: torch.Tensor, colptr: torch.Tensor,
+                     ids: torch.Tensor,
+                     scale: Optional[torch.Tensor] = None) -> dict:
+    """base: (n, m); rows/vals: (A, K) column-sorted per-adapter entries
+    (vals f32, or int8 with per-adapter ``scale`` (A,) f32); colptr:
+    (A, m + 1) int32 column offsets; ids: (B,) int32 per-request adapter
+    slot (-1 = base only)."""
+    w = {SIDEDELTA_KEY: base, "sd.rows": rows, "sd.vals": vals,
+         "sd.colptr": colptr, "sd.ids": ids}
+    if scale is not None:
+        w["sd.scale"] = scale
+    return w
+
+
+def is_sidedelta(w) -> bool:
+    return isinstance(w, dict) and SIDEDELTA_KEY in w
+
+
+def pdot(x: torch.Tensor, w) -> torch.Tensor:
+    """Matmul in the compute dtype, output in the compute dtype.
+
+    ``w`` may also be a side-delta bundle: then the result is x @ base plus
+    the per-request sparse deltas routed by the bundled ids."""
+    if is_sidedelta(w):
+        return _pdot_sidedelta(x, w)
+    cd = compute_dtype()
+    return torch.matmul(x.to(cd), w.to(cd))
+
+
+def _pdot_sidedelta(x: torch.Tensor, w: dict) -> torch.Tensor:
+    if x.ndim != 3:
+        raise ValueError("side-delta weights serve batched (B, S, d) "
+                         f"activations, got {tuple(x.shape)}")
+    y = pdot(x, w[SIDEDELTA_KEY])
+    delta = sidedelta(x, w["sd.rows"], w["sd.vals"], w["sd.colptr"],
+                      w["sd.ids"], scale=w.get("sd.scale"))
+    return delta.add_(y).to(y.dtype)
+
+
+def dense(x: torch.Tensor, w, b: Optional[torch.Tensor] = None
+          ) -> torch.Tensor:
+    y = pdot(x, w)
+    if b is not None:
+        y = y + b.to(y.dtype)
+    return y
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5
+             ) -> torch.Tensor:
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps) * scale.float()
+    return out.to(compute_dtype())
+
+
+def init_rms_norm(d: int, *, lead=(), device="cuda") -> dict:
+    return {"scale": torch.ones(tuple(lead) + (d,), dtype=torch.float32,
+                                device=device)}
+
+
+def glorot(gen: torch.Generator, shape, device="cuda") -> torch.Tensor:
+    """Normal with std sqrt(2 / (fan_in + fan_out)) over the trailing
+    (fan_in, fan_out) dims; leading dims are stacked layers."""
+    std = math.sqrt(2.0 / (shape[-2] + shape[-1]))
+    return torch.randn(shape, generator=gen, dtype=torch.float32,
+                       device=device).mul_(std)
+
+
+def normal_init(gen: torch.Generator, shape, std: float = 0.02,
+                device="cuda") -> torch.Tensor:
+    return torch.randn(shape, generator=gen, dtype=torch.float32,
+                       device=device).mul_(std)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
+    """Inverse frequencies, shape (head_dim // 2,)."""
+    exponent = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                            device=device) / head_dim
+    return 1.0 / (theta ** exponent)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+               ) -> torch.Tensor:
+    """x: (..., S, H, D); positions: (S,) or (..., S). Split-half
+    convention."""
+    d = x.shape[-1]
+    inv = rope_freqs(d, theta, x.device)                  # (d/2,)
+    angles = positions[..., :, None].float() * inv        # (..., S, d/2)
+    cos = torch.cos(angles)[..., :, None, :]              # (..., S, 1, d/2)
+    sin = torch.sin(angles)[..., :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+
+def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, act: str = "silu",
+             *, lead=(), device="cuda") -> dict:
+    lead = tuple(lead)
+    p = {
+        "w_up": glorot(gen, lead + (d_model, d_ff), device),
+        "w_down": glorot(gen, lead + (d_ff, d_model), device),
+    }
+    if act == "silu":  # SwiGLU
+        p["w_gate"] = glorot(gen, lead + (d_model, d_ff), device)
+    return p
+
+
+def mlp(params: dict, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
+    up = dense(x, params["w_up"])
+    if act == "silu":
+        gate = dense(x, params["w_gate"])
+        h = F.silu(gate.float()).to(compute_dtype()) * up
+    else:
+        # jax.nn.gelu defaults to the tanh approximation
+        h = F.gelu(up.float(), approximate="tanh").to(compute_dtype())
+    return dense(h, params["w_down"])
+
+
+# ---------------------------------------------------------------------------
+# Embeddings
+# ---------------------------------------------------------------------------
+
+def init_embedding(gen: torch.Generator, vocab: int, d_model: int,
+                   device="cuda") -> dict:
+    return {"emb": normal_init(gen, (vocab, d_model), 0.02, device)}
+
+
+def embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
+    return params["emb"][tokens].to(compute_dtype())
+
+
+def unembed(params: Optional[dict], h: torch.Tensor,
+            tie_to: Optional[torch.Tensor] = None, softcap: float = 0.0,
+            logical_vocab: int = 0) -> torch.Tensor:
+    """Logits in f32: compute-dtype operands, f32 accumulation and output
+    (the reference's ``preferred_element_type=f32``)."""
+    w = tie_to.T if tie_to is not None else params["lm_head"]
+    cd = compute_dtype()
+    logits = torch.matmul(h.to(cd).float(), w.to(cd).float())
+    if softcap > 0.0:
+        logits = torch.tanh(logits / softcap) * softcap
+    if logical_vocab and logical_vocab < w.shape[-1]:
+        pad = torch.arange(w.shape[-1], device=logits.device) >= logical_vocab
+        logits = logits.masked_fill(pad, -1e30)
+    return logits

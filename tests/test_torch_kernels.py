@@ -1,0 +1,260 @@
+"""The port's kernel modules on the CPU: each wrapper computes its plain
+version there, held against the JAX package on the same numpy inputs.
+
+sidedelta: repro.kernels.ops.sidedelta(interpret=False), the compiled
+(XLA) formulation of the Pallas tile plan; its interpret path needs
+pl.load, which this jax no longer has. scatter_apply: ref.scatter_apply_ref
+and core.masks.scatter_packed_add. f32 results agree to 1e-5: the same
+products, summed in another order. The kernels themselves run only on the
+card; chip_smoke.py holds them against these plain versions there.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+from repro.core import masks as JM
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels.scatter_apply import scatter_apply
+from repro_torch.kernels.sidedelta import sidedelta
+
+TOL = 1e-5
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _entries(rng, A, n, m, K):
+    idx = np.stack([rng.choice(n * m, K, replace=False) for _ in range(A)])
+    return idx.astype(np.int32), rng.standard_normal((A, K)).astype(
+        np.float32)
+
+
+def _jax_tables(idx, vals, m, int8):
+    A, K = idx.shape
+    rows, cols, v = (np.stack(t) for t in zip(
+        *(jops.sidedelta_table(idx[a], vals[a], m, max(K, 1))
+          for a in range(A))))
+    scale = None
+    if int8:
+        q, s = zip(*(jops.quantize_table(x) for x in v))
+        v, scale = np.stack(q), jnp.asarray(np.array(s, np.float32))
+    if K == 0:
+        rows, cols, v = rows[:, :0], cols[:, :0], v[:, :0]
+    return jnp.asarray(rows), jnp.asarray(cols), jnp.asarray(v), scale
+
+
+def _port_table(idx, vals, n, m, int8):
+    A = idx.shape[0]
+    t = tops.sidedelta_table([(_t(idx[a][None]), _t(vals[a][None]))
+                              for a in range(A)], 1, n, m, int8=int8)
+    return {k: v[0] for k, v in t.items()}
+
+
+@pytest.mark.parametrize("B,S,n,m,A,K,ids", [
+    (3, 1, 16, 24, 2, 20, [1, -1, 0]),          # decode, one base request
+    (2, 5, 40, 300, 3, 600, [2, 2]),             # columns straddle 128-tiles
+    (4, 9, 33, 257, 2, 400, [-1, 0, 1, 0]),      # S > 8: two row groups
+    (2, 3, 16, 24, 2, 0, [0, 1]),                # K = 0: zeros
+    (2, 2, 16, 24, 3, 10, [-1, -1]),             # all base
+])
+@pytest.mark.parametrize("int8", [False, True])
+def test_sidedelta_plain_matches_jax(B, S, n, m, A, K, ids, int8):
+    rng = np.random.default_rng(B * 100 + K)
+    x = rng.standard_normal((B, S, n)).astype(np.float32)
+    idx, vals = _entries(rng, A, n, m, K)
+    ids = np.array(ids, np.int32)
+    jr, jc, jv, js = _jax_tables(idx, vals, m, int8)
+    ref = jops.sidedelta(jnp.asarray(x), jr, jc, jv, jnp.asarray(ids), m=m,
+                         scale=js, interpret=False, bm=128, kc=128)
+    t = _port_table(idx, vals, n, m, int8)
+    port = sidedelta(_t(x), t["rows"], t["vals"], t["colptr"], _t(ids),
+                     scale=t.get("scale"))
+    np.testing.assert_allclose(port.numpy(), np.asarray(ref), atol=TOL,
+                               rtol=TOL)
+
+
+def test_sidedelta_bf16_activations():
+    rng = np.random.default_rng(11)
+    B, S, n, m, A, K = 2, 3, 32, 48, 2, 100
+    x = rng.standard_normal((B, S, n)).astype(np.float32)
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    idx, vals = _entries(rng, A, n, m, K)
+    ids = np.array([0, 1], np.int32)
+    jr, jc, jv, _ = _jax_tables(idx, vals, m, False)
+    ref = jops.sidedelta(jnp.asarray(xb.float().numpy(), jnp.bfloat16), jr,
+                         jc, jv, jnp.asarray(ids), m=m, interpret=False)
+    t = _port_table(idx, vals, n, m, False)
+    port = sidedelta(xb, t["rows"], t["vals"], t["colptr"], _t(ids))
+    np.testing.assert_allclose(port.numpy(), np.asarray(ref), atol=TOL,
+                               rtol=TOL)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_sidedelta_ref_matches_jax_ref(int8):
+    rng = np.random.default_rng(12)
+    B, S, n, m, A, K = 3, 2, 20, 30, 2, 50
+    x = rng.standard_normal((B, S, n)).astype(np.float32)
+    idx, vals = _entries(rng, A, n, m, K)
+    ids = np.array([1, -1, 0], np.int32)
+    rows, cols = idx // m, idx % m
+    if int8:
+        q, s = zip(*(jops.quantize_table(v) for v in vals))
+        q, s = np.stack(q), np.array(s, np.float32)
+        ref = jref.sidedelta_int8_ref(*(jnp.asarray(a) for a in (
+            x, rows, cols, q, s, ids)), m)
+        port = tref.sidedelta_int8_ref(*(_t(a) for a in (
+            x, rows, cols, q, s, ids)), m)
+    else:
+        ref = jref.sidedelta_ref(*(jnp.asarray(a) for a in (
+            x, rows, cols, vals, ids)), m)
+        port = tref.sidedelta_ref(*(_t(a) for a in (
+            x, rows, cols, vals, ids)), m)
+    np.testing.assert_allclose(port.numpy(), np.asarray(ref), atol=TOL,
+                               rtol=TOL)
+
+
+def test_sidedelta_table_layout():
+    """Entries sorted by column then row, duplicates summed, padding past
+    the valid count, and padding changes nothing."""
+    n, m = 4, 5
+    # (row, col): (3,1) (0,0) (2,1) (0,0) dup, plus fuse_packs-style
+    # padding: index 0 with value 0
+    idx = torch.tensor([[3 * m + 1, 0, 2 * m + 1, 0, 0, 0]])
+    vals = torch.tensor([[1.0, 2.0, 3.0, 4.0, 0.0, 0.0]])
+    t = tops.sidedelta_table([(idx, vals), None], 1, n, m)
+    assert t["rows"].shape == (1, 2, 3)
+    assert t["colptr"][0, 0].tolist() == [0, 1, 3, 3, 3, 3]
+    assert t["rows"][0, 0].tolist() == [0, 2, 3]
+    assert t["vals"][0, 0].tolist() == [6.0, 3.0, 1.0]
+    assert t["colptr"][0, 1].tolist() == [0] * (m + 1)   # empty slot
+    x = torch.randn(2, 1, n)
+    ids = torch.tensor([0, 1], dtype=torch.int32)
+    # slot padding past the valid count, as a wider table would hold
+    padded = {k: F.pad(t[k], (0, 5)) for k in ("rows", "vals")}
+    a = sidedelta(x, padded["rows"][0], padded["vals"][0], t["colptr"][0],
+                  ids)
+    b = sidedelta(x, t["rows"][0], t["vals"][0], t["colptr"][0], ids)
+    assert torch.equal(a, b)
+
+
+def test_sidedelta_table_rejects_out_of_range():
+    with pytest.raises(ValueError, match="outside"):
+        tops.sidedelta_table([(torch.tensor([[20]]), torch.ones(1, 1))],
+                             1, 4, 5)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_quantize_table_matches_jax(seed):
+    rng = np.random.default_rng(seed)
+    v = (rng.standard_normal((3, 257)) * 10 ** rng.uniform(-3, 1)).astype(
+        np.float32)
+    v[2] = 0.0                                     # empty row: scale 1
+    q, s = tops.quantize_table(_t(v))
+    for r in range(3):
+        jq, js = jops.quantize_table(v[r])
+        np.testing.assert_array_equal(q[r].numpy(), jq)
+        assert float(s[r]) == np.float32(js)
+
+
+def test_sidedelta_wrapper_checks():
+    x = torch.zeros(2, 1, 4)
+    rows = torch.zeros(1, 3, dtype=torch.int32)
+    vals = torch.zeros(1, 3)
+    colptr = torch.zeros(1, 6, dtype=torch.int32)
+    ids = torch.zeros(2, dtype=torch.int32)
+    with pytest.raises(ValueError, match="ids"):
+        sidedelta(x, rows, vals, colptr, ids.long())
+    with pytest.raises(TypeError, match="x dtype"):
+        sidedelta(x.half(), rows, vals, colptr, ids)
+    with pytest.raises(ValueError, match="scale"):
+        sidedelta(x, rows, vals.to(torch.int8), colptr, ids)
+
+
+@pytest.mark.parametrize("alpha", [1.0, 0.75, -1.0])
+def test_scatter_apply_plain_matches_ref(alpha):
+    """Bit-equal to ref.scatter_apply_ref in f32: one product and one sum,
+    each rounded."""
+    rng = np.random.default_rng(3)
+    n, m = 64, 96
+    w = rng.standard_normal((n, m)).astype(np.float32)
+    idx = np.unique(rng.integers(0, n * m, 500)).astype(np.int32)
+    vals = rng.standard_normal(idx.shape).astype(np.float32)
+    ref = jref.scatter_apply_ref(jnp.asarray(w), jnp.asarray(idx),
+                                 jnp.asarray(vals), alpha)
+    port = scatter_apply(_t(w), _t(idx), _t(vals), alpha)
+    np.testing.assert_array_equal(port.numpy(), np.asarray(ref))
+    np.testing.assert_array_equal(
+        tref.scatter_apply_ref(_t(w), _t(idx), _t(vals), alpha).numpy(),
+        np.asarray(ref))
+
+
+def test_scatter_apply_load_unload_restores():
+    """Load then unload on a stacked leaf restores the base to 1e-5 (the
+    JAX test's tolerance); matches scatter_packed_add after the load."""
+    rng = np.random.default_rng(4)
+    L, n, m, K = 3, 48, 80, 400
+    w = rng.standard_normal((L, n, m)).astype(np.float32)
+    idx = np.stack([rng.choice(n * m, K, replace=False)
+                    for _ in range(L)]).astype(np.int32)
+    vals = rng.standard_normal((L, K)).astype(np.float32)
+    tw = _t(w)
+    ti, tv = _t(idx), _t(vals)
+    scatter_apply(tw, ti, tv, 1.0)
+    loaded = JM.scatter_packed_add(jnp.asarray(w), jnp.asarray(idx),
+                                   jnp.asarray(vals), 1.0)
+    np.testing.assert_array_equal(tw.numpy(), np.asarray(loaded))
+    scatter_apply(tw, ti, tv, -1.0)
+    np.testing.assert_allclose(tw.numpy(), w, atol=1e-5)
+
+
+def test_scatter_apply_padding_is_a_no_op():
+    """A pack leaf's rows padded with (index 0, value 0), as fuse_packs
+    pads them, beside a real entry at index 0: each layer of the stacked
+    weight gets exactly its own entries."""
+    idx = torch.tensor([[5, 0, 1, 0], [2, 0, 0, 0]], dtype=torch.int32)
+    vals = torch.tensor([[1.0, 2.0, 3.0, 0.0], [0.5, 0.0, 0.0, 0.0]])
+    w = torch.arange(16, dtype=torch.float32).reshape(2, 2, 4)
+    want = w.clone().reshape(2, 8)
+    want[0, 5] += 1.0
+    want[0, 0] += 2.0
+    want[0, 1] += 3.0
+    want[1, 2] += 0.5
+    scatter_apply(w, idx, vals, 1.0)
+    assert torch.equal(w.reshape(2, 8), want)
+
+
+def test_scatter_apply_wrapper_checks():
+    w = torch.zeros(2, 3, 4)
+    idx = torch.zeros(2, 5, dtype=torch.int32)
+    vals = torch.zeros(2, 5)
+    with pytest.raises(TypeError, match="f32"):
+        scatter_apply(w.to(torch.bfloat16), idx, vals)
+    with pytest.raises(ValueError, match="int32"):
+        scatter_apply(w, idx.long(), vals)
+    with pytest.raises(ValueError, match="leading dims"):
+        scatter_apply(w, idx[:1], vals[:1])
+    with pytest.raises(ValueError, match="contiguous"):
+        scatter_apply(w.transpose(1, 2), idx, vals)
+
+
+def test_wrappers_run_on_cuda_or_cpu_only():
+    """No silent path for other devices: a wrapper computes its plain
+    version only for CPU tensors, and a tensor elsewhere raises (CUDA
+    tensors launch the kernel, which needs the card)."""
+    meta = torch.device("meta")
+    with pytest.raises(RuntimeError, match="cuda or cpu"):
+        sidedelta(torch.zeros(2, 1, 4, device=meta),
+                  torch.zeros(1, 3, dtype=torch.int32, device=meta),
+                  torch.zeros(1, 3, device=meta),
+                  torch.zeros(1, 6, dtype=torch.int32, device=meta),
+                  torch.zeros(2, dtype=torch.int32, device=meta))
+    with pytest.raises(RuntimeError, match="cuda or cpu"):
+        scatter_apply(torch.zeros(2, 2, device=meta),
+                      torch.zeros(1, dtype=torch.int32, device=meta),
+                      torch.zeros(1, device=meta))
