@@ -3,11 +3,15 @@
 
   python3 chip_smoke.py        # from the repository root, one card
 
-Phases, each fatal on failure (non-zero exit, no result line):
+Phases, each fatal on failure (non-zero exit, no result line); each
+prints its seconds on a "[time]" line:
   1. device    the card's name and power limit (nvidia-smi)
   2. build     nvcc builds every kernel of csrc/, one process each, at once
   3. kernels   each kernel against its plain version on the card, at
-               starcoder2-7b shapes; times (cold L2) beside the bound
+               starcoder2-7b shapes; times (cold L2) beside the bound:
+               sidedelta and scatter_apply (serving), sparse_adamw (blocks
+               and rows, f32/bf16/int8 moments) and the sidedelta gradients
+               (dx through the forward kernel, dvals) of training
   4. serve     starcoder2-7b at full width through repro_torch.launch.serve:
                sequential switching, --fuse, --multi-tenant (f32, int8);
                launch counts are zeroed before each mode and must be > 0
@@ -16,7 +20,13 @@ Phases, each fatal on failure (non-zero exit, no result line):
                model and multi-tenant (torch.profiler)
   6. consistency  full width, 2 layers, f32: multi-tenant tokens equal the
                switch-per-request reference, unfused and with a hot adapter
-  7. summary   one JSON line of kernel numbers, the card line, and last
+  7. train     full width: repro_torch.launch.train (packed SHiRA, Trainer)
+               and MultiAdapterTrainer (3 adapters, f32 then int8
+               moments), launch counts > 0 for every kernel of each path,
+               and a torch.profiler breakdown of one multi-adapter step
+  8. train-consistency  full width, 2 layers, f32: adapter a of the
+               multi-adapter trainer tracks Trainer(init a) to 5e-3
+  9. summary   one JSON line of kernel numbers, the card line, and last
                {"ok": true, "device": {...}}
 """
 from __future__ import annotations
@@ -34,13 +44,36 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 F32_FLOP_PER_S = 67e12         # H100 SXM f32 rate outside the tensor cores
 SIDEDELTA_TOL = 1e-4           # f32 sums of ~400 products in another order
 RESTORE_TOL = 1e-5             # the JAX package's load/unload tolerance
+ADAMW_TOL = 1e-6               # rtol = atol: the JAX package's own, and the
+                               # kernel rounds as its plain version does
+TRAIN_TOL = 5e-3               # the JAX package's trainer-parity tolerance
+GRAD_TOL = 1e-4                # value gradients, of each leaf's largest
 B, PROMPT, TOKENS = 8, 16, 16  # serving batch, prompt and generated tokens
 IDS = [0, 1, 2, -1, 0, 1, 2, 0]
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 256, 8, 4   # launch.train phase
+MT_SEQ, MT_BATCH, MT_STEPS = 256, 2, 3            # per adapter, A = 3
+MT_IDS = [0, 0, 1, 1, 2, 2]    # the multi-adapter batch: T_a = 512 tokens
 
 
 def fail(msg: str) -> None:
     print(f"[chip_smoke] FAILED: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+def timed(label: str, fn, *args):
+    """Run one phase and print its seconds on a line of its own."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"[time] {label} {time.perf_counter() - t0:.1f}s", flush=True)
+    return out
+
+
+def bound(nbytes: float, flops: float) -> dict:
+    """The least time the card could take: bytes over the memory rate or
+    f32 operations over the non-tensor-core rate, whichever is larger."""
+    b_ms, o_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
+    return {"bound_ms": max(b_ms, o_ms),
+            "bound_by": "bytes" if b_ms >= o_ms else "operations"}
 
 
 def card_line() -> str:
@@ -252,9 +285,207 @@ def kernels_phase(torch, flush):
     return side, scat
 
 
+def adamw_close(torch, got, want):
+    """(max_abs_err, max_rel_err, bit-equal) of kernel outputs against the
+    plain version's; fails beyond rtol = atol = ADAMW_TOL."""
+    errs = []
+    for a, b in zip(got, want):
+        d = (a - b).abs()
+        if not bool((d <= ADAMW_TOL * b.abs() + ADAMW_TOL).all()):
+            fail("sparse_adamw disagrees with its plain version")
+        errs.append((float(d.max()),
+                     float((d / b.abs().clamp(min=1e-30)).max()),
+                     bool(torch.equal(a, b))))
+    return (max(e[0] for e in errs), max(e[1] for e in errs),
+            all(e[2] for e in errs))
+
+
+def fused_adamw_ms(torch, flush, v, g, m, u, scalars):
+    """library_ms: torch._fused_adamw_ over the same f32 vector, in place on
+    copies (PyTorch's own fused AdamW; the port never calls it)."""
+    p, e1, e2 = v.clone(), m.clone(), u.clone()
+    steps = [torch.tensor(3.0, device="cuda")]
+    lr, b1, b2, eps, wd = scalars[:5]
+    return cold_ms(torch, lambda: torch._fused_adamw_(
+        [p], [g], [e1], [e2], [], steps, lr=lr, beta1=b1, beta2=b2,
+        weight_decay=wd, eps=eps, amsgrad=False, maximize=False), 10, flush)
+
+
+def adamw_kernels(torch, flush, cfg):
+    """sparse_adamw (blocks) on the stacked w_up leaf's packed vector and
+    sparse_adamw_rows on (3 adapters x layers, K) rows with f32, bf16 and
+    int8 moments, at sparsity 0.98 as the multi-adapter phase trains."""
+    from repro_torch.core.masks import budget
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.sparse_adamw import (sparse_adamw,
+                                                  sparse_adamw_plain,
+                                                  sparse_adamw_rows,
+                                                  sparse_adamw_rows_plain)
+    from repro_torch.training import qstate
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    k = budget(cfg.d_model, cfg.d_ff, 0.98)
+    L = cfg.num_layers
+    scalars = ops._adamw_scalars(3, 3e-4, 0.9, 0.999, 1e-8, 0.0)
+
+    def inputs(shape):
+        r = lambda s: torch.randn(shape, generator=gen, device="cuda") * s
+        return r(1.0), r(1e-3), r(1e-4), r(1e-4).square_()
+    v, g, m, u = inputs((L * k,))
+    got = sparse_adamw(v, g, m, u, scalars)
+    want = sparse_adamw_plain(v, g, m, u, scalars)
+    err, rel, equal = adamw_close(torch, got, want)
+    del got, want
+    blocks = {"max_abs_err": err,
+              "ms": cold_ms(torch, lambda: sparse_adamw(v, g, m, u, scalars),
+                            20, flush),
+              "plain_ms": cold_ms(torch, lambda: sparse_adamw_plain(
+                  v, g, m, u, scalars), 3, flush),
+              "library_ms": fused_adamw_ms(torch, flush, v, g, m, u, scalars),
+              **bound(v.numel() * 28, v.numel() * 15)}
+    print(f"[kernels] sparse_adamw_blocks w_up leaf ({L}*{k},): "
+          f"max_abs_err={err:.3g} max_rel_err={rel:.3g} bit-equal={equal} "
+          f"(tol rtol=atol={ADAMW_TOL}) ms={blocks['ms']:.4f} "
+          f"plain_ms={blocks['plain_ms']:.3f} library_ms(_fused_adamw_)="
+          f"{blocks['library_ms']} bound_ms={blocks['bound_ms']:.4f} "
+          f"({blocks['bound_by']})", flush=True)
+    del v, g, m, u
+
+    R = 3 * L
+    v, g, m, u = inputs((R, k))
+    rows = {}
+    for mode in ("f32", "bf16", "int8"):
+        mq, ms = qstate.encode(m, mode)
+        uq, us = qstate.encode(u, mode, sqrt_domain=True)
+        args = (v, g, mq, uq, ms, us, scalars)
+        got = sparse_adamw_rows(*args)
+        want = sparse_adamw_rows_plain(*args)
+        err, rel, equal = adamw_close(torch, got, want)
+        del got, want
+        per = {"f32": 4, "bf16": 2, "int8": 1}[mode]
+        r = {"max_abs_err": err,
+             "ms": cold_ms(torch, lambda: sparse_adamw_rows(*args), 10,
+                           flush),
+             "plain_ms": cold_ms(torch, lambda: sparse_adamw_rows_plain(
+                 *args), 3, flush),
+             "library_ms": (fused_adamw_ms(torch, flush, v, g, m, u, scalars)
+                            if mode == "f32" else None),
+             **bound(v.numel() * (20 + 2 * per), v.numel() * 15)}
+        rows[mode] = r
+        print(f"[kernels] sparse_adamw_rows ({R}, {k}) {mode} moments: "
+              f"max_abs_err={err:.3g} max_rel_err={rel:.3g} bit-equal="
+              f"{equal} (tol rtol=atol={ADAMW_TOL}) ms={r['ms']:.4f} "
+              f"plain_ms={r['plain_ms']:.3f} library_ms(_fused_adamw_, f32)"
+              f"={r['library_ms']} bound_ms={r['bound_ms']:.4f} "
+              f"({r['bound_by']})", flush=True)
+        del mq, uq, ms, us, args
+    del v, g, m, u
+    return blocks, rows
+
+
+def sampled_addmm_ms(torch, flush, t, x, dy, A, n, m, S):
+    """library_ms of dvals: torch.sparse.sampled_addmm of x^T @ dy at each
+    adapter's pattern, one batched CSR call (the row-sorted table is the
+    CSR layout)."""
+    Ta = x.shape[0] // A * S
+    xa = x.float().reshape(A, Ta, n).transpose(1, 2).contiguous()
+    dya = dy.reshape(A, Ta, m).contiguous()
+    csr = torch.sparse_csr_tensor(
+        t["t_ptr"].long(), t["t_rows"].long(),
+        torch.zeros(t["t_rows"].shape, device="cuda"), (A, n, m))
+    return cold_ms(torch, lambda: torch.sparse.sampled_addmm(
+        csr, xa, dya, beta=0.0), 5, flush)
+
+
+def grad_case(torch, gen, flush, label, n, m):
+    """The trainable side delta's two gradients at one layer's (n, m)
+    leaf, 3 adapters at sparsity 0.98 and T_a = 512 tokens each, x bf16 as
+    the multi-adapter forward runs it: dx through the forward kernel over
+    the transposed table, against the plain version, and dvals against
+    its plain version. dy is scaled by 1e-2, a gradient's size, so the
+    f32 sums of 512 products stay within the absolute tolerance."""
+    from repro_torch.core.masks import budget
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.sidedelta import (sidedelta, sidedelta_dvals,
+                                               sidedelta_dvals_plain,
+                                               sidedelta_plain)
+    A, S = 3, MT_SEQ
+    k = budget(n, m, 0.98)
+    idx = [rand_entries(torch, gen, 1, n, m, k)[0] for _ in range(A)]
+    t = {key: v[0].contiguous() for key, v in ops.sidedelta_table(
+        idx, 1, n, m, trainable=True).items()}
+    del idx
+    vals = 0.01 * torch.randn((A, k), generator=gen, device="cuda")
+    vals_t = vals.gather(1, t["perm"].long()).gather(1, t["t_perm"].long())
+    ids = torch.tensor(MT_IDS, dtype=torch.int32, device="cuda")
+    Bt = len(MT_IDS)
+    x = torch.randn((Bt, S, n), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    dy = 0.01 * torch.randn((Bt, S, m), generator=gen, device="cuda")
+    out = {}
+    dx_args = (dy, t["t_rows"], vals_t, t["t_ptr"], ids)
+    err = float((sidedelta(*dx_args) - sidedelta_plain(*dx_args)).abs().max())
+    if not err <= SIDEDELTA_TOL:
+        fail(f"sidedelta dx {label}: max_abs_err {err} > {SIDEDELTA_TOL}")
+    dense = torch.zeros((A, n * m), device="cuda")
+    vs = vals.gather(1, t["perm"].long())
+    col = torch.repeat_interleave(torch.arange(m, device="cuda")[None]
+                                  .expand(A, m).reshape(-1),
+                                  torch.diff(t["colptr"].long()).reshape(-1))
+    dense.scatter_(1, t["rows"].long() * m + col.reshape(A, k), vs)
+    dense_t = dense.reshape(A, n, m).transpose(1, 2)[ids.long()]
+    nbytes_dx = dy.numel() * 4 + A * k * 8 + A * (n + 1) * 4 + Bt * S * n * 4
+    out["dx"] = {"max_abs_err": err,
+                 "ms": cold_ms(torch, lambda: sidedelta(*dx_args), 10, flush),
+                 "plain_ms": cold_ms(torch, lambda: sidedelta_plain(*dx_args),
+                                     2, flush),
+                 "library_ms": cold_ms(torch, lambda: torch.bmm(dy, dense_t),
+                                       5, flush),
+                 **bound(nbytes_dx, 2 * S * k * Bt)}
+    del dense, dense_t, col
+    dv_args = (x, dy, t["rows"], t["colptr"], ids)
+    err = float((sidedelta_dvals(*dv_args)
+                 - sidedelta_dvals_plain(*dv_args)).abs().max())
+    if not err <= SIDEDELTA_TOL:
+        fail(f"sidedelta_dvals {label}: max_abs_err {err} > {SIDEDELTA_TOL}")
+    nbytes_dv = x.numel() * 2 + dy.numel() * 4 + A * k * 8 + A * (m + 1) * 4
+    out["dvals"] = {"max_abs_err": err,
+                    "ms": cold_ms(torch, lambda: sidedelta_dvals(*dv_args),
+                                  10, flush),
+                    "plain_ms": cold_ms(torch, lambda: sidedelta_dvals_plain(
+                        *dv_args), 2, flush),
+                    "library_ms": sampled_addmm_ms(torch, flush, t, x, dy, A,
+                                                   n, m, S),
+                    **bound(nbytes_dv, 2 * S * k * Bt)}
+    for name, r in out.items():
+        yard = "bmm, dense dW^T" if name == "dx" else "sampled_addmm"
+        print(f"[kernels] sidedelta {name} {label} ({n}x{m}) K={k}x{A} "
+              f"T_a={2 * S}: max_abs_err={r['max_abs_err']:.3g} (tol "
+              f"{SIDEDELTA_TOL}) ms={r['ms']:.4f} plain_ms="
+              f"{r['plain_ms']:.3f} library_ms({yard})="
+              f"{r['library_ms']:.3f} bound_ms="
+              f"{r['bound_ms']:.4f} ({r['bound_by']})", flush=True)
+    return out
+
+
+def train_kernels_phase(torch, flush):
+    from repro_torch.configs import get_config
+    cfg = get_config("starcoder2-7b")
+    blocks, rows = adamw_kernels(torch, flush, cfg)
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    d, f = cfg.d_model, cfg.d_ff
+    kv = cfg.num_kv_heads * cfg.resolved_head_dim
+    grads = {}
+    for label, n, m in (("w_up", d, f), ("wq", d, d), ("wk", d, kv),
+                        ("w_down", f, d)):
+        grads[label] = grad_case(torch, gen, flush, label, n, m)
+        torch.cuda.empty_cache()
+    return blocks, rows, grads
+
+
 def serve_phase(torch):
-    from repro_torch.kernels.scatter_apply import scatter_apply
-    from repro_torch.kernels.sidedelta import sidedelta
     from repro_torch.launch import serve
     common = ["--arch", "starcoder2-7b", "--batch", str(B), "--prompt-len",
               str(PROMPT), "--tokens", str(TOKENS), "--adapters", "3"]
@@ -264,15 +495,14 @@ def serve_phase(torch):
               ("sidedelta", "scatter_apply")),
              ("multi-tenant int8", ["--multi-tenant", "--int8", "--skew",
                                     "0.8"], ("sidedelta", "scatter_apply"))]
-    totals = {"sidedelta": 0, "scatter_apply": 0}
+    totals = {}
     torch.cuda.reset_peak_memory_stats()
     for label, extra, needed in modes:
-        sidedelta.launches = scatter_apply.launches = 0
+        zero_counts()
         t0 = time.perf_counter()
         stats = serve.main(common + extra)
         torch.cuda.synchronize()
-        counts = {"sidedelta": sidedelta.launches,
-                  "scatter_apply": scatter_apply.launches}
+        counts = {k: v for k, v in read_counts().items() if v}
         out = stats["last_out"]
         ok = (out.shape == (B, TOKENS) and int(out.min()) >= 0
               and int(out.max()) < 49152)
@@ -289,10 +519,7 @@ def serve_phase(torch):
               f"{time.perf_counter() - t0:.1f}s wall", flush=True)
         if not ok:
             fail(f"serve {label}: tokens out of range or misshapen")
-        for k in needed:
-            if counts[k] <= 0:
-                fail(f"serve {label}: kernel {k} was never launched")
-            totals[k] += counts[k]
+        check_run(f"serve {label}", read_counts(), needed, totals)
         del stats, out                 # the next mode builds its own model
         torch.cuda.empty_cache()
     peak = torch.cuda.max_memory_allocated() / 1e9
@@ -398,6 +625,227 @@ def consistency_phase(torch):
             eng.close()
 
 
+KERNEL_COUNTERS = ("sidedelta", "sidedelta_dvals", "scatter_apply",
+                   "sparse_adamw_blocks", "sparse_adamw_rows")
+
+
+def counters():
+    """The launch counter of every kernel wrapper of the port, by the
+    kernel's name in the summary."""
+    from repro_torch.kernels.scatter_apply import scatter_apply
+    from repro_torch.kernels.sidedelta import sidedelta, sidedelta_dvals
+    from repro_torch.kernels.sparse_adamw import (sparse_adamw,
+                                                  sparse_adamw_rows)
+    return dict(zip(KERNEL_COUNTERS, (sidedelta, sidedelta_dvals,
+                                      scatter_apply, sparse_adamw,
+                                      sparse_adamw_rows)))
+
+
+def zero_counts():
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def read_counts():
+    return {k: fn.launches for k, fn in counters().items()}
+
+
+def check_run(label, counts, needed, totals):
+    for k in needed:
+        if counts[k] <= 0:
+            fail(f"{label}: kernel {k} was never launched")
+    for k, v in counts.items():
+        totals[k] = totals.get(k, 0) + v
+
+
+def train_phase(torch):
+    """Full-width training through the entry points a user calls: the
+    launch.train CLI (one packed adapter, Trainer), then
+    MultiAdapterTrainer with 3 adapters, f32 then int8 moments."""
+    import math
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import (AdapterConfig, RunConfig, ShapeSpec,
+                                     TrainConfig, get_config)
+    from repro_torch.launch import train
+    from repro_torch.training import MultiAdapterTrainer
+    totals = {}
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    stats = train.main(["--arch", "starcoder2-7b", "--adapter", "shira-rand",
+                        "--seq", str(TRAIN_SEQ), "--batch", str(TRAIN_BATCH),
+                        "--steps", str(TRAIN_STEPS)])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    losses = stats["losses"]
+    print(f"[train] Trainer (launch.train, {TRAIN_BATCH}x{TRAIN_SEQ} tokens,"
+          f" {stats['trained_values']} packed values): launches {counts}, "
+          f"step {stats['steady_step_ms']:.1f} ms (median after the first; "
+          f"all {[round(x, 1) for x in stats['step_ms']]}), "
+          f"{stats['tokens_per_s']:.0f} tokens/s, loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB, "
+          f"{time.perf_counter() - t0:.1f}s wall", flush=True)
+    if not all(math.isfinite(x) for x in losses):
+        fail("Trainer: a loss is not finite")
+    check_run("Trainer", counts, ("scatter_apply", "sparse_adamw_blocks"),
+              totals)
+    del stats
+    torch.cuda.empty_cache()
+
+    run = RunConfig(model=get_config("starcoder2-7b"),
+                    shape=ShapeSpec("mt", MT_SEQ, MT_BATCH, "train"),
+                    adapter=AdapterConfig(kind="shira", mask="rand",
+                                          sparsity=0.98),
+                    train=TrainConfig(learning_rate=3e-4,
+                                      total_steps=2 * MT_STEPS,
+                                      warmup_steps=1))
+    names = [f"adapter_{a}" for a in range(3)]
+    base = auxes = None
+    for moments in ("f32", "int8"):
+        zero_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        mt = MultiAdapterTrainer(run, names, moments=moments,
+                                 base_params=base, auxes=auxes)
+        base, auxes = mt.base, mt.auxes
+        setup_s = time.perf_counter() - t0
+        out = mt.fit(MT_STEPS, log=None)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        hist = out["history"]
+        step_ms = [h["step_ms"] for h in hist]
+        steady = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
+        tokens = 3 * MT_BATCH * MT_SEQ
+        values = out["state"]["values"]
+        finite = all(bool(torch.isfinite(v).all()) for v in values.values())
+        print(f"[train] MultiAdapterTrainer 3 adapters, {moments} moments "
+              f"({tokens} tokens a step, "
+              f"{sum(v.numel() for v in values.values())} packed values): "
+              f"launches {counts}, step {steady:.1f} ms (median after the "
+              f"first; all {[round(x, 1) for x in step_ms]}), "
+              f"{tokens / steady * 1e3:.0f} tokens/s, loss "
+              f"{hist[0]['loss']:.4f} -> {hist[-1]['loss']:.4f}, peak "
+              f"memory {torch.cuda.max_memory_allocated() / 1e9:.1f} GB, "
+              f"set-up {setup_s:.1f}s, {time.perf_counter() - t0:.1f}s wall",
+              flush=True)
+        if not finite or not all(math.isfinite(h["loss"]) for h in hist):
+            fail(f"MultiAdapterTrainer {moments}: not finite")
+        check_run(f"MultiAdapterTrainer {moments}", counts,
+                  ("sidedelta", "sidedelta_dvals", "sparse_adamw_rows"),
+                  totals)
+        if moments == "f32":
+            profile_train_step(torch, profile, ProfilerActivity, mt, out)
+        del mt, out, values
+        torch.cuda.empty_cache()
+    return totals
+
+
+def profile_train_step(torch, profile, ProfilerActivity, mt, out):
+    """Device time by kernel of one more multi-adapter step."""
+    from repro_torch.runtime.trainer import device_batch
+    from repro_torch.training import multi_batch_iterator
+    from repro_torch.data import TaskSpec
+    batch = device_batch(next(multi_batch_iterator(
+        mt.cfg, mt.run.shape, 0, [TaskSpec(a) for a in range(mt.A)],
+        start_step=MT_STEPS)), mt.device)
+    cuda = torch.autograd.DeviceType.CUDA
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        mt.step(out["state"], batch)
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    kern = [(getattr(e, "self_device_time_total", 0) / 1e3, e.count, e.key)
+            for e in prof.key_averages() if e.device_type == cuda]
+    busy = sum(k[0] for k in kern)
+    print(f"[profile] multi-adapter train step (3 adapters, f32 moments): "
+          f"wall {wall:.1f} ms (profiler on); kernels {busy:.1f} ms"
+          + (f" ({busy / wall:.0%} of wall)" if busy else
+             " (profiler saw no device time: not measured)"), flush=True)
+    for ms, n, name in sorted(kern, reverse=True)[:10]:
+        print(f"[profile]   {ms:9.3f} ms  x{n:<5d} {name[:90]}")
+
+
+def train_consistency_phase(torch):
+    """The JAX package's multi-adapter contract with the kernels in the
+    loop: full width, 2 layers, f32 on the card, adapter a of
+    MultiAdapterTrainer (fused) against Trainer(init a) on task a.
+
+    Held: (1) the first step's value gradients, the sidedelta kernels'
+    against materialize's dense gradient, to GRAD_TOL of each leaf's
+    largest; (2) the losses of 3 steps to TRAIN_TOL; (3) the packed values
+    after 3 steps to rtol = atol = TRAIN_TOL at every entry whose
+    first-step gradient is not within (1)'s bound of zero. At those few
+    entries the two f32 summation orders may disagree on the sign, and
+    Adam's normalised first step (about lr * g / |g|) turns either sign
+    into a full +-lr move; they are counted and printed, and held to the
+    largest move that can make: 2 * lr * steps."""
+    from repro_torch.configs import (AdapterConfig, RunConfig, ShapeSpec,
+                                     TrainConfig, get_config)
+    from repro_torch.data import TaskSpec, batch_iterator
+    from repro_torch.models import layers
+    from repro_torch.runtime import Trainer
+    from repro_torch.runtime.trainer import device_batch
+    from repro_torch.training import MultiAdapterTrainer, multi_batch_iterator
+    cfg = get_config("starcoder2-7b").replace(num_layers=2)
+    lr, steps = 1e-2, 3
+    run = RunConfig(model=cfg, shape=ShapeSpec("c", 64, 2, "train"),
+                    adapter=AdapterConfig(kind="shira", mask="rand",
+                                          sparsity=0.98),
+                    train=TrainConfig(learning_rate=lr, total_steps=steps,
+                                      warmup_steps=1))
+    names = [f"a{a}" for a in range(3)]
+    tasks = [TaskSpec(a) for a in range(3)]
+    with layers.compute_precision(torch.float32):
+        mt = MultiAdapterTrainer(run, names, init_key=0)
+        _, g_mt = mt.loss_and_grads(mt.init_state()["values"], device_batch(
+            next(multi_batch_iterator(cfg, run.shape, 0, tasks)), "cuda"))
+        out = mt.fit(steps, log=None)
+        packs = mt.export_packs(out["state"])
+        for a, pack in enumerate(packs):
+            tr = Trainer(run, init_key=a, base_params=mt.base)
+            stream = lambda: batch_iterator(cfg, run.shape, seed=0,
+                                            task=tasks[a])
+            _, _, g_tr = tr.loss_and_grads(
+                tr.init_state()["trainable"],
+                device_batch(next(stream()), "cuda"))
+            ref = tr.fit(steps, log=None, batches=stream())
+            ref_pack = tr.export_pack(ref["state"], pack.name)
+            loss_d = max(abs(h[f"loss:{pack.name}"] - r["loss"])
+                         for h, r in zip(out["history"], ref["history"]))
+            grad_rel, val_d, undetermined, moved, ok = 0.0, 0.0, 0, 0, True
+            for p, (idx, v) in pack.entries.items():
+                gt, gm = g_tr[p], g_mt[p][a]
+                bound_g = GRAD_TOL * float(gt.abs().max())
+                grad_rel = max(grad_rel, float((gm - gt).abs().max())
+                               / float(gt.abs().max()))
+                d = (v - ref_pack.entries[p][1]).abs()
+                free = gt.abs() <= bound_g
+                held = ~free
+                val_d = max(val_d, float(d[held].max()))
+                undetermined += int(free.sum())
+                moved += int((d[free] > TRAIN_TOL).sum())
+                ok &= bool(torch.equal(idx, ref_pack.entries[p][0]))
+                ok &= bool((d[held] <= TRAIN_TOL * (
+                    1 + ref_pack.entries[p][1][held].abs())).all())
+                ok &= bool((d <= 2 * lr * steps).all())
+            print(f"[train-consistency] f32, 2 layers, full width, adapter "
+                  f"{a}: first-step value gradients max diff "
+                  f"{grad_rel:.3g} of their largest (tol {GRAD_TOL}); loss "
+                  f"max diff {loss_d:.3g}; packed values max diff "
+                  f"{val_d:.3g} (tol rtol=atol={TRAIN_TOL}) at entries "
+                  f"with a determined gradient sign; {undetermined} entries "
+                  f"with |g| <= {GRAD_TOL} of the largest, {moved} of them "
+                  f"apart by more than {TRAIN_TOL}", flush=True)
+            if (not ok or grad_rel > GRAD_TOL
+                    or not loss_d <= TRAIN_TOL * (1 + abs(
+                        ref["history"][0]["loss"]))):
+                fail(f"train-consistency: adapter {a} departs from its "
+                     "single-adapter Trainer")
+            del tr, ref, ref_pack, g_tr
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -411,38 +859,66 @@ def main() -> None:
     line = card_line()
     print(f"[device] {line}", flush=True)
 
-    t0 = time.perf_counter()
-    build.build()
-    print(f"[build] {len(build.KERNELS)} kernel libraries in "
-          f"{time.perf_counter() - t0:.1f}s", flush=True)
-    for name, log in build.ptxas_log.items():
-        for ln in log.splitlines():
-            if "registers" in ln or "spill" in ln:
-                print(f"[build] {name}: {ln.strip()}")
+    def build_all():
+        build.build()
+        print(f"[build] {len(build.KERNELS)} kernel libraries", flush=True)
+        for name, log in build.ptxas_log.items():
+            for ln in log.splitlines():
+                if "registers" in ln or "spill" in ln:
+                    print(f"[build] {name}: {ln.strip()}")
+    timed("build", build_all)
 
     scratch = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
-    side, scat = kernels_phase(torch, lambda: scratch.fill_(1))
+    flush = lambda: scratch.fill_(1)
+    side, scat = timed("kernels (serving)", kernels_phase, torch, flush)
+    torch.cuda.empty_cache()
+    blocks, rows, grads = timed("kernels (training)", train_kernels_phase,
+                                torch, flush)
     del scratch
     torch.cuda.empty_cache()
-    launches = serve_phase(torch)
+    launches = timed("serve", serve_phase, torch)
     torch.cuda.empty_cache()
-    profile_phase(torch)
+    timed("profile", profile_phase, torch)
     torch.cuda.empty_cache()
-    consistency_phase(torch)
+    timed("consistency", consistency_phase, torch)
+    torch.cuda.empty_cache()
+    for k, v in timed("train", train_phase, torch).items():
+        launches[k] = launches.get(k, 0) + v
+    torch.cuda.empty_cache()
+    timed("train-consistency", train_consistency_phase, torch)
 
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     main_side = side[0]     # w_up, S=1, f32 tables: the multi-tenant decode
+    side_err = max([r["max_abs_err"] for r in side]
+                   + [g["dx"]["max_abs_err"] for g in grads.values()])
+    dvals = grads["w_up"]["dvals"]
     kernels = [
         {"name": "sidedelta", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/sidedelta.cu",
          "replaces": "src/repro/kernels/sidedelta.py:282",
-         "launches": launches["sidedelta"],
-         "max_abs_err": max(r["max_abs_err"] for r in side),
-         **{k: main_side[k] for k in ("ms", "plain_ms", "bound_ms",
-                                      "bound_by", "library_ms")}},
+         "launches": launches["sidedelta"], "max_abs_err": side_err,
+         **{k: main_side[k] for k in keys}},
+        {"name": "sidedelta_dvals", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/sidedelta_grad.cu",
+         "replaces": "src/repro/kernels/sidedelta.py:245",
+         "launches": launches["sidedelta_dvals"],
+         "max_abs_err": max(g["dvals"]["max_abs_err"]
+                            for g in grads.values()),
+         **{k: dvals[k] for k in keys}},
         {"name": "scatter_apply", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/scatter_apply.cu",
          "replaces": "src/repro/kernels/scatter_apply.py:49",
          "launches": launches["scatter_apply"], **scat},
+        {"name": "sparse_adamw_blocks", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/sparse_adamw.cu",
+         "replaces": "src/repro/kernels/sparse_adamw.py:38",
+         "launches": launches["sparse_adamw_blocks"], **blocks},
+        {"name": "sparse_adamw_rows", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/sparse_adamw.cu",
+         "replaces": "src/repro/kernels/sparse_adamw.py:99",
+         "launches": launches["sparse_adamw_rows"],
+         **rows["f32"],
+         "max_abs_err": max(r["max_abs_err"] for r in rows.values())},
     ]
     print(json.dumps({"kernels": kernels}))
     print(card_line())

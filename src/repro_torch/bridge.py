@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.adapters import AdapterPack
+from repro_torch.core.masks import map_leaves
 
 
 def params_from_numpy(tree, device="cuda"):
@@ -39,3 +40,17 @@ def pack_from_numpy(name: str, entries: Dict[str, Tuple[np.ndarray,
                      params_from_numpy(v, device).to(torch.float32))
                  for p, (i, v) in entries.items()},
         alpha=alpha)
+
+
+def adapter_from_numpy(indices_tree, device="cuda"):
+    """A SHiRA adapter's (zero values, aux) from the JAX package's packed
+    indices given as numpy (``jax.tree.map(np.asarray, aux["indices"])``,
+    None at leaves that are not targets): what ``core.init_adapter``
+    returns, on the JAX draws. ``runtime.Trainer(aux=...)`` and
+    ``training.MultiAdapterTrainer(auxes=...)`` take the aux, so both
+    packages train the same entries."""
+    idx = map_leaves(lambda _, i: i.to(torch.int32),
+                     params_from_numpy(indices_tree, device))
+    values = map_leaves(lambda _, i: torch.zeros(i.shape, dtype=torch.float32,
+                                                 device=i.device), idx)
+    return values, {"indices": idx}

@@ -1,15 +1,30 @@
-"""Configuration dataclasses for models and adapters.
+"""Configuration dataclasses for models, shapes, adapters and training.
 
-A copy of ``repro/configs/base.py``'s ``ModelConfig`` and ``AdapterConfig``,
-so the port reads configurations without importing the JAX package. The
-sub-configs of the other families (MoE, MLA, SSM) are not copied: those
-families wait for ROADMAP item A9, and ``models.lm`` raises for them.
+A copy of ``repro/configs/base.py``'s ``ShapeSpec``, ``ModelConfig``,
+``AdapterConfig``, ``TrainConfig`` and ``RunConfig``, so the port reads
+configurations without importing the JAX package. The sub-configs of the
+other families (MoE, MLA, SSM) are not copied: those families wait for
+ROADMAP item A9, and ``models.lm`` raises for them.
 """
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Tuple
+
+
+@dataclass(frozen=True)
+class ShapeSpec:
+    """One input-shape cell: (seq_len, global_batch, kind)."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+    @property
+    def tokens(self) -> int:
+        return self.seq_len * self.global_batch
 
 
 @dataclass(frozen=True)
@@ -39,6 +54,8 @@ class ModelConfig:
     pad_heads_to: int = 0
     pad_kv_to: int = 0
     attn_repeat_kv: bool = False
+    remat: str = "full"            # full | none: per-layer remat (the
+                                   # reference's "dots" is not ported)
 
     @property
     def padded_vocab(self) -> int:
@@ -73,3 +90,28 @@ class AdapterConfig:
     struct_cols: int = 8
     packed: bool = True
     sparse_grad_sync: bool = False
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    seed: int = 0
+    learning_rate: float = 5e-4
+    weight_decay: float = 0.0
+    beta1: float = 0.9
+    beta2: float = 0.999
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    warmup_steps: int = 10
+    schedule: str = "linear"       # linear | cosine | constant
+    total_steps: int = 300
+    param_dtype: str = "float32"
+    compute_dtype: str = "bfloat16"
+    microbatch: int = 0            # 0 => no gradient accumulation
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    model: ModelConfig
+    shape: ShapeSpec
+    adapter: AdapterConfig = field(default_factory=AdapterConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)

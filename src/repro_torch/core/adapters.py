@@ -1,8 +1,9 @@
-"""SHiRA adapters: init, the packed adapter (``AdapterPack``) and the rapid
-switch that applies one to a deployed base.
+"""SHiRA adapters: init, the packed adapter (``AdapterPack``), the rapid
+switch that applies one to a deployed base, and ``materialize``, the
+effective weights of packed training.
 
-Port of the SHiRA path of ``repro/core/adapters.py``. LoRA, DoRA,
-``materialize`` and ``pack_from_delta`` wait (ROADMAP A2, A4).
+Port of the packed-SHiRA path of ``repro/core/adapters.py``. LoRA, DoRA,
+hook-mode SHiRA and ``pack_from_delta`` wait (ROADMAP A2).
 """
 from __future__ import annotations
 
@@ -14,6 +15,8 @@ import torch
 from repro_torch.configs.base import AdapterConfig
 from repro_torch.core import masks as M
 from repro_torch.kernels.ops import scatter_apply
+
+SHIRA_KEY = "shira.base"
 
 
 def init_adapter(gen: torch.Generator, params, acfg: AdapterConfig):
@@ -72,3 +75,69 @@ def apply_pack(params, pack: AdapterPack, alpha: Optional[float] = None,
             idx, vals = pack.entries[path]
             scatter_apply(w, idx, vals.float(), alpha=a)
     return params
+
+
+# ---------------------------------------------------------------------------
+# materialize: W_eff = W + alpha * scatter(values), for packed training
+# ---------------------------------------------------------------------------
+
+class _Materialize(torch.autograd.Function):
+    """One matrix: the forward clones w and adds alpha * values at idx in
+    place through the ``scatter_apply`` kernel; the backward gathers the
+    dense gradient at idx (what autodiff of the reference's scatter
+    computes)."""
+
+    @staticmethod
+    def forward(ctx, w, idx, vals, alpha):
+        ctx.save_for_backward(idx)
+        ctx.alpha = alpha
+        return scatter_apply(w.detach().clone(), idx, vals.detach().float(),
+                             alpha=alpha)
+
+    @staticmethod
+    def backward(ctx, dw):
+        (idx,) = ctx.saved_tensors
+        dvals = M.gather_packed(dw.float(), idx)
+        return None, None, dvals * ctx.alpha, None
+
+
+def shira_weight(base: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor,
+                 alpha: float) -> dict:
+    """A weight leaf as a lazy SHiRA bundle: ``models.layers.pdot``
+    materializes it per call (``materialize_leaf``). Every tensor carries
+    the leaf's leading layer dims, so slicing a stacked layer slices it."""
+    return {SHIRA_KEY: base, "shira.idx": idx, "shira.vals": vals,
+            "shira.alpha": float(alpha)}
+
+
+def materialize_leaf(w: dict) -> torch.Tensor:
+    """The effective (n, m) matrix of one layer's SHiRA bundle, f32,
+    differentiable in the values."""
+    return _Materialize.apply(w[SHIRA_KEY], w["shira.idx"], w["shira.vals"],
+                              w["shira.alpha"])
+
+
+def materialize(params, trainable, aux, acfg: AdapterConfig,
+                alpha: Optional[float] = None):
+    """The effective parameter tree for forward passes: W + alpha * S at
+    every target leaf (alpha defaults to ``acfg.alpha``).
+
+    Unlike the reference, which builds the whole effective tree, the
+    target leaves become lazy ``shira_weight`` bundles: each matrix is
+    materialized where a layer uses it, so inside ``lm.train_loss``'s
+    checkpointed layers only one layer's effective weights are alive. At
+    starcoder2-7b's full width the six adapted leaves hold 6.94 B entries;
+    an effective copy of them all, and its dense gradient, would not fit
+    beside the base on one 80 GB card."""
+    if acfg.kind != "shira" or not acfg.packed:
+        raise NotImplementedError(
+            f"materialize is ported for packed SHiRA, not kind={acfg.kind!r}"
+            f" packed={acfg.packed} (ROADMAP A2)")
+    if trainable is None:
+        return params
+    a = acfg.alpha if alpha is None else alpha
+    vals = dict(M.iter_leaves(trainable))
+    idx = dict(M.iter_leaves(aux["indices"]))
+    return M.map_leaves(
+        lambda p, w: shira_weight(w, idx[p], vals[p], a) if p in idx else w,
+        params)

@@ -22,7 +22,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-KERNELS = ("sidedelta", "scatter_apply")
+KERNELS = ("sidedelta", "scatter_apply", "sparse_adamw", "sidedelta_grad")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 ptxas_log: Dict[str, str] = {}      # name -> what ``-Xptxas -v`` printed

@@ -43,3 +43,61 @@ def sidedelta_int8_ref(x: torch.Tensor, rows: torch.Tensor,
     dequantized as q * scale in f32 before the dense contraction."""
     vals = vals_q.float() * scale[:, None].float()
     return sidedelta_ref(x, rows, cols, vals, ids, m)
+
+
+def sidedelta_dvals_ref(x: torch.Tensor, dy: torch.Tensor,
+                        rows: torch.Tensor, cols: torch.Tensor,
+                        ids: torch.Tensor) -> torch.Tensor:
+    """The gradient of ``sidedelta_ref`` with respect to its values, on the
+    coordinate layout: per adapter a, the dense dW_a = sum over its
+    requests of x[b]^T @ dy[b], (n, m) in f32, read at (rows, cols).
+    x: (B, S, n); dy: (B, S, m); rows/cols: (A, K); returns (A, K) f32."""
+    B, S, n = x.shape
+    m = dy.shape[-1]
+    A, K = rows.shape
+    out = torch.zeros((A, K), dtype=torch.float32, device=x.device)
+    flat = rows.long() * m + cols.long()
+    for a in range(A):
+        sel = ids == a
+        if not bool(sel.any()):
+            continue
+        xa = x[sel].float().reshape(-1, n)
+        dya = dy[sel].float().reshape(-1, m)
+        out[a] = (xa.T @ dya).reshape(-1)[flat[a]]
+    return out
+
+
+def sparse_adamw_ref(values, grads, mu, nu, *, lr, b1, b2, eps, wd, step):
+    """One AdamW step, the reference oracle's math (Python-float scalars,
+    as ``repro.kernels.ref.sparse_adamw_ref`` has them)."""
+    g = grads.float()
+    v = values.float()
+    m = b1 * mu + (1 - b1) * g
+    u = b2 * nu + (1 - b2) * g * g
+    c1 = 1.0 - b1 ** step
+    c2 = 1.0 - b2 ** step
+    delta = (m / c1) / (torch.sqrt(u / c2) + eps) + wd * v
+    return (v - lr * delta).to(values.dtype), m, u
+
+
+def sparse_adamw_rows_ref(values, grads, mu, nu, mu_scale, nu_scale, step,
+                          *, lr, b1, b2, eps, wd, mode: str):
+    """The row-batched step of the multi-adapter trainer's reference path
+    (``repro/training/multi.py``, ``fused=False``): decode the stored
+    moments (f32, bf16, or int8 with per-row scales, nu in the sqrt
+    domain), then AdamW with bias corrections from the f32 step. Returns
+    (values, mu, nu), the moments f32."""
+    if mode == "int8":
+        mf = mu.float() * mu_scale[..., None]
+        ru = nu.float() * nu_scale[..., None]
+        uf = ru * ru
+    else:
+        mf, uf = mu.float(), nu.float()
+    g = grads.float()
+    t = torch.tensor(step, dtype=torch.float32)
+    m = b1 * mf + (1.0 - b1) * g
+    u = b2 * uf + (1.0 - b2) * g * g
+    mh = m / (1.0 - b1 ** t)
+    uh = u / (1.0 - b2 ** t)
+    delta = mh / (torch.sqrt(uh) + eps) + wd * values
+    return values - lr * delta, m, u

@@ -12,6 +12,18 @@ wrapper launches the hand-written kernel ``csrc/sidedelta.cu`` (its note
 says what bounds it and how the design answers); on CPU tensors it computes
 ``sidedelta_plain``, the gather / multiply / index_add_ version of the same
 function, which the tests and ``chip_smoke.py`` hold the kernel against.
+
+For multi-adapter training, ``sidedelta_train`` makes the delta
+differentiable in x and in the table's f32 values (the reference
+differentiates its XLA twin ``_sidedelta_xla`` instead):
+
+  dx[b, s, r]  = the same kernel over the transposed (row-sorted) table,
+                 with dy in place of x
+  dvals[a, k]  = sum over requests b of adapter a, and rows s, of
+                 x[b, s, rows[a, k]] * dy[b, s, col(k)]
+
+``sidedelta_dvals`` launches ``csrc/sidedelta_grad.cu`` for the second on
+CUDA tensors and computes ``sidedelta_dvals_plain`` on CPU tensors.
 """
 from __future__ import annotations
 
@@ -128,3 +140,149 @@ def sidedelta(x: torch.Tensor, rows: torch.Tensor, vals: torch.Tensor,
 
 
 sidedelta.launches = 0      # kernel launches (CUDA tensors only)
+
+
+# ---------------------------------------------------------------------------
+# The gradient with respect to the values, and the differentiable delta
+# ---------------------------------------------------------------------------
+
+def sidedelta_dvals_plain(x: torch.Tensor, dy: torch.Tensor,
+                          rows: torch.Tensor, colptr: torch.Tensor,
+                          ids: torch.Tensor) -> torch.Tensor:
+    """The plain version: per request, gather x at the adapter's valid rows
+    and dy at their columns, multiply and sum over the request's rows (64
+    rows at a time, to bound the (rows, K) temporaries)."""
+    chunk = 64
+    B, S, n = x.shape
+    A, K = rows.shape
+    m = colptr.shape[-1] - 1
+    out = torch.zeros((A, K), dtype=torch.float32, device=x.device)
+    counts = torch.diff(colptr.long(), dim=-1)                 # (A, m)
+    for b, a in enumerate(ids.tolist()):
+        if a < 0:
+            continue
+        valid = int(colptr[a, m])
+        col = torch.repeat_interleave(
+            torch.arange(m, device=x.device), counts[a])        # (valid,)
+        row = rows[a, :valid].long()
+        for s0 in range(0, S, chunk):
+            xs = x[b, s0:s0 + chunk].float()[:, row]
+            out[a, :valid] += (xs * dy[b, s0:s0 + chunk].float()[:, col]
+                               ).sum(0)
+    return out
+
+
+def _check_dvals(x, dy, rows, colptr, ids) -> None:
+    if x.ndim != 3 or dy.ndim != 3 or dy.shape[:2] != x.shape[:2]:
+        raise ValueError(f"x (B, S, n) and dy (B, S, m) expected, got "
+                         f"{tuple(x.shape)} / {tuple(dy.shape)}")
+    if x.dtype not in _X_DTYPES or dy.dtype != torch.float32:
+        raise TypeError(f"x must be f32 or bf16 and dy f32, got {x.dtype} "
+                        f"/ {dy.dtype}")
+    if rows.ndim != 2 or rows.dtype != torch.int32:
+        raise ValueError(f"rows must be (A, K) int32, got "
+                         f"{tuple(rows.shape)} {rows.dtype}")
+    if (colptr.shape != (rows.shape[0], dy.shape[2] + 1)
+            or colptr.dtype != torch.int32):
+        raise ValueError(f"colptr must be (A, m + 1) int32, got "
+                         f"{tuple(colptr.shape)} {colptr.dtype}")
+    if ids.shape != (x.shape[0],) or ids.dtype != torch.int32:
+        raise ValueError(f"ids must be (B,) int32, got {tuple(ids.shape)} "
+                         f"{ids.dtype}")
+
+
+def _dvals_lib() -> ctypes.CDLL:
+    lib = build.load("sidedelta_grad")
+    fn = lib.sidedelta_dvals_launch
+    if fn.argtypes is None:
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [p, i, p, p, p, p, p, i, i, i, ll, ll, p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def sidedelta_dvals(x: torch.Tensor, dy: torch.Tensor, rows: torch.Tensor,
+                    colptr: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """d(loss)/d(vals) of ``sidedelta(x, rows, vals, colptr, ids)`` given
+    dy = d(loss)/d(out), (A, K) f32 in the table's column-sorted order
+    (zeros past each valid count). CPU tensors take
+    ``sidedelta_dvals_plain``; CUDA tensors launch the kernel or raise.
+
+    On the card the requests are first grouped by adapter (a stable sort
+    of ids) and x and dy transposed to token-minor (n, B*S) and (m, B*S),
+    so the kernel's gathers read consecutive tokens."""
+    _check_dvals(x, dy, rows, colptr, ids)
+    if x.device.type == "cpu":
+        return sidedelta_dvals_plain(x, dy, rows, colptr, ids)
+    if x.device.type != "cuda":
+        raise RuntimeError(f"sidedelta_dvals runs on cuda or cpu, not "
+                           f"{x.device}")
+    for t in (dy, rows, colptr, ids):
+        if t.device != x.device:
+            raise RuntimeError(f"sidedelta_dvals operands on {t.device} and "
+                               f"{x.device}")
+    B, S, n = x.shape
+    A, K = rows.shape
+    m = dy.shape[2]
+    if A > 65535:
+        raise ValueError(f"sidedelta_dvals grid too large for A={A}")
+    out = torch.zeros((A, K), dtype=torch.float32, device=x.device)
+    if out.numel() == 0 or B * S == 0:
+        return out
+    order = torch.argsort(ids, stable=True)
+    rptr = torch.searchsorted(
+        ids[order], torch.arange(A + 1, dtype=torch.int32,
+                                 device=x.device)).to(torch.int32)
+    xT = x.index_select(0, order).reshape(B * S, n).t().contiguous()
+    dyT = dy.index_select(0, order).reshape(B * S, m).t().contiguous()
+    rows, colptr = rows.contiguous(), colptr.contiguous()
+    err = _dvals_lib().sidedelta_dvals_launch(
+        xT.data_ptr(), int(x.dtype == torch.bfloat16), dyT.data_ptr(),
+        rows.data_ptr(), colptr.data_ptr(), rptr.data_ptr(), out.data_ptr(),
+        A, m, S, B * S, K, torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"sidedelta_dvals launch failed: cudaError {err}")
+    sidedelta_dvals.launches += 1
+    return out
+
+
+sidedelta_dvals.launches = 0    # kernel launches (CUDA tensors only)
+
+
+class _SideDelta(torch.autograd.Function):
+    """sidedelta with f32 column-sorted values, differentiable in x and in
+    the values; dx runs the forward kernel over the transposed table."""
+
+    @staticmethod
+    def forward(ctx, x, vals, rows, colptr, t_rows, t_ptr, t_perm, ids):
+        x = x.contiguous()
+        ctx.save_for_backward(x, vals, rows, colptr, t_rows, t_ptr, t_perm,
+                              ids)
+        return sidedelta(x, rows, vals, colptr, ids)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, vals, rows, colptr, t_rows, t_ptr, t_perm, ids = ctx.saved_tensors
+        dy = dy.float().contiguous()
+        dx = dvals = None
+        if ctx.needs_input_grad[0]:
+            vals_t = vals.gather(1, t_perm.long())
+            # f32 here, cast to x's dtype as the reference's f32 twin casts
+            # its cotangent; autograd adds it to the base matmul's dx
+            dx = sidedelta(dy, t_rows, vals_t, t_ptr, ids).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dvals = sidedelta_dvals(x, dy, rows, colptr, ids)
+        return dx, dvals, None, None, None, None, None, None
+
+
+def sidedelta_train(x: torch.Tensor, vals: torch.Tensor, rows: torch.Tensor,
+                    colptr: torch.Tensor, perm: torch.Tensor,
+                    t_rows: torch.Tensor, t_ptr: torch.Tensor,
+                    t_perm: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """The side delta over trainable f32 values ``vals`` (A, K) in the
+    pack's own order, with the layout of ``ops.sidedelta_table(...,
+    trainable=True)`` (one layer's slice). Differentiable in x and vals:
+    the gather into the kernel's column order is plain torch, and its
+    gradient scatters dvals back to the pack's order."""
+    vs = vals.gather(1, perm.long())
+    return _SideDelta.apply(x, vs, rows, colptr, t_rows, t_ptr, t_perm, ids)

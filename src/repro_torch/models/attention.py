@@ -1,4 +1,5 @@
-"""GQA attention: prefill and decode against a contiguous KV cache.
+"""GQA attention: training, and prefill and decode against a contiguous KV
+cache.
 
 Port of the GQA part of ``repro/models/attention.py``. The math is plain
 torch, as the reference's is jnp: scores and softmax in f32 from
@@ -148,6 +149,16 @@ def _maybe_repeat_kv(cfg: ModelConfig, t):
         return t
     Hp, KVp = padded_heads(cfg)
     return torch.repeat_interleave(t, Hp // KVp, dim=2)
+
+
+def gqa_train(params, cfg: ModelConfig, x, *, prefix_len=0, q_chunk=512):
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device)
+    q, k, v = _gqa_qkv(params, cfg, x, positions)
+    out = chunked_attention(q, _maybe_repeat_kv(cfg, k),
+                            _maybe_repeat_kv(cfg, v), causal=cfg.causal,
+                            prefix_len=prefix_len, q_chunk=q_chunk)
+    return dense(out.reshape(B, S, -1), params["wo"])
 
 
 def gqa_prefill(params, cfg: ModelConfig, x, cache_size: int, *,

@@ -27,6 +27,15 @@ def init_dense_block(gen: torch.Generator, cfg: ModelConfig, *, lead=(),
     }
 
 
+def dense_block_train(params, cfg: ModelConfig, h, *, prefix_len=0,
+                      aux=None):
+    x = rms_norm(h, params["attn_norm"]["scale"], cfg.norm_eps)
+    h = h + attn.gqa_train(params["attn"], cfg, x, prefix_len=prefix_len)
+    x = rms_norm(h, params["mlp_norm"]["scale"], cfg.norm_eps)
+    h = h + mlp(params["mlp"], x, cfg.act)
+    return h, aux
+
+
 def dense_block_prefill(params, cfg: ModelConfig, h, cache_size, *,
                         prefix_len=0):
     x = rms_norm(h, params["attn_norm"]["scale"], cfg.norm_eps)

@@ -17,7 +17,9 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.adapters import SHIRA_KEY, materialize_leaf
 from repro_torch.kernels.ops import sidedelta
+from repro_torch.kernels.sidedelta import sidedelta_train
 
 COMPUTE_DTYPE = torch.bfloat16  # default; see compute_precision()
 
@@ -55,7 +57,7 @@ def cast_compute(tree):
 
 
 # ---------------------------------------------------------------------------
-# Side-delta weights (multi-tenant serving)
+# Side-delta weights (multi-tenant serving, multi-adapter training)
 # ---------------------------------------------------------------------------
 # A weight leaf may be replaced by a dict bundling the shared base matrix
 # with the per-adapter sparse-delta table (the column-sorted layout built by
@@ -63,7 +65,9 @@ def cast_compute(tree):
 # (see repro_torch/serving/multitenant.py). ``pdot`` then computes the base
 # matmul once for the whole batch plus each request's sparse correction via
 # the sidedelta kernel. Every entry carries the weight's leading layer dims,
-# so slicing a stacked layer slices the bundle too.
+# so slicing a stacked layer slices the bundle too. The multi-adapter
+# trainer's bundles carry trainable values and the gradient's layout
+# (``trainable_sidedelta_weight``).
 
 SIDEDELTA_KEY = "sd.base"
 
@@ -83,6 +87,17 @@ def sidedelta_weight(base: torch.Tensor, rows: torch.Tensor,
     return w
 
 
+def trainable_sidedelta_weight(base: torch.Tensor, vals: torch.Tensor,
+                               table: dict, ids: torch.Tensor) -> dict:
+    """The multi-adapter trainer's bundle: ``vals`` (A, K) are trainable
+    f32 values in the packs' own order, ``table`` the layout of
+    ``ops.sidedelta_table(..., trainable=True)``; the delta is then
+    differentiable in x and vals (``kernels.sidedelta.sidedelta_train``)."""
+    w = {SIDEDELTA_KEY: base, "sd.vals": vals, "sd.ids": ids}
+    w.update({f"sd.{k}": v for k, v in table.items()})
+    return w
+
+
 def is_sidedelta(w) -> bool:
     return isinstance(w, dict) and SIDEDELTA_KEY in w
 
@@ -91,9 +106,13 @@ def pdot(x: torch.Tensor, w) -> torch.Tensor:
     """Matmul in the compute dtype, output in the compute dtype.
 
     ``w`` may also be a side-delta bundle: then the result is x @ base plus
-    the per-request sparse deltas routed by the bundled ids."""
+    the per-request sparse deltas routed by the bundled ids. A packed-SHiRA
+    bundle (``core.adapters.materialize``) is materialized here, one
+    matrix at a time."""
     if is_sidedelta(w):
         return _pdot_sidedelta(x, w)
+    if isinstance(w, dict) and SHIRA_KEY in w:
+        w = materialize_leaf(w)
     cd = compute_dtype()
     return torch.matmul(x.to(cd), w.to(cd))
 
@@ -103,8 +122,13 @@ def _pdot_sidedelta(x: torch.Tensor, w: dict) -> torch.Tensor:
         raise ValueError("side-delta weights serve batched (B, S, d) "
                          f"activations, got {tuple(x.shape)}")
     y = pdot(x, w[SIDEDELTA_KEY])
-    delta = sidedelta(x, w["sd.rows"], w["sd.vals"], w["sd.colptr"],
-                      w["sd.ids"], scale=w.get("sd.scale"))
+    if "sd.perm" in w:
+        delta = sidedelta_train(x, w["sd.vals"], w["sd.rows"],
+                                w["sd.colptr"], w["sd.perm"], w["sd.t_rows"],
+                                w["sd.t_ptr"], w["sd.t_perm"], w["sd.ids"])
+    else:
+        delta = sidedelta(x, w["sd.rows"], w["sd.vals"], w["sd.colptr"],
+                          w["sd.ids"], scale=w.get("sd.scale"))
     return delta.add_(y).to(y.dtype)
 
 
@@ -114,6 +138,23 @@ def dense(x: torch.Tensor, w, b: Optional[torch.Tensor] = None
     if b is not None:
         y = y + b.to(y.dtype)
     return y
+
+
+def token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Per-token negative log-likelihood: logits f32 (..., V), labels int
+    (...)."""
+    logz = torch.logsumexp(logits, dim=-1)
+    return logz - torch.gather(logits, -1, labels[..., None].long())[..., 0]
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean token CE. logits f32 (..., V), labels int (...)."""
+    nll = token_nll(logits, labels)
+    if mask is not None:
+        nll = nll * mask
+        return nll.sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5

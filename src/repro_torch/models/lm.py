@@ -6,26 +6,30 @@ structure and shapes: layer parameters are stacked along a leading (L,)
 dim in ``params["stages"][0]``. The reference's ``lax.scan`` over that
 stack is a Python loop over the same stacked tensors here; the KV cache is
 stacked the same way, ``KVCache`` of (L, B, S_max, KV, D), and written in
-place.
+place. In training, ``jax.checkpoint`` around the scanned layer becomes
+``torch.utils.checkpoint`` around each layer (``cfg.remat``), and around
+each chunk of the loss.
 
 Entry points:
   init_params(cfg, seed, device)                  -> params
+  train_loss(params, cfg, batch)                  -> (loss, metrics)
   prefill(params, cfg, batch, cache_size)         -> (last_logits, caches)
   decode_step(params, cfg, tokens, caches, pos)   -> (logits, caches)
   init_cache(cfg, batch, cache_size, device)      -> caches (zeros)
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import blocks as B
 from repro_torch.models.attention import KVCache, padded_heads
 from repro_torch.models.layers import (compute_dtype, embed, init_embedding,
                                        init_rms_norm, normal_init, rms_norm,
-                                       unembed)
+                                       token_nll, unembed)
 
 
 def stage_plan(cfg: ModelConfig) -> List[Tuple[str, int]]:
@@ -37,11 +41,12 @@ def stage_plan(cfg: ModelConfig) -> List[Tuple[str, int]]:
 
 
 def layer_slice(tree, i: int):
-    """Layer ``i`` of a stacked parameter tree (side-delta bundles too:
-    every entry carries the leading layer dim)."""
+    """Layer ``i`` of a stacked parameter tree (side-delta and SHiRA
+    bundles too: every tensor carries the leading layer dim; a bundle's
+    plain numbers pass through)."""
     if isinstance(tree, dict):
         return {k: layer_slice(v, i) for k, v in tree.items()}
-    return tree[i]
+    return tree[i] if isinstance(tree, torch.Tensor) else tree
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda"
@@ -75,6 +80,92 @@ def _logits(params, cfg: ModelConfig, h):
     return unembed(params.get("unembed"), h, tie_to=tie,
                    softcap=cfg.logit_softcap, logical_vocab=cfg.vocab_size)
 
+
+# ---------------------------------------------------------------------------
+# Train
+# ---------------------------------------------------------------------------
+
+def _maybe_remat(fn, cfg: ModelConfig):
+    """remat="full" (the default) recomputes ``fn`` in backward; "none"
+    keeps its activations. The reference's "dots" policy is not ported."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat != "full":
+        raise NotImplementedError(f"remat {cfg.remat!r} is not ported; "
+                                  "use 'full' or 'none'")
+    return lambda *a: checkpoint(fn, *a, use_reentrant=False)
+
+
+def _stage_train(stage_params, cfg: ModelConfig, h, aux, prefix_len,
+                 n: int):
+    """The ``n`` stacked dense layers of one stage, each (re)materialized
+    under ``cfg.remat``: the layer's weights, SHiRA bundles included, are
+    sliced outside and used inside, so in backward only one layer's
+    effective weights are alive at a time."""
+    def body(lp, hh, ax):
+        return B.dense_block_train(lp, cfg, hh, prefix_len=prefix_len,
+                                   aux=ax)
+
+    body = _maybe_remat(body, cfg)
+    for i in range(n):
+        h, aux = body(layer_slice(stage_params, i), h, aux)
+    return h, aux
+
+
+def _pick_chunk(total: int, target: int = 32_768) -> int:
+    c = min(total, target)
+    while total % c:
+        c -= 1
+    return c
+
+
+def _loss_chunks(params, cfg: ModelConfig, h, chunk_fn, *xs):
+    """Run ``chunk_fn(logits, *x_chunks)`` over row chunks of the flattened
+    hidden states under a checkpoint, so one chunk's (rows, padded vocab)
+    logits are alive at a time; returns the per-chunk results."""
+    Bq, S, d = h.shape
+    T = Bq * S
+    hf = h.reshape(T, d)
+    tie = params["embed"]["emb"] if cfg.tie_embeddings else None
+    un = params.get("unembed")
+    c = _pick_chunk(T)
+
+    def body(hc, *xc):
+        logits = unembed(un, hc, tie_to=tie, softcap=cfg.logit_softcap,
+                         logical_vocab=cfg.vocab_size)
+        return chunk_fn(logits, *xc)
+
+    return [checkpoint(body, hf[i:i + c], *(x[i:i + c] for x in xs),
+                       use_reentrant=False)
+            for i in range(0, T, c)]
+
+
+def chunked_loss(params, cfg: ModelConfig, h, labels,
+                 loss_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean token NLL; never materialises the full (T, vocab) logits."""
+    T = h.shape[0] * h.shape[1]
+    mf = (torch.ones((T,), dtype=torch.float32, device=h.device)
+          if loss_mask is None else loss_mask.reshape(T).float())
+    parts = _loss_chunks(params, cfg, h,
+                         lambda lg, lc, mc: (token_nll(lg, lc) * mc).sum(),
+                         labels.reshape(T), mf)
+    return torch.stack(parts).sum() / torch.clamp(mf.sum(), min=1.0)
+
+
+def train_loss(params, cfg: ModelConfig, batch) -> Tuple[torch.Tensor, Dict]:
+    h, prefix_len = embed_inputs(params, cfg, batch)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    for sp, (_, n) in zip(params["stages"], stage_plan(cfg)):
+        h, aux = _stage_train(sp, cfg, h, aux, prefix_len, n)
+    h = rms_norm(h, params["final_norm"]["scale"], cfg.norm_eps)
+    loss = chunked_loss(params, cfg, h, batch["labels"],
+                        batch.get("loss_mask"))
+    return loss, {"ce": loss, "aux": aux}
+
+
+# ---------------------------------------------------------------------------
+# Serve
+# ---------------------------------------------------------------------------
 
 def prefill(params, cfg: ModelConfig, batch, cache_size: int):
     h, prefix_len = embed_inputs(params, cfg, batch)

@@ -1,0 +1,109 @@
+"""AdamW over trees of packed values, and the learning-rate schedule.
+
+Port of ``repro/optim/adamw.py``: the plain reference, used on the CPU and
+in the tests. The trainers' update on the card is the fused
+``kernels.ops.sparse_adamw`` (one launch per leaf), which computes the same
+step from the same scalars; this module's ``adamw_update`` follows the
+reference's own rounding (Python-float betas), which differs from the
+kernel's f32 scalars in the last bits only.
+
+Trees are nested dicts/lists of tensors with None at leaves that are not
+trained, as ``core.masks.map_leaves`` builds them.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Callable, NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import TrainConfig
+from repro_torch.core.masks import iter_leaves, map_leaves
+
+
+class AdamWState(NamedTuple):
+    step: int
+    mu: Any
+    nu: Any
+
+
+def adamw_init(trainable) -> AdamWState:
+    zeros = lambda t: map_leaves(
+        lambda _, x: torch.zeros_like(x, dtype=torch.float32), t)
+    return AdamWState(step=0, mu=zeros(trainable), nu=zeros(trainable))
+
+
+def global_norm(tree) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, f32 (a 0-dim tensor)."""
+    leaves = [torch.sum(torch.square(x.float())) for _, x in iter_leaves(tree)]
+    return (torch.sqrt(torch.sum(torch.stack(leaves))) if leaves
+            else torch.zeros(()))
+
+
+def batched_global_norm(tree, batch: int) -> torch.Tensor:
+    """Per-row global norms for a tree whose leaves all carry the same
+    leading stacked axis of size ``batch``: the multi-adapter trainer's
+    per-adapter clip, each adapter's norm as its own run would have it."""
+    leaves = [torch.sum(torch.square(x.float().reshape(batch, -1)), dim=1)
+              for _, x in iter_leaves(tree)]
+    if not leaves:
+        return torch.zeros((batch,))
+    return torch.sqrt(torch.sum(torch.stack(leaves, dim=0), dim=0))
+
+
+def clip_scale(gnorm: torch.Tensor, clip: float) -> torch.Tensor:
+    """min(1, clip / (gnorm + 1e-9)) in f32, the reference's clip factor."""
+    return torch.clamp(clip / (gnorm + 1e-9), max=1.0)
+
+
+def adamw_update(grads, state: AdamWState, trainable, tcfg: TrainConfig,
+                 lr) -> Tuple[Any, AdamWState, dict]:
+    gnorm = global_norm(grads)
+    if tcfg.grad_clip > 0:
+        scale = clip_scale(gnorm, tcfg.grad_clip)
+        grads = map_leaves(lambda _, g: g * scale, grads)
+    step = state.step + 1
+    b1, b2 = tcfg.beta1, tcfg.beta2
+    t = torch.tensor(step, dtype=torch.float32)
+    c1 = 1.0 - b1 ** t
+    c2 = 1.0 - b2 ** t
+    lr = torch.as_tensor(lr, dtype=torch.float32)
+    mu = dict(iter_leaves(state.mu))
+    nu = dict(iter_leaves(state.nu))
+    gr = dict(iter_leaves(grads))
+    out = {}
+    for path, p in iter_leaves(trainable):
+        g = gr[path].float()
+        m = b1 * mu[path] + (1 - b1) * g
+        v = b2 * nu[path] + (1 - b2) * g * g
+        delta = (m / c1) / (torch.sqrt(v / c2) + tcfg.eps)
+        if tcfg.weight_decay:
+            delta = delta + tcfg.weight_decay * p.float()
+        out[path] = ((p.float() - lr * delta).to(p.dtype), m, v)
+    pick = lambda i: map_leaves(lambda path, _: out[path][i], trainable)
+    return pick(0), AdamWState(step, pick(1), pick(2)), {"grad_norm": gnorm}
+
+
+def lr_schedule(tcfg: TrainConfig) -> Callable[[int], float]:
+    """step (0-based) -> learning rate, computed in f32 as the reference's
+    jnp schedule is; returned as a Python float that f32 holds exactly."""
+    f = np.float32
+    base = f(tcfg.learning_rate)
+    warm = max(tcfg.warmup_steps, 1)
+    total = max(tcfg.total_steps, warm + 1)
+
+    def fn(step: int) -> float:
+        s = f(step)
+        if s < f(warm):
+            return float(base * (s + f(1)) / f(warm))
+        frac = min(max((s - f(warm)) / f(total - warm), f(0)), f(1))
+        if tcfg.schedule == "cosine":
+            post = base * f(0.5) * (f(1) + np.cos(f(math.pi) * frac))
+        elif tcfg.schedule == "linear":
+            post = base * (f(1) - frac)
+        else:
+            post = base
+        return float(f(post))
+
+    return fn

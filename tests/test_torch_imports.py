@@ -47,7 +47,9 @@ def test_port_imports_with_jax_blocked():
         "    sys.modules[m] = None\n"
         "import repro_torch, repro_torch.bridge, repro_torch.launch.serve\n"
         "import repro_torch.serving, repro_torch.core\n"
-        "import repro_torch.kernels.ops\n"
+        "import repro_torch.kernels.ops, repro_torch.kernels.sparse_adamw\n"
+        "import repro_torch.data, repro_torch.optim, repro_torch.runtime\n"
+        "import repro_torch.training, repro_torch.launch.train\n"
         "assert not any(k == 'jax' or k.startswith(('jax.', 'repro.'))\n"
         "               for k in sys.modules if sys.modules[k] is not None)\n"
     )

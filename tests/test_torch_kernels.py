@@ -3,11 +3,21 @@ version there, held against the JAX package on the same numpy inputs.
 
 sidedelta: repro.kernels.ops.sidedelta(interpret=False), the compiled
 (XLA) formulation of the Pallas tile plan; its interpret path needs
-pl.load, which this jax no longer has. scatter_apply: ref.scatter_apply_ref
+pl.load, which this jax no longer has. Its gradients (dx, and dvals of the
+trainable tables) against jax.grad of the XLA twin, the path the JAX
+multi-adapter trainer differentiates. scatter_apply: ref.scatter_apply_ref
 and core.masks.scatter_packed_add. f32 results agree to 1e-5: the same
-products, summed in another order. The kernels themselves run only on the
-card; chip_smoke.py holds them against these plain versions there.
+products, summed in another order. sparse_adamw and sparse_adamw_batched:
+the JAX wrappers in Pallas interpret mode (which this jax still runs) and
+the ref.py oracles, to rtol = atol = 1e-6, the JAX package's own tolerance
+for the same comparison (tests/test_multiadapter.py): XLA on the CPU may
+fuse a product and a sum into one rounding, and the oracles take 1 - b1 in
+Python's float64, so moments that nearly cancel (b1 * m + (1 - b1) * g)
+differ in their last bits (2.4e-7 absolute at most here). The kernels
+themselves run only on the card; chip_smoke.py holds them against these
+plain versions there.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,10 +27,17 @@ import torch.nn.functional as F
 from repro.core import masks as JM
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro.models import layers as JL
+from repro.training import qstate as jq
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.scatter_apply import scatter_apply
-from repro_torch.kernels.sidedelta import sidedelta
+from repro_torch.kernels.sidedelta import (sidedelta, sidedelta_dvals,
+                                           sidedelta_dvals_plain,
+                                           sidedelta_train)
+from repro_torch.kernels.sparse_adamw import sparse_adamw_rows
+from repro_torch.models import layers as TL
+from repro_torch.training import qstate as tq
 
 TOL = 1e-5
 
@@ -258,3 +275,213 @@ def test_wrappers_run_on_cuda_or_cpu_only():
         scatter_apply(torch.zeros(2, 2, device=meta),
                       torch.zeros(1, dtype=torch.int32, device=meta),
                       torch.zeros(1, device=meta))
+
+
+# ---------------------------------------------------------------------------
+# sidedelta gradients (trainable f32 tables)
+# ---------------------------------------------------------------------------
+
+ADAMW_TOL = dict(rtol=1e-6, atol=1e-6)
+
+
+def _train_table(idx, n, m):
+    t = tops.sidedelta_table([_t(idx[a][None]) for a in range(len(idx))], 1,
+                             n, m, trainable=True)
+    return {k: v[0] for k, v in t.items()}
+
+
+@pytest.mark.parametrize("B,S,n,m,A,K,ids", [
+    (3, 1, 16, 24, 2, 20, [1, -1, 0]),          # decode-shaped, a base row
+    (4, 9, 33, 257, 2, 400, [0, 1, 1, 0]),       # S > 8, adapters interleaved
+    (2, 5, 40, 30, 3, 300, [2, 2]),              # adapters without requests
+])
+def test_sidedelta_grads_match_jax_xla_twin(B, S, n, m, A, K, ids):
+    """dx and dvals (in the pack's order) of the differentiable delta
+    against jax.grad of the reference's XLA twin, on the same cotangent."""
+    rng = np.random.default_rng(K + S)
+    x = rng.standard_normal((B, S, n)).astype(np.float32)
+    idx, vals = _entries(rng, A, n, m, K)
+    dy = rng.standard_normal((B, S, m)).astype(np.float32)
+    ids = np.array(ids, np.int32)
+
+    def f(x_, v_):
+        out = jops.sidedelta(x_, jnp.asarray(idx // m), jnp.asarray(idx % m),
+                             v_, jnp.asarray(ids), m=m, interpret="xla")
+        return jnp.sum(out * jnp.asarray(dy))
+    jdx, jdv = jax.grad(f, argnums=(0, 1))(jnp.asarray(x), jnp.asarray(vals))
+    t = _train_table(idx, n, m)
+    tx, tv = _t(x).requires_grad_(True), _t(vals).requires_grad_(True)
+    out = sidedelta_train(tx, tv, t["rows"], t["colptr"], t["perm"],
+                          t["t_rows"], t["t_ptr"], t["t_perm"], _t(ids))
+    dx, dv = torch.autograd.grad(out, (tx, tv), _t(dy))
+    np.testing.assert_allclose(dx.numpy(), np.asarray(jdx), atol=TOL)
+    np.testing.assert_allclose(dv.numpy(), np.asarray(jdv), atol=TOL)
+
+
+def test_sidedelta_pdot_bundle_grads_match_jax():
+    """Through the layers: a trainable bundle's pdot (base matmul + delta)
+    against the JAX pdot on a side-delta bundle under
+    sidedelta_backend("xla"), in f32; grads of x, the values, not of the
+    base."""
+    rng = np.random.default_rng(21)
+    B, S, n, m, A, K = 3, 4, 24, 40, 2, 120
+    x = rng.standard_normal((B, S, n)).astype(np.float32)
+    w = rng.standard_normal((n, m)).astype(np.float32)
+    idx, vals = _entries(rng, A, n, m, K)
+    ids = np.array([1, 0, -1], np.int32)
+    dy = rng.standard_normal((B, S, m)).astype(np.float32)
+
+    def f(x_, v_):
+        with JL.sidedelta_backend("xla"):
+            bw = JL.sidedelta_weight(jnp.asarray(w), jnp.asarray(idx // m),
+                                     jnp.asarray(idx % m), v_,
+                                     jnp.asarray(ids))
+            return jnp.sum(JL.pdot(x_, bw) * jnp.asarray(dy))
+    with JL.compute_precision(jnp.float32):
+        jdx, jdv = jax.grad(f, argnums=(0, 1))(jnp.asarray(x),
+                                               jnp.asarray(vals))
+    t = _train_table(idx, n, m)
+    tx, tv = _t(x).requires_grad_(True), _t(vals).requires_grad_(True)
+    with TL.compute_precision(torch.float32):
+        y = TL.pdot(tx, TL.trainable_sidedelta_weight(_t(w), tv, t,
+                                                      _t(ids)))
+    dx, dv = torch.autograd.grad(y, (tx, tv), _t(dy))
+    np.testing.assert_allclose(dx.numpy(), np.asarray(jdx), atol=TOL,
+                               rtol=TOL)
+    np.testing.assert_allclose(dv.numpy(), np.asarray(jdv), atol=TOL,
+                               rtol=TOL)
+
+
+@pytest.mark.parametrize("xdt", [torch.float32, torch.bfloat16])
+def test_sidedelta_dvals_plain_matches_ref(xdt):
+    """The wrapper's plain version (column-sorted order) against the dense
+    oracle on the coordinate layout, bf16 x as the trainer passes it."""
+    rng = np.random.default_rng(31)
+    B, S, n, m, A, K = 4, 70, 20, 30, 3, 90      # S spans two row chunks
+    x = _t(rng.standard_normal((B, S, n)).astype(np.float32)).to(xdt)
+    dy = _t(rng.standard_normal((B, S, m)).astype(np.float32))
+    idx, _ = _entries(rng, A, n, m, K)
+    ids = _t(np.array([2, 0, -1, 2], np.int32))
+    t = _train_table(idx, n, m)
+    got = sidedelta_dvals(x, dy, t["rows"], t["colptr"], ids)
+    want = tref.sidedelta_dvals_ref(x, dy, _t(idx // m), _t(idx % m), ids)
+    perm = t["perm"].long()
+    np.testing.assert_allclose(got.numpy(), want.gather(1, perm).numpy(),
+                               atol=1e-4)
+    assert float(got[1].abs().max()) == 0.0       # adapter 1: no requests
+
+
+def test_trainable_table_rejects_repeats_and_ragged_slots():
+    with pytest.raises(ValueError, match="repeat"):
+        tops.sidedelta_table([torch.tensor([[3, 7, 3]])], 1, 4, 5,
+                             trainable=True)
+    with pytest.raises(ValueError, match="share"):
+        tops.sidedelta_table([torch.tensor([[3, 7]]), torch.tensor([[1]])],
+                             1, 4, 5, trainable=True)
+    with pytest.raises(ValueError, match="f32"):
+        tops.sidedelta_table([torch.tensor([[3]])], 1, 4, 5, int8=True,
+                             trainable=True)
+
+
+def test_sidedelta_dvals_wrapper_checks():
+    x = torch.zeros(2, 1, 4)
+    dy = torch.zeros(2, 1, 5)
+    rows = torch.zeros(1, 3, dtype=torch.int32)
+    colptr = torch.zeros(1, 6, dtype=torch.int32)
+    ids = torch.zeros(2, dtype=torch.int32)
+    with pytest.raises(TypeError, match="dy f32"):
+        sidedelta_dvals(x, dy.double(), rows, colptr, ids)
+    with pytest.raises(ValueError, match="colptr"):
+        sidedelta_dvals(x, dy, rows, colptr[:, :5], ids)
+    meta = torch.device("meta")
+    with pytest.raises(RuntimeError, match="cuda or cpu"):
+        sidedelta_dvals(*(t.to(meta) for t in (x, dy, rows, colptr, ids)))
+
+
+# ---------------------------------------------------------------------------
+# sparse_adamw
+# ---------------------------------------------------------------------------
+
+def _adamw_inputs(rng, shape):
+    v = rng.standard_normal(shape).astype(np.float32)
+    g = rng.standard_normal(shape).astype(np.float32)
+    m = (rng.standard_normal(shape) * 0.1).astype(np.float32)
+    u = (np.abs(rng.standard_normal(shape)) * 0.01).astype(np.float32)
+    return v, g, m, u
+
+
+@pytest.mark.parametrize("step,wd", [(1, 0.0), (7, 0.1)])
+def test_sparse_adamw_plain_matches_jax(step, wd):
+    """K = 3000, not a multiple of the reference's 2048 block: the port
+    masks its tail, the reference pads."""
+    rng = np.random.default_rng(step)
+    v, g, m, u = _adamw_inputs(rng, (3000,))
+    kw = dict(lr=1e-2, b1=0.9, b2=0.999, eps=1e-8, wd=wd)
+    want = jops.sparse_adamw(*(jnp.asarray(a) for a in (v, g, m, u)),
+                             jnp.int32(step), interpret=True, **kw)
+    got = tops.sparse_adamw(*(_t(a) for a in (v, g, m, u)), step, **kw)
+    oracle = tref.sparse_adamw_ref(*(_t(a) for a in (v, g, m, u)),
+                                   step=step, **kw)
+    joracle = jref.sparse_adamw_ref(*(jnp.asarray(a) for a in (v, g, m, u)),
+                                    step=step, **kw)
+    for a, b, o, jo in zip(got, want, oracle, joracle):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), **ADAMW_TOL)
+        np.testing.assert_allclose(a.numpy(), o.numpy(), **ADAMW_TOL)
+        np.testing.assert_allclose(o.numpy(), np.asarray(jo), **ADAMW_TOL)
+
+
+@pytest.mark.parametrize("mode", ["f32", "bf16", "int8"])
+def test_sparse_adamw_batched_plain_matches_jax(mode):
+    """(R, K) rows with f32, bf16 or int8 moments (K = 2100), against the
+    JAX wrapper in interpret mode and against the row reference."""
+    rng = np.random.default_rng(5)
+    v, g, m, u = _adamw_inputs(rng, (6, 2100))
+    jm, jms = jq.encode(jnp.asarray(m), mode)
+    ju, jus = jq.encode(jnp.asarray(u), mode, sqrt_domain=True)
+    tm, tms = tq.encode(_t(m), mode)
+    tu, tus = tq.encode(_t(u), mode, sqrt_domain=True)
+    if mode == "int8":
+        np.testing.assert_array_equal(tm.numpy(), np.asarray(jm))
+        np.testing.assert_array_equal(tu.numpy(), np.asarray(ju))
+    kw = dict(b1=0.9, b2=0.999, eps=1e-8, wd=0.05)
+    for step in (1, 4):
+        want = jops.sparse_adamw_batched(
+            jnp.asarray(v), jnp.asarray(g), jm, ju, jnp.int32(step),
+            lr=jnp.float32(1e-2), mu_scale=jms, nu_scale=jus,
+            interpret=True, **kw)
+        got = tops.sparse_adamw_batched(_t(v), _t(g), tm, tu, step, lr=1e-2,
+                                        mu_scale=tms, nu_scale=tus, **kw)
+        oracle = tref.sparse_adamw_rows_ref(_t(v), _t(g), tm, tu, tms, tus,
+                                            step, lr=1e-2, mode=mode, **kw)
+        for a, b, o in zip(got, want, oracle):
+            assert a.dtype == torch.float32
+            np.testing.assert_allclose(a.numpy(), np.asarray(b),
+                                       **ADAMW_TOL)
+            np.testing.assert_allclose(a.numpy(), o.numpy(), **ADAMW_TOL)
+
+
+def test_sparse_adamw_wrapper_checks():
+    v = torch.zeros(2, 8)
+    with pytest.raises(ValueError, match="int8 moments need"):
+        sparse_adamw_rows(v, v, v.to(torch.int8), v.to(torch.int8), None,
+                          None, [0.0] * 7)
+    with pytest.raises(ValueError, match="int8 moments only"):
+        sparse_adamw_rows(v, v, v, v, torch.ones(2), torch.ones(2),
+                          [0.0] * 7)
+    with pytest.raises(TypeError, match="f32"):
+        tops.sparse_adamw(v[0].half(), v[0], v[0], v[0], 1)
+    with pytest.raises(TypeError, match="f32 moments"):
+        tops.sparse_adamw(v[0], v[0], v[0].bfloat16(), v[0].bfloat16(), 1)
+    meta = torch.device("meta")
+    with pytest.raises(RuntimeError, match="cuda or cpu"):
+        tops.sparse_adamw(*(v[0].to(meta) for _ in range(4)), 1)
+
+
+def test_adamw_scalars_are_f32_like_the_reference():
+    """lr, betas and the bias corrections as the reference's wrapper forms
+    them in f32 (1 - b1^t from the f32 beta, not Python's float64)."""
+    got = tops._adamw_scalars(3, 1e-2, 0.9, 0.999, 1e-8, 0.1)
+    want = np.asarray(jops._adamw_scalars(jnp.int32(3), 1e-2, 0.9, 0.999,
+                                          1e-8, 0.1))[:7]
+    np.testing.assert_allclose(got, want, rtol=1e-7)
+    assert all(float(np.float32(s)) == s for s in got)
