@@ -11,7 +11,10 @@ prints its seconds on a "[time]" line:
                starcoder2-7b shapes; times (cold L2) beside the bound:
                sidedelta and scatter_apply (serving), sparse_adamw (blocks
                and rows, f32/bf16/int8 moments) and the sidedelta gradients
-               (dx through the forward kernel, dvals) of training
+               (dx through the forward kernel, dvals) of training, and the
+               attention kernels flash_decode ((B,) and scalar kv_len),
+               flash_decode_paged and flash_prefill, bf16 and f32, beside
+               F.scaled_dot_product_attention
   4. serve     starcoder2-7b at full width through repro_torch.launch.serve:
                sequential switching, --fuse, --multi-tenant (f32, int8);
                launch counts are zeroed before each mode and must be > 0
@@ -20,13 +23,20 @@ prints its seconds on a "[time]" line:
                model and multi-tenant (torch.profiler)
   6. consistency  full width, 2 layers, f32: multi-tenant tokens equal the
                switch-per-request reference, unfused and with a hot adapter
-  7. train     full width: repro_torch.launch.train (packed SHiRA, Trainer)
+  7. continuous  full width: serve --continuous --int8, then a 24-request
+               trace (prompts of 64..1024 tokens, half with one shared
+               256-token prefix, 32 tokens each) through ServingEngine and
+               PagedServingEngine over an AdapterStore: tokens/s, TTFT,
+               steps, residency, COW copies, launches, peak memory
+  8. continuous-consistency  full width, 2 layers, f32: both engines'
+               tokens equal each request's fixed-batch tokens, with COW
+  9. train     full width: repro_torch.launch.train (packed SHiRA, Trainer)
                and MultiAdapterTrainer (3 adapters, f32 then int8
                moments), launch counts > 0 for every kernel of each path,
                and a torch.profiler breakdown of one multi-adapter step
-  8. train-consistency  full width, 2 layers, f32: adapter a of the
+  10. train-consistency  full width, 2 layers, f32: adapter a of the
                multi-adapter trainer tracks Trainer(init a) to 5e-3
-  9. summary   one JSON line of kernel numbers, the card line, and last
+  11. summary   one JSON line of kernel numbers, the card line, and last
                {"ok": true, "device": {...}}
 """
 from __future__ import annotations
@@ -42,6 +52,9 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 F32_FLOP_PER_S = 67e12         # H100 SXM f32 rate outside the tensor cores
+BF16_FLOP_PER_S = 989e12       # H100 SXM dense bf16 tensor-core rate
+ATTN_TOL = {"bf16": 1e-2,      # 2.5x the largest bf16 error measured on the
+            "f32": 1e-5}       # card (3.9e-3, one bf16 ulp near 1)
 SIDEDELTA_TOL = 1e-4           # f32 sums of ~400 products in another order
 RESTORE_TOL = 1e-5             # the JAX package's load/unload tolerance
 ADAMW_TOL = 1e-6               # rtol = atol: the JAX package's own, and the
@@ -49,6 +62,9 @@ ADAMW_TOL = 1e-6               # rtol = atol: the JAX package's own, and the
 TRAIN_TOL = 5e-3               # the JAX package's trainer-parity tolerance
 GRAD_TOL = 1e-4                # value gradients, of each leaf's largest
 B, PROMPT, TOKENS = 8, 16, 16  # serving batch, prompt and generated tokens
+CACHE = 1056                   # the lane engine's rows a request: prompts
+                               # up to 1024 + 32 generated tokens
+CC_REQUESTS, CC_TOKENS = 24, 32   # the continuous-batching trace
 IDS = [0, 1, 2, -1, 0, 1, 2, 0]
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 256, 8, 4   # launch.train phase
 MT_SEQ, MT_BATCH, MT_STEPS = 256, 2, 3            # per adapter, A = 3
@@ -68,10 +84,14 @@ def timed(label: str, fn, *args):
     return out
 
 
-def bound(nbytes: float, flops: float) -> dict:
+def bound(nbytes: float, flops: float, bf16_flops: float = 0) -> dict:
     """The least time the card could take: bytes over the memory rate or
-    f32 operations over the non-tensor-core rate, whichever is larger."""
-    b_ms, o_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
+    the operations over the peak rate of their operands' type, whichever
+    is larger. ``flops`` have an f32 operand (non-tensor-core rate);
+    ``bf16_flops`` are products of two bf16 operands summed in f32, which
+    the tensor cores compute exactly."""
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    o_ms = (flops / F32_FLOP_PER_S + bf16_flops / BF16_FLOP_PER_S) * 1e3
     return {"bound_ms": max(b_ms, o_ms),
             "bound_by": "bytes" if b_ms >= o_ms else "operations"}
 
@@ -485,16 +505,138 @@ def train_kernels_phase(torch, flush):
     return blocks, rows, grads
 
 
+def attn_case(torch, flush, label, fn, plain, library, tol, nbytes, flops,
+              bf16, iters=20):
+    """One attention kernel against its plain version on the same inputs:
+    max_abs_err within ``tol``, then cold-L2 times of the kernel, the plain
+    version and the library call, and the bound from this call's bytes
+    and operations. ``flops`` counts the score products (q . k) and the
+    value products (p . v) alike: the scores take the bf16 tensor-core
+    rate when the inputs are ``bf16``, the value products keep p in f32
+    and take the f32 rate."""
+    got = fn()
+    want = plain()
+    err = float((got.float() - want.float()).abs().max())
+    if not err <= tol:
+        fail(f"{label}: max_abs_err {err} > {tol}")
+    r = {"max_abs_err": err, "ms": cold_ms(torch, fn, iters, flush),
+         "plain_ms": cold_ms(torch, plain, 3, flush),
+         "library_ms": cold_ms(torch, library, 10, flush),
+         **bound(nbytes, flops / 2 * (1 if bf16 else 2),
+                 flops / 2 if bf16 else 0)}
+    print(f"[kernels] {label}: max_abs_err={err:.3g} (tol {tol}) "
+          f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.3f} library_ms(sdpa)="
+          f"{r['library_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
+          f"({r['bound_by']})", flush=True)
+    return r
+
+
+def attention_kernels_phase(torch, flush):
+    """flash_decode, flash_decode_paged and flash_prefill against their
+    plain versions at the continuous-batching shapes of starcoder2-7b (KV
+    4, G 9, D 128), bf16 (the serving dtype) and f32, within ATTN_TOL. The
+    yardstick is one
+    F.scaled_dot_product_attention(..., enable_gqa=True) call on the same
+    inputs, laid out as it wants them beforehand (for paged: a gather of
+    the pages, then the call)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_decode import (decode_lengths,
+                                                  flash_decode_blocks,
+                                                  flash_decode_paged,
+                                                  flash_decode_paged_plain,
+                                                  flash_decode_plain,
+                                                  paged_gather)
+    from repro_torch.kernels.flash_prefill import (flash_prefill_blocks,
+                                                   flash_prefill_plain)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    Bd, KV, G, D = B, 4, 9, 128
+    H = KV * G
+    out = {"flash_decode": [], "flash_decode_paged": [], "flash_prefill": []}
+    spread = torch.linspace(1, CACHE, Bd, device="cuda").round().to(
+        torch.int32)
+    for dt in (torch.bfloat16, torch.float32):
+        es = 2 if dt == torch.bfloat16 else 4
+        tag = "bf16" if dt == torch.bfloat16 else "f32"
+        tol, bf = ATTN_TOL[tag], dt == torch.bfloat16
+        r = lambda *s: torch.randn(s, generator=gen, device="cuda").to(dt)
+        q, k, v = r(Bd, KV, G, D), r(Bd, CACHE, KV, D), r(Bd, CACHE, KV, D)
+        qs = q.reshape(Bd, H, 1, D)
+        ks, vs = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+        for name, kl in (("(B,) kv_len 1..1056", spread),
+                         ("scalar kv_len 700", 700)):
+            lens = decode_lengths(kl, Bd, "cuda")
+            mask = (torch.arange(CACHE, device="cuda")[None, :]
+                    < lens.long()[:, None])[:, None, None, :]
+            rows = int(lens.sum())
+            out["flash_decode"].append(attn_case(
+                torch, flush, f"flash_decode {tag} ({Bd},{KV},{G},{D}) "
+                f"S={CACHE} {name}", lambda: flash_decode_blocks(q, k, v, kl),
+                lambda: flash_decode_plain(q, k, v, lens),
+                lambda: F.scaled_dot_product_attention(
+                    qs, ks, vs, attn_mask=mask, enable_gqa=True), tol,
+                2 * q.numel() * es + 2 * rows * KV * D * es + Bd * 4,
+                4 * rows * KV * G * D, bf))
+        # a shuffled pool of 16-row pages; table entries past each
+        # request's pages are the scratch page 0
+        page = 16
+        nblk = CACHE // page
+        used = [(int(n) + page - 1) // page for n in spread.tolist()]
+        P = 1 + sum(used) + 8
+        perm = torch.randperm(P - 1, generator=gen, device="cuda") + 1
+        bt = torch.zeros((Bd, nblk), dtype=torch.int32, device="cuda")
+        o = 0
+        for b, u in enumerate(used):
+            bt[b, :u] = perm[o:o + u].to(torch.int32)
+            o += u
+        kp, vp = r(P, page, KV, D), r(P, page, KV, D)
+
+        def paged_sdpa():
+            kk = paged_gather(kp, bt).transpose(1, 2)
+            vv = paged_gather(vp, bt).transpose(1, 2)
+            return F.scaled_dot_product_attention(
+                qs, kk, vv, attn_mask=(torch.arange(
+                    nblk * page, device="cuda")[None, :] < spread.long()[
+                        :, None])[:, None, None, :], enable_gqa=True)
+        rows = int(spread.sum())
+        out["flash_decode_paged"].append(attn_case(
+            torch, flush, f"flash_decode_paged {tag} ({Bd},{KV},{G},{D}) "
+            f"pages of {page}, {P} pages, nblk={nblk}, kv_len 1..{CACHE}",
+            lambda: flash_decode_paged(q, kp, vp, bt, spread),
+            lambda: flash_decode_paged_plain(q, kp, vp, bt, spread),
+            paged_sdpa, tol,
+            2 * q.numel() * es + 2 * rows * KV * D * es + bt.numel() * 4
+            + Bd * 4, 4 * rows * KV * G * D, bf))
+        del q, k, v, qs, ks, vs, kp, vp
+        for Bp, Sp in ((1, 1024), (B, PROMPT)):
+            q, k, v = r(Bp, Sp, H, D), r(Bp, Sp, KV, D), r(Bp, Sp, KV, D)
+            qs = q.transpose(1, 2)
+            ks, vs = k.transpose(1, 2), v.transpose(1, 2)
+            out["flash_prefill"].append(attn_case(
+                torch, flush, f"flash_prefill {tag} causal B={Bp} S={Sp} "
+                f"H={H} KV={KV} D={D}",
+                lambda: flash_prefill_blocks(q, k, v, causal=True),
+                lambda: flash_prefill_plain(q, k, v, True),
+                lambda: F.scaled_dot_product_attention(
+                    qs, ks, vs, is_causal=True, enable_gqa=True), tol,
+                (2 * q.numel() + 2 * k.numel()) * es,
+                4 * D * H * Bp * Sp * (Sp + 1) // 2, bf, iters=10))
+            del q, k, v, qs, ks, vs
+    return out
+
+
 def serve_phase(torch):
     from repro_torch.launch import serve
     common = ["--arch", "starcoder2-7b", "--batch", str(B), "--prompt-len",
               str(PROMPT), "--tokens", str(TOKENS), "--adapters", "3"]
-    modes = [("sequential", [], ("scatter_apply",)),
-             ("fuse", ["--fuse"], ("scatter_apply",)),
+    attn = ("flash_prefill", "flash_decode")
+    modes = [("sequential", [], ("scatter_apply",) + attn),
+             ("fuse", ["--fuse"], ("scatter_apply",) + attn),
              ("multi-tenant f32", ["--multi-tenant", "--skew", "0.8"],
-              ("sidedelta", "scatter_apply")),
+              ("sidedelta", "scatter_apply") + attn),
              ("multi-tenant int8", ["--multi-tenant", "--int8", "--skew",
-                                    "0.8"], ("sidedelta", "scatter_apply"))]
+                                    "0.8"],
+              ("sidedelta", "scatter_apply") + attn)]
     totals = {}
     torch.cuda.reset_peak_memory_stats()
     for label, extra, needed in modes:
@@ -526,6 +668,275 @@ def serve_phase(torch):
     print(f"[serve] peak memory {peak:.1f} GB (max_memory_allocated)",
           flush=True)
     return totals
+
+
+def continuous_trace(vocab: int, packs):
+    """The full-width request trace, from seed 0: 24 requests, prompt
+    lengths uniform in 64..1024, 12 of the prompts at least 257 tokens long
+    beginning with one 256-token system prefix; adapters drawn as
+    ``serve --multi-tenant`` draws them (skew 0.8 to the first, the rest
+    over the others and the base model), and requests 5 and 17 on the base
+    model. Returns [(prompt int32, adapter)]."""
+    import numpy as np
+    from repro_torch.launch.serve import tenant_mix
+    rng = np.random.default_rng(0)
+    lens = rng.integers(64, 1025, CC_REQUESTS)
+    prefix = rng.integers(0, vocab, 256).astype(np.int32)
+    shared = [i for i in range(CC_REQUESTS) if lens[i] > 256][:12]
+    adapters = [tenant_mix(rng, packs, 1, 0.8)[0]
+                for _ in range(CC_REQUESTS)]
+    for i in (5, 17):
+        adapters[i] = None
+    trace = []
+    for i, n in enumerate(lens):
+        p = rng.integers(0, vocab, int(n)).astype(np.int32)
+        if i in shared:
+            p[:256] = prefix
+        trace.append((p, adapters[i]))
+    return trace
+
+
+def drive(torch, engine, trace, max_tokens, profile_at=5):
+    """Submit the whole trace at once, then step the engine until every
+    request resolved; returns (futures, wall seconds, peak resident
+    requests, per-step numbers), synchronized. Each step's host-clock
+    time is kept with whether it admitted a request (lanes) or ran a
+    prefill chunk (pages); engine step ``profile_at`` runs under
+    torch.profiler for its device time by kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    futs = [engine.submit(p, a, max_tokens=max_tokens) for p, a in trace]
+    peak, steps, prof = 0, [], None
+    while engine.pending():
+        admitted = sum(f.submitted_step is not None for f in futs)
+        chunks = getattr(engine, "prefill_chunks", 0)
+        ts = time.perf_counter()
+        if engine.step_count == profile_at and prof is None:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                engine.step()
+                torch.cuda.synchronize()
+        else:
+            engine.step()
+            torch.cuda.synchronize()
+        steps.append((time.perf_counter() - ts,
+                      sum(f.submitted_step is not None for f in futs)
+                      > admitted
+                      or getattr(engine, "prefill_chunks", 0) > chunks))
+        peak = max(peak, sum(a is not None for a in engine._active))
+    torch.cuda.synchronize()
+    return futs, time.perf_counter() - t0, peak, steps, prof
+
+
+def step_report(label, steps, prof):
+    """Median host-clock ms of decode-only steps and of steps that
+    prefilled, and the profiled step's device time by kernel."""
+    import statistics
+    dec = [t for t, pf in steps if not pf]
+    pre = [t for t, pf in steps if pf]
+    med = lambda xs: statistics.median(xs) * 1e3 if xs else float("nan")
+    line = (f"[continuous] {label} steps: {len(dec)} decode-only, median "
+            f"{med(dec):.1f} ms; {len(pre)} with a prefill, median "
+            f"{med(pre):.1f} ms")
+    print(line, flush=True)
+    if prof is None:
+        return
+    import torch
+    cuda = torch.autograd.DeviceType.CUDA
+    kern = [(getattr(e, "self_device_time_total", 0) / 1e3, e.count, e.key)
+            for e in prof.key_averages() if e.device_type == cuda]
+    busy = sum(k[0] for k in kern)
+    print(f"[profile] {label} engine step 6 (profiler on): kernels "
+          f"{busy:.2f} ms" + ("" if busy else
+                              " (profiler saw no device time: not "
+                              "measured)"), flush=True)
+    for ms, n, name in sorted(kern, reverse=True)[:6]:
+        print(f"[profile]   {ms:8.3f} ms  x{n:<5d} {name[:90]}")
+
+
+def report_engine(torch, label, engine, futs, wall, peak, vocab, needed,
+                  totals):
+    """Print one engine's numbers and fail unless every future is done
+    with in-range tokens and every kernel of its path launched."""
+    import numpy as np
+    counts = read_counts()
+    ttft = np.array([f.ttft for f in futs])
+    kv_gb = engine.kv_cache_bytes() / 1e9
+    outs = [f.result() for f in futs]
+    ok = all(f.done() and f.error is None for f in futs) and all(
+        len(o) == CC_TOKENS and 0 <= int(o.min()) and int(o.max()) < vocab
+        for o in outs)
+    extra = ""
+    if hasattr(engine, "pool"):
+        extra = (f", COW copies {engine.pool.cow_copies}, prefill chunks "
+                 f"{engine.prefill_chunks}, prefix hits "
+                 f"{engine.pool.prefix_hits} ({engine.pool.prefix_shared_tokens}"
+                 f" tokens), peak pages {engine.peak_used_pages}")
+    print(f"[continuous] {label}: {len(futs)} requests, {engine.tokens_out} "
+          f"tokens in {wall:.2f}s ({engine.tokens_out / wall:.1f} tok/s), "
+          f"TTFT p50 {np.percentile(ttft, 50):.3f}s p99 "
+          f"{np.percentile(ttft, 99):.3f}s, {engine.step_count} decode steps,"
+          f" {engine.decode_slot_waste} idle-lane steps, peak resident "
+          f"{peak} requests, KV {kv_gb:.3f} GB ({peak / kv_gb:.1f} resident "
+          f"requests per GB){extra}, launches "
+          f"{ {k: v for k, v in counts.items() if v} }, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB", flush=True)
+    if not ok:
+        fail(f"continuous {label}: a request failed or its tokens are out "
+             "of range")
+    check_run(f"continuous {label}", counts, needed, totals)
+    return outs
+
+
+def continuous_phase(torch):
+    """Continuous batching at full width: ``serve --continuous --int8``
+    (the CLI, int8 packs and tables), then the 24-request trace through
+    ServingEngine (8 lanes of 1056 rows) and PagedServingEngine (8 slots,
+    321 pages of 16 rows, about 61% of the lanes' KV bytes, chunks of 256)
+    over an AdapterStore of 3 f32 packs in a temporary directory, one
+    engine after the other on one copy of the base."""
+    import tempfile
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.hub import AdapterStore, PagedServingEngine, ServingEngine
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    totals = {}
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    stats = serve.main(["--arch", "starcoder2-7b", "--continuous", "--int8",
+                        "--requests", str(B), "--slots", str(B),
+                        "--prompt-len", "64", "--tokens", "8",
+                        "--adapters", "3", "--skew", "0.8"])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    print(f"[continuous] serve --continuous --int8 ({B} requests, prompt 64,"
+          f" 8 tokens, {B} lanes): {stats['done']}/{stats['requests']} done,"
+          f" {stats['tok_s']:.1f} tok/s, {stats['steps']} decode steps, "
+          f"launches { {k: v for k, v in counts.items() if v} }, "
+          f"{time.perf_counter() - t0:.1f}s wall", flush=True)
+    if stats["done"] != stats["requests"] or any(
+            int(o.min()) < 0 or int(o.max()) >= 49152 for o in stats["outs"]):
+        fail("serve --continuous: a request failed or is out of range")
+    check_run("serve --continuous", counts,
+              ("flash_prefill", "flash_decode", "sidedelta"), totals)
+    del stats
+    torch.cuda.empty_cache()
+
+    cfg = get_config("starcoder2-7b")
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    packs = serve.make_adapters(cfg, params, 3)
+    trace = continuous_trace(cfg.vocab_size, packs)
+    with tempfile.TemporaryDirectory(prefix="adapter-store-") as root:
+        t0 = time.perf_counter()
+        store = AdapterStore(root)
+        for p in packs:
+            store.add(p)
+        del packs
+        torch.cuda.empty_cache()
+        print(f"[continuous] store: {len(store.names())} f32 packs written in "
+              f"{time.perf_counter() - t0:.1f}s", flush=True)
+        outs = {}
+        for label, make, needed in (
+                ("ServingEngine", lambda: ServingEngine(
+                    cfg, params, slots=B, cache_size=CACHE, store=store),
+                 ("flash_prefill", "flash_decode", "sidedelta")),
+                ("PagedServingEngine", lambda: PagedServingEngine(
+                    cfg, params, slots=B, num_pages=321, page_size=16,
+                    chunk_size=256, store=store),
+                 ("flash_decode_paged", "sidedelta"))):
+            zero_counts()
+            torch.cuda.reset_peak_memory_stats()
+            engine = make()
+            futs, wall, peak, steps, prof = drive(torch, engine, trace,
+                                                  CC_TOKENS)
+            if hasattr(engine, "peak_resident"):
+                peak = engine.peak_resident
+            outs[label] = report_engine(torch, label, engine, futs, wall,
+                                        peak, cfg.vocab_size, needed, totals)
+            step_report(label, steps, prof)
+            del engine, futs
+            torch.cuda.empty_cache()
+    pairs = list(zip(outs["ServingEngine"], outs["PagedServingEngine"]))
+    same = sum(bool((a == b).all()) for a, b in pairs)
+    first = sum(int(a[0]) == int(b[0]) for a, b in pairs)
+    split = {i: int(np.argmax(a != b)) for i, (a, b) in enumerate(pairs)
+             if not (a == b).all()}
+    print(f"[continuous] bf16: {same}/{len(trace)} requests token-equal "
+          f"across the two engines, {first}/{len(trace)} first tokens equal;"
+          f" request: first differing token {split}", flush=True)
+    del params
+    return totals
+
+
+def continuous_consistency_phase(torch):
+    """Both engines against the fixed batch: full widths cut to 2 layers,
+    f32. Each request's tokens from ServingEngine and PagedServingEngine
+    must equal its own MultiTenantEngine.generate tokens, on a trace with
+    a shared prefix (COW), one prompt under two adapters, an adapter
+    stack, the base model and a 601-token prompt that the paged engine
+    prefills in three chunks of up to 256; the paged engine must share
+    prefix pages and copy on write."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.hub import PagedServingEngine, ServingEngine
+    from repro_torch.launch import serve
+    from repro_torch.models import layers, lm
+    from repro_torch.serving import MultiTenantEngine
+    cfg = get_config("starcoder2-7b").replace(num_layers=2)
+    T = 8
+    rng = np.random.default_rng(7)
+    tok = lambda n: rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+    prefix = tok(40)
+    first = (np.concatenate([prefix, tok(10)]), "adapter_0")
+    same = tok(37)
+    rest = [(np.concatenate([prefix, tok(23)]), "adapter_0"),
+            (same, "adapter_1"), (same, "adapter_2"),
+            (tok(70), ("adapter_0", "adapter_1")), (tok(19), None),
+            (tok(601), "adapter_1"), first]
+    trace = [first] + rest
+    with layers.compute_precision(torch.float32):
+        params = lm.init_params(cfg, seed=0, device="cuda")
+        packs = serve.make_adapters(cfg, params, 3)
+        mt = MultiTenantEngine(cfg, params)
+        for p in packs:
+            mt.register(p)
+        want = [mt.generate({"tokens": torch.from_numpy(p[None].copy()).to(
+            "cuda")}, [a], T)[0][0].cpu().numpy() for p, a in trace]
+        se = ServingEngine(cfg, params, slots=3, cache_size=640)
+        pe = PagedServingEngine(cfg, params, slots=3, num_pages=80,
+                                page_size=16, chunk_size=256)
+        for e in (se, pe):
+            for p in packs:
+                e.register(p)
+        lane = [se.submit(p, a, max_tokens=T) for p, a in trace]
+        se.run()
+        # the first request's prompt pages are registered before the rest
+        # arrive, so they can share its prefix
+        paged = [pe.submit(*first, max_tokens=T)]
+        while not paged[0].tokens:
+            pe.step()
+        paged += [pe.submit(p, a, max_tokens=T) for p, a in rest]
+        pe.run()
+    for label, futs in (("ServingEngine", lane),
+                        ("PagedServingEngine", paged)):
+        equal = [bool(np.array_equal(f.result(), w))
+                 for f, w in zip(futs, want)]
+        print(f"[continuous-consistency] f32, 2 layers, full width, {label}:"
+              f" {sum(equal)}/{len(equal)} requests token-equal to the fixed "
+              f"batch", flush=True)
+        if not all(equal):
+            fail(f"continuous-consistency: {label} differs from the fixed "
+                 f"batch on requests "
+                 f"{[i for i, e in enumerate(equal) if not e]}")
+    print(f"[continuous-consistency] paged: prefix hits "
+          f"{pe.pool.prefix_hits} ({pe.pool.prefix_shared_tokens} tokens), "
+          f"COW copies {pe.pool.cow_copies}, prefill chunks "
+          f"{pe.prefill_chunks}", flush=True)
+    if pe.pool.prefix_hits < 2 or pe.pool.cow_copies < 1:
+        fail("continuous-consistency: the paged engine did not share the "
+             "prefix pages or copy on write")
 
 
 def profile_phase(torch):
@@ -626,19 +1037,25 @@ def consistency_phase(torch):
 
 
 KERNEL_COUNTERS = ("sidedelta", "sidedelta_dvals", "scatter_apply",
-                   "sparse_adamw_blocks", "sparse_adamw_rows")
+                   "sparse_adamw_blocks", "sparse_adamw_rows", "flash_decode",
+                   "flash_decode_paged", "flash_prefill")
 
 
 def counters():
     """The launch counter of every kernel wrapper of the port, by the
     kernel's name in the summary."""
+    from repro_torch.kernels.flash_decode import (flash_decode_blocks,
+                                                  flash_decode_paged)
+    from repro_torch.kernels.flash_prefill import flash_prefill_blocks
     from repro_torch.kernels.scatter_apply import scatter_apply
     from repro_torch.kernels.sidedelta import sidedelta, sidedelta_dvals
     from repro_torch.kernels.sparse_adamw import (sparse_adamw,
                                                   sparse_adamw_rows)
     return dict(zip(KERNEL_COUNTERS, (sidedelta, sidedelta_dvals,
                                       scatter_apply, sparse_adamw,
-                                      sparse_adamw_rows)))
+                                      sparse_adamw_rows, flash_decode_blocks,
+                                      flash_decode_paged,
+                                      flash_prefill_blocks)))
 
 
 def zero_counts():
@@ -874,6 +1291,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     blocks, rows, grads = timed("kernels (training)", train_kernels_phase,
                                 torch, flush)
+    torch.cuda.empty_cache()
+    attn = timed("kernels (attention)", attention_kernels_phase, torch, flush)
     del scratch
     torch.cuda.empty_cache()
     launches = timed("serve", serve_phase, torch)
@@ -881,6 +1300,11 @@ def main() -> None:
     timed("profile", profile_phase, torch)
     torch.cuda.empty_cache()
     timed("consistency", consistency_phase, torch)
+    torch.cuda.empty_cache()
+    for k, v in timed("continuous", continuous_phase, torch).items():
+        launches[k] = launches.get(k, 0) + v
+    torch.cuda.empty_cache()
+    timed("continuous-consistency", continuous_consistency_phase, torch)
     torch.cuda.empty_cache()
     for k, v in timed("train", train_phase, torch).items():
         launches[k] = launches.get(k, 0) + v
@@ -920,6 +1344,19 @@ def main() -> None:
          **rows["f32"],
          "max_abs_err": max(r["max_abs_err"] for r in rows.values())},
     ]
+    # each attention kernel's row: its bf16 case at the main path's shape
+    # (the first case of each list), its largest error over every case
+    for name, src, rep in (
+            ("flash_decode", "flash_decode.cu", "flash_decode.py:71"),
+            ("flash_decode_paged", "flash_decode.cu", "flash_decode.py:141"),
+            ("flash_prefill", "flash_prefill.cu", "flash_prefill.py:74")):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": f"src/repro/kernels/{rep}",
+            "launches": launches.get(name, 0),
+            **{k: attn[name][0][k] for k in keys},
+            "max_abs_err": max(r["max_abs_err"] for r in attn[name])})
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

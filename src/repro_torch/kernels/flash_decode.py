@@ -1,0 +1,196 @@
+"""flash_decode — single-query GQA decode attention over a KV cache.
+
+  out[b, h, g] = softmax(q[b, h, g] . K[b, :kv_len[b], h] / sqrt(D))
+                 @ V[b, :kv_len[b], h]
+
+Ports of ``repro/kernels/flash_decode.py``: ``flash_decode_blocks`` over a
+contiguous (B, S, KV, D) cache and ``flash_decode_paged`` over a
+(P, page, KV, D) page pool addressed through (B, nblk) block tables. q and
+the output are (B, KV, G, D), the reference's layout. ``kv_len`` is a
+scalar shared by the batch (the reference's entry) or (B,) per-request
+lengths, which the lane engine needs. Positions >= kv_len[b]
+are masked, so a paged table's scratch entries (page 0) and unwritten page
+tails contribute nothing. kv_len must be >= 1: an empty request gets zeros
+here, where the reference would average the whole masked cache.
+
+On CUDA tensors the wrappers launch ``csrc/flash_decode.cu`` (its note says
+what bounds it and how the design answers); on CPU tensors they compute
+the plain versions, which follow the TPU kernel's arithmetic (f32 scores
+with 1/sqrt(D) rounded in f32, p kept in f32, f32 accumulation, output
+divided by max(l, 1e-30) and cast to q's dtype) in one dense softmax
+instead of an online one. The tests and ``chip_smoke.py`` hold the kernel
+against them.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import build
+
+_DTYPES = (torch.float32, torch.bfloat16)
+_DIMS = (16, 32, 64, 128)
+MAX_GROUP = 16
+
+
+def softmax_scale(d: int) -> float:
+    """1 / sqrt(D) rounded in f32, as the reference computes it."""
+    return float(np.float32(1.0) / np.sqrt(np.float32(d)))
+
+
+def decode_lengths(kv_len, batch: int, device) -> torch.Tensor:
+    """A scalar length (int or 0-d tensor) or (B,) lengths -> (B,) int32 on
+    ``device``."""
+    kl = torch.as_tensor(kv_len, device=device)
+    if kl.ndim == 0:
+        return kl.to(torch.int32).expand(batch).contiguous()
+    if kl.shape != (batch,):
+        raise ValueError(f"kv_len {tuple(kl.shape)} for batch {batch}")
+    return kl.to(torch.int32).contiguous()
+
+
+def _attend_plain(q, k, v, kv_len):
+    """q (B, KV, G, D); k, v (B, S, KV, D); kv_len (B,). The masked softmax
+    of the kernel in f32, dense."""
+    S = k.shape[1]
+    s = torch.einsum("bhgd,bshd->bhgs", q.float(), k.float())
+    s = s * softmax_scale(q.shape[-1])
+    mask = (torch.arange(S, device=q.device)[None, :]
+            < kv_len.to(q.device).long()[:, None])[:, None, None, :]
+    s = s.masked_fill(~mask, -1e30)
+    p = torch.exp(s - s.amax(-1, keepdim=True)) * mask
+    out = torch.einsum("bhgs,bshd->bhgd", p, v.float())
+    return (out / p.sum(-1, keepdim=True).clamp(min=1e-30)).to(q.dtype)
+
+
+def flash_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       kv_len: torch.Tensor) -> torch.Tensor:
+    """The plain version of ``flash_decode_blocks``."""
+    return _attend_plain(q, k, v, kv_len)
+
+
+def paged_gather(pool: torch.Tensor, block_tables: torch.Tensor
+                 ) -> torch.Tensor:
+    """The contiguous view of each request's pages: pool (P, page, *tail),
+    block_tables (B, nblk) int -> (B, nblk * page, *tail), in table
+    order."""
+    B, nblk = block_tables.shape
+    x = pool[block_tables.reshape(-1).long()]
+    return x.reshape((B, nblk * pool.shape[1]) + tuple(pool.shape[2:]))
+
+
+def flash_decode_paged_plain(q: torch.Tensor, k_pool: torch.Tensor,
+                             v_pool: torch.Tensor,
+                             block_tables: torch.Tensor,
+                             kv_len: torch.Tensor) -> torch.Tensor:
+    """The plain version of ``flash_decode_paged``: gather each request's
+    pages, then the contiguous plain version."""
+    return _attend_plain(q, paged_gather(k_pool, block_tables),
+                         paged_gather(v_pool, block_tables), kv_len)
+
+
+def _check(q, k, v, what: str) -> None:
+    if q.ndim != 4:
+        raise ValueError(f"q must be (B, KV, G, D), got {tuple(q.shape)}")
+    B, KV, G, D = q.shape
+    if k.ndim != 4 or v.shape != k.shape or k.shape[2:] != (KV, D):
+        raise ValueError(f"{what} must be (*, *, {KV}, {D}) alike, got "
+                         f"{tuple(k.shape)} / {tuple(v.shape)}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q, k, v must share one dtype of {_DTYPES}, got "
+                        f"{q.dtype} / {k.dtype} / {v.dtype}")
+
+
+def _check_cuda(name, tensors) -> None:
+    dev = tensors[0].device
+    if dev.type != "cuda":
+        raise RuntimeError(f"{name} runs on cuda or cpu, not {dev}")
+    for t in tensors:
+        if t.device != dev:
+            raise RuntimeError(f"{name} operands on {t.device} and {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} operands must be contiguous")
+    B, KV, G, D = tensors[0].shape
+    if D not in _DIMS or not 1 <= G <= MAX_GROUP:
+        raise ValueError(f"{name} takes D in {_DIMS} and G <= {MAX_GROUP}, "
+                         f"got D={D}, G={G}")
+    if B > 65535 or KV > 2 ** 31 - 1:
+        raise ValueError(f"{name} grid too large for B={B}, KV={KV}")
+
+
+def _lib() -> ctypes.CDLL:
+    lib = build.load("flash_decode")
+    fn = lib.flash_decode_launch
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, i, p, p, p, i, i, i, i, i, i, ctypes.c_float,
+                       p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _launch(name, q, k, v, kv_len, block_tables, rows: int, nblk: int):
+    B, KV, G, D = q.shape
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    err = _lib().flash_decode_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        int(q.dtype == torch.bfloat16), kv_len.data_ptr(),
+        block_tables.data_ptr() if block_tables is not None else None,
+        out.data_ptr(), B, KV, G, D, rows, nblk, softmax_scale(D),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    return out
+
+
+def flash_decode_blocks(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        kv_len) -> torch.Tensor:
+    """q: (B, KV, G, D); k/v: (B, S, KV, D); kv_len a scalar or (B,).
+    Returns (B, KV, G, D) in q's dtype. S is not padded: the kernel stops
+    at each length. CPU tensors take ``flash_decode_plain``; CUDA tensors
+    launch the kernel or raise."""
+    _check(q, k, v, "k/v")
+    kv_len = decode_lengths(kv_len, q.shape[0], q.device)
+    if k.shape[0] != q.shape[0]:
+        raise ValueError(f"k batch {k.shape[0]} != q batch {q.shape[0]}")
+    if q.device.type == "cpu":
+        return flash_decode_plain(q, k, v, kv_len)
+    _check_cuda("flash_decode", (q, k, v, kv_len))
+    out = _launch("flash_decode", q, k, v, kv_len, None, k.shape[1], 0)
+    flash_decode_blocks.launches += 1
+    return out
+
+
+flash_decode_blocks.launches = 0    # kernel launches (CUDA tensors only)
+
+
+def flash_decode_paged(q: torch.Tensor, k_pool: torch.Tensor,
+                       v_pool: torch.Tensor, block_tables: torch.Tensor,
+                       kv_len) -> torch.Tensor:
+    """q: (B, KV, G, D); k_pool/v_pool: (P, page, KV, D) physical pages;
+    block_tables: (B, nblk) int32 (entry 0 = scratch page); kv_len a
+    scalar or (B,). Returns (B, KV, G, D) in q's dtype. CPU tensors take
+    ``flash_decode_paged_plain``; CUDA tensors launch the kernel or
+    raise."""
+    _check(q, k_pool, v_pool, "k_pool/v_pool")
+    kv_len = decode_lengths(kv_len, q.shape[0], q.device)
+    if (block_tables.ndim != 2 or block_tables.shape[0] != q.shape[0]
+            or block_tables.dtype != torch.int32):
+        raise ValueError(f"block_tables must be (B, nblk) int32, got "
+                         f"{tuple(block_tables.shape)} {block_tables.dtype}")
+    if q.device.type == "cpu":
+        return flash_decode_paged_plain(q, k_pool, v_pool, block_tables,
+                                        kv_len)
+    _check_cuda("flash_decode_paged", (q, k_pool, v_pool, block_tables,
+                                       kv_len))
+    out = _launch("flash_decode_paged", q, k_pool, v_pool, kv_len,
+                  block_tables, k_pool.shape[1], block_tables.shape[1])
+    flash_decode_paged.launches += 1
+    return out
+
+
+flash_decode_paged.launches = 0     # kernel launches (CUDA tensors only)

@@ -122,7 +122,10 @@ def sidedelta_table(slots: Sequence, nl: int, n: int, m: int, *,
                     device=None) -> dict:
     """Device table of one weight leaf (nl stacked (n, m) matrices) for A
     adapter slots. ``slots[a]`` is (flat_idx (nl, k), vals (nl, k)) or None
-    for a slot without entries on this leaf.
+    for a slot without entries on this leaf. With ``int8`` a slot may also
+    be (flat_idx (nl, k), vals_q (nl, k) int8, scale float): values already
+    quantized (an int8 pack from the adapter store), kept as they are with
+    that scale instead of being quantized again.
 
     Returns {"rows" (nl, A, K), "vals" (nl, A, K), "colptr" (nl, A, m + 1)
     int32[, "scale" (nl, A) f32]}: each (layer, slot) holds its entries
@@ -159,38 +162,51 @@ def sidedelta_table(slots: Sequence, nl: int, n: int, m: int, *,
         if s is None:
             built.append(None)
             continue
-        idx, vals = (t.to(device) for t in s)
+        direct = len(s) == 3
+        if direct and not int8:
+            raise ValueError("quantized slots need int8 tables")
+        idx, vals = (t.to(device) for t in s[:2])
         idx = idx.reshape(nl, -1)
         vals = vals.reshape(nl, -1)
         _check_entries(idx, vals, n * m)
         # key = (layer, column, row), so the sort is column-major per layer
         uniq, acc = _sorted_unique(
             idx, vals, lambda layer, i: (layer * m + i % m) * n + i // m)
+        if direct and acc.numel() and float(acc.abs().max()) > 127:
+            # f32 sums of int8 values are exact; only padding repeats
+            raise ValueError("quantized duplicate entries sum past int8")
         row = uniq % n
         layer_col = uniq // n
         layer = layer_col // m
         counts = torch.bincount(layer, minlength=nl)
         kmax = max(kmax, int(counts.max()) if counts.numel() else 0)
-        built.append((row, layer_col, layer, counts, acc))
+        built.append((row, layer_col, layer, counts, acc,
+                      float(s[2]) if direct else None))
 
     idx_dt = (torch.int16 if int8 and n < 2 ** 15 and m < 2 ** 15
               else torch.int32)
     rows_t = torch.zeros((nl, A, kmax), dtype=idx_dt, device=device)
     vals_t = torch.zeros((nl, A, kmax), dtype=torch.float32, device=device)
     colptr = torch.zeros((nl, A, m + 1), dtype=torch.int32, device=device)
+    direct_slots = []
     for a, b in enumerate(built):
         if b is None:
             continue
-        row, layer_col, layer, counts, acc = b
+        row, layer_col, layer, counts, acc, scale = b
         starts = torch.cumsum(counts, 0) - counts
         pos = torch.arange(row.numel(), device=device) - starts[layer]
         rows_t[layer, a, pos] = row.to(idx_dt)
         vals_t[layer, a, pos] = acc
         per_col = torch.bincount(layer_col, minlength=nl * m).reshape(nl, m)
         colptr[:, a, 1:] = torch.cumsum(per_col, 1).to(torch.int32)
+        if scale is not None:
+            direct_slots.append((a, scale))
     table = {"rows": rows_t, "colptr": colptr}
     if int8:
         table["vals"], table["scale"] = quantize_table(vals_t)
+        for a, scale in direct_slots:
+            table["vals"][:, a] = vals_t[:, a].to(torch.int8)
+            table["scale"][:, a] = scale
     else:
         table["vals"] = vals_t
     return table

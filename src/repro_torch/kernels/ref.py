@@ -4,6 +4,7 @@ intermediates. Tests hold the kernels' plain versions against these and
 against the JAX package."""
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -101,3 +102,52 @@ def sparse_adamw_rows_ref(values, grads, mu, nu, mu_scale, nu_scale, step,
     uh = u / (1.0 - b2 ** t)
     delta = mh / (torch.sqrt(uh) + eps) + wd * values
     return values - lr * delta, m, u
+
+
+def flash_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     kv_len) -> torch.Tensor:
+    """q: (B, KV, G, D); k/v: (B, S, KV, D); kv_len a scalar or (B,)
+    per-request lengths. Masked softmax attention in f32, cast to q's
+    dtype (the reference's oracle, with per-request lengths)."""
+    B, KV, G, D = q.shape
+    S = k.shape[1]
+    scale = float(np.float32(1.0) / np.sqrt(np.float32(D)))
+    s = torch.einsum("bhgd,bshd->bhgs", q.float(), k.float()) * scale
+    kl = torch.as_tensor(kv_len, device=q.device).long().reshape(-1, 1)
+    mask = torch.arange(S, device=q.device)[None, :] < kl     # (B|1, S)
+    s = s.masked_fill(~mask[:, None, None, :], -1e30)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhgs,bshd->bhgd", p, v.float()).to(q.dtype)
+
+
+def flash_decode_paged_ref(q: torch.Tensor, k_pool: torch.Tensor,
+                           v_pool: torch.Tensor, block_tables: torch.Tensor,
+                           kv_len: torch.Tensor) -> torch.Tensor:
+    """The paged oracle: gather each request's pages (P, page, KV, D) ->
+    (B, nblk * page, KV, D) in table order, then ``flash_decode_ref`` with
+    the per-request lengths (B,)."""
+    B, nblk = block_tables.shape
+    flat = block_tables.reshape(-1).long()
+    rows = nblk * k_pool.shape[1]
+    kk = k_pool[flat].reshape((B, rows) + tuple(k_pool.shape[2:]))
+    vv = v_pool[flat].reshape((B, rows) + tuple(v_pool.shape[2:]))
+    return flash_decode_ref(q, kk, vv, kv_len)
+
+
+def flash_prefill_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      causal: bool = True) -> torch.Tensor:
+    """q: (B, Sq, H, D); k/v: (B, Skv, KV, D) -> (B, Sq, H, D). Softmax
+    attention in f32 (causal positions aligned from 0), cast to q's
+    dtype."""
+    B, Sq, H, D = q.shape
+    Skv, KV = k.shape[1], k.shape[2]
+    qg = q.reshape(B, Sq, KV, H // KV, D)
+    scale = float(np.float32(1.0) / np.sqrt(np.float32(D)))
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float()) * scale
+    if causal:
+        mask = (torch.arange(Sq, device=q.device)[:, None]
+                >= torch.arange(Skv, device=q.device)[None, :])
+        s = s.masked_fill(~mask, -1e30)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
+    return out.reshape(B, Sq, H, D).to(q.dtype)

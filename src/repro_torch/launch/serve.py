@@ -1,8 +1,6 @@
 """Serving entry point: batched greedy decode with SHiRA adapters.
 
-Port of ``repro/launch/serve.py`` (its sequential, ``--fuse`` and
-``--multi-tenant`` modes; ``--continuous`` waits for the adapter hub,
-ROADMAP A5). Three modes:
+Port of ``repro/launch/serve.py``. Four modes:
   (default)       swap adapters BETWEEN batches through the sparse scatter
                   (``SwitchEngine``): base weights patched in place
   --fuse          serve with all adapters fused by naive addition
@@ -11,6 +9,12 @@ ROADMAP A5). Three modes:
                   per-request sparse side deltas, with a ``FusedLRU``
                   fusing the hot adapter into the base; ``--int8`` keeps
                   the side-delta tables int8
+  --continuous    request-level serving (``hub.ServingEngine``): a seeded
+                  trace of ``--requests`` requests, one adapter each, is
+                  submitted at once and decoded over ``--slots`` lanes with
+                  continuous batching, the adapters loaded lazily from an
+                  ``AdapterStore`` of .shpk files in a temporary directory;
+                  ``--int8`` stores int8 packs and serves int8 tables
 Runs on the card unless ``--device cpu`` is given. ``main`` returns the
 run's numbers as a dict, so scripts can drive it as a user would.
 
@@ -97,6 +101,44 @@ def serve_multi_tenant(cfg, params, packs, args) -> dict:
     return stats
 
 
+def serve_continuous(cfg, params, packs, args) -> dict:
+    """The ``--continuous`` mode. Returns the numbers it prints and every
+    request's tokens."""
+    import tempfile
+
+    from repro_torch.hub import AdapterStore, ServingEngine
+    with tempfile.TemporaryDirectory(prefix="adapter-store-") as root:
+        store = AdapterStore(root)
+        for p in packs:
+            store.add(p, values="int8" if args.int8 else "f32")
+        engine = ServingEngine(
+            cfg, params, slots=args.slots or args.batch, store=store,
+            table_dtype="int8" if args.int8 else "f32",
+            cache_size=args.prompt_len + args.tokens + 8)
+        rng = np.random.default_rng(0)
+        futs = []
+        for r in range(args.requests):
+            name = tenant_mix(rng, packs, 1, args.skew)[0]
+            toks = _prompts(cfg, 1, args.prompt_len, 1 + r, args.device)
+            futs.append(engine.submit(toks[0].cpu().numpy(), name,
+                                      max_tokens=args.tokens))
+        dt = engine.run()
+        done = sum(f.done() for f in futs)
+        print(f"[serve-cc] {done}/{len(futs)} requests, {engine.tokens_out} "
+              f"tokens in {dt*1e3:.0f}ms ({engine.tokens_out/dt:.1f} tok/s), "
+              f"{engine.step_count} decode steps, idle-lane steps "
+              f"{engine.decode_slot_waste}, store loads={store.loads} "
+              f"resident={store.resident_bytes()/1e3:.1f}kB")
+        return {"tok_s": engine.tokens_out / dt,
+                "done": done, "requests": len(futs),
+                "tokens_out": engine.tokens_out,
+                "steps": engine.step_count,
+                "idle_lane_steps": engine.decode_slot_waste,
+                "store_loads": store.loads,
+                "resident_bytes": store.resident_bytes(),
+                "outs": [f.result() for f in futs]}
+
+
 def serve_switching(cfg, params, packs, args) -> dict:
     """The sequential (default) and ``--fuse`` modes."""
     engine = SwitchEngine(params)
@@ -150,12 +192,19 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                       help="serve with all adapters fused (multi-adapter)")
     mode.add_argument("--multi-tenant", action="store_true",
                       help="per-request adapters batched in one forward pass")
+    mode.add_argument("--continuous", action="store_true",
+                      help="request-level serving via hub.ServingEngine")
     ap.add_argument("--batches", type=int, default=4,
                     help="request batches to stream (multi-tenant)")
     ap.add_argument("--skew", type=float, default=0.5,
                     help="fraction of requests routed to adapter_0")
+    ap.add_argument("--requests", type=int, default=12,
+                    help="requests to stream (continuous)")
+    ap.add_argument("--slots", type=int, default=0,
+                    help="decode lanes (continuous; 0 = --batch)")
     ap.add_argument("--int8", action="store_true",
-                    help="int8 side-delta tables (multi-tenant)")
+                    help="int8 adapters: quantized store packs (continuous) "
+                    "and int8 side-delta tables (multi-tenant, continuous)")
     ap.add_argument("--device", default="cuda",
                     help="torch device; the CPU only when asked for")
     return ap.parse_args(argv)
@@ -163,11 +212,13 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 
 def main(argv: Optional[List[str]] = None) -> dict:
     args = parse_args(argv)
-    if args.int8 and not args.multi_tenant:
-        raise SystemExit("--int8 applies to --multi-tenant tables")
+    if args.int8 and not (args.multi_tenant or args.continuous):
+        raise SystemExit("--int8 applies to --multi-tenant and --continuous")
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     params = lm.init_params(cfg, seed=0, device=args.device)
     packs = make_adapters(cfg, params, args.adapters)
+    if args.continuous:
+        return serve_continuous(cfg, params, packs, args)
     if args.multi_tenant:
         return serve_multi_tenant(cfg, params, packs, args)
     return serve_switching(cfg, params, packs, args)

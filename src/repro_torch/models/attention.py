@@ -1,12 +1,27 @@
-"""GQA attention: training, and prefill and decode against a contiguous KV
-cache.
+"""GQA attention: training, prefill and decode against a contiguous KV
+cache, and the paged paths over a page pool.
 
-Port of the GQA part of ``repro/models/attention.py``. The math is plain
-torch, as the reference's is jnp: scores and softmax in f32 from
-compute-dtype operands, probabilities cast back to the compute dtype for
-the value product. The decode path writes the new K/V into the cache in
-place (the reference returns an updated copy). MLA and the paged paths
-wait (ROADMAP A6, A9).
+Port of the GQA part of ``repro/models/attention.py``. Training keeps the
+reference's plain math (``chunked_attention``: scores and softmax in f32
+from compute-dtype operands, probabilities cast back to the compute dtype
+for the value product). Serving sends attention through the port's
+attention kernels, where the reference's model never calls its Pallas ones:
+  gqa_prefill       ``flash_prefill_blocks`` when causal with no prefix
+                    (starcoder2-7b's case, and lane admission), else
+                    ``chunked_attention``
+  gqa_decode        ``flash_decode_blocks`` with kv_len = pos + 1, a scalar
+                    or (B,) per-request lengths
+  gqa_decode_paged  writes through the block table, then
+                    ``flash_decode_paged`` on the pools, with no gather
+  gqa_prefill_chunk a query offset, which no TPU kernel computes: the
+                    reference gathers the pages and does jnp math, and so
+                    does this port in plain torch
+The kernels keep the probabilities in f32 where ``_attend_block`` rounds
+them to the compute dtype: equal in f32, a bf16 rounding apart in bf16.
+``gqa_prefill_chunk`` keeps them in f32 as the kernels do, so the lane and
+paged engines prefill with the same numerics.
+Caches are written in place (the reference returns updated copies). MLA
+waits (ROADMAP A9); int8 (``QuantKV``) pages wait too.
 """
 from __future__ import annotations
 
@@ -16,6 +31,9 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.flash_decode import (flash_decode_blocks,
+                                              flash_decode_paged)
+from repro_torch.kernels.flash_prefill import flash_prefill_blocks
 from repro_torch.models.layers import (apply_rope, compute_dtype, dense,
                                        glorot)
 
@@ -27,9 +45,13 @@ class KVCache(NamedTuple):
     v: torch.Tensor
 
 
-def _attend_block(q, k, v, q_pos, k_pos, causal, prefix_len, kv_len=None):
+def _attend_block(q, k, v, q_pos, k_pos, causal, prefix_len, kv_len=None,
+                  f32_probs=False):
     """q: (B, qc, H, D); k, v: (B, Sk, KV, D); q_pos (qc,) or (B, qc);
-    k_pos (Sk,); kv_len None, a scalar or (B,). Returns (B, qc, H, D)."""
+    k_pos (Sk,); kv_len None, a scalar or (B,). Returns (B, qc, H, D) in
+    the compute dtype. The probabilities are rounded to the compute dtype
+    before the value product, as the reference does, unless ``f32_probs``
+    (the attention kernels' numerics)."""
     B, qc, H, D = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -53,9 +75,12 @@ def _attend_block(q, k, v, q_pos, k_pos, causal, prefix_len, kv_len=None):
         kl = kl[:, None, None] if kl.ndim == 1 else kl
         mask = mask & (k_pos[None, None, :] < kl)
     scores = scores.masked_fill(~mask[:, None, None], NEG_INF)
-    probs = torch.softmax(scores, dim=-1).to(cd)
-    out = torch.einsum("bkgqs,bskd->bqkgd", probs, v.to(cd))
-    return out.reshape(B, qc, H, v.shape[-1])
+    probs = torch.softmax(scores, dim=-1)
+    if f32_probs:
+        out = torch.einsum("bkgqs,bskd->bqkgd", probs, v.to(cd).float())
+    else:
+        out = torch.einsum("bkgqs,bskd->bqkgd", probs.to(cd), v.to(cd))
+    return out.to(cd).reshape(B, qc, H, v.shape[-1])
 
 
 def chunked_attention(q, k, v, *, causal=True, q_offset=0, prefix_len=0,
@@ -166,9 +191,12 @@ def gqa_prefill(params, cfg: ModelConfig, x, cache_size: int, *,
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)
     q, k, v = _gqa_qkv(params, cfg, x, positions)
-    out = chunked_attention(q, _maybe_repeat_kv(cfg, k),
-                            _maybe_repeat_kv(cfg, v), causal=cfg.causal,
-                            prefix_len=prefix_len, q_chunk=q_chunk)
+    kr, vr = _maybe_repeat_kv(cfg, k), _maybe_repeat_kv(cfg, v)
+    if cfg.causal and prefix_len == 0:
+        out = flash_prefill_blocks(q, kr, vr, causal=True)
+    else:
+        out = chunked_attention(q, kr, vr, causal=cfg.causal,
+                                prefix_len=prefix_len, q_chunk=q_chunk)
     hd = cfg.resolved_head_dim
     KV = padded_heads(cfg)[1]
     cd = compute_dtype()
@@ -192,6 +220,17 @@ def _decode_positions(pos, B: int, device) -> Tuple[torch.Tensor, bool]:
     return p[:, None], True
 
 
+def _flash_decode(cfg: ModelConfig, q, ck, cv, kv_len):
+    """q: (B, 1, H', D) against the contiguous cache (B, S, KV', D):
+    ``flash_decode_blocks`` on q grouped as (B, KV, G, D)."""
+    B, _, H, D = q.shape
+    k, v = _maybe_repeat_kv(cfg, ck), _maybe_repeat_kv(cfg, cv)
+    KV = k.shape[2]
+    out = flash_decode_blocks(q.to(k.dtype).reshape(B, KV, H // KV, D), k,
+                              v, kv_len)
+    return out.reshape(B, 1, H, D)
+
+
 def gqa_decode(params, cfg: ModelConfig, x, cache: KVCache, pos
                ) -> Tuple[torch.Tensor, KVCache]:
     """x: (B, 1, d); pos: scalar index where the new token lands, or (B,)
@@ -204,13 +243,74 @@ def gqa_decode(params, cfg: ModelConfig, x, cache: KVCache, pos
         b = torch.arange(B, device=x.device)
         cache.k[b, positions[:, 0]] = k.to(cd)[:, 0]
         cache.v[b, positions[:, 0]] = v.to(cd)[:, 0]
+        kv_len = positions[:, 0] + 1
     else:
         p = pos if isinstance(pos, int) else int(pos)
         cache.k[:, p:p + 1] = k.to(cd)
         cache.v[:, p:p + 1] = v.to(cd)
-    kv_len = positions[:, 0] + 1 if vector else positions[0] + 1
-    out = _attend_block(q, _maybe_repeat_kv(cfg, cache.k),
-                        _maybe_repeat_kv(cfg, cache.v), positions,
-                        torch.arange(cache.k.shape[1], device=x.device),
-                        causal=True, prefix_len=0, kv_len=kv_len)
+        kv_len = p + 1
+    out = _flash_decode(cfg, q, cache.k, cache.v, kv_len)
     return dense(out.reshape(B, 1, -1), params["wo"]), cache
+
+
+# ---------------------------------------------------------------------------
+# Paged GQA: the cache is a page pool (P, page, KV, D) per layer plus
+# per-request block tables (B, nblk), see repro_torch.serving.kvcache.
+# ---------------------------------------------------------------------------
+
+def _paged_kv_mod():
+    from repro_torch.serving import kvcache  # deferred: serving imports models
+    return kvcache
+
+
+def gqa_decode_paged(params, cfg: ModelConfig, x, cache: KVCache,
+                     block_tables, pos) -> Tuple[torch.Tensor, KVCache]:
+    """x: (B, 1, d); cache: page pools (P, page, KV, D); block_tables:
+    (B, nblk) int32; pos: (B,) per-request write index. Writes the new row
+    through the table in place, then ``flash_decode_paged`` reads the pools
+    through it, with no gather."""
+    if cfg.attn_repeat_kv:
+        raise NotImplementedError("paged decode with attn_repeat_kv is not "
+                                  "ported (ROADMAP A6)")
+    KVC = _paged_kv_mod()
+    B = x.shape[0]
+    pos = torch.as_tensor(pos, device=x.device)
+    positions = pos[:, None]                                # (B, 1)
+    q, k, v = _gqa_qkv(params, cfg, x, positions)
+    valid = torch.ones((B, 1), dtype=torch.bool, device=x.device)
+    KVC.paged_write(cache.k, k, block_tables, positions, valid)
+    KVC.paged_write(cache.v, v, block_tables, positions, valid)
+    H, D = q.shape[2], q.shape[3]
+    KV = cache.k.shape[2]
+    out = flash_decode_paged(
+        q.to(cache.k.dtype).reshape(B, KV, H // KV, D), cache.k, cache.v,
+        block_tables.to(torch.int32).contiguous(), pos + 1)
+    return dense(out.reshape(B, 1, -1), params["wo"]), cache
+
+
+def gqa_prefill_chunk(params, cfg: ModelConfig, x, cache: KVCache,
+                      block_tables, start, kv_len
+                      ) -> Tuple[torch.Tensor, KVCache]:
+    """One chunk of a paged prefill. x: (B, C, d), rows at absolute
+    positions ``start + i``; rows at positions >= ``kv_len`` are padding
+    (their K/V land in the scratch page, their outputs are garbage the
+    caller discards). ``kv_len`` is the total valid length including this
+    chunk. The query offset is plain torch, as in the reference: gather the
+    pages, then ``_attend_block`` with the probabilities kept in f32, as
+    ``flash_prefill`` keeps them for the lane engine."""
+    KVC = _paged_kv_mod()
+    B, C, _ = x.shape
+    positions = start + torch.arange(C, device=x.device)   # (C,)
+    q, k, v = _gqa_qkv(params, cfg, x, positions)
+    posg = positions[None].expand(B, C)
+    valid = posg < kv_len
+    KVC.paged_write(cache.k, k, block_tables, posg, valid)
+    KVC.paged_write(cache.v, v, block_tables, posg, valid)
+    kk = KVC.paged_gather(cache.k, block_tables)
+    vv = KVC.paged_gather(cache.v, block_tables)
+    out = _attend_block(q, _maybe_repeat_kv(cfg, kk),
+                        _maybe_repeat_kv(cfg, vv), positions,
+                        torch.arange(kk.shape[1], device=x.device),
+                        causal=cfg.causal, prefix_len=0, kv_len=kv_len,
+                        f32_probs=True)
+    return dense(out.reshape(B, C, -1), params["wo"]), cache

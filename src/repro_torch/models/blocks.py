@@ -47,9 +47,29 @@ def dense_block_prefill(params, cfg: ModelConfig, h, cache_size, *,
     return h, cache
 
 
-def dense_block_decode(params, cfg: ModelConfig, h, cache, pos):
+def dense_block_decode(params, cfg: ModelConfig, h, cache, pos,
+                       block_tables=None):
+    """One decode step; with ``block_tables`` the cache is a page pool
+    (``attention.gqa_decode_paged``)."""
     x = rms_norm(h, params["attn_norm"]["scale"], cfg.norm_eps)
-    a, cache = attn.gqa_decode(params["attn"], cfg, x, cache, pos)
+    if block_tables is not None:
+        a, cache = attn.gqa_decode_paged(params["attn"], cfg, x, cache,
+                                         block_tables, pos)
+    else:
+        a, cache = attn.gqa_decode(params["attn"], cfg, x, cache, pos)
+    h = h + a
+    x = rms_norm(h, params["mlp_norm"]["scale"], cfg.norm_eps)
+    h = h + mlp(params["mlp"], x, cfg.act)
+    return h, cache
+
+
+def dense_block_prefill_chunk(params, cfg: ModelConfig, h, cache,
+                              block_tables, start, kv_len):
+    """Paged chunk prefill: like dense_block_prefill but writing one chunk
+    of positions [start, kv_len) through a block table."""
+    x = rms_norm(h, params["attn_norm"]["scale"], cfg.norm_eps)
+    a, cache = attn.gqa_prefill_chunk(params["attn"], cfg, x, cache,
+                                      block_tables, start, kv_len)
     h = h + a
     x = rms_norm(h, params["mlp_norm"]["scale"], cfg.norm_eps)
     h = h + mlp(params["mlp"], x, cfg.act)

@@ -14,8 +14,13 @@ Entry points:
   init_params(cfg, seed, device)                  -> params
   train_loss(params, cfg, batch)                  -> (loss, metrics)
   prefill(params, cfg, batch, cache_size)         -> (last_logits, caches)
-  decode_step(params, cfg, tokens, caches, pos)   -> (logits, caches)
+  decode_step(params, cfg, tokens, caches, pos[, block_tables])
+                                                  -> (logits, caches)
+  prefill_chunk(params, cfg, tokens, caches, block_tables, start, valid)
+                                                  -> (last_logits, caches)
   init_cache(cfg, batch, cache_size, device)      -> caches (zeros)
+  init_paged_cache(cfg, num_pages, page_size, device) -> page pools (zeros)
+  cache_batch_axes(cfg)                           -> batch axis per leaf
 """
 from __future__ import annotations
 
@@ -182,23 +187,66 @@ def prefill(params, cfg: ModelConfig, batch, cache_size: int):
     return _logits(params, cfg, h[:, -1]), caches
 
 
-def decode_step(params, cfg: ModelConfig, tokens, caches, pos):
+def decode_step(params, cfg: ModelConfig, tokens, caches, pos,
+                block_tables=None):
     """tokens: (B, 1) int; pos: int cache index shared by the batch, or a
-    (B,) tensor of per-request indices. Returns (logits (B, V), caches);
-    the caches are updated in place."""
+    (B,) tensor of per-request indices. With ``block_tables`` ((B, nblk)
+    int32) the caches are page pools (``init_paged_cache``) and ``pos`` is
+    the (B,) per-request write index. Returns (logits (B, V), caches); the
+    caches are updated in place."""
     h = embed(params["embed"], tokens)
     for sp, cache, (_, n) in zip(params["stages"], caches, stage_plan(cfg)):
         for i in range(n):
             h, _ = B.dense_block_decode(layer_slice(sp, i), cfg, h,
-                                        KVCache(cache.k[i], cache.v[i]), pos)
+                                        KVCache(cache.k[i], cache.v[i]), pos,
+                                        block_tables=block_tables)
     h = rms_norm(h, params["final_norm"]["scale"], cfg.norm_eps)
     return _logits(params, cfg, h[:, 0]), caches
 
 
-def init_cache(cfg: ModelConfig, bsz: int, cache_size: int, device="cuda"):
+def prefill_chunk(params, cfg: ModelConfig, tokens, caches, block_tables,
+                  start: int, valid: int):
+    """One chunk of a paged prefill. tokens: (B, C) int, columns at
+    absolute positions ``start + i``; ``valid`` counts the real tokens
+    (padding columns write to the scratch page and are masked out of
+    attention). Returns (logits of the last real token (B, V), caches),
+    the pools written in place."""
+    h = embed(params["embed"], tokens)
+    kv_len = start + valid
+    for sp, cache, (_, n) in zip(params["stages"], caches, stage_plan(cfg)):
+        for i in range(n):
+            h, _ = B.dense_block_prefill_chunk(
+                layer_slice(sp, i), cfg, h, KVCache(cache.k[i], cache.v[i]),
+                block_tables, start, kv_len)
+    h = rms_norm(h, params["final_norm"]["scale"], cfg.norm_eps)
+    return _logits(params, cfg, h[:, valid - 1]), caches
+
+
+def _kv_zeros(cfg: ModelConfig, rows: Tuple[int, int], device):
+    """One stacked KVCache per stage: (L, *rows, KV, D) zeros in the
+    compute dtype."""
     hd = cfg.resolved_head_dim
     kv = padded_heads(cfg)[1]
-    return [KVCache(*(torch.zeros((n, bsz, cache_size, kv, hd),
+    return [KVCache(*(torch.zeros((n,) + tuple(rows) + (kv, hd),
                                   dtype=compute_dtype(), device=device)
                       for _ in range(2)))
             for _, n in stage_plan(cfg)]
+
+
+def init_cache(cfg: ModelConfig, bsz: int, cache_size: int, device="cuda"):
+    return _kv_zeros(cfg, (bsz, cache_size), device)
+
+
+def cache_batch_axes(cfg: ModelConfig):
+    """Per stage, a ``KVCache`` of the batch axis of each leaf: a dense
+    stage's KV leaf is (L, B, S, KV, D), so 1. Lane splicing reads this
+    metadata, not the shapes."""
+    return [KVCache(1, 1) for _ in stage_plan(cfg)]
+
+
+def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
+                     device="cuda"):
+    """One page pool per stage, stacked over layers: (L, num_pages,
+    page_size, KV, D) zeros in the compute dtype. One (B, nblk) block
+    table drives the whole stack."""
+    return _kv_zeros(cfg, (num_pages, page_size), device)

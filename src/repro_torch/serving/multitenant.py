@@ -16,10 +16,12 @@ with the negated fused pack. Tenants may be adapter stacks (tuples of
 names), whose side pack is the merged sum.
 
 Tables hold f32 values, or int8 values with a per-(layer, adapter) scale
-(``table_dtype="int8"``, row indices int16 where the dims fit). The shared
-tree is updated in place by fusion; ``close`` un-fuses and returns it to
-the base. Async table builds, adapter stores, fault injection and tracing
-wait (ROADMAP A5, A8).
+(``table_dtype="int8"``, row indices int16 where the dims fit). With an
+``AdapterStore`` attached (``store=``), ``register`` also takes an adapter
+id, and an int8 store pack (``QuantPack``) keeps its own quantization in
+int8 tables. The shared tree is updated in place by fusion; ``close``
+un-fuses and returns it to the base. Async table builds, ``slot_pad``,
+fault injection and tracing wait (ROADMAP A5, A8).
 """
 from __future__ import annotations
 
@@ -103,14 +105,17 @@ class MultiTenantEngine:
     ``FusedLRU(capacity>1)`` a hot stack is fused as a group."""
 
     def __init__(self, cfg, params, *, scheduler: Optional[FusedLRU] = None,
-                 table_dtype: str = "f32"):
+                 store=None, table_dtype: str = "f32"):
         if table_dtype not in ("f32", "int8"):
             raise ValueError(f"table_dtype must be 'f32' or 'int8', got "
                              f"{table_dtype!r}")
         self.cfg = cfg
         self.shared = params                 # base (+ the fused packs, if any)
         self.packs: Dict[str, AdapterPack] = {}
+        self._qpacks: Dict[str, object] = {}  # name -> int8 QuantPack
+        self._qtables: Dict[str, dict] = {}   # name -> its int8_tables()
         self.scheduler = scheduler
+        self.store = store
         self.table_dtype = table_dtype
         self.fused: Optional[Tenant] = None
         self.fuse_transitions = 0            # promote/demote scatter count
@@ -127,7 +132,19 @@ class MultiTenantEngine:
     # Registration / side-delta tables
     # ------------------------------------------------------------------
 
-    def register(self, pack: AdapterPack) -> None:
+    def register(self, pack) -> None:
+        """Register an ``AdapterPack``, an int8 ``QuantPack``, or (with a
+        store attached) an adapter id, which the store loads."""
+        if isinstance(pack, str):
+            if self.store is None:
+                raise ValueError(f"adapter named by id {pack!r} but no "
+                                 "AdapterStore attached")
+            # int8 tables build straight from the store's quantized form
+            pack = (self.store.get_raw(pack) if self.table_dtype == "int8"
+                    else self.store.get(pack))
+        qp = None
+        if hasattr(pack, "int8_tables"):     # a hub.packio.QuantPack
+            qp, pack = pack, pack.dequantize()
         for path in pack.entries:
             if path not in self._shapes:
                 raise KeyError(f"adapter {pack.name!r} targets unknown "
@@ -139,7 +156,16 @@ class MultiTenantEngine:
                     self.scheduler.fused):
                 self.scheduler.fused = None
         self.packs[pack.name] = pack
+        self._qpacks.pop(pack.name, None)
+        self._qtables.pop(pack.name, None)
+        if qp is not None:
+            self._qpacks[pack.name] = qp
         self._dirty = True
+
+    def resolve(self, name):
+        """A tenant's ids through the attached store; the identity while
+        versioned ids wait (ROADMAP A7)."""
+        return name
 
     def _side_packs(self) -> Dict[Tenant, AdapterPack]:
         """What each tenant's side delta must be, given the fused state."""
@@ -175,6 +201,15 @@ class MultiTenantEngine:
         self._slots = {name: i for i, name in enumerate(order)}
         paths = sorted({p for pk in side.values() for p in pk.entries})
         int8 = self.table_dtype == "int8"
+        # a plain single-adapter tenant registered from an int8 store pack
+        # keeps the store's values and per-path scale (one rounding)
+        direct = {}
+        for name in order:
+            if (int8 and isinstance(name, str) and name in self._qpacks
+                    and side[name] is self.packs[name]):
+                if name not in self._qtables:   # decode the gap streams once
+                    self._qtables[name] = self._qpacks[name].int8_tables()
+                direct[name] = self._qtables[name]
         for path in paths:
             *lead, n, m = self._shapes[path]
             nl = 1
@@ -185,6 +220,12 @@ class MultiTenantEngine:
                 pk = side[name]
                 if path not in pk.entries:
                     slots.append(None)
+                    continue
+                if name in direct and path in direct[name]:
+                    idx, vq, scale = direct[name][path]
+                    slots.append((torch.from_numpy(idx).reshape(nl, -1),
+                                  torch.from_numpy(vq.copy()).reshape(nl, -1),
+                                  scale * self._qpacks[name].alpha))
                     continue
                 idx, val = pk.entries[path]
                 slots.append((idx.reshape(nl, -1),

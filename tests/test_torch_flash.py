@@ -1,0 +1,143 @@
+"""The port's attention kernels' plain versions against the JAX package.
+
+``flash_decode_blocks``, ``flash_decode_paged`` and ``flash_prefill_blocks``
+compute their plain versions on CPU tensors; these are held against the
+JAX Pallas kernels in interpret mode (``repro.kernels.ops.flash_decode``,
+``flash_decode.flash_decode_paged``, ``ops.flash_prefill``) and against the
+reference oracles, on the same numpy inputs: f32 within 1e-5, bf16 within
+5e-2 (the JAX package's own tolerances, ``tests/test_kernels.py``). The
+attention layers that call them are held against the JAX model in
+``test_torch_attention.py``.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro.kernels.flash_decode import flash_decode_paged as j_paged
+from repro_torch.kernels import ref
+from repro_torch.kernels.flash_decode import (flash_decode_blocks,
+                                              flash_decode_paged)
+from repro_torch.kernels.flash_prefill import flash_prefill_blocks
+
+TOL = {"f32": 1e-5, "bf16": 5e-2}
+JDT = {"f32": jnp.float32, "bf16": jnp.bfloat16}
+TDT = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+
+def _pair(a: np.ndarray, dt: str):
+    """The same numbers as a JAX array and a torch tensor of dtype ``dt``
+    (bf16 rounds once, in JAX, and the bits cross over)."""
+    j = jnp.asarray(a, JDT[dt])
+    return j, torch.from_numpy(np.array(j.astype(jnp.float32))).to(TDT[dt])
+
+
+def _close(port, want, dt):
+    if isinstance(want, torch.Tensor):
+        want = want.float().numpy()
+    np.testing.assert_allclose(port.float().numpy(),
+                               np.asarray(want, np.float32),
+                               atol=TOL[dt], rtol=TOL[dt])
+
+
+DECODE_SHAPES = [(1, 1, 1, 64, 512, 256), (2, 2, 4, 64, 1024, 512),
+                 (2, 1, 8, 128, 768, 256), (2, 2, 9, 32, 300, 100)]
+
+
+@pytest.mark.parametrize("B,KV,G,D,S,sb", DECODE_SHAPES)
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_flash_decode_matches_jax(B, KV, G, D, S, sb, dt):
+    rng = np.random.RandomState(4)
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(rng.randn(*s), dt) for s in (
+        (B, KV, G, D), (B, S, KV, D), (B, S, KV, D)))
+    kv_len = S - 100
+    port = flash_decode_blocks(tq, tk, tv, kv_len)
+    assert port.dtype == TDT[dt] and port.shape == (B, KV, G, D)
+    _close(port, jops.flash_decode(jq, jk, jv, kv_len, sb=sb,
+                                   interpret=True), dt)
+    _close(port, jref.flash_decode_ref(jq, jk, jv, kv_len), dt)
+    _close(ref.flash_decode_ref(tq, tk, tv, kv_len),
+           jref.flash_decode_ref(jq, jk, jv, kv_len), dt)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_flash_decode_per_request_lengths(dt):
+    """(B,) kv_len, which the lane engine needs, equals the scalar entry
+    (the reference's) row by row, in both packages."""
+    rng = np.random.RandomState(7)
+    B, KV, G, D, S = 4, 2, 9, 32, 96
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(rng.randn(*s), dt) for s in (
+        (B, KV, G, D), (B, S, KV, D), (B, S, KV, D)))
+    lens = [1, 17, 64, 96]
+    port = flash_decode_blocks(tq, tk, tv, torch.tensor(lens, dtype=torch.int32))
+    for b, n in enumerate(lens):
+        alone = flash_decode_blocks(tq[b:b + 1], tk[b:b + 1], tv[b:b + 1], n)
+        np.testing.assert_array_equal(port[b:b + 1].float().numpy(),
+                                      alone.float().numpy())
+        _close(port[b:b + 1], jops.flash_decode(
+            jq[b:b + 1], jk[b:b + 1], jv[b:b + 1], n, sb=32,
+            interpret=True), dt)
+
+
+@pytest.mark.parametrize("G", [2, 9])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_flash_decode_paged_matches_jax(G, dt):
+    """A shuffled pool of pages; table entries past each request's pages
+    are the scratch page 0 (masked by kv_len), as the paged engine lays
+    them out; an idle lane decodes against the scratch page with kv_len 1
+    and stays finite."""
+    rng = np.random.RandomState(3)
+    B, KV, D, page, nblk = 3, 2, 16, 4, 6
+    P = 1 + B * nblk
+    pages = rng.permutation(np.arange(1, P)).astype(np.int32)
+    bt = pages.reshape(B, nblk).copy()
+    lens = np.array([7, 21, 1], np.int32)
+    for b, n in enumerate(lens):
+        bt[b, -(-n // page):] = 0
+    bt[2] = 0                                   # an idle lane
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(rng.randn(*s), dt) for s in (
+        (B, KV, G, D), (P, page, KV, D), (P, page, KV, D)))
+    tbt, tlen = torch.from_numpy(bt), torch.from_numpy(lens)
+    port = flash_decode_paged(tq, tk, tv, tbt, tlen)
+    assert torch.isfinite(port.float()).all()
+    _close(port, j_paged(jq, jk, jv, jnp.asarray(bt), jnp.asarray(lens),
+                         interpret=True), dt)
+    _close(port, ref.flash_decode_paged_ref(tq, tk, tv, tbt, tlen), dt)
+
+
+PREFILL_SHAPES = [(2, 13, 6, 2, 16), (1, 40, 18, 2, 32)]
+
+
+@pytest.mark.parametrize("B,S,H,KV,D", PREFILL_SHAPES)
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_flash_prefill_matches_jax(B, S, H, KV, D, causal, dt):
+    """Causal at unaligned lengths (the reference pads, the port masks);
+    bidirectional at a kv length that is a multiple of the reference's kv
+    block, the only case where the two define the same function."""
+    rng = np.random.RandomState(S)
+    Skv = S if causal else 16 * (-(-S // 16))
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(rng.randn(*s), dt) for s in (
+        (B, S, H, D), (B, Skv, KV, D), (B, Skv, KV, D)))
+    port = flash_prefill_blocks(tq, tk, tv, causal=causal)
+    assert port.dtype == TDT[dt] and port.shape == (B, S, H, D)
+    _close(port, jops.flash_prefill(jq, jk, jv, bq=8, bkv=16, causal=causal,
+                                    interpret=True), dt)
+    _close(port, jref.flash_prefill_ref(jq, jk, jv, causal=causal), dt)
+    _close(ref.flash_prefill_ref(tq, tk, tv, causal=causal),
+           jref.flash_prefill_ref(jq, jk, jv, causal=causal), dt)
+
+
+def test_wrappers_validate_inputs():
+    q = torch.zeros((2, 2, 3, 16))
+    k = torch.zeros((2, 8, 2, 16))
+    with pytest.raises(ValueError, match="kv_len"):
+        flash_decode_blocks(q, k, k, torch.tensor([1, 2, 3], dtype=torch.int32))
+    with pytest.raises(TypeError, match="dtype"):
+        flash_decode_blocks(q.bfloat16(), k, k, 4)
+    with pytest.raises(ValueError, match="block_tables"):
+        flash_decode_paged(q, k, k, torch.zeros((2, 3), dtype=torch.int64), 4)
+    with pytest.raises(ValueError, match="do not fit"):
+        flash_prefill_blocks(torch.zeros((2, 8, 3, 16)), k, k)

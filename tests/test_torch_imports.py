@@ -50,6 +50,10 @@ def test_port_imports_with_jax_blocked():
         "import repro_torch.kernels.ops, repro_torch.kernels.sparse_adamw\n"
         "import repro_torch.data, repro_torch.optim, repro_torch.runtime\n"
         "import repro_torch.training, repro_torch.launch.train\n"
+        "import repro_torch.hub, repro_torch.hub.packio, repro_torch.hub.store\n"
+        "import repro_torch.hub.serving, repro_torch.serving.kvcache\n"
+        "import repro_torch.runtime.faults, repro_torch.kernels.flash_decode\n"
+        "import repro_torch.kernels.flash_prefill, repro_torch.kernels.ref\n"
         "assert not any(k == 'jax' or k.startswith(('jax.', 'repro.'))\n"
         "               for k in sys.modules if sys.modules[k] is not None)\n"
     )
