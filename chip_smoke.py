@@ -36,8 +36,24 @@ prints its seconds on a "[time]" line:
                and a torch.profiler breakdown of one multi-adapter step
   10. train-consistency  full width, 2 layers, f32: adapter a of the
                multi-adapter trainer tracks Trainer(init a) to 5e-3
-  11. summary   one JSON line of kernel numbers, the card line, and last
+  11. train (wm, hook)  full width: launch.train --adapter shira-wm (the
+               reference's default mask, packed, all 32 layers), then a
+               hook-mode Trainer (shira-wm, packed=False) cut to 12 layers:
+               step ms, tokens/s, peak memory, the mask build's seconds,
+               masked_update launched 6 times a step; its exported pack's
+               %C, and the pack loaded back through SwitchEngine
+               (scatter_apply) equal to the trained weights
+  12. hook-consistency  full width, 2 layers, f32: hook and packed runs on
+               one wm mask give the same losses to 2e-3; grad and snip
+               masks from one batch's calibration gradients train, and
+               their exported packs load
+  13. summary   one JSON line of kernel numbers, the card line, and last
                {"ok": true, "device": {...}}
+
+The kernels phase also holds masked_update (the dense-mask apply of hook
+mode) against its plain version, bit for bit, at the stacked (32, 4608,
+18432) w_up leaf with a 1% mask: f32 W with a bool mask, bf16 W with a
+bool mask, f32 W with an f32 mask, beside Tensor.addcmul_.
 """
 from __future__ import annotations
 
@@ -69,6 +85,13 @@ IDS = [0, 1, 2, -1, 0, 1, 2, 0]
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 256, 8, 4   # launch.train phase
 MT_SEQ, MT_BATCH, MT_STEPS = 256, 2, 3            # per adapter, A = 3
 MT_IDS = [0, 0, 1, 1, 2, 2]    # the multi-adapter batch: T_a = 512 tokens
+MU_DENSITY = 0.01              # masked_update's mask: 1% of the leaf
+HOOK_LAYERS, HOOK_STEPS = 12, 4  # hook mode at full width: 21 B a target
+                                # entry, 54.7 GB at 12 of 32 layers
+HOOK_TOL = 2e-3                # hook vs packed losses: the JAX package's
+                               # own claim (tests/test_training.py)
+ROUND_TRIP_TOL = 1e-6          # a loaded pack vs the trained weights, of
+                               # the largest weight: base + (W - base)
 
 
 def fail(msg: str) -> None:
@@ -625,6 +648,86 @@ def attention_kernels_phase(torch, flush):
     return out
 
 
+def masked_update_kernels(torch, flush):
+    """masked_update at the stacked (32, 4608, 18432) w_up leaf, 1% mask,
+    alpha = -3e-4: f32 W with a bool mask (the hook path's), bf16 W with a
+    bool mask, f32 W with an f32 mask (the reference's masks), each held
+    bit for bit against its plain version. The plain version runs layer by
+    layer, on a copy of W: its f32 temporaries of the whole leaf would not
+    fit beside it. The yardstick is one w.addcmul_(m, v) call on the same
+    inputs (addcmul_ promotes a bool m). The bound reads W, M and V whole
+    (a NaN in V or a -0 in W changes W off the mask too) and writes only
+    the 32-byte sectors of W that hold a masked entry, counted on this
+    run's mask: the update is in place."""
+    from repro_torch.kernels.masked_update import (masked_update,
+                                                   masked_update_plain)
+    L, d, f = 32, 4608, 18432
+    n = L * d * f
+    alpha = -3e-4
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(6)
+    mask = torch.empty((L, d, f), dtype=torch.bool, device="cuda")
+    for i in range(L):
+        mask[i] = torch.rand((d, f), generator=gen, device="cuda") < MU_DENSITY
+    v = torch.randn((L, d, f), generator=gen, device="cuda")
+    out = {}
+
+    def case(label, w, m):
+        bits = torch.int32 if w.dtype == torch.float32 else torch.int16
+        w0, first = w.clone(), w[0].clone()
+        masked_update(w, m, v, alpha)
+        for i in range(L):
+            masked_update_plain(w0[i], m[i], v[i], alpha)
+        torch.cuda.synchronize()
+        err = max(float((w[i].float() - w0[i].float()).abs().max())
+                  for i in range(L))
+        equal = all(bool(torch.equal(w[i].view(bits), w0[i].view(bits)))
+                    for i in range(L))
+        on = m[0].bool()        # the update moves masked entries only
+        moved = bool((w[0] != first)[on].any()) and bool(torch.equal(
+            w[0][~on].view(bits), first[~on].view(bits)))
+        del first
+        per = 32 // w.element_size()        # W entries a 32-byte sector
+        sectors = sum(int(m[i].reshape(-1, per).ne(0).any(1).sum())
+                      for i in range(L))
+        if not equal or err != 0.0 or not moved:
+            fail(f"masked_update {label}: not bit-equal to its plain version"
+                 f" (max_abs_err {err})")
+        r = {"max_abs_err": err,
+             "ms": cold_ms(torch, lambda: masked_update(w, m, v, alpha), 10,
+                           flush),
+             "plain_ms": cold_ms(torch, lambda: [masked_update_plain(
+                 w0[i], m[i], v[i], alpha) for i in range(L)], 2, flush),
+             "library_ms": cold_ms(torch, lambda: w.addcmul_(
+                 m, v, value=alpha), 10, flush),
+             **bound(n * (w.element_size() + m.element_size() + 4)
+                     + 32 * sectors, 3 * n)}
+        print(f"[kernels] masked_update ({L}, {d}, {f}) {label}, "
+              f"{int(m[0].count_nonzero())} of {d * f} entries a layer, "
+              f"{sectors} of {n // per} W sectors written: "
+              f"max_abs_err={err} bit-equal={equal} ms={r['ms']:.4f} "
+              f"plain_ms(layer by layer)={r['plain_ms']:.3f} "
+              f"library_ms(addcmul_)={r['library_ms']:.4f} "
+              f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']})", flush=True)
+        out[label] = r
+        del w0
+
+    w = torch.randn((L, d, f), generator=gen, device="cuda")
+    case("f32 W, bool M", w, mask)
+    del w
+    w = torch.randn((L, d, f), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    case("bf16 W, bool M", w, mask)
+    del w
+    mask_f = mask.float()
+    del mask
+    torch.cuda.empty_cache()
+    w = torch.randn((L, d, f), generator=gen, device="cuda")
+    case("f32 W, f32 M", w, mask_f)
+    del w, mask_f, v
+    return out
+
+
 def serve_phase(torch):
     from repro_torch.launch import serve
     common = ["--arch", "starcoder2-7b", "--batch", str(B), "--prompt-len",
@@ -1038,7 +1141,7 @@ def consistency_phase(torch):
 
 KERNEL_COUNTERS = ("sidedelta", "sidedelta_dvals", "scatter_apply",
                    "sparse_adamw_blocks", "sparse_adamw_rows", "flash_decode",
-                   "flash_decode_paged", "flash_prefill")
+                   "flash_decode_paged", "flash_prefill", "masked_update")
 
 
 def counters():
@@ -1047,6 +1150,7 @@ def counters():
     from repro_torch.kernels.flash_decode import (flash_decode_blocks,
                                                   flash_decode_paged)
     from repro_torch.kernels.flash_prefill import flash_prefill_blocks
+    from repro_torch.kernels.masked_update import masked_update
     from repro_torch.kernels.scatter_apply import scatter_apply
     from repro_torch.kernels.sidedelta import sidedelta, sidedelta_dvals
     from repro_torch.kernels.sparse_adamw import (sparse_adamw,
@@ -1055,7 +1159,7 @@ def counters():
                                       scatter_apply, sparse_adamw,
                                       sparse_adamw_rows, flash_decode_blocks,
                                       flash_decode_paged,
-                                      flash_prefill_blocks)))
+                                      flash_prefill_blocks, masked_update)))
 
 
 def zero_counts():
@@ -1263,6 +1367,275 @@ def train_consistency_phase(torch):
             del tr, ref, ref_pack, g_tr
 
 
+def wm_ties(torch, tr):
+    """How often the wm mask's K-th largest |W| of a matrix is tied with
+    an entry left out (where torch.topk's own order would pick apart from
+    lax.top_k's). Returns (matrices with such a tie, matrices, tied
+    entries beyond the K)."""
+    from repro_torch.core.masks import budget, iter_leaves
+    masks = dict(iter_leaves(tr.masks))
+    tied = rows = extra = 0
+    for p, w in iter_leaves(tr.base):
+        if p not in masks:
+            continue
+        k = budget(*w.shape[-2:], tr.acfg.sparsity)
+        for r in w.reshape(-1, w.shape[-2] * w.shape[-1]):
+            s = r.abs()
+            kth = torch.topk(s, k, sorted=False).values.min()
+            over = int((s >= kth).sum()) - k
+            rows += 1
+            tied += over > 0
+            extra += over
+    return tied, rows, extra
+
+
+def profile_hook_step(torch, tr, state):
+    """Device time by kernel of one more hook-mode step (its launches are
+    not counted: the counts were read before it)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.data import batch_iterator
+    from repro_torch.runtime.trainer import device_batch
+    batch = device_batch(next(batch_iterator(tr.cfg, tr.run.shape, seed=1)),
+                         tr.device)
+    cuda = torch.autograd.DeviceType.CUDA
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        tr.step(state, batch)
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    kern = [(getattr(e, "self_device_time_total", 0) / 1e3, e.count, e.key)
+            for e in prof.key_averages() if e.device_type == cuda]
+    busy = sum(k[0] for k in kern)
+    print(f"[profile] hook-mode train step ({HOOK_LAYERS} layers): wall "
+          f"{wall:.1f} ms (profiler on); kernels {busy:.1f} ms"
+          + (f" ({busy / wall:.0%} of wall)" if busy else
+             " (profiler saw no device time: not measured)"), flush=True)
+    for ms, n, name in sorted(kern, reverse=True)[:12]:
+        print(f"[profile]   {ms:9.3f} ms  x{n:<5d} {name[:90]}")
+
+
+def hook_round_trip(torch, tr, state):
+    """Export the hook trainer's pack, check its %C, and load it onto the
+    trainer's base through SwitchEngine (scatter_apply, in place): the
+    loaded target leaves must equal the trained weights within
+    ROUND_TRIP_TOL of the largest. Returns (pack, %C, largest diff)."""
+    from repro_torch.core import SwitchEngine, changed_fraction
+    from repro_torch.core.masks import budget, iter_leaves
+    pack = tr.export_pack(state, "hook")
+    frac = changed_fraction(tr.base, state["trainable"])
+    total = sum(x.numel() for _, x in iter_leaves(tr.base))
+    most = sum(m.numel() // (m.shape[-2] * m.shape[-1])
+               * budget(*m.shape[-2:], tr.acfg.sparsity)
+               for _, m in iter_leaves(tr.masks)) / total
+    if not 0 < frac <= most:
+        fail(f"hook export: %C {frac} outside (0, {most}]")
+    SwitchEngine(tr.base).switch(pack)
+    trained = dict(iter_leaves(state["trainable"]))
+    diff, scale = 0.0, 0.0
+    for p, w in iter_leaves(tr.base):
+        if p in pack.entries:
+            diff = max(diff, float((w - trained[p]).abs().max()))
+            scale = max(scale, float(trained[p].abs().max()))
+    if not diff <= ROUND_TRIP_TOL * scale:
+        fail(f"hook export: the loaded pack is {diff} from the trained "
+             f"weights (tol {ROUND_TRIP_TOL} of {scale})")
+    return pack, frac, most, diff, scale
+
+
+def train_masks_phase(torch):
+    """The reference's default adapter at full width: the launch.train CLI
+    with --adapter shira-wm (packed, all layers), then hook mode (shira-wm,
+    packed=False) through the Trainer API at full width cut to
+    HOOK_LAYERS layers, its pack exported and loaded back."""
+    import math
+    import statistics
+    from repro_torch.configs import (AdapterConfig, RunConfig, ShapeSpec,
+                                     TrainConfig, get_config)
+    from repro_torch.core.masks import iter_leaves
+    from repro_torch.launch import train
+    from repro_torch.runtime import Trainer
+    totals = {}
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    stats = train.main(["--arch", "starcoder2-7b", "--adapter", "shira-wm",
+                        "--seq", str(TRAIN_SEQ), "--batch", str(TRAIN_BATCH),
+                        "--steps", str(TRAIN_STEPS)])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    losses = stats["losses"]
+    print(f"[train] Trainer shira-wm (launch.train, packed, "
+          f"{TRAIN_BATCH}x{TRAIN_SEQ} tokens, {stats['trained_values']} "
+          f"packed values): wm mask built in {stats['mask_seconds']:.2f}s, "
+          f"launches {counts}, step {stats['steady_step_ms']:.1f} ms (median"
+          f" after the first; all {[round(x, 1) for x in stats['step_ms']]})"
+          f", {stats['tokens_per_s']:.0f} tokens/s, loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB, "
+          f"{time.perf_counter() - t0:.1f}s wall", flush=True)
+    if not all(math.isfinite(x) for x in losses):
+        fail("Trainer shira-wm: a loss is not finite")
+    check_run("Trainer shira-wm", counts,
+              ("scatter_apply", "sparse_adamw_blocks"), totals)
+    del stats
+    torch.cuda.empty_cache()
+
+    cfg = get_config("starcoder2-7b").replace(num_layers=HOOK_LAYERS)
+    run = RunConfig(model=cfg,
+                    shape=ShapeSpec("hook", TRAIN_SEQ, TRAIN_BATCH, "train"),
+                    adapter=AdapterConfig(kind="shira", mask="wm",
+                                          packed=False),
+                    train=TrainConfig(learning_rate=3e-4,
+                                      total_steps=HOOK_STEPS,
+                                      warmup_steps=1))
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = Trainer(run)
+    setup_s = time.perf_counter() - t0
+    out = tr.fit(HOOK_STEPS, log=None)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    hist = out["history"]
+    step_ms = [h["step_ms"] for h in hist]
+    steady = statistics.median(step_ms[1:])
+    leaves = len(list(iter_leaves(tr.masks)))
+    entries = sum(m.numel() for _, m in iter_leaves(tr.masks))
+    print(f"[train] hook-mode Trainer shira-wm ({HOOK_LAYERS} of "
+          f"{get_config('starcoder2-7b').num_layers} layers, "
+          f"{run.shape.tokens} tokens a step, {leaves} target leaves, "
+          f"{entries} target entries, bool masks): wm masks built in "
+          f"{tr.mask_seconds:.2f}s (set-up {setup_s:.1f}s), launches "
+          f"{counts}, step {steady:.1f} ms (median after the first; all "
+          f"{[round(x, 1) for x in step_ms]}), "
+          f"{run.shape.tokens / steady * 1e3:.0f} tokens/s, loss "
+          f"{hist[0]['loss']:.4f} -> {hist[-1]['loss']:.4f}, peak memory "
+          f"{peak:.1f} GB, {time.perf_counter() - t0:.1f}s wall", flush=True)
+    if not all(math.isfinite(h["loss"]) for h in hist):
+        fail("hook-mode Trainer: a loss is not finite")
+    tied, rows, entries_tied = wm_ties(torch, tr)
+    print(f"[train] wm ties: {tied} of {rows} matrices have |W| values "
+          f"equal to the K-th largest beside it ({entries_tied} entries), "
+          f"decided by the lower index as lax.top_k decides them",
+          flush=True)
+    if leaves != 6 or counts["masked_update"] != leaves * HOOK_STEPS:
+        fail(f"hook-mode Trainer: masked_update launched "
+             f"{counts['masked_update']} times over {HOOK_STEPS} steps of "
+             f"{leaves} target leaves")
+    check_run("hook-mode Trainer", counts, ("masked_update",), totals)
+    profile_hook_step(torch, tr, out["state"])
+    state = {"trainable": out["state"]["trainable"]}
+    del out                         # the moments: 8 bytes a target entry
+    torch.cuda.empty_cache()
+    zero_counts()
+    t0 = time.perf_counter()
+    pack, frac, most, diff, scale = hook_round_trip(torch, tr, state)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    print(f"[train] hook export: pack_from_delta {pack.num_params()} values "
+          f"({pack.nbytes() / 1e6:.1f} MB), %C {frac:.6f} (<= {most:.6f}, "
+          f"1 - sparsity {1 - run.adapter.sparsity:.2f} at the target "
+          f"leaves); loaded through SwitchEngine: max |loaded - trained| "
+          f"{diff:.3g} (tol {ROUND_TRIP_TOL} of {scale:.3g}), launches "
+          f"{ {k: v for k, v in counts.items() if v} }, "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    check_run("hook export", counts, ("scatter_apply",), totals)
+    del tr, state, pack
+    torch.cuda.empty_cache()
+    return totals
+
+
+def hook_consistency_phase(torch):
+    """Hook mode against packed at full width cut to 2 layers, f32: 3
+    steps of each on one wm mask give the same losses to HOOK_TOL (the
+    reference's claim, with masked_update on one side and scatter_apply +
+    sparse_adamw on the other). Then grad (packed) and snip (hook) masks
+    from one batch's calibration gradients: one step each, and each
+    exported pack, loaded onto a copy of the base through SwitchEngine,
+    gives the trained weights."""
+    import numpy as np
+    from repro_torch.configs import (AdapterConfig, RunConfig, ShapeSpec,
+                                     TrainConfig, get_config)
+    from repro_torch.core import SwitchEngine
+    from repro_torch.core.masks import iter_leaves, map_leaves
+    from repro_torch.data import batch_iterator
+    from repro_torch.models import layers, lm
+    from repro_torch.runtime import Trainer
+    from repro_torch.runtime.trainer import dense_grads, device_batch
+    cfg = get_config("starcoder2-7b").replace(num_layers=2)
+    shape = ShapeSpec("c", 64, 2, "train")
+    steps = 3
+
+    def run_of(mask, packed):
+        return RunConfig(model=cfg, shape=shape,
+                         adapter=AdapterConfig(kind="shira", mask=mask,
+                                               packed=packed),
+                         train=TrainConfig(learning_rate=1e-2,
+                                           total_steps=steps,
+                                           warmup_steps=1))
+    with layers.compute_precision(torch.float32):
+        base = lm.init_params(cfg, seed=0, device="cuda")
+        losses = {}
+        zero_counts()
+        for packed in (False, True):
+            t = Trainer(run_of("wm", packed), base_params=base)
+            losses[packed] = [h["loss"] for h in
+                              t.fit(steps, log=None)["history"]]
+            del t
+        counts = read_counts()
+        d = max(abs(a - b) for a, b in zip(losses[False], losses[True]))
+        print(f"[hook-consistency] f32, 2 layers, full width, wm mask, "
+              f"{steps} steps: hook losses {losses[False]}, packed "
+              f"{losses[True]}, max diff {d:.3g} (tol rtol=atol={HOOK_TOL});"
+              f" launches { {k: v for k, v in counts.items() if v} }",
+              flush=True)
+        if not np.allclose(losses[False], losses[True], rtol=HOOK_TOL,
+                           atol=HOOK_TOL):
+            fail("hook-consistency: hook and packed losses differ")
+        for k in ("masked_update", "scatter_apply", "sparse_adamw_blocks"):
+            if counts[k] <= 0:
+                fail(f"hook-consistency: kernel {k} was never launched")
+        batch = device_batch(next(batch_iterator(cfg, shape, seed=1)),
+                             "cuda")
+        calib = dense_grads(base, cfg, batch,
+                            AdapterConfig().target_modules)[2]
+        for mask, packed in (("grad", True), ("snip", False)):
+            t = Trainer(run_of(mask, packed), base_params=base,
+                        calib_grads=calib)
+            state = t.fit(1, log=None)["state"]
+            pack = t.export_pack(state, mask)
+            trained = (materialize_dense(torch, base, state, t) if packed
+                       else dict(iter_leaves(state["trainable"])))
+            copy = map_leaves(lambda _, x: x.clone(), base)
+            SwitchEngine(copy).switch(pack)
+            diff = max(float((w - trained[p]).abs().max())
+                       for p, w in iter_leaves(copy) if p in pack.entries)
+            scale = max(float(trained[p].abs().max()) for p in pack.entries)
+            mode = "packed" if packed else "hook"
+            print(f"[hook-consistency] {mask} mask ({mode}, calibration "
+                  f"gradients of one {shape.tokens}-token "
+                  f"batch, built in {t.mask_seconds:.2f}s): pack of "
+                  f"{pack.num_params()} values loads to max diff {diff:.3g} "
+                  f"from the trained weights (tol {ROUND_TRIP_TOL} of "
+                  f"{scale:.3g})", flush=True)
+            if not diff <= ROUND_TRIP_TOL * scale:
+                fail(f"hook-consistency: the {mask} pack does not load to "
+                     "its trained weights")
+            del t, state, pack, trained, copy
+
+
+def materialize_dense(torch, base, state, t):
+    """{path: base + scatter(values)} of a packed trainer's target leaves,
+    by the plain scatter."""
+    from repro_torch.core.masks import iter_leaves, scatter_packed_add
+    vals = dict(iter_leaves(state["trainable"]))
+    idx = dict(iter_leaves(t.aux["indices"]))
+    return {p: scatter_packed_add(w, idx[p], vals[p])
+            for p, w in iter_leaves(base) if p in idx}
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1293,6 +1666,9 @@ def main() -> None:
                                 torch, flush)
     torch.cuda.empty_cache()
     attn = timed("kernels (attention)", attention_kernels_phase, torch, flush)
+    torch.cuda.empty_cache()
+    masked = timed("kernels (masked_update)", masked_update_kernels, torch,
+                   flush)
     del scratch
     torch.cuda.empty_cache()
     launches = timed("serve", serve_phase, torch)
@@ -1310,6 +1686,11 @@ def main() -> None:
         launches[k] = launches.get(k, 0) + v
     torch.cuda.empty_cache()
     timed("train-consistency", train_consistency_phase, torch)
+    torch.cuda.empty_cache()
+    for k, v in timed("train (wm, hook)", train_masks_phase, torch).items():
+        launches[k] = launches.get(k, 0) + v
+    torch.cuda.empty_cache()
+    timed("hook-consistency", hook_consistency_phase, torch)
 
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     main_side = side[0]     # w_up, S=1, f32 tables: the multi-tenant decode
@@ -1357,6 +1738,14 @@ def main() -> None:
             "launches": launches.get(name, 0),
             **{k: attn[name][0][k] for k in keys},
             "max_abs_err": max(r["max_abs_err"] for r in attn[name])})
+    # masked_update's row: the hook path's case (f32 W, bool M)
+    kernels.append({
+        "name": "masked_update", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/masked_update.cu",
+        "replaces": "src/repro/kernels/masked_update.py:23",
+        "launches": launches.get("masked_update", 0),
+        **{k: masked["f32 W, bool M"][k] for k in keys},
+        "max_abs_err": max(r["max_abs_err"] for r in masked.values())})
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

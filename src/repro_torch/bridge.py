@@ -13,13 +13,13 @@ import numpy as np
 import torch
 
 from repro_torch.core.adapters import AdapterPack
-from repro_torch.core.masks import map_leaves
+from repro_torch.core.masks import iter_leaves, map_leaves
 
 
 def params_from_numpy(tree, device="cuda"):
     """A nested dict/list/tuple of numpy arrays -> the same structure of
-    torch tensors on ``device`` (f32 stays f32, int32 stays int32). The
-    stacked (L, ...) layer leaves keep their leading dim."""
+    torch tensors on ``device`` (f32 stays f32, int32 stays int32), None
+    kept. The stacked (L, ...) layer leaves keep their leading dim."""
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -54,3 +54,18 @@ def adapter_from_numpy(indices_tree, device="cuda"):
     values = map_leaves(lambda _, i: torch.zeros(i.shape, dtype=torch.float32,
                                                  device=i.device), idx)
     return values, {"indices": idx}
+
+
+def hook_state_from_numpy(state, masks, device="cuda") -> dict:
+    """A JAX hook-mode ``Trainer`` state given as numpy ({"trainable",
+    "mu", "nu", "step"}, whole trees) as the port's hook-mode state: the
+    weights whole, the moments at the target leaves of ``masks`` only (the
+    reference's are exactly 0 elsewhere), the step an int. The port's
+    trainer then takes the same step from it as the JAX one."""
+    targets = {p for p, _ in iter_leaves(masks)}
+    moment = lambda t: map_leaves(
+        lambda p, x: x if p in targets else None,
+        params_from_numpy(t, device))
+    return {"trainable": params_from_numpy(state["trainable"], device),
+            "mu": moment(state["mu"]), "nu": moment(state["nu"]),
+            "step": int(state["step"])}

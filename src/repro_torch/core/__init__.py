@@ -1,10 +1,15 @@
-# SHiRA core: packed masks, adapter packs, rapid switching and fusion.
+# SHiRA core: masks (packed and dense), adapter packs, rapid switching and
+# fusion.
 from repro_torch.core.adapters import (AdapterPack, apply_pack,  # noqa: F401
                                        init_adapter, materialize,
-                                       pack_from_shira)
+                                       pack_from_delta, pack_from_shira)
 from repro_torch.core.fusion import fuse_packs, index_overlap  # noqa: F401
-from repro_torch.core.masks import (gather_packed,  # noqa: F401
-                                    make_packed_indices, scatter_packed_add)
+from repro_torch.core.masks import (dense_mask_from_indices,  # noqa: F401
+                                    gather_packed, make_dense_masks,
+                                    make_packed_indices, mask_grads,
+                                    mask_sparsity, scatter_packed_add,
+                                    scatter_packed_set)
 from repro_torch.core.switching import (FusedLRU, SwitchEngine,  # noqa: F401
-                                        SwitchStats, normalize_tenant,
-                                        tenant_key, tenant_members)
+                                        SwitchStats, changed_fraction,
+                                        normalize_tenant, tenant_key,
+                                        tenant_members)

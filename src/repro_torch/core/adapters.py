@@ -1,9 +1,10 @@
 """SHiRA adapters: init, the packed adapter (``AdapterPack``), the rapid
-switch that applies one to a deployed base, and ``materialize``, the
-effective weights of packed training.
+switch that applies one to a deployed base, ``materialize``, the effective
+weights of packed training, and ``pack_from_delta``, the export of
+hook-mode training.
 
-Port of the packed-SHiRA path of ``repro/core/adapters.py``. LoRA, DoRA,
-hook-mode SHiRA and ``pack_from_delta`` wait (ROADMAP A2).
+Port of the SHiRA paths of ``repro/core/adapters.py``, every mask
+strategy. LoRA, DoRA and SHiRA-masked DoRA wait (ROADMAP A2).
 """
 from __future__ import annotations
 
@@ -19,13 +20,16 @@ from repro_torch.kernels.ops import scatter_apply
 SHIRA_KEY = "shira.base"
 
 
-def init_adapter(gen: torch.Generator, params, acfg: AdapterConfig):
+def init_adapter(gen: Optional[torch.Generator], params,
+                 acfg: AdapterConfig, calib_grads=None):
     """(trainable, aux) for a SHiRA adapter: zero values (..., K) at every
-    target leaf and {"indices": packed indices}; None elsewhere."""
+    target leaf and {"indices": packed indices}; None elsewhere. ``gen``
+    draws ``rand`` masks; ``calib_grads`` (a tree aligned with ``params``)
+    scores ``grad`` and ``snip`` masks."""
     if acfg.kind != "shira":
         raise NotImplementedError(
             f"adapter kind {acfg.kind!r} is not ported (ROADMAP A2)")
-    idx = M.make_packed_indices(params, acfg, gen)
+    idx = M.make_packed_indices(params, acfg, gen, calib_grads)
     values = M.map_leaves(
         lambda _, i: torch.zeros(i.shape, dtype=torch.float32,
                                  device=i.device), idx)
@@ -37,9 +41,9 @@ class AdapterPack:
     """Sparse weights + indices, per target path: entries[path] = (flat
     indices (..., K) int32, values (..., K) f32). Loading one overwrites
     only its 1-2% of entries. Indices are unique within each matrix, and
-    ascending where the pack's builder sorts them (``rand`` masks,
-    ``fuse_packs``); rows shorter than K are padded with index 0 and
-    value 0."""
+    ascending where the pack's builder sorts them (every mask of the
+    port, ``pack_from_delta``, ``fuse_packs``); rows shorter than K are
+    padded with index 0 and value 0."""
 
     name: str
     entries: Dict[str, Tuple[torch.Tensor, torch.Tensor]]
@@ -58,6 +62,35 @@ def pack_from_shira(name: str, trainable, aux, alpha: float = 1.0
                     ) -> AdapterPack:
     vals = dict(M.iter_leaves(trainable))
     entries = {p: (i, vals[p]) for p, i in M.iter_leaves(aux["indices"])}
+    return AdapterPack(name=name, entries=entries, alpha=alpha)
+
+
+def pack_from_delta(name: str, base, tuned, acfg: AdapterConfig,
+                    alpha: float = 1.0) -> AdapterPack:
+    """S = W_new - W at its K largest magnitudes per matrix (K = the mask
+    budget; paper App. G): the export of hook-mode training, whose weights
+    were updated in place. Indices ascend within each matrix; of equal
+    magnitudes the lower index is kept, as the reference's ``lax.top_k``
+    keeps it. Where fewer than K entries moved, the rest are entries with
+    delta 0, whichever the tie rule picks."""
+    old = dict(M.iter_leaves(base))
+    entries = {}
+    for path, w_new in M.iter_leaves(tuned):
+        if not M.is_target(path, w_new, acfg.target_modules):
+            continue
+        *lead, n, m = w_new.shape
+        k = M.budget(n, m, acfg.sparsity)
+        df = w_new.float().reshape(-1, n * m)
+        bf = old[path].float().reshape(-1, n * m)
+        idx, val = [], []
+        for r in range(df.shape[0]):    # one matrix's delta alive at a time
+            d = df[r] - bf[r]
+            i = M.topk_indices(d.abs(), k)
+            idx.append(i)
+            val.append(d[i.long()])
+            del d
+        entries[path] = (torch.stack(idx).reshape(tuple(lead) + (k,)),
+                         torch.stack(val).reshape(tuple(lead) + (k,)))
     return AdapterPack(name=name, entries=entries, alpha=alpha)
 
 
@@ -129,10 +162,10 @@ def materialize(params, trainable, aux, acfg: AdapterConfig,
     starcoder2-7b's full width the six adapted leaves hold 6.94 B entries;
     an effective copy of them all, and its dense gradient, would not fit
     beside the base on one 80 GB card."""
-    if acfg.kind != "shira" or not acfg.packed:
+    if acfg.kind != "shira":
         raise NotImplementedError(
-            f"materialize is ported for packed SHiRA, not kind={acfg.kind!r}"
-            f" packed={acfg.packed} (ROADMAP A2)")
+            f"materialize is ported for SHiRA, not kind={acfg.kind!r} "
+            "(ROADMAP A2)")
     if trainable is None:
         return params
     a = acfg.alpha if alpha is None else alpha

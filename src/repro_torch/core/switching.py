@@ -5,7 +5,8 @@ Port of ``SwitchEngine``, ``SwitchStats``, ``FusedLRU`` and the tenant
 helpers of ``repro/core/switching.py``. Loading a SHiRA pack writes only
 the pack's 1-2% of entries through the ``scatter_apply`` kernel, in place;
 unloading subtracts them back. ``LoraEngine``, adapter stores and
-versioned ids wait (ROADMAP A2, A5, A7).
+versioned ids wait (ROADMAP A2, A5, A7). ``changed_fraction`` is the %C
+of the paper's Table 2.
 """
 from __future__ import annotations
 
@@ -204,3 +205,18 @@ class FusedLRU:
         elif decision.demote:
             self.fused = None
         return decision
+
+
+def changed_fraction(base, switched) -> float:
+    """%C of the paper's tables: the fraction of weights that differ from
+    the base, over every leaf of two trees of one structure. The per-leaf
+    counts stay on the device and are read once."""
+    a = [x for _, x in iter_leaves(base)]
+    b = [x for _, x in iter_leaves(switched)]
+    if len(a) != len(b):
+        raise ValueError("changed_fraction compares trees of one structure")
+    if not a:
+        return 0.0
+    diff = torch.stack([torch.count_nonzero(torch.ne(x, y))
+                        for x, y in zip(a, b)]).sum()
+    return int(diff) / max(sum(x.numel() for x in a), 1)

@@ -23,7 +23,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 KERNELS = ("sidedelta", "scatter_apply", "sparse_adamw", "sidedelta_grad",
-           "flash_decode", "flash_prefill")
+           "flash_decode", "flash_prefill", "masked_update")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 ptxas_log: Dict[str, str] = {}      # name -> what ``-Xptxas -v`` printed

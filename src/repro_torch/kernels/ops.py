@@ -15,10 +15,11 @@ entries each) and lay the tables out for the Hopper sidedelta kernels:
 
 They run once per adapter (or per fused state, or per trainer) at
 registration, never per batch. ``scatter_apply`` takes a pack's entries as
-they are and needs no layout. ``sparse_adamw`` and
-``sparse_adamw_batched`` are the optimizer's entry points: they compute the
-step's f32 scalars as the reference's wrappers do and launch the fused
-update.
+they are and needs no layout; so does ``masked_update``, the dense-mask
+apply of hook-mode training, which updates w in place (the reference's
+returns the aliased output). ``sparse_adamw`` and ``sparse_adamw_batched``
+are the optimizer's entry points: they compute the step's f32 scalars as
+the reference's wrappers do and launch the fused update.
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import sparse_adamw as _adamw
+from repro_torch.kernels.masked_update import masked_update  # noqa: F401
 from repro_torch.kernels.scatter_apply import scatter_apply  # noqa: F401
 from repro_torch.kernels.sidedelta import sidedelta  # noqa: F401
 

@@ -18,6 +18,14 @@ def scatter_apply_ref(w: torch.Tensor, flat_idx: torch.Tensor,
     return out.reshape(n, m).to(w.dtype)
 
 
+def masked_update_ref(w: torch.Tensor, mask: torch.Tensor,
+                      vals: torch.Tensor, alpha: float = 1.0) -> torch.Tensor:
+    """W + alpha * (M * V), summed in f32 and rounded once to w's dtype,
+    as a new tensor."""
+    out = w.float() + alpha * mask.float() * vals.float()
+    return out.to(w.dtype)
+
+
 def sidedelta_ref(x: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor,
                   vals: torch.Tensor, ids: torch.Tensor, m: int
                   ) -> torch.Tensor:

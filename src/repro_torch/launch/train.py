@@ -1,16 +1,19 @@
-"""Training entry point: packed SHiRA finetuning of one adapter.
+"""Training entry point: SHiRA finetuning of one adapter.
 
 Port of ``repro/launch/train.py``, with its flags. Runs on the card unless
 ``--device cpu`` is given (with ``--smoke`` for the 2-layer config there).
-Only ``--adapter shira-rand`` is ported: the other masks and adapter kinds
-wait (ROADMAP A2), ``--ckpt-dir`` waits for checkpointing (A8). ``main``
-returns the run's numbers as a dict, so scripts can drive it as a user
-would.
+``--adapter`` takes the reference's ``shira[-<mask>][-hook]``: plain
+``shira`` is the ``wm`` mask, packed; ``-hook`` trains in hook mode. The
+``grad`` and ``snip`` masks need calibration gradients, which the command
+line does not give, so they raise ``ValueError`` as the reference's do.
+``none``, ``lora``, ``dora`` and ``shira-dora`` wait (ROADMAP A2),
+``--ckpt-dir`` waits for checkpointing (A8). ``main`` returns the run's
+numbers as a dict, so scripts can drive it as a user would.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch starcoder2-7b \\
-      --adapter shira-rand --seq 256 --batch 8 --steps 4
+      --adapter shira-wm --seq 256 --batch 8 --steps 4
   PYTHONPATH=src python -m repro_torch.launch.train --arch starcoder2-7b \\
-      --smoke --device cpu --adapter shira-rand --steps 3
+      --smoke --device cpu --adapter shira-wm-hook --steps 3
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ import torch
 from repro_torch.configs import (AdapterConfig, ModelConfig, RunConfig,
                                  ShapeSpec, TrainConfig, get_config,
                                  get_smoke_config)
+from repro_torch.core.masks import iter_leaves
 from repro_torch.data import TaskSpec, batch_iterator
 from repro_torch.runtime import Trainer, TrainerConfig
 
@@ -36,12 +40,19 @@ PRESET_100M = ModelConfig(
 
 
 def parse_adapter(spec: str) -> AdapterConfig:
-    """'shira-rand' (the reference also takes 'none', 'lora', 'dora',
-    'shira-<mask>[-hook]': those wait, ROADMAP A2)."""
-    if spec != "shira-rand":
+    """'shira' | 'shira-<mask>' | 'shira-<mask>-hook', as the reference
+    parses them ('none', 'lora', 'dora' and 'shira-dora' wait, ROADMAP
+    A2)."""
+    if spec in ("none", "lora", "dora") or spec.startswith("shira-dora"):
         raise NotImplementedError(
-            f"--adapter {spec!r} is not ported (ROADMAP A2); use shira-rand")
-    return AdapterConfig(kind="shira", mask="rand", packed=True)
+            f"--adapter {spec!r} is not ported (ROADMAP A2); use "
+            "shira[-<mask>][-hook]")
+    if spec.startswith("shira"):
+        parts = spec.split("-")
+        mask = parts[1] if len(parts) > 1 else "wm"
+        hook = len(parts) > 2 and parts[2] == "hook"
+        return AdapterConfig(kind="shira", mask=mask, packed=not hook)
+    raise ValueError(spec)
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -97,15 +108,19 @@ def main(argv: Optional[List[str]] = None) -> dict:
         with open(args.out, "w") as f:
             json.dump({"arch": cfg.name, "adapter": args.adapter,
                        "losses": losses}, f)
-    n_trained = sum(v.numel() for v in
-                    trainer.export_pack(out["state"]).entries.values()
-                    for v in v[1:])
+    n_trained = (sum(int(m.count_nonzero())
+                     for _, m in iter_leaves(trainer.masks))
+                 if trainer.hook_mode else
+                 sum(v.numel() for _, v in
+                     iter_leaves(out["state"]["trainable"])))
+    mask_s = trainer.mask_seconds
     del out, trainer
     if torch.cuda.is_available():
         torch.cuda.synchronize()
     return {"losses": losses, "step_ms": step_ms, "steady_step_ms": steady,
             "tokens_per_s": shape.tokens / steady * 1e3,
-            "trained_values": n_trained}
+            "trained_values": n_trained,
+            "mask_seconds": mask_s}
 
 
 if __name__ == "__main__":

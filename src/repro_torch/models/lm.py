@@ -45,13 +45,21 @@ def stage_plan(cfg: ModelConfig) -> List[Tuple[str, int]]:
         "(ROADMAP A9, other families)")
 
 
+class LayerList(list):
+    """One stacked (L, ...) leaf given as its L layers, each its own tensor:
+    hook-mode training differentiates each layer's weight as a leaf of its
+    own (``runtime.trainer.dense_grads``)."""
+
+
 def layer_slice(tree, i: int):
     """Layer ``i`` of a stacked parameter tree (side-delta and SHiRA
     bundles too: every tensor carries the leading layer dim; a bundle's
-    plain numbers pass through)."""
+    plain numbers pass through; a ``LayerList`` gives its i-th entry)."""
     if isinstance(tree, dict):
         return {k: layer_slice(v, i) for k, v in tree.items()}
-    return tree[i] if isinstance(tree, torch.Tensor) else tree
+    if isinstance(tree, (torch.Tensor, LayerList)):
+        return tree[i]
+    return tree
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda"

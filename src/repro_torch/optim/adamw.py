@@ -1,11 +1,15 @@
-"""AdamW over trees of packed values, and the learning-rate schedule.
+"""AdamW over trees of packed values, the dense AdamW direction of
+hook-mode training, and the learning-rate schedule.
 
 Port of ``repro/optim/adamw.py``: the plain reference, used on the CPU and
-in the tests. The trainers' update on the card is the fused
+in the tests. The packed trainers' update on the card is the fused
 ``kernels.ops.sparse_adamw`` (one launch per leaf), which computes the same
 step from the same scalars; this module's ``adamw_update`` follows the
 reference's own rounding (Python-float betas), which differs from the
-kernel's f32 scalars in the last bits only.
+kernel's f32 scalars in the last bits only. Hook mode splits the update:
+``adamw_direction_`` computes the direction U = m̂ / (√v̂ + ε) with the
+reference's f32 operations in its order, and the ``masked_update`` kernel
+applies W + (-lr) * (M ⊙ U).
 
 Trees are nested dicts/lists of tensors with None at leaves that are not
 trained, as ``core.masks.map_leaves`` builds them.
@@ -20,6 +24,7 @@ import torch
 
 from repro_torch.configs.base import TrainConfig
 from repro_torch.core.masks import iter_leaves, map_leaves
+from repro_torch.kernels.ops import _adamw_scalars
 
 
 class AdamWState(NamedTuple):
@@ -83,6 +88,31 @@ def adamw_update(grads, state: AdamWState, trainable, tcfg: TrainConfig,
         out[path] = ((p.float() - lr * delta).to(p.dtype), m, v)
     pick = lambda i: map_leaves(lambda path, _: out[path][i], trainable)
     return pick(0), AdamWState(step, pick(1), pick(2)), {"grad_norm": gnorm}
+
+
+def adamw_direction_(g: torch.Tensor, mu: torch.Tensor, nu: torch.Tensor,
+                     step: int, tcfg: TrainConfig) -> torch.Tensor:
+    """The AdamW direction of one dense f32 leaf at the 1-based ``step``,
+    in place: mu and nu become the step's moments and g is overwritten
+    with U = (m / c1) / (sqrt(v / c2) + eps); returns g. The reference's
+    operations in its order, one PyTorch elementwise op each, none fused:
+
+      m = b1 * m + (1 - b1) * g
+      v = b2 * v + (1 - b2) * g * g
+
+    The bias corrections are the packed kernels' (f32, from the f32
+    betas) and divide as 0-dim tensors on g's device (PyTorch divides by
+    a CPU scalar through its reciprocal on the card). One scratch leaf of
+    g's size is alive while it runs."""
+    b1, b2 = tcfg.beta1, tcfg.beta2
+    c1, c2 = (torch.tensor(c, dtype=torch.float32, device=g.device)
+              for c in _adamw_scalars(step, 0.0, b1, b2, 0.0, 0.0)[5:])
+    t = g * (1 - b1)
+    mu.mul_(b1).add_(t)
+    torch.mul(g, 1 - b2, out=t).mul_(g)
+    nu.mul_(b2).add_(t)
+    torch.div(nu, c2, out=t).sqrt_().add_(tcfg.eps)
+    return torch.div(mu, c1, out=g).div_(t)
 
 
 def lr_schedule(tcfg: TrainConfig) -> Callable[[int], float]:

@@ -1,8 +1,12 @@
 """repro_torch.training.MultiAdapterTrainer against the JAX package's, and
 against the port's own single-adapter Trainer.
 
-The JAX trainer draws the base and every adapter's rand indices; they cross
-over through repro_torch.bridge (``auxes=``). Both packages run in f32, the
+The JAX trainer draws the base, and every adapter's rand indices are drawn
+with numpy from the adapter's init key (``np_init_adapter`` stands in for
+the JAX ``init_adapter`` while the JAX trainer is built: the JAX rand mask
+salts its draws with Python's per-process string hash, so it would draw
+other indices in every process); they cross over through
+repro_torch.bridge (``auxes=``). Both packages run in f32, the
 JAX one with its defaults: the fused update in Pallas interpret mode and
 the side delta differentiated through its XLA twin; the port's kernel
 wrappers compute their plain versions on these CPU tensors. Loss histories
@@ -17,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro import core as jcore
 from repro.configs import AdapterConfig as JAdapterConfig
 from repro.configs import RunConfig as JRunConfig
 from repro.configs import TrainConfig as JTrainConfig
@@ -32,6 +37,7 @@ from repro_torch.data import TaskSpec, batch_iterator
 from repro_torch.models import layers as TL
 from repro_torch.runtime import Trainer
 from repro_torch.training import MultiAdapterTrainer, multi_batch_iterator
+from test_torch_switching import np_indices
 
 STEPS = 4
 TOL = dict(rtol=5e-3, atol=5e-3)
@@ -60,11 +66,28 @@ def jbase():
         _runs()[0].model, jax.random.PRNGKey(0))
 
 
+def np_init_adapter(key, params, acfg, calib_grads=None):
+    """The JAX ``init_adapter`` of a rand-mask SHiRA adapter, its indices
+    drawn with numpy from the key's seed (``PRNGKey(s)`` holds [0, s])."""
+    seed = int(np.asarray(jax.random.key_data(key)).reshape(-1)[-1])
+    idx = np_indices(params, acfg.sparsity, np.random.default_rng(seed),
+                     acfg.target_modules)
+    tree = jax.tree_util.tree_map_with_path(
+        lambda p, w: jnp.asarray(idx[jcore.masks.path_str(p)])
+        if jcore.masks.path_str(p) in idx else None, params)
+    values = jax.tree.map(lambda i: None if i is None
+                          else jnp.zeros(i.shape, jnp.float32), tree,
+                          is_leaf=lambda x: x is None)
+    return values, {"indices": tree}
+
+
 def _pair(jbase, moments, A):
     """The JAX run and the port's run on its base and indices."""
     jrun, trun = _runs()
     names = [f"a{a}" for a in range(A)]
-    with JL.compute_precision(jnp.float32):
+    with JL.compute_precision(jnp.float32), pytest.MonkeyPatch.context() \
+            as mp:
+        mp.setattr(jcore, "init_adapter", np_init_adapter)
         jm = JMulti(jrun, names, init_key=0, moments=moments,
                     base_params=jbase)
         jout = jm.fit(STEPS, log=None)

@@ -28,7 +28,7 @@ from repro_torch.serving import MultiTenantEngine
 from repro_torch.serving.multitenant import (greedy_decode,
                                              switch_per_request_reference)
 
-from test_torch_switching import _jax_packs, _to_port
+from test_torch_switching import _np_packs, _to_port
 
 TOL = 1e-4
 S, T = 8, 4
@@ -39,7 +39,7 @@ def setup():
     with JL.compute_precision(jnp.float32):
         cfg = j_smoke("starcoder2-7b")
         params = JLM.init_params(cfg, jax.random.PRNGKey(0))
-        packs = _jax_packs(params, 3)
+        packs = _np_packs(params, 3)
     return cfg, params, packs
 
 

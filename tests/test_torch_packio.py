@@ -26,7 +26,7 @@ from repro_torch.hub import (AdapterStore, PackFormatError, QuantPack,
 from repro_torch.launch import serve as t_serve
 from repro_torch.models import lm as TLM
 
-from test_torch_switching import _jax_packs
+from test_torch_switching import _np_packs
 
 MODES = ["f32", "bf16", "int8"]
 
@@ -88,7 +88,7 @@ def test_model_pack_paths_and_bytes(tmp_path):
     JAX ones, and a JAX pack crossed over saves to the same bytes."""
     cfg = j_smoke("starcoder2-7b")
     jparams = JLM.init_params(cfg, jax.random.PRNGKey(0))
-    jpack = _jax_packs(jparams, 1)[0]
+    jpack = _np_packs(jparams, 1)[0]
     tparams = TLM.init_params(t_smoke("starcoder2-7b"), seed=0, device="cpu")
     own = t_serve.make_adapters(t_smoke("starcoder2-7b"), tparams, 1)[0]
     assert sorted(own.entries) == sorted(jpack.entries)

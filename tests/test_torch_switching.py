@@ -1,8 +1,11 @@
 """Rapid switching, fusion and the fused-state scheduler of repro_torch
 against repro.core on the same weights and packs.
 
-Weights and packs are made by the JAX package (its rand masks draw from
-jax.random) and cross over through repro_torch.bridge. The switch adds
+Weights are made by the JAX package and cross over through
+repro_torch.bridge. Packs are drawn with numpy from a seed (``_np_packs``):
+the JAX package's own rand masks salt their draws with Python's
+per-process string hash, so they would change from one process to the
+next. The switch adds
 alpha * vals at unique indices with the reference's rounding, so loaded
 weights are bit-equal; unloading restores the base to 1e-5, the tolerance
 of the JAX package's own round-trip test.
@@ -14,7 +17,6 @@ import pytest
 import torch
 
 from repro import core as jcore
-from repro.configs import AdapterConfig as JAdapterConfig
 from repro.configs import get_smoke_config as j_smoke
 from repro.core import fusion as jfusion
 from repro.core import masks as JM
@@ -31,18 +33,34 @@ from repro_torch.core.masks import iter_leaves
 TARGETS = ("wq", "wk", "wv", "wo", "w_up", "w_down")
 
 
-def _jax_packs(params, n, seed=7, scale=0.05):
-    acfg = JAdapterConfig(kind="shira", mask="rand", sparsity=0.98,
-                          target_modules=TARGETS)
+def np_indices(params, sparsity, rng, targets=TARGETS):
+    """{path: (..., K) int32} of a rand mask over the target leaves of a
+    JAX parameter tree, drawn with numpy (unique, unsorted, as the JAX
+    rand mask leaves them)."""
+    out = {}
+    for p, w in jax.tree_util.tree_flatten_with_path(params)[0]:
+        path = JM.path_str(p)
+        if path.rsplit("/", 1)[-1] not in targets or w.ndim < 2:
+            continue
+        *lead, r, c = w.shape
+        k = JM.budget(r, c, sparsity)
+        idx = np.stack([rng.choice(r * c, k, replace=False)
+                        for _ in range(int(np.prod(lead)))])
+        out[path] = idx.astype(np.int32).reshape(tuple(lead) + (k,))
+    return out
+
+
+def _np_packs(params, n, seed=7, scale=0.05):
+    """n JAX packs at sparsity 0.98 over the target leaves, indices and
+    values drawn with numpy from ``seed``."""
+    rng = np.random.default_rng(seed)
     packs = []
     for i in range(n):
-        sub = jax.random.fold_in(jax.random.PRNGKey(seed), i)
-        values, aux = jcore.init_adapter(sub, params, acfg)
-        values = jax.tree.map(
-            lambda v: None if v is None
-            else scale * jax.random.normal(sub, v.shape), values,
-            is_leaf=lambda x: x is None)
-        packs.append(jcore.pack_from_shira(f"a{i}", values, aux))
+        entries = {
+            path: (jnp.asarray(idx), jnp.asarray(
+                (scale * rng.standard_normal(idx.shape)).astype(np.float32)))
+            for path, idx in np_indices(params, 0.98, rng).items()}
+        packs.append(jcore.AdapterPack(f"a{i}", entries))
     return packs
 
 
@@ -57,7 +75,7 @@ def _to_port(pack):
 def setup():
     cfg = j_smoke("starcoder2-7b")
     jparams = JLM.init_params(cfg, jax.random.PRNGKey(0))
-    jpacks = _jax_packs(jparams, 3)
+    jpacks = _np_packs(jparams, 3)
     return jparams, jpacks
 
 
@@ -176,8 +194,8 @@ def test_make_packed_indices_rand():
         for row in i.reshape(-1, i.shape[-1]):
             assert bool((row[1:] > row[:-1]).all())    # ascending, unique
             assert 0 <= int(row.min()) and int(row.max()) < n * m
-    with pytest.raises(NotImplementedError, match="A2"):
-        TM.make_packed_indices(params, AdapterConfig(mask="wm"), gen)
+    with pytest.raises(ValueError, match="unknown mask"):
+        TM.make_packed_indices(params, AdapterConfig(mask="top"), gen)
 
 
 def test_fused_lru_matches_jax():

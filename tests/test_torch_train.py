@@ -1,8 +1,10 @@
 """Packed SHiRA training in repro_torch against repro on the same weights,
 indices and batches.
 
-The JAX smoke config's base (jax.random init) and its adapter's rand
-indices cross over through repro_torch.bridge; batches come from each
+The JAX smoke config's base (jax.random init) and its adapter's ``wm``
+indices cross over through repro_torch.bridge (the ``wm`` mask is a top-K
+of the weights, the same in every process, where the JAX rand mask salts
+its draws with Python's per-process string hash); batches come from each
 package's own synthetic pipeline (bit-identical, test_torch_data.py). Both
 run in f32 (``compute_precision(float32)``). The loss agrees to 1e-5
 relative and its gradient with respect to the packed values to 1e-4 of the
@@ -53,13 +55,13 @@ TRAJ_TOL = 5e-3
 def _runs(sparsity=0.95):
     jrun = JRunConfig(model=j_smoke("starcoder2-7b"),
                       shape=JShapeSpec("tiny", 8, 4, "train"),
-                      adapter=JAdapterConfig(kind="shira", mask="rand",
+                      adapter=JAdapterConfig(kind="shira", mask="wm",
                                              sparsity=sparsity),
                       train=JTrainConfig(learning_rate=LR,
                                          total_steps=STEPS, warmup_steps=2))
     trun = RunConfig(model=get_smoke_config("starcoder2-7b"),
                      shape=ShapeSpec("tiny", 8, 4, "train"),
-                     adapter=AdapterConfig(kind="shira", mask="rand",
+                     adapter=AdapterConfig(kind="shira", mask="wm",
                                            sparsity=sparsity),
                      train=TrainConfig(learning_rate=LR, total_steps=STEPS,
                                        warmup_steps=2))
@@ -195,7 +197,7 @@ def test_export_pack_loads_like_materialize(setup):
 def test_unported_options_raise(setup):
     _, trun, _, _, np_base, np_idx = setup
     with pytest.raises(NotImplementedError, match="A2"):
-        tlaunch.parse_adapter("shira-wm")
+        tlaunch.parse_adapter("lora")
     with pytest.raises(NotImplementedError, match="A8"):
         _port_trainer(trun, np_base, np_idx).__class__(
             trun, TrainerConfig(ckpt_dir="x"), device="cpu")
