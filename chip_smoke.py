@@ -20,7 +20,8 @@ prints its seconds on a "[time]" line:
                launch counts are zeroed before each mode and must be > 0
                for every kernel of that mode's path
   5. profile   device time by kernel of one full-width decode step, base
-               model and multi-tenant (torch.profiler)
+               model and multi-tenant, and of one batch-1, 1024-token
+               prefill with flash_prefill's share (torch.profiler)
   6. consistency  full width, 2 layers, f32: multi-tenant tokens equal the
                switch-per-request reference, unfused and with a hot adapter
   7. continuous  full width: serve --continuous --int8, then a 24-request
@@ -58,6 +59,7 @@ bool mask, f32 W with an f32 mask, beside Tensor.addcmul_.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -126,6 +128,19 @@ def card_line() -> str:
         check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
+def kernel_name(mangled: str) -> str:
+    """name<template arguments> of a kernel from its mangled name, whose
+    identifier is the one ending in "_kernel" after its length."""
+    end = mangled.find("_kernel") + len("_kernel")
+    for i in range(end - 1, -1, -1):
+        m = re.match(r"\d+", mangled[i:end])
+        if m and int(m.group()) == end - i - len(m.group()):
+            args = re.match(r"I(\w*?)EE", mangled[end:])
+            return (mangled[i + len(m.group()):end]
+                    + (f"<{args.group(1)}>" if args else ""))
+    return mangled[:48]
+
+
 def cold_ms(torch, fn, iters: int, flush) -> float:
     """Mean device time of fn over ``iters`` launches, L2 flushed before
     each (a decode step streams other weights between two calls). The card
@@ -145,6 +160,23 @@ def cold_ms(torch, fn, iters: int, flush) -> float:
         events.append((s, e))
     torch.cuda.synchronize()
     return sum(s.elapsed_time(e) for s, e in events) / iters
+
+
+def device_kernels(torch, prof):
+    """(device ms, launches, name) of each kernel a torch.profiler run saw."""
+    cuda = torch.autograd.DeviceType.CUDA
+    return [(getattr(e, "self_device_time_total", 0) / 1e3, e.count, e.key)
+            for e in prof.key_averages() if e.device_type == cuda]
+
+
+def attention_share(label, kern) -> None:
+    """Print the device ms, launches and share of the port's attention
+    kernels among the profiled kernels ``kern``."""
+    busy = sum(k[0] for k in kern)
+    for ms, n, name in sorted(kern, reverse=True):
+        if "flash_" in name and busy:
+            print(f"[profile]   {label}: {ms:.3f} ms x{n} ({ms / busy:.1%} of "
+                  f"device time) {name[:70]}", flush=True)
 
 
 def rand_entries(torch, gen, nl, n, m, k):
@@ -529,36 +561,45 @@ def train_kernels_phase(torch, flush):
 
 
 def attn_case(torch, flush, label, fn, plain, library, tol, nbytes, flops,
-              bf16, iters=20):
+              bf16, iters=20, hi_lo=False):
     """One attention kernel against its plain version on the same inputs:
     max_abs_err within ``tol``, then cold-L2 times of the kernel, the plain
     version and the library call, and the bound from this call's bytes
     and operations. ``flops`` counts the score products (q . k) and the
     value products (p . v) alike: the scores take the bf16 tensor-core
     rate when the inputs are ``bf16``, the value products keep p in f32
-    and take the f32 rate."""
+    and take the f32 rate, unless ``hi_lo``: then p . v runs on the tensor
+    cores as two bf16 products (p = hi + lo) and counts twice at the bf16
+    rate, and the count with p . v at the f32 rate is printed beside it."""
     got = fn()
     want = plain()
     err = float((got.float() - want.float()).abs().max())
     if not err <= tol:
         fail(f"{label}: max_abs_err {err} > {tol}")
+    f32_pv = bound(nbytes, flops / 2 * (1 if bf16 else 2),
+                   flops / 2 if bf16 else 0)
     r = {"max_abs_err": err, "ms": cold_ms(torch, fn, iters, flush),
          "plain_ms": cold_ms(torch, plain, 3, flush),
          "library_ms": cold_ms(torch, library, 10, flush),
-         **bound(nbytes, flops / 2 * (1 if bf16 else 2),
-                 flops / 2 if bf16 else 0)}
+         **(bound(nbytes, 0, 3 * flops / 2) if hi_lo and bf16 else f32_pv)}
     print(f"[kernels] {label}: max_abs_err={err:.3g} (tol {tol}) "
           f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.3f} library_ms(sdpa)="
           f"{r['library_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
-          f"({r['bound_by']})", flush=True)
+          f"({r['bound_by']})" + (
+              f" [p.v at the f32 rate: {f32_pv['bound_ms']:.4f}]"
+              if hi_lo and bf16 else ""), flush=True)
     return r
 
 
 def attention_kernels_phase(torch, flush):
     """flash_decode, flash_decode_paged and flash_prefill against their
     plain versions at the continuous-batching shapes of starcoder2-7b (KV
-    4, G 9, D 128), bf16 (the serving dtype) and f32, within ATTN_TOL. The
-    yardstick is one
+    4, G 9, D 128), bf16 (the serving dtype) and f32, within ATTN_TOL;
+    then flash_decode at granite-34b's grouping (KV 1, G 48), a prefill
+    whose length is no multiple of the kernel's 64-row tiles (S 777), and
+    one small case (B 1, S 256, H 8, KV 2) of each kernel at each other
+    head dim the wrappers take (16, 32, 64), so that every template
+    instance they can reach runs once. The yardstick is one
     F.scaled_dot_product_attention(..., enable_gqa=True) call on the same
     inputs, laid out as it wants them beforehand (for paged: a gather of
     the pages, then the call)."""
@@ -583,23 +624,44 @@ def attention_kernels_phase(torch, flush):
         tag = "bf16" if dt == torch.bfloat16 else "f32"
         tol, bf = ATTN_TOL[tag], dt == torch.bfloat16
         r = lambda *s: torch.randn(s, generator=gen, device="cuda").to(dt)
-        q, k, v = r(Bd, KV, G, D), r(Bd, CACHE, KV, D), r(Bd, CACHE, KV, D)
-        qs = q.reshape(Bd, H, 1, D)
-        ks, vs = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
-        for name, kl in (("(B,) kv_len 1..1056", spread),
-                         ("scalar kv_len 700", 700)):
-            lens = decode_lengths(kl, Bd, "cuda")
-            mask = (torch.arange(CACHE, device="cuda")[None, :]
-                    < lens.long()[:, None])[:, None, None, :]
-            rows = int(lens.sum())
-            out["flash_decode"].append(attn_case(
-                torch, flush, f"flash_decode {tag} ({Bd},{KV},{G},{D}) "
-                f"S={CACHE} {name}", lambda: flash_decode_blocks(q, k, v, kl),
-                lambda: flash_decode_plain(q, k, v, lens),
+
+        def decode(Bd, KV, G, D, S, kls):
+            q, k, v = r(Bd, KV, G, D), r(Bd, S, KV, D), r(Bd, S, KV, D)
+            qs = q.reshape(Bd, KV * G, 1, D)
+            ks = k.transpose(1, 2).contiguous()
+            vs = v.transpose(1, 2).contiguous()
+            for name, kl in kls:
+                lens = decode_lengths(kl, Bd, "cuda")
+                mask = (torch.arange(S, device="cuda")[None, :]
+                        < lens.long()[:, None])[:, None, None, :]
+                rows = int(lens.sum())
+                out["flash_decode"].append(attn_case(
+                    torch, flush, f"flash_decode {tag} ({Bd},{KV},{G},{D}) "
+                    f"S={S} {name}",
+                    lambda: flash_decode_blocks(q, k, v, kl),
+                    lambda: flash_decode_plain(q, k, v, lens),
+                    lambda: F.scaled_dot_product_attention(
+                        qs, ks, vs, attn_mask=mask, enable_gqa=True), tol,
+                    2 * q.numel() * es + 2 * rows * KV * D * es + Bd * 4,
+                    4 * rows * KV * G * D, bf))
+
+        def prefill(Bp, Sp, H, KV, D):
+            q, k, v = r(Bp, Sp, H, D), r(Bp, Sp, KV, D), r(Bp, Sp, KV, D)
+            qs = q.transpose(1, 2)
+            ks, vs = k.transpose(1, 2), v.transpose(1, 2)
+            out["flash_prefill"].append(attn_case(
+                torch, flush, f"flash_prefill {tag} causal B={Bp} S={Sp} "
+                f"H={H} KV={KV} D={D}",
+                lambda: flash_prefill_blocks(q, k, v, causal=True),
+                lambda: flash_prefill_plain(q, k, v, True),
                 lambda: F.scaled_dot_product_attention(
-                    qs, ks, vs, attn_mask=mask, enable_gqa=True), tol,
-                2 * q.numel() * es + 2 * rows * KV * D * es + Bd * 4,
-                4 * rows * KV * G * D, bf))
+                    qs, ks, vs, is_causal=True, enable_gqa=True), tol,
+                (2 * q.numel() + 2 * k.numel()) * es,
+                4 * D * H * Bp * Sp * (Sp + 1) // 2, bf, iters=10,
+                hi_lo=True))
+
+        decode(Bd, KV, G, D, CACHE, (("(B,) kv_len 1..1056", spread),
+                                     ("scalar kv_len 700", 700)))
         # a shuffled pool of 16-row pages; table entries past each
         # request's pages are the scratch page 0
         page = 16
@@ -612,7 +674,8 @@ def attention_kernels_phase(torch, flush):
         for b, u in enumerate(used):
             bt[b, :u] = perm[o:o + u].to(torch.int32)
             o += u
-        kp, vp = r(P, page, KV, D), r(P, page, KV, D)
+        q, kp, vp = r(Bd, KV, G, D), r(P, page, KV, D), r(P, page, KV, D)
+        qs = q.reshape(Bd, H, 1, D)
 
         def paged_sdpa():
             kk = paged_gather(kp, bt).transpose(1, 2)
@@ -630,21 +693,13 @@ def attention_kernels_phase(torch, flush):
             paged_sdpa, tol,
             2 * q.numel() * es + 2 * rows * KV * D * es + bt.numel() * 4
             + Bd * 4, 4 * rows * KV * G * D, bf))
-        del q, k, v, qs, ks, vs, kp, vp
-        for Bp, Sp in ((1, 1024), (B, PROMPT)):
-            q, k, v = r(Bp, Sp, H, D), r(Bp, Sp, KV, D), r(Bp, Sp, KV, D)
-            qs = q.transpose(1, 2)
-            ks, vs = k.transpose(1, 2), v.transpose(1, 2)
-            out["flash_prefill"].append(attn_case(
-                torch, flush, f"flash_prefill {tag} causal B={Bp} S={Sp} "
-                f"H={H} KV={KV} D={D}",
-                lambda: flash_prefill_blocks(q, k, v, causal=True),
-                lambda: flash_prefill_plain(q, k, v, True),
-                lambda: F.scaled_dot_product_attention(
-                    qs, ks, vs, is_causal=True, enable_gqa=True), tol,
-                (2 * q.numel() + 2 * k.numel()) * es,
-                4 * D * H * Bp * Sp * (Sp + 1) // 2, bf, iters=10))
-            del q, k, v, qs, ks, vs
+        del q, qs, kp, vp
+        for Bp, Sp in ((1, 1024), (B, PROMPT), (1, 777)):
+            prefill(Bp, Sp, H, KV, D)
+        decode(Bd, 1, 48, D, CACHE, (("(B,) kv_len 1..1056", spread),))
+        for d in (16, 32, 64):
+            prefill(1, 256, 8, 2, d)
+            decode(1, 2, 4, d, 256, (("kv_len 200", 200),))
     return out
 
 
@@ -845,9 +900,7 @@ def step_report(label, steps, prof):
     if prof is None:
         return
     import torch
-    cuda = torch.autograd.DeviceType.CUDA
-    kern = [(getattr(e, "self_device_time_total", 0) / 1e3, e.count, e.key)
-            for e in prof.key_averages() if e.device_type == cuda]
+    kern = device_kernels(torch, prof)
     busy = sum(k[0] for k in kern)
     print(f"[profile] {label} engine step 6 (profiler on): kernels "
           f"{busy:.2f} ms" + ("" if busy else
@@ -855,6 +908,7 @@ def step_report(label, steps, prof):
                               "measured)"), flush=True)
     for ms, n, name in sorted(kern, reverse=True)[:6]:
         print(f"[profile]   {ms:8.3f} ms  x{n:<5d} {name[:90]}")
+    attention_share(f"{label} step 6", kern)
 
 
 def report_engine(torch, label, engine, futs, wall, peak, vocab, needed,
@@ -1045,8 +1099,10 @@ def continuous_consistency_phase(torch):
 def profile_phase(torch):
     """Where a full-width decode step (B=8) spends its device time: the
     base model, and multi-tenant with every request on an adapter or the
-    base. Device time per kernel from torch.profiler; wall time from the
-    host clock around synchronized steps (mean of 3, profiler off)."""
+    base; then one batch-1, 1024-token prefill of the base model, a lane
+    admission's unit of work. Device time per kernel from torch.profiler;
+    wall time from the host clock around synchronized steps (decode: mean
+    of 3; prefill: one, after a warm-up; profiler off)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
@@ -1062,7 +1118,6 @@ def profile_phase(torch):
     gen.manual_seed(5)
     batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, PROMPT),
                                      generator=gen, device="cuda")}
-    cuda = torch.autograd.DeviceType.CUDA
     for label, p in (("base", params),
                      ("multi-tenant f32",
                       eng.wrapped_params(eng.ids_for(names)))):
@@ -1079,9 +1134,7 @@ def profile_phase(torch):
         wall = (time.perf_counter() - t0) / 3 * 1e3
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             step()
-        kern = [(getattr(e, "self_device_time_total", 0) / 1e3, e.count,
-                 e.key) for e in prof.key_averages()
-                if e.device_type == cuda]
+        kern = device_kernels(torch, prof)
         busy = sum(k[0] for k in kern)
         print(f"[profile] {label} decode step (B={B}, {cfg.num_layers} "
               f"layers): wall "
@@ -1092,6 +1145,29 @@ def profile_phase(torch):
         for ms, n, name in sorted(kern, reverse=True)[:6]:
             print(f"[profile]   {ms:8.3f} ms  x{n:<4d} {name[:90]}")
     eng.close()
+
+    # a lane admission's unit of work: one batch-1, 1024-token prefill
+    tokens = torch.randint(0, cfg.vocab_size, (1, 1024), generator=gen,
+                           device="cuda")
+
+    def prefill():
+        lm.prefill(params, cfg, {"tokens": tokens}, CACHE)
+        torch.cuda.synchronize()
+    prefill()
+    t0 = time.perf_counter()
+    prefill()
+    wall = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        prefill()
+    kern = device_kernels(torch, prof)
+    busy = sum(k[0] for k in kern)
+    fp = sum(ms for ms, _, name in kern if "flash_prefill" in name)
+    print(f"[profile] base prefill (B=1, S=1024, {cfg.num_layers} layers): "
+          f"wall {wall:.2f} ms; kernels {busy:.2f} ms"
+          + (f"; flash_prefill {fp:.3f} ms ({fp / busy:.1%})" if busy else
+             " (profiler saw no device time: not measured)"), flush=True)
+    for ms, n, name in sorted(kern, reverse=True)[:8]:
+        print(f"[profile]   {ms:8.3f} ms  x{n:<4d} {name[:90]}")
 
 
 def consistency_phase(torch):
@@ -1270,15 +1346,13 @@ def profile_train_step(torch, profile, ProfilerActivity, mt, out):
     batch = device_batch(next(multi_batch_iterator(
         mt.cfg, mt.run.shape, 0, [TaskSpec(a) for a in range(mt.A)],
         start_step=MT_STEPS)), mt.device)
-    cuda = torch.autograd.DeviceType.CUDA
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         mt.step(out["state"], batch)
         torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
-    kern = [(getattr(e, "self_device_time_total", 0) / 1e3, e.count, e.key)
-            for e in prof.key_averages() if e.device_type == cuda]
+    kern = device_kernels(torch, prof)
     busy = sum(k[0] for k in kern)
     print(f"[profile] multi-adapter train step (3 adapters, f32 moments): "
           f"wall {wall:.1f} ms (profiler on); kernels {busy:.1f} ms"
@@ -1397,15 +1471,13 @@ def profile_hook_step(torch, tr, state):
     from repro_torch.runtime.trainer import device_batch
     batch = device_batch(next(batch_iterator(tr.cfg, tr.run.shape, seed=1)),
                          tr.device)
-    cuda = torch.autograd.DeviceType.CUDA
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         tr.step(state, batch)
         torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
-    kern = [(getattr(e, "self_device_time_total", 0) / 1e3, e.count, e.key)
-            for e in prof.key_averages() if e.device_type == cuda]
+    kern = device_kernels(torch, prof)
     busy = sum(k[0] for k in kern)
     print(f"[profile] hook-mode train step ({HOOK_LAYERS} layers): wall "
           f"{wall:.1f} ms (profiler on); kernels {busy:.1f} ms"
@@ -1653,9 +1725,12 @@ def main() -> None:
         build.build()
         print(f"[build] {len(build.KERNELS)} kernel libraries", flush=True)
         for name, log in build.ptxas_log.items():
+            fn = ""
             for ln in log.splitlines():
+                if "Compiling entry function" in ln:
+                    fn = kernel_name(ln.split("'")[1])
                 if "registers" in ln or "spill" in ln:
-                    print(f"[build] {name}: {ln.strip()}")
+                    print(f"[build] {name}: {fn}: {ln.strip()}")
     timed("build", build_all)
 
     scratch = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")

@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for Hopper (``sm_90a``) into its own shared library under ``build/kernels``
 at the repository root, then loaded with ``ctypes``. A library's file name
-carries a hash of its source and flags, so an edited source is rebuilt and
-a stale library is never loaded. ``build`` compiles several sources at
-once, one ``nvcc`` process each, all started together.
+carries a hash of its source, the shared ``csrc/*.cuh`` headers and the
+flags, so an edited source is rebuilt and a stale library is never
+loaded. ``build`` compiles several sources at once, one ``nvcc`` process
+each, all started together.
 """
 from __future__ import annotations
 
@@ -38,8 +39,9 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for src in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        h.update(src.read_bytes())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 

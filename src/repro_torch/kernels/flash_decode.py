@@ -14,12 +14,16 @@ tails contribute nothing. kv_len must be >= 1: an empty request gets zeros
 here, where the reference would average the whole masked cache.
 
 On CUDA tensors the wrappers launch ``csrc/flash_decode.cu`` (its note says
-what bounds it and how the design answers); on CPU tensors they compute
-the plain versions, which follow the TPU kernel's arithmetic (f32 scores
-with 1/sqrt(D) rounded in f32, p kept in f32, f32 accumulation, output
-divided by max(l, 1e-30) and cast to q's dtype) in one dense softmax
-instead of an online one. The tests and ``chip_smoke.py`` hold the kernel
-against them.
+what bounds it and how the design answers): the contiguous cache splits
+its rows over CTAs (split-K, 64 rows each, any G), which write f32
+partials to scratch that the wrapper allocates, and the last CTA of each
+(request, KV head) merges them, in one launch; the paged pool keeps one
+CTA per (request, KV head) and G <= 16. Neither reads kv_len on the host.
+On CPU tensors they compute the plain versions, which follow the TPU
+kernel's arithmetic (f32 scores with 1/sqrt(D) rounded in f32, p kept in
+f32, f32 accumulation, output divided by max(l, 1e-30) and cast to q's
+dtype) in one dense softmax instead of an online one. The tests and
+``chip_smoke.py`` hold the kernels against them.
 """
 from __future__ import annotations
 
@@ -32,7 +36,10 @@ from repro_torch.kernels import build
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _DIMS = (16, 32, 64, 128)
-MAX_GROUP = 16
+PAGED_MAX_GROUP = 16        # the paged kernel's query heads per KV head
+SPLIT = 64                  # cache rows per CTA of the contiguous kernel
+                            # (kSplit, which the launch checks)
+_TICKETS = {}               # (device, stream) -> the merge's int32 tickets
 
 
 def softmax_scale(d: int) -> float:
@@ -43,6 +50,8 @@ def softmax_scale(d: int) -> float:
 def decode_lengths(kv_len, batch: int, device) -> torch.Tensor:
     """A scalar length (int or 0-d tensor) or (B,) lengths -> (B,) int32 on
     ``device``."""
+    if isinstance(kv_len, int):         # a fill, not a host-to-device copy
+        return torch.full((batch,), kv_len, dtype=torch.int32, device=device)
     kl = torch.as_tensor(kv_len, device=device)
     if kl.ndim == 0:
         return kl.to(torch.int32).expand(batch).contiguous()
@@ -113,38 +122,42 @@ def _check_cuda(name, tensors) -> None:
         if not t.is_contiguous():
             raise ValueError(f"{name} operands must be contiguous")
     B, KV, G, D = tensors[0].shape
-    if D not in _DIMS or not 1 <= G <= MAX_GROUP:
-        raise ValueError(f"{name} takes D in {_DIMS} and G <= {MAX_GROUP}, "
-                         f"got D={D}, G={G}")
-    if B > 65535 or KV > 2 ** 31 - 1:
+    if D not in _DIMS:
+        raise ValueError(f"{name} takes D in {_DIMS}, got D={D}")
+    if B > 65535 or KV > 65535:
         raise ValueError(f"{name} grid too large for B={B}, KV={KV}")
 
 
-def _lib() -> ctypes.CDLL:
-    lib = build.load("flash_decode")
-    fn = lib.flash_decode_launch
+_P, _F, _I = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
+_ARGTYPES = {   # the C signatures of csrc/flash_decode.cu, stream last
+    "flash_decode_launch": [_P] * 3 + [_I] + [_P] * 4 + [_I] * 6 + [_F, _P],
+    "flash_decode_paged_launch": [_P] * 3 + [_I] + [_P] * 3 + [_I] * 6
+                                 + [_F, _P],
+}
+
+
+def _fn(name: str):
+    fn = getattr(build.load("flash_decode"), name)
     if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, i, p, p, p, i, i, i, i, i, i, ctypes.c_float,
-                       p]
+        fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
-    return lib
+    return fn
 
 
-def _launch(name, q, k, v, kv_len, block_tables, rows: int, nblk: int):
-    B, KV, G, D = q.shape
-    out = torch.empty_like(q)
-    if out.numel() == 0:
-        return out
-    err = _lib().flash_decode_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        int(q.dtype == torch.bfloat16), kv_len.data_ptr(),
-        block_tables.data_ptr() if block_tables is not None else None,
-        out.data_ptr(), B, KV, G, D, rows, nblk, softmax_scale(D),
-        torch.cuda.current_stream(q.device).cuda_stream)
+def _tickets(device, stream: int, n: int) -> torch.Tensor:
+    """The merge's tickets for launches on ``stream``: int32 zeros that
+    each launch leaves zero, kept per (device, stream) so that two streams
+    never share one."""
+    key = (device, stream)
+    t = _TICKETS.get(key)
+    if t is None or t.numel() < n:
+        t = _TICKETS[key] = torch.zeros(n, dtype=torch.int32, device=device)
+    return t
+
+
+def _check_launch(name: str, err: int) -> None:
     if err:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
-    return out
 
 
 def flash_decode_blocks(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -160,7 +173,24 @@ def flash_decode_blocks(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return flash_decode_plain(q, k, v, kv_len)
     _check_cuda("flash_decode", (q, k, v, kv_len))
-    out = _launch("flash_decode", q, k, v, kv_len, None, k.shape[1], 0)
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_decode copies q/k/v in 16-byte chunks: "
+                         "they must be 16-byte aligned")
+    B, KV, G, D = q.shape
+    S = k.shape[1]
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    nsplit = max(1, -(-S // SPLIT))
+    part = (torch.empty(B * KV * nsplit * G * (D + 2), dtype=torch.float32,
+                        device=q.device) if nsplit > 1 else None)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    _check_launch("flash_decode", _fn("flash_decode_launch")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        int(q.dtype == torch.bfloat16), kv_len.data_ptr(), out.data_ptr(),
+        part.data_ptr() if part is not None else None,
+        _tickets(q.device, stream, B * KV).data_ptr(), B, KV, G, D, S,
+        nsplit, softmax_scale(D), stream))
     flash_decode_blocks.launches += 1
     return out
 
@@ -187,8 +217,20 @@ def flash_decode_paged(q: torch.Tensor, k_pool: torch.Tensor,
                                         kv_len)
     _check_cuda("flash_decode_paged", (q, k_pool, v_pool, block_tables,
                                        kv_len))
-    out = _launch("flash_decode_paged", q, k_pool, v_pool, kv_len,
-                  block_tables, k_pool.shape[1], block_tables.shape[1])
+    B, KV, G, D = q.shape
+    if G > PAGED_MAX_GROUP:
+        raise ValueError(f"flash_decode_paged takes G <= {PAGED_MAX_GROUP}, "
+                         f"got G={G}; the contiguous flash_decode_blocks "
+                         f"takes any G")
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    _check_launch("flash_decode_paged", _fn("flash_decode_paged_launch")(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        int(q.dtype == torch.bfloat16), kv_len.data_ptr(),
+        block_tables.data_ptr(), out.data_ptr(), B, KV, G, D,
+        k_pool.shape[1], block_tables.shape[1], softmax_scale(D),
+        torch.cuda.current_stream(q.device).cuda_stream))
     flash_decode_paged.launches += 1
     return out
 

@@ -14,8 +14,10 @@ reference lets its zero-padded keys into the softmax, so the two agree
 there only where Skv is a multiple of its kv block; this port masks them.
 
 On CUDA tensors ``flash_prefill_blocks`` launches ``csrc/flash_prefill.cu``
-(its note says what bounds it and how the design answers); on CPU tensors
-it computes ``flash_prefill_plain``, the same arithmetic (f32 scores with
+(its note says what bounds it and how the design answers): for bf16 a
+tensor-core kernel (mma.sync for q . k and for p . v, with each f32 p
+split into two bf16 terms), for f32 a plain FMA kernel. On CPU tensors it
+computes ``flash_prefill_plain``, the same arithmetic (f32 scores with
 1/sqrt(D) rounded in f32, p kept in f32, f32 accumulation, output divided
 by max(l, 1e-30) and cast to q's dtype) in one dense softmax.
 """
@@ -94,8 +96,12 @@ def flash_prefill_blocks(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Skv, KV = k.shape[1], k.shape[2]
     if D not in _DIMS:
         raise ValueError(f"flash_prefill takes D in {_DIMS}, got {D}")
-    if B > 65535 or H > 65535:
-        raise ValueError(f"flash_prefill grid too large for B={B}, H={H}")
+    if B > 65535 or H > 65535 or Sq > 64 * 65535:
+        raise ValueError(f"flash_prefill grid too large for B={B}, H={H}, "
+                         f"Sq={Sq}")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_prefill copies q/k/v in 16-byte chunks: "
+                         "they must be 16-byte aligned")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out

@@ -43,7 +43,9 @@ def _close(port, want, dt):
 
 
 DECODE_SHAPES = [(1, 1, 1, 64, 512, 256), (2, 2, 4, 64, 1024, 512),
-                 (2, 1, 8, 128, 768, 256), (2, 2, 9, 32, 300, 100)]
+                 (2, 1, 8, 128, 768, 256), (2, 2, 9, 32, 300, 100),
+                 # granite-34b's grouping: one KV head for 48 query heads
+                 (2, 1, 48, 128, 256, 128)]
 
 
 @pytest.mark.parametrize("B,KV,G,D,S,sb", DECODE_SHAPES)
@@ -107,7 +109,9 @@ def test_flash_decode_paged_matches_jax(G, dt):
     _close(port, ref.flash_decode_paged_ref(tq, tk, tv, tbt, tlen), dt)
 
 
-PREFILL_SHAPES = [(2, 13, 6, 2, 16), (1, 40, 18, 2, 32)]
+PREFILL_SHAPES = [(2, 13, 6, 2, 16), (1, 40, 18, 2, 32),
+                  # several 64-row tiles with a ragged tail, G = 9, D = 128
+                  (1, 150, 18, 2, 128)]
 
 
 @pytest.mark.parametrize("B,S,H,KV,D", PREFILL_SHAPES)
