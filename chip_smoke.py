@@ -9,11 +9,14 @@ prints its seconds on a "[time]" line:
   2. build     nvcc builds every kernel of csrc/, one process each, at once
   3. kernels   each kernel against its plain version on the card, at
                starcoder2-7b shapes; times (cold L2) beside the bound:
-               sidedelta and scatter_apply (serving), sparse_adamw (blocks
-               and rows, f32/bf16/int8 moments) and the sidedelta gradients
-               (dx through the forward kernel, dvals) of training, and the
-               attention kernels flash_decode ((B,) and scalar kv_len),
-               flash_decode_paged and flash_prefill, bf16 and f32, beside
+               sidedelta (S = 1, 16, 256, with the path each S takes,
+               and where the token-minor path starts to pay) and
+               scatter_apply (serving), sparse_adamw (blocks and rows,
+               f32/bf16/int8 moments) and the trainable sidedelta's forward
+               and gradients (dx through the forward kernel, dvals) of
+               training, and the attention kernels flash_decode ((B,) and
+               scalar kv_len), flash_decode_paged (pages of 16, 8, 24;
+               G = 9 and 48) and flash_prefill, bf16 and f32, beside
                F.scaled_dot_product_attention
   4. serve     starcoder2-7b at full width through repro_torch.launch.serve:
                sequential switching, --fuse, --multi-tenant (f32, int8);
@@ -28,7 +31,9 @@ prints its seconds on a "[time]" line:
                trace (prompts of 64..1024 tokens, half with one shared
                256-token prefix, 32 tokens each) through ServingEngine and
                PagedServingEngine over an AdapterStore: tokens/s, TTFT,
-               steps, residency, COW copies, launches, peak memory
+               steps, residency, COW copies, launches, peak memory, and
+               one decode-only and one prefill step of each engine under
+               torch.profiler
   8. continuous-consistency  full width, 2 layers, f32: both engines'
                tokens equal each request's fixed-batch tokens, with COW
   9. train     full width: repro_torch.launch.train (packed SHiRA, Trainer)
@@ -83,6 +88,8 @@ B, PROMPT, TOKENS = 8, 16, 16  # serving batch, prompt and generated tokens
 CACHE = 1056                   # the lane engine's rows a request: prompts
                                # up to 1024 + 32 generated tokens
 CC_REQUESTS, CC_TOKENS = 24, 32   # the continuous-batching trace
+CHUNK = 256                    # the paged engine's prefill chunk, and a
+                               # training sequence's rows
 IDS = [0, 1, 2, -1, 0, 1, 2, 0]
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 256, 8, 4   # launch.train phase
 MT_SEQ, MT_BATCH, MT_STEPS = 256, 2, 3            # per adapter, A = 3
@@ -169,12 +176,12 @@ def device_kernels(torch, prof):
             for e in prof.key_averages() if e.device_type == cuda]
 
 
-def attention_share(label, kern) -> None:
-    """Print the device ms, launches and share of the port's attention
-    kernels among the profiled kernels ``kern``."""
+def kernel_share(label, kern) -> None:
+    """Print the device ms, launches and share of the port's attention and
+    sidedelta kernels among the profiled kernels ``kern``."""
     busy = sum(k[0] for k in kern)
     for ms, n, name in sorted(kern, reverse=True):
-        if "flash_" in name and busy:
+        if ("flash_" in name or "sidedelta" in name) and busy:
             print(f"[profile]   {label}: {ms:.3f} ms x{n} ({ms / busy:.1%} of "
                   f"device time) {name[:70]}", flush=True)
 
@@ -196,7 +203,8 @@ def sidedelta_case(torch, gen, flush, label, n, m, S, int8, slots=None,
     import torch.nn.functional as F
     from repro_torch.core.masks import budget
     from repro_torch.kernels import ops
-    from repro_torch.kernels.sidedelta import sidedelta, sidedelta_plain
+    from repro_torch.kernels.sidedelta import (kernel_path, sidedelta,
+                                               sidedelta_plain)
     if slots is None:
         slots = [rand_entries(torch, gen, 1, n, m, budget(n, m, 0.98))
                  for _ in range(3)]
@@ -245,11 +253,47 @@ def sidedelta_case(torch, gen, flush, label, n, m, S, int8, slots=None,
          "bound_by": "bytes" if b_ms >= o_ms else "operations",
          "K": [int(valid[a]) for a in range(len(slots))]}
     print(f"[kernels] sidedelta {label} ({n}x{m}) K={r['K']} S={S} "
-          f"{'int8/int16' if int8 else 'f32/int32'}: max_abs_err={err:.3g} "
+          f"{'int8/int16' if int8 else 'f32/int32'} "
+          f"path={kernel_path(B, S)}: "
+          f"max_abs_err={err:.3g} "
           f"(tol {SIDEDELTA_TOL}) ms={ms:.4f} plain_ms={plain_ms:.3f} "
           f"library_ms(bmm, dense dW)={library_ms:.3f} "
           f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']})", flush=True)
     return r
+
+
+def sidedelta_crossover(torch, gen, flush, n, m):
+    """Where the token-minor path starts to pay, which sets the wrapper's
+    rule (kernel_path): at the w_up shape, the serving batch's adapters at
+    S = 2..32 and one adapter's single request at S = 4..32, each through
+    both paths' launches on the same inputs. Prints both times and the
+    path the rule takes; the paths' results must agree."""
+    from repro_torch.core.masks import budget
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.sidedelta import (_launch_rows, _launch_tokens,
+                                               kernel_path)
+    slots = [rand_entries(torch, gen, 1, n, m, budget(n, m, 0.98))
+             for _ in range(3)]
+    t = {k: v[0].contiguous() for k, v in ops.sidedelta_table(
+        slots, 1, n, m).items()}
+    tab = (t["rows"], t["vals"], t["colptr"])
+    ids = torch.tensor(IDS, dtype=torch.int32, device="cuda")
+    for Bx, S in [(B, s) for s in (2, 4, 8, 16, 32)] + [
+            (1, s) for s in (4, 8, 16, 32)]:
+        x = torch.randn((Bx, S, n), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        xi = ids[:Bx]
+        err = float((_launch_tokens(x, *tab, xi) - _launch_rows(x, *tab, xi))
+                    .abs().max())
+        if not err <= SIDEDELTA_TOL:
+            fail(f"sidedelta crossover B={Bx} S={S}: the paths differ by "
+                 f"{err}")
+        tok = cold_ms(torch, lambda: _launch_tokens(x, *tab, xi), 20, flush)
+        row = cold_ms(torch, lambda: _launch_rows(x, *tab, xi), 20, flush)
+        print(f"[kernels] sidedelta crossover w_up B={Bx} S={S} "
+              f"({len(set(xi.tolist()) - {-1})} adapters): tokens "
+              f"{tok:.4f} ms, rows {row:.4f} ms, paths differ by "
+              f"{err:.3g}; the rule takes {kernel_path(Bx, S)}", flush=True)
 
 
 def kernels_phase(torch, flush):
@@ -264,10 +308,12 @@ def kernels_phase(torch, flush):
     side = []
     for n, m, name in ((d, f, "w_up"), (d, d, "wq"), (d, 512, "wk"),
                        (f, d, "w_down")):
-        for S in (1, PROMPT):
+        for S in (1, PROMPT) + ((CHUNK,) if m == f or n == f else ()):
             for int8 in (False, True):
                 side.append(sidedelta_case(torch, gen, flush, name, n, m,
                                            S, int8))
+        torch.cuda.empty_cache()
+    sidedelta_crossover(torch, gen, flush, d, f)
     # the fused state of two stacked w_up layers, as MultiTenantEngine
     # builds it with adapter_0 hot: diff packs (whose shorter layer is
     # padded with index 0, value 0) and slot padding past each valid count
@@ -279,7 +325,7 @@ def kernels_phase(torch, flush):
              fuse_packs([packs[0]], [-1.0])]
     slots = [p.entries["w"] for p in fused]
     pad = max(s[0].shape[-1] for s in slots)
-    for S in (1, PROMPT):
+    for S in (1, PROMPT, CHUNK):     # the decode and token-minor paths
         tight = sidedelta_case(torch, gen, flush, "w_up fused state", d,
                                f, S, False, slots=slots)
         padded = sidedelta_case(torch, gen, flush,
@@ -473,17 +519,20 @@ def sampled_addmm_ms(torch, flush, t, x, dy, A, n, m, S):
 
 
 def grad_case(torch, gen, flush, label, n, m):
-    """The trainable side delta's two gradients at one layer's (n, m)
-    leaf, 3 adapters at sparsity 0.98 and T_a = 512 tokens each, x bf16 as
-    the multi-adapter forward runs it: dx through the forward kernel over
-    the transposed table, against the plain version, and dvals against
-    its plain version. dy is scaled by 1e-2, a gradient's size, so the
-    f32 sums of 512 products stay within the absolute tolerance."""
+    """The trainable side delta at one layer's (n, m) leaf, 3 adapters at
+    sparsity 0.98 and T_a = 512 tokens each, x bf16 as the multi-adapter
+    forward runs it: the forward over the column-sorted table, dx through
+    the forward kernel over the transposed table, each against the plain
+    version beside one bmm on the densified per-request dW (dW^T for dx),
+    and dvals against its plain version. dy is scaled by 1e-2, a
+    gradient's size, so the f32 sums of 512 products stay within the
+    absolute tolerance."""
     from repro_torch.core.masks import budget
     from repro_torch.kernels import ops
-    from repro_torch.kernels.sidedelta import (sidedelta, sidedelta_dvals,
+    from repro_torch.kernels.sidedelta import (group_by_adapter, kernel_path,
+                                               sidedelta, sidedelta_dvals,
                                                sidedelta_dvals_plain,
-                                               sidedelta_plain)
+                                               sidedelta_plain, token_minor)
     A, S = 3, MT_SEQ
     k = budget(n, m, 0.98)
     idx = [rand_entries(torch, gen, 1, n, m, k)[0] for _ in range(A)]
@@ -508,6 +557,24 @@ def grad_case(torch, gen, flush, label, n, m):
                                   .expand(A, m).reshape(-1),
                                   torch.diff(t["colptr"].long()).reshape(-1))
     dense.scatter_(1, t["rows"].long() * m + col.reshape(A, k), vs)
+    fw_args = (x, t["rows"], vs, t["colptr"], ids)
+    err_fw = float((sidedelta(*fw_args)
+                    - sidedelta_plain(*fw_args)).abs().max())
+    if not err_fw <= SIDEDELTA_TOL:
+        fail(f"sidedelta forward {label}: max_abs_err {err_fw} > "
+             f"{SIDEDELTA_TOL}")
+    dense_f = dense.reshape(A, n, m)[ids.long()]
+    xf = x.float()
+    out["forward"] = {
+        "max_abs_err": err_fw,
+        "ms": cold_ms(torch, lambda: sidedelta(*fw_args), 10, flush),
+        "plain_ms": cold_ms(torch, lambda: sidedelta_plain(*fw_args), 2,
+                            flush),
+        "library_ms": cold_ms(torch, lambda: torch.bmm(xf, dense_f), 5,
+                              flush),
+        **bound(x.numel() * 2 + A * k * 8 + A * (m + 1) * 4 + Bt * S * m * 4,
+                2 * S * k * Bt)}
+    del dense_f, xf
     dense_t = dense.reshape(A, n, m).transpose(1, 2)[ids.long()]
     nbytes_dx = dy.numel() * 4 + A * k * 8 + A * (n + 1) * 4 + Bt * S * n * 4
     out["dx"] = {"max_abs_err": err,
@@ -532,10 +599,20 @@ def grad_case(torch, gen, flush, label, n, m):
                     "library_ms": sampled_addmm_ms(torch, flush, t, x, dy, A,
                                                    n, m, S),
                     **bound(nbytes_dv, 2 * S * k * Bt)}
+    # the wrapper's prep for dx (and dvals, which shares it): the grouping
+    # and dy in token-minor order
+    prep_ms = cold_ms(torch, lambda: token_minor(
+        dy, group_by_adapter(ids, A)[0]), 10, flush)
+    print(f"[kernels] sidedelta {label}: grouping + token-minor dy "
+          f"({Bt}, {S}, {m}) f32: {prep_ms:.4f} ms of each dx call",
+          flush=True)
     for name, r in out.items():
-        yard = "bmm, dense dW^T" if name == "dx" else "sampled_addmm"
+        yard = {"forward": "bmm, dense dW", "dx": "bmm, dense dW^T",
+                "dvals": "sampled_addmm"}[name]
+        path = (f" path={kernel_path(Bt, S)}" if name != "dvals"
+                else "")
         print(f"[kernels] sidedelta {name} {label} ({n}x{m}) K={k}x{A} "
-              f"T_a={2 * S}: max_abs_err={r['max_abs_err']:.3g} (tol "
+              f"T_a={2 * S}{path}: max_abs_err={r['max_abs_err']:.3g} (tol "
               f"{SIDEDELTA_TOL}) ms={r['ms']:.4f} plain_ms="
               f"{r['plain_ms']:.3f} library_ms({yard})="
               f"{r['library_ms']:.3f} bound_ms="
@@ -595,11 +672,13 @@ def attention_kernels_phase(torch, flush):
     """flash_decode, flash_decode_paged and flash_prefill against their
     plain versions at the continuous-batching shapes of starcoder2-7b (KV
     4, G 9, D 128), bf16 (the serving dtype) and f32, within ATTN_TOL;
-    then flash_decode at granite-34b's grouping (KV 1, G 48), a prefill
-    whose length is no multiple of the kernel's 64-row tiles (S 777), and
-    one small case (B 1, S 256, H 8, KV 2) of each kernel at each other
-    head dim the wrappers take (16, 32, 64), so that every template
-    instance they can reach runs once. The yardstick is one
+    then both decode kernels at granite-34b's grouping (KV 1, G 48), the
+    paged kernel with pages of 8 (the engine's default) and of 24 (which
+    do not divide the kernel's 64-position splits), a prefill whose length
+    is no multiple of the kernel's 64-row tiles (S 777), and one small
+    case (B 1, S 256, H 8, KV 2) of each kernel at each other head dim the
+    wrappers take (16, 32, 64), so that every template instance they can
+    reach runs once. The yardstick is one
     F.scaled_dot_product_attention(..., enable_gqa=True) call on the same
     inputs, laid out as it wants them beforehand (for paged: a gather of
     the pages, then the call)."""
@@ -660,46 +739,53 @@ def attention_kernels_phase(torch, flush):
                 4 * D * H * Bp * Sp * (Sp + 1) // 2, bf, iters=10,
                 hi_lo=True))
 
+        def paged(Bd, KV, G, D, S, page, name, kl):
+            """A shuffled pool of ``page``-row pages, tables S positions
+            wide; entries past each request's pages are the scratch page
+            0."""
+            lens = decode_lengths(kl, Bd, "cuda")
+            nblk = -(-S // page)
+            used = [-(-int(n) // page) for n in lens.tolist()]
+            P = 1 + sum(used) + 8
+            perm = torch.randperm(P - 1, generator=gen, device="cuda") + 1
+            bt = torch.zeros((Bd, nblk), dtype=torch.int32, device="cuda")
+            o = 0
+            for b, u in enumerate(used):
+                bt[b, :u] = perm[o:o + u].to(torch.int32)
+                o += u
+            q, kp, vp = r(Bd, KV, G, D), r(P, page, KV, D), r(P, page, KV, D)
+            qs = q.reshape(Bd, KV * G, 1, D)
+            mask = (torch.arange(nblk * page, device="cuda")[None, :]
+                    < lens.long()[:, None])[:, None, None, :]
+
+            def paged_sdpa():
+                kk = paged_gather(kp, bt).transpose(1, 2)
+                vv = paged_gather(vp, bt).transpose(1, 2)
+                return F.scaled_dot_product_attention(
+                    qs, kk, vv, attn_mask=mask, enable_gqa=True)
+            rows = int(lens.sum())
+            out["flash_decode_paged"].append(attn_case(
+                torch, flush, f"flash_decode_paged {tag} ({Bd},{KV},{G},{D}) "
+                f"pages of {page}, {P} pages, nblk={nblk}, {name}",
+                lambda: flash_decode_paged(q, kp, vp, bt, lens),
+                lambda: flash_decode_paged_plain(q, kp, vp, bt, lens),
+                paged_sdpa, tol,
+                2 * q.numel() * es + 2 * rows * KV * D * es + bt.numel() * 4
+                + Bd * 4, 4 * rows * KV * G * D, bf))
+
         decode(Bd, KV, G, D, CACHE, (("(B,) kv_len 1..1056", spread),
                                      ("scalar kv_len 700", 700)))
-        # a shuffled pool of 16-row pages; table entries past each
-        # request's pages are the scratch page 0
-        page = 16
-        nblk = CACHE // page
-        used = [(int(n) + page - 1) // page for n in spread.tolist()]
-        P = 1 + sum(used) + 8
-        perm = torch.randperm(P - 1, generator=gen, device="cuda") + 1
-        bt = torch.zeros((Bd, nblk), dtype=torch.int32, device="cuda")
-        o = 0
-        for b, u in enumerate(used):
-            bt[b, :u] = perm[o:o + u].to(torch.int32)
-            o += u
-        q, kp, vp = r(Bd, KV, G, D), r(P, page, KV, D), r(P, page, KV, D)
-        qs = q.reshape(Bd, H, 1, D)
-
-        def paged_sdpa():
-            kk = paged_gather(kp, bt).transpose(1, 2)
-            vv = paged_gather(vp, bt).transpose(1, 2)
-            return F.scaled_dot_product_attention(
-                qs, kk, vv, attn_mask=(torch.arange(
-                    nblk * page, device="cuda")[None, :] < spread.long()[
-                        :, None])[:, None, None, :], enable_gqa=True)
-        rows = int(spread.sum())
-        out["flash_decode_paged"].append(attn_case(
-            torch, flush, f"flash_decode_paged {tag} ({Bd},{KV},{G},{D}) "
-            f"pages of {page}, {P} pages, nblk={nblk}, kv_len 1..{CACHE}",
-            lambda: flash_decode_paged(q, kp, vp, bt, spread),
-            lambda: flash_decode_paged_plain(q, kp, vp, bt, spread),
-            paged_sdpa, tol,
-            2 * q.numel() * es + 2 * rows * KV * D * es + bt.numel() * 4
-            + Bd * 4, 4 * rows * KV * G * D, bf))
-        del q, qs, kp, vp
+        paged(Bd, KV, G, D, CACHE, 16, "kv_len 1..1056", spread)
         for Bp, Sp in ((1, 1024), (B, PROMPT), (1, 777)):
             prefill(Bp, Sp, H, KV, D)
         decode(Bd, 1, 48, D, CACHE, (("(B,) kv_len 1..1056", spread),))
+        paged(Bd, 1, 48, D, CACHE, 16, "kv_len 1..1056", spread)
+        for page in (8, 24):
+            paged(Bd, KV, G, D, CACHE, page, "kv_len 1..1056", spread)
         for d in (16, 32, 64):
             prefill(1, 256, 8, 2, d)
             decode(1, 2, 4, d, 256, (("kv_len 200", 200),))
+            paged(1, 2, 4, d, 256, 16, "kv_len 200", 200)
     return out
 
 
@@ -854,61 +940,72 @@ def continuous_trace(vocab: int, packs):
     return trace
 
 
-def drive(torch, engine, trace, max_tokens, profile_at=5):
+def drive(torch, engine, trace, max_tokens, profile_from=5):
     """Submit the whole trace at once, then step the engine until every
     request resolved; returns (futures, wall seconds, peak resident
-    requests, per-step numbers), synchronized. Each step's host-clock
-    time is kept with whether it admitted a request (lanes) or ran a
-    prefill chunk (pages); engine step ``profile_at`` runs under
-    torch.profiler for its device time by kernel."""
+    requests, per-step numbers, profiles), synchronized. Each step's
+    host-clock time is kept with whether it admitted a request (lanes) or
+    ran a prefill chunk (pages). Engine step ``profile_from`` runs under
+    torch.profiler, and after it each step that follows a step of a kind
+    (decode-only, or with a prefill) not yet profiled, since kinds come in
+    runs: profiles maps "decode-only" and "prefill" to (engine step,
+    profile), the first of each; profiled steps are left out of the
+    per-step times."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     futs = [engine.submit(p, a, max_tokens=max_tokens) for p, a in trace]
-    peak, steps, prof = 0, [], None
+    peak, steps, profs, last = 0, [], {}, None
     while engine.pending():
         admitted = sum(f.submitted_step is not None for f in futs)
         chunks = getattr(engine, "prefill_chunks", 0)
+        at = engine.step_count
         ts = time.perf_counter()
-        if engine.step_count == profile_at and prof is None:
+        prof = None
+        if at == profile_from or (at > profile_from
+                                  and last not in profs):
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 engine.step()
                 torch.cuda.synchronize()
         else:
             engine.step()
             torch.cuda.synchronize()
-        steps.append((time.perf_counter() - ts,
-                      sum(f.submitted_step is not None for f in futs)
-                      > admitted
-                      or getattr(engine, "prefill_chunks", 0) > chunks))
+        wall = time.perf_counter() - ts
+        prefilled = (sum(f.submitted_step is not None for f in futs)
+                     > admitted
+                     or getattr(engine, "prefill_chunks", 0) > chunks)
+        last = "prefill" if prefilled else "decode-only"
+        if prof is None:
+            steps.append((wall, prefilled))
+        else:
+            profs.setdefault(last, (at + 1, prof))
         peak = max(peak, sum(a is not None for a in engine._active))
     torch.cuda.synchronize()
-    return futs, time.perf_counter() - t0, peak, steps, prof
+    return futs, time.perf_counter() - t0, peak, steps, profs
 
 
-def step_report(label, steps, prof):
+def step_report(label, steps, profs):
     """Median host-clock ms of decode-only steps and of steps that
-    prefilled, and the profiled step's device time by kernel."""
+    prefilled, and each profiled step's device time by kernel."""
     import statistics
+    import torch
     dec = [t for t, pf in steps if not pf]
     pre = [t for t, pf in steps if pf]
     med = lambda xs: statistics.median(xs) * 1e3 if xs else float("nan")
-    line = (f"[continuous] {label} steps: {len(dec)} decode-only, median "
-            f"{med(dec):.1f} ms; {len(pre)} with a prefill, median "
-            f"{med(pre):.1f} ms")
+    line = (f"[continuous] {label} steps (profiled ones left out): "
+            f"{len(dec)} decode-only, median {med(dec):.1f} ms; {len(pre)} "
+            f"with a prefill, median {med(pre):.1f} ms")
     print(line, flush=True)
-    if prof is None:
-        return
-    import torch
-    kern = device_kernels(torch, prof)
-    busy = sum(k[0] for k in kern)
-    print(f"[profile] {label} engine step 6 (profiler on): kernels "
-          f"{busy:.2f} ms" + ("" if busy else
-                              " (profiler saw no device time: not "
-                              "measured)"), flush=True)
-    for ms, n, name in sorted(kern, reverse=True)[:6]:
-        print(f"[profile]   {ms:8.3f} ms  x{n:<5d} {name[:90]}")
-    attention_share(f"{label} step 6", kern)
+    for kind, (at, prof) in sorted(profs.items()):
+        kern = device_kernels(torch, prof)
+        busy = sum(k[0] for k in kern)
+        print(f"[profile] {label} engine step {at}, {kind} (profiler on): "
+              f"kernels {busy:.2f} ms" + ("" if busy else
+                                          " (profiler saw no device time: "
+                                          "not measured)"), flush=True)
+        for ms, n, name in sorted(kern, reverse=True)[:6]:
+            print(f"[profile]   {ms:8.3f} ms  x{n:<5d} {name[:90]}")
+        kernel_share(f"{label} step {at}", kern)
 
 
 def report_engine(torch, label, engine, futs, wall, peak, vocab, needed,
@@ -1001,18 +1098,18 @@ def continuous_phase(torch):
                  ("flash_prefill", "flash_decode", "sidedelta")),
                 ("PagedServingEngine", lambda: PagedServingEngine(
                     cfg, params, slots=B, num_pages=321, page_size=16,
-                    chunk_size=256, store=store),
+                    chunk_size=CHUNK, store=store),
                  ("flash_decode_paged", "sidedelta"))):
             zero_counts()
             torch.cuda.reset_peak_memory_stats()
             engine = make()
-            futs, wall, peak, steps, prof = drive(torch, engine, trace,
-                                                  CC_TOKENS)
+            futs, wall, peak, steps, profs = drive(torch, engine, trace,
+                                                   CC_TOKENS)
             if hasattr(engine, "peak_resident"):
                 peak = engine.peak_resident
             outs[label] = report_engine(torch, label, engine, futs, wall,
                                         peak, cfg.vocab_size, needed, totals)
-            step_report(label, steps, prof)
+            step_report(label, steps, profs)
             del engine, futs
             torch.cuda.empty_cache()
     pairs = list(zip(outs["ServingEngine"], outs["PagedServingEngine"]))
@@ -1360,6 +1457,7 @@ def profile_train_step(torch, profile, ProfilerActivity, mt, out):
              " (profiler saw no device time: not measured)"), flush=True)
     for ms, n, name in sorted(kern, reverse=True)[:10]:
         print(f"[profile]   {ms:9.3f} ms  x{n:<5d} {name[:90]}")
+    kernel_share("multi-adapter step", kern)
 
 
 def train_consistency_phase(torch):
@@ -1770,7 +1868,8 @@ def main() -> None:
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     main_side = side[0]     # w_up, S=1, f32 tables: the multi-tenant decode
     side_err = max([r["max_abs_err"] for r in side]
-                   + [g["dx"]["max_abs_err"] for g in grads.values()])
+                   + [g[e]["max_abs_err"] for g in grads.values()
+                      for e in ("forward", "dx")])
     dvals = grads["w_up"]["dvals"]
     kernels = [
         {"name": "sidedelta", "route": "cuda",

@@ -1,6 +1,6 @@
 // flash_decode: single-query GQA decode attention, over a contiguous KV
-// cache (split-K over the cache's rows) or over a page pool through
-// per-request block tables.
+// cache or over a page pool through per-request block tables, both
+// split-K over the request's positions.
 //
 // Replaces the TPU kernels src/repro/kernels/flash_decode.py:
 // flash_decode_blocks (Pallas body _flash_decode_kernel) and
@@ -13,7 +13,7 @@
 // Scores, the softmax (max m, sum l) and P.V are f32 with p kept in f32
 // (in bf16 to ~16 mantissa bits, below), scale = 1 / sqrt(D) rounded in
 // f32 by the caller, and the output is acc / max(l, 1e-30) cast to q's
-// dtype (split-K: by div.approx, within 2 ulp): the arithmetic of the
+// dtype (by div.approx, within 2 ulp): the arithmetic of the
 // Pallas bodies. Unlike them, kv_len is per request ((B,) int32; the
 // reference takes one shared length), and rows at or past kv_len[b] are
 // never read, so a lane engine's 1 K-row stripes cost what their filled
@@ -31,38 +31,33 @@
 // byte (9 for starcoder2-7b), far below the card's ratio even at f32's 67
 // TFLOP/s. So the design has to keep enough rows in flight on all 132 SMs.
 //
-// Contiguous caches, split-K: one CTA of 128 threads per (split of
-// kSplit = 64 cache rows, KV head, request), so a (8, 4) batch over a
-// 1056-row cache is 17 x 32 CTAs, and a split that starts at or past
-// kv_len[b] exits before reading anything: the grid follows the cache's S,
-// never kv_len, and the host never reads kv_len. A CTA copies its K and V
-// rows into shared memory in their storage type with 16-byte cp.async
-// copies, once, and serves all G query heads from them in groups of
-// kGroup = 16 (any G). bf16 (flash_decode_mma_kernel): the group's q rows
-// are the A operand of mma.sync m16n8k16, so each warp scores 16 keys for
-// all 16 heads at once (exact bf16 products summed in f32), the split's
-// max and sum cross the warps through shared memory, and p . V runs on the
-// tensor cores with p split into bf16 hi + lo as in flash_prefill (p to
-// ~16 mantissa bits). f32 (flash_decode_f32_kernel, the f32 consistency
-// runs): plain FMA, each thread dotting a cache row with up to 8 heads'
-// q rows and accumulating p . V for one column pair of its heads. Each
-// split writes f32 partials (acc[G][D], m[G], l[G]) to scratch from the
-// wrapper; the last CTA of each (request, KV head) to finish, found by an
-// atomic ticket, merges its working splits (acc and l scaled by
-// exp(m_s - max m)) and resets the ticket for the next launch: one launch
-// a call. A request whose kv_len fits one split writes its output
-// directly.
-//
-// Paged (flash_decode_kernel, kPaged; its split-K redesign is still to
-// come): one CTA of 128 threads per (request, KV head) loads its G <= 16
-// query rows once into shared memory, then walks K/V in tiles of 32 rows
-// staged through shared memory as f32, so each K/V row is read once for all
-// G query heads. A warp owns one query head's 32 scores of a tile (one per
-// lane), so the tile's max and sum are warp shuffles; K rows are padded to
-// D + 1 floats so the lanes' dot products hit distinct banks. Each thread
-// then owns one of the D output columns for G / (128 / D) query heads, in
-// registers. B * KV CTAs (32 for the serving batch) leave most of the 132
-// SMs idle.
+// Split-K, contiguous caches and page pools alike: one CTA of 128 threads
+// per (split of kSplit = 64 positions, KV head, request), so a (8, 4) batch
+// over a 1056-row cache is 17 x 32 CTAs, and a split that starts at or past
+// kv_len[b] exits before reading anything: the grid follows the cache's
+// width (S, or a pool's nblk * page), never kv_len, and the host never
+// reads kv_len or the block tables. A paged CTA looks up the pool row of
+// each of its positions in the request's block-table row, one position at
+// a time (bt[t / page] * page + t % page), so any page size works and a
+// split may span pages unevenly; a contiguous CTA reads rows b * S + t.
+// Either way it copies its K and V rows into shared memory in their
+// storage type with 16-byte cp.async copies, once, and serves all G query
+// heads from them in groups of kGroup = 16 (any G). bf16
+// (flash_decode_mma_kernel): the group's q rows are the A operand of
+// mma.sync m16n8k16, so each warp scores 16 keys for all 16 heads at once
+// (exact bf16 products summed in f32), the split's max and sum cross the
+// warps through shared memory, and p . V runs on the tensor cores with p
+// split into bf16 hi + lo as in flash_prefill (p to ~16 mantissa bits).
+// f32 (flash_decode_f32_kernel, the f32 consistency runs): plain FMA, each
+// thread dotting a cache row with up to 8 heads' q rows and accumulating
+// p . V for one column pair of its heads. Each split writes f32 partials
+// (acc[G][D], m[G], l[G]) to scratch from the wrapper; the last CTA of each
+// (request, KV head) to finish, found by an atomic ticket, merges its
+// working splits (acc and l scaled by exp(m_s - max m)) and resets the
+// ticket for the next launch: one launch a call. A request whose kv_len
+// fits one split writes its output directly. The paged engine's tables
+// are wide (320 entries of 16 rows: 80 splits a request) and most of their
+// CTAs exit at once, before any load.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -75,19 +70,12 @@ namespace {
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kTile = 32;        // paged: K/V rows per tile, one per lane
-constexpr int kMaxG = 16;        // paged: query heads per KV head
-constexpr float kNegInf = -1e30f;
-constexpr int kSplit = 64;       // contiguous: cache rows per CTA
-constexpr int kGroup = 16;       // contiguous: query heads per pass
+constexpr int kSplit = 64;       // positions per CTA
+constexpr int kGroup = 16;       // query heads per pass
 static_assert(2 * kSplit == kThreads, "a thread per (row, head parity)");
 // The split-K kernels' launch bounds name a minimum of one CTA an SM:
 // without it ptxas spills registers at some D to raise occupancy.
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
@@ -107,115 +95,16 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// S_or_page: the cache's rows per request (contiguous) or the page size
-// (paged); nblk: block-table entries per request (paged only).
-template <int D, typename T, bool kPaged>
-__global__ void __launch_bounds__(kThreads)
-flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const int* __restrict__ kv_len,
-                    const int* __restrict__ block_tables, T* __restrict__ out,
-                    int KV, int G, int S_or_page, int nblk, float scale) {
-  extern __shared__ float smem[];
-  float* qs = smem;                          // G x D query rows
-  float* ks = qs + G * D;                    // kTile x (D + 1), padded
-  float* vs = ks + kTile * (D + 1);          // kTile x D
-  float* ps = vs + kTile * D;                // G x kTile probabilities
-  float* ms = ps + G * kTile;                // G running max
-  float* ls = ms + G;                        // G running sum
-  float* cs = ls + G;                        // G this tile's correction
-
-  const int h = blockIdx.x;
-  const int b = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  constexpr int R = kThreads / D;            // query heads per pass
-  constexpr int kRows = (kMaxG + R - 1) / R;
-  const int d = tid % D;
-  const int g0 = tid / D;
-
-  const long long qbase = (static_cast<long long>(b) * KV + h) * G * D;
-  for (int i = tid; i < G * D; i += kThreads) qs[i] = to_f32(q[qbase + i]);
-  if (tid < G) {
-    ms[tid] = kNegInf;
-    ls[tid] = 0.f;
-  }
-  const int total = kPaged ? nblk * S_or_page : S_or_page;
-  const int len = min(kv_len[b], total);
-  const int* bt = kPaged ? block_tables + static_cast<long long>(b) * nblk
-                         : nullptr;
-
-  float acc[kRows];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) acc[i] = 0.f;
-  __syncthreads();
-
-  for (int t0 = 0; t0 < len; t0 += kTile) {
-    const int n = min(kTile, len - t0);
-    for (int e = tid; e < n * D; e += kThreads) {
-      const int r = e / D;
-      const int dd = e % D;
-      const int pos = t0 + r;
-      long long row;
-      if (kPaged) {
-        row = static_cast<long long>(bt[pos / S_or_page]) * S_or_page +
-              pos % S_or_page;
-      } else {
-        row = static_cast<long long>(b) * S_or_page + pos;
-      }
-      const long long off = (row * KV + h) * D + dd;
-      ks[r * (D + 1) + dd] = to_f32(k[off]);
-      vs[r * D + dd] = to_f32(v[off]);
-    }
-    __syncthreads();
-    // scores and the online softmax: warp w owns query heads w, w + 4, ...
-    for (int g = warp; g < G; g += kWarps) {
-      float s = kNegInf;
-      if (lane < n) {
-        const float* qr = qs + g * D;
-        const float* kr = ks + lane * (D + 1);
-        float dot = 0.f;
-#pragma unroll 8
-        for (int i = 0; i < D; ++i) dot = fmaf(qr[i], kr[i], dot);
-        s = dot * scale;
-      }
-      const float m_prev = ms[g];
-      const float m_new = fmaxf(m_prev, warp_max(s));
-      const float p = lane < n ? expf(s - m_new) : 0.f;
-      const float sum = warp_sum(p);
-      ps[g * kTile + lane] = p;
-      __syncwarp();                          // every lane has read ms[g]
-      if (lane == 0) {
-        const float corr = expf(m_prev - m_new);
-        cs[g] = corr;
-        ms[g] = m_new;
-        ls[g] = ls[g] * corr + sum;
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int g = g0 + R * i;
-      if (g < G) {
-        float a = acc[i] * cs[g];
-        const float* pr = ps + g * kTile;
-        for (int c = 0; c < n; ++c) a = fmaf(pr[c], vs[c * D + d], a);
-        acc[i] = a;
-      }
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int g = g0 + R * i;
-    if (g < G) {
-      store(out + qbase + static_cast<long long>(g) * D + d,
-            acc[i] / fmaxf(ls[g], 1e-30f));
-    }
-  }
+// The cache row that holds position t of request b: row b * S + t of a
+// contiguous (B, S, KV, D) cache, or row t % page of page bt[t / page] of a
+// (P, page, KV, D) pool, bt being the request's block-table row.
+template <bool kPaged>
+__device__ __forceinline__ long long cache_row(const int* bt, int page, int b,
+                                               int S, int t) {
+  if (kPaged) return static_cast<long long>(__ldg(bt + t / page)) * page +
+                     t % page;
+  return static_cast<long long>(b) * S + t;
 }
-
-// ---- contiguous cache, split-K ----
 
 __device__ __forceinline__ void store_pair(float* p, float x, float y) {
   *reinterpret_cast<float2*>(p) = make_float2(x, y);
@@ -333,16 +222,19 @@ __device__ __forceinline__ void merge_if_last(const float* part,
 // of them (S = q . K^T, mma.sync, exact products summed in f32); the row
 // max and sum cross the warps through shared memory; p, split into bf16
 // hi + lo, goes to shared memory as the A operand of P . V, of which warp
-// w computes column tiles w * kNTW .. (V by ldmatrix.trans).
-template <int D>
+// w computes column tiles w * kNTW .. (V by ldmatrix.trans). S is the
+// positions a request can hold: the cache's rows, or a pool's nblk * page.
+template <int D, bool kPaged>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
                         const __nv_bfloat16* __restrict__ k,
                         const __nv_bfloat16* __restrict__ v,
                         const int* __restrict__ kv_len,
+                        const int* __restrict__ block_tables,
                         __nv_bfloat16* __restrict__ out,
                         float* __restrict__ part, int* __restrict__ tickets,
-                        int KV, int G, int S, int nsplit, float scale) {
+                        int KV, int G, int S, int page, int nblk, int nsplit,
+                        float scale) {
   constexpr int LD = D + 8;                 // a K/V/q row, padded 16 bytes
   constexpr int kChunks = D / 8;            // 16-byte chunks a row
   constexpr int kRowStep = kThreads / kChunks;
@@ -375,17 +267,20 @@ flash_decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
     for (int i = tid; i < G * D; i += kThreads) store(o + i, 0.f);
     return;
   }
-  const int n = min(kSplit, len - split * kSplit);
+  const int t0 = split * kSplit;
+  const int n = min(kSplit, len - t0);
   const int cr = tid / kChunks;             // this thread's copies: rows
   const int ce = tid % kChunks * 8;         // cr + i kRowStep, column ce
-  const long long row = static_cast<long long>(KV) * D;
-  const long long at = (static_cast<long long>(b) * S + split * kSplit) *
-                       row + h * D + ce;
+  const int* bt = kPaged ? block_tables + static_cast<long long>(b) * nblk
+                         : nullptr;
 #pragma unroll
   for (int r = cr; r < kSplit; r += kRowStep) {
     const bool ok = r < n;                  // rows past the length read 0
-    cp_async16(smem_addr(ks + r * LD + ce), k + (ok ? at + r * row : 0), ok);
-    cp_async16(smem_addr(vs + r * LD + ce), v + (ok ? at + r * row : 0), ok);
+    const long long at =
+        ok ? (cache_row<kPaged>(bt, page, b, S, t0 + r) * KV + h) * D + ce
+           : 0;
+    cp_async16(smem_addr(ks + r * LD + ce), k + at, ok);
+    cp_async16(smem_addr(vs + r * LD + ce), v + at, ok);
   }
   auto load_q = [&](int g0) {               // heads past G read as 0
 #pragma unroll
@@ -532,15 +427,16 @@ flash_decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
 // thread (row r, parity hp) dots cache row r with heads hp, hp + 2, ...;
 // a warp per head takes the split's max and sum; thread (column pair cp,
 // head lane hl) accumulates p . V for heads hl, hl + R, ... in registers.
-template <int D>
+template <int D, bool kPaged>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_decode_f32_kernel(const float* __restrict__ q,
                         const float* __restrict__ k,
                         const float* __restrict__ v,
                         const int* __restrict__ kv_len,
+                        const int* __restrict__ block_tables,
                         float* __restrict__ out, float* __restrict__ part,
                         int* __restrict__ tickets, int KV, int G, int S,
-                        int nsplit, float scale) {
+                        int page, int nblk, int nsplit, float scale) {
   constexpr int LD = D + 4;                 // a shared row, padded 16 bytes
   constexpr int kChunks = D / 4;            // 16-byte chunks a row
   constexpr int kPairs = D / 2;             // P.V: a thread per column pair
@@ -571,15 +467,17 @@ flash_decode_f32_kernel(const float* __restrict__ q,
   }
   const int t0 = split * kSplit;
   const int n = min(kSplit, len - t0);
-  const long long row = static_cast<long long>(KV) * D;
-  const float* kg = k + (static_cast<long long>(b) * S + t0) * row + h * D;
-  const float* vg = v + (static_cast<long long>(b) * S + t0) * row + h * D;
+  const int* bt = kPaged ? block_tables + static_cast<long long>(b) * nblk
+                         : nullptr;
   for (int c = tid; c < kSplit * kChunks; c += kThreads) {
     const int r = c / kChunks;
     const int e = c % kChunks * 4;
     const bool ok = r < n;                  // rows past the length read 0
-    cp_async16(smem_addr(ks + r * LD + e), ok ? kg + r * row + e : kg, ok);
-    cp_async16(smem_addr(vs + r * LD + e), ok ? vg + r * row + e : vg, ok);
+    const long long at =
+        ok ? (cache_row<kPaged>(bt, page, b, S, t0 + r) * KV + h) * D + e
+           : 0;
+    cp_async16(smem_addr(ks + r * LD + e), k + at, ok);
+    cp_async16(smem_addr(vs + r * LD + e), v + at, ok);
   }
   cp_async_commit();
   const bool direct = nwork == 1;
@@ -691,59 +589,23 @@ flash_decode_f32_kernel(const float* __restrict__ q,
   if (!direct) merge_if_last<D, false>(part, tickets, o, G, nwork, nsplit, bh);
 }
 
-struct Args {
-  const void* q;
-  const void* k;
-  const void* v;
-  const int* kv_len;
-  const int* block_tables;
-  void* out;
-  int B, KV, G, S_or_page, nblk;
-  float scale;
-  cudaStream_t stream;
-};
-
-template <int D, typename T>
-int run_paged(const Args& a) {
-  const size_t smem = sizeof(float) *
-      (a.G * D + kTile * (D + 1) + kTile * D + a.G * kTile + 3 * a.G);
-  auto kernel = flash_decode_kernel<D, T, true>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  kernel<<<dim3(a.KV, a.B), kThreads, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), a.kv_len, a.block_tables,
-      static_cast<T*>(a.out), a.KV, a.G, a.S_or_page, a.nblk, a.scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int paged_by_dim(const Args& a, int D) {
-  switch (D) {
-    case 16: return run_paged<16, T>(a);
-    case 32: return run_paged<32, T>(a);
-    case 64: return run_paged<64, T>(a);
-    case 128: return run_paged<128, T>(a);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
 struct SplitArgs {
   const void* q;
   const void* k;
   const void* v;
   const int* kv_len;
+  const int* block_tables;      // paged only
   void* out;
   float* part;
   int* tickets;
-  int B, KV, G, S, nsplit;
+  int B, KV, G, S, page, nblk, nsplit;
   float scale;
   cudaStream_t stream;
 };
+
+// The splits of a request that can hold S positions, as the wrapper sizes
+// its scratch.
+int splits(int S) { return S > kSplit ? (S + kSplit - 1) / kSplit : 1; }
 
 template <typename T, typename Kernel>
 int launch_split(Kernel kernel, size_t smem, const SplitArgs& a) {
@@ -755,31 +617,34 @@ int launch_split(Kernel kernel, size_t smem, const SplitArgs& a) {
   }
   kernel<<<dim3(a.nsplit, a.KV, a.B), kThreads, smem, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), a.kv_len, static_cast<T*>(a.out), a.part,
-      a.tickets, a.KV, a.G, a.S, a.nsplit, a.scale);
+      static_cast<const T*>(a.v), a.kv_len, a.block_tables,
+      static_cast<T*>(a.out), a.part, a.tickets, a.KV, a.G, a.S, a.page,
+      a.nblk, a.nsplit, a.scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
+template <int D, bool kPaged>
 int run_split(const SplitArgs& a, bool bf16) {
   if (bf16) {
     constexpr size_t smem = sizeof(__nv_bfloat16) *
         ((2 * kSplit + kGroup) * (D + 8) + 2 * kGroup * (kSplit + 8)) +
         sizeof(float) * 2 * kWarps * kGroup;
-    return launch_split<__nv_bfloat16>(flash_decode_mma_kernel<D>, smem, a);
+    return launch_split<__nv_bfloat16>(flash_decode_mma_kernel<D, kPaged>,
+                                        smem, a);
   }
   constexpr size_t smem = sizeof(float) *
       (2 * kSplit * (D + 4) + kGroup * D + kGroup * (kSplit + 4) +
        2 * kGroup);
-  return launch_split<float>(flash_decode_f32_kernel<D>, smem, a);
+  return launch_split<float>(flash_decode_f32_kernel<D, kPaged>, smem, a);
 }
 
+template <bool kPaged>
 int split_by_dim(const SplitArgs& a, int D, bool bf16) {
   switch (D) {
-    case 16: return run_split<16>(a, bf16);
-    case 32: return run_split<32>(a, bf16);
-    case 64: return run_split<64>(a, bf16);
-    case 128: return run_split<128>(a, bf16);
+    case 16: return run_split<16, kPaged>(a, bf16);
+    case 32: return run_split<32, kPaged>(a, bf16);
+    case 64: return run_split<64, kPaged>(a, bf16);
+    case 128: return run_split<128, kPaged>(a, bf16);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -799,30 +664,36 @@ extern "C" int flash_decode_launch(const void* q, const void* k,
                                    void* tickets, int B, int KV, int G, int D,
                                    int S, int nsplit, float scale,
                                    void* stream) {
-  if (G < 1 || S < 0 || nsplit != (S > kSplit ? (S + kSplit - 1) / kSplit
-                                               : 1))
+  if (G < 1 || S < 0 || nsplit != splits(S))
     return static_cast<int>(cudaErrorInvalidValue);
-  const SplitArgs a{q, k, v, kv_len, out, static_cast<float*>(part),
-                    static_cast<int*>(tickets), B, KV, G, S, nsplit, scale,
-                    static_cast<cudaStream_t>(stream)};
-  return split_by_dim(a, D, is_bf16 != 0);
+  const SplitArgs a{q, k, v, kv_len, nullptr, out, static_cast<float*>(part),
+                    static_cast<int*>(tickets), B, KV, G, S, 0, 0, nsplit,
+                    scale, static_cast<cudaStream_t>(stream)};
+  return split_by_dim<false>(a, D, is_bf16 != 0);
 }
 
-// Page pools. q (B, KV, G, D); k, v (P, page, KV, D); block_tables
-// (B, nblk) int32; kv_len (B,) int32; out (B, KV, G, D); one dtype, f32 or
-// bf16 (is_bf16). D in {16, 32, 64, 128}, G <= 16. Returns
-// cudaGetLastError() after the launch.
+// Page pools. q (B, KV, G, D) and k, v (P, page, KV, D), 16-byte aligned;
+// block_tables (B, nblk) int32, each entry a page of the pools; kv_len (B,)
+// int32, at most nblk * page counted; out (B, KV, G, D); q, k, v and out
+// share one dtype, f32 or bf16 (is_bf16). D in {16, 32, 64, 128}, any
+// G >= 1, any page >= 1. nsplit = ceil(nblk * page / 64), part and
+// tickets as for flash_decode_launch. Returns cudaGetLastError() after the
+// launch.
 extern "C" int flash_decode_paged_launch(const void* q, const void* k,
                                          const void* v, int is_bf16,
                                          const int* kv_len,
                                          const int* block_tables, void* out,
-                                         int B, int KV, int G, int D,
-                                         int page, int nblk, float scale,
+                                         void* part, void* tickets, int B,
+                                         int KV, int G, int D, int page,
+                                         int nblk, int nsplit, float scale,
                                          void* stream) {
-  if (G < 1 || G > kMaxG || block_tables == nullptr)
+  const long long S = static_cast<long long>(page) * nblk;
+  if (G < 1 || page < 1 || nblk < 0 || S > (1 << 30) ||
+      block_tables == nullptr || nsplit != splits(static_cast<int>(S)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{q, k, v, kv_len, block_tables, out, B, KV, G, page, nblk,
-               scale, static_cast<cudaStream_t>(stream)};
-  return is_bf16 ? paged_by_dim<__nv_bfloat16>(a, D)
-                 : paged_by_dim<float>(a, D);
+  const SplitArgs a{q, k, v, kv_len, block_tables, out,
+                    static_cast<float*>(part), static_cast<int*>(tickets), B,
+                    KV, G, static_cast<int>(S), page, nblk, nsplit, scale,
+                    static_cast<cudaStream_t>(stream)};
+  return split_by_dim<true>(a, D, is_bf16 != 0);
 }

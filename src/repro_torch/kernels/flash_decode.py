@@ -14,11 +14,14 @@ tails contribute nothing. kv_len must be >= 1: an empty request gets zeros
 here, where the reference would average the whole masked cache.
 
 On CUDA tensors the wrappers launch ``csrc/flash_decode.cu`` (its note says
-what bounds it and how the design answers): the contiguous cache splits
-its rows over CTAs (split-K, 64 rows each, any G), which write f32
-partials to scratch that the wrapper allocates, and the last CTA of each
-(request, KV head) merges them, in one launch; the paged pool keeps one
-CTA per (request, KV head) and G <= 16. Neither reads kv_len on the host.
+what bounds it and how the design answers): split-K, for a contiguous
+cache and a page pool alike. Each CTA takes 64 of a request's positions
+(a pool's CTA looks up each position's page in the block table, so any
+page size works) for one KV head and any G, and writes f32 partials to
+scratch that the wrapper allocates; the last CTA of each (request, KV
+head) merges them, in one launch. The grid follows the cache's S or the
+table's nblk * page; neither wrapper reads kv_len or the block tables on
+the host.
 On CPU tensors they compute the plain versions, which follow the TPU
 kernel's arithmetic (f32 scores with 1/sqrt(D) rounded in f32, p kept in
 f32, f32 accumulation, output divided by max(l, 1e-30) and cast to q's
@@ -36,9 +39,8 @@ from repro_torch.kernels import build
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _DIMS = (16, 32, 64, 128)
-PAGED_MAX_GROUP = 16        # the paged kernel's query heads per KV head
-SPLIT = 64                  # cache rows per CTA of the contiguous kernel
-                            # (kSplit, which the launch checks)
+SPLIT = 64                  # positions per CTA (kSplit, which the launch
+                            # checks through nsplit)
 _TICKETS = {}               # (device, stream) -> the merge's int32 tickets
 
 
@@ -131,7 +133,7 @@ def _check_cuda(name, tensors) -> None:
 _P, _F, _I = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
 _ARGTYPES = {   # the C signatures of csrc/flash_decode.cu, stream last
     "flash_decode_launch": [_P] * 3 + [_I] + [_P] * 4 + [_I] * 6 + [_F, _P],
-    "flash_decode_paged_launch": [_P] * 3 + [_I] + [_P] * 3 + [_I] * 6
+    "flash_decode_paged_launch": [_P] * 3 + [_I] + [_P] * 5 + [_I] * 7
                                  + [_F, _P],
 }
 
@@ -160,6 +162,22 @@ def _check_launch(name: str, err: int) -> None:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
 
 
+def _check_aligned(name: str, tensors) -> None:
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name} copies q/k/v in 16-byte chunks: they must "
+                         f"be 16-byte aligned")
+
+
+def _partials(q: torch.Tensor, S: int):
+    """(nsplit, f32 scratch for the splits' partials or None) for a
+    request that can hold S positions."""
+    B, KV, G, D = q.shape
+    nsplit = max(1, -(-S // SPLIT))
+    part = (torch.empty(B * KV * nsplit * G * (D + 2), dtype=torch.float32,
+                        device=q.device) if nsplit > 1 else None)
+    return nsplit, part
+
+
 def flash_decode_blocks(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         kv_len) -> torch.Tensor:
     """q: (B, KV, G, D); k/v: (B, S, KV, D); kv_len a scalar or (B,).
@@ -173,17 +191,13 @@ def flash_decode_blocks(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return flash_decode_plain(q, k, v, kv_len)
     _check_cuda("flash_decode", (q, k, v, kv_len))
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("flash_decode copies q/k/v in 16-byte chunks: "
-                         "they must be 16-byte aligned")
+    _check_aligned("flash_decode", (q, k, v))
     B, KV, G, D = q.shape
     S = k.shape[1]
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    nsplit = max(1, -(-S // SPLIT))
-    part = (torch.empty(B * KV * nsplit * G * (D + 2), dtype=torch.float32,
-                        device=q.device) if nsplit > 1 else None)
+    nsplit, part = _partials(q, S)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     _check_launch("flash_decode", _fn("flash_decode_launch")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -217,20 +231,21 @@ def flash_decode_paged(q: torch.Tensor, k_pool: torch.Tensor,
                                         kv_len)
     _check_cuda("flash_decode_paged", (q, k_pool, v_pool, block_tables,
                                        kv_len))
+    _check_aligned("flash_decode_paged", (q, k_pool, v_pool))
     B, KV, G, D = q.shape
-    if G > PAGED_MAX_GROUP:
-        raise ValueError(f"flash_decode_paged takes G <= {PAGED_MAX_GROUP}, "
-                         f"got G={G}; the contiguous flash_decode_blocks "
-                         f"takes any G")
+    page, nblk = k_pool.shape[1], block_tables.shape[1]
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    nsplit, part = _partials(q, page * nblk)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
     _check_launch("flash_decode_paged", _fn("flash_decode_paged_launch")(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         int(q.dtype == torch.bfloat16), kv_len.data_ptr(),
-        block_tables.data_ptr(), out.data_ptr(), B, KV, G, D,
-        k_pool.shape[1], block_tables.shape[1], softmax_scale(D),
-        torch.cuda.current_stream(q.device).cuda_stream))
+        block_tables.data_ptr(), out.data_ptr(),
+        part.data_ptr() if part is not None else None,
+        _tickets(q.device, stream, B * KV).data_ptr(), B, KV, G, D, page,
+        nblk, nsplit, softmax_scale(D), stream))
     flash_decode_paged.launches += 1
     return out
 

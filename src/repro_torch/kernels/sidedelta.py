@@ -9,9 +9,15 @@ colptr[a, m] the valid count, scale (A,) for int8 values.
 
 Port of ``repro/kernels/sidedelta.py:sidedelta_rows``. On CUDA tensors the
 wrapper launches the hand-written kernel ``csrc/sidedelta.cu`` (its note
-says what bounds it and how the design answers); on CPU tensors it computes
-``sidedelta_plain``, the gather / multiply / index_add_ version of the same
-function, which the tests and ``chip_smoke.py`` hold the kernel against.
+says what bounds it and how the design answers) by the rule of
+``kernel_path``: decode (S == 1) and small calls (under 32 tokens of one
+request, 64 of several) walk the table once per row, one warp a column;
+larger calls (prefill, training, dx) group the requests by adapter (``group_by_adapter``), transpose x to
+token-minor order (``token_minor``) and walk each adapter's table once per
+tile of 128 of its tokens. On CPU tensors it computes
+``sidedelta_plain``, the gather / multiply / index_add_ version of the
+same function, which the tests and ``chip_smoke.py`` hold the kernel
+against.
 
 For multi-adapter training, ``sidedelta_train`` makes the delta
 differentiable in x and in the table's f32 values (the reference
@@ -23,7 +29,8 @@ differentiates its XLA twin ``_sidedelta_xla`` instead):
                  x[b, s, rows[a, k]] * dy[b, s, col(k)]
 
 ``sidedelta_dvals`` launches ``csrc/sidedelta_grad.cu`` for the second on
-CUDA tensors and computes ``sidedelta_dvals_plain`` on CPU tensors.
+CUDA tensors and computes ``sidedelta_dvals_plain`` on CPU tensors. Both
+gradients read one grouping of the requests and one token-minor dy.
 """
 from __future__ import annotations
 
@@ -89,15 +96,59 @@ def _check(x, rows, vals, colptr, ids, scale) -> None:
                          f"{scale.dtype}")
 
 
-def _lib() -> ctypes.CDLL:
-    lib = build.load("sidedelta")
-    fn = lib.sidedelta_launch
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_ARGTYPES = {   # the C signatures of csrc/sidedelta.cu, stream last
+    "sidedelta_launch": [_P, _I, _P, _I, _P, _I] + [_P] * 4 + [_I] * 5
+                        + [_L, _P],
+    "sidedelta_tokens_launch": [_P, _I, _P, _I, _P, _I] + [_P] * 5
+                               + [_I] * 5 + [_L, _I, _P],
+}
+TILE = 128      # tokens a CTA of the token-minor path walks a table for
+ROWS_BELOW = (32, 64)   # calls of fewer tokens (B * S) take the rows path:
+                        # one request, several (which may carry several
+                        # adapters, a table walk a tile each)
+
+
+def _fn(name: str):
+    fn = getattr(build.load("sidedelta"), name)
     if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, i, p, i, p, i, p, p, p, p, i, i, i, i, i,
-                       ctypes.c_longlong, p]
+        fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
-    return lib
+    return fn
+
+
+def kernel_path(B: int, S: int) -> str:
+    """The kernel path the wrapper takes for B requests of S rows: "rows"
+    (a table walk per row) for decode (S == 1) and for calls of fewer
+    tokens than ROWS_BELOW gives, where it measured faster on the H100;
+    "tokens" (token-minor, a table walk per adapter and tile of 128
+    tokens) otherwise."""
+    below = ROWS_BELOW[0] if B == 1 else ROWS_BELOW[1]
+    return "rows" if S == 1 or B * S < below else "tokens"
+
+
+def group_by_adapter(ids: torch.Tensor, A: int):
+    """The requests grouped by adapter: (order, rptr). order (B,) int32
+    lists the requests by a stable sort of their adapter ids, those outside
+    [0, A) last; rptr (A + 2,) int32 puts adapter a's requests at
+    [rptr[a], rptr[a + 1]) of that order, and a == A those outside."""
+    key = torch.where((ids >= 0) & (ids < A), ids, A)
+    order = torch.argsort(key, stable=True).to(torch.int32)
+    rptr = torch.searchsorted(key[order], torch.arange(
+        A + 2, dtype=key.dtype, device=ids.device)).to(torch.int32)
+    return order, rptr
+
+
+def token_minor(x: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
+    """x (B, S, n) -> (n, B * S) in x's dtype, the requests taken in
+    ``order``: each row of the result holds one feature of every token.
+    The rows lie a multiple of 4 elements apart (contiguous when B * S is
+    one), so the kernel loads 4 tokens at once."""
+    B, S, n = x.shape
+    T = B * S
+    xT = torch.empty((n, -(-T // 4) * 4), dtype=x.dtype,
+                     device=x.device)[:, :T]
+    return xT.copy_(x.index_select(0, order).reshape(T, n).t())
 
 
 def sidedelta(x: torch.Tensor, rows: torch.Tensor, vals: torch.Tensor,
@@ -105,6 +156,12 @@ def sidedelta(x: torch.Tensor, rows: torch.Tensor, vals: torch.Tensor,
               scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Batched per-request sparse delta, (B, S, m) f32. CPU tensors take
     ``sidedelta_plain``; CUDA tensors launch the kernel or raise."""
+    return _sidedelta(x, rows, vals, colptr, ids, scale)
+
+
+def _sidedelta(x, rows, vals, colptr, ids, scale=None, grouped=None):
+    """``sidedelta``; ``grouped`` = (order, rptr, xT) from
+    ``group_by_adapter`` and ``token_minor`` when the caller has them."""
     _check(x, rows, vals, colptr, ids, scale)
     if x.device.type == "cpu":
         return sidedelta_plain(x, rows, vals, colptr, ids, scale)
@@ -121,22 +178,57 @@ def sidedelta(x: torch.Tensor, rows: torch.Tensor, vals: torch.Tensor,
     B, S, n = x.shape
     A, K = rows.shape
     m = colptr.shape[1] - 1
-    if -(-m // 8) > 65535 or -(-S // 8) > 65535:
-        raise ValueError(f"sidedelta grid too large for m={m}, S={S}")
+    if -(-m // 8) > 65535 or S > 65535 or B * S > 65535 * TILE:
+        raise ValueError(f"sidedelta grid too large for m={m}, B={B}, S={S}")
+    if kernel_path(B, S) == "tokens":
+        return _launch_tokens(x, rows, vals, colptr, ids, scale, grouped)
+    return _launch_rows(x, rows, vals, colptr, ids, scale)
+
+
+def _flags(x, rows, vals, colptr, scale):
+    return (int(x.dtype == torch.bfloat16), rows.data_ptr(),
+            int(rows.dtype == torch.int16), vals.data_ptr(),
+            int(vals.dtype == torch.int8), colptr.data_ptr(),
+            scale.data_ptr() if scale is not None else None)
+
+
+def _launch_rows(x, rows, vals, colptr, ids, scale=None):
+    """The rows path on checked CUDA operands."""
+    B, S, n = x.shape
+    A, K = rows.shape
+    m = colptr.shape[1] - 1
     out = torch.empty((B, S, m), dtype=torch.float32, device=x.device)
     if out.numel() == 0:
         return out
-    err = _lib().sidedelta_launch(
-        x.data_ptr(), int(x.dtype == torch.bfloat16), rows.data_ptr(),
-        int(rows.dtype == torch.int16), vals.data_ptr(),
-        int(vals.dtype == torch.int8), colptr.data_ptr(),
-        scale.data_ptr() if scale is not None else None, ids.data_ptr(),
+    _check_launch(_fn("sidedelta_launch")(
+        x.data_ptr(), *_flags(x, rows, vals, colptr, scale), ids.data_ptr(),
         out.data_ptr(), B, S, n, m, A, K,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        torch.cuda.current_stream(x.device).cuda_stream))
+    return out
+
+
+def _launch_tokens(x, rows, vals, colptr, ids, scale=None, grouped=None):
+    """The token-minor path on checked CUDA operands."""
+    B, S, n = x.shape
+    A, K = rows.shape
+    m = colptr.shape[1] - 1
+    out = torch.empty((B, S, m), dtype=torch.float32, device=x.device)
+    if out.numel() == 0:
+        return out
+    order, rptr, xT = grouped or (*group_by_adapter(ids, A), None)
+    if xT is None:
+        xT = token_minor(x, order)
+    _check_launch(_fn("sidedelta_tokens_launch")(
+        xT.data_ptr(), *_flags(x, rows, vals, colptr, scale), rptr.data_ptr(),
+        order.data_ptr(), out.data_ptr(), B, S, n, m, A, K, xT.stride(0),
+        torch.cuda.current_stream(x.device).cuda_stream))
+    return out
+
+
+def _check_launch(err: int) -> None:
     if err:
         raise RuntimeError(f"sidedelta launch failed: cudaError {err}")
     sidedelta.launches += 1
-    return out
 
 
 sidedelta.launches = 0      # kernel launches (CUDA tensors only)
@@ -208,9 +300,16 @@ def sidedelta_dvals(x: torch.Tensor, dy: torch.Tensor, rows: torch.Tensor,
     (zeros past each valid count). CPU tensors take
     ``sidedelta_dvals_plain``; CUDA tensors launch the kernel or raise.
 
-    On the card the requests are first grouped by adapter (a stable sort
-    of ids) and x and dy transposed to token-minor (n, B*S) and (m, B*S),
-    so the kernel's gathers read consecutive tokens."""
+    On the card the requests are first grouped by adapter
+    (``group_by_adapter``) and x and dy transposed to token-minor (n, B*S)
+    and (m, B*S) (``token_minor``), so the kernel's gathers read
+    consecutive tokens."""
+    return _sidedelta_dvals(x, dy, rows, colptr, ids)
+
+
+def _sidedelta_dvals(x, dy, rows, colptr, ids, grouped=None):
+    """``sidedelta_dvals``; ``grouped`` = (order, rptr, dyT) from
+    ``group_by_adapter`` and ``token_minor`` when the caller has them."""
     _check_dvals(x, dy, rows, colptr, ids)
     if x.device.type == "cpu":
         return sidedelta_dvals_plain(x, dy, rows, colptr, ids)
@@ -229,12 +328,11 @@ def sidedelta_dvals(x: torch.Tensor, dy: torch.Tensor, rows: torch.Tensor,
     out = torch.zeros((A, K), dtype=torch.float32, device=x.device)
     if out.numel() == 0 or B * S == 0:
         return out
-    order = torch.argsort(ids, stable=True)
-    rptr = torch.searchsorted(
-        ids[order], torch.arange(A + 1, dtype=torch.int32,
-                                 device=x.device)).to(torch.int32)
-    xT = x.index_select(0, order).reshape(B * S, n).t().contiguous()
-    dyT = dy.index_select(0, order).reshape(B * S, m).t().contiguous()
+    order, rptr, dyT = grouped or (*group_by_adapter(ids, A), None)
+    if dyT is None:
+        dyT = token_minor(dy, order)
+    # the kernel reads rows B * S apart
+    xT, dyT = token_minor(x, order).contiguous(), dyT.contiguous()
     rows, colptr = rows.contiguous(), colptr.contiguous()
     err = _dvals_lib().sidedelta_dvals_launch(
         xT.data_ptr(), int(x.dtype == torch.bfloat16), dyT.data_ptr(),
@@ -265,13 +363,18 @@ class _SideDelta(torch.autograd.Function):
         x, vals, rows, colptr, t_rows, t_ptr, t_perm, ids = ctx.saved_tensors
         dy = dy.float().contiguous()
         dx = dvals = None
+        grouped = None
+        if dy.device.type == "cuda":    # one grouping and dyT for both
+            order, rptr = group_by_adapter(ids, rows.shape[0])
+            grouped = (order, rptr, token_minor(dy, order))
         if ctx.needs_input_grad[0]:
             vals_t = vals.gather(1, t_perm.long())
             # f32 here, cast to x's dtype as the reference's f32 twin casts
             # its cotangent; autograd adds it to the base matmul's dx
-            dx = sidedelta(dy, t_rows, vals_t, t_ptr, ids).to(x.dtype)
+            dx = _sidedelta(dy, t_rows, vals_t, t_ptr, ids,
+                            grouped=grouped).to(x.dtype)
         if ctx.needs_input_grad[1]:
-            dvals = sidedelta_dvals(x, dy, rows, colptr, ids)
+            dvals = _sidedelta_dvals(x, dy, rows, colptr, ids, grouped)
         return dx, dvals, None, None, None, None, None, None
 
 

@@ -83,19 +83,17 @@ def test_flash_decode_per_request_lengths(dt):
             interpret=True), dt)
 
 
-@pytest.mark.parametrize("G", [2, 9])
-@pytest.mark.parametrize("dt", ["f32", "bf16"])
-def test_flash_decode_paged_matches_jax(G, dt):
+def _paged_case(G, dt, page, nblk, lens):
     """A shuffled pool of pages; table entries past each request's pages
     are the scratch page 0 (masked by kv_len), as the paged engine lays
     them out; an idle lane decodes against the scratch page with kv_len 1
     and stays finite."""
     rng = np.random.RandomState(3)
-    B, KV, D, page, nblk = 3, 2, 16, 4, 6
+    B, KV, D = 3, 2, 16
     P = 1 + B * nblk
     pages = rng.permutation(np.arange(1, P)).astype(np.int32)
     bt = pages.reshape(B, nblk).copy()
-    lens = np.array([7, 21, 1], np.int32)
+    lens = np.array(lens, np.int32)
     for b, n in enumerate(lens):
         bt[b, -(-n // page):] = 0
     bt[2] = 0                                   # an idle lane
@@ -107,6 +105,23 @@ def test_flash_decode_paged_matches_jax(G, dt):
     _close(port, j_paged(jq, jk, jv, jnp.asarray(bt), jnp.asarray(lens),
                          interpret=True), dt)
     _close(port, ref.flash_decode_paged_ref(tq, tk, tv, tbt, tlen), dt)
+
+
+@pytest.mark.parametrize("G", [2, 9, 48])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_flash_decode_paged_matches_jax(G, dt):
+    """Pages of 4, a table 24 positions wide; G = 48 is granite-34b's
+    grouping, which the paged kernel takes as the contiguous one does."""
+    _paged_case(G, dt, 4, 6, [7, 21, 1])
+
+
+@pytest.mark.parametrize("G", [9, 48])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_flash_decode_paged_pages_straddle_splits(G, dt):
+    """Pages of 12 in a table 108 positions wide: the kernel's 64-position
+    splits end inside a page (64 = 5 pages + 4 rows), and request lengths
+    end inside pages on both sides of a split."""
+    _paged_case(G, dt, 12, 9, [70, 100, 1])
 
 
 PREFILL_SHAPES = [(2, 13, 6, 2, 16), (1, 40, 18, 2, 32),

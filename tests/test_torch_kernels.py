@@ -32,9 +32,11 @@ from repro.training import qstate as jq
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.scatter_apply import scatter_apply
-from repro_torch.kernels.sidedelta import (sidedelta, sidedelta_dvals,
+from repro_torch.kernels.sidedelta import (group_by_adapter, sidedelta,
+                                           sidedelta_dvals,
                                            sidedelta_dvals_plain,
-                                           sidedelta_train)
+                                           sidedelta_plain, sidedelta_train,
+                                           token_minor)
 from repro_torch.kernels.sparse_adamw import sparse_adamw_rows
 from repro_torch.models import layers as TL
 from repro_torch.training import qstate as tq
@@ -79,7 +81,8 @@ def _port_table(idx, vals, n, m, int8):
     (4, 9, 33, 257, 2, 400, [-1, 0, 1, 0]),      # S > 8: two row groups
     (2, 3, 16, 24, 2, 0, [0, 1]),                # K = 0: zeros
     (2, 2, 16, 24, 3, 10, [-1, -1]),             # all base
-])
+    (3, 70, 24, 40, 2, 120, [1, -1, 1]),         # two requests on one
+])                                               # adapter, a base one
 @pytest.mark.parametrize("int8", [False, True])
 def test_sidedelta_plain_matches_jax(B, S, n, m, A, K, ids, int8):
     rng = np.random.default_rng(B * 100 + K)
@@ -294,6 +297,7 @@ def _train_table(idx, n, m):
     (3, 1, 16, 24, 2, 20, [1, -1, 0]),          # decode-shaped, a base row
     (4, 9, 33, 257, 2, 400, [0, 1, 1, 0]),       # S > 8, adapters interleaved
     (2, 5, 40, 30, 3, 300, [2, 2]),              # adapters without requests
+    (4, 40, 20, 36, 3, 150, [2, 0, 2, 1]),       # S = 40, interleaved
 ])
 def test_sidedelta_grads_match_jax_xla_twin(B, S, n, m, A, K, ids):
     """dx and dvals (in the pack's order) of the differentiable delta
@@ -369,6 +373,64 @@ def test_sidedelta_dvals_plain_matches_ref(xdt):
     np.testing.assert_allclose(got.numpy(), want.gather(1, perm).numpy(),
                                atol=1e-4)
     assert float(got[1].abs().max()) == 0.0       # adapter 1: no requests
+
+
+def test_grouping_permutes_and_restores_rows():
+    """The token-minor layout that the card's S > 1 sidedelta path and
+    dvals read, built on CPU tensors: the grouping sorts requests by
+    adapter (stable, ids outside [0, A) last), rptr bounds each adapter's
+    requests, and the kernels' arithmetic over xT and dyT, written back
+    through ``order``, gives the plain versions (the forward bit for bit
+    up to summation order, to 1e-5; dvals to 1e-4 as above)."""
+    rng = np.random.default_rng(41)
+    B, S, n, m, A, K = 7, 6, 20, 30, 3, 90
+    order, rptr = group_by_adapter(_t(np.array([5, 0, -2], np.int32)), A)
+    assert order.tolist() == [1, 0, 2] and rptr.tolist() == [0, 1, 1, 1, 3]
+    ids = _t(np.array([2, -1, 0, 2, -1, 0, 2], np.int32))
+    order, rptr = group_by_adapter(ids, A)
+    assert order.dtype == torch.int32 and rptr.dtype == torch.int32
+    assert order.tolist() == [2, 5, 0, 3, 6, 1, 4]
+    assert rptr.tolist() == [0, 2, 2, 5, 7]
+    x = _t(rng.standard_normal((B, S, n)).astype(np.float32)).to(
+        torch.bfloat16)
+    xT = token_minor(x, order)
+    assert xT.shape == (n, B * S) and xT.dtype == torch.bfloat16
+    assert xT.stride(0) % 4 == 0 and xT.stride(1) == 1
+    back = torch.empty_like(x)
+    back[order.long()] = xT.t().reshape(B, S, n)
+    assert torch.equal(back, x)                     # exact, every element
+    # the forward as the tokens kernel computes it: per adapter, its
+    # tokens' range of xT, then each token written to its request's row
+    idx, vals = _entries(rng, A, n, m, K)
+    t = _port_table(idx, vals, n, m, False)
+    outT = torch.zeros((m, B * S))
+    for a in range(A):
+        t0, t1 = int(rptr[a]) * S, int(rptr[a + 1]) * S
+        k = int(t["colptr"][a, m])
+        col = torch.repeat_interleave(torch.arange(m),
+                                      torch.diff(t["colptr"][a].long()))
+        prod = xT[t["rows"][a, :k].long(), t0:t1].float() * t["vals"][a, :k,
+                                                                      None]
+        outT[:, t0:t1].index_add_(0, col, prod)
+    tok = torch.arange(B * S)
+    out = torch.empty((B * S, m))
+    out[order.long()[tok // S] * S + tok % S] = outT.t()
+    want = sidedelta_plain(x, t["rows"], t["vals"], t["colptr"], ids)
+    np.testing.assert_allclose(out.reshape(B, S, m).numpy(), want.numpy(),
+                               atol=TOL, rtol=TOL)
+    # dvals from the same grouping: adapter a's tokens of xT and dyT
+    dy = _t(rng.standard_normal((B, S, m)).astype(np.float32))
+    dyT = token_minor(dy, order)
+    tt = _train_table(idx, n, m)
+    dv = torch.zeros((A, K))
+    for a in range(A):
+        t0, t1 = int(rptr[a]) * S, int(rptr[a + 1]) * S
+        col = torch.repeat_interleave(torch.arange(m),
+                                      torch.diff(tt["colptr"][a].long()))
+        dv[a] = (xT[tt["rows"][a].long(), t0:t1].float()
+                 * dyT[col, t0:t1]).sum(1)
+    np.testing.assert_allclose(dv.numpy(), sidedelta_dvals_plain(
+        x, dy, tt["rows"], tt["colptr"], ids).numpy(), atol=1e-4)
 
 
 def test_trainable_table_rejects_repeats_and_ragged_slots():
