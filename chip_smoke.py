@@ -59,7 +59,15 @@ prints its seconds on a "[time]" line:
 The kernels phase also holds masked_update (the dense-mask apply of hook
 mode) against its plain version, bit for bit, at the stacked (32, 4608,
 18432) w_up leaf with a 1% mask: f32 W with a bool mask, bf16 W with a
-bool mask, f32 W with an f32 mask, beside Tensor.addcmul_.
+bool mask, f32 W with an f32 mask, beside Tensor.addcmul_. Its
+sparse_adamw part prints each kernel instance's registers and spills
+(fatal on a spill), holds every case at inputs where the check would see
+an output zeroed or permuted within a vector, prints the achieved TB/s
+and share of the bound of every timed case, checks rows
+of K = 3 and 13 in every moment type and views one element past their
+start (the one-element instance, which must count an unaligned launch),
+and times qstate.encode's int8 re-encode beside the int8 update; the
+train phase fails if any update there took the one-element instance.
 """
 from __future__ import annotations
 
@@ -406,14 +414,45 @@ def kernels_phase(torch, flush):
     return side, scat
 
 
+def adamw_inputs(torch, gen, shape):
+    """v, g, m, u on the card, at magnitudes where every output lies far
+    above ADAMW_TOL (as the CPU tests' inputs): v, g ~ N(0, 1),
+    m ~ N(0, 0.1^2), u = |N(0, 1)| * 0.01, so u_out ~ 0.01 and m_out ~ 0.1."""
+    r = lambda: torch.randn(shape, generator=gen, device="cuda")
+    return r(), r(), r().mul_(0.1), r().abs_().mul_(0.01)
+
+
+def adamw_within(got, want) -> bool:
+    """Every kernel output within rtol = atol = ADAMW_TOL of the plain
+    version's."""
+    return all(bool(((a - b).abs() <= ADAMW_TOL * b.abs() + ADAMW_TOL).all())
+               for a, b in zip(got, want))
+
+
+def adamw_planted(torch, want):
+    """Faults the check must see: each output in turn zeroed, or rotated
+    within each vector of 4 elements (the last n mod 4 left as they are)."""
+    for j, w in enumerate(want):
+        rot = w.clone().reshape(-1)
+        n4 = rot.numel() // 4 * 4
+        rot[:n4] = rot[:n4].view(-1, 4).roll(1, dims=1).reshape(-1)
+        for bad in (torch.zeros_like(w), rot.view_as(w)):
+            yield [bad if i == j else x for i, x in enumerate(want)]
+
+
 def adamw_close(torch, got, want):
     """(max_abs_err, max_rel_err, bit-equal) of kernel outputs against the
-    plain version's; fails beyond rtol = atol = ADAMW_TOL."""
+    plain version's; fails beyond rtol = atol = ADAMW_TOL, and fails if
+    that check would pass a planted fault (``adamw_planted``) at these
+    inputs."""
+    if not adamw_within(got, want):
+        fail("sparse_adamw disagrees with its plain version")
+    if any(adamw_within(p, want) for p in adamw_planted(torch, want)):
+        fail("sparse_adamw: the check passes a zeroed or permuted output "
+             "at these inputs")
     errs = []
     for a, b in zip(got, want):
         d = (a - b).abs()
-        if not bool((d <= ADAMW_TOL * b.abs() + ADAMW_TOL).all()):
-            fail("sparse_adamw disagrees with its plain version")
         errs.append((float(d.max()),
                      float((d / b.abs().clamp(min=1e-30)).max()),
                      bool(torch.equal(a, b))))
@@ -432,10 +471,43 @@ def fused_adamw_ms(torch, flush, v, g, m, u, scalars):
         weight_decay=wd, eps=eps, amsgrad=False, maximize=False), 10, flush)
 
 
+def adamw_rate(r: dict, nbytes: float) -> str:
+    """Achieved TB/s of one timed case and its share of the bound."""
+    return (f"{nbytes / r['ms'] / 1e9:.3f} TB/s, {r['bound_ms'] / r['ms']:.1%}"
+            " of bound")
+
+
+def ptxas_lines(log: str):
+    """(kernel, line) of each registers or spills line of a ptxas log."""
+    fn = ""
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            fn = kernel_name(ln.split("'")[1])
+        if "registers" in ln or "spill" in ln:
+            yield fn, ln.strip()
+
+
+def adamw_ptxas() -> None:
+    """Prints the -Xptxas -v lines (registers, spills) of every
+    sparse_adamw kernel instance; fails if the log is missing or an
+    instance spills."""
+    from repro_torch.kernels import build
+    lines = list(ptxas_lines(build.ptxas("sparse_adamw")))
+    if not any("spill stores" in ln for _, ln in lines):
+        fail("sparse_adamw: no ptxas log beside its library")
+    for fn, ln in lines:
+        print(f"[kernels] sparse_adamw ptxas: {fn}: {ln}", flush=True)
+        if re.search(r"[1-9]\d* bytes spill (stores|loads)", ln):
+            fail(f"sparse_adamw: {fn} spills registers")
+
+
 def adamw_kernels(torch, flush, cfg):
     """sparse_adamw (blocks) on the stacked w_up leaf's packed vector and
     sparse_adamw_rows on (3 adapters x layers, K) rows with f32, bf16 and
-    int8 moments, at sparsity 0.98 as the multi-adapter phase trains."""
+    int8 moments, at sparsity 0.98 as the multi-adapter phase trains; then
+    short rows (K = 3 and 13: row boundaries inside a vector) in every
+    moment type, and views at an element offset of 1, which take the
+    one-element instance."""
     from repro_torch.core.masks import budget
     from repro_torch.kernels import ops
     from repro_torch.kernels.sparse_adamw import (sparse_adamw,
@@ -443,16 +515,14 @@ def adamw_kernels(torch, flush, cfg):
                                                   sparse_adamw_rows,
                                                   sparse_adamw_rows_plain)
     from repro_torch.training import qstate
+    adamw_ptxas()
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
     k = budget(cfg.d_model, cfg.d_ff, 0.98)
     L = cfg.num_layers
     scalars = ops._adamw_scalars(3, 3e-4, 0.9, 0.999, 1e-8, 0.0)
 
-    def inputs(shape):
-        r = lambda s: torch.randn(shape, generator=gen, device="cuda") * s
-        return r(1.0), r(1e-3), r(1e-4), r(1e-4).square_()
-    v, g, m, u = inputs((L * k,))
+    v, g, m, u = adamw_inputs(torch, gen, (L * k,))
     got = sparse_adamw(v, g, m, u, scalars)
     want = sparse_adamw_plain(v, g, m, u, scalars)
     err, rel, equal = adamw_close(torch, got, want)
@@ -469,11 +539,26 @@ def adamw_kernels(torch, flush, cfg):
           f"(tol rtol=atol={ADAMW_TOL}) ms={blocks['ms']:.4f} "
           f"plain_ms={blocks['plain_ms']:.3f} library_ms(_fused_adamw_)="
           f"{blocks['library_ms']} bound_ms={blocks['bound_ms']:.4f} "
-          f"({blocks['bound_by']})", flush=True)
-    del v, g, m, u
+          f"({blocks['bound_by']}), {adamw_rate(blocks, v.numel() * 28)}",
+          flush=True)
+    # the one-element instance: every operand one element past its start
+    before = sparse_adamw.unaligned_launches
+    views = [t[1:] for t in (v, g, m, u)]
+    got = sparse_adamw(*views, scalars)
+    if sparse_adamw.unaligned_launches != before + 1:
+        fail("sparse_adamw at an offset of 1 did not take the one-element "
+             "instance")
+    err1, _, _ = adamw_close(torch, got,
+                             sparse_adamw_plain(*views, scalars))
+    blocks["max_abs_err"] = max(err, err1)
+    ms1 = cold_ms(torch, lambda: sparse_adamw(*views, scalars), 10, flush)
+    print(f"[kernels] sparse_adamw_blocks at offset 1 (one-element "
+          f"instance): max_abs_err={err1:.3g} ms={ms1:.4f}, "
+          f"{v.numel() * 28 / ms1 / 1e9:.3f} TB/s", flush=True)
+    del v, g, m, u, views, got
 
     R = 3 * L
-    v, g, m, u = inputs((R, k))
+    v, g, m, u = adamw_inputs(torch, gen, (R, k))
     rows = {}
     for mode in ("f32", "bf16", "int8"):
         mq, ms = qstate.encode(m, mode)
@@ -483,7 +568,7 @@ def adamw_kernels(torch, flush, cfg):
         want = sparse_adamw_rows_plain(*args)
         err, rel, equal = adamw_close(torch, got, want)
         del got, want
-        per = {"f32": 4, "bf16": 2, "int8": 1}[mode]
+        nbytes = v.numel() * (20 + 2 * mq.element_size())
         r = {"max_abs_err": err,
              "ms": cold_ms(torch, lambda: sparse_adamw_rows(*args), 10,
                            flush),
@@ -491,16 +576,51 @@ def adamw_kernels(torch, flush, cfg):
                  *args), 3, flush),
              "library_ms": (fused_adamw_ms(torch, flush, v, g, m, u, scalars)
                             if mode == "f32" else None),
-             **bound(v.numel() * (20 + 2 * per), v.numel() * 15)}
+             **bound(nbytes, v.numel() * 15)}
         rows[mode] = r
         print(f"[kernels] sparse_adamw_rows ({R}, {k}) {mode} moments: "
               f"max_abs_err={err:.3g} max_rel_err={rel:.3g} bit-equal="
               f"{equal} (tol rtol=atol={ADAMW_TOL}) ms={r['ms']:.4f} "
               f"plain_ms={r['plain_ms']:.3f} library_ms(_fused_adamw_, f32)"
               f"={r['library_ms']} bound_ms={r['bound_ms']:.4f} "
-              f"({r['bound_by']})", flush=True)
+              f"({r['bound_by']}), {adamw_rate(r, nbytes)}", flush=True)
+        if mode == "int8":   # the re-encode that follows every int8 update
+            enc = cold_ms(torch, lambda: (
+                qstate.encode(m, "int8"),
+                qstate.encode(u, "int8", sqrt_domain=True)), 10, flush)
+            print(f"[kernels] qstate.encode int8 of both ({R}, {k}) f32 "
+                  f"moments: ms={enc:.4f} (the int8 update above: "
+                  f"{r['ms']:.4f})", flush=True)
         del mq, uq, ms, us, args
-    del v, g, m, u
+    # f32 rows one element past the start: the one-element instance
+    before = sparse_adamw_rows.unaligned_launches
+    views = [t.view(-1)[1:1 + (R - 1) * k].view(R - 1, k)
+             for t in (v, g, m, u)]
+    got = sparse_adamw_rows(*views, None, None, scalars)
+    if sparse_adamw_rows.unaligned_launches != before + 1:
+        fail("sparse_adamw_rows at an offset of 1 did not take the "
+             "one-element instance")
+    err1, _, _ = adamw_close(torch, got, sparse_adamw_rows_plain(
+        *views, None, None, scalars))
+    ms1 = cold_ms(torch, lambda: sparse_adamw_rows(*views, None, None,
+                                                   scalars), 10, flush)
+    print(f"[kernels] sparse_adamw_rows ({R - 1}, {k}) f32 at offset 1 "
+          f"(one-element instance): max_abs_err={err1:.3g} ms={ms1:.4f}, "
+          f"{views[0].numel() * 28 / ms1 / 1e9:.3f} TB/s", flush=True)
+    rows["f32"]["max_abs_err"] = max(rows["f32"]["max_abs_err"], err1)
+    del v, g, m, u, views, got
+    # short rows: a row boundary inside a vector, or rows shorter than one
+    for R, K in ((5, 3), (7, 13)):
+        v, g, m, u = adamw_inputs(torch, gen, (R, K))
+        for mode in ("f32", "bf16", "int8"):
+            mq, ms = qstate.encode(m, mode)
+            uq, us = qstate.encode(u, mode, sqrt_domain=True)
+            args = (v, g, mq, uq, ms, us, scalars)
+            err, _, equal = adamw_close(torch, sparse_adamw_rows(*args),
+                                        sparse_adamw_rows_plain(*args))
+            rows[mode]["max_abs_err"] = max(rows[mode]["max_abs_err"], err)
+            print(f"[kernels] sparse_adamw_rows ({R}, {K}) {mode} moments: "
+                  f"max_abs_err={err:.3g} bit-equal={equal}", flush=True)
     return blocks, rows
 
 
@@ -1361,9 +1481,12 @@ def train_phase(torch):
     from repro_torch.configs import (AdapterConfig, RunConfig, ShapeSpec,
                                      TrainConfig, get_config)
     from repro_torch.launch import train
+    from repro_torch.kernels.sparse_adamw import (sparse_adamw,
+                                                  sparse_adamw_rows)
     from repro_torch.training import MultiAdapterTrainer
     totals = {}
     zero_counts()
+    sparse_adamw.unaligned_launches = sparse_adamw_rows.unaligned_launches = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     stats = train.main(["--arch", "starcoder2-7b", "--adapter", "shira-rand",
@@ -1432,6 +1555,13 @@ def train_phase(torch):
             profile_train_step(torch, profile, ProfilerActivity, mt, out)
         del mt, out, values
         torch.cuda.empty_cache()
+    unaligned = (sparse_adamw.unaligned_launches,
+                 sparse_adamw_rows.unaligned_launches)
+    print(f"[train] sparse_adamw one-element (unaligned) launches over the "
+          f"three runs: blocks {unaligned[0]}, rows {unaligned[1]}",
+          flush=True)
+    if any(unaligned):
+        fail("train: a sparse_adamw update took the one-element instance")
     return totals
 
 
@@ -1822,13 +1952,9 @@ def main() -> None:
     def build_all():
         build.build()
         print(f"[build] {len(build.KERNELS)} kernel libraries", flush=True)
-        for name, log in build.ptxas_log.items():
-            fn = ""
-            for ln in log.splitlines():
-                if "Compiling entry function" in ln:
-                    fn = kernel_name(ln.split("'")[1])
-                if "registers" in ln or "spill" in ln:
-                    print(f"[build] {name}: {fn}: {ln.strip()}")
+        for name in build.KERNELS:
+            for fn, ln in ptxas_lines(build.ptxas(name)):
+                print(f"[build] {name}: {fn}: {ln}")
     timed("build", build_all)
 
     scratch = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")

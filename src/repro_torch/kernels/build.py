@@ -6,7 +6,9 @@ at the repository root, then loaded with ``ctypes``. A library's file name
 carries a hash of its source, the shared ``csrc/*.cuh`` headers and the
 flags, so an edited source is rebuilt and a stale library is never
 loaded. ``build`` compiles several sources at once, one ``nvcc`` process
-each, all started together.
+each, all started together. What ``-Xptxas -v`` printed for a library
+(registers and spills of each kernel) is kept beside it, so ``ptxas``
+reads it whether this process compiled the library or found it built.
 """
 from __future__ import annotations
 
@@ -27,7 +29,6 @@ KERNELS = ("sidedelta", "scatter_apply", "sparse_adamw", "sidedelta_grad",
            "flash_decode", "flash_prefill", "masked_update")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
-ptxas_log: Dict[str, str] = {}      # name -> what ``-Xptxas -v`` printed
 
 
 def nvcc() -> str:
@@ -65,14 +66,21 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, float]:
     for name, (tmp, proc) in procs.items():
         log, _ = proc.communicate()
         seconds[name] = time.perf_counter() - t0
-        ptxas_log[name] = log
         if proc.returncode:
             failed.append(f"{name}:\n{log}")
             continue
+        library_path(name).with_suffix(".ptxas").write_text(log)
         os.replace(tmp, library_path(name))
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return seconds
+
+
+def ptxas(name: str) -> str:
+    """What ``nvcc -Xptxas -v`` printed when kernel ``name``'s library was
+    compiled; "" if it is not built."""
+    log = library_path(name).with_suffix(".ptxas")
+    return log.read_text() if log.exists() else ""
 
 
 def load(name: str) -> ctypes.CDLL:

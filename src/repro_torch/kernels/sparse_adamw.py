@@ -21,11 +21,20 @@ they compute the plain versions below, the same f32 operations rounded one
 by one, which the tests and ``chip_smoke.py`` hold the kernel against (on
 the card PyTorch divides by a scalar through its reciprocal, so the two
 agree to the last bit of some elements, not bit for bit).
+
+The kernel is bound by the bytes it moves (28 an element with f32
+moments, 24 bf16, 22 int8), so both entry points run one streaming body
+over the R * K elements as one flat range: each thread takes a vector of
+consecutive elements in 16-byte accesses, and a persistent grid keeps
+enough loads in flight to fill the memory system. A vector needs every
+pointer aligned to its bytes (``vector_width``): whole tensors always are;
+a view at another offset takes the one-element instance of the same
+kernel, counted apart in ``unaligned_launches``.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence, Tuple
+from typing import Iterable, Optional, Sequence, Tuple
 
 import torch
 
@@ -88,28 +97,49 @@ def _check(v, g, mu, nu, mu_scale, nu_scale, ndim: int) -> None:
 _P, _LL, _F, _I = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float,
                    ctypes.c_int)
 _ARGTYPES = {   # the C signatures of csrc/sparse_adamw.cu, stream last
-    "sparse_adamw": [_P] * 7 + [_LL] + [_F] * 7 + [_P],
-    "sparse_adamw_rows": [_P] * 6 + [_I] + [_P] * 3 + [_LL] * 2 + [_F] * 7
-                         + [_P],
+    "sparse_adamw": [_P] * 7 + [_LL, _I] + [_F] * 7 + [_P],
+    "sparse_adamw_rows": [_P] * 6 + [_I] + [_P] * 3 + [_LL] * 2 + [_I]
+                         + [_F] * 7 + [_P],
 }
 
 
-def _launch(name: str, tensors, *args) -> None:
-    dev = tensors[0].device
+def vector_width(tensors: Iterable[torch.Tensor], vec: int) -> int:
+    """The kernel instance for these operands: ``vec`` elements a vector
+    when every tensor's address is a multiple of a vector's bytes (at most
+    16: wider vectors load as 16-byte words), else 1. The kernel indexes
+    every operand by one flat element index, so each must be aligned."""
+    ok = all(t.data_ptr() % min(16, vec * t.element_size()) == 0
+             for t in tensors)
+    return vec if ok else 1
+
+
+def _launch(wrapper, streamed, scales, head, scalars) -> None:
+    """Launch ``wrapper``'s kernel. ``streamed``: the tensors it indexes
+    element by element (v, g, mu, nu, then the outputs); ``scales``: int8
+    moments' per-row scales; ``head``: the C arguments before ``vec``,
+    ``scalars`` those after it."""
+    name = wrapper.__name__
+    dev = streamed[0].device
     if dev.type != "cuda":
         raise RuntimeError(f"{name} runs on cuda or cpu, not {dev}")
-    for t in tensors:
+    for t in [*streamed, *scales]:
         if t.device != dev:
             raise RuntimeError(f"{name} operands on {t.device} and {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{name} operands must be contiguous")
-    fn = getattr(build.load("sparse_adamw"), f"{name}_launch")
+    lib = build.load("sparse_adamw")
+    fn = getattr(lib, f"{name}_launch")
     if fn.argtypes is None:
         fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
-    err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+    vec = vector_width(streamed, lib.sparse_adamw_vec())
+    err = fn(*head, vec, *(float(s) for s in scalars),
+             torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
+    wrapper.launches += 1
+    if vec == 1:
+        wrapper.unaligned_launches += 1
 
 
 def sparse_adamw(v: torch.Tensor, g: torch.Tensor, mu: torch.Tensor,
@@ -122,10 +152,9 @@ def sparse_adamw(v: torch.Tensor, g: torch.Tensor, mu: torch.Tensor,
         return sparse_adamw_plain(v, g, mu, nu, scalars)
     outs = [torch.empty_like(v) for _ in range(3)]
     if v.numel():
-        _launch("sparse_adamw", [v, g, mu, nu],
-                *(t.data_ptr() for t in (v, g, mu, nu, *outs)), v.numel(),
-                *(float(s) for s in scalars))
-        sparse_adamw.launches += 1
+        streamed = [v, g, mu, nu, *outs]
+        _launch(sparse_adamw, streamed, [],
+                [*(t.data_ptr() for t in streamed), v.numel()], scalars)
     return tuple(outs)
 
 
@@ -141,21 +170,18 @@ def sparse_adamw_rows(v: torch.Tensor, g: torch.Tensor, mu: torch.Tensor,
         return sparse_adamw_rows_plain(v, g, mu, nu, mu_scale, nu_scale,
                                        scalars)
     r, k = v.shape
-    if r > 65535:
-        raise ValueError(f"sparse_adamw_rows grid too large for {r} rows")
     outs = [torch.empty_like(v) for _ in range(3)]
     if v.numel():
         scales = [s for s in (mu_scale, nu_scale) if s is not None]
-        _launch("sparse_adamw_rows", [v, g, mu, nu, *scales],
-                *(t.data_ptr() for t in (v, g, mu, nu)),
-                mu_scale.data_ptr() if mu_scale is not None else None,
-                nu_scale.data_ptr() if nu_scale is not None else None,
-                _MOMENT_DTYPES[mu.dtype],
-                *(t.data_ptr() for t in outs), r, k,
-                *(float(s) for s in scalars))
-        sparse_adamw_rows.launches += 1
+        ptr = lambda t: None if t is None else t.data_ptr()
+        _launch(sparse_adamw_rows, [v, g, mu, nu, *outs], scales,
+                [*(t.data_ptr() for t in (v, g, mu, nu)), ptr(mu_scale),
+                 ptr(nu_scale), _MOMENT_DTYPES[mu.dtype],
+                 *(t.data_ptr() for t in outs), r, k], scalars)
     return tuple(outs)
 
 
-sparse_adamw.launches = 0       # kernel launches (CUDA tensors only)
-sparse_adamw_rows.launches = 0
+# kernel launches (CUDA tensors only), and those of the one-element
+# instance for operands not aligned to a vector
+sparse_adamw.launches = sparse_adamw.unaligned_launches = 0
+sparse_adamw_rows.launches = sparse_adamw_rows.unaligned_launches = 0

@@ -1,4 +1,4 @@
-"""The port stands alone: nothing under src/repro_torch/, and not
+"""The port stands alone: nothing under src/repro_torch/ or tools/, and not
 chip_smoke.py, imports jax or the JAX package, and the port imports with
 jax made unimportable."""
 import ast
@@ -10,8 +10,8 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+         + sorted((ROOT / "tools").glob("*.py")) + [ROOT / "chip_smoke.py"])
 
 
 def _imported_modules(path: Path):

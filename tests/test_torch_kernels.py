@@ -37,7 +37,7 @@ from repro_torch.kernels.sidedelta import (group_by_adapter, sidedelta,
                                            sidedelta_dvals_plain,
                                            sidedelta_plain, sidedelta_train,
                                            token_minor)
-from repro_torch.kernels.sparse_adamw import sparse_adamw_rows
+from repro_torch.kernels.sparse_adamw import sparse_adamw_rows, vector_width
 from repro_torch.models import layers as TL
 from repro_torch.training import qstate as tq
 
@@ -492,12 +492,18 @@ def test_sparse_adamw_plain_matches_jax(step, wd):
         np.testing.assert_allclose(o.numpy(), np.asarray(jo), **ADAMW_TOL)
 
 
-@pytest.mark.parametrize("mode", ["f32", "bf16", "int8"])
-def test_sparse_adamw_batched_plain_matches_jax(mode):
-    """(R, K) rows with f32, bf16 or int8 moments (K = 2100), against the
-    JAX wrapper in interpret mode and against the row reference."""
+@pytest.mark.parametrize("mode,K", [
+    pytest.param(mode, K, id=mode if K == 2100 else f"{mode}-K{K}")
+    for mode in ("f32", "bf16", "int8") for K in (2100, 1, 3, 7, 13)])
+def test_sparse_adamw_batched_plain_matches_jax(mode, K):
+    """(R, K) rows with f32, bf16 or int8 moments, against the JAX wrapper
+    in interpret mode (which pads K to its block) and against the row
+    reference. K = 1, 3, 7 and 13 are the shapes where the kernel's flat
+    vectors of 4 elements hold a row boundary or several rows; int8 rows
+    carry distinct scales."""
     rng = np.random.default_rng(5)
-    v, g, m, u = _adamw_inputs(rng, (6, 2100))
+    v, g, m, u = _adamw_inputs(rng, (6, K))
+    m *= np.linspace(1, 4, 6, dtype=np.float32)[:, None]
     jm, jms = jq.encode(jnp.asarray(m), mode)
     ju, jus = jq.encode(jnp.asarray(u), mode, sqrt_domain=True)
     tm, tms = tq.encode(_t(m), mode)
@@ -537,6 +543,49 @@ def test_sparse_adamw_wrapper_checks():
     meta = torch.device("meta")
     with pytest.raises(RuntimeError, match="cuda or cpu"):
         tops.sparse_adamw(*(v[0].to(meta) for _ in range(4)), 1)
+
+
+# the element offset at which each operand type is aligned to a vector of
+# 4 or 8 elements: f32 at 16 bytes either way, bf16 and int8 moments at
+# 4 or 8 elements' bytes
+_ALIGNED_EVERY = {(torch.float32, 4): 4, (torch.float32, 8): 4,
+                  (torch.bfloat16, 4): 4, (torch.bfloat16, 8): 8,
+                  (torch.int8, 4): 4, (torch.int8, 8): 8}
+
+
+@pytest.mark.parametrize("mt", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("vec", [4, 8])
+def test_sparse_adamw_vector_width_needs_every_pointer_aligned(mt, vec):
+    """The wrapper's choice of kernel instance on CPU tensors sliced at
+    element offsets 0..8: the vector instance only when every operand's
+    address is aligned to a vector, else the one-element instance."""
+    f32 = torch.zeros(64)           # CPU allocations are 64-byte aligned
+    mom = torch.zeros(64, dtype=mt)
+    assert f32.data_ptr() % 64 == 0 and mom.data_ptr() % 64 == 0
+    whole = [f32, f32, mom, mom, f32, f32, f32]
+    assert vector_width(whole, vec) == vec
+    for off in range(9):
+        fo, mo = f32[off:], mom[off:]
+        f_ok = off % _ALIGNED_EVERY[torch.float32, vec] == 0
+        m_ok = off % _ALIGNED_EVERY[mt, vec] == 0
+        want = lambda ok: vec if ok else 1
+        assert vector_width([fo, fo, mo, mo, fo, fo, fo], vec) == \
+            want(f_ok and m_ok)
+        assert vector_width([f32, f32, mo, mo, f32, f32, f32], vec) == \
+            want(m_ok)
+        for i in (0, 1, 4, 5, 6):   # any one f32 operand, output too
+            ops_ = list(whole)
+            ops_[i] = fo
+            assert vector_width(ops_, vec) == want(f_ok)
+
+
+def test_sparse_adamw_rows_takes_any_row_count():
+    """The kernel runs R * K elements as one flat range: no grid limit on
+    R (a (70000, 2) call reaches the device check, not a row cap)."""
+    meta = torch.device("meta")
+    v = torch.zeros(70000, 2, device=meta)
+    with pytest.raises(RuntimeError, match="cuda or cpu"):
+        sparse_adamw_rows(v, v, v, v, None, None, [0.0] * 7)
 
 
 def test_adamw_scalars_are_f32_like_the_reference():
