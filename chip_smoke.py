@@ -68,6 +68,18 @@ of K = 3 and 13 in every moment type and views one element past their
 start (the one-element instance, which must count an unaligned launch),
 and times qstate.encode's int8 re-encode beside the int8 update; the
 train phase fails if any update there took the one-element instance.
+scatter_apply is held bit for bit against its plain version on a padded
+fused pack, on (37, 96, 160) with k = 307 and (70001, 8, 8) with k = 3
+(layer boundaries inside a block, more layers than a grid dimension
+holds), and on the (32, 4608, 18432) leaf with ascending and shuffled
+indices; its bound counts the 32-byte sectors of W its entries touch
+(scatter_bytes). The dvals kernel is timed alone on grouped token-minor
+inputs beside the wrapper as the backward calls it and the whole
+wrapper, and held within 1e-4 at S = 250 (the one-token instance, which
+must count an unaligned launch) and with an adapter that has no tokens;
+the train phase fails if a multi-adapter step took the one-token
+instance. The scatter_apply, sidedelta_grad and sparse_adamw parts print
+each kernel instance's registers and spills and fail on a spill.
 """
 from __future__ import annotations
 
@@ -201,6 +213,43 @@ def rand_entries(torch, gen, nl, n, m, k):
                        .sort().values for _ in range(nl)]).to(torch.int32)
     vals = 0.01 * torch.randn((nl, k), generator=gen, device="cuda")
     return idx, vals
+
+
+def scatter_bytes(torch, w, idx, vals):
+    """(bytes, sectors) that scatter_apply(w, idx, vals) must move: the
+    index and value of every entry read once, and each 32-byte sector of W
+    that holds an applied entry (value not 0, index inside its matrix) read
+    and written once, counted from the indices at W's own addresses."""
+    n, m = w.shape[-2:]
+    nl, k = idx.numel() // idx.shape[-1], idx.shape[-1]
+    i = idx.reshape(nl, k).long()
+    keep = (vals.reshape(nl, k) != 0) & (i >= 0) & (i < n * m)
+    first = w.data_ptr() % 32 // 4      # W's first element within a sector
+    flat = (torch.arange(nl, device=i.device)[:, None] * (n * m) + i
+            + first)[keep]
+    sectors = int(torch.unique(flat // 8).numel())
+    return nl * k * 8 + 64 * sectors, sectors
+
+
+def switch_bound(torch, cfg):
+    """(bound, entries, sectors) of one whole adapter load as the serve
+    phase's packs make it: every adapted leaf of ``cfg`` (wq, wk, wv, wo,
+    w_up, w_down, each stacked over the layers) at sparsity 0.98, the
+    sectors counted from a draw of the same masks."""
+    from repro_torch.core.masks import budget
+    d, f, L = cfg.d_model, cfg.d_ff, cfg.num_layers
+    kv = cfg.num_kv_heads * cfg.resolved_head_dim
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    nbytes = sectors = entries = 0
+    for n, m in ((d, d), (d, kv), (d, kv), (d, d), (d, f), (f, d)):
+        idx, vals = rand_entries(torch, gen, L, n, m, budget(n, m, 0.98))
+        b, s = scatter_bytes(torch, torch.empty((L, n, m), device="meta"),
+                             idx, vals)
+        nbytes, sectors = nbytes + b, sectors + s
+        entries += idx.numel()
+        del idx, vals
+    return bound(nbytes, 0), entries, sectors
 
 
 def sidedelta_case(torch, gen, flush, label, n, m, S, int8, slots=None,
@@ -347,9 +396,10 @@ def kernels_phase(torch, flush):
                  f"{ref_ms:.4f} ms unpadded (S={S})")
         side += [tight, padded, again]
 
-    # scatter_apply on a fused pack of two w_up layers, padded as fuse_packs
-    # pads a shorter layer (index 0, value 0), 4096 more entries a layer:
-    # the kernel must equal the plain version bit for bit on the whole leaf
+    # scatter_apply, every case bit for bit against its plain version.
+    # First a fused pack of two w_up layers, padded as fuse_packs pads a
+    # shorter layer (index 0, value 0), 4096 more entries a layer
+    kernel_ptxas("scatter_apply")
     import torch.nn.functional as F
     w2 = torch.randn((2, d, f), generator=gen, device="cuda")
     fi, fv = (F.pad(t, (0, 4096)) for t in fused[0].entries["w"])
@@ -363,11 +413,33 @@ def kernels_phase(torch, flush):
         fail("scatter_apply disagrees with its plain version on a padded "
              "fused pack")
     del packs, fused, slots, w2, want, fi, fv
+    # many layers of odd k: layer boundaries inside a block, and at 70,001
+    # layers more layers than a grid dimension holds
+    for nl, n, m, kk in ((37, 96, 160, 307), (70001, 8, 8, 3)):
+        ws = torch.randn((nl, n, m), generator=gen, device="cuda")
+        ii = torch.argsort(torch.rand((nl, n * m), generator=gen,
+                                      device="cuda"), 1)[:, :kk]
+        ii = ii.sort(1).values.to(torch.int32)
+        vv = torch.randn((nl, kk), generator=gen, device="cuda")
+        want = scatter_apply_plain(ws.clone(), ii, vv, 0.5)
+        scatter_apply(ws, ii, vv, 0.5)
+        equal = bool(torch.equal(ws, want))
+        print(f"[kernels] scatter_apply ({nl}, {n}, {m}) k={kk}: bit-equal "
+              f"to its plain version: {equal}", flush=True)
+        if not equal:
+            fail(f"scatter_apply disagrees with its plain version at "
+                 f"({nl}, {n}, {m}) k={kk}")
+    del ws, ii, vv, want
 
-    # scatter_apply on a stacked (32, 4608, 18432) leaf: load, unload
+    # the stacked (32, 4608, 18432) leaf: load, unload, with the indices
+    # ascending (as every pack holds them) and shuffled within each layer
     L = 32
     w = torch.randn((L, d, f), generator=gen, device="cuda")
     idx, vals = rand_entries(torch, gen, L, d, f, k)
+    perm = torch.argsort(torch.rand((L, k), generator=gen, device="cuda"),
+                         dim=1)
+    shuffled = idx.gather(1, perm), vals.gather(1, perm)
+    del perm
     gi = (torch.arange(L, device="cuda")[:, None] * (d * f)
           + idx.long()).reshape(-1)
     before = w.view(-1)[gi].clone()
@@ -375,19 +447,27 @@ def kernels_phase(torch, flush):
                           device="cuda")
     probe = probe[~torch.isin(probe, gi)]          # entries no pack touches
     probe_before = w.view(-1)[probe].clone()
-    scatter_apply(w, idx, vals, 1.0)
     want = scatter_apply_plain(before.clone()[None], torch.arange(
         gi.numel(), dtype=torch.int32, device="cuda"), vals.reshape(-1),
         1.0)[0]
-    load_err = float((w.view(-1)[gi] - want).abs().max())
-    scatter_apply(w, idx, vals, -1.0)
-    restore_err = float((w.view(-1)[gi] - before).abs().max())
-    untouched = bool(torch.equal(w.view(-1)[probe], probe_before))
-    print(f"[kernels] scatter_apply ({L}, {d}, {f}) K={gi.numel()}: load "
-          f"err={load_err} restore err={restore_err:.3g} (tol {RESTORE_TOL})"
-          f" untouched entries equal: {untouched}", flush=True)
-    if load_err != 0.0 or not restore_err <= RESTORE_TOL or not untouched:
-        fail("scatter_apply disagrees with its plain version")
+    errs = []
+    for label, entries in (("ascending", (idx, vals)),
+                           ("shuffled", shuffled)):
+        scatter_apply(w, *entries, 1.0)
+        load_err = float((w.view(-1)[gi] - want).abs().max())
+        scatter_apply(w, *entries, -1.0)
+        restore_err = float((w.view(-1)[gi] - before).abs().max())
+        untouched = bool(torch.equal(w.view(-1)[probe], probe_before))
+        print(f"[kernels] scatter_apply ({L}, {d}, {f}) K={gi.numel()} "
+              f"{label}: load err={load_err} restore err={restore_err:.3g} "
+              f"(tol {RESTORE_TOL}) untouched entries equal: {untouched}",
+              flush=True)
+        if (load_err != 0.0 or not restore_err <= RESTORE_TOL
+                or not untouched):
+            fail(f"scatter_apply disagrees with its plain version "
+                 f"({label} indices)")
+        w.view(-1)[gi] = before         # the exact base for the next case
+        errs += [load_err, restore_err]
     sign = [1.0]
 
     def flip(fn):
@@ -397,20 +477,22 @@ def kernels_phase(torch, flush):
         return go
     ms = cold_ms(torch, flip(lambda a: scatter_apply(w, idx, vals, a)), 10,
                  flush)
+    shuffled_ms = cold_ms(torch, flip(
+        lambda a: scatter_apply(w, *shuffled, a)), 10, flush)
     plain_ms = cold_ms(torch, flip(
         lambda a: scatter_apply_plain(w, idx, vals, a)), 4, flush)
     upd = {1.0: vals.reshape(-1).clone(), -1.0: -vals.reshape(-1)}
     library_ms = cold_ms(torch, flip(lambda a: w.view(-1).index_put_(
         (gi,), upd[a], accumulate=True)), 4, flush)
-    nbytes = gi.numel() * (4 + 4 + 4 + 4)   # index, value, W read + write
-    scat = {"max_abs_err": max(load_err, restore_err), "ms": ms,
-            "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
-    print(f"[kernels] scatter_apply ms={ms:.4f} plain_ms(index_add_)="
-          f"{plain_ms:.4f} library_ms(index_put_ accumulate)="
-          f"{library_ms:.4f} bound_ms={scat['bound_ms']:.4f} (bytes)",
-          flush=True)
-    del w, idx, vals, gi, before, probe, probe_before, upd
+    nbytes, sectors = scatter_bytes(torch, w, idx, vals)
+    scat = {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, **bound(nbytes, 0)}
+    print(f"[kernels] scatter_apply ms={ms:.4f} (shuffled {shuffled_ms:.4f})"
+          f" plain_ms(index_add_)={plain_ms:.4f} library_ms(index_put_ "
+          f"accumulate)={library_ms:.4f} bound_ms={scat['bound_ms']:.4f} "
+          f"(bytes: {sectors} of {w.numel() // 8} W sectors read and "
+          f"written, 8 B an entry): {rate_line(scat, nbytes)}", flush=True)
+    del w, idx, vals, shuffled, gi, before, probe, probe_before, upd, want
     return side, scat
 
 
@@ -471,8 +553,9 @@ def fused_adamw_ms(torch, flush, v, g, m, u, scalars):
         weight_decay=wd, eps=eps, amsgrad=False, maximize=False), 10, flush)
 
 
-def adamw_rate(r: dict, nbytes: float) -> str:
-    """Achieved TB/s of one timed case and its share of the bound."""
+def rate_line(r: dict, nbytes: float) -> str:
+    """Achieved TB/s of one timed case's bytes and its share of the
+    bound."""
     return (f"{nbytes / r['ms'] / 1e9:.3f} TB/s, {r['bound_ms'] / r['ms']:.1%}"
             " of bound")
 
@@ -487,18 +570,18 @@ def ptxas_lines(log: str):
             yield fn, ln.strip()
 
 
-def adamw_ptxas() -> None:
-    """Prints the -Xptxas -v lines (registers, spills) of every
-    sparse_adamw kernel instance; fails if the log is missing or an
+def kernel_ptxas(name: str) -> None:
+    """Prints the -Xptxas -v lines (registers, spills) of every kernel
+    instance of library ``name``; fails if the log is missing or an
     instance spills."""
     from repro_torch.kernels import build
-    lines = list(ptxas_lines(build.ptxas("sparse_adamw")))
+    lines = list(ptxas_lines(build.ptxas(name)))
     if not any("spill stores" in ln for _, ln in lines):
-        fail("sparse_adamw: no ptxas log beside its library")
+        fail(f"{name}: no ptxas log beside its library")
     for fn, ln in lines:
-        print(f"[kernels] sparse_adamw ptxas: {fn}: {ln}", flush=True)
+        print(f"[kernels] {name} ptxas: {fn}: {ln}", flush=True)
         if re.search(r"[1-9]\d* bytes spill (stores|loads)", ln):
-            fail(f"sparse_adamw: {fn} spills registers")
+            fail(f"{name}: {fn} spills registers")
 
 
 def adamw_kernels(torch, flush, cfg):
@@ -515,7 +598,7 @@ def adamw_kernels(torch, flush, cfg):
                                                   sparse_adamw_rows,
                                                   sparse_adamw_rows_plain)
     from repro_torch.training import qstate
-    adamw_ptxas()
+    kernel_ptxas("sparse_adamw")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
     k = budget(cfg.d_model, cfg.d_ff, 0.98)
@@ -539,7 +622,7 @@ def adamw_kernels(torch, flush, cfg):
           f"(tol rtol=atol={ADAMW_TOL}) ms={blocks['ms']:.4f} "
           f"plain_ms={blocks['plain_ms']:.3f} library_ms(_fused_adamw_)="
           f"{blocks['library_ms']} bound_ms={blocks['bound_ms']:.4f} "
-          f"({blocks['bound_by']}), {adamw_rate(blocks, v.numel() * 28)}",
+          f"({blocks['bound_by']}), {rate_line(blocks, v.numel() * 28)}",
           flush=True)
     # the one-element instance: every operand one element past its start
     before = sparse_adamw.unaligned_launches
@@ -583,7 +666,7 @@ def adamw_kernels(torch, flush, cfg):
               f"{equal} (tol rtol=atol={ADAMW_TOL}) ms={r['ms']:.4f} "
               f"plain_ms={r['plain_ms']:.3f} library_ms(_fused_adamw_, f32)"
               f"={r['library_ms']} bound_ms={r['bound_ms']:.4f} "
-              f"({r['bound_by']}), {adamw_rate(r, nbytes)}", flush=True)
+              f"({r['bound_by']}), {rate_line(r, nbytes)}", flush=True)
         if mode == "int8":   # the re-encode that follows every int8 update
             enc = cold_ms(torch, lambda: (
                 qstate.encode(m, "int8"),
@@ -649,7 +732,9 @@ def grad_case(torch, gen, flush, label, n, m):
     absolute tolerance."""
     from repro_torch.core.masks import budget
     from repro_torch.kernels import ops
-    from repro_torch.kernels.sidedelta import (group_by_adapter, kernel_path,
+    from repro_torch.kernels.sidedelta import (_launch_dvals,
+                                               _sidedelta_dvals,
+                                               group_by_adapter, kernel_path,
                                                sidedelta, sidedelta_dvals,
                                                sidedelta_dvals_plain,
                                                sidedelta_plain, token_minor)
@@ -706,19 +791,32 @@ def grad_case(torch, gen, flush, label, n, m):
                  **bound(nbytes_dx, 2 * S * k * Bt)}
     del dense, dense_t, col
     dv_args = (x, dy, t["rows"], t["colptr"], ids)
-    err = float((sidedelta_dvals(*dv_args)
-                 - sidedelta_dvals_plain(*dv_args)).abs().max())
+    want = sidedelta_dvals_plain(*dv_args)
+    err = float((sidedelta_dvals(*dv_args) - want).abs().max())
+    # the kernel alone, on the grouping and token-minor x and dy that the
+    # wrapper prepares (the backward passes dy's, shared with dx)
+    order, rptr = group_by_adapter(ids, A)
+    dyT, xT = token_minor(dy, order), token_minor(x, order)
+    dv_out = torch.zeros((A, k), device="cuda")
+    alone = lambda: _launch_dvals(xT, dyT, t["rows"], t["colptr"], rptr, S,
+                                  dv_out)
+    err = max(err, float((alone() - want).abs().max()))
     if not err <= SIDEDELTA_TOL:
         fail(f"sidedelta_dvals {label}: max_abs_err {err} > {SIDEDELTA_TOL}")
+    del want
     nbytes_dv = x.numel() * 2 + dy.numel() * 4 + A * k * 8 + A * (m + 1) * 4
-    out["dvals"] = {"max_abs_err": err,
-                    "ms": cold_ms(torch, lambda: sidedelta_dvals(*dv_args),
-                                  10, flush),
-                    "plain_ms": cold_ms(torch, lambda: sidedelta_dvals_plain(
-                        *dv_args), 2, flush),
-                    "library_ms": sampled_addmm_ms(torch, flush, t, x, dy, A,
-                                                   n, m, S),
-                    **bound(nbytes_dv, 2 * S * k * Bt)}
+    out["dvals"] = {
+        "max_abs_err": err,
+        "ms": cold_ms(torch, alone, 10, flush),
+        "backward_ms": cold_ms(torch, lambda: _sidedelta_dvals(
+            *dv_args, grouped=(order, rptr, dyT)), 10, flush),
+        "wrapper_ms": cold_ms(torch, lambda: sidedelta_dvals(*dv_args), 10,
+                              flush),
+        "plain_ms": cold_ms(torch, lambda: sidedelta_dvals_plain(*dv_args),
+                            2, flush),
+        "library_ms": sampled_addmm_ms(torch, flush, t, x, dy, A, n, m, S),
+        **bound(nbytes_dv, 2 * S * k * Bt)}
+    del xT, dyT, dv_out
     # the wrapper's prep for dx (and dvals, which shares it): the grouping
     # and dy in token-minor order
     prep_ms = cold_ms(torch, lambda: token_minor(
@@ -730,14 +828,61 @@ def grad_case(torch, gen, flush, label, n, m):
         yard = {"forward": "bmm, dense dW", "dx": "bmm, dense dW^T",
                 "dvals": "sampled_addmm"}[name]
         path = (f" path={kernel_path(Bt, S)}" if name != "dvals"
-                else "")
+                else " kernel alone")
         print(f"[kernels] sidedelta {name} {label} ({n}x{m}) K={k}x{A} "
               f"T_a={2 * S}{path}: max_abs_err={r['max_abs_err']:.3g} (tol "
               f"{SIDEDELTA_TOL}) ms={r['ms']:.4f} plain_ms="
               f"{r['plain_ms']:.3f} library_ms({yard})="
               f"{r['library_ms']:.3f} bound_ms="
               f"{r['bound_ms']:.4f} ({r['bound_by']})", flush=True)
+    r = out["dvals"]
+    print(f"[kernels] sidedelta dvals {label}: as the backward calls it "
+          f"(x to token-minor order) {r['backward_ms']:.4f} ms, the whole "
+          f"wrapper (grouping, x and dy to token-minor order) "
+          f"{r['wrapper_ms']:.4f} ms; the kernel alone "
+          f"{rate_line(r, nbytes_dv)}, "
+          f"{2 * Bt * S * k / r['ms'] / 1e9:.3f} TB/s of x gathered",
+          flush=True)
     return out
+
+
+def dvals_edge_cases(torch, gen, n, m):
+    """sidedelta_dvals at (n, m) against its plain version on the
+    multi-adapter batch at S = 250 (not a multiple of a vector: the
+    one-token instance, which must count an unaligned launch), and at
+    S = 256 with adapter 1 given no tokens (its gradient must be zero)."""
+    from repro_torch.core.masks import budget
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.sidedelta import (sidedelta_dvals,
+                                               sidedelta_dvals_plain)
+    A, k = 3, budget(n, m, 0.98)
+    t = {key: v[0].contiguous() for key, v in ops.sidedelta_table(
+        [rand_entries(torch, gen, 1, n, m, k)[0] for _ in range(A)], 1, n,
+        m, trainable=True).items()}
+    for S, ids, one_token in ((250, MT_IDS, True),
+                              (MT_SEQ, [0, 0, 2, 2, -1, 0], False)):
+        ids = torch.tensor(ids, dtype=torch.int32, device="cuda")
+        x = torch.randn((len(ids), S, n), generator=gen, device="cuda").to(
+            torch.bfloat16)
+        dy = 0.01 * torch.randn((len(ids), S, m), generator=gen,
+                                device="cuda")
+        args = (x, dy, t["rows"], t["colptr"], ids)
+        before = sidedelta_dvals.unaligned_launches
+        got = sidedelta_dvals(*args)
+        took = sidedelta_dvals.unaligned_launches - before
+        err = float((got - sidedelta_dvals_plain(*args)).abs().max())
+        empty = [a for a in range(A) if a not in ids.tolist()]
+        zero = all(float(got[a].abs().max()) == 0.0 for a in empty)
+        print(f"[kernels] sidedelta dvals ({n}x{m}) S={S} ids "
+              f"{ids.tolist()}: max_abs_err={err:.3g} (tol {SIDEDELTA_TOL}),"
+              f" one-token launches {took}, adapters without tokens "
+              f"{empty} all zero: {zero}", flush=True)
+        if not err <= SIDEDELTA_TOL or not zero:
+            fail(f"sidedelta_dvals disagrees with its plain version at "
+                 f"S={S}")
+        if took != int(one_token):
+            fail(f"sidedelta_dvals at S={S}: {took} one-token launches, "
+                 f"expected {int(one_token)}")
 
 
 def train_kernels_phase(torch, flush):
@@ -749,11 +894,14 @@ def train_kernels_phase(torch, flush):
     gen.manual_seed(2)
     d, f = cfg.d_model, cfg.d_ff
     kv = cfg.num_kv_heads * cfg.resolved_head_dim
+    kernel_ptxas("sidedelta_grad")
     grads = {}
     for label, n, m in (("w_up", d, f), ("wq", d, d), ("wk", d, kv),
                         ("w_down", f, d)):
         grads[label] = grad_case(torch, gen, flush, label, n, m)
         torch.cuda.empty_cache()
+    dvals_edge_cases(torch, gen, d, f)
+    torch.cuda.empty_cache()
     return blocks, rows, grads
 
 
@@ -1031,6 +1179,12 @@ def serve_phase(torch):
     peak = torch.cuda.max_memory_allocated() / 1e9
     print(f"[serve] peak memory {peak:.1f} GB (max_memory_allocated)",
           flush=True)
+    from repro_torch.configs import get_config
+    b, entries, sectors = switch_bound(torch, get_config("starcoder2-7b"))
+    print(f"[serve] a switch's bound (one adapter load, {entries} entries, "
+          f"{sectors} W sectors read and written): {b['bound_ms']:.4f} ms "
+          f"({b['bound_by']})", flush=True)
+    torch.cuda.empty_cache()
     return totals
 
 
@@ -1481,12 +1635,14 @@ def train_phase(torch):
     from repro_torch.configs import (AdapterConfig, RunConfig, ShapeSpec,
                                      TrainConfig, get_config)
     from repro_torch.launch import train
+    from repro_torch.kernels.sidedelta import sidedelta_dvals
     from repro_torch.kernels.sparse_adamw import (sparse_adamw,
                                                   sparse_adamw_rows)
     from repro_torch.training import MultiAdapterTrainer
     totals = {}
     zero_counts()
     sparse_adamw.unaligned_launches = sparse_adamw_rows.unaligned_launches = 0
+    sidedelta_dvals.unaligned_launches = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     stats = train.main(["--arch", "starcoder2-7b", "--adapter", "shira-rand",
@@ -1562,6 +1718,11 @@ def train_phase(torch):
           flush=True)
     if any(unaligned):
         fail("train: a sparse_adamw update took the one-element instance")
+    print(f"[train] sidedelta_dvals one-token (unaligned) launches over the "
+          f"two multi-adapter runs: {sidedelta_dvals.unaligned_launches}",
+          flush=True)
+    if sidedelta_dvals.unaligned_launches:
+        fail("train: a dvals launch took the one-token instance")
     return totals
 
 

@@ -5,9 +5,11 @@ is one ``AdapterPack`` leaf's entries as they are: (..., k) int32 flat
 indices into each trailing (n, m) matrix of a (..., n, m) f32 weight, and
 their (..., k) f32 values. Indices are unique within each matrix apart from
 padding entries of value 0, which change nothing. On CUDA tensors the
-wrapper launches ``csrc/scatter_apply.cu`` (one thread per entry); on CPU
-tensors it computes ``scatter_apply_plain``, an index_add_ with the same
-rounding, which the tests and ``chip_smoke.py`` hold the kernel against.
+wrapper launches ``csrc/scatter_apply.cu`` (one entry a thread on a flat
+grid over every layer's entries, 16 warps an SM; any number of layers, any
+index order, fastest for ascending indices); on CPU tensors it computes
+``scatter_apply_plain``, an index_add_ with the same rounding, which the
+tests and ``chip_smoke.py`` hold the kernel against.
 Both update ``w`` in place: the full-width base does not fit on the card
 twice.
 """
@@ -77,8 +79,6 @@ def scatter_apply(w: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor,
         return w
     n, m = w.shape[-2:]
     nl, k = idx.numel() // idx.shape[-1], idx.shape[-1]
-    if nl > 65535 or -(-k // 256) >= 2 ** 31:
-        raise ValueError(f"scatter_apply grid too large for ({nl}, {k})")
     err = _lib().scatter_apply_launch(
         w.data_ptr(), idx.data_ptr(), vals.data_ptr(), nl, k, n * m,
         float(alpha), torch.cuda.current_stream(w.device).cuda_stream)

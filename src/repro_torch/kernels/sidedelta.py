@@ -288,9 +288,44 @@ def _dvals_lib() -> ctypes.CDLL:
     fn = lib.sidedelta_dvals_launch
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [p, i, p, p, p, p, p, i, i, i, ll, ll, p]
+        fn.argtypes = [p, i, ll, p, ll, p, p, p, p, i, i, i, ll, i, p]
         fn.restype = ctypes.c_int
     return lib
+
+
+DVALS_VEC = {torch.bfloat16: 8, torch.float32: 4}   # x tokens a vector
+
+
+def dvals_width(xT: torch.Tensor, dyT: torch.Tensor, S: int) -> int:
+    """The dvals kernel instance for token-minor xT (n, T) and dyT (m, T):
+    DVALS_VEC[xT.dtype] tokens a 16-byte vector when every adapter's first
+    token (a multiple of S) and every row start of both can be a vector's
+    start: S and both row strides multiples of the vector, both addresses
+    of 16 bytes; else 1 (one token a lane)."""
+    vec = DVALS_VEC[xT.dtype]
+    ok = (S % vec == 0 and xT.stride(0) % vec == 0 and dyT.stride(0) % 4 == 0
+          and xT.data_ptr() % 16 == 0 and dyT.data_ptr() % 16 == 0)
+    return vec if ok else 1
+
+
+def _launch_dvals(xT, dyT, rows, colptr, rptr, S, out) -> torch.Tensor:
+    """The dvals kernel alone on grouped, token-minor CUDA operands (as
+    ``_sidedelta_dvals`` prepares them; tokens at unit stride, as
+    ``token_minor`` lays them out): fills ``out`` (A, K) f32, which must
+    arrive zero-filled; returns it."""
+    A, K = rows.shape
+    vec = dvals_width(xT, dyT, S)
+    err = _dvals_lib().sidedelta_dvals_launch(
+        xT.data_ptr(), int(xT.dtype == torch.bfloat16), xT.stride(0),
+        dyT.data_ptr(), dyT.stride(0), rows.data_ptr(), colptr.data_ptr(),
+        rptr.data_ptr(), out.data_ptr(), A, dyT.shape[0], S, K, vec,
+        torch.cuda.current_stream(out.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"sidedelta_dvals launch failed: cudaError {err}")
+    sidedelta_dvals.launches += 1
+    if vec == 1:
+        sidedelta_dvals.unaligned_launches += 1
+    return out
 
 
 def sidedelta_dvals(x: torch.Tensor, dy: torch.Tensor, rows: torch.Tensor,
@@ -303,7 +338,9 @@ def sidedelta_dvals(x: torch.Tensor, dy: torch.Tensor, rows: torch.Tensor,
     On the card the requests are first grouped by adapter
     (``group_by_adapter``) and x and dy transposed to token-minor (n, B*S)
     and (m, B*S) (``token_minor``), so the kernel's gathers read
-    consecutive tokens."""
+    consecutive tokens, 16 bytes a lane where ``dvals_width`` allows (S a
+    multiple of 8 for bf16 x, 4 for f32), one token a lane otherwise
+    (counted in ``sidedelta_dvals.unaligned_launches``)."""
     return _sidedelta_dvals(x, dy, rows, colptr, ids)
 
 
@@ -320,9 +357,8 @@ def _sidedelta_dvals(x, dy, rows, colptr, ids, grouped=None):
         if t.device != x.device:
             raise RuntimeError(f"sidedelta_dvals operands on {t.device} and "
                                f"{x.device}")
-    B, S, n = x.shape
+    B, S, _ = x.shape
     A, K = rows.shape
-    m = dy.shape[2]
     if A > 65535:
         raise ValueError(f"sidedelta_dvals grid too large for A={A}")
     out = torch.zeros((A, K), dtype=torch.float32, device=x.device)
@@ -331,20 +367,13 @@ def _sidedelta_dvals(x, dy, rows, colptr, ids, grouped=None):
     order, rptr, dyT = grouped or (*group_by_adapter(ids, A), None)
     if dyT is None:
         dyT = token_minor(dy, order)
-    # the kernel reads rows B * S apart
-    xT, dyT = token_minor(x, order).contiguous(), dyT.contiguous()
-    rows, colptr = rows.contiguous(), colptr.contiguous()
-    err = _dvals_lib().sidedelta_dvals_launch(
-        xT.data_ptr(), int(x.dtype == torch.bfloat16), dyT.data_ptr(),
-        rows.data_ptr(), colptr.data_ptr(), rptr.data_ptr(), out.data_ptr(),
-        A, m, S, B * S, K, torch.cuda.current_stream(x.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"sidedelta_dvals launch failed: cudaError {err}")
-    sidedelta_dvals.launches += 1
-    return out
+    return _launch_dvals(token_minor(x, order), dyT, rows.contiguous(),
+                         colptr.contiguous(), rptr, S, out)
 
 
-sidedelta_dvals.launches = 0    # kernel launches (CUDA tensors only)
+# kernel launches (CUDA tensors only), and those of the one-token instance
+# for operands that do not allow vectors (dvals_width)
+sidedelta_dvals.launches = sidedelta_dvals.unaligned_launches = 0
 
 
 class _SideDelta(torch.autograd.Function):

@@ -32,8 +32,8 @@ from repro.training import qstate as jq
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.scatter_apply import scatter_apply
-from repro_torch.kernels.sidedelta import (group_by_adapter, sidedelta,
-                                           sidedelta_dvals,
+from repro_torch.kernels.sidedelta import (dvals_width, group_by_adapter,
+                                           sidedelta, sidedelta_dvals,
                                            sidedelta_dvals_plain,
                                            sidedelta_plain, sidedelta_train,
                                            token_minor)
@@ -263,6 +263,59 @@ def test_scatter_apply_wrapper_checks():
         scatter_apply(w.transpose(1, 2), idx, vals)
 
 
+@pytest.mark.parametrize("L,n,m,K", [
+    (37, 12, 30, 307),      # k odd: layer boundaries anywhere in a block
+    (70001, 2, 4, 3),       # more layers than a CUDA grid dimension holds
+])
+def test_scatter_apply_many_layers_odd_k(L, n, m, K):
+    """The kernel walks the flat L * K entries and finds each entry's layer
+    from its position; the wrapper takes any number of layers. Bit-equal
+    to the reference's scatter_packed_add."""
+    rng = np.random.default_rng(5)
+    w = rng.standard_normal((L, n, m)).astype(np.float32)
+    idx = np.argsort(rng.random((L, n * m)), axis=1)[:, :K]
+    idx = np.sort(idx, axis=1).astype(np.int32)
+    vals = rng.standard_normal((L, K)).astype(np.float32)
+    got = scatter_apply(_t(w), _t(idx), _t(vals), 0.5)
+    want = JM.scatter_packed_add(jnp.asarray(w), jnp.asarray(idx),
+                                 jnp.asarray(vals), 0.5)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_scatter_bytes_counts_touched_sectors():
+    """chip_smoke.py's bound for scatter_apply, on a pattern counted by
+    hand: 8 B an entry, and 64 B (read and written) for each 32-byte
+    sector of W that holds an applied entry; entries of value 0 and
+    indices outside the matrix touch nothing; sectors follow W's own
+    address, so a view one element in shifts them."""
+    cs = _chip_smoke()
+    idx = torch.tensor([[7, 8, 31, 40], [8, 3, 0, 5]], dtype=torch.int32)
+    vals = torch.tensor([[1.0, 1.0, 1.0, 1.0], [1.0, 1.0, 0.0, 1.0]])
+    w = torch.zeros(2, 4, 8)        # 32 elements a layer, 4 sectors
+    assert w.data_ptr() % 32 == 0
+    # layer 0: 7 -> sector 0, 8 -> 1, 31 -> 3, 40 outside; layer 1 (from
+    # element 32, sector 4): 8 -> 5, 3 and 5 -> 4, 0 has value 0
+    assert cs.scatter_bytes(torch, w, idx, vals) == (8 * 8 + 5 * 64, 5)
+    shifted = torch.zeros(65)[1:].reshape(2, 4, 8)
+    # one element in: layer 0 at 8, 9, 32 -> sectors 1, 1, 4; layer 1 at
+    # 41, 36, 38 -> sectors 5, 4, 4 (sector 4 straddles the two layers and
+    # counts once)
+    assert cs.scatter_bytes(torch, shifted, idx, vals) == (8 * 8 + 3 * 64, 3)
+    b = cs.bound(*cs.scatter_bytes(torch, w, idx, vals)[:1], 0)
+    assert b["bound_by"] == "bytes"
+    assert b["bound_ms"] == pytest.approx(384 / cs.HBM_BYTES_PER_S * 1e3)
+
+
 def test_wrappers_run_on_cuda_or_cpu_only():
     """No silent path for other devices: a wrapper computes its plain
     version only for CPU tensors, and a tensor elsewhere raises (CUDA
@@ -431,6 +484,33 @@ def test_grouping_permutes_and_restores_rows():
                  * dyT[col, t0:t1]).sum(1)
     np.testing.assert_allclose(dv.numpy(), sidedelta_dvals_plain(
         x, dy, tt["rows"], tt["colptr"], ids).numpy(), atol=1e-4)
+
+
+@pytest.mark.parametrize("xdt,vec", [(torch.bfloat16, 8),
+                                     (torch.float32, 4)])
+def test_dvals_width_needs_whole_vectors(xdt, vec):
+    """The dvals kernel's instance rule on CPU tensors: vectors of ``vec``
+    tokens when S (so every adapter's first token), both row strides and
+    both addresses allow them, the one-token instance otherwise. Each S
+    below is laid out by token_minor as the wrapper lays it out."""
+    B, n, m = 3, 5, 7
+    order = torch.arange(B, dtype=torch.int32)
+    for S in range(1, 2 * vec + 2):
+        xT = token_minor(torch.zeros(B, S, n, dtype=xdt), order)
+        dyT = token_minor(torch.zeros(B, S, m), order)
+        assert dvals_width(xT, dyT, S) == (vec if S % vec == 0 else 1), S
+    S, T = vec, B * vec
+    xT = token_minor(torch.zeros(B, S, n, dtype=xdt), order)
+    dyT = token_minor(torch.zeros(B, S, m), order)
+    assert dvals_width(xT, dyT, S) == vec
+    # a row stride that is not a multiple of the vector
+    wide = torch.zeros(n, T + 1, dtype=xdt)[:, :T]
+    assert dvals_width(wide, dyT, S) == 1
+    assert dvals_width(xT, torch.zeros(m, T + 2)[:, :T], S) == 1
+    # addresses one element past a vector's start
+    assert dvals_width(torch.zeros(n * T + 1, dtype=xdt)[1:].view(n, T),
+                       dyT, S) == 1
+    assert dvals_width(xT, torch.zeros(m * T + 1)[1:].view(m, T), S) == 1
 
 
 def test_trainable_table_rejects_repeats_and_ragged_slots():
