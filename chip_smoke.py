@@ -53,7 +53,20 @@ prints its seconds on a "[time]" line:
                one wm mask give the same losses to 2e-3; grad and snip
                masks from one batch's calibration gradients train, and
                their exported packs load
-  13. summary   one JSON line of kernel numbers, the card line, and last
+  13. personalization  full width: three f32 packs published as
+               adapter_i@1 into an AdapterStore (resident budget one pack,
+               pinned staging two), the continuous trace's first 12
+               requests, adapter_0@2 published after step 10, the other
+               12; ServingEngine and PagedServingEngine with a FusedLRU and
+               slot_pad=4, async_prefetch off and on, traced: tok/s, cold
+               and hot TTFT, decode-only step ms with and without a build
+               in flight, the pipeline's span ms by thread, async build
+               counters, the un-fuse of adapter_0@1, peak memory and
+               pinned staging; the hot swap's invariants are held
+  14. personalization-consistency  full width, 2 layers, f32: each
+               request through the swap equals a run of the same engine
+               that saw only its version, both engines, both modes
+  15. summary   one JSON line of kernel numbers, the card line, and last
                {"ok": true, "device": {...}}
 
 The kernels phase also holds masked_update (the dense-mask apply of hook
@@ -73,7 +86,12 @@ fused pack, on (37, 96, 160) with k = 307 and (70001, 8, 8) with k = 3
 (layer boundaries inside a block, more layers than a grid dimension
 holds), and on the (32, 4608, 18432) leaf with ascending and shuffled
 indices; its bound counts the 32-byte sectors of W its entries touch
-(scatter_bytes). The dvals kernel is timed alone on grouped token-minor
+(scatter_bytes). A pack with repeated indices (ROADMAP C3) loads
+through apply_pack within one ulp of its plain version's sum, and a
+second process shows the kernel's assertion on an unmerged row; the
+merged-form check is timed on the leaf. The train phases publish the
+trained packs into a store and read them back equal. The dvals kernel is
+timed alone on grouped token-minor
 inputs beside the wrapper as the backward calls it and the whole
 wrapper, and held within 1e-4 at S = 250 (the one-token instance, which
 must count an unaligned launch) and with an adapter that has no tokens;
@@ -88,6 +106,7 @@ import re
 import subprocess
 import sys
 import time
+from concurrent import futures
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -213,6 +232,86 @@ def rand_entries(torch, gen, nl, n, m, k):
                        .sort().values for _ in range(nl)]).to(torch.int32)
     vals = 0.01 * torch.randn((nl, k), generator=gen, device="cuda")
     return idx, vals
+
+
+def repeat_entries(torch, gen, nl, n, m):
+    """The entries of ROADMAP C3's case: each of nl rows holds 1% of its
+    (n, m) matrix's indices ascending, then every tenth entry takes an
+    index already in its row, alternately that of the entry just before it
+    and of the one five before; row 0 begins with index 0 and takes it
+    again, with a nonzero value, just before the padding (index 0, value
+    0) that ends every row."""
+    k = n * m // 100
+    idx, vals = rand_entries(torch, gen, nl, n, m, k)
+    pos = torch.arange(9, k, 10, device=idx.device)
+    odd = torch.arange(pos.numel(), device=idx.device) % 2 == 1
+    idx[:, pos] = idx[:, torch.where(odd, pos - 5, pos - 1)]
+    idx[0, 0] = 0
+    tail_i = torch.zeros((nl, 4), dtype=torch.int32, device=idx.device)
+    tail_v = torch.zeros((nl, 4), device=idx.device)
+    tail_v[0, 0] = 0.5
+    return torch.cat([idx, tail_i], 1), torch.cat([vals, tail_v], 1)
+
+
+def ulp_tol(torch, want) -> float:
+    """One ulp of the largest |want|: the tolerance of a merged pack's
+    load, whose kernel adds W + (a + b) where the plain version adds
+    (W + a) + b."""
+    mx = want.abs().max()
+    return float(torch.nextafter(mx, torch.tensor(float("inf"),
+                                                  device=mx.device)) - mx)
+
+
+def repeat_case(torch, gen, apply, label):
+    """C3 on a (4, 4608, 18432) f32 slice of w_up: ``apply(w, idx, vals)``
+    loads the repeat pack (``repeat_entries``); held against
+    scatter_apply_plain of the same entries, which sums the repeats, to
+    one ulp of the largest result. Returns (max_abs_err, tol, entries,
+    repeats)."""
+    from repro_torch.kernels.scatter_apply import scatter_apply_plain
+    d, f = 4608, 18432
+    w = torch.randn((4, d, f), generator=gen, device="cuda")
+    ri, rv = repeat_entries(torch, gen, 4, d, f)
+    want = scatter_apply_plain(w.clone(), ri, rv, 1.0)
+    apply(w, ri, rv)
+    torch.cuda.synchronize()
+    err, tol = float((w - want).abs().max()), ulp_tol(torch, want)
+    repeats = 4 * len(range(9, d * f // 100, 10)) + 1
+    print(f"[kernels] scatter_apply repeated indices ({label}): "
+          f"{ri.numel()} entries, {repeats} repeats: max_abs_err={err:.3g} "
+          f"(tol {tol:.3g}, one ulp of the largest result)", flush=True)
+    return err, tol, ri.numel(), repeats
+
+
+def assert_probe():
+    """Start a process that hands scatter_apply's kernel a row with a
+    repeated index; ``check_assert_probe`` holds it to the kernel's
+    assertion."""
+    code = ("import sys, torch; sys.path.insert(0, 'src')\n"
+            "from repro_torch.kernels.scatter_apply import scatter_apply\n"
+            "w = torch.zeros((1, 64, 64), device='cuda')\n"
+            "i = torch.tensor([[3, 7, 7]], dtype=torch.int32, device='cuda')\n"
+            "scatter_apply(w, i, torch.ones((1, 3), device='cuda'))\n"
+            "try:\n"
+            "    torch.cuda.synchronize()\n"
+            "except RuntimeError as e:\n"
+            "    print('raised:', str(e).splitlines()[0])\n"
+            "    sys.exit(3)\n")
+    return subprocess.Popen([sys.executable, "-c", code], cwd=ROOT,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+
+
+def check_assert_probe(proc) -> None:
+    out, _ = proc.communicate(timeout=300)
+    said = [ln for ln in out.splitlines() if "raised:" in ln
+            or "Assertion" in ln]
+    print(f"[kernels] scatter_apply on an unmerged row (another process): "
+          f"exit {proc.returncode}; {said[-2:]}", flush=True)
+    if proc.returncode != 3 or not any("assert" in ln.lower()
+                                       for ln in said):
+        fail("scatter_apply's kernel did not assert on an unmerged row:\n"
+             + out[-2000:])
 
 
 def scatter_bytes(torch, w, idx, vals):
@@ -413,6 +512,17 @@ def kernels_phase(torch, flush):
         fail("scatter_apply disagrees with its plain version on a padded "
              "fused pack")
     del packs, fused, slots, w2, want, fi, fv
+    # C3: a pack with repeated indices, merged when it is built
+    from repro_torch.core.adapters import apply_pack
+    probe = assert_probe()
+    err, tol, _, _ = repeat_case(
+        torch, gen, lambda w, i, v: apply_pack(
+            {"w": w}, AdapterPack("repeats", {"w": (i, v)})), "apply_pack")
+    if not err <= tol:
+        fail(f"scatter_apply: a pack with repeated indices loads "
+             f"{err:.3g} away from its plain version (tol {tol:.3g})")
+    check_assert_probe(probe)
+    torch.cuda.empty_cache()
     # many layers of odd k: layer boundaries inside a block, and at 70,001
     # layers more layers than a grid dimension holds
     for nl, n, m, kk in ((37, 96, 160, 307), (70001, 8, 8, 3)):
@@ -453,9 +563,10 @@ def kernels_phase(torch, flush):
     errs = []
     for label, entries in (("ascending", (idx, vals)),
                            ("shuffled", shuffled)):
-        scatter_apply(w, *entries, 1.0)
+        ordered = label == "ascending"   # shuffled rows are not merged
+        scatter_apply(w, *entries, 1.0, ordered=ordered)
         load_err = float((w.view(-1)[gi] - want).abs().max())
-        scatter_apply(w, *entries, -1.0)
+        scatter_apply(w, *entries, -1.0, ordered=ordered)
         restore_err = float((w.view(-1)[gi] - before).abs().max())
         untouched = bool(torch.equal(w.view(-1)[probe], probe_before))
         print(f"[kernels] scatter_apply ({L}, {d}, {f}) K={gi.numel()} "
@@ -478,12 +589,27 @@ def kernels_phase(torch, flush):
     ms = cold_ms(torch, flip(lambda a: scatter_apply(w, idx, vals, a)), 10,
                  flush)
     shuffled_ms = cold_ms(torch, flip(
-        lambda a: scatter_apply(w, *shuffled, a)), 10, flush)
+        lambda a: scatter_apply(w, *shuffled, a, ordered=False)), 10, flush)
     plain_ms = cold_ms(torch, flip(
         lambda a: scatter_apply_plain(w, idx, vals, a)), 4, flush)
     upd = {1.0: vals.reshape(-1).clone(), -1.0: -vals.reshape(-1)}
     library_ms = cold_ms(torch, flip(lambda a: w.view(-1).index_put_(
         (gi,), upd[a], accumulate=True)), 4, flush)
+    # C3's check, paid once where a pack is built (AdapterPack): one
+    # compare pass over the leaf's entries and one read of the result
+    from repro_torch.core.adapters import merged_form
+    check_ms = cold_ms(torch, lambda: merged_form(idx, vals), 10, flush)
+    hi, hv = idx.cpu(), vals.cpu()
+    t0 = time.perf_counter()
+    ok = merged_form(hi, hv)
+    check_cpu = time.perf_counter() - t0
+    print(f"[kernels] merged-form check of the leaf's {idx.numel()} entries "
+          f"(once, when a pack is built): {check_ms:.4f} ms on the card, "
+          f"{check_cpu * 1e3:.1f} ms on the host (a pack from a file); "
+          f"merged {ok}", flush=True)
+    if not ok:
+        fail("merged_form refused a pack of ascending unique indices")
+    del hi, hv
     nbytes, sectors = scatter_bytes(torch, w, idx, vals)
     scat = {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
             "library_ms": library_ms, **bound(nbytes, 0)}
@@ -1467,6 +1593,386 @@ def continuous_consistency_phase(torch):
              "prefix pages or copy on write")
 
 
+PZ_PUBLISH_STEP = 10     # personalization: adapter_0@2 after this step
+PZ_LANES = B             # 8 lanes, as the continuous phase
+
+
+def pz_store(root, files, one):
+    """A store over the three published adapter_i@1 files: a resident
+    budget of one pack (the others are cold) and a pinned staging tier of
+    two."""
+    from repro_torch.hub import AdapterStore
+    store = AdapterStore(root, budget_bytes=int(1.5 * one),
+                         staging_bytes=int(2.5 * one))
+    for f in files:
+        store.register_file(f)
+    return store
+
+
+def pz_drive(torch, engine, store, trace_reqs, v2, max_tokens):
+    """Submit the first half of the trace, step the engine, publish v2 (as
+    adapter_0's next version) after step PZ_PUBLISH_STEP and submit the
+    rest, then step until every request resolved. Returns (futures, wall
+    seconds, per-step (wall s, prefilled, build in flight), the steps at
+    which a request on adapter_0@1 was still open and adapter_0@1 had left
+    the engine, peak staged bytes)."""
+    half = len(trace_reqs) // 2
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    futs = [engine.submit(p, a, max_tokens=max_tokens)
+            for p, a in trace_reqs[:half]]
+    steps, early, staged, published = [], [], 0, False
+    mt = engine.engine
+    while engine.pending() or not published:
+        if not published and (engine.step_count >= PZ_PUBLISH_STEP
+                              or not engine.pending()):
+            store.publish(v2)
+            futs += [engine.submit(p, a, max_tokens=max_tokens)
+                     for p, a in trace_reqs[half:]]
+            published = True
+        admitted = sum(f.submitted_step is not None for f in futs)
+        chunks = getattr(engine, "prefill_chunks", 0)
+        kicked = mt.async_builds
+        bf = mt._build_fut is not None and not mt._build_fut[1].done()
+        ts = time.perf_counter()
+        engine.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - ts
+        # a build ran beside this step: in flight when it began, kicked
+        # during it, or still running when it ended
+        bf = bf or mt.async_builds > kicked or (
+            mt._build_fut is not None and not mt._build_fut[1].done())
+        prefilled = (sum(f.submitted_step is not None for f in futs)
+                     > admitted
+                     or getattr(engine, "prefill_chunks", 0) > chunks)
+        steps.append((wall, prefilled, bf))
+        if "adapter_0@1" not in mt.packs and any(
+                f.adapter == "adapter_0@1" and not f.done() for f in futs):
+            early.append(engine.step_count)
+        staged = max(staged, store.staged_bytes())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    # a build kicked by the last steps (the retirement's) is settled, so
+    # that every build is adopted, found stale, or raises here
+    if mt._build_fut is not None:
+        futures.wait([mt._build_fut[1]])
+        mt.poll_async_build()
+    return futs, wall, steps, early, staged
+
+
+def pz_thread_ms(tr):
+    """Milliseconds of the pipeline's spans by (name, thread): disk reads
+    (``disk_load`` on the serving thread, ``prefetch.disk`` on a store
+    worker), pinning into staging (``dequant``, ``prefetch.decode``),
+    table builds (``table_rebuild``, ``prefetch.h2d`` on the build
+    worker) and the waits for them (``prefetch.stall``)."""
+    out = {}
+    for e in tr.events():
+        if e["ph"] == "X" and e["name"] in (
+                "prefetch.stall", "prefetch.disk", "prefetch.decode",
+                "prefetch.h2d", "disk_load", "dequant", "table_rebuild"):
+            k = f"{e['name']}@tid{e['tid']}"
+            out[k] = round(out.get(k, 0.0) + e["dur"] / 1e3, 1)
+    return out
+
+
+def pz_time_demote(torch, mt, demote_ms):
+    """Time each un-fuse of adapter_0@1 (the scatter_apply demote) with
+    CUDA events, noting whether the scheduler or the retirement
+    (``unregister``) asked for it; the one synchronization is this
+    measurement's. Returns a function that removes the wrappers."""
+    from repro_torch.core.switching import tenant_members
+    demote, unregister = mt._demote, mt.unregister
+    why = ["scheduler"]
+
+    def timed():
+        if "adapter_0@1" not in tenant_members(mt.fused):
+            return demote()
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        demote()
+        e1.record()
+        e1.synchronize()
+        demote_ms.append((why[0], round(e0.elapsed_time(e1), 3)))
+
+    def retiring(name):
+        why[0] = "retirement"
+        try:
+            return unregister(name)
+        finally:
+            why[0] = "scheduler"
+    mt._demote, mt.unregister = timed, retiring
+
+    def undo():
+        del mt._demote, mt.unregister
+    return undo
+
+
+def personalization_phase(torch):
+    """The personalization loop at full width (starcoder2-7b, bf16
+    compute): three f32 packs at sparsity 0.98 published as adapter_i@1
+    into a store whose resident budget holds one pack and whose pinned
+    staging tier holds two; the continuous phase's 24-request trace (seed
+    0, prompts of 64..1024, skew 0.8), the first 12 submitted at once, and
+    after step 10 adapter_0@2 is published (values from a numpy seed) and
+    the other 12 submitted. Through ServingEngine (8 lanes) and
+    PagedServingEngine (321 pages of 16), each with a FusedLRU and
+    slot_pad=4, with async_prefetch off and on, traced. FusedLRU's
+    promote_at is 0.3, so that adapter_0@1 is fused before the swap and
+    its un-fuse, the paper's rapid switch on a live server, is timed."""
+    import gc
+    import tempfile
+    import numpy as np
+    from repro_torch.analysis import trace
+    from repro_torch.configs import get_config
+    from repro_torch.core import FusedLRU
+    from repro_torch.core.adapters import AdapterPack, map_entries
+    from repro_torch.hub import PagedServingEngine, ServingEngine, save_pack
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    totals = {}
+    cfg = get_config("starcoder2-7b")
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    packs = serve.make_adapters(cfg, params, 3)
+    trace_reqs = continuous_trace(cfg.vocab_size, packs)
+    one = packs[0].nbytes()
+    rng = np.random.default_rng(21)
+    v2 = AdapterPack("adapter_0", {p: (i.cpu(), torch.from_numpy(
+        (0.01 * rng.standard_normal(tuple(v.shape))).astype(np.float32)))
+        for p, (i, v) in packs[0].entries.items()})
+    outs, base = {}, 0
+    with tempfile.TemporaryDirectory(prefix="personalize-") as root:
+        t0 = time.perf_counter()
+        files = [save_pack(map_entries(p, name=f"{p.name}@1"),
+                           f"{root}/{p.name}@1.shpk") for p in packs]
+        del packs
+        torch.cuda.empty_cache()
+        print(f"[personalization] 3 f32 packs published as adapter_i@1 "
+              f"({one / 1e9:.2f} GB each) in {time.perf_counter() - t0:.1f}s"
+              f"; store budget {1.5 * one / 1e9:.2f} GB (one pack), pinned "
+              f"staging {2.5 * one / 1e9:.2f} GB (two)", flush=True)
+        for label, make, needed in (
+                ("ServingEngine", lambda **kw: ServingEngine(
+                    cfg, params, slots=PZ_LANES, cache_size=CACHE, **kw),
+                 ("flash_prefill", "flash_decode", "sidedelta",
+                  "scatter_apply")),
+                ("PagedServingEngine", lambda **kw: PagedServingEngine(
+                    cfg, params, slots=PZ_LANES, num_pages=321, page_size=16,
+                    chunk_size=CHUNK, **kw),
+                 ("flash_decode_paged", "sidedelta", "scatter_apply"))):
+            for mode in (False, True):
+                tag = f"{label} async_prefetch={mode}"
+                store = pz_store(f"{root}/{label}-{mode}", files, one)
+                zero_counts()
+                torch.cuda.reset_peak_memory_stats()
+                before = torch.cuda.memory_allocated()
+                base = base or before
+                print(f"[personalization] {tag}: {before / 1e9:.1f} GB "
+                      f"allocated before the engine (the base: "
+                      f"{base / 1e9:.1f} GB before the first)", flush=True)
+                if before - base > 2 ** 30:
+                    fail(f"personalization {tag}: "
+                         f"{(before - base) / 1e9:.1f} GB of an earlier "
+                         "run are still allocated")
+                # promote_at 0.3: adapter_0@1 (3 of the first 8 live
+                # lanes) is fused before the publish and un-fused after
+                eng = make(store=store, scheduler=FusedLRU(promote_at=0.3),
+                           slot_pad=4, async_prefetch=mode)
+                demote_ms = []
+                undo = pz_time_demote(torch, eng.engine, demote_ms)
+                tr = trace.install(trace.Tracer(capacity=1 << 20))
+                try:
+                    futs, wall, steps, early, staged = pz_drive(
+                        torch, eng, store, trace_reqs, v2, CC_TOKENS)
+                finally:
+                    trace.uninstall()
+                counts = read_counts()
+                outs[label, mode] = pz_report(
+                    torch, tag, eng, store, futs, wall, steps, early, staged,
+                    tr, demote_ms, cfg.vocab_size, needed, counts, totals)
+                undo()
+                eng.engine.close()          # un-fuse: the base is back
+                eng.shutdown(include_store=True)
+                # undo's closure holds the engine: dropped with it, or its
+                # tables and packs stay allocated into the next run
+                del eng, store, futs, tr, undo
+                gc.collect()
+                torch.cuda.empty_cache()
+    for label in ("ServingEngine", "PagedServingEngine"):
+        a, b = outs[label, False], outs[label, True]
+        same = sum(bool((x == y).all()) for x, y in zip(a, b))
+        print(f"[personalization] bf16 {label}: {same}/{len(a)} requests "
+              f"token-equal between async_prefetch off and on (reported, "
+              f"not held)", flush=True)
+    del params
+    return totals
+
+
+def pz_report(torch, tag, eng, store, futs, wall, steps, early, staged, tr,
+              demote_ms, vocab, needed, counts, totals):
+    """Print one run's numbers and hold its invariants."""
+    import statistics
+    import numpy as np
+    mt = eng.engine
+    total = torch.cuda.get_device_properties(0).total_memory
+    reserved = torch.cuda.max_memory_reserved()
+    outs = [f.result() if f.error is None else None for f in futs]
+    ok = all(f.done() and f.error is None for f in futs) and all(
+        o is not None and len(o) == CC_TOKENS and 0 <= int(o.min())
+        and int(o.max()) < vocab for o in outs)
+    if not ok:
+        fail(f"personalization {tag}: a request failed or its tokens are "
+             "out of range")
+    half = len(futs) // 2
+    want = ["adapter_0@1"] * half + ["adapter_0@2"] * (len(futs) - half)
+    wrong = [i for i, f in enumerate(futs)
+             if f.adapter in ("adapter_0@1", "adapter_0@2")
+             and f.adapter != want[i]]
+    if wrong:
+        fail(f"personalization {tag}: requests {wrong} resolved to the "
+             "wrong version of adapter_0")
+    evs = tr.events()
+    evicted = [e for e in evs if e["name"] == "hotswap.evict"
+               and e["args"].get("name") == "adapter_0@1"]
+    if early or len(evicted) != 1 or "adapter_0@1" in mt.packs \
+            or store.is_resident("adapter_0@1") or eng._vpins:
+        fail(f"personalization {tag}: adapter_0@1 retired at steps {early} "
+             f"with a request open, {len(evicted)} hotswap.evict, still "
+             f"registered {'adapter_0@1' in mt.packs}, resident "
+             f"{store.is_resident('adapter_0@1')}, pins {eng._vpins}")
+    failed = sum(e["name"] == "prefetch.h2d_failed" for e in evs)
+    if (failed or mt.async_failed or mt._build_fut is not None
+            or mt.async_builds != mt.async_adopted + mt.async_stale):
+        fail(f"personalization {tag}: background builds {mt.async_builds} "
+             f"are not all adopted ({mt.async_adopted}) or stale "
+             f"({mt.async_stale}): {mt.async_failed} failed, {failed} "
+             f"prefetch.h2d_failed events, in flight "
+             f"{mt._build_fut is not None}")
+    neg = [e["name"] for e in evs if e["dur"] < 0]
+    if neg or any(tr._depths.values()) or tr.dropped:
+        fail(f"personalization {tag}: trace has negative durations {neg}, "
+             f"open depths {tr._depths}, {tr.dropped} dropped events")
+    ttft = lambda fs: (np.percentile([f.ttft for f in fs], 50),
+                       np.percentile([f.ttft for f in fs], 99)) if fs else (
+                           float("nan"),) * 2
+    cold = ttft([f for f in futs if f.cold])
+    hot = ttft([f for f in futs if not f.cold])
+    med = lambda xs: statistics.median(xs) * 1e3 if xs else float("nan")
+    dec = [w for w, pf, _ in steps if not pf]
+    dec_build = [w for w, pf, bf in steps if not pf and bf]
+    dec_plain = [w for w, pf, bf in steps if not pf and not bf]
+    print(f"[personalization] {tag}: {len(futs)} requests, "
+          f"{eng.tokens_out} tokens in {wall:.2f}s "
+          f"({eng.tokens_out / wall:.1f} tok/s), TTFT cold "
+          f"({sum(f.cold for f in futs)}) p50 {cold[0]:.3f}s p99 "
+          f"{cold[1]:.3f}s, hot p50 {hot[0]:.3f}s p99 {hot[1]:.3f}s; "
+          f"{eng.step_count} steps, decode-only step median {med(dec):.1f} "
+          f"ms, with a build in flight {med(dec_build):.1f} ms "
+          f"({len(dec_build)} steps), without {med(dec_plain):.1f} ms "
+          f"({len(dec_plain)} steps); spans by thread (ms) {pz_thread_ms(tr)}"
+          f"; async_builds {mt.async_builds} async_adopted "
+          f"{mt.async_adopted} async_stale {mt.async_stale} async_failed "
+          f"{mt.async_failed}; fuse "
+          f"transitions {mt.fuse_transitions}, un-fuse of adapter_0@1 "
+          f"(scatter_apply, by whom, ms) {demote_ms}; store "
+          f"loads {store.loads}, evictions {store.evictions}, peak pinned "
+          f"staging {staged / 1e9:.2f} GB; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB allocated, "
+          f"{reserved / 1e9:.1f} GB reserved of {total / 1e9:.1f} GB "
+          f"(headroom {(total - reserved) / 1e9:.1f} GB); launches "
+          f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+    check_run(f"personalization {tag}", counts, needed, totals)
+    return outs
+
+
+def pz_consistency_phase(torch):
+    """The hot swap at full width cut to 2 layers, f32: each request
+    through the swap (ServingEngine and PagedServingEngine, FusedLRU,
+    slot_pad=4, async_prefetch off and on) gives the tokens of a run of
+    the same engine that only ever saw the version it resolved to."""
+    import tempfile
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core import FusedLRU
+    from repro_torch.core.adapters import map_entries
+    from repro_torch.hub import (AdapterStore, PagedServingEngine,
+                                 ServingEngine)
+    from repro_torch.core.masks import map_leaves
+    from repro_torch.launch import serve
+    from repro_torch.models import layers, lm
+    cfg = get_config("starcoder2-7b").replace(num_layers=2)
+    T = 8
+    rng = np.random.default_rng(11)
+    tok = lambda n: rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+    first = [(tok(40), "adapter_0"), (tok(23), "adapter_1"),
+             (tok(301), "adapter_0"), (tok(17), None)]
+    second = [(tok(33), "adapter_0"), (tok(280), "adapter_0"),
+              (tok(12), "adapter_1")]
+    with layers.compute_precision(torch.float32), \
+            tempfile.TemporaryDirectory(prefix="pz-consistency-") as root:
+        params = lm.init_params(cfg, seed=0, device="cuda")
+        packs = serve.make_adapters(cfg, params, 2)
+        v2 = map_entries(packs[1], name="adapter_0")   # other values
+
+        def make(kind, store, base=params, **kw):
+            if kind == "lane":
+                return ServingEngine(cfg, base, slots=3, cache_size=400,
+                                     store=store, **kw)
+            return PagedServingEngine(cfg, base, slots=3, num_pages=80,
+                                      page_size=16, chunk_size=256,
+                                      store=store, **kw)
+
+        def single(kind, mode, pack_for_0, reqs, sub):
+            store = AdapterStore(f"{root}/{sub}")
+            store.publish(map_entries(pack_for_0, name="adapter_0"))
+            store.publish(packs[1])
+            eng = make(kind, store, async_prefetch=mode)
+            futs = [eng.submit(p, a, max_tokens=T) for p, a in reqs]
+            eng.run()
+            eng.shutdown(include_store=True)
+            return [f.result() for f in futs]
+
+        for kind in ("lane", "paged"):
+            for mode in (False, True):
+                store = AdapterStore(f"{root}/{kind}-{mode}")
+                store.publish(packs[0])
+                store.publish(packs[1])
+                # fusion updates the base in place: each swap run gets
+                # its own copy, and the references the untouched one
+                eng = make(kind, store, map_leaves(lambda _, x: x.clone(),
+                                                   params),
+                           scheduler=FusedLRU(promote_at=0.3), slot_pad=4,
+                           async_prefetch=mode)
+                futs = [eng.submit(p, a, max_tokens=T) for p, a in first]
+                for _ in range(3):
+                    eng.step()
+                store.publish(v2)
+                futs += [eng.submit(p, a, max_tokens=T) for p, a in second]
+                eng.run()
+                eng.shutdown(include_store=True)
+                got = [f.result() for f in futs]
+                vers = [f.adapter for f in futs]
+                want = (single(kind, mode, packs[0], first,
+                               f"{kind}-{mode}-v1")
+                        + single(kind, mode, v2, second, f"{kind}-{mode}-v2"))
+                equal = [bool(np.array_equal(g, w))
+                         for g, w in zip(got, want)]
+                print(f"[personalization-consistency] f32, 2 layers, full "
+                      f"width, {kind} async_prefetch={mode}: {sum(equal)}/"
+                      f"{len(equal)} requests through the swap token-equal "
+                      f"to single-version runs; versions {vers}; fuse "
+                      f"transitions {eng.engine.fuse_transitions}",
+                      flush=True)
+                if not all(equal) or vers[0] != "adapter_0@1" \
+                        or vers[4] != "adapter_0@2" \
+                        or "adapter_0@1" in eng.engine.packs:
+                    fail(f"personalization-consistency: {kind} "
+                         f"async_prefetch={mode} differs on requests "
+                         f"{[i for i, e in enumerate(equal) if not e]} "
+                         f"(versions {vers})")
+                del eng
+
+
 def profile_phase(torch):
     """Where a full-width decode step (B=8) spends its device time: the
     base model, and multi-tenant with every request on an adapter or the
@@ -1647,7 +2153,7 @@ def train_phase(torch):
     t0 = time.perf_counter()
     stats = train.main(["--arch", "starcoder2-7b", "--adapter", "shira-rand",
                         "--seq", str(TRAIN_SEQ), "--batch", str(TRAIN_BATCH),
-                        "--steps", str(TRAIN_STEPS)])
+                        "--steps", str(TRAIN_STEPS)], keep=True)
     torch.cuda.synchronize()
     counts = read_counts()
     losses = stats["losses"]
@@ -1663,7 +2169,11 @@ def train_phase(torch):
         fail("Trainer: a loss is not finite")
     check_run("Trainer", counts, ("scatter_apply", "sparse_adamw_blocks"),
               totals)
-    del stats
+    tr, state = stats.pop("trainer"), stats.pop("state")
+    publish_check(torch, "Trainer", lambda store: [
+        tr.publish(store, state, "adapter")], [tr.export_pack(state,
+                                                             "adapter")])
+    del stats, tr, state
     torch.cuda.empty_cache()
 
     run = RunConfig(model=get_config("starcoder2-7b"),
@@ -1709,6 +2219,9 @@ def train_phase(torch):
                   totals)
         if moments == "f32":
             profile_train_step(torch, profile, ProfilerActivity, mt, out)
+            publish_check(torch, "MultiAdapterTrainer",
+                          lambda store: mt.publish(store, out["state"]),
+                          mt.export_packs(out["state"]))
         del mt, out, values
         torch.cuda.empty_cache()
     unaligned = (sparse_adamw.unaligned_launches,
@@ -1724,6 +2237,31 @@ def train_phase(torch):
     if sidedelta_dvals.unaligned_launches:
         fail("train: a dvals launch took the one-token instance")
     return totals
+
+
+def publish_check(torch, label, publish, trained):
+    """Publish a trainer's packs into a store (``publish(store)`` returns
+    the versioned ids) and hold each stored pack, read back from its file,
+    equal to the trained pack: the same indices, the same f32 values."""
+    import tempfile
+    from repro_torch.hub import AdapterStore
+    with tempfile.TemporaryDirectory(prefix="publish-") as root:
+        store = AdapterStore(root)
+        t0 = time.perf_counter()
+        vids = publish(store)
+        dt = time.perf_counter() - t0
+        for vid, want in zip(vids, trained):
+            got = store.get(vid)
+            same = got.entries.keys() == want.entries.keys() and all(
+                torch.equal(got.entries[p][0], i.cpu())
+                and torch.equal(got.entries[p][1], v.detach().float().cpu())
+                for p, (i, v) in want.entries.items())
+            if not same or vid != f"{want.name}@1":
+                fail(f"{label}.publish: {vid} does not hold the trained "
+                     "values")
+        values = sum(p.num_params() for p in trained)
+        print(f"[train] {label}.publish: {vids} ({values} values) in "
+              f"{dt:.1f}s, read back equal to the trained packs", flush=True)
 
 
 def profile_train_step(torch, profile, ProfilerActivity, mt, out):
@@ -1990,6 +2528,10 @@ def train_masks_phase(torch):
     state = {"trainable": out["state"]["trainable"]}
     del out                         # the moments: 8 bytes a target entry
     torch.cuda.empty_cache()
+    # published before the round trip, which loads the pack onto tr.base
+    publish_check(torch, "hook-mode Trainer",
+                  lambda store: [tr.publish(store, state, "hook")],
+                  [tr.export_pack(state, "hook")])
     zero_counts()
     t0 = time.perf_counter()
     pack, frac, most, diff, scale = hook_round_trip(torch, tr, state)
@@ -2151,6 +2693,12 @@ def main() -> None:
         launches[k] = launches.get(k, 0) + v
     torch.cuda.empty_cache()
     timed("hook-consistency", hook_consistency_phase, torch)
+    torch.cuda.empty_cache()
+    for k, v in timed("personalization", personalization_phase,
+                      torch).items():
+        launches[k] = launches.get(k, 0) + v
+    torch.cuda.empty_cache()
+    timed("personalization-consistency", pz_consistency_phase, torch)
 
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     main_side = side[0]     # w_up, S=1, f32 tables: the multi-tenant decode

@@ -36,18 +36,113 @@ def init_adapter(gen: Optional[torch.Generator], params,
     return values, {"indices": idx}
 
 
+def merge_rows(idx: torch.Tensor, vals: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(nl, k) flat indices and f32 values -> (nl, k') merged rows: each
+    index once, ascending, the values of a repeated index summed in the
+    order they come (a stable sort, so in pack order), rows shorter than
+    the longest padded with index 0 and value 0. ``fuse_packs`` merges
+    with it, and so does an ``AdapterPack`` whose rows are not merged."""
+    nl = idx.shape[0]
+    device = idx.device
+    idx = idx.long()
+    span = int(idx.max()) + 1 if idx.numel() else 1
+    layer = torch.arange(nl, device=device)[:, None]
+    key_s, order = torch.sort((layer * span + idx).reshape(-1), stable=True)
+    v_s = vals.reshape(-1)[order]
+    uniq, inv = torch.unique_consecutive(key_s, return_inverse=True)
+    acc = torch.zeros(uniq.shape, dtype=torch.float32, device=device)
+    acc.index_add_(0, inv, v_s)
+    row = uniq // span
+    counts = torch.bincount(row, minlength=nl)
+    k = int(counts.max()) if counts.numel() else 0
+    pos = torch.arange(uniq.numel(), device=device) - (
+        torch.cumsum(counts, 0) - counts)[row]
+    mi = torch.zeros((nl, k), dtype=torch.int32, device=device)
+    mv = torch.zeros((nl, k), dtype=torch.float32, device=device)
+    mi[row, pos] = (uniq % span).to(torch.int32)
+    mv[row, pos] = acc
+    return mi, mv
+
+
+def merged_form(idx: torch.Tensor, vals: torch.Tensor) -> bool:
+    """Whether every (nl, k) row is merged: its indices strictly
+    ascending, apart from trailing padding entries (index 0, value 0).
+    The form every mask, ``pack_from_delta`` and ``fuse_packs`` emits,
+    for which it costs one compare pass; ``scatter_apply``'s kernel
+    asserts the same rule entry by entry."""
+    if idx.shape[-1] < 2:
+        return True
+    asc = idx[:, 1:] > idx[:, :-1]
+    if bool(asc.all()):
+        return True
+    # entry j >= 1 is padding, or ascends from an entry that is not
+    # padding (entry 0 may be a real entry at index 0 of value 0)
+    pad = (idx == 0) & (vals == 0)
+    prev_pad = pad[:, :-1].clone()
+    prev_pad[:, 0] = False
+    return bool((pad[:, 1:] | (asc & ~prev_pad)).all())
+
+
+def repeats_any(idx: torch.Tensor, vals: torch.Tensor) -> bool:
+    """Whether a (nl, k) row names one index twice with nonzero values
+    (entries of value 0 change nothing and the kernel skips them). A sort
+    of the row's keys: the test for rows that are not in the merged
+    form."""
+    nl, k = idx.shape
+    live = vals.reshape(-1) != 0
+    key = (torch.arange(nl, device=idx.device)[:, None] * (int(idx.max()) + 1
+           if idx.numel() else 1) + idx.long()).reshape(-1)[live]
+    key = torch.sort(key).values
+    return bool((key[1:] == key[:-1]).any())
+
+
+def merge_entries(entries: Dict[str, Tuple[torch.Tensor, torch.Tensor]]):
+    """A pack's entries with no index twice in a matrix, and the set of
+    paths whose rows are unique but not in the merged form. Leaves in the
+    merged form (``merged_form``, one compare pass) come back as the same
+    tensors; so do leaves whose rows are unique in another order (the
+    reference's rand masks leave them unsorted, and its files keep that
+    order), found by a sort, whose paths are returned. Leaves that repeat
+    an index are merged by ``merge_rows``: two updates of one weight
+    entry in one scatter would race on the card, where the reference adds
+    both (ROADMAP C3)."""
+    out, unordered = dict(entries), set()
+    for path, (i, v) in entries.items():
+        lead, k = tuple(i.shape[:-1]), i.shape[-1]
+        nl = i.numel() // k if k else 0
+        i2, v2 = i.reshape(nl, k), v.reshape(nl, k)
+        if merged_form(i2, v2):
+            continue
+        if not repeats_any(i2, v2):
+            unordered.add(path)
+            continue
+        mi, mv = merge_rows(i2, v2.float())
+        out[path] = (mi.reshape(lead + (mi.shape[-1],)),
+                     mv.to(v.dtype).reshape(lead + (mi.shape[-1],)))
+    return out, unordered
+
+
 @dataclass
 class AdapterPack:
     """Sparse weights + indices, per target path: entries[path] = (flat
     indices (..., K) int32, values (..., K) f32). Loading one overwrites
-    only its 1-2% of entries. Indices are unique within each matrix, and
-    ascending where the pack's builder sorts them (every mask of the
-    port, ``pack_from_delta``, ``fuse_packs``); rows shorter than K are
-    padded with index 0 and value 0."""
+    only its 1-2% of entries. Each matrix's indices ascend, each once,
+    and rows shorter than K are padded with index 0 and value 0: every
+    mask of the port, ``pack_from_delta`` and ``fuse_packs`` build them
+    so. A pack built from entries that repeat an index (by hand, from a
+    file) merges them here, as ``fuse_packs`` merges; leaves whose
+    entries are unique but unsorted (the reference's rand masks) are kept
+    as they are and their paths noted in ``unordered``, for which
+    ``apply_pack`` tells the kernel not to assert the order
+    (``merge_entries``). ``map_entries`` carries the set over."""
 
     name: str
     entries: Dict[str, Tuple[torch.Tensor, torch.Tensor]]
     alpha: float = 1.0
+
+    def __post_init__(self):
+        self.entries, self.unordered = merge_entries(self.entries)
 
     def num_params(self) -> int:
         return int(sum(v.numel() for _, v in self.entries.values()))
@@ -56,6 +151,33 @@ class AdapterPack:
         return int(sum(i.numel() * i.element_size()
                        + v.numel() * v.element_size()
                        for i, v in self.entries.values()))
+
+
+def map_entries(pack: AdapterPack, fn=None, name: Optional[str] = None,
+                alpha: Optional[float] = None) -> AdapterPack:
+    """The pack with ``fn`` applied to each index and value tensor (a copy
+    to another device or into pinned memory), renamed or rescaled. The
+    entries' form was checked when the pack was built, and ``fn`` keeps
+    it, so it is not checked again."""
+    fn = fn or (lambda t: t)
+    out = AdapterPack.__new__(AdapterPack)
+    out.name = pack.name if name is None else name
+    out.alpha = pack.alpha if alpha is None else alpha
+    out.entries = {p: (fn(i), fn(v)) for p, (i, v) in pack.entries.items()}
+    out.unordered = set(pack.unordered)
+    return out
+
+
+def pack_to(pack: AdapterPack, device, non_blocking: bool = False
+            ) -> AdapterPack:
+    """The pack with its entries on ``device``; the same pack when they
+    are there."""
+    device = torch.device(device)
+    if all(i.device == device and v.device == device
+           for i, v in pack.entries.values()):
+        return pack
+    return map_entries(pack, lambda t: t.to(device,
+                                            non_blocking=non_blocking))
 
 
 def pack_from_shira(name: str, trainable, aux, alpha: float = 1.0
@@ -106,7 +228,8 @@ def apply_pack(params, pack: AdapterPack, alpha: Optional[float] = None,
     for path, w in M.iter_leaves(params):
         if path in pack.entries:
             idx, vals = pack.entries[path]
-            scatter_apply(w, idx, vals.float(), alpha=a)
+            scatter_apply(w, idx, vals.float(), alpha=a,
+                          ordered=path not in pack.unordered)
     return params
 
 

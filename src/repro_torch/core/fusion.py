@@ -14,7 +14,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.core.adapters import AdapterPack
+from repro_torch.core.adapters import AdapterPack, merge_rows
 
 
 def index_overlap(p1: AdapterPack, p2: AdapterPack) -> Dict[str, float]:
@@ -35,14 +35,18 @@ def index_overlap(p1: AdapterPack, p2: AdapterPack) -> Dict[str, float]:
 
 def fuse_packs(packs: List[AdapterPack],
                weights: Optional[List[float]] = None,
-               name: str = "fused") -> AdapterPack:
+               name: str = "fused",
+               only: Optional[List[str]] = None) -> AdapterPack:
     """One pack equal to sum_i w_i * alpha_i * S_i, duplicate coordinates
-    merged (so loading it equals loading all of them)."""
+    merged (so loading it equals loading all of them). ``only`` restricts
+    it to those paths (a table build fuses one path at a time, so that one
+    path's merged entries are alive at once, not a whole pack's)."""
     weights = weights or [1.0] * len(packs)
     entries = {}
     paths: List[str] = []           # union over packs, first-seen order
     for p in packs:
-        paths.extend(k for k in p.entries if k not in paths)
+        paths.extend(k for k in p.entries if k not in paths
+                     and (only is None or k in only))
     for path in paths:
         idx_list, val_list = [], []
         for p, w in zip(packs, weights):
@@ -53,27 +57,9 @@ def fuse_packs(packs: List[AdapterPack],
             val_list.append(v.float() * float(np.float32(w * p.alpha)))
         lead = tuple(idx_list[0].shape[:-1])
         nl = int(np.prod(lead)) if lead else 1
-        device = idx_list[0].device
-        cat_i = torch.cat([i.reshape(nl, -1).long() for i in idx_list], 1)
-        cat_v = torch.cat([v.reshape(nl, -1) for v in val_list], 1)
-        span = int(cat_i.max()) + 1 if cat_i.numel() else 1
-        layer = torch.arange(nl, device=device)[:, None]
-        key = (layer * span + cat_i).reshape(-1)
-        # stable sort keeps pack order among equal keys, so the sums run in
-        # the order np.add.at takes them
-        key_s, order = torch.sort(key, stable=True)
-        v_s = cat_v.reshape(-1)[order]
-        uniq, inv = torch.unique_consecutive(key_s, return_inverse=True)
-        acc = torch.zeros(uniq.shape, dtype=torch.float32, device=device)
-        acc.index_add_(0, inv, v_s)
-        row = uniq // span
-        counts = torch.bincount(row, minlength=nl)
-        k = int(counts.max())
-        pos = torch.arange(uniq.numel(), device=device) - (
-            torch.cumsum(counts, 0) - counts)[row]
-        mi = torch.zeros((nl, k), dtype=torch.int32, device=device)
-        mv = torch.zeros((nl, k), dtype=torch.float32, device=device)
-        mi[row, pos] = (uniq % span).to(torch.int32)
-        mv[row, pos] = acc
+        mi, mv = merge_rows(
+            torch.cat([i.reshape(nl, -1) for i in idx_list], 1),
+            torch.cat([v.reshape(nl, -1) for v in val_list], 1))
+        k = mi.shape[-1]
         entries[path] = (mi.reshape(lead + (k,)), mv.reshape(lead + (k,)))
     return AdapterPack(name=name, entries=entries, alpha=1.0)

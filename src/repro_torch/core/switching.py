@@ -2,10 +2,12 @@
 scheduler of multi-tenant serving.
 
 Port of ``SwitchEngine``, ``SwitchStats``, ``FusedLRU`` and the tenant
-helpers of ``repro/core/switching.py``. Loading a SHiRA pack writes only
-the pack's 1-2% of entries through the ``scatter_apply`` kernel, in place;
-unloading subtracts them back. ``LoraEngine``, adapter stores and
-versioned ids wait (ROADMAP A2, A5, A7). ``changed_fraction`` is the %C
+helpers of ``repro/core/switching.py``, with its versioned ids
+(``split_version``, ``versioned_id``, ``prior_version``) and trace events
+(``switch.load``/``switch.unload`` spans, ``sched.promote``/``sched.demote``
+instants). Loading a SHiRA pack writes only the pack's 1-2% of entries
+through the ``scatter_apply`` kernel, in place; unloading subtracts them
+back. ``LoraEngine`` waits (ROADMAP A2). ``changed_fraction`` is the %C
 of the paper's Table 2.
 """
 from __future__ import annotations
@@ -16,7 +18,8 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
-from repro_torch.core.adapters import AdapterPack, apply_pack
+from repro_torch.analysis import trace
+from repro_torch.core.adapters import AdapterPack, apply_pack, map_entries
 from repro_torch.core.masks import iter_leaves
 
 # A tenant names the base model (None), one adapter ("a0"), or an adapter
@@ -44,6 +47,33 @@ def tenant_members(name: Tenant) -> List[str]:
 def tenant_key(name: Tenant) -> str:
     """Stable string key for sorting/labelling mixed str|tuple tenants."""
     return "" if name is None else "+".join(tenant_members(name))
+
+
+def split_version(name: str) -> Tuple[str, Optional[int]]:
+    """Parse a versioned adapter id: ``"persona@3" -> ("persona", 3)``.
+    Unversioned ids (no ``@``, or a suffix that is not a number: ``@`` is
+    legal in plain names) come back as ``(name, None)``.
+    ``AdapterStore.publish`` numbers each base name's versions from 1,
+    bare names resolve to the newest, and a serving request keeps the
+    concrete ``name@v`` it resolved to at submit."""
+    base, sep, v = name.rpartition("@")
+    if sep and base and v.isdigit():
+        return base, int(v)
+    return name, None
+
+
+def versioned_id(base: str, version: int) -> str:
+    """The id of one published version of an adapter."""
+    return f"{base}@{int(version)}"
+
+
+def prior_version(name: str) -> Optional[str]:
+    """The version before a versioned id (``"persona@3" -> "persona@2"``);
+    None for ``@1`` and for unversioned names."""
+    base, v = split_version(name)
+    if v is None or v <= 1:
+        return None
+    return versioned_id(base, v - 1)
 
 
 @dataclass
@@ -87,7 +117,9 @@ class SwitchEngine:
         return time.perf_counter() - t0
 
     def load(self, pack: AdapterPack) -> SwitchStats:
-        dt = self._apply(pack, +1.0)
+        with trace.span("switch.load", cat="switch", name=pack.name,
+                        bytes=pack.nbytes()):
+            dt = self._apply(pack, +1.0)
         self.active.append(pack)
         st = SwitchStats(pack.name, dt, pack.num_params(), pack.nbytes(),
                          _tree_bytes(self.params))
@@ -98,7 +130,9 @@ class SwitchEngine:
         if not self.active:
             return None
         pack = self.active.pop()
-        dt = self._apply(pack, -1.0)
+        with trace.span("switch.unload", cat="switch", name=pack.name,
+                        bytes=pack.nbytes()):
+            dt = self._apply(pack, -1.0)
         st = SwitchStats("-" + pack.name, dt, pack.num_params(),
                          pack.nbytes(), _tree_bytes(self.params))
         self.history.append(st)
@@ -115,7 +149,7 @@ class SwitchEngine:
                    ) -> List[SwitchStats]:
         """Multi-adapter fusion by naive addition (paper Fig. 3(b))."""
         weights = weights or [1.0] * len(packs)
-        return [self.load(AdapterPack(p.name, p.entries, alpha=p.alpha * w))
+        return [self.load(map_entries(p, alpha=p.alpha * w))
                 for p, w in zip(packs, weights)]
 
 
@@ -201,8 +235,12 @@ class FusedLRU:
                 decision.demote = self.fused
             decision.promote = hot
         if decision.promote:
+            trace.instant("sched.promote", cat="switch",
+                          tenant=tenant_key(decision.promote))
             self.fused = decision.promote
         elif decision.demote:
+            trace.instant("sched.demote", cat="switch",
+                          tenant=tenant_key(decision.demote))
             self.fused = None
         return decision
 

@@ -10,11 +10,22 @@
 // alpha * val in f32 and stores the sum (the rounding of
 // repro.kernels.ref.scatter_apply_ref: the product and the sum are each
 // rounded, never fused, so results equal the reference's bit for bit). A
-// pack's indices are unique within each matrix (masks are drawn without
-// replacement, fuse_packs merges duplicates); its only repeats are padding
-// entries at index 0 with value 0, and an entry of value 0 is skipped, so no
-// two threads write one element and no atomics are needed. An index outside
-// the matrix is skipped. Any order of the indices gives the same result.
+// pack's rows are merged (core/adapters.py: AdapterPack merges any other
+// form when it is built): each row's indices strictly ascend, apart from
+// trailing padding entries of index 0 and value 0, and an entry of value 0
+// is skipped, so no two threads write one element and no atomics are
+// needed. An index outside the matrix is skipped. With check set, each
+// thread asserts that rule against the entry before it in its row (a load
+// from the same or the previous line, which the warp has read): a row in
+// another form traps, so an unmerged pack (a repeated index, whose second
+// update would be lost) raises at the next synchronization instead of
+// giving a wrong W. check = 0 takes unique indices in any order unchecked
+// (chip_smoke.py's timing of shuffled indices).
+//
+// Skipping value-0 entries is what keeps padding at index 0 from racing a
+// real entry at index 0. It also means a -0.0 in W at a padding index stays
+// -0.0, where the reference and the plain version (index_add_) add +0.0
+// and give +0.0 (ROADMAP, accepted differences).
 //
 // What bounds it on the H100: bytes. It reads the index and value of every
 // entry once, and reads and writes each 32-byte sector of W that holds an
@@ -42,6 +53,8 @@
 //   - W is read through L2 only (nothing in L1 is reused), and the store
 //     is left to L2, which writes the dirty sector back.
 
+#include <cassert>
+
 #include <cuda_runtime.h>
 
 namespace {
@@ -53,14 +66,22 @@ constexpr int kMaxDevices = 64;
 __global__ void __launch_bounds__(kThreads)
 scatter_apply_kernel(float* __restrict__ w, const int* __restrict__ idx,
                      const float* __restrict__ vals, long long n,
-                     long long k, long long nm, float alpha) {
+                     long long k, long long nm, float alpha, int check) {
   const long long e =
       static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   if (e >= n) return;
   const int i = __ldg(idx + e);
   const float v = __ldg(vals + e);
+  const long long layer = e / k;
+  const long long j = e - layer * k;
+  if (check && j >= 1 && !(i == 0 && v == 0.0f)) {
+    // not padding: ascends from an entry that is not padding
+    const int ip = __ldg(idx + e - 1);
+    const bool prev_pad = j >= 2 && ip == 0 && __ldg(vals + e - 1) == 0.0f;
+    assert(i > ip && !prev_pad && "scatter_apply: unmerged pack row");
+  }
   if (v == 0.0f || i < 0 || i >= nm) return;
-  float* p = w + e / k * nm + i;
+  float* p = w + layer * nm + i;
   *p = __fadd_rn(__ldcg(p), __fmul_rn(alpha, v));
 }
 
@@ -90,18 +111,19 @@ int reserved_smem() {
 }  // namespace
 
 // w: f32, nl stacked (n, m) matrices, updated in place; idx (nl, k) int32
-// flat indices into each matrix, unique apart from value-0 entries; vals
-// (nl, k) f32. nm = n * m. Returns cudaGetLastError().
+// flat indices into each matrix, merged rows (asserted when check is set)
+// or, with check = 0, unique apart from value-0 entries; vals (nl, k) f32.
+// nm = n * m. Returns cudaGetLastError().
 extern "C" int scatter_apply_launch(float* w, const int* idx,
                                     const float* vals, long long nl,
                                     long long k, long long nm, float alpha,
-                                    void* stream) {
+                                    int check, void* stream) {
   const long long n = nl * k;
   const long long blocks = (n + kThreads - 1) / kThreads;
   if (blocks >= (1ll << 31)) return static_cast<int>(cudaErrorInvalidValue);
   scatter_apply_kernel<<<static_cast<unsigned int>(blocks), kThreads,
                          reserved_smem(),
                          static_cast<cudaStream_t>(stream)>>>(
-      w, idx, vals, n, k, nm, alpha);
+      w, idx, vals, n, k, nm, alpha, check);
   return static_cast<int>(cudaGetLastError());
 }

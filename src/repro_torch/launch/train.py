@@ -75,7 +75,10 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
-def main(argv: Optional[List[str]] = None) -> dict:
+def main(argv: Optional[List[str]] = None, keep: bool = False) -> dict:
+    """Train as the flags say; returns the run's numbers, and with
+    ``keep`` also the ``Trainer`` and its final state (``trainer``,
+    ``state``), for a caller that exports or publishes the adapter."""
     args = parse_args(argv)
     if args.preset == "100m":
         cfg = PRESET_100M
@@ -113,14 +116,16 @@ def main(argv: Optional[List[str]] = None) -> dict:
                  if trainer.hook_mode else
                  sum(v.numel() for _, v in
                      iter_leaves(out["state"]["trainable"])))
-    mask_s = trainer.mask_seconds
+    stats = {"losses": losses, "step_ms": step_ms, "steady_step_ms": steady,
+             "tokens_per_s": shape.tokens / steady * 1e3,
+             "trained_values": n_trained,
+             "mask_seconds": trainer.mask_seconds}
+    if keep:
+        stats.update(trainer=trainer, state=out["state"])
     del out, trainer
     if torch.cuda.is_available():
         torch.cuda.synchronize()
-    return {"losses": losses, "step_ms": step_ms, "steady_step_ms": steady,
-            "tokens_per_s": shape.tokens / steady * 1e3,
-            "trained_values": n_trained,
-            "mask_seconds": mask_s}
+    return stats
 
 
 if __name__ == "__main__":

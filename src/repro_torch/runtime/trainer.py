@@ -21,12 +21,12 @@ gradients, moments and direction are exactly 0 off the mask and at every
 other leaf, so this is its update, bit for bit: it keeps no state for the
 other leaves. With weight decay the reference decays every weight, masked
 or not, and its adapter is no longer sparse: hook mode raises for it.
-``export_pack`` runs ``core.pack_from_delta``.
+``export_pack`` runs ``core.pack_from_delta``; ``publish`` pushes the
+exported pack into an ``AdapterStore`` as its next version.
 
 On CPU tensors the kernel wrappers compute their plain versions. LoRA,
 DoRA and full finetuning wait (ROADMAP A2); so do checkpointing,
-preemption recovery and the straggler monitor (A8), and ``publish`` to an
-adapter store (A5): their options raise.
+preemption recovery and the straggler monitor (A8): their options raise.
 """
 from __future__ import annotations
 
@@ -37,6 +37,7 @@ from typing import Any, Callable, Dict, Iterator, Optional
 import torch
 
 from repro_torch import core
+from repro_torch.analysis import trace
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.core.masks import is_target, iter_leaves, map_leaves
 from repro_torch.data import batch_iterator
@@ -280,6 +281,14 @@ class Trainer:
                                         self.acfg)
         return core.pack_from_shira(name, state["trainable"], self.aux)
 
-    def publish(self, *args, **kwargs):
-        raise NotImplementedError("publish to an adapter store waits "
-                                  "(ROADMAP A5)")
+    def publish(self, store, state, name: str = "adapter", *,
+                values: str = "f32") -> str:
+        """Export the current adapter and push it into ``store`` as its
+        next version (``name@v``, ``AdapterStore.publish``): live serving
+        engines resolve the bare name to it from their next submit, which
+        is the hot swap. Returns the versioned id. The reference also
+        snapshots the pack into the trainer's checkpoint; checkpoints wait
+        (ROADMAP A8), and a trainer given one raises when it is built."""
+        pack = self.export_pack(state, name)
+        with trace.span("publish.swap", cat="train", name=name):
+            return store.publish(pack, values=values)

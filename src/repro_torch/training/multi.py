@@ -23,8 +23,8 @@ every base-weight matmul:
 Contract (``tests/test_torch_multiadapter.py``): under f32 compute, adapter
 a of ``MultiAdapterTrainer(run, names, init_key=k)`` fed ``TaskSpec(a)``
 tracks ``Trainer(run, init_key=k + a)`` fed the same stream, step for step,
-within float-summation-order tolerance. ``publish`` to an adapter store and
-the hot swap into live engines wait for the store (ROADMAP A5).
+within float-summation-order tolerance. ``publish`` pushes the trained
+packs into an ``AdapterStore`` as new versions, which live engines swap in.
 """
 from __future__ import annotations
 
@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from repro_torch import core
+from repro_torch.analysis import trace
 from repro_torch.configs.base import RunConfig
 from repro_torch.core.masks import iter_leaves, map_leaves
 from repro_torch.data import TaskSpec, make_batch
@@ -283,6 +284,17 @@ class MultiAdapterTrainer:
                     self.auxes[a])
                 for a, name in enumerate(self.names)]
 
-    def publish(self, *args, **kwargs):
-        raise NotImplementedError("publish to an adapter store and the hot "
-                                  "swap wait (ROADMAP A5)")
+    def publish(self, store, state, *, ckpt=None,
+                values: str = "f32") -> List[str]:
+        """Push every adapter's current values into ``store`` as its next
+        version (``name@v``); live engines move new requests to them from
+        their next submit. Returns the versioned ids. Snapshots into a
+        checkpoint (``ckpt``) wait (ROADMAP A8)."""
+        if ckpt is not None:
+            raise NotImplementedError("checkpoint snapshots of published "
+                                      "packs wait (ROADMAP A8)")
+        vids = []
+        for pack in self.export_packs(state):
+            with trace.span("publish.swap", cat="train", name=pack.name):
+                vids.append(store.publish(pack, values=values))
+        return vids

@@ -171,5 +171,5 @@ def test_rejects_unported_and_bad_options():
     with pytest.raises(ValueError, match="moments"):
         MultiAdapterTrainer(trun, ["a0"], moments="fp4", device="cpu")
     mt = MultiAdapterTrainer(trun, ["a0"], device="cpu")
-    with pytest.raises(NotImplementedError, match="A5"):
-        mt.publish(None, None)
+    with pytest.raises(NotImplementedError, match="A8"):
+        mt.publish(None, None, ckpt=object())

@@ -219,11 +219,15 @@ def test_store_memory_only(tmp_path):
 
 
 def test_store_unported_tiers_raise(tmp_path):
-    store = AdapterStore(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="A7"):
-        store.publish(None)
-    with pytest.raises(NotImplementedError, match="A5"):
-        store.prefetch("a0")
-    with pytest.raises(NotImplementedError, match="A5"):
-        AdapterStore(str(tmp_path), staging_bytes=1)
+    """Quarantine and the retry ladder wait (A8); publish, prefetch and
+    the staging tier are ported (tests/test_torch_prefetch.py and
+    tests/test_torch_personalization.py hold them to the JAX store)."""
+    store = AdapterStore(str(tmp_path), staging_bytes=1 << 20)
+    with pytest.raises(NotImplementedError, match="A8"):
+        store.quarantine("a0")
     assert store.resolve("a0") == "a0"
+    _, tp = _packs(_synth(name="a0"), name="a0")
+    assert store.publish(tp) == "a0@1" and store.resolve("a0") == "a0@1"
+    assert store.prefetch("a0", dequantize=True).result().name == "a0@1"
+    assert store.staged_names() == ["a0@1"]
+    store.shutdown()

@@ -49,6 +49,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import importlib.util
+import inspect
 import statistics
 import subprocess
 import sys
@@ -181,9 +182,17 @@ def scatter_cases(torch, gen, mods, libs):
     probe_before = w.view(-1)[probe].clone()
     nbytes, _ = cs.scatter_bytes(torch, w, idx, vals)
 
-    def leaf(entries):
+    def leaf(entries, ordered=True):
+        def apply(name, a):
+            # unique indices in another order pass the kernel's check of
+            # merged rows only when the caller says so (ordered=False)
+            fn = mods[name].scatter_apply
+            kw = ({} if ordered or "ordered" not in
+                  inspect.signature(fn).parameters else {"ordered": False})
+            return fn(w, *entries, a, **kw)
+
         def run(name):
-            mods[name].scatter_apply(w, *entries, 1.0)
+            apply(name, 1.0)
             got = w.view(-1)[gi].clone()
             w.view(-1)[gi] = before
             if not torch.equal(w.view(-1)[probe], probe_before):
@@ -197,7 +206,7 @@ def scatter_cases(torch, gen, mods, libs):
             sign = [1.0]
 
             def go():
-                mods[name].scatter_apply(w, *entries, sign[0])
+                apply(name, sign[0])
                 sign[0] = -sign[0]
             return go
         return run, timed_run
@@ -205,7 +214,7 @@ def scatter_cases(torch, gen, mods, libs):
     out = {f"scatter_apply ({L}, {d}, {f}) ascending": (
                *leaf((idx, vals)), nbytes),
            f"scatter_apply ({L}, {d}, {f}) shuffled": (
-               *leaf(shuffled), nbytes)}
+               *leaf(shuffled, ordered=False), nbytes)}
     for nl, n, m, kk in ((37, 96, 160, 307), (70001, 8, 8, 3)):
         ws = torch.randn((nl, n, m), generator=gen, device="cuda")
         ii = torch.argsort(torch.rand((nl, n * m), generator=gen,
