@@ -16,8 +16,8 @@ prints its seconds on a "[time]" line:
                and gradients (dx through the forward kernel, dvals) of
                training, and the attention kernels flash_decode ((B,) and
                scalar kv_len), flash_decode_paged (pages of 16, 8, 24;
-               G = 9 and 48) and flash_prefill, bf16 and f32, beside
-               F.scaled_dot_product_attention
+               G = 9 and 48; and int8 pools) and flash_prefill, bf16 and
+               f32, beside F.scaled_dot_product_attention
   4. serve     starcoder2-7b at full width through repro_torch.launch.serve:
                sequential switching, --fuse, --multi-tenant (f32, int8);
                launch counts are zeroed before each mode and must be > 0
@@ -29,11 +29,13 @@ prints its seconds on a "[time]" line:
                switch-per-request reference, unfused and with a hot adapter
   7. continuous  full width: serve --continuous --int8, then a 24-request
                trace (prompts of 64..1024 tokens, half with one shared
-               256-token prefix, 32 tokens each) through ServingEngine and
-               PagedServingEngine over an AdapterStore: tokens/s, TTFT,
-               steps, residency, COW copies, launches, peak memory, and
-               one decode-only and one prefill step of each engine under
-               torch.profiler
+               256-token prefix, 32 tokens each) through ServingEngine,
+               PagedServingEngine and PagedServingEngine(quant_kv=True)
+               over an AdapterStore: tokens/s, TTFT, steps, residency, COW
+               copies, launches, peak memory, and one decode-only and one
+               prefill step of each engine under torch.profiler; the int8
+               pages' KV bytes at most 0.52 of bf16's, every paged launch
+               through the int8 instance (continuous-int8)
   8. continuous-consistency  full width, 2 layers, f32: both engines'
                tokens equal each request's fixed-batch tokens, with COW
   9. train     full width: repro_torch.launch.train (packed SHiRA, Trainer)
@@ -66,8 +68,26 @@ prints its seconds on a "[time]" line:
   14. personalization-consistency  full width, 2 layers, f32: each
                request through the swap equals a run of the same engine
                that saw only its version, both engines, both modes
-  15. summary   one JSON line of kernel numbers, the card line, and last
+  15. slo-chaos  full width: the reference's slo_load.py --chaos on
+               PagedServingEngine (async prefetch): LoadGen traffic (seed
+               0, Zipf over 4 f32 packs, 2 of them cold, an overload
+               phase), a fault-free pass and a chaos pass under a seeded
+               FaultPlan whose load-side kinds each fire at their first
+               draw in the pass; latency, TTFT, goodput, the injector's
+               counts, health(); every future terminal and typed, every
+               kind fired, one poisoned slot, nothing pinned, <= 72 GB
+  16. faults-consistency  full width, 2 layers, f32: a poisoned slot's
+               survivors, a degrade to name@v-1, crash recovery after a
+               SimulatedPreemption (both engines), and int8 pages' first
+               tokens equal their fault-free or unquantized runs
+  17. summary   one JSON line of kernel numbers, the card line, and last
                {"ok": true, "device": {...}}
+
+Every engine run with no fault injected (phases 7, 8, 13, 14, the
+fault-free slo-chaos pass and the reference runs of 16) must serve every
+request as asked: the engines walk
+the fallback ladder by default, so none may be degraded, shed, poisoned
+or failed, no load retried and nothing quarantined (hold_as_asked).
 
 The kernels phase also holds masked_update (the dense-mask apply of hook
 mode) against its plain version, bit for bit, at the stacked (32, 4608,
@@ -140,6 +160,8 @@ HOOK_TOL = 2e-3                # hook vs packed losses: the JAX package's
                                # own claim (tests/test_training.py)
 ROUND_TRIP_TOL = 1e-6          # a loaded pack vs the trained weights, of
                                # the largest weight: base + (W - base)
+KV_INT8_MAX = 0.52             # int8 KV bytes of bf16's: (128 + 2) / 256
+PEAK_GB_MAX = 72               # slo-chaos: device memory allocated, GB
 
 
 def fail(msg: str) -> None:
@@ -1072,10 +1094,14 @@ def attention_kernels_phase(torch, flush):
     is no multiple of the kernel's 64-row tiles (S 777), and one small
     case (B 1, S 256, H 8, KV 2) of each kernel at each other head dim the
     wrappers take (16, 32, 64), so that every template instance they can
-    reach runs once. The yardstick is one
+    reach runs once. The paged kernel also reads int8 pools (the
+    continuous engine's ``quant_kv``: codes and bf16 scales from
+    ``quantize_kv`` of random rows) at the main shapes, pages of 8 and
+    G = 48, and at D = 16/32/64, bf16 and f32 q, each held against its
+    plain version on the same dequantized values. The yardstick is one
     F.scaled_dot_product_attention(..., enable_gqa=True) call on the same
     inputs, laid out as it wants them beforehand (for paged: a gather of
-    the pages, then the call)."""
+    the pages, dequantized for int8 pools, then the call)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_decode import (decode_lengths,
                                                   flash_decode_blocks,
@@ -1085,6 +1111,7 @@ def attention_kernels_phase(torch, flush):
                                                   paged_gather)
     from repro_torch.kernels.flash_prefill import (flash_prefill_blocks,
                                                    flash_prefill_plain)
+    from repro_torch.serving.kvcache import quantize_kv
     gen = torch.Generator(device="cuda")
     gen.manual_seed(4)
     Bd, KV, G, D = B, 4, 9, 128
@@ -1133,10 +1160,12 @@ def attention_kernels_phase(torch, flush):
                 4 * D * H * Bp * Sp * (Sp + 1) // 2, bf, iters=10,
                 hi_lo=True))
 
-        def paged(Bd, KV, G, D, S, page, name, kl):
+        def paged(Bd, KV, G, D, S, page, name, kl, quant=False):
             """A shuffled pool of ``page``-row pages, tables S positions
             wide; entries past each request's pages are the scratch page
-            0."""
+            0. ``quant``: int8 pools, (codes, scales) from quantize_kv of
+            bf16 rows, which the kernel reads as D + 2 bytes a row and
+            head."""
             lens = decode_lengths(kl, Bd, "cuda")
             nblk = -(-S // page)
             used = [-(-int(n) // page) for n in lens.tolist()]
@@ -1147,29 +1176,43 @@ def attention_kernels_phase(torch, flush):
             for b, u in enumerate(used):
                 bt[b, :u] = perm[o:o + u].to(torch.int32)
                 o += u
-            q, kp, vp = r(Bd, KV, G, D), r(P, page, KV, D), r(P, page, KV, D)
+            q = r(Bd, KV, G, D)
+            if quant:
+                kp, vp = (quantize_kv(torch.randn(
+                    (P, page, KV, D), generator=gen, device="cuda").to(
+                        torch.bfloat16)) for _ in range(2))
+                row_bytes = D + 2               # codes and a bf16 scale
+            else:
+                kp, vp = r(P, page, KV, D), r(P, page, KV, D)
+                row_bytes = D * es
             qs = q.reshape(Bd, KV * G, 1, D)
             mask = (torch.arange(nblk * page, device="cuda")[None, :]
                     < lens.long()[:, None])[:, None, None, :]
 
             def paged_sdpa():
-                kk = paged_gather(kp, bt).transpose(1, 2)
-                vv = paged_gather(vp, bt).transpose(1, 2)
+                kk = paged_gather(kp, bt).to(dt).transpose(1, 2)
+                vv = paged_gather(vp, bt).to(dt).transpose(1, 2)
                 return F.scaled_dot_product_attention(
                     qs, kk, vv, attn_mask=mask, enable_gqa=True)
             rows = int(lens.sum())
             out["flash_decode_paged"].append(attn_case(
-                torch, flush, f"flash_decode_paged {tag} ({Bd},{KV},{G},{D}) "
+                torch, flush, f"flash_decode_paged "
+                f"{'int8 pools, ' if quant else ''}{tag}"
+                f"{' q' if quant else ''} ({Bd},{KV},{G},{D}) "
                 f"pages of {page}, {P} pages, nblk={nblk}, {name}",
                 lambda: flash_decode_paged(q, kp, vp, bt, lens),
                 lambda: flash_decode_paged_plain(q, kp, vp, bt, lens),
                 paged_sdpa, tol,
-                2 * q.numel() * es + 2 * rows * KV * D * es + bt.numel() * 4
-                + Bd * 4, 4 * rows * KV * G * D, bf))
+                2 * q.numel() * es + 2 * rows * KV * row_bytes
+                + bt.numel() * 4 + Bd * 4, 4 * rows * KV * G * D, bf))
+            out["flash_decode_paged"][-1]["int8"] = quant
 
         decode(Bd, KV, G, D, CACHE, (("(B,) kv_len 1..1056", spread),
                                      ("scalar kv_len 700", 700)))
         paged(Bd, KV, G, D, CACHE, 16, "kv_len 1..1056", spread)
+        for page, g in ((16, G), (8, G), (16, 48)):
+            paged(Bd, KV if g == G else 1, g, D, CACHE, page,
+                  "kv_len 1..1056", spread, quant=True)
         for Bp, Sp in ((1, 1024), (B, PROMPT), (1, 777)):
             prefill(Bp, Sp, H, KV, D)
         decode(Bd, 1, 48, D, CACHE, (("(B,) kv_len 1..1056", spread),))
@@ -1180,6 +1223,7 @@ def attention_kernels_phase(torch, flush):
             prefill(1, 256, 8, 2, d)
             decode(1, 2, 4, d, 256, (("kv_len 200", 200),))
             paged(1, 2, 4, d, 256, 16, "kv_len 200", 200)
+            paged(1, 2, 4, d, 256, 16, "kv_len 200", 200, quant=True)
     return out
 
 
@@ -1408,6 +1452,30 @@ def step_report(label, steps, profs):
         kernel_share(f"{label} step {at}", kern)
 
 
+def hold_as_asked(label, health, retries, futs):
+    """Fail unless a run with no fault injected served every request as
+    it asked. The engines walk the fallback ladder by default, so a real
+    load failure (an OSError, a CRC mismatch, a dead prefetch worker)
+    would otherwise finish its request on an older version or the base
+    model with in-range tokens: no request may be degraded or end with an
+    error, the engine's shed/degraded/poisoned/failed counters stay 0, no
+    load was retried and nothing is quarantined. ``health`` is the
+    engine's ``health()``, ``retries`` its store's (0 without one)."""
+    bad = [i for i, f in enumerate(futs) if f.degraded or f.error is not None]
+    counters = {k: health[k] for k in ("shed", "degraded", "poisoned",
+                                       "failed") if health[k]}
+    if bad or counters or retries or health["quarantined"]:
+        fail(f"{label}: a run without injected faults did not serve every "
+             f"request as asked: requests {bad} degraded or failed, "
+             f"counters {counters}, store retries {retries}, quarantined "
+             f"{health['quarantined']}")
+
+
+def store_retries(engine):
+    store = engine.engine.store
+    return store.retries if store is not None else 0
+
+
 def report_engine(torch, label, engine, futs, wall, peak, vocab, needed,
                   totals):
     """Print one engine's numbers and fail unless every future is done
@@ -1438,21 +1506,53 @@ def report_engine(torch, label, engine, futs, wall, peak, vocab, needed,
     if not ok:
         fail(f"continuous {label}: a request failed or its tokens are out "
              "of range")
+    hold_as_asked(f"continuous {label}", engine.health(),
+                  store_retries(engine), futs)
     check_run(f"continuous {label}", counts, needed, totals)
     return outs
+
+
+def continuous_int8_report(outs, kv):
+    """The int8-KV paged run beside the bf16 one: KV bytes (held to at
+    most KV_INT8_MAX of bf16's), resident requests per GB of KV, the
+    paged kernel's launches (all through its int8 instance, and more than
+    0), and how many requests give the bf16 pools' tokens (reported, not
+    held)."""
+    (b_bytes, b_peak, _, _), (q_bytes, q_peak, q_launch, q_int8) = (
+        kv["PagedServingEngine"], kv["PagedServingEngine int8 KV"])
+    a, b = outs["PagedServingEngine"], outs["PagedServingEngine int8 KV"]
+    same = sum(bool((x == y).all()) for x, y in zip(a, b))
+    first = sum(int(x[0]) == int(y[0]) for x, y in zip(a, b))
+    ratio = q_bytes / b_bytes
+    print(f"[continuous-int8] KV {q_bytes / 1e9:.4f} GB int8 against "
+          f"{b_bytes / 1e9:.4f} GB bf16 ({ratio:.4f}); resident requests "
+          f"per GB of KV {q_peak / (q_bytes / 1e9):.1f} against "
+          f"{b_peak / (b_bytes / 1e9):.1f}; flash_decode_paged launches "
+          f"{q_launch}, of them the int8 instance {q_int8}; against the bf16 "
+          f"pools: {same}/{len(a)} requests token-equal, {first}/{len(a)} "
+          f"first tokens equal (reported, not held)", flush=True)
+    if ratio > KV_INT8_MAX:
+        fail(f"continuous-int8: KV bytes {ratio:.4f} of bf16's > "
+             f"{KV_INT8_MAX}")
+    if not 0 < q_launch == q_int8:
+        fail(f"continuous-int8: flash_decode_paged launched {q_launch} "
+             f"times, {q_int8} through the int8 instance")
 
 
 def continuous_phase(torch):
     """Continuous batching at full width: ``serve --continuous --int8``
     (the CLI, int8 packs and tables), then the 24-request trace through
-    ServingEngine (8 lanes of 1056 rows) and PagedServingEngine (8 slots,
+    ServingEngine (8 lanes of 1056 rows), PagedServingEngine (8 slots,
     321 pages of 16 rows, about 61% of the lanes' KV bytes, chunks of 256)
-    over an AdapterStore of 3 f32 packs in a temporary directory, one
-    engine after the other on one copy of the base."""
+    and PagedServingEngine(quant_kv=True) (the same pages as int8 codes
+    and bf16 scales: continuous-int8) over an AdapterStore of 3 f32 packs
+    in a temporary directory, one engine after the other on one copy of
+    the base."""
     import tempfile
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.hub import AdapterStore, PagedServingEngine, ServingEngine
+    from repro_torch.kernels.flash_decode import flash_decode_paged
     from repro_torch.launch import serve
     from repro_torch.models import lm
     totals = {}
@@ -1473,6 +1573,8 @@ def continuous_phase(torch):
     if stats["done"] != stats["requests"] or any(
             int(o.min()) < 0 or int(o.max()) >= 49152 for o in stats["outs"]):
         fail("serve --continuous: a request failed or is out of range")
+    hold_as_asked("serve --continuous", stats["health"],
+                  stats["store_retries"], stats["futs"])
     check_run("serve --continuous", counts,
               ("flash_prefill", "flash_decode", "sidedelta"), totals)
     del stats
@@ -1491,7 +1593,7 @@ def continuous_phase(torch):
         torch.cuda.empty_cache()
         print(f"[continuous] store: {len(store.names())} f32 packs written in "
               f"{time.perf_counter() - t0:.1f}s", flush=True)
-        outs = {}
+        outs, kv = {}, {}
         for label, make, needed in (
                 ("ServingEngine", lambda: ServingEngine(
                     cfg, params, slots=B, cache_size=CACHE, store=store),
@@ -1499,8 +1601,13 @@ def continuous_phase(torch):
                 ("PagedServingEngine", lambda: PagedServingEngine(
                     cfg, params, slots=B, num_pages=321, page_size=16,
                     chunk_size=CHUNK, store=store),
+                 ("flash_decode_paged", "sidedelta")),
+                ("PagedServingEngine int8 KV", lambda: PagedServingEngine(
+                    cfg, params, slots=B, num_pages=321, page_size=16,
+                    chunk_size=CHUNK, store=store, quant_kv=True),
                  ("flash_decode_paged", "sidedelta"))):
             zero_counts()
+            flash_decode_paged.int8_launches = 0
             torch.cuda.reset_peak_memory_stats()
             engine = make()
             futs, wall, peak, steps, profs = drive(torch, engine, trace,
@@ -1509,9 +1616,13 @@ def continuous_phase(torch):
                 peak = engine.peak_resident
             outs[label] = report_engine(torch, label, engine, futs, wall,
                                         peak, cfg.vocab_size, needed, totals)
+            kv[label] = (engine.kv_cache_bytes(), peak,
+                         flash_decode_paged.launches,
+                         flash_decode_paged.int8_launches)
             step_report(label, steps, profs)
             del engine, futs
             torch.cuda.empty_cache()
+    continuous_int8_report(outs, kv)
     pairs = list(zip(outs["ServingEngine"], outs["PagedServingEngine"]))
     same = sum(bool((a == b).all()) for a, b in pairs)
     first = sum(int(a[0]) == int(b[0]) for a, b in pairs)
@@ -1573,8 +1684,10 @@ def continuous_consistency_phase(torch):
             pe.step()
         paged += [pe.submit(p, a, max_tokens=T) for p, a in rest]
         pe.run()
-    for label, futs in (("ServingEngine", lane),
-                        ("PagedServingEngine", paged)):
+    for label, futs, eng in (("ServingEngine", lane, se),
+                             ("PagedServingEngine", paged, pe)):
+        hold_as_asked(f"continuous-consistency {label}", eng.health(), 0,
+                      futs)
         equal = [bool(np.array_equal(f.result(), w))
                  for f, w in zip(futs, want)]
         print(f"[continuous-consistency] f32, 2 layers, full width, {label}:"
@@ -1823,6 +1936,8 @@ def pz_report(torch, tag, eng, store, futs, wall, steps, early, staged, tr,
     if not ok:
         fail(f"personalization {tag}: a request failed or its tokens are "
              "out of range")
+    hold_as_asked(f"personalization {tag}", eng.health(), store.retries,
+                  futs)
     half = len(futs) // 2
     want = ["adapter_0@1"] * half + ["adapter_0@2"] * (len(futs) - half)
     wrong = [i for i, f in enumerate(futs)
@@ -1930,6 +2045,8 @@ def pz_consistency_phase(torch):
             futs = [eng.submit(p, a, max_tokens=T) for p, a in reqs]
             eng.run()
             eng.shutdown(include_store=True)
+            hold_as_asked(f"personalization-consistency {sub}", eng.health(),
+                          store.retries, futs)
             return [f.result() for f in futs]
 
         for kind in ("lane", "paged"):
@@ -1950,6 +2067,9 @@ def pz_consistency_phase(torch):
                 futs += [eng.submit(p, a, max_tokens=T) for p, a in second]
                 eng.run()
                 eng.shutdown(include_store=True)
+                hold_as_asked(f"personalization-consistency {kind} "
+                              f"async_prefetch={mode}", eng.health(),
+                              store.retries, futs)
                 got = [f.result() for f in futs]
                 vers = [f.adapter for f in futs]
                 want = (single(kind, mode, packs[0], first,
@@ -1971,6 +2091,352 @@ def pz_consistency_phase(torch):
                          f"{[i for i, e in enumerate(equal) if not e]} "
                          f"(versions {vers})")
                 del eng
+
+
+SLO_PHASES = ((10.0, 0.3, 3.0),   # (seconds, requests/s, burst): normal,
+              (10.0, 1.2, 3.0),   # overload at 4x, normal again
+              (10.0, 0.3, 3.0))
+SLO_HOT = 2                       # Zipf-head packs registered before a pass
+CHAOS_KINDS = ("io_latency", "disk_fail", "corrupt", "worker_death",
+               "build_fail", "poison")
+
+
+class Recorder:
+    """An engine as ``loadgen.run`` drives it, keeping every future."""
+
+    def __init__(self, engine):
+        self.engine, self.futs = engine, []
+
+    def submit(self, *args, **kw):
+        fut = self.engine.submit(*args, **kw)
+        self.futs.append(fut)
+        return fut
+
+    def step(self):
+        return self.engine.step()
+
+    def pending(self):
+        return self.engine.pending()
+
+
+def goodput(futs, wall, slo_ms):
+    """Tokens per second of the requests that finished within slo_ms."""
+    return sum(len(f.tokens) for f in futs if f.error is None and f.done()
+               and (f.finish_time - f.submit_time) * 1e3 <= slo_ms) / wall
+
+
+def slo_pass(torch, tag, engine, store, reqs, slo_ms, deadline_s, inj):
+    """Drive one pass of the trace through ``engine`` with loadgen.run;
+    print its numbers and return (report, futures, goodput, slo_ms, peak
+    GB allocated since the caller reset the peak)."""
+    import numpy as np
+    from repro_torch.serving import loadgen
+    rec = Recorder(engine)
+    rep = loadgen.run(rec, reqs, slo_ms=slo_ms, deadline_s=deadline_s)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    pct = lambda xs: ("/".join(f"{np.percentile(xs, q) / 1e3:.3f}"
+                               for q in (50, 95, 99)) if xs else "-")
+    cold = lambda xs: ("/".join(f"{np.percentile(xs, q) / 1e3:.3f}"
+                                for q in (50, 99)) if xs else "-")
+    slo = slo_ms if slo_ms is not None else 2 * float(np.median(
+        rep.latencies_ms))
+    gp = goodput(rec.futs, rep.wall_s, slo)
+    print(f"[slo-chaos] {tag}: offered {rep.offered}, completed "
+          f"{rep.completed}, failed {rep.failed}, shed {rep.shed}, degraded "
+          f"{rep.degraded}, errors {rep.errors_by_type}; latency p50/p95/p99 "
+          f"{pct(rep.latencies_ms)} s, TTFT {pct(rep.ttfts_ms)} s, cold "
+          f"TTFT p50/p99 {cold(rep.ttfts_cold_ms)} s "
+          f"({len(rep.ttfts_cold_ms)} cold); {rep.tokens_out} tokens in "
+          f"{rep.wall_s:.2f}s, {rep.tokens_per_s:.2f} tok/s, goodput "
+          f"{gp:.2f} tok/s at slo_ms {slo:.0f}; {rep.steps} steps; "
+          f"injected {dict(inj.counts) if inj else {}}; store retries "
+          f"{store.retries}, quarantines {store.load_failures} "
+          f"{store.quarantined()}; health {engine.health()}; peak memory "
+          f"{peak:.1f} GB allocated, "
+          f"{torch.cuda.max_memory_reserved() / 1e9:.1f} GB reserved",
+          flush=True)
+    return rep, rec.futs, gp, slo, peak
+
+
+FIRST_FIRE = {"disk": "disk_fail", "corrupt": "corrupt",
+              "worker": "worker_death", "build": "build_fail"}
+
+
+def first_touch_injector(plan):
+    """Install an injector of ``plan`` whose draws are the plan's, except
+    that a site's draw fires while its kind has not fired yet: each
+    load-side kind then fires at its first chance inside the pass, under
+    its traffic (a cold adapter's first prefetch and disk reads, the first
+    table build), and every later draw is the plan's own. Its ``forced``
+    names the kinds that fired so."""
+    from repro_torch.runtime import faults
+
+    class FirstTouch(faults.FaultInjector):
+        def __init__(self, plan):
+            super().__init__(plan)
+            self.forced = set()
+
+        def _draw(self, site, key):
+            u = super()._draw(site, key)
+            kind = FIRST_FIRE[site]
+            with self._lock:
+                if self.counts.get(kind) or kind in self.forced:
+                    return u
+                self.forced.add(kind)
+            return 0.0
+
+    return faults.install(FirstTouch(plan))
+
+
+def slo_chaos_phase(torch):
+    """The reference's ``benchmarks/slo_load.py --chaos`` at full width on
+    PagedServingEngine (async prefetch, 8 slots, 321 pages of 16, chunks
+    of 256, slot_pad 4): 4 f32 packs at sparsity 0.98 in pack files, the 2
+    Zipf-head ones registered (and one short request each served) before
+    each pass, the other 2 on disk only, so that their first touch is
+    cold. Traffic from the port's LoadGen, seed 0: Zipf s = 1.1, burst 3,
+    prompts of 64..512 tokens after a shared 64-token prefix, 8..32 tokens
+    out, 10 s at 0.3 requests/s, 10 s at 1.2, 10 s at 0.3. A fault-free
+    pass sets slo_ms = 2 x its p50 latency; the chaos pass (nan_guard,
+    deadline 4 x slo_ms) runs under FaultPlan(seed=0, disk_fail_p=0.10,
+    io_latency_s=0.002, corrupt_p=0.05, worker_death_p=0.05,
+    build_fail_p=0.05, poison 8 steps in, slot 0). Its draws are
+    sha256(seed, site, key, attempt): with two cold first touches the
+    pass draws each load site only a few times, and seed 0's own draws
+    there fire nowhere, so each load-side kind that has not fired yet
+    fires at its site's next draw (first_touch_injector): a disk failure,
+    a corrupt payload, a dead worker and a failed table build each run
+    the ladder under the pass's traffic. The fault-free pass must serve
+    every request as asked (hold_as_asked). Holds for the chaos pass:
+    every future terminal, every failure typed, every kind fired, exactly
+    one slot.poison, nothing left pinned, at most PEAK_GB_MAX allocated.
+    The goodput under faults as a share of the fault-free pass is printed,
+    not held."""
+    import gc
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.hub import AdapterStore, PagedServingEngine, save_pack
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    from repro_torch.runtime import faults
+    from repro_torch.serving import loadgen
+    zero_counts()
+    cfg = get_config("starcoder2-7b")
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    packs = serve.make_adapters(cfg, params, 4)
+    names = [p.name for p in packs]
+    reqs = loadgen.LoadGen(
+        adapters=names, vocab=cfg.vocab_size, seed=0, zipf_s=1.1,
+        phases=[loadgen.Phase(*ph) for ph in SLO_PHASES],
+        prompt_len=(64, 512), max_tokens=(8, 32),
+        shared_prefix=64).schedule()
+    peaks, passes = [], {}
+    with tempfile.TemporaryDirectory(prefix="slo-chaos-") as root:
+        t0 = time.perf_counter()
+        files = [save_pack(p, f"{root}/{p.name}.shpk") for p in packs]
+        del packs
+        torch.cuda.empty_cache()
+        print(f"[slo-chaos] {len(files)} f32 packs written in "
+              f"{time.perf_counter() - t0:.1f}s; {len(reqs)} requests "
+              f"offered over {sum(p[0] for p in SLO_PHASES):.0f}s "
+              f"(per phase {[sum(r.phase == i for r in reqs) for i in range(3)]}"
+              f", adapters {[sum(r.adapter == n for r in reqs) for n in names]})",
+              flush=True)
+        slo_ms = None
+        for tag in ("fault-free", "chaos"):
+            chaos = tag == "chaos"
+            torch.cuda.reset_peak_memory_stats()
+            store = AdapterStore(f"{root}/{tag}")
+            for f in files:
+                store.register_file(f)
+            engine = PagedServingEngine(
+                cfg, params, slots=B, num_pages=321, page_size=16,
+                chunk_size=CHUNK, store=store, async_prefetch=True,
+                slot_pad=4, nan_guard=chaos)
+            for n in names[:SLO_HOT]:
+                engine.register(n)
+                engine.submit(reqs[0].prompt[:65], n, max_tokens=1)
+            engine.run()
+            inj = None
+            if chaos:
+                inj = first_touch_injector(faults.FaultPlan(
+                    seed=0, disk_fail_p=0.10, io_latency_s=0.002,
+                    corrupt_p=0.05, worker_death_p=0.05, build_fail_p=0.05,
+                    poison_step=engine.step_count + 8, poison_slot=0))
+            try:
+                rep, futs, gp, slo, peak = slo_pass(
+                    torch, tag, engine, store, reqs, slo_ms,
+                    4 * slo_ms / 1e3 if chaos else None, inj)
+            finally:
+                faults.uninstall()
+            peaks.append(peak)
+            slo_ms = slo_ms or slo
+            passes[tag] = (rep, gp)
+            if not all(f.done() for f in futs):
+                fail(f"slo-chaos {tag}: {sum(not f.done() for f in futs)} "
+                     "requests are not terminal")
+            if not chaos:
+                hold_as_asked("slo-chaos fault-free", engine.health(),
+                              store.retries, futs)
+            else:
+                print(f"[slo-chaos] chaos pass: fired {dict(inj.counts)}, of "
+                      f"them forced at their first draw "
+                      f"{sorted(inj.forced)}", flush=True)
+                untyped = {type(f.error).__name__ for f in futs
+                           if f.error is not None
+                           and not isinstance(f.error, faults.ServingError)}
+                missing = [k for k in CHAOS_KINDS if not inj.counts.get(k)]
+                if untyped or missing or engine.poisoned != 1 \
+                        or inj.counts.get("poison") != 1:
+                    fail(f"slo-chaos: untyped failures {untyped}, kinds "
+                         f"that never fired {missing}, {engine.poisoned} "
+                         f"slots poisoned")
+            pinned = store.inflight_names()
+            engine.shutdown(include_store=True)
+            if pinned or engine._vpins:
+                fail(f"slo-chaos {tag}: {pinned} still pinned in the store, "
+                     f"{engine._vpins} in the engine")
+            del engine, store, futs
+            gc.collect()
+            torch.cuda.empty_cache()
+    share = passes["chaos"][1] / max(passes["fault-free"][1], 1e-9)
+    print(f"[slo-chaos] goodput under faults {passes['chaos'][1]:.2f} tok/s "
+          f"= {share:.1%} of the fault-free pass's "
+          f"{passes['fault-free'][1]:.2f} (reported, not held; the "
+          f"reference bench's own gate is 70%); peak allocated "
+          f"{max(peaks):.1f} GB", flush=True)
+    if max(peaks) > PEAK_GB_MAX:
+        fail(f"slo-chaos: {max(peaks):.1f} GB allocated > {PEAK_GB_MAX} GB")
+    totals = read_counts()
+    check_run("slo-chaos", totals, ("flash_decode_paged", "sidedelta"), {})
+    del params
+    return totals
+
+
+def faults_consistency_phase(torch):
+    """The fault ladder's outcomes at full width cut to 2 layers, f32, as
+    tests/test_faults.py holds them on the CPU: a poisoned slot's
+    survivors give the tokens of a fault-free run (both engines); a
+    request degraded to name@v-1 gives that version's tokens; a
+    SimulatedPreemption at step k, then a rebuilt engine and the requests
+    resubmitted, gives the uninterrupted run's tokens; with int8 pages the
+    first token of each request equals the unquantized pools' (f32 here),
+    the reference's own bar (tests/test_paged.py:299-315)."""
+    import tempfile
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core.adapters import map_entries
+    from repro_torch.hub import (AdapterStore, PagedServingEngine,
+                                 ServingEngine)
+    from repro_torch.launch import serve
+    from repro_torch.models import layers, lm
+    from repro_torch.runtime import faults
+    from repro_torch.runtime.ft import SimulatedPreemption
+    cfg = get_config("starcoder2-7b").replace(num_layers=2)
+    rng = np.random.default_rng(13)
+    tok = lambda n: rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+    prompts = [tok(n) for n in (40, 301, 17, 88)]
+    adapters = ["adapter_0", "adapter_1", None, "adapter_0"]
+    checks = []
+
+    def make(kind, store, **kw):
+        if kind == "lane":
+            return ServingEngine(cfg, params, slots=3, cache_size=400,
+                                 store=store, **kw)
+        return PagedServingEngine(cfg, params, slots=3, num_pages=80,
+                                  page_size=16, chunk_size=256, store=store,
+                                  **kw)
+
+    def run(eng, reqs, T=6, clean=None):
+        """Serve ``reqs``; a run named by ``clean`` had no fault injected
+        and must serve every request as asked."""
+        futs = [eng.submit(p, a, max_tokens=T) for p, a in reqs]
+        eng.run()
+        if clean:
+            hold_as_asked(f"faults-consistency {clean}", eng.health(),
+                          store_retries(eng), futs)
+        return futs
+
+    with layers.compute_precision(torch.float32), \
+            tempfile.TemporaryDirectory(prefix="faults-consistency-") as root:
+        params = lm.init_params(cfg, seed=0, device="cuda")
+        packs = serve.make_adapters(cfg, params, 2)
+        store = AdapterStore(f"{root}/s")
+        for p in packs:
+            store.add(p)
+        reqs = list(zip(prompts, adapters))
+        for kind in ("lane", "paged"):
+            eng = make(kind, store, nan_guard=True)
+            want = [f.result() for f in run(eng, reqs,
+                                            clean=f"{kind} nan_guard")]
+            inj = faults.install(faults.FaultPlan(
+                poison_step=eng.step_count + 2, poison_slot=0))
+            try:
+                futs = run(eng, reqs)
+            finally:
+                faults.uninstall()
+            hit = [i for i, f in enumerate(futs) if f.error is not None]
+            ok = (inj.counts == {"poison": 1} and len(hit) == 1
+                  and type(futs[hit[0]].error).__name__ == "SlotPoisoned"
+                  and all(np.array_equal(f.result(), w)
+                          for i, (f, w) in enumerate(zip(futs, want))
+                          if i not in hit))
+            checks.append((f"{kind}: a poisoned slot (request {hit}), the "
+                           "survivors' tokens equal the fault-free run", ok))
+            eng.shutdown()
+
+            vstore = AdapterStore(f"{root}/v-{kind}")
+            vstore.publish(map_entries(packs[0], name="p"))
+            vstore.publish(map_entries(packs[1], name="p"))
+            eng = make(kind, vstore)
+            want = run(eng, [(prompts[0], "p@1")],
+                       clean=f"{kind} p@1")[0].result()
+            vstore.quarantine("p@2", reason="consistency")
+            got = run(eng, [(prompts[0], "p")])[0]
+            checks.append((f"{kind}: p@2 quarantined, a request for p is "
+                           "degraded to p@1 and gives its tokens",
+                           got.degraded and got.degraded_from == "p"
+                           and np.array_equal(got.result(), want)))
+            eng.shutdown()
+
+            eng = make(kind, store)
+            want = [f.result() for f in run(eng, reqs, clean=kind)]
+            eng = make(kind, store)
+            futs = [eng.submit(p, a, max_tokens=6) for p, a in reqs]
+            faults.install(faults.FaultPlan(preempt_step=3))
+            died = False
+            try:
+                eng.run()
+            except SimulatedPreemption:
+                died = True
+            finally:
+                faults.uninstall()
+            unfinished = sum(not f.done() for f in futs)
+            eng = make(kind, store)
+            again = [f.result() for f in run(eng, reqs,
+                                             clean=f"{kind} rebuilt")]
+            checks.append((f"{kind}: preempted at step 3 ({unfinished} "
+                           "requests unfinished), rebuilt and resubmitted, "
+                           "the uninterrupted tokens",
+                           died and unfinished > 0 and all(
+                               np.array_equal(a, w)
+                               for a, w in zip(again, want))))
+            eng.shutdown()
+        firsts = {}
+        for quant in (False, True):
+            eng = make("paged", store, quant_kv=quant)
+            firsts[quant] = [int(f.result()[0]) for f in run(
+                eng, reqs, clean=f"paged quant_kv={quant}")]
+        checks.append((f"paged, int8 pages: first tokens {firsts[True]} "
+                       f"equal the f32 pools' {firsts[False]}",
+                       firsts[True] == firsts[False]))
+    for label, ok in checks:
+        print(f"[faults-consistency] f32, 2 layers, full width, {label}: "
+              f"{'ok' if ok else 'FAILED'}", flush=True)
+    bad = [label for label, ok in checks if not ok]
+    if bad:
+        fail(f"faults-consistency: {bad}")
 
 
 def profile_phase(torch):
@@ -2699,6 +3165,11 @@ def main() -> None:
         launches[k] = launches.get(k, 0) + v
     torch.cuda.empty_cache()
     timed("personalization-consistency", pz_consistency_phase, torch)
+    torch.cuda.empty_cache()
+    for k, v in timed("slo-chaos", slo_chaos_phase, torch).items():
+        launches[k] = launches.get(k, 0) + v
+    torch.cuda.empty_cache()
+    timed("faults-consistency", faults_consistency_phase, torch)
 
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     main_side = side[0]     # w_up, S=1, f32 tables: the multi-tenant decode

@@ -51,6 +51,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.adapters import AdapterPack
+from repro_torch.runtime import faults
 
 MAGIC = b"SHPKv2\n\0"
 VERSION = 2
@@ -298,6 +299,9 @@ def load_pack(path: str, dequantize: bool = True
     with open(path, "rb") as f:
         header = _read_header(f)
         payload = f.read()
+    # fault injection flips a payload byte here, so that the real crc32
+    # check below is what rejects it
+    payload = faults.corrupt_payload(path, payload)
     if len(payload) != header["payload_len"]:
         raise PackFormatError(
             f"payload truncated: {len(payload)} bytes, header says "

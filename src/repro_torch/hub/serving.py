@@ -1,8 +1,8 @@
 """Request-level serving: continuous batching over lanes or over pages.
 
-Port of ``repro/hub/serving.py``'s synchronous path. Two engines share one
-request API (``submit`` -> ``ServeFuture``; ``step()``/``run()`` drive the
-loop; greedy decode; per-request adapters routed through
+Port of ``repro/hub/serving.py``. Two engines share one request API
+(``submit`` -> ``ServeFuture``; ``step()``/``run()`` drive the loop;
+greedy decode; per-request adapters routed through
 ``MultiTenantEngine``'s side-delta tables, loaded lazily from an attached
 ``AdapterStore``):
 
@@ -52,37 +52,73 @@ nothing live to hide behind, the engine blocks on the head request
 flag off (the default) the engines load synchronously at submit.
 ``slot_pad`` passes to ``MultiTenantEngine``.
 
+**int8 KV pages** (``PagedServingEngine(quant_kv=True)``): the pools are
+``QuantKV`` (int8 codes and one bf16 scale per row and head,
+``serving.kvcache``), 130 bytes a row and head where bf16 takes 256, and
+``kv_cache_bytes`` / ``page_bytes`` count codes and scales. Decode runs
+the int8 instance of ``flash_decode_paged``.
+
+**Fault tolerance** (``runtime.faults``; the reference's ladder,
+``src/repro/runtime/README.md``). A request whose adapter cannot be loaded
+(``StoreError`` after the store's retries, ``AdapterUnavailable`` for a
+quarantined pack), at submit or when its prefetch fails, walks the
+``fallback`` ladder: ``"previous"`` serves ``name@v-1`` (then older
+versions, then the base model), ``"base"`` the base model, ``"none"``
+fails it; an adapter stack falls straight to the base. A request served
+below what it asked for is flagged ``fut.degraded`` (``degraded_from``:
+what it asked for) and keeps decoding. ``max_queue`` sheds a submit to a
+full queue, and ``submit(deadline_s=)`` a request still queued that long
+after its submit (checked every step), both with ``RequestShed``.
+``nan_guard`` tests each live slot's logits for finiteness on the device,
+read back with the argmax in one copy, and fails only a slot whose logits
+are not finite (``SlotPoisoned``), while the batch decodes on. A
+``TableBuildError`` leaves the old tables standing: the admission, the
+chunk or the decode is retried next step. ``health()`` reports the
+watchdog (``EngineWatchdog``, fed every step), the queue, the lanes, the
+counters and the store's quarantine list. With no injector and the guard
+off, the decode step does what it did before.
+
 Spans: ``step``, ``admit``, ``decode``, ``prefill_chunk``, ``cow_copy``,
 ``prefetch.stall``; counters ``free_pages`` and ``resident``; instants
-``hotswap.evict``, ``prefetch.hit``, ``prefetch.cancel``. A request whose
-adapter fails to load fails with its typed ``StoreError``; the
-degradation ladder, bounded queues, deadlines, the NaN guard and fault
-injection wait (ROADMAP A8), and so do int8 KV pages (A6).
+``hotswap.evict``, ``prefetch.hit``, ``prefetch.cancel``,
+``shed.queue_full``, ``shed.deadline``, ``degrade``, ``slot.poison``,
+``fault.build_backoff``.
 """
 from __future__ import annotations
 
+import threading
 import time
 from collections import deque
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.analysis import trace
 from repro_torch.core.switching import (FusedLRU, Tenant, normalize_tenant,
-                                        split_version, tenant_members)
+                                        prior_version, split_version,
+                                        tenant_members)
 from repro_torch.models import lm
 from repro_torch.models.attention import KVCache
-from repro_torch.runtime.faults import RequestShed, ServingError
-from repro_torch.serving.kvcache import PagePool, copy_page, pages_for
+from repro_torch.runtime import faults
+from repro_torch.runtime.faults import (AdapterUnavailable, EngineWatchdog,
+                                        RequestShed, ServingError,
+                                        SlotPoisoned, StoreError,
+                                        TableBuildError)
+from repro_torch.serving.kvcache import PagePool, copy_page, leaves, pages_for
 from repro_torch.serving.multitenant import MultiTenantEngine
+
+_NO_FALLBACK = object()     # the degradation ladder is exhausted
 
 
 class ServeFuture:
     """Resolves when the request's final token is generated, or fails with
-    the request's typed terminal error (``runtime.faults``: ``StoreError``
-    when its adapter could not be loaded, ``RequestShed`` when it was
-    cancelled in the queue)."""
+    the request's typed terminal error (``runtime.faults``: ``RequestShed``
+    when admission shed it or it was cancelled, ``SlotPoisoned`` when its
+    decode slot was quarantined, ``StoreError`` / ``AdapterUnavailable``
+    when its adapter could not be served and the fallback ladder was
+    exhausted). ``degraded`` marks a request the ladder served below what
+    it asked for; ``degraded_from`` is what it asked for."""
 
     def __init__(self, rid: int, adapter: Tenant, max_tokens: int):
         self.rid = rid
@@ -93,19 +129,27 @@ class ServeFuture:
         self.finished_step: Optional[int] = None
         self.submit_time: Optional[float] = None
         self.finish_time: Optional[float] = None
+        self.deadline_s: Optional[float] = None  # queue-time budget (shed)
         self.ttft: Optional[float] = None     # seconds to first token
         self.first_token_step: Optional[int] = None
         self.cold = False     # adapter needed a disk load at submit time
         self.cancelled = False
         self.error: Optional[Exception] = None   # typed terminal failure
+        self.degraded = False                    # served below what it asked
+        self.degraded_from: Optional[Tenant] = None
         self._done = False
+        self._event = threading.Event()
 
     def done(self) -> bool:
         return self._done
 
-    def result(self) -> np.ndarray:
+    def result(self, timeout: Optional[float] = None) -> np.ndarray:
         """The generated tokens. A cancelled or failed request raises its
-        typed terminal error."""
+        typed terminal error. ``timeout`` waits that long for a terminal
+        state (another thread drives the engine); by default it does not
+        wait."""
+        if timeout is not None and not self._done:
+            self._event.wait(timeout)
         if self.error is not None:
             raise self.error
         if self.cancelled:
@@ -158,7 +202,11 @@ class _EngineCommon:
     """Request bookkeeping shared by the lane and paged engines."""
 
     def _init_common(self, cfg, params, slots, scheduler, store,
-                     table_dtype, async_prefetch, slot_pad) -> None:
+                     table_dtype, async_prefetch, slot_pad, max_queue,
+                     fallback, nan_guard) -> None:
+        if fallback not in ("previous", "base", "none"):
+            raise ValueError(f"unknown fallback policy {fallback!r} "
+                             "(previous | base | none)")
         if cfg.encoder_only:
             raise ValueError("encoder-only archs have no decode serving path")
         self.cfg = cfg
@@ -176,37 +224,203 @@ class _EngineCommon:
         self.step_count = 0
         self.tokens_out = 0
         self.decode_slot_waste = 0    # idle-lane decode steps (utilization)
+        self.max_queue = max_queue
+        self.fallback = fallback
+        self.nan_guard = nan_guard
+        self.watchdog = EngineWatchdog()
+        self.shed = 0          # requests rejected or expired by admission
+        self.degraded = 0      # requests served below what they asked for
+        self.poisoned = 0      # slots quarantined on non-finite logits
+        self.failed = 0        # requests ended with a typed error
 
     def register(self, pack) -> None:
         self.engine.register(pack)
 
-    def _new_future(self, adapter, max_tokens: int):
+    def _new_future(self, adapter, max_tokens: int,
+                    deadline_s: Optional[float]):
         """A queued request's future with its adapter resolved to concrete
         versions and (synchronous path) loaded, or its prefetches started
-        (async path). Returns (future, handles, ok); a failed load leaves
-        its typed ``StoreError`` on the future."""
+        (async path); an adapter that cannot be served walks the fallback
+        ladder. Returns (future, handles, ok); when not ok the future
+        carries its typed error (a full queue's ``RequestShed``, or the
+        load's error once the ladder is exhausted)."""
         t_sub = time.perf_counter()   # arrival precedes the adapter load
         fut = ServeFuture(self._rid, normalize_tenant(adapter), max_tokens)
         self._rid += 1
         fut.submit_time = t_sub
-        try:
-            fut.adapter, handles, fut.cold = self._prepare_adapter(adapter)
-        except ServingError as e:
-            self._fail_fut(fut, e)
+        fut.deadline_s = deadline_s
+        if self.max_queue is not None and len(self._queue) >= self.max_queue:
+            self.shed += 1
+            trace.instant("shed.queue_full", cat="serving", rid=fut.rid)
+            self._fail_fut(fut, RequestShed(
+                f"request {fut.rid} shed (queue_full: "
+                f"{len(self._queue)} >= {self.max_queue})", rid=fut.rid,
+                reason="queue_full"), count_failed=False)
             return fut, [], False
+        try:
+            adapter, handles, cold = self._prepare_adapter(adapter)
+        except (StoreError, AdapterUnavailable) as e:
+            prepared = self._degrade_submit(fut, adapter, e)
+            if prepared is None:
+                return fut, [], False
+            adapter, handles, cold = prepared
+        fut.adapter, fut.cold = adapter, cold
         self._pin_versions(fut)
         return fut, handles, True
 
-    def _fail_fut(self, fut: ServeFuture, err: Exception) -> None:
+    def _fail_fut(self, fut: ServeFuture, err: Exception,
+                  count_failed: bool = True) -> None:
+        """Terminal failure: the typed error on the future, its versions
+        unpinned, waiters released."""
         fut.error = err
         fut._done = True
+        fut._event.set()
+        if count_failed:
+            self.failed += 1
         self._unpin_versions(fut)
 
     def _resolve_future(self, fut: ServeFuture) -> None:
         fut.finished_step = self.step_count
         fut.finish_time = time.perf_counter()
         fut._done = True
+        fut._event.set()
         self._unpin_versions(fut)
+
+    # -- fault tolerance: the degradation ladder, shedding, health -------
+
+    def _fallback_candidate(self, cand: Tenant):
+        """The next rung below ``cand``, or ``_NO_FALLBACK`` when there is
+        none. ``None`` (the base model) is a rung: it always serves."""
+        if self.fallback == "none" or cand is None:
+            return _NO_FALLBACK
+        members = tenant_members(normalize_tenant(cand))
+        if len(members) == 1 and self.fallback == "previous":
+            prev = prior_version(self.engine.resolve(members[0]))
+            store = self.engine.store
+            while prev is not None:
+                if prev in self.engine.packs or (
+                        store is not None and prev in store
+                        and prev not in store.quarantined()):
+                    return prev
+                prev = prior_version(prev)
+        return None            # the base model: the ladder's floor
+
+    def _degrade(self, fut: ServeFuture, orig: Tenant, err: ServingError):
+        """Walk the ladder down from ``orig``: the prepared (adapter,
+        handles, cold) of the first rung that loads, flagged on the future
+        with a ``degrade`` instant, or None when the ladder is
+        exhausted."""
+        cand = self._fallback_candidate(orig)
+        while cand is not _NO_FALLBACK:
+            try:
+                prepared = self._prepare_adapter(cand)
+            except (StoreError, AdapterUnavailable):
+                cand = self._fallback_candidate(cand)
+                continue
+            fut.degraded = True
+            if fut.degraded_from is None:
+                fut.degraded_from = normalize_tenant(orig)
+            self.degraded += 1
+            trace.instant("degrade", cat="serving", rid=fut.rid,
+                          to=repr(prepared[0]), err=type(err).__name__)
+            return prepared
+        return None
+
+    def _degrade_submit(self, fut: ServeFuture, orig: Tenant,
+                        err: ServingError):
+        """The ladder at submit (the synchronous path's load failed):
+        the prepared rung, or None after failing the future typed."""
+        prepared = self._degrade(fut, orig, err)
+        if prepared is None:
+            self._fail_fut(fut, err)
+        return prepared
+
+    def _degrade_queued(self, p, err: ServingError) -> bool:
+        """The ladder for a queued request whose prefetch failed: release
+        the dead handles, then re-pin and prefetch the rung that loads.
+        False when the ladder is exhausted: the request left the queue
+        with its typed error."""
+        for h in p.handles:
+            h.release()
+        p.handles = []
+        self._unpin_versions(p.fut)
+        prepared = self._degrade(p.fut, p.fut.adapter, err)
+        if prepared is not None:
+            p.fut.adapter, p.handles, _ = prepared
+            self._pin_versions(p.fut)
+            return True
+        try:
+            self._queue.remove(p)
+        except ValueError:
+            pass
+        self._fail_fut(p.fut, err)
+        return False
+
+    def _expired(self, fut: ServeFuture, now: Optional[float] = None) -> bool:
+        return (fut.deadline_s is not None
+                and ((now or time.perf_counter()) - fut.submit_time)
+                > fut.deadline_s)
+
+    def _shed_queued(self, p, reason: str) -> None:
+        """Take a queued request off the queue with a typed
+        ``RequestShed``, its prefetches cancelled."""
+        try:
+            self._queue.remove(p)
+        except ValueError:
+            pass
+        for h in p.handles:
+            h.cancel()
+        p.handles = []
+        self.shed += 1
+        trace.instant(f"shed.{reason}", cat="serving", rid=p.fut.rid)
+        self._fail_fut(p.fut, RequestShed(
+            f"request {p.fut.rid} shed ({reason})", rid=p.fut.rid,
+            reason=reason), count_failed=False)
+
+    def _shed_expired(self) -> None:
+        """Shed every queued request past its deadline (every step, so
+        that none is parked in the queue unseen)."""
+        now = time.perf_counter()
+        for p in [p for p in self._queue if self._expired(p.fut, now)]:
+            self._shed_queued(p, "deadline")
+
+    def health(self) -> Dict[str, Any]:
+        """Liveness and degradation: the watchdog's stall view, the queue
+        and the occupied lanes, the fault counters, the store's
+        quarantine list."""
+        store = self.engine.store
+        return {
+            "watchdog": self.watchdog.snapshot(),
+            "queued": len(self._queue),
+            "active": sum(a is not None for a in self._active),
+            "step_count": self.step_count,
+            "tokens_out": self.tokens_out,
+            "shed": self.shed,
+            "degraded": self.degraded,
+            "poisoned": self.poisoned,
+            "failed": self.failed,
+            "quarantined": store.quarantined() if store is not None else [],
+        }
+
+    def _next_tokens(self, logits: torch.Tensor, live: List[int]):
+        """Greedy tokens (B,) as numpy, and the live slots whose logits are
+        not finite (with ``nan_guard``). An injected poison NaNs one live
+        slot's logits first. With no injector and the guard off this is
+        the plain argmax; otherwise finiteness is tested on the device and
+        read back with the argmax, in one copy."""
+        pslot = faults.poison_logits(self.step_count)
+        if pslot is None and not self.nan_guard:
+            return torch.argmax(logits, -1).cpu().numpy(), ()
+        lg = logits.float().clone()
+        if pslot is not None and live:
+            lg[live[pslot % len(live)]] = float("nan")
+        nxt = torch.nan_to_num(lg, nan=0.0, posinf=0.0,
+                               neginf=0.0).argmax(-1)
+        nxt, finite = torch.stack(
+            [nxt, torch.isfinite(lg).all(-1).long()]).cpu().numpy()
+        bad = (tuple(s for s in live if not finite[s]) if self.nan_guard
+               else ())
+        return nxt, bad
 
     # -- versioned hot swap ---------------------------------------------
 
@@ -281,23 +495,16 @@ class _EngineCommon:
 
     def _register_landed(self, p) -> bool:
         """Register a queued request's landed prefetches. A failed load
-        fails the request with its typed error and takes it off the
-        queue; returns False then."""
+        walks the request down the fallback ladder (it then waits on the
+        rung's prefetches); False when the ladder is exhausted and the
+        request left the queue with its typed error."""
         try:
             for h in p.handles:
                 self.engine.register(h.result(), background=True)
             p.handles = []
             return True
         except ServingError as e:
-            for h in p.handles:
-                h.release()
-            p.handles = []
-            try:
-                self._queue.remove(p)
-            except ValueError:
-                pass
-            self._fail_fut(p.fut, e)
-            return False
+            return self._degrade_queued(p, e)
 
     def _drain_prefetches(self) -> None:
         """Register every queued request whose prefetches have landed, and
@@ -314,13 +521,20 @@ class _EngineCommon:
         prefetches (``prefetch.stall``, the time async could not hide)."""
         p = self._queue[0]
         with trace.span("prefetch.stall", cat="store", rid=p.fut.rid):
-            self._register_landed(p)
+            # a failed load leaves the head on a fallback's prefetches,
+            # which it waits on too, or takes it off the queue
+            while p.handles and self._register_landed(p):
+                pass
         self.engine.kick_async_build()
 
     def _admittable(self, p, had_live: bool) -> bool:
-        """FIFO admission gate of the async pipeline: the request's packs
-        are registered, and while a rebuild is pending the current tables
-        cover its tenant or nothing live would wait on the rebuild."""
+        """FIFO admission gate: a request past its deadline is shed here;
+        with the async pipeline its packs are registered, and while a
+        rebuild is pending the current tables cover its tenant or nothing
+        live would wait on the rebuild."""
+        if self._expired(p.fut):
+            self._shed_queued(p, "deadline")
+            return False
         if not self.async_prefetch:
             return True
         if p.handles:
@@ -331,9 +545,12 @@ class _EngineCommon:
             return True
         return not had_live
 
-    def _async_step_head(self) -> bool:
-        """The async pipeline's part of a step, before admission; returns
-        whether a request was live when the step began."""
+    def _step_head(self) -> bool:
+        """The part of a step before admission: the injected preemption,
+        the deadline sheds and the async pipeline. Returns whether a
+        request was live when the step began."""
+        faults.on_engine_step(self.step_count)
+        self._shed_expired()
         self._drain_prefetches()
         had_live = any(a is not None for a in self._active)
         if self.async_prefetch and not had_live and self._queue \
@@ -356,7 +573,7 @@ class _EngineCommon:
                 trace.instant("prefetch.cancel", cat="store", rid=fut.rid)
                 self._fail_fut(fut, RequestShed(
                     f"request {fut.rid} was cancelled", rid=fut.rid,
-                    reason="cancelled"))
+                    reason="cancelled"), count_failed=False)
                 return True
         return False
 
@@ -371,8 +588,10 @@ class _EngineCommon:
         return len(self._queue) + sum(p is not None for p in self._active)
 
     def kv_cache_bytes(self) -> int:
+        """Device bytes of the KV cache (an int8 pool's codes and
+        scales)."""
         return sum(int(x.numel() * x.element_size())
-                   for c in self.caches for x in c)
+                   for x in leaves(self.caches))
 
     def _emit(self, slot: int, token: int) -> None:
         """Record one generated token. ``_pos`` always points at the cache
@@ -388,11 +607,14 @@ class _EngineCommon:
                 or (p.eos_id is not None and int(token) == p.eos_id)):
             self._finish(slot)
 
-    def _decode(self, live: List[int], block_tables=None) -> None:
-        """One decode step over every lane; emits the live lanes' tokens.
+    def _decode(self, live: List[int], block_tables=None) -> bool:
+        """One decode step over every lane; emits the live lanes' tokens,
+        or quarantines a lane whose logits are not finite (``nan_guard``).
         Idle lanes decode too (their output is discarded): their ``_pos``
         stays 0 until they go live, and ``block_tables`` points them at
-        the scratch page."""
+        the scratch page. False when a table build failed: nothing was
+        emitted and no position moved, and the decode runs again next
+        step."""
         self.decode_slot_waste += self.slots - len(live)
         live_set = set(live)
         names = [self._active[s].fut.adapter if s in live_set else None
@@ -401,20 +623,37 @@ class _EngineCommon:
         # traffic, and counting them would dilute every tenant's share
         self.engine.schedule([names[s] for s in live],
                              defer=self.async_prefetch)
-        with trace.span("decode", live=len(live)):
-            stale = self.async_prefetch
-            ids = self.engine.ids_for(names, stale_ok=stale)
-            wp = self.engine.wrapped_params(ids, stale_ok=stale)
-            toks = torch.from_numpy(self._last[:, None].copy()).to(
-                self.device)
-            logits, _ = lm.decode_step(
-                wp, self.cfg, toks, self.caches,
-                torch.from_numpy(self._pos.copy()).to(self.device),
-                block_tables=block_tables)
-            nxt = torch.argmax(logits, -1).cpu().numpy()
+        try:
+            with trace.span("decode", live=len(live)):
+                stale = self.async_prefetch
+                ids = self.engine.ids_for(names, stale_ok=stale)
+                wp = self.engine.wrapped_params(ids, stale_ok=stale)
+                toks = torch.from_numpy(self._last[:, None].copy()).to(
+                    self.device)
+                logits, _ = lm.decode_step(
+                    wp, self.cfg, toks, self.caches,
+                    torch.from_numpy(self._pos.copy()).to(self.device),
+                    block_tables=block_tables)
+                nxt, bad = self._next_tokens(logits, live)
+        except TableBuildError:
+            trace.instant("fault.build_backoff", cat="tables")
+            return False
         for s in live:
             self._pos[s] += 1          # this step's KV landed at _pos[s]
-            self._emit(s, int(nxt[s]))
+            if s in bad:
+                self._poison(s)
+            else:
+                self._emit(s, int(nxt[s]))
+        return True
+
+    def _poison_future(self, slot: int, fut: ServeFuture) -> None:
+        """Fail the request on a quarantined slot with ``SlotPoisoned``."""
+        self.poisoned += 1
+        trace.instant("slot.poison", cat="serving", rid=fut.rid, slot=slot,
+                      step=self.step_count)
+        self._fail_fut(fut, SlotPoisoned(
+            f"request {fut.rid} poisoned: non-finite logits on slot {slot} "
+            f"at step {self.step_count}", rid=fut.rid, step=self.step_count))
 
     def run(self, max_steps: int = 100_000) -> float:
         """Drive step() until every queued request resolved; returns
@@ -437,9 +676,11 @@ class ServingEngine(_EngineCommon):
     def __init__(self, cfg, params, *, slots: int = 4, cache_size: int = 128,
                  scheduler: Optional[FusedLRU] = None, store=None,
                  table_dtype: str = "f32", async_prefetch: bool = False,
-                 slot_pad: int = 1):
+                 slot_pad: int = 1, max_queue: Optional[int] = None,
+                 fallback: str = "previous", nan_guard: bool = False):
         self._init_common(cfg, params, slots, scheduler, store, table_dtype,
-                          async_prefetch, slot_pad)
+                          async_prefetch, slot_pad, max_queue, fallback,
+                          nan_guard)
         self.cache_size = cache_size
         self.caches = lm.init_cache(cfg, slots, cache_size,
                                     device=self.device)
@@ -447,11 +688,13 @@ class ServingEngine(_EngineCommon):
         self._active: List[Optional[_Pending]] = [None] * slots
 
     def submit(self, prompt_tokens, adapter: Tenant = None,
-               max_tokens: int = 16,
-               eos_id: Optional[int] = None) -> ServeFuture:
+               max_tokens: int = 16, eos_id: Optional[int] = None,
+               deadline_s: Optional[float] = None) -> ServeFuture:
         """Queue one request; returns its future. ``adapter`` is a
         registered (or store) adapter id, a stack of ids, or None for the
-        base model."""
+        base model. ``deadline_s`` bounds the time it may wait in the
+        queue; past it, it is shed with ``RequestShed``, as it is at once
+        when a bounded queue (``max_queue``) is full."""
         if max_tokens < 1:
             raise ValueError("max_tokens must be >= 1")
         prompt = np.asarray(prompt_tokens, np.int32).reshape(-1)
@@ -462,16 +705,26 @@ class ServingEngine(_EngineCommon):
             raise ValueError(f"prompt ({prompt.shape[0]}) + max_tokens "
                              f"({max_tokens}) needs {need} cache slots, "
                              f"engine has {self.cache_size}")
-        fut, handles, ok = self._new_future(adapter, max_tokens)
+        fut, handles, ok = self._new_future(adapter, max_tokens, deadline_s)
         if ok:
             self._queue.append(_Pending(fut, prompt, eos_id, handles))
         return fut
 
-    def _finish(self, slot: int) -> None:
-        self._resolve_future(self._active[slot].fut)
+    def _free_lane(self, slot: int) -> None:
         self._active[slot] = None
         self._pos[slot] = 0
         self._last[slot] = 0
+
+    def _finish(self, slot: int) -> None:
+        self._resolve_future(self._active[slot].fut)
+        self._free_lane(slot)
+
+    def _poison(self, slot: int) -> None:
+        """Quarantine one lane whose logits went non-finite: its request
+        fails typed and the lane is freed; the batch decodes on."""
+        fut = self._active[slot].fut
+        self._free_lane(slot)
+        self._poison_future(slot, fut)
 
     def _admit(self, slot: int, p: _Pending) -> None:
         with trace.span("admit", rid=p.fut.rid, slot=slot,
@@ -493,19 +746,29 @@ class ServingEngine(_EngineCommon):
         """Admit queued requests into free lanes, then run one decode step
         over every occupied lane. Returns False when fully drained."""
         with trace.span("step", engine="lane") as sp:
-            had_live = self._async_step_head()
+            t0 = time.perf_counter()
+            had_live = self._step_head()
             for slot in range(self.slots):
                 if self._active[slot] is None and self._queue:
                     if not self._admittable(self._queue[0], had_live):
                         break          # FIFO: the head's load is landing
-                    self._admit(slot, self._queue.popleft())
+                    p = self._queue.popleft()
+                    try:
+                        self._admit(slot, p)
+                    except TableBuildError:
+                        # the build failed: back at the head, retried on
+                        # the next step's build
+                        self._queue.appendleft(p)
+                        trace.instant("fault.build_backoff", cat="tables")
+                        break
             live = [s for s in range(self.slots)
                     if self._active[s] is not None]
             if not live:
                 return bool(self._queue)
             self.step_count += 1
             sp.set(step=self.step_count, live=len(live))
-            self._decode(live)
+            if self._decode(live):
+                self.watchdog.record(time.perf_counter() - t0)
             return True
 
 
@@ -539,10 +802,13 @@ class PagedServingEngine(_EngineCommon):
                  page_size: int = 8, max_len: Optional[int] = None,
                  chunk_size: Optional[int] = None,
                  scheduler: Optional[FusedLRU] = None, store=None,
-                 table_dtype: str = "f32", async_prefetch: bool = False,
-                 slot_pad: int = 1):
+                 table_dtype: str = "f32", quant_kv: bool = False,
+                 async_prefetch: bool = False, slot_pad: int = 1,
+                 max_queue: Optional[int] = None,
+                 fallback: str = "previous", nan_guard: bool = False):
         self._init_common(cfg, params, slots, scheduler, store, table_dtype,
-                          async_prefetch, slot_pad)
+                          async_prefetch, slot_pad, max_queue, fallback,
+                          nan_guard)
         self.num_pages = num_pages
         self.page_size = page_size
         self.max_len = max_len or (num_pages - 1) * page_size
@@ -550,7 +816,7 @@ class PagedServingEngine(_EngineCommon):
         self.chunk_size = chunk_size or page_size
         self.pool = PagePool(num_pages, page_size)
         self.caches = lm.init_paged_cache(cfg, num_pages, page_size,
-                                          device=self.device)
+                                          device=self.device, quant=quant_kv)
         self._bt = np.zeros((slots, self.max_blocks), np.int32)
         self._active: List[Optional[_PagedRequest]] = [None] * slots
         self.prefill_chunks = 0
@@ -559,12 +825,14 @@ class PagedServingEngine(_EngineCommon):
         self.peak_ws_pages = 0        # pages pinned by admitted requests
 
     def page_bytes(self) -> int:
-        """Device bytes of ONE physical page across the whole layer stack."""
+        """Device bytes of ONE physical page across the whole layer stack
+        (codes and scales, for int8 pages)."""
         return self.kv_cache_bytes() // self.num_pages
 
     def submit(self, prompt_tokens, adapter: Tenant = None,
-               max_tokens: int = 16,
-               eos_id: Optional[int] = None) -> ServeFuture:
+               max_tokens: int = 16, eos_id: Optional[int] = None,
+               deadline_s: Optional[float] = None) -> ServeFuture:
+        """Queue one request, as ``ServingEngine.submit``."""
         if max_tokens < 1:
             raise ValueError("max_tokens must be >= 1")
         prompt = np.asarray(prompt_tokens, np.int32).reshape(-1)
@@ -580,7 +848,7 @@ class PagedServingEngine(_EngineCommon):
         if nblk > self.num_pages - 1:
             raise ValueError(f"request needs {nblk} pages, pool has "
                              f"{self.num_pages - 1}")
-        fut, handles, ok = self._new_future(adapter, max_tokens)
+        fut, handles, ok = self._new_future(adapter, max_tokens, deadline_s)
         if ok:
             self._queue.append(_PagedRequest(fut, prompt, eos_id, need,
                                              nblk, handles))
@@ -634,22 +902,31 @@ class PagedServingEngine(_EngineCommon):
             dst = r.reserve.pop() if r.reserve else self.pool.alloc(1)[0]
             with trace.span("cow_copy", cat="pages", slot=slot, src=pg,
                             dst=int(dst)):
-                copy_page([x for c in self.caches for x in c], pg, dst,
-                          page_axis=1)
+                copy_page(self.caches, pg, dst, page_axis=1)
             self._bt[slot, blk] = dst
             r.pages[r.pages.index(pg)] = dst
             self.pool.release([pg])
             self.pool.cow_copies += 1
 
-    def _finish(self, slot: int) -> None:
+    def _free_slot(self, slot: int) -> None:
         r = self._active[slot]
-        self._resolve_future(r.fut)
         self.pool.release(r.pages + r.reserve)
         r.pages, r.reserve = [], []
         self._active[slot] = None
         self._bt[slot, :] = 0
         self._pos[slot] = 0
         self._last[slot] = 0
+
+    def _finish(self, slot: int) -> None:
+        self._resolve_future(self._active[slot].fut)
+        self._free_slot(slot)
+
+    def _poison(self, slot: int) -> None:
+        """Quarantine one slot whose logits went non-finite: its request
+        fails typed and its pages are freed; the batch decodes on."""
+        fut = self._active[slot].fut
+        self._free_slot(slot)
+        self._poison_future(slot, fut)
 
     def _prefill_step(self, slot: int) -> None:
         r = self._active[slot]
@@ -684,7 +961,8 @@ class PagedServingEngine(_EngineCommon):
         """FIFO-admit while pages last, run ONE prefill chunk, then one
         decode step over every live lane. Returns False when drained."""
         with trace.span("step", engine="paged") as sp:
-            had_live = self._async_step_head()
+            t0 = time.perf_counter()
+            had_live = self._step_head()
             for slot in range(self.slots):
                 if self._active[slot] is None and self._queue:
                     if not self._admittable(self._queue[0], had_live):
@@ -715,7 +993,12 @@ class PagedServingEngine(_EngineCommon):
             trace.counter("free_pages", self.pool.free_pages(), cat="pages")
             trace.counter("resident", len(pf) + len(live))
             if pf:
-                self._prefill_step(pf[0])
+                try:
+                    self._prefill_step(pf[0])
+                except TableBuildError:
+                    # the chunk was not applied (r.done as it was): it
+                    # runs again next step against a new build
+                    trace.instant("fault.build_backoff", cat="tables")
             if live:
                 for s in live:
                     self._ensure_writable(s, int(self._pos[s]),
@@ -724,5 +1007,8 @@ class PagedServingEngine(_EngineCommon):
                 # scratch page
                 mask = np.isin(np.arange(self.slots), live)
                 bt = np.where(mask[:, None], self._bt, 0).astype(np.int32)
-                self._decode(live, torch.from_numpy(bt).to(self.device))
+                if not self._decode(live,
+                                    torch.from_numpy(bt).to(self.device)):
+                    return True
+            self.watchdog.record(time.perf_counter() - t0)
             return True

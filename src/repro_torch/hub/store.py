@@ -41,10 +41,16 @@ flight. Worker loads record ``prefetch.disk`` spans, synchronous ones
 ``store.inflight_bytes`` counter; evictions ``store.evict`` and
 ``store.stage_evict``; ``publish`` a ``store.publish`` instant.
 
-A failed load raises the port's ``StoreError`` (from a handle's
-``result`` too, never the worker's raw exception). Retries and
-quarantine wait (ROADMAP A8): ``quarantine`` raises
-``NotImplementedError``, and a load is tried once.
+Failure model (``runtime.faults``; the ladder of
+``src/repro/runtime/README.md``): a disk load is retried with capped
+exponential backoff (``load_retries`` x ``retry_backoff_s``, a
+``store.retry`` instant each); a pack that exhausts its retries is
+quarantined (``store.quarantine``), and later ``get`` / ``get_raw`` /
+``prefetch`` of it fail fast with ``AdapterUnavailable`` until
+``clear_quarantine``, while the failed load raises ``StoreError``. A
+handle's ``result`` never leaks a raw worker exception (a dead worker,
+``faults.on_worker``, becomes ``StoreError``) and never strands the
+eviction pin: every terminal path releases it.
 
 Thread-safety: one reentrant lock guards the tiers' bookkeeping; disk
 reads, dequantization and pinning run outside it.
@@ -53,6 +59,7 @@ from __future__ import annotations
 
 import os
 import threading
+import time
 from collections import OrderedDict
 from concurrent.futures import CancelledError, Future, ThreadPoolExecutor
 from concurrent.futures import TimeoutError as FutTimeoutError
@@ -65,7 +72,9 @@ from repro_torch.core.adapters import AdapterPack, map_entries
 from repro_torch.core.switching import split_version, versioned_id
 from repro_torch.hub.packio import (PackFormatError, QuantPack, load_pack,
                                     peek_pack, quantize_pack, save_pack)
-from repro_torch.runtime.faults import ServingError, StoreError
+from repro_torch.runtime import faults
+from repro_torch.runtime.faults import (AdapterUnavailable, ServingError,
+                                        StoreError)
 
 
 def pinned(pack: AdapterPack) -> AdapterPack:
@@ -148,13 +157,17 @@ class AdapterStore:
     def __init__(self, root: Optional[str] = None,
                  budget_bytes: Optional[int] = None,
                  staging_bytes: Optional[int] = None,
-                 workers: int = 2):
+                 workers: int = 2,
+                 load_retries: int = 2,
+                 retry_backoff_s: float = 0.01):
         self.root = root
         if root is not None:
             os.makedirs(root, exist_ok=True)
         self.budget_bytes = budget_bytes
         self.staging_bytes = staging_bytes
         self.workers = max(int(workers), 1)
+        self.load_retries = max(int(load_retries), 0)
+        self.retry_backoff_s = retry_backoff_s
         self._paths: Dict[str, Optional[str]] = {}    # id -> file (None = mem)
         self._latest: Dict[str, int] = {}             # base name -> newest v
         self._pinned: set = set()
@@ -169,12 +182,15 @@ class AdapterStore:
         self._futs: Dict[str, Future] = {}            # one load per id
         self._fut_est: Dict[str, int] = {}            # submit-time bytes
         self._inflight_bytes = 0
+        self._quarantined: Dict[str, str] = {}        # id -> failure reason
         self._shutdown = False
         self.loads = 0                                # disk loads (cache miss)
         self.evictions = 0
         self.staging_hits = 0
         self.prefetch_hits = 0                        # submit found resident
         self.prefetch_misses = 0                      # submit went to disk
+        self.retries = 0                              # load attempts retried
+        self.load_failures = 0                        # loads that quarantined
 
     # ------------------------------------------------------------------
     # Registration
@@ -275,10 +291,6 @@ class AdapterStore:
     def unpin_use(self, name: str) -> None:
         self._unpin_inflight(name)
 
-    def quarantine(self, name: str, reason: str = "manual") -> None:
-        raise NotImplementedError("AdapterStore quarantine and the load-retry "
-                                  "ladder are not ported (ROADMAP A8)")
-
     # ------------------------------------------------------------------
     # Lookup
     # ------------------------------------------------------------------
@@ -322,6 +334,7 @@ class AdapterStore:
         if name not in self._paths:
             raise KeyError(f"unknown adapter {name!r}; registered: "
                            f"{self.names()}")
+        self._check_quarantine(name)
         with self._lock:
             form = self._resident.get(name)
             if form is not None:
@@ -361,6 +374,7 @@ class AdapterStore:
         if name not in self._paths:
             raise KeyError(f"unknown adapter {name!r}; registered: "
                            f"{self.names()}")
+        self._check_quarantine(name)
         with self._lock:
             self._pin_inflight(name)
             if name in self._resident:
@@ -397,6 +411,7 @@ class AdapterStore:
 
     def _prefetch_job(self, name: str, dequantize: bool, est: int):
         try:
+            faults.on_worker(name)
             form = self._load(name, span="prefetch.disk")
             if dequantize and (isinstance(form, QuantPack)
                                or self.staging_bytes is not None):
@@ -481,21 +496,77 @@ class AdapterStore:
                 self._inflight[name] = n
 
     def _load(self, name: str, span: str) -> Union[AdapterPack, QuantPack]:
-        """One disk load into the resident tier; a failed read raises
-        ``StoreError``."""
+        """One disk load through the degradation ladder: retried with
+        capped exponential backoff on I/O and format errors, then
+        quarantined, raising ``StoreError``, once the retries are spent."""
+        self._check_quarantine(name)
         path = self._paths[name]
         assert path is not None, f"in-memory pack {name!r} lost"
-        try:
-            with trace.span(span, cat="store", name=name) as sp:
-                form = load_pack(path, dequantize=False)
-                sp.set(bytes=form.nbytes())
-        except (OSError, PackFormatError) as e:
-            raise StoreError(f"failed to load adapter {name!r}: {e}",
-                             name=name) from e
+        last: Optional[Exception] = None
+        for attempt in range(self.load_retries + 1):
+            if attempt:
+                with self._lock:
+                    self.retries += 1
+                trace.instant("store.retry", cat="store", name=name,
+                              attempt=attempt)
+                time.sleep(min(self.retry_backoff_s * (2 ** (attempt - 1)),
+                               0.25))
+            try:
+                with trace.span(span, cat="store", name=name) as sp:
+                    faults.on_disk_read(name)
+                    form = load_pack(path, dequantize=False)
+                    sp.set(bytes=form.nbytes())
+                break
+            except (OSError, PackFormatError) as e:
+                last = e
+        else:
+            with self._lock:
+                self.load_failures += 1
+            self.quarantine(name, reason=str(last))
+            raise StoreError(
+                f"failed to load adapter {name!r} after "
+                f"{self.load_retries + 1} attempts: {last}",
+                name=name) from last
         with self._lock:
             self.loads += 1
             self._admit(name, form)
         return form
+
+    # ------------------------------------------------------------------
+    # Quarantine (the ladder: retry -> quarantine -> fail fast)
+    # ------------------------------------------------------------------
+
+    def _check_quarantine(self, name: str) -> None:
+        with self._lock:
+            reason = self._quarantined.get(name)
+        if reason is not None:
+            raise AdapterUnavailable(
+                f"adapter {name!r} is quarantined ({reason}); "
+                f"clear_quarantine() to retry", name=name)
+
+    def quarantine(self, name: str, reason: str = "manual") -> None:
+        """Mark ``name`` unservable: its resident and staged forms are
+        dropped and every later load fails fast with ``AdapterUnavailable``
+        until ``clear_quarantine``. A load that spends its retries calls
+        it."""
+        name = self.resolve(name)
+        with self._lock:
+            self._quarantined[name] = reason
+            self._resident.pop(name, None)
+            self._staging.pop(name, None)
+        trace.instant("store.quarantine", cat="store", name=name,
+                      reason=reason)
+
+    def clear_quarantine(self, name: str) -> bool:
+        """Re-admit a quarantined pack (its file repaired, say). True when
+        the name was quarantined."""
+        name = self.resolve(name)
+        with self._lock:
+            return self._quarantined.pop(name, None) is not None
+
+    def quarantined(self) -> List[str]:
+        with self._lock:
+            return sorted(self._quarantined)
 
     def _stage(self, name: str, form, span: str = "dequant") -> AdapterPack:
         """The f32 form of ``form`` through the staging tier: dequantized

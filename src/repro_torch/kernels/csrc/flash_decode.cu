@@ -23,6 +23,15 @@
 // block_tables[b, t / page], row t % page. Entry 0 is the scratch page;
 // positions >= kv_len are masked, so scratch entries and unwritten page
 // tails contribute nothing. A request with kv_len 0 gets zeros.
+// int8 pools (the reference's QuantKV pages, src/repro/serving/kvcache.py):
+// codes (P, page, KV, D) int8 and one bf16 absmax scale per (row, head),
+// scales (P, page, KV, 1). A CTA reads its rows' codes in 16-byte loads
+// and their scales, and dequantizes each entry once into shared memory as
+// the reference's dequantize_kv does: the f32 product code * scale rounded
+// to bf16 (bf16 rows for the tensor-core kernel; the same bf16 values as
+// f32 for the f32 kernel, which attends f32 q against them). Everything
+// after the load is the bf16 or f32 kernel unchanged. The rows cost
+// D + 2 bytes a head where bf16 pools cost 2 D.
 //
 // Layout: q (B, KV, G, D) and out (B, KV, G, D), the reference's.
 //
@@ -104,6 +113,93 @@ __device__ __forceinline__ long long cache_row(const int* bt, int page, int b,
   if (kPaged) return static_cast<long long>(__ldg(bt + t / page)) * page +
                      t % page;
   return static_cast<long long>(b) * S + t;
+}
+
+// byte j of w as a signed code, times the scale, in f32 (exact: a code
+// has 8 bits, a bf16 scale 8 of mantissa)
+__device__ __forceinline__ float code_times(int w, int j, float s) {
+  const int c = static_cast<int>(static_cast<unsigned>(w) << (24 - 8 * j)) >>
+                24;
+  return static_cast<float>(c) * s;
+}
+
+// 16 dequantized entries from the codes of one 16-byte chunk, each the f32
+// product code * scale rounded to bf16 (dequantize_kv's rounding): into a
+// row of bf16 (two 16-byte stores) or of f32 (four)
+__device__ __forceinline__ void store_dequant(__nv_bfloat16* dst, int4 codes,
+                                              float s) {
+  const int w[4] = {codes.x, codes.y, codes.z, codes.w};
+  uint32_t out[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const __nv_bfloat162 p = __floats2bfloat162_rn(
+        code_times(w[j / 2], 2 * (j % 2), s),
+        code_times(w[j / 2], 2 * (j % 2) + 1, s));
+    out[j] = *reinterpret_cast<const uint32_t*>(&p);
+  }
+  reinterpret_cast<uint4*>(dst)[0] = make_uint4(out[0], out[1], out[2],
+                                                out[3]);
+  reinterpret_cast<uint4*>(dst)[1] = make_uint4(out[4], out[5], out[6],
+                                                out[7]);
+}
+__device__ __forceinline__ void store_dequant(float* dst, int4 codes,
+                                              float s) {
+  const int w[4] = {codes.x, codes.y, codes.z, codes.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float x[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      x[j] = __bfloat162float(__float2bfloat16_rn(code_times(w[i], j, s)));
+    reinterpret_cast<float4*>(dst)[i] = make_float4(x[0], x[1], x[2], x[3]);
+  }
+}
+
+__device__ __forceinline__ float load_scale(const __nv_bfloat16* p) {
+  const unsigned short u = __ldg(reinterpret_cast<const unsigned short*>(p));
+  return __uint_as_float(static_cast<unsigned int>(u) << 16);
+}
+
+// The split's rows t0 .. t0 + kSplit of an int8 pool, dequantized into the
+// shared rows ks and vs (row stride LD entries of T); rows at or past n
+// are zeros. Thread tid takes 16-byte chunk tid % (D / 16) of rows
+// tid / (D / 16), + kThreads / (D / 16), ...: the codes in one 16-byte
+// load, the row's scale in one 2-byte load, both through the read-only
+// path, all of the thread's loads issued before the first store.
+template <int D, bool kPaged, typename T>
+__device__ __forceinline__ void load_q8_rows(
+    T* ks, T* vs, int LD, const signed char* __restrict__ kc,
+    const __nv_bfloat16* __restrict__ ksc, const signed char* __restrict__ vc,
+    const __nv_bfloat16* __restrict__ vsc, const int* bt, int page, int b,
+    int S, int t0, int n, int KV, int h) {
+  constexpr int kC = D / 16;                // 16-byte chunks of codes a row
+  constexpr int kStep = kThreads / kC;
+  constexpr int kPer = (kSplit + kStep - 1) / kStep;
+  const int cr = threadIdx.x / kC;
+  const int ce = threadIdx.x % kC * 16;
+  int4 kx[kPer], vx[kPer];
+  float sk[kPer], sv[kPer];
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int r = cr + i * kStep;
+    kx[i] = vx[i] = make_int4(0, 0, 0, 0);
+    sk[i] = sv[i] = 0.f;
+    if (r < kSplit && r < n) {
+      const long long row = cache_row<kPaged>(bt, page, b, S, t0 + r) * KV + h;
+      kx[i] = __ldg(reinterpret_cast<const int4*>(kc + row * D + ce));
+      vx[i] = __ldg(reinterpret_cast<const int4*>(vc + row * D + ce));
+      sk[i] = load_scale(ksc + row);
+      sv[i] = load_scale(vsc + row);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int r = cr + i * kStep;
+    if (r < kSplit) {
+      store_dequant(ks + r * LD + ce, kx[i], sk[i]);
+      store_dequant(vs + r * LD + ce, vx[i], sv[i]);
+    }
+  }
 }
 
 __device__ __forceinline__ void store_pair(float* p, float x, float y) {
@@ -224,11 +320,16 @@ __device__ __forceinline__ void merge_if_last(const float* part,
 // hi + lo, goes to shared memory as the A operand of P . V, of which warp
 // w computes column tiles w * kNTW .. (V by ldmatrix.trans). S is the
 // positions a request can hold: the cache's rows, or a pool's nblk * page.
-template <int D, bool kPaged>
+//
+// kQ8: the pools are int8 codes with bf16 scales (k_scale, v_scale),
+// dequantized into the same shared rows by load_q8_rows.
+template <int D, bool kPaged, bool kQ8>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                        const __nv_bfloat16* __restrict__ k,
-                        const __nv_bfloat16* __restrict__ v,
+                        const void* __restrict__ k,
+                        const void* __restrict__ v,
+                        const __nv_bfloat16* __restrict__ k_scale,
+                        const __nv_bfloat16* __restrict__ v_scale,
                         const int* __restrict__ kv_len,
                         const int* __restrict__ block_tables,
                         __nv_bfloat16* __restrict__ out,
@@ -273,14 +374,22 @@ flash_decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const int ce = tid % kChunks * 8;         // cr + i kRowStep, column ce
   const int* bt = kPaged ? block_tables + static_cast<long long>(b) * nblk
                          : nullptr;
+  if constexpr (kQ8) {
+    load_q8_rows<D, kPaged>(ks, vs, LD, static_cast<const signed char*>(k),
+                            k_scale, static_cast<const signed char*>(v),
+                            v_scale, bt, page, b, S, t0, n, KV, h);
+  } else {
+    const __nv_bfloat16* kb = static_cast<const __nv_bfloat16*>(k);
+    const __nv_bfloat16* vb = static_cast<const __nv_bfloat16*>(v);
 #pragma unroll
-  for (int r = cr; r < kSplit; r += kRowStep) {
-    const bool ok = r < n;                  // rows past the length read 0
-    const long long at =
-        ok ? (cache_row<kPaged>(bt, page, b, S, t0 + r) * KV + h) * D + ce
-           : 0;
-    cp_async16(smem_addr(ks + r * LD + ce), k + at, ok);
-    cp_async16(smem_addr(vs + r * LD + ce), v + at, ok);
+    for (int r = cr; r < kSplit; r += kRowStep) {
+      const bool ok = r < n;                // rows past the length read 0
+      const long long at =
+          ok ? (cache_row<kPaged>(bt, page, b, S, t0 + r) * KV + h) * D + ce
+             : 0;
+      cp_async16(smem_addr(ks + r * LD + ce), kb + at, ok);
+      cp_async16(smem_addr(vs + r * LD + ce), vb + at, ok);
+    }
   }
   auto load_q = [&](int g0) {               // heads past G read as 0
 #pragma unroll
@@ -427,11 +536,13 @@ flash_decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
 // thread (row r, parity hp) dots cache row r with heads hp, hp + 2, ...;
 // a warp per head takes the split's max and sum; thread (column pair cp,
 // head lane hl) accumulates p . V for heads hl, hl + R, ... in registers.
-template <int D, bool kPaged>
+template <int D, bool kPaged, bool kQ8>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_decode_f32_kernel(const float* __restrict__ q,
-                        const float* __restrict__ k,
-                        const float* __restrict__ v,
+                        const void* __restrict__ k,
+                        const void* __restrict__ v,
+                        const __nv_bfloat16* __restrict__ k_scale,
+                        const __nv_bfloat16* __restrict__ v_scale,
                         const int* __restrict__ kv_len,
                         const int* __restrict__ block_tables,
                         float* __restrict__ out, float* __restrict__ part,
@@ -469,15 +580,23 @@ flash_decode_f32_kernel(const float* __restrict__ q,
   const int n = min(kSplit, len - t0);
   const int* bt = kPaged ? block_tables + static_cast<long long>(b) * nblk
                          : nullptr;
-  for (int c = tid; c < kSplit * kChunks; c += kThreads) {
-    const int r = c / kChunks;
-    const int e = c % kChunks * 4;
-    const bool ok = r < n;                  // rows past the length read 0
-    const long long at =
-        ok ? (cache_row<kPaged>(bt, page, b, S, t0 + r) * KV + h) * D + e
-           : 0;
-    cp_async16(smem_addr(ks + r * LD + e), k + at, ok);
-    cp_async16(smem_addr(vs + r * LD + e), v + at, ok);
+  if constexpr (kQ8) {
+    load_q8_rows<D, kPaged>(ks, vs, LD, static_cast<const signed char*>(k),
+                            k_scale, static_cast<const signed char*>(v),
+                            v_scale, bt, page, b, S, t0, n, KV, h);
+  } else {
+    const float* kf = static_cast<const float*>(k);
+    const float* vf = static_cast<const float*>(v);
+    for (int c = tid; c < kSplit * kChunks; c += kThreads) {
+      const int r = c / kChunks;
+      const int e = c % kChunks * 4;
+      const bool ok = r < n;                // rows past the length read 0
+      const long long at =
+          ok ? (cache_row<kPaged>(bt, page, b, S, t0 + r) * KV + h) * D + e
+             : 0;
+      cp_async16(smem_addr(ks + r * LD + e), kf + at, ok);
+      cp_async16(smem_addr(vs + r * LD + e), vf + at, ok);
+    }
   }
   cp_async_commit();
   const bool direct = nwork == 1;
@@ -593,6 +712,8 @@ struct SplitArgs {
   const void* q;
   const void* k;
   const void* v;
+  const void* k_scale;          // int8 pools only
+  const void* v_scale;
   const int* kv_len;
   const int* block_tables;      // paged only
   void* out;
@@ -616,35 +737,37 @@ int launch_split(Kernel kernel, size_t smem, const SplitArgs& a) {
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   kernel<<<dim3(a.nsplit, a.KV, a.B), kThreads, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), a.kv_len, a.block_tables,
+      static_cast<const T*>(a.q), a.k, a.v,
+      static_cast<const __nv_bfloat16*>(a.k_scale),
+      static_cast<const __nv_bfloat16*>(a.v_scale), a.kv_len, a.block_tables,
       static_cast<T*>(a.out), a.part, a.tickets, a.KV, a.G, a.S, a.page,
       a.nblk, a.nsplit, a.scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D, bool kPaged>
+template <int D, bool kPaged, bool kQ8>
 int run_split(const SplitArgs& a, bool bf16) {
   if (bf16) {
     constexpr size_t smem = sizeof(__nv_bfloat16) *
         ((2 * kSplit + kGroup) * (D + 8) + 2 * kGroup * (kSplit + 8)) +
         sizeof(float) * 2 * kWarps * kGroup;
-    return launch_split<__nv_bfloat16>(flash_decode_mma_kernel<D, kPaged>,
-                                        smem, a);
+    return launch_split<__nv_bfloat16>(
+        flash_decode_mma_kernel<D, kPaged, kQ8>, smem, a);
   }
   constexpr size_t smem = sizeof(float) *
       (2 * kSplit * (D + 4) + kGroup * D + kGroup * (kSplit + 4) +
        2 * kGroup);
-  return launch_split<float>(flash_decode_f32_kernel<D, kPaged>, smem, a);
+  return launch_split<float>(flash_decode_f32_kernel<D, kPaged, kQ8>, smem,
+                             a);
 }
 
-template <bool kPaged>
+template <bool kPaged, bool kQ8>
 int split_by_dim(const SplitArgs& a, int D, bool bf16) {
   switch (D) {
-    case 16: return run_split<16, kPaged>(a, bf16);
-    case 32: return run_split<32, kPaged>(a, bf16);
-    case 64: return run_split<64, kPaged>(a, bf16);
-    case 128: return run_split<128, kPaged>(a, bf16);
+    case 16: return run_split<16, kPaged, kQ8>(a, bf16);
+    case 32: return run_split<32, kPaged, kQ8>(a, bf16);
+    case 64: return run_split<64, kPaged, kQ8>(a, bf16);
+    case 128: return run_split<128, kPaged, kQ8>(a, bf16);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -666,10 +789,11 @@ extern "C" int flash_decode_launch(const void* q, const void* k,
                                    void* stream) {
   if (G < 1 || S < 0 || nsplit != splits(S))
     return static_cast<int>(cudaErrorInvalidValue);
-  const SplitArgs a{q, k, v, kv_len, nullptr, out, static_cast<float*>(part),
-                    static_cast<int*>(tickets), B, KV, G, S, 0, 0, nsplit,
-                    scale, static_cast<cudaStream_t>(stream)};
-  return split_by_dim<false>(a, D, is_bf16 != 0);
+  const SplitArgs a{q, k, v, nullptr, nullptr, kv_len, nullptr, out,
+                    static_cast<float*>(part), static_cast<int*>(tickets), B,
+                    KV, G, S, 0, 0, nsplit, scale,
+                    static_cast<cudaStream_t>(stream)};
+  return split_by_dim<false, false>(a, D, is_bf16 != 0);
 }
 
 // Page pools. q (B, KV, G, D) and k, v (P, page, KV, D), 16-byte aligned;
@@ -691,9 +815,31 @@ extern "C" int flash_decode_paged_launch(const void* q, const void* k,
   if (G < 1 || page < 1 || nblk < 0 || S > (1 << 30) ||
       block_tables == nullptr || nsplit != splits(static_cast<int>(S)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const SplitArgs a{q, k, v, kv_len, block_tables, out,
+  const SplitArgs a{q, k, v, nullptr, nullptr, kv_len, block_tables, out,
                     static_cast<float*>(part), static_cast<int*>(tickets), B,
                     KV, G, static_cast<int>(S), page, nblk, nsplit, scale,
                     static_cast<cudaStream_t>(stream)};
-  return split_by_dim<true>(a, D, is_bf16 != 0);
+  return split_by_dim<true, false>(a, D, is_bf16 != 0);
+}
+
+// int8 page pools: codes k, v (P, page, KV, D) int8, 16-byte aligned;
+// scales k_scale, v_scale (P, page, KV, 1) bf16; q and out (B, KV, G, D) in
+// one dtype, f32 or bf16 (is_bf16); the rest as for
+// flash_decode_paged_launch. Each entry is attended as bf16(code * scale).
+extern "C" int flash_decode_paged_q8_launch(
+    const void* q, const void* k, const void* k_scale, const void* v,
+    const void* v_scale, int is_bf16, const int* kv_len,
+    const int* block_tables, void* out, void* part, void* tickets, int B,
+    int KV, int G, int D, int page, int nblk, int nsplit, float scale,
+    void* stream) {
+  const long long S = static_cast<long long>(page) * nblk;
+  if (G < 1 || page < 1 || nblk < 0 || S > (1 << 30) ||
+      block_tables == nullptr || k_scale == nullptr || v_scale == nullptr ||
+      nsplit != splits(static_cast<int>(S)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const SplitArgs a{q, k, v, k_scale, v_scale, kv_len, block_tables, out,
+                    static_cast<float*>(part), static_cast<int*>(tickets), B,
+                    KV, G, static_cast<int>(S), page, nblk, nsplit, scale,
+                    static_cast<cudaStream_t>(stream)};
+  return split_by_dim<true, true>(a, D, is_bf16 != 0);
 }

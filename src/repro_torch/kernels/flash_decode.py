@@ -22,6 +22,14 @@ scratch that the wrapper allocates; the last CTA of each (request, KV
 head) merges them, in one launch. The grid follows the cache's S or the
 table's nblk * page; neither wrapper reads kv_len or the block tables on
 the host.
+``flash_decode_paged`` also reads int8 page pools, the reference's
+``QuantKV`` pages (``serving/kvcache.py``): pass each pool as a (codes,
+scales) pair, codes (P, page, KV, D) int8 and scales (P, page, KV, 1)
+bf16. Each entry is attended as ``dequantize_rows`` gives it, bf16 of the
+f32 product code * scale, with q in the compute dtype (bf16 on the tensor
+cores, f32 on FMA), and the kernel dequantizes the rows it reads into
+shared memory (the int8 instance, counted apart in
+``flash_decode_paged.int8_launches`` besides ``launches``).
 On CPU tensors they compute the plain versions, which follow the TPU
 kernel's arithmetic (f32 scores with 1/sqrt(D) rounded in f32, p kept in
 f32, f32 accumulation, output divided by max(l, 1e-30) and cast to q's
@@ -82,24 +90,58 @@ def flash_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _attend_plain(q, k, v, kv_len)
 
 
-def paged_gather(pool: torch.Tensor, block_tables: torch.Tensor
-                 ) -> torch.Tensor:
+def dequantize_rows(codes: torch.Tensor, scales: torch.Tensor
+                    ) -> torch.Tensor:
+    """int8 codes times their bf16 scales (broadcast over the last dim),
+    the product in f32 rounded to bf16: the reference's ``dequantize_kv``."""
+    return (codes.float() * scales.float()).to(torch.bfloat16)
+
+
+def paged_gather(pool, block_tables: torch.Tensor) -> torch.Tensor:
     """The contiguous view of each request's pages: pool (P, page, *tail),
-    block_tables (B, nblk) int -> (B, nblk * page, *tail), in table
-    order."""
+    or an int8 (codes, scales) pool, block_tables (B, nblk) int ->
+    (B, nblk * page, *tail), in table order, in the pool's dtype (an int8
+    pool dequantized to bf16, as the reference's ``paged_gather``)."""
+    if isinstance(pool, tuple):
+        codes, scales = pool
+        return dequantize_rows(paged_gather(codes, block_tables),
+                               paged_gather(scales, block_tables))
     B, nblk = block_tables.shape
     x = pool[block_tables.reshape(-1).long()]
     return x.reshape((B, nblk * pool.shape[1]) + tuple(pool.shape[2:]))
 
 
-def flash_decode_paged_plain(q: torch.Tensor, k_pool: torch.Tensor,
-                             v_pool: torch.Tensor,
+def flash_decode_paged_plain(q: torch.Tensor, k_pool, v_pool,
                              block_tables: torch.Tensor,
                              kv_len: torch.Tensor) -> torch.Tensor:
     """The plain version of ``flash_decode_paged``: gather each request's
-    pages, then the contiguous plain version."""
+    pages (dequantized, for int8 pools), then the contiguous plain
+    version."""
     return _attend_plain(q, paged_gather(k_pool, block_tables),
                          paged_gather(v_pool, block_tables), kv_len)
+
+
+def _check_q8(q, k, v) -> None:
+    """The int8 route: q (B, KV, G, D) f32 or bf16; k and v (codes,
+    scales) pairs of (P, page, KV, D) int8 and (P, page, KV, 1) bf16."""
+    if q.ndim != 4:
+        raise ValueError(f"q must be (B, KV, G, D), got {tuple(q.shape)}")
+    B, KV, G, D = q.shape
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"q must be one of {_DTYPES}, got {q.dtype}")
+    for name, pool in (("k_pool", k), ("v_pool", v)):
+        if not isinstance(pool, tuple) or len(pool) != 2:
+            raise TypeError(f"{name} must be a (codes, scales) pair")
+        codes, scales = pool
+        if codes.dtype != torch.int8 or scales.dtype != torch.bfloat16:
+            raise TypeError(f"{name} must be int8 codes and bf16 scales, got "
+                            f"{codes.dtype} / {scales.dtype}")
+        if (codes.ndim != 4 or codes.shape[2:] != (KV, D)
+                or codes.shape != k[0].shape
+                or scales.shape != codes.shape[:3] + (1,)):
+            raise ValueError(f"{name} must be (P, page, {KV}, {D}) codes and "
+                             f"(P, page, {KV}, 1) scales, got "
+                             f"{tuple(codes.shape)} / {tuple(scales.shape)}")
 
 
 def _check(q, k, v, what: str) -> None:
@@ -135,6 +177,8 @@ _ARGTYPES = {   # the C signatures of csrc/flash_decode.cu, stream last
     "flash_decode_launch": [_P] * 3 + [_I] + [_P] * 4 + [_I] * 6 + [_F, _P],
     "flash_decode_paged_launch": [_P] * 3 + [_I] + [_P] * 5 + [_I] * 7
                                  + [_F, _P],
+    "flash_decode_paged_q8_launch": [_P] * 5 + [_I] + [_P] * 5 + [_I] * 7
+                                    + [_F, _P],
 }
 
 
@@ -212,15 +256,19 @@ def flash_decode_blocks(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_decode_blocks.launches = 0    # kernel launches (CUDA tensors only)
 
 
-def flash_decode_paged(q: torch.Tensor, k_pool: torch.Tensor,
-                       v_pool: torch.Tensor, block_tables: torch.Tensor,
-                       kv_len) -> torch.Tensor:
-    """q: (B, KV, G, D); k_pool/v_pool: (P, page, KV, D) physical pages;
-    block_tables: (B, nblk) int32 (entry 0 = scratch page); kv_len a
-    scalar or (B,). Returns (B, KV, G, D) in q's dtype. CPU tensors take
+def flash_decode_paged(q: torch.Tensor, k_pool, v_pool,
+                       block_tables: torch.Tensor, kv_len) -> torch.Tensor:
+    """q: (B, KV, G, D); k_pool/v_pool: (P, page, KV, D) physical pages in
+    q's dtype, or int8 pools as (codes, scales) pairs; block_tables:
+    (B, nblk) int32 (entry 0 = scratch page); kv_len a scalar or (B,).
+    Returns (B, KV, G, D) in q's dtype. CPU tensors take
     ``flash_decode_paged_plain``; CUDA tensors launch the kernel or
     raise."""
-    _check(q, k_pool, v_pool, "k_pool/v_pool")
+    q8 = isinstance(k_pool, tuple)
+    if q8:
+        _check_q8(q, k_pool, v_pool)
+    else:
+        _check(q, k_pool, v_pool, "k_pool/v_pool")
     kv_len = decode_lengths(kv_len, q.shape[0], q.device)
     if (block_tables.ndim != 2 or block_tables.shape[0] != q.shape[0]
             or block_tables.dtype != torch.int32):
@@ -229,25 +277,35 @@ def flash_decode_paged(q: torch.Tensor, k_pool: torch.Tensor,
     if q.device.type == "cpu":
         return flash_decode_paged_plain(q, k_pool, v_pool, block_tables,
                                         kv_len)
-    _check_cuda("flash_decode_paged", (q, k_pool, v_pool, block_tables,
-                                       kv_len))
-    _check_aligned("flash_decode_paged", (q, k_pool, v_pool))
+    pools = (*k_pool, *v_pool) if q8 else (k_pool, v_pool)
+    _check_cuda("flash_decode_paged", (q, *pools, block_tables, kv_len))
+    _check_aligned("flash_decode_paged",
+                   (q, k_pool[0], v_pool[0]) if q8 else (q, k_pool, v_pool))
     B, KV, G, D = q.shape
-    page, nblk = k_pool.shape[1], block_tables.shape[1]
+    page = pools[0].shape[1]
+    nblk = block_tables.shape[1]
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
     nsplit, part = _partials(q, page * nblk)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    _check_launch("flash_decode_paged", _fn("flash_decode_paged_launch")(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        int(q.dtype == torch.bfloat16), kv_len.data_ptr(),
-        block_tables.data_ptr(), out.data_ptr(),
-        part.data_ptr() if part is not None else None,
-        _tickets(q.device, stream, B * KV).data_ptr(), B, KV, G, D, page,
-        nblk, nsplit, softmax_scale(D), stream))
+    common = (int(q.dtype == torch.bfloat16), kv_len.data_ptr(),
+              block_tables.data_ptr(), out.data_ptr(),
+              part.data_ptr() if part is not None else None,
+              _tickets(q.device, stream, B * KV).data_ptr(), B, KV, G, D,
+              page, nblk, nsplit, softmax_scale(D), stream)
+    if q8:
+        _check_launch("flash_decode_paged", _fn(
+            "flash_decode_paged_q8_launch")(
+                q.data_ptr(), k_pool[0].data_ptr(), k_pool[1].data_ptr(),
+                v_pool[0].data_ptr(), v_pool[1].data_ptr(), *common))
+        flash_decode_paged.int8_launches += 1
+    else:
+        _check_launch("flash_decode_paged", _fn("flash_decode_paged_launch")(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), *common))
     flash_decode_paged.launches += 1
     return out
 
 
 flash_decode_paged.launches = 0     # kernel launches (CUDA tensors only)
+flash_decode_paged.int8_launches = 0  # of them, the int8-pool instance

@@ -102,8 +102,9 @@ def serve_multi_tenant(cfg, params, packs, args) -> dict:
 
 
 def serve_continuous(cfg, params, packs, args) -> dict:
-    """The ``--continuous`` mode. Returns the numbers it prints and every
-    request's tokens."""
+    """The ``--continuous`` mode. Returns the numbers it prints, the
+    engine's ``health()`` and its store's retries, and every request's
+    future and tokens."""
     import tempfile
 
     from repro_torch.hub import AdapterStore, ServingEngine
@@ -136,7 +137,8 @@ def serve_continuous(cfg, params, packs, args) -> dict:
                 "idle_lane_steps": engine.decode_slot_waste,
                 "store_loads": store.loads,
                 "resident_bytes": store.resident_bytes(),
-                "outs": [f.result() for f in futs]}
+                "health": engine.health(), "store_retries": store.retries,
+                "futs": futs, "outs": [f.result() for f in futs]}
 
 
 def serve_switching(cfg, params, packs, args) -> dict:

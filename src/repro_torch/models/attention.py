@@ -13,6 +13,11 @@ attention kernels, where the reference's model never calls its Pallas ones:
                     or (B,) per-request lengths
   gqa_decode_paged  writes through the block table, then
                     ``flash_decode_paged`` on the pools, with no gather
+                    (int8 ``QuantKV`` pools too: the row is quantized as
+                    it is written, and the kernel's int8 instance
+                    dequantizes the rows it reads; with ``attn_repeat_kv``
+                    on the unrepeated pools, which gives each query head
+                    the KV head the repeat would)
   gqa_prefill_chunk a query offset, which no TPU kernel computes: the
                     reference gathers the pages and does jnp math, and so
                     does this port in plain torch
@@ -21,7 +26,7 @@ them to the compute dtype: equal in f32, a bf16 rounding apart in bf16.
 ``gqa_prefill_chunk`` keeps them in f32 as the kernels do, so the lane and
 paged engines prefill with the same numerics.
 Caches are written in place (the reference returns updated copies). MLA
-waits (ROADMAP A9); int8 (``QuantKV``) pages wait too.
+waits (ROADMAP A9).
 """
 from __future__ import annotations
 
@@ -265,13 +270,14 @@ def _paged_kv_mod():
 
 def gqa_decode_paged(params, cfg: ModelConfig, x, cache: KVCache,
                      block_tables, pos) -> Tuple[torch.Tensor, KVCache]:
-    """x: (B, 1, d); cache: page pools (P, page, KV, D); block_tables:
-    (B, nblk) int32; pos: (B,) per-request write index. Writes the new row
-    through the table in place, then ``flash_decode_paged`` reads the pools
-    through it, with no gather."""
-    if cfg.attn_repeat_kv:
-        raise NotImplementedError("paged decode with attn_repeat_kv is not "
-                                  "ported (ROADMAP A6)")
+    """x: (B, 1, d); cache: page pools (P, page, KV, D), or int8
+    ``QuantKV`` pools; block_tables: (B, nblk) int32; pos: (B,)
+    per-request write index. Writes the new row through the table in place
+    (quantized, into int8 pools), then ``flash_decode_paged`` reads the
+    pools through it, with no gather. q goes to the kernel in the pools'
+    dtype, or for int8 pools in the compute dtype. With ``attn_repeat_kv``
+    the kernel reads the unrepeated pools: query head i of group i // G
+    meets KV head i // G, the head the repeat gives it."""
     KVC = _paged_kv_mod()
     B = x.shape[0]
     pos = torch.as_tensor(pos, device=x.device)
@@ -281,9 +287,11 @@ def gqa_decode_paged(params, cfg: ModelConfig, x, cache: KVCache,
     KVC.paged_write(cache.k, k, block_tables, positions, valid)
     KVC.paged_write(cache.v, v, block_tables, positions, valid)
     H, D = q.shape[2], q.shape[3]
-    KV = cache.k.shape[2]
+    quant = isinstance(cache.k, KVC.QuantKV)
+    KV = (cache.k.codes if quant else cache.k).shape[2]
+    qd = compute_dtype() if quant else cache.k.dtype
     out = flash_decode_paged(
-        q.to(cache.k.dtype).reshape(B, KV, H // KV, D), cache.k, cache.v,
+        q.to(qd).reshape(B, KV, H // KV, D), cache.k, cache.v,
         block_tables.to(torch.int32).contiguous(), pos + 1)
     return dense(out.reshape(B, 1, -1), params["wo"]), cache
 
@@ -296,8 +304,9 @@ def gqa_prefill_chunk(params, cfg: ModelConfig, x, cache: KVCache,
     (their K/V land in the scratch page, their outputs are garbage the
     caller discards). ``kv_len`` is the total valid length including this
     chunk. The query offset is plain torch, as in the reference: gather the
-    pages, then ``_attend_block`` with the probabilities kept in f32, as
-    ``flash_prefill`` keeps them for the lane engine."""
+    pages (dequantized, from int8 pools), then ``_attend_block`` with the
+    probabilities kept in f32, as ``flash_prefill`` keeps them for the
+    lane engine."""
     KVC = _paged_kv_mod()
     B, C, _ = x.shape
     positions = start + torch.arange(C, device=x.device)   # (C,)

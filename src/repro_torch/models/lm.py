@@ -19,7 +19,9 @@ Entry points:
   prefill_chunk(params, cfg, tokens, caches, block_tables, start, valid)
                                                   -> (last_logits, caches)
   init_cache(cfg, batch, cache_size, device)      -> caches (zeros)
-  init_paged_cache(cfg, num_pages, page_size, device) -> page pools (zeros)
+  init_paged_cache(cfg, num_pages, page_size, device, quant)
+                                                  -> page pools (zeros; int8
+                                                     QuantKV with quant)
   cache_batch_axes(cfg)                           -> batch axis per leaf
 """
 from __future__ import annotations
@@ -206,7 +208,7 @@ def decode_step(params, cfg: ModelConfig, tokens, caches, pos,
     for sp, cache, (_, n) in zip(params["stages"], caches, stage_plan(cfg)):
         for i in range(n):
             h, _ = B.dense_block_decode(layer_slice(sp, i), cfg, h,
-                                        KVCache(cache.k[i], cache.v[i]), pos,
+                                        _layer_cache(cache, i), pos,
                                         block_tables=block_tables)
     h = rms_norm(h, params["final_norm"]["scale"], cfg.norm_eps)
     return _logits(params, cfg, h[:, 0]), caches
@@ -224,10 +226,18 @@ def prefill_chunk(params, cfg: ModelConfig, tokens, caches, block_tables,
     for sp, cache, (_, n) in zip(params["stages"], caches, stage_plan(cfg)):
         for i in range(n):
             h, _ = B.dense_block_prefill_chunk(
-                layer_slice(sp, i), cfg, h, KVCache(cache.k[i], cache.v[i]),
+                layer_slice(sp, i), cfg, h, _layer_cache(cache, i),
                 block_tables, start, kv_len)
     h = rms_norm(h, params["final_norm"]["scale"], cfg.norm_eps)
     return _logits(params, cfg, h[:, valid - 1]), caches
+
+
+def _layer_cache(cache: KVCache, i: int) -> KVCache:
+    """Layer ``i`` of a stacked cache: each tensor's i-th entry (an int8
+    pool, a ``QuantKV`` of stacked codes and scales, gives both)."""
+    pick = lambda x: type(x)(*(t[i] for t in x)) if isinstance(
+        x, tuple) else x[i]
+    return KVCache(pick(cache.k), pick(cache.v))
 
 
 def _kv_zeros(cfg: ModelConfig, rows: Tuple[int, int], device):
@@ -253,8 +263,18 @@ def cache_batch_axes(cfg: ModelConfig):
 
 
 def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
-                     device="cuda"):
+                     device="cuda", quant: bool = False):
     """One page pool per stage, stacked over layers: (L, num_pages,
-    page_size, KV, D) zeros in the compute dtype. One (B, nblk) block
-    table drives the whole stack."""
-    return _kv_zeros(cfg, (num_pages, page_size), device)
+    page_size, KV, D) zeros in the compute dtype, or with ``quant`` int8
+    ``QuantKV`` pools (codes (L, num_pages, page_size, KV, D) and bf16
+    scales (L, num_pages, page_size, KV, 1)). One (B, nblk) block table
+    drives the whole stack."""
+    if not quant:
+        return _kv_zeros(cfg, (num_pages, page_size), device)
+    # deferred: repro_torch.serving imports the models
+    from repro_torch.serving.kvcache import quant_cache_zeros
+    hd = cfg.resolved_head_dim
+    shape = (num_pages, page_size, padded_heads(cfg)[1], hd)
+    return [KVCache(*(quant_cache_zeros((n,) + shape, device)
+                      for _ in range(2)))
+            for _, n in stage_plan(cfg)]

@@ -1,10 +1,21 @@
-"""KV-cache memory: the paged page-pool layout.
+"""KV-cache memory: int8 quantization and the paged page-pool layout.
 
-Port of the paged part of ``repro/serving/kvcache.py``. Serving does not
-give every request a contiguous ``cache_size`` stripe: one global page pool
-per layer stack, (num_pages, page_size, heads, d) tensors, is shared by all
-requests, and each request owns a *block table* mapping its logical KV
-blocks to physical pages:
+Port of ``repro/serving/kvcache.py``. Two layers:
+
+**Quantization** (``QuantKV``): per-(token, head) absmax int8 codes and
+bf16 scales, 130 bytes a row and head of 128 where bf16 takes 256, so the
+same memory holds 1.97x the tokens. ``quantize_kv`` divides by the f32
+scale, rounds half to even and clips to +-127 before the scale is stored
+as bf16; ``dequantize_kv`` multiplies in f32 and rounds the product to
+bf16. Codes and scales are bit for bit the reference's. A ``QuantKV`` is a
+contiguous cache (``quant_cache_zeros``, ``update_quant_cache``) or the
+element type of int8 pages.
+
+**Paged layout**: serving does not give every request a contiguous
+``cache_size`` stripe. One global page pool per layer stack,
+(num_pages, page_size, heads, d) tensors (a ``QuantKV`` for int8 pages),
+is shared by all requests, and each request owns a *block table* mapping
+its logical KV blocks to physical pages:
 
   token position t  ->  page  block_table[t // page_size]
                         row   t %  page_size
@@ -13,11 +24,11 @@ Device-side primitives (torch, in place where the reference returns
 copies):
 
   paged_gather(pool, block_tables)       -> contiguous (B, S_max, ...) copy
-                                            (``kernels.flash_decode``'s,
-                                            the paged kernel's plain
-                                            version gathers with it)
+                                            (int8 pools dequantized to bf16)
   paged_write(pool, new, block_tables, positions, valid)  -> scatter rows
-  copy_page(pool, src, dst)              -> clone one physical page (COW)
+                                            (int8 pools quantize them)
+  copy_page(pool, src, dst)              -> clone one physical page (COW),
+                                            codes and scales alike
 
 Host-side policy (``PagePool``): page refcounts, the free list, and a
 refcounted prefix registry for copy-on-write prefix sharing, salted by
@@ -26,25 +37,88 @@ stack). Shared pages are immutable: a writer holding a page with refcount
 > 1 copies it into a fresh page first. Registry entries are evicted LRU
 when the free list runs dry. Page 0 is a pinned scratch page: padded or
 invalid writes land there and null block-table entries point at it.
-
-int8 pages (``QuantKV``) wait (ROADMAP A6).
 """
 from __future__ import annotations
 
 import hashlib
 from collections import OrderedDict
-from typing import List, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.kernels.flash_decode import paged_gather  # noqa: F401
+from repro_torch.kernels.flash_decode import (dequantize_rows,  # noqa: F401
+                                              paged_gather)
 
+
+class QuantKV(NamedTuple):
+    codes: torch.Tensor   # int8, the shape of the bf16 tensor
+    scales: torch.Tensor  # bf16, shape[:-1] + (1,): one per (..., token, head)
+
+
+def quantize_kv(x: torch.Tensor) -> QuantKV:
+    """x: (..., D) -> int8 codes and a per-row absmax scale."""
+    xf = x.float()
+    amax = xf.abs().amax(-1, keepdim=True)
+    scale = torch.clamp(amax, min=1e-8) / 127.0
+    codes = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+    return QuantKV(codes, scale.to(torch.bfloat16))
+
+
+def dequantize_kv(q: QuantKV) -> torch.Tensor:
+    return dequantize_rows(q.codes, q.scales)
+
+
+def quant_cache_zeros(shape: Tuple[int, ...], device="cuda") -> QuantKV:
+    return QuantKV(torch.zeros(shape, dtype=torch.int8, device=device),
+                   torch.zeros(tuple(shape[:-1]) + (1,), dtype=torch.bfloat16,
+                               device=device))
+
+
+def update_quant_cache(cache: QuantKV, new: torch.Tensor, pos,
+                       seq_axis: int = 1) -> QuantKV:
+    """Write ``new`` (one new token's rows) at sequence position ``pos`` of
+    the cache's ``seq_axis``, in place; returns the cache."""
+    qn = quantize_kv(new)
+    nd = cache.codes.ndim
+    if not -nd <= seq_axis < nd:
+        raise ValueError(f"seq_axis {seq_axis} out of range for cache rank "
+                         f"{nd}")
+    seq_axis %= nd
+    p = int(pos)
+    for dst, src in zip(cache, qn):
+        dst.narrow(seq_axis, p, src.shape[seq_axis]).copy_(src)
+    return cache
+
+
+def cache_bytes(shape: Tuple[int, ...], quant: bool) -> int:
+    n = int(np.prod(shape, dtype=np.int64))
+    rows = n // shape[-1]
+    return n + rows * 2 if quant else n * 2
+
+
+def leaves(tree) -> List[torch.Tensor]:
+    """The tensors of a cache tree: a tensor, a ``QuantKV``, a ``KVCache``
+    or a list of them, in order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    return [t for x in tree for t in leaves(x)]
+
+
+# ---------------------------------------------------------------------------
+# Paged device primitives. A "pool" is a tensor (P, page, *tail) or a
+# QuantKV whose codes have that shape; block tables are (B, nblk) int32
+# physical page ids (0 = the scratch page).
+# ---------------------------------------------------------------------------
 
 def pool_zeros(num_pages: int, page_size: int, tail: Tuple[int, ...],
-               dtype, device="cuda") -> torch.Tensor:
-    return torch.zeros((num_pages, page_size) + tuple(tail), dtype=dtype,
-                       device=device)
+               dtype, device="cuda", quant: bool = False):
+    """A zero pool (num_pages, page_size, *tail) of ``dtype``, or with
+    ``quant`` an int8 ``QuantKV`` pool of that shape."""
+    shape = (num_pages, page_size) + tuple(tail)
+    if quant:
+        return quant_cache_zeros(shape, device)
+    return torch.zeros(shape, dtype=dtype, device=device)
 
 
 def _write_coords(block_tables: torch.Tensor, positions: torch.Tensor,
@@ -59,29 +133,32 @@ def _write_coords(block_tables: torch.Tensor, positions: torch.Tensor,
     return pages, rows
 
 
-def paged_write(pool: torch.Tensor, new: torch.Tensor,
-                block_tables: torch.Tensor, positions: torch.Tensor,
-                valid: torch.Tensor) -> torch.Tensor:
-    """Scatter token rows into their pages, in place. new: (B, C, *tail);
-    positions: (B, C) absolute token indices; valid: (B, C) bool, False
-    rows land in the scratch page (padding, idle lanes). Returns pool."""
+def paged_write(pool, new: torch.Tensor, block_tables: torch.Tensor,
+                positions: torch.Tensor, valid: torch.Tensor):
+    """Scatter token rows into their pages, in place (a ``QuantKV`` pool
+    takes them quantized). new: (B, C, *tail); positions: (B, C) absolute
+    token indices; valid: (B, C) bool, False rows land in the scratch page
+    (padding, idle lanes). Returns pool."""
     B, C = positions.shape
-    pages, rows = _write_coords(block_tables, positions, valid, pool.shape[1])
-    pool[pages.reshape(-1), rows.reshape(-1)] = new.to(pool.dtype).reshape(
-        (B * C,) + tuple(new.shape[2:]))
+    quant = isinstance(pool, QuantKV)
+    pages, rows = _write_coords(block_tables, positions, valid,
+                                (pool.codes if quant else pool).shape[1])
+    pg, rw = pages.reshape(-1), rows.reshape(-1)
+    if quant:
+        for dst, src in zip(pool, quantize_kv(new)):
+            dst[pg, rw] = src.reshape((B * C,) + tuple(src.shape[2:]))
+        return pool
+    pool[pg, rw] = new.to(pool.dtype).reshape((B * C,) + tuple(new.shape[2:]))
     return pool
 
 
 def copy_page(pool, src: int, dst: int, page_axis: int = 0):
     """Clone physical page ``src`` into ``dst`` (the device half of COW), in
-    place, on one pool or a list/tuple of pools. ``page_axis`` is the
-    physical-page axis of every pool (the serving caches carry a leading
-    layer-stack dim, so theirs is 1)."""
-    if isinstance(pool, (list, tuple)):
-        for p in pool:
-            copy_page(p, src, dst, page_axis)
-        return pool
-    pool.select(page_axis, dst).copy_(pool.select(page_axis, src))
+    place, on one pool, a ``QuantKV`` (codes and scales), or a list/tuple of
+    them. ``page_axis`` is the physical-page axis of every tensor (the
+    serving caches carry a leading layer-stack dim, so theirs is 1)."""
+    for t in leaves(pool):
+        t.select(page_axis, dst).copy_(t.select(page_axis, src))
     return pool
 
 

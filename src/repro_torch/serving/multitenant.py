@@ -30,10 +30,16 @@ the padded slots hold no entries. Background builds
 worker thread, on a side CUDA stream, while serving goes on off the old
 tables for tenants they still cover (``ids_covered``); a deferred
 ``FusedLRU`` decision (``schedule(defer=True)``) is applied when its
-tables are adopted; a build that raised is counted in ``async_failed``
-and raises where it is polled. Spans: ``table_rebuild`` (serving thread),
-``prefetch.h2d`` (the build worker), ``prefetch.stall``, ``fuse`` and
-``unfuse``. Fault injection waits (ROADMAP A8).
+tables are adopted. Every build first passes ``faults.on_table_build``
+(an injected out-of-memory, ``TableBuildError``), before it frees or
+touches a table: a failed synchronous build raises ``TableBuildError``
+with the old tables standing (the hub engines back off and retry next
+step), and a failed background build is counted in ``async_backoffs``
+and left for the next kick or a synchronous rebuild, as the reference
+leaves its ``prefetch.h2d_failed``. A background build that raised
+anything else is counted in ``async_failed`` and raises where it is
+polled. Spans: ``table_rebuild`` (serving thread), ``prefetch.h2d`` (the
+build worker), ``prefetch.stall``, ``fuse`` and ``unfuse``.
 """
 from __future__ import annotations
 
@@ -55,6 +61,8 @@ from repro_torch.core.switching import (FusedLRU, SwitchEngine, Tenant,
 from repro_torch.kernels.ops import sidedelta_table
 from repro_torch.models import lm
 from repro_torch.models.layers import sidedelta_weight
+from repro_torch.runtime import faults
+from repro_torch.runtime.faults import TableBuildError
 
 BASE = None            # the "no adapter" tenant in a names list
 _BASE_SLOT = "__base__"
@@ -156,6 +164,7 @@ class MultiTenantEngine:
         self.async_adopted = 0               # adopted (saved a sync rebuild)
         self.async_stale = 0                 # discarded (state moved on)
         self.async_failed = 0                # raised (and re-raised here)
+        self.async_backoffs = 0              # TableBuildError: retried
 
     # ------------------------------------------------------------------
     # Streams: background uploads and builds run on a side stream
@@ -372,7 +381,9 @@ class MultiTenantEngine:
 
     def _rebuild(self) -> None:
         """Synchronous table rebuild on the serving thread: the fallback
-        when no background build matches the current state."""
+        when no background build matches the current state. An injected
+        build failure raises before the old tables are freed."""
+        faults.on_table_build()
         self._tables = {}                    # free the old tables first
         self._join_side()
         with trace.span("table_rebuild", cat="tables") as sp:
@@ -421,6 +432,7 @@ class MultiTenantEngine:
                 max_workers=1, thread_name_prefix="shira-tables")
 
         def job():
+            faults.on_table_build()
             with trace.span("prefetch.h2d", cat="tables") as sp, \
                     self._on_side():
                 side = self._side_packs(packs, stacks, fused)
@@ -450,9 +462,12 @@ class MultiTenantEngine:
         applies its fuse/unfuse scatter (on the serving stream, after the
         decode steps queued before it) as its tables are adopted. Never
         blocks. Returns True when the tables are clean after the poll. A
-        build that raised (out of device memory, say) is counted in
-        ``async_failed`` and its error raised here: a failure on the card
-        never turns into a quiet synchronous rebuild."""
+        ``TableBuildError`` (an injected out-of-memory) is counted in
+        ``async_backoffs`` (``fault.build_backoff``) and leaves the tables
+        as they are, for the next kick or a synchronous rebuild to retry.
+        Any other error is counted in ``async_failed`` and raised here: a
+        failure on the card never turns into a quiet synchronous
+        rebuild."""
         if self._build_fut is None:
             return not self._dirty
         ep, fut, trans = self._build_fut
@@ -461,6 +476,10 @@ class MultiTenantEngine:
         self._build_fut = None
         try:
             slots, tables = fut.result()
+        except TableBuildError:
+            self.async_backoffs += 1
+            trace.instant("fault.build_backoff", cat="tables")
+            return not self._dirty
         except Exception:
             self.async_failed += 1
             trace.instant("prefetch.h2d_failed", cat="tables")

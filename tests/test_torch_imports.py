@@ -55,6 +55,7 @@ def test_port_imports_with_jax_blocked():
         "import repro_torch.runtime.faults, repro_torch.kernels.flash_decode\n"
         "import repro_torch.kernels.flash_prefill, repro_torch.kernels.ref\n"
         "import repro_torch.kernels.masked_update, repro_torch.core.masks\n"
+        "import repro_torch.runtime.ft, repro_torch.serving.loadgen\n"
         "assert not any(k == 'jax' or k.startswith(('jax.', 'repro.'))\n"
         "               for k in sys.modules if sys.modules[k] is not None)\n"
     )

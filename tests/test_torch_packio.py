@@ -219,15 +219,22 @@ def test_store_memory_only(tmp_path):
 
 
 def test_store_unported_tiers_raise(tmp_path):
-    """Quarantine and the retry ladder wait (A8); publish, prefetch and
-    the staging tier are ported (tests/test_torch_prefetch.py and
-    tests/test_torch_personalization.py hold them to the JAX store)."""
+    """Every tier of the store is ported now: quarantine fails a pack fast
+    until it is cleared (the retry ladder is held to the JAX store in
+    tests/test_torch_faults.py); publish, prefetch and the staging tier
+    (tests/test_torch_prefetch.py and tests/test_torch_personalization.py
+    hold them to the JAX store)."""
+    from repro_torch.runtime.faults import AdapterUnavailable
     store = AdapterStore(str(tmp_path), staging_bytes=1 << 20)
-    with pytest.raises(NotImplementedError, match="A8"):
-        store.quarantine("a0")
+    store.quarantine("a0")
+    assert store.quarantined() == ["a0"]
+    assert store.clear_quarantine("a0") and store.quarantined() == []
     assert store.resolve("a0") == "a0"
     _, tp = _packs(_synth(name="a0"), name="a0")
     assert store.publish(tp) == "a0@1" and store.resolve("a0") == "a0@1"
     assert store.prefetch("a0", dequantize=True).result().name == "a0@1"
     assert store.staged_names() == ["a0@1"]
+    store.quarantine("a0")                     # the newest version
+    with pytest.raises(AdapterUnavailable, match="quarantined"):
+        store.get("a0@1")
     store.shutdown()
