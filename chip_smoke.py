@@ -80,7 +80,31 @@ prints its seconds on a "[time]" line:
                survivors, a degrade to name@v-1, crash recovery after a
                SimulatedPreemption (both engines), and int8 pages' first
                tokens equal their fault-free or unquantized runs
-  17. summary   one JSON line of kernel numbers, the card line, and last
+  17. train (kinds)  full width, through repro_torch.launch.train at the
+               train phase's shapes: --adapter lora, dora, shira-dora (32
+               layers) and none (full finetuning, cut to the deepest stack
+               that fits, its arithmetic printed): step ms, tokens/s, peak
+               memory, first and last loss, launches (sparse_adamw_blocks
+               on every kind, scatter_apply on shira-dora), %C of the
+               effective weights layer by layer (shira-dora < 0.05, lora
+               above 5x the packed SHiRA run's)
+  18. switch (LoRA vs SHiRA)  full width, 32 layers, six target leaves:
+               LoraEngine fuse and unfuse at rank 64 beside SwitchEngine
+               load and unload of a 138.9M-entry pack, median of 5 each,
+               the fuse's bound, the base restored within 1e-5, and the
+               fuse's peak (no stacked delta)
+  19. train (checkpoint, preemption)  full width, packed shira-wm: a clean
+               6-step fit and one preempted at step 3 (one restore, from
+               step 2; last loss within 1e-6; steps [4, 6] committed), a
+               fresh Trainer resuming at 6, the state's device-to-host
+               copy, save and restore (seconds, bytes), and the trainers'
+               publish snapshots read back from the checkpoint
+  20. kinds-consistency  full width, 2 layers, f32: lora, dora and
+               shira-dora losses on the card track the CPU Trainer to 5e-3;
+               hook mode with weight decay 0.01: the decayed weights within
+               1e-6 of the largest weight of the CPU run's, the masked
+               ones as train-consistency holds trained values
+  21. summary   one JSON line of kernel numbers, the card line, and last
                {"ok": true, "device": {...}}
 
 Every engine run with no fault injected (phases 7, 8, 13, 14, the
@@ -162,6 +186,17 @@ ROUND_TRIP_TOL = 1e-6          # a loaded pack vs the trained weights, of
                                # the largest weight: base + (W - base)
 KV_INT8_MAX = 0.52             # int8 KV bytes of bf16's: (128 + 2) / 256
 PEAK_GB_MAX = 72               # slo-chaos: device memory allocated, GB
+FACTOR_KINDS = ("lora", "dora", "shira-dora")
+NONE_BYTES = 20                # full finetuning, a parameter: f32 base,
+                               # trainable copy, two moments and gradient
+NONE_HEADROOM = 8e9            # activations, logits, per-matrix AdamW
+                               # outputs, the allocator's slack
+SWITCH_RANK, SWITCH_RUNS = 64, 5   # LoRA fuse vs SHiRA switch
+CKPT_STEPS, CKPT_PREEMPT = 6, 3    # checkpoint phase: ckpt_every 2, keep 2
+RESUME_TOL = 1e-6              # a resumed run's last loss against a clean
+                               # run's: the JAX package's own (test_ft.py)
+WD_TOL = 1e-6                  # hook mode with weight decay, card vs CPU:
+                               # decayed weights, of the largest weight
 
 
 def fail(msg: str) -> None:
@@ -2639,6 +2674,9 @@ def train_phase(torch):
     publish_check(torch, "Trainer", lambda store: [
         tr.publish(store, state, "adapter")], [tr.export_pack(state,
                                                              "adapter")])
+    c_shira = percent_changed(torch, tr, state)
+    print(f"[train] Trainer (packed SHiRA) %C of the effective weights, "
+          f"layer by layer: {c_shira:.6f}", flush=True)
     del stats, tr, state
     torch.cuda.empty_cache()
 
@@ -2702,7 +2740,19 @@ def train_phase(torch):
           flush=True)
     if sidedelta_dvals.unaligned_launches:
         fail("train: a dvals launch took the one-token instance")
-    return totals
+    return totals, c_shira
+
+
+def percent_changed(torch, tr, state) -> float:
+    """%C of a Trainer's effective weights against its base (the paper's
+    Tab. 2 column), through the lazy bundles layer by layer: no effective
+    leaf is built whole."""
+    from repro_torch import core
+    eff = core.materialize(tr.base, state["trainable"], tr.aux, tr.acfg,
+                           alpha=1.0)
+    c = core.changed_fraction(tr.base, eff)
+    torch.cuda.synchronize()
+    return c
 
 
 def publish_check(torch, label, publish, trained):
@@ -3095,6 +3145,433 @@ def hook_consistency_phase(torch):
             del t, state, pack, trained, copy
 
 
+def none_depth(torch, cfg):
+    """The deepest stack of ``cfg`` that full finetuning fits on the card:
+    NONE_BYTES a parameter, NONE_HEADROOM besides. Returns (layers, the
+    arithmetic as text)."""
+    from repro_torch.core.masks import iter_leaves
+    from repro_torch.models import lm
+    one = lm.init_params(cfg.replace(num_layers=1), seed=0, device="cuda")
+    per_layer = sum(x.numel() for _, x in iter_leaves(one["stages"]))
+    rest = sum(x.numel() for _, x in iter_leaves(one)) - per_layer
+    del one
+    torch.cuda.empty_cache()
+    # the card's memory less what earlier phases still hold
+    total = torch.cuda.mem_get_info()[1] - torch.cuda.memory_allocated()
+    layers = int((total - rest * NONE_BYTES - NONE_HEADROOM)
+                 // (per_layer * NONE_BYTES))
+    whole = (rest + cfg.num_layers * per_layer) * NONE_BYTES
+    text = (f"{NONE_BYTES} B a parameter (f32 base, trainable copy, mu, nu, "
+            f"gradient): {cfg.num_layers} layers need {whole / 1e9:.1f} GB; "
+            f"({total / 1e9:.1f} GB free - {rest} embedding, unembedding "
+            f"and norm parameters x {NONE_BYTES} B = "
+            f"{rest * NONE_BYTES / 1e9:.2f} GB - {NONE_HEADROOM / 1e9:.0f} GB"
+            f" headroom) / ({per_layer} a layer x {NONE_BYTES} B = "
+            f"{per_layer * NONE_BYTES / 1e9:.3f} GB) = {layers} layers")
+    return layers, text
+
+
+def train_kinds_phase(torch, c_shira):
+    """The adapter kinds beyond SHiRA through launch.train at full width
+    and the train phase's shapes: lora, dora and shira-dora at 32 layers,
+    then none (full finetuning) cut to the deepest stack that fits. Per
+    kind: step ms, tokens/s, peak memory, first and last loss, launches
+    (sparse_adamw_blocks on every kind, scatter_apply on shira-dora), and
+    the %C of the effective weights, layer by layer: shira-dora < 0.05,
+    lora above 5x the packed SHiRA run's (the reference's
+    test_percent_changed_shira_vs_lora, the paper's Tab. 2)."""
+    import math
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    totals, cs = {}, {}
+    common = ["--arch", "starcoder2-7b", "--seq", str(TRAIN_SEQ), "--batch",
+              str(TRAIN_BATCH), "--steps", str(TRAIN_STEPS)]
+    layers, arithmetic = none_depth(torch, get_config("starcoder2-7b"))
+    print(f"[train-kinds] none (full finetuning): {arithmetic}", flush=True)
+    for kind in FACTOR_KINDS + ("none",):
+        zero_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        cut = ["--layers", str(layers)] if kind == "none" else []
+        stats = train.main(common + ["--adapter", kind] + cut, keep=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        tr, state = stats.pop("trainer"), stats.pop("state")
+        losses = stats["losses"]
+        cs[kind] = (percent_changed(torch, tr, state) if kind != "none"
+                    else None)
+        depth = layers if kind == "none" else tr.cfg.num_layers
+        print(f"[train-kinds] {kind} (launch.train, {depth} layers, "
+              f"{TRAIN_BATCH}x{TRAIN_SEQ} tokens, {stats['trained_values']}"
+              f" trained values, adapter built in "
+              f"{stats['mask_seconds']:.2f}s): launches "
+              f"{ {k: v for k, v in counts.items() if v} }, step "
+              f"{stats['steady_step_ms']:.1f} ms (median after the first; "
+              f"all {[round(x, 1) for x in stats['step_ms']]}), "
+              f"{stats['tokens_per_s']:.0f} tokens/s, loss {losses[0]:.4f} "
+              f"-> {losses[-1]:.4f}, peak memory {peak:.1f} GB"
+              + (f", %C {cs[kind]:.6f}" if cs[kind] is not None else "")
+              + f", {wall:.1f}s wall", flush=True)
+        if not all(math.isfinite(x) for x in losses):
+            fail(f"train-kinds {kind}: a loss is not finite")
+        check_run(f"train-kinds {kind}", counts, ("sparse_adamw_blocks",)
+                  + (("scatter_apply",) if kind == "shira-dora" else ()),
+                  totals)
+        del stats, tr, state
+        torch.cuda.empty_cache()
+    print(f"[train-kinds] %C: packed SHiRA {c_shira:.6f}, shira-dora "
+          f"{cs['shira-dora']:.6f} (< 0.05), lora {cs['lora']:.6f} (> 5x "
+          f"SHiRA's {5 * c_shira:.6f}), dora {cs['dora']:.6f}", flush=True)
+    if not cs["shira-dora"] < 0.05:
+        fail(f"train-kinds: shira-dora %C {cs['shira-dora']} is not sparse")
+    if not cs["lora"] > 5 * c_shira:
+        fail(f"train-kinds: lora %C {cs['lora']} not above 5x SHiRA's "
+             f"{c_shira}")
+    return totals
+
+
+def switch_lora_phase(torch):
+    """The paper's headline contrast (Fig. 5) at full width, 32 layers,
+    the six target leaves: LoraEngine.fuse and unfuse at rank
+    SWITCH_RANK (factors from seed 0) beside SwitchEngine load and unload
+    of a 138.9M-entry rand pack (sparsity 0.98, as the serve phase's), in
+    one run: the median of SWITCH_RUNS of each by the CUDA-synchronized
+    host clock, the fuse's bound from its bytes (W read and written once,
+    A and B read) and f32 FLOPs, W within RESTORE_TOL of the largest base
+    weight after every unfuse and unload, and the fuse's peak over what
+    was allocated before it, which a stacked delta would raise by
+    gigabytes."""
+    import math
+    import statistics
+    from repro_torch import core
+    from repro_torch.configs import AdapterConfig, get_config
+    from repro_torch.core.masks import is_target, iter_leaves, map_leaves
+    from repro_torch.models import lm
+    cfg = get_config("starcoder2-7b")
+    acfg = AdapterConfig(kind="shira", mask="rand", sparsity=0.98)
+    base = lm.init_params(cfg, seed=0, device="cuda")
+    targets = {p: w for p, w in iter_leaves(base)
+               if is_target(p, w, acfg.target_modules)}
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    lora, nbytes, flops = {}, 0, 0
+    for p, w in targets.items():
+        L, n, m = w.shape
+        lora[p] = {
+            "A": torch.randn((L, n, SWITCH_RANK), generator=gen,
+                             device="cuda") / math.sqrt(n),
+            "B": torch.randn((L, SWITCH_RANK, m), generator=gen,
+                             device="cuda") * 0.01}
+        nbytes += 2 * w.numel() * 4 + sum(t.numel() * 4
+                                          for t in lora[p].values())
+        flops += 2 * L * n * SWITCH_RANK * m
+    _, aux = core.init_adapter(gen, base, acfg)
+    pack = core.pack_from_shira("shira", map_leaves(
+        lambda _, i: torch.randn(i.shape, generator=gen, device="cuda")
+        * 0.01, aux["indices"]), aux)
+    del aux
+    keep = {p: w.clone() for p, w in targets.items()}
+    top = max(float(w.abs().max()) for w in keep.values())
+    scale = AdapterConfig().lora_alpha / SWITCH_RANK
+    lo, sw = core.LoraEngine(base), core.SwitchEngine(base)
+    ms = {k: [] for k in ("fuse", "unfuse", "load", "unload")}
+    diffs, extra = [], 0
+    layer_delta = max(w[0].numel() * 4 for w in targets.values())
+    totals = {}
+    zero_counts()
+    for _ in range(SWITCH_RUNS):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ms["fuse"].append(lo.fuse(lora, scale) * 1e3)
+        extra = max(extra, torch.cuda.max_memory_allocated() - before)
+        ms["unfuse"].append(lo.unfuse() * 1e3)
+        diffs.append(max(float((w - keep[p]).abs().max())
+                         for p, w in targets.items()))
+        ms["load"].append(sw.load(pack).seconds * 1e3)
+        ms["unload"].append(sw.unload().seconds * 1e3)
+        diffs.append(max(float((w - keep[p]).abs().max())
+                         for p, w in targets.items()))
+    counts = read_counts()
+    med = {k: statistics.median(v) for k, v in ms.items()}
+    b = bound(nbytes, flops)
+    print(f"[switch] LoRA rank {SWITCH_RANK} fuse over {len(targets)} leaves"
+          f" x {cfg.num_layers} layers ({sum(w.numel() for w in keep.values())}"
+          f" weights) beside the SHiRA switch ({pack.num_params()} entries),"
+          f" median of {SWITCH_RUNS} (CUDA-synchronized host clock): fuse "
+          f"{med['fuse']:.3f} ms, unfuse {med['unfuse']:.3f} ms; SHiRA load "
+          f"{med['load']:.3f} ms, unload {med['unload']:.3f} ms; all "
+          f"{ {k: [round(x, 3) for x in v] for k, v in ms.items()} }",
+          flush=True)
+    print(f"[switch] the fuse's bound: {nbytes / 1e9:.2f} GB and "
+          f"{flops / 1e9:.1f} GFLOP f32 -> {b['bound_ms']:.3f} ms "
+          f"({b['bound_by']}; bytes {nbytes / HBM_BYTES_PER_S * 1e3:.3f} ms, "
+          f"f32 {flops / F32_FLOP_PER_S * 1e3:.3f} ms), fuse at "
+          f"{b['bound_ms'] / med['fuse']:.1%} of it; fuse / SHiRA load "
+          f"{med['fuse'] / med['load']:.2f}x; the fuse's peak over what was "
+          f"allocated before it {extra / 1e6:.1f} MB (one layer's f32 delta "
+          f"would be {layer_delta / 1e6:.1f} MB, a stacked one "
+          f"{max(w.numel() * 4 for w in keep.values()) / 1e9:.2f} GB); W "
+          f"after each unfuse and unload within {max(diffs):.3g} of the base"
+          f" (tol {RESTORE_TOL} of {top:.3g}); launches "
+          f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+    if not max(diffs) <= RESTORE_TOL * top:
+        fail("switch: unfuse or unload does not restore the base")
+    if extra >= layer_delta:
+        fail(f"switch: the LoRA fuse allocated {extra} bytes")
+    check_run("switch", counts, ("scatter_apply",), totals)
+    return totals
+
+
+def checkpoint_phase(torch):
+    """Checkpoints and preemption recovery at full width: packed shira-wm
+    (sparsity 0.98) through Trainer with ckpt_every 2, keep 2, in a temp
+    directory. A clean CKPT_STEPS-step fit; a fit whose injector raises
+    SimulatedPreemption once at step CKPT_PREEMPT, which must restore once,
+    from step 2, end within RESUME_TOL of the clean run's last loss and
+    leave steps [4, 6] committed; a fresh Trainer on the same directory
+    (its own wm mask, which must equal the first's) resumes at 6 and takes
+    2 steps to 8. Then the state's device-to-host copy, save and restore
+    (seconds, bytes; restored bit for bit), Trainer.publish's snapshot into
+    the step read back equal, and MultiAdapterTrainer.publish(ckpt=) at 2
+    layers."""
+    import os
+    import tempfile
+    from repro_torch.checkpoint import CheckpointManager, flatten
+    from repro_torch.configs import (AdapterConfig, RunConfig, ShapeSpec,
+                                     TrainConfig, get_config)
+    from repro_torch.core.masks import iter_leaves
+    from repro_torch.hub import AdapterStore
+    from repro_torch.models import lm
+    from repro_torch.runtime import SimulatedPreemption, Trainer, TrainerConfig
+    from repro_torch.training import MultiAdapterTrainer
+    cfg = get_config("starcoder2-7b")
+    run = RunConfig(model=cfg, shape=ShapeSpec("ck", TRAIN_SEQ, TRAIN_BATCH,
+                                               "train"),
+                    adapter=AdapterConfig(kind="shira", mask="wm",
+                                          sparsity=0.98),
+                    train=TrainConfig(learning_rate=3e-4, total_steps=8,
+                                      warmup_steps=1))
+    base = lm.init_params(cfg, seed=0, device="cuda")
+    totals = {}
+    zero_counts()
+    with tempfile.TemporaryDirectory(prefix="ckpt-") as root:
+        tcfg = lambda sub: TrainerConfig(ckpt_dir=os.path.join(root, sub),
+                                         ckpt_every=2, keep=2,
+                                         log_every=1000)
+        first = Trainer(run, tcfg("clean"), base_params=base)
+        clean = first.fit(CKPT_STEPS, log=None)["history"]
+        hits, logs = [], []
+
+        def injector(s):
+            if s == CKPT_PREEMPT and not hits:
+                hits.append(s)
+                raise SimulatedPreemption()
+        tr = Trainer(run, tcfg("run"), base_params=base, aux=first.aux)
+        resumed = tr.fit(CKPT_STEPS, fault_injector=injector,
+                         log=logs.append)["history"]
+        restores = [m for m in logs if "preempted" in m]
+        d = abs(clean[-1]["loss"] - resumed[-1]["loss"])
+        print(f"[checkpoint] full width, packed shira-wm, {TRAIN_BATCH}x"
+              f"{TRAIN_SEQ} tokens: clean losses "
+              f"{[h['loss'] for h in clean]}; preempted at step "
+              f"{CKPT_PREEMPT}: {restores}, losses "
+              f"{[h['loss'] for h in resumed]}; last loss diff {d:.3g} "
+              f"(tol {RESUME_TOL}; bit-equal: {d == 0}); committed "
+              f"{tr.ckpt.steps()}", flush=True)
+        if restores != ["[trainer] preempted: restored step 2"]:
+            fail(f"checkpoint: expected one restore from step 2, {restores}")
+        if not d <= RESUME_TOL:
+            fail("checkpoint: the resumed run departs from the clean run")
+        if tr.ckpt.steps() != [4, 6]:
+            fail(f"checkpoint: committed steps {tr.ckpt.steps()}")
+        del first, clean
+        logs = []
+        again = Trainer(run, tcfg("run"), base_params=base)
+        same = all(torch.equal(a, b) for (_, a), (_, b) in zip(
+            iter_leaves(again.aux), iter_leaves(tr.aux)))
+        out = again.fit(8, log=logs.append)
+        print(f"[checkpoint] a fresh Trainer on the same directory: wm mask "
+              f"rebuilt in {again.mask_seconds:.2f}s, equal to the first's: "
+              f"{same}; {logs[:1]}, {len(out['history'])} steps to step "
+              f"{out['state']['step']}, straggler monitor EWMA "
+              f"{again.monitor.ewma[0] * 1e3:.1f} ms", flush=True)
+        if (not same or logs[:1] != ["[trainer] resumed from step 6"]
+                or len(out["history"]) != 2):
+            fail("checkpoint: the fresh Trainer did not resume at step 6")
+        state = out["state"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        host = flatten({"state": state})
+        d2h = time.perf_counter() - t0
+        nbytes = sum(a.nbytes for a in host.values())
+        del host
+        mgr = CheckpointManager(os.path.join(root, "timed"), keep=1)
+        t0 = time.perf_counter()
+        mgr.save(8, {"state": state}, meta={"arch": cfg.name})
+        save_s = time.perf_counter() - t0
+        size = os.path.getsize(os.path.join(mgr._step_dir(8), "state.npz"))
+        t0 = time.perf_counter()
+        back = mgr.restore({"state": state})["state"]
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        equal = back["step"] == state["step"] and all(
+            torch.equal(a, b) for (_, a), (_, b) in zip(
+                iter_leaves(back), iter_leaves(state))
+            if isinstance(a, torch.Tensor))
+        print(f"[checkpoint] the state (trainable, mu, nu: {nbytes} bytes): "
+              f"device to host {d2h:.2f}s, save (copy, .npz write, commit) "
+              f"{save_s:.2f}s, {size} bytes on disk; restore to the card "
+              f"{restore_s:.2f}s, bit-equal: {equal}", flush=True)
+        if not equal:
+            fail("checkpoint: the restored state differs")
+        del back
+        store = AdapterStore(os.path.join(root, "store"))
+        vid = again.publish(store, state, "ckpt")
+        snap = again.ckpt.restore_adapter(vid, step=state["step"])
+        want = again.export_pack(state, "ckpt")
+        ok = again.ckpt.adapters(state["step"]) == [vid] and all(
+            torch.equal(snap.entries[p][0], i.cpu())
+            and torch.equal(snap.entries[p][1], v.cpu())
+            for p, (i, v) in want.entries.items())
+        print(f"[checkpoint] Trainer.publish: {vid} snapshotted into step "
+              f"{state['step']}, read back equal: {ok}", flush=True)
+        if not ok:
+            fail("checkpoint: Trainer.publish's snapshot differs")
+        check_run("checkpoint", read_counts(),
+                  ("scatter_apply", "sparse_adamw_blocks"), totals)
+        del again, tr, out, state, want, snap, base
+        torch.cuda.empty_cache()
+        mrun = RunConfig(model=cfg.replace(num_layers=2), shape=ShapeSpec(
+            "mt", 64, 2, "train"), adapter=AdapterConfig(
+                kind="shira", mask="rand", sparsity=0.98),
+            train=TrainConfig(total_steps=2, warmup_steps=1))
+        mt = MultiAdapterTrainer(mrun, ["m0", "m1"])
+        mstate = mt.fit(1, log=None)["state"]
+        mgr = CheckpointManager(os.path.join(root, "multi"))
+        vids = mt.publish(AdapterStore(os.path.join(root, "mstore")),
+                          mstate, ckpt=mgr)
+        ok = mgr.adapters(1) == vids and all(
+            torch.equal(mgr.restore_adapter(vid, step=1).entries[p][1],
+                        v.cpu())
+            for vid, pack in zip(vids, mt.export_packs(mstate))
+            for p, (_, v) in pack.entries.items())
+        print(f"[checkpoint] MultiAdapterTrainer.publish(ckpt=), 2 layers: "
+              f"{vids} snapshotted into step 1, read back equal: {ok}",
+              flush=True)
+        if not ok:
+            fail("checkpoint: MultiAdapterTrainer.publish's snapshot differs")
+    return totals
+
+
+def kinds_consistency_phase(torch):
+    """The kinds with the kernels in the loop against the same Trainer on
+    the CPU, where the wrappers compute their plain versions: full width,
+    2 layers, f32, one 16-token sequence a step (the CPU side's size: a
+    few seconds a step). lora, dora and shira-dora: 3 steps of losses to
+    TRAIN_TOL, on the card's factors and mask. Hook mode (shira-wm) with
+    weight_decay 0.01, 2 steps: the weights that only decay (every leaf
+    off the mask) within WD_TOL of the largest weight of the CPU run's;
+    the masked weights, which also move by -lr * U, as train-consistency
+    holds trained values: to rtol = atol = TRAIN_TOL where the first
+    step's gradient is not within GRAD_TOL of zero on the CPU, and, where
+    it is (the two summation orders may disagree on its sign, and Adam's
+    normalised step turns either into a full lr move), counted and held
+    to the largest move that can make, 2 * lr * steps."""
+    from repro_torch.configs import (AdapterConfig, RunConfig, ShapeSpec,
+                                     TrainConfig, get_config)
+    from repro_torch.core.masks import iter_leaves, map_leaves
+    from repro_torch.data import batch_iterator
+    from repro_torch.models import layers, lm
+    from repro_torch.runtime import Trainer
+    from repro_torch.runtime.trainer import dense_grads, device_batch
+    cfg = get_config("starcoder2-7b").replace(num_layers=2)
+    shape = ShapeSpec("c", 16, 1, "train")
+    cpu = lambda t: map_leaves(lambda _, x: x.cpu(), t)
+    with layers.compute_precision(torch.float32):
+        base = lm.init_params(cfg, seed=0, device="cuda")
+        base_cpu = cpu(base)
+        for kind in FACTOR_KINDS:
+            run = RunConfig(model=cfg, shape=shape, adapter=AdapterConfig(
+                kind=kind, mask="wm", sparsity=0.98, rank=16),
+                train=TrainConfig(learning_rate=1e-3, total_steps=3,
+                                  warmup_steps=1))
+            zero_counts()
+            tg = Trainer(run, base_params=base)
+            tc = Trainer(run, base_params=base_cpu, device="cpu",
+                         trainable0=cpu(tg.trainable0),
+                         aux=None if tg.aux is None else cpu(tg.aux))
+            t0 = time.perf_counter()
+            lg = [h["loss"] for h in tg.fit(3, log=None)["history"]]
+            t1 = time.perf_counter()
+            lc = [h["loss"] for h in tc.fit(3, log=None)["history"]]
+            t2 = time.perf_counter()
+            counts = read_counts()
+            d = max(abs(a - b) for a, b in zip(lg, lc))
+            print(f"[kinds-consistency] {kind}, f32, 2 layers, full width: "
+                  f"card losses {lg}, CPU {lc}, max diff {d:.3g} (tol "
+                  f"rtol=atol={TRAIN_TOL}); card {t1 - t0:.1f}s, CPU "
+                  f"{t2 - t1:.1f}s; launches "
+                  f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+            if not d <= TRAIN_TOL * (1 + abs(lc[0])):
+                fail(f"kinds-consistency: {kind} departs from the CPU run")
+            if counts["sparse_adamw_blocks"] <= 0 or (
+                    kind == "shira-dora" and counts["scatter_apply"] <= 0):
+                fail(f"kinds-consistency: {kind} launched no kernel")
+            del tg, tc
+        lr, steps = 1e-2, 2
+        run = RunConfig(model=cfg, shape=shape, adapter=AdapterConfig(
+            kind="shira", mask="wm", sparsity=0.98, packed=False),
+            train=TrainConfig(learning_rate=lr, weight_decay=0.01,
+                              total_steps=steps, warmup_steps=1))
+        zero_counts()
+        tg = Trainer(run, base_params=base)
+        tc = Trainer(run, base_params=base_cpu, device="cpu")
+        g1 = dense_grads(base_cpu, cfg, device_batch(next(batch_iterator(
+            cfg, shape, seed=0)), "cpu"), run.adapter.target_modules)[2]
+        t0 = time.perf_counter()
+        wg = dict(iter_leaves(tg.fit(steps, log=None)["state"]["trainable"]))
+        t1 = time.perf_counter()
+        wc = dict(iter_leaves(tc.fit(steps, log=None)["state"]["trainable"]))
+        t2 = time.perf_counter()
+        counts = read_counts()
+        top = max(float(x.abs().max()) for x in wc.values())
+        masks, b0 = dict(iter_leaves(tc.masks)), dict(iter_leaves(base_cpu))
+        decay_d, held_d, free_d, free_n, ok = 0.0, 0.0, 0.0, 0, True
+        for p, x in wc.items():
+            dd = (wg[p].cpu() - x).abs()
+            on = masks.get(p, torch.zeros(x.shape, dtype=torch.bool))
+            decay_d = max(decay_d, float(dd[~on].max()) if (~on).any()
+                          else 0.0)
+            moved = (x != b0[p]) | (x == 0)     # zero biases stay zero
+            ok &= bool(moved.float().mean() > 0.9)
+            if not on.any():
+                continue
+            g = (g1[p] * on).abs()
+            free = on & (g <= GRAD_TOL * float(g.max()))
+            held = on & ~free
+            held_d = max(held_d, float(dd[held].max()))
+            ok &= bool((dd[held] <= TRAIN_TOL * (1 + x[held].abs())).all())
+            if free.any():
+                free_d = max(free_d, float(dd[free].max()))
+                free_n += int(free.sum())
+        print(f"[kinds-consistency] hook mode (shira-wm) with weight decay "
+              f"0.01, lr {lr}, {steps} steps, f32, 2 layers: weights off "
+              f"the mask (decay only) max diff {decay_d:.3g} (tol {WD_TOL} "
+              f"of {top:.3g}); masked weights max diff {held_d:.3g} (tol "
+              f"rtol=atol={TRAIN_TOL}), {free_n} of them with |g| <= "
+              f"{GRAD_TOL} of the largest, max diff {free_d:.3g} (tol "
+              f"{2 * lr * steps}); every leaf decayed: {ok}; card "
+              f"{t1 - t0:.1f}s, CPU {t2 - t1:.1f}s; launches "
+              f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+        if not (decay_d <= WD_TOL * top and free_d <= 2 * lr * steps
+                and ok and counts["masked_update"] > 0):
+            fail("kinds-consistency: hook mode with weight decay departs "
+                 "from the CPU run")
+
+
 def materialize_dense(torch, base, state, t):
     """{path: base + scatter(values)} of a packed trainer's target leaves,
     by the plain scatter."""
@@ -3150,7 +3627,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     timed("continuous-consistency", continuous_consistency_phase, torch)
     torch.cuda.empty_cache()
-    for k, v in timed("train", train_phase, torch).items():
+    totals, c_shira = timed("train", train_phase, torch)
+    for k, v in totals.items():
         launches[k] = launches.get(k, 0) + v
     torch.cuda.empty_cache()
     timed("train-consistency", train_consistency_phase, torch)
@@ -3170,6 +3648,15 @@ def main() -> None:
         launches[k] = launches.get(k, 0) + v
     torch.cuda.empty_cache()
     timed("faults-consistency", faults_consistency_phase, torch)
+    torch.cuda.empty_cache()
+    for label, phase, args in (
+            ("train (kinds)", train_kinds_phase, (torch, c_shira)),
+            ("switch (LoRA vs SHiRA)", switch_lora_phase, (torch,)),
+            ("train (checkpoint, preemption)", checkpoint_phase, (torch,))):
+        for k, v in timed(label, phase, *args).items():
+            launches[k] = launches.get(k, 0) + v
+        torch.cuda.empty_cache()
+    timed("kinds-consistency", kinds_consistency_phase, torch)
 
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     main_side = side[0]     # w_up, S=1, f32 tables: the multi-tenant decode

@@ -3,7 +3,9 @@
 ``jax.random`` draws cannot be reproduced in torch, so a comparison of the
 two packages runs both on the same numbers: the JAX tree or pack is turned
 into numpy arrays (``jax.tree.map(np.asarray, tree)``) and handed to these
-functions. Nothing here imports JAX.
+functions: a base, a LoRA / DoRA factor tree (``params_from_numpy``, for
+``runtime.Trainer(trainable0=...)``), SHiRA indices, a pack, a hook-mode
+state. Nothing here imports JAX.
 """
 from __future__ import annotations
 
@@ -19,7 +21,11 @@ from repro_torch.core.masks import iter_leaves, map_leaves
 def params_from_numpy(tree, device="cuda"):
     """A nested dict/list/tuple of numpy arrays -> the same structure of
     torch tensors on ``device`` (f32 stays f32, int32 stays int32), None
-    kept. The stacked (L, ...) layer leaves keep their leading dim."""
+    kept. The stacked (L, ...) layer leaves keep their leading dim. Any
+    trainable tree crosses so too: the JAX package's LoRA, DoRA and
+    SHiRA-DoRA factors ({"A", "B"[, "m"]} a target leaf, None elsewhere)
+    are what ``Trainer(trainable0=...)`` takes, since their ``A`` draws
+    (seeded by Python's per-process ``hash``) cannot be made again."""
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):

@@ -76,7 +76,7 @@ class ModelConfig:
 class AdapterConfig:
     """The paper's contribution, as a first-class config."""
 
-    kind: str = "none"             # none | shira (lora/dora wait)
+    kind: str = "none"             # none | shira | lora | dora | shira-dora
     mask: str = "wm"               # rand (others wait: lax.top_k tie order)
     sparsity: float = 0.99         # fraction of *zeros* in the mask
     rank: int = 32

@@ -1,13 +1,22 @@
-"""SHiRA adapters: init, the packed adapter (``AdapterPack``), the rapid
-switch that applies one to a deployed base, ``materialize``, the effective
-weights of packed training, and ``pack_from_delta``, the export of
-hook-mode training.
+"""Adapters: SHiRA (the paper), LoRA, DoRA and SHiRA-masked DoRA. Init,
+the packed adapter (``AdapterPack``), the rapid switch that applies one to
+a deployed base, ``materialize``, the effective weights of training, and
+``pack_from_delta``, the export of hook-mode training.
 
-Port of the SHiRA paths of ``repro/core/adapters.py``, every mask
-strategy. LoRA, DoRA and SHiRA-masked DoRA wait (ROADMAP A2).
+Port of ``repro/core/adapters.py``, every kind and mask strategy. All
+kinds share one contract:
+
+  trainable, aux = init_adapter(gen, base_params, acfg, calib_grads=None)
+  params_eff     = materialize(base_params, trainable, aux, acfg, alpha)
+
+``materialize`` is lazy: each target leaf becomes a bundle that
+``models.layers.pdot`` turns into one layer's effective matrix where the
+layer uses it (``materialize_leaf``), inside the layer's checkpoint.
 """
 from __future__ import annotations
 
+import math
+import zlib
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
@@ -18,22 +27,83 @@ from repro_torch.core import masks as M
 from repro_torch.kernels.ops import scatter_apply
 
 SHIRA_KEY = "shira.base"
+FACTOR_KEY = "factor.base"
+FACTOR_KINDS = ("lora", "dora", "shira-dora")
+
+
+def _leaf_generator(gen: torch.Generator, path: str, device
+                    ) -> torch.Generator:
+    """A generator for one leaf's LoRA draw, seeded from ``gen``'s seed
+    and the crc32 of the leaf's path: the same draws in every process
+    (the reference folds in Python's ``hash`` of the path, which is
+    salted per process)."""
+    sub = torch.Generator(device=device)
+    sub.manual_seed((gen.initial_seed() * 1_000_003
+                     + zlib.crc32(path.encode())) % (2 ** 63))
+    return sub
+
+
+def _lora_init(gen: torch.Generator, w: torch.Tensor, rank: int) -> dict:
+    *lead, n, m = w.shape
+    a = torch.randn(tuple(lead) + (n, rank), generator=gen,
+                    dtype=torch.float32, device=w.device) * (1.0 / math.sqrt(n))
+    b = torch.zeros(tuple(lead) + (rank, m), dtype=torch.float32,
+                    device=w.device)
+    return {"A": a, "B": b}
+
+
+def _col_norm(w: torch.Tensor) -> torch.Tensor:
+    """The column norm of DoRA's magnitude, over axis -2, with 1e-12 inside
+    the square root."""
+    return torch.sqrt(torch.sum(torch.square(w.float()), dim=-2,
+                                keepdim=True) + 1e-12)
 
 
 def init_adapter(gen: Optional[torch.Generator], params,
                  acfg: AdapterConfig, calib_grads=None):
-    """(trainable, aux) for a SHiRA adapter: zero values (..., K) at every
-    target leaf and {"indices": packed indices}; None elsewhere. ``gen``
-    draws ``rand`` masks; ``calib_grads`` (a tree aligned with ``params``)
-    scores ``grad`` and ``snip`` masks."""
-    if acfg.kind != "shira":
-        raise NotImplementedError(
-            f"adapter kind {acfg.kind!r} is not ported (ROADMAP A2)")
-    idx = M.make_packed_indices(params, acfg, gen, calib_grads)
-    values = M.map_leaves(
-        lambda _, i: torch.zeros(i.shape, dtype=torch.float32,
-                                 device=i.device), idx)
-    return values, {"indices": idx}
+    """(trainable, aux) of an adapter of ``acfg.kind``:
+
+      none        (None, None)
+      shira       zero values (..., K) at every target leaf and {"indices":
+                  packed indices}; None elsewhere
+      lora, dora  {"A" (..., n, r), "B" (..., r, m)} at every target leaf
+                  (A normal over sqrt(n), B zero), DoRA also "m" (..., 1, m),
+                  the base's column norm; aux None
+      shira-dora  DoRA's factors and SHiRA's {"indices"}
+
+    ``gen`` draws ``rand`` masks and seeds each leaf's A
+    (``_leaf_generator``); ``calib_grads`` (a tree aligned with
+    ``params``) scores ``grad`` and ``snip`` masks."""
+    kind = acfg.kind
+    if kind == "none":
+        return None, None
+    if kind == "shira":
+        idx = M.make_packed_indices(params, acfg, gen, calib_grads)
+        values = M.map_leaves(
+            lambda _, i: torch.zeros(i.shape, dtype=torch.float32,
+                                     device=i.device), idx)
+        return values, {"indices": idx}
+    if kind in FACTOR_KINDS:
+        if gen is None:
+            raise ValueError(f"kind={kind!r} draws its factors from a "
+                             "torch.Generator")
+
+        def per_leaf(path, w):
+            t = _lora_init(_leaf_generator(gen, path, w.device), w,
+                           acfg.rank)
+            if kind != "lora":      # one layer at a time: no stacked square
+                *lead, n, m = w.shape
+                t["m"] = torch.stack([_col_norm(x) for x in w.reshape(
+                    -1, n, m)]).reshape(tuple(lead) + (1, m))
+            return t
+
+        trainable = M.map_targets(per_leaf, params, acfg.target_modules)
+        aux = None
+        if kind == "shira-dora":
+            aux = {"indices": M.make_packed_indices(params, acfg, gen,
+                                                    calib_grads)}
+        return trainable, aux
+    raise ValueError(f"unknown adapter kind {kind!r}")
 
 
 def merge_rows(idx: torch.Tensor, vals: torch.Tensor
@@ -234,7 +304,7 @@ def apply_pack(params, pack: AdapterPack, alpha: Optional[float] = None,
 
 
 # ---------------------------------------------------------------------------
-# materialize: W_eff = W + alpha * scatter(values), for packed training
+# materialize: the effective weights of training, one layer at a time
 # ---------------------------------------------------------------------------
 
 class _Materialize(torch.autograd.Function):
@@ -266,34 +336,108 @@ def shira_weight(base: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor,
             "shira.alpha": float(alpha)}
 
 
+def factor_weight(base: torch.Tensor, t: dict, kind: str, scale: float,
+                  alpha: float, idx: Optional[torch.Tensor] = None) -> dict:
+    """A weight leaf as a lazy LoRA / DoRA / SHiRA-DoRA bundle over its
+    factors ``t`` ({"A", "B"[, "m"]}) and, for SHiRA-DoRA, its packed
+    indices; sliced per layer as ``shira_weight`` is."""
+    w = {FACTOR_KEY: base, "factor.kind": kind, "factor.A": t["A"],
+         "factor.B": t["B"], "factor.scale": float(scale),
+         "factor.alpha": float(alpha)}
+    if "m" in t:
+        w["factor.m"] = t["m"]
+    if idx is not None:
+        w["factor.idx"] = idx
+    return w
+
+
+def is_bundle(w) -> bool:
+    return isinstance(w, dict) and (SHIRA_KEY in w or FACTOR_KEY in w)
+
+
+def _lora_delta(a: torch.Tensor, b: torch.Tensor, scale: float
+                ) -> torch.Tensor:
+    return scale * torch.matmul(a.float(), b.float())
+
+
+def _dora_weight(w: torch.Tensor, bundle: dict) -> torch.Tensor:
+    v = w.float() + _lora_delta(bundle["factor.A"], bundle["factor.B"],
+                                bundle["factor.scale"])
+    return bundle["factor.m"] * v / _col_norm(v)
+
+
 def materialize_leaf(w: dict) -> torch.Tensor:
-    """The effective (n, m) matrix of one layer's SHiRA bundle, f32,
-    differentiable in the values."""
-    return _Materialize.apply(w[SHIRA_KEY], w["shira.idx"], w["shira.vals"],
-                              w["shira.alpha"])
+    """The effective (n, m) matrix of one layer's bundle, differentiable
+    in the trainable tensors, with the reference's numerics: f32 LoRA
+    delta ``scale * A @ B``; DoRA ``m * v / ||v||``; the blend
+    W + a * (Wd - W); SHiRA-DoRA's DoRA delta gathered at the mask and
+    added back by the ``scatter_apply`` kernel (``_Materialize``, whose
+    backward gathers, so the gradient reaches A, B and m through the
+    gather)."""
+    if SHIRA_KEY in w:
+        return _Materialize.apply(w[SHIRA_KEY], w["shira.idx"],
+                                  w["shira.vals"], w["shira.alpha"])
+    base, kind, a = w[FACTOR_KEY], w["factor.kind"], w["factor.alpha"]
+    if kind == "lora":
+        delta = _lora_delta(w["factor.A"], w["factor.B"], w["factor.scale"])
+        return (base.float() + a * delta).to(base.dtype)
+    if kind == "dora":
+        w32 = base.float()
+        return (w32 + a * (_dora_weight(base, w) - w32)).to(base.dtype)
+    delta = _dora_weight(base, w) - base.float()
+    dv = M.gather_packed(delta, w["factor.idx"])    # only the masked 1%
+    return _Materialize.apply(base, w["factor.idx"], dv, a)
+
+
+def bundle_layers(w: dict):
+    """The effective (n, m) matrices of a bundle over a (..., n, m) leaf,
+    one layer at a time (``materialize_leaf`` of each layer's slice), with
+    no gradient: for counting and comparing, never a whole effective
+    leaf at once."""
+    base = w[SHIRA_KEY if SHIRA_KEY in w else FACTOR_KEY]
+    lead = base.ndim - 2
+    nl = base[..., 0, 0].numel()
+    flat = {k: v.reshape((nl,) + tuple(v.shape[lead:]))
+            if isinstance(v, torch.Tensor) else v for k, v in w.items()}
+    with torch.no_grad():
+        for i in range(nl):
+            yield materialize_leaf({k: v[i] if isinstance(v, torch.Tensor)
+                                    else v for k, v in flat.items()})
 
 
 def materialize(params, trainable, aux, acfg: AdapterConfig,
                 alpha: Optional[float] = None):
-    """The effective parameter tree for forward passes: W + alpha * S at
-    every target leaf (alpha defaults to ``acfg.alpha``).
+    """The effective parameter tree for forward passes (alpha defaults to
+    ``acfg.alpha``): W + alpha * S (SHiRA), W + alpha * scale * A @ B
+    (LoRA, scale = lora_alpha / rank), the DoRA blend, or its SHiRA-masked
+    form; the base itself for ``none``.
 
     Unlike the reference, which builds the whole effective tree, the
-    target leaves become lazy ``shira_weight`` bundles: each matrix is
-    materialized where a layer uses it, so inside ``lm.train_loss``'s
-    checkpointed layers only one layer's effective weights are alive. At
-    starcoder2-7b's full width the six adapted leaves hold 6.94 B entries;
-    an effective copy of them all, and its dense gradient, would not fit
-    beside the base on one 80 GB card."""
-    if acfg.kind != "shira":
-        raise NotImplementedError(
-            f"materialize is ported for SHiRA, not kind={acfg.kind!r} "
-            "(ROADMAP A2)")
-    if trainable is None:
+    target leaves become lazy bundles (``shira_weight``,
+    ``factor_weight``): each matrix is materialized where a layer uses it,
+    so inside ``lm.train_loss``'s checkpointed layers only one layer's
+    effective weights are alive. At starcoder2-7b's full width the six
+    adapted leaves hold 6.94 B entries; an effective copy of them all, and
+    its dense gradient, would not fit beside the base on one 80 GB card."""
+    if acfg.kind == "none" or trainable is None:
         return params
     a = acfg.alpha if alpha is None else alpha
-    vals = dict(M.iter_leaves(trainable))
-    idx = dict(M.iter_leaves(aux["indices"]))
+    if acfg.kind == "shira":
+        vals = dict(M.iter_leaves(trainable))
+        idx = dict(M.iter_leaves(aux["indices"]))
+        return M.map_leaves(
+            lambda p, w: shira_weight(w, idx[p], vals[p], a)
+            if p in idx else w, params)
+    if acfg.kind not in FACTOR_KINDS:
+        raise ValueError(acfg.kind)
+    scale = acfg.lora_alpha / max(acfg.rank, 1)
+    factors: Dict[str, dict] = {}
+    for p, t in M.iter_leaves(trainable):
+        leaf, _, name = p.rpartition("/")
+        factors.setdefault(leaf, {})[name] = t
+    idx = (dict(M.iter_leaves(aux["indices"])) if acfg.kind == "shira-dora"
+           else {})
     return M.map_leaves(
-        lambda p, w: shira_weight(w, idx[p], vals[p], a) if p in idx else w,
+        lambda p, w: factor_weight(w, factors[p], acfg.kind, scale, a,
+                                   idx.get(p)) if p in factors else w,
         params)

@@ -32,7 +32,7 @@ writes them (e.g. "stages/0/mlp/w_up").
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterator, Optional, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -73,6 +73,17 @@ def leaf_name(path: str) -> str:
 def is_target(path: str, leaf, target_modules: Tuple[str, ...]) -> bool:
     return (isinstance(leaf, torch.Tensor) and leaf.ndim >= 2
             and leaf_name(path) in target_modules)
+
+
+def map_targets(fn: Callable, params, target_modules: Tuple[str, ...]):
+    """The tree with ``fn(path, leaf)`` at target leaves, None elsewhere."""
+    return map_leaves(lambda p, x: fn(p, x)
+                      if is_target(p, x, target_modules) else None, params)
+
+
+def target_paths(params, target_modules) -> List[str]:
+    return sorted(p for p, x in iter_leaves(params)
+                  if is_target(p, x, target_modules))
 
 
 def budget(n: int, m: int, sparsity: float) -> int:

@@ -7,8 +7,9 @@ helpers of ``repro/core/switching.py``, with its versioned ids
 (``switch.load``/``switch.unload`` spans, ``sched.promote``/``sched.demote``
 instants). Loading a SHiRA pack writes only the pack's 1-2% of entries
 through the ``scatter_apply`` kernel, in place; unloading subtracts them
-back. ``LoraEngine`` waits (ROADMAP A2). ``changed_fraction`` is the %C
-of the paper's Table 2.
+back. ``LoraEngine`` is the LoRA fuse / unfuse the paper compares it with
+(App. A), in place one layer at a time. ``changed_fraction`` is the %C of
+the paper's Table 2.
 """
 from __future__ import annotations
 
@@ -19,7 +20,8 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 import torch
 
 from repro_torch.analysis import trace
-from repro_torch.core.adapters import AdapterPack, apply_pack, map_entries
+from repro_torch.core.adapters import (AdapterPack, apply_pack, bundle_layers,
+                                       is_bundle, map_entries)
 from repro_torch.core.masks import iter_leaves
 
 # A tenant names the base model (None), one adapter ("a0"), or an adapter
@@ -153,6 +155,49 @@ class SwitchEngine:
                 for p, w in zip(packs, weights)]
 
 
+class LoraEngine:
+    """The fuse/unfuse pipeline the paper compares against (App. A):
+    W += scale * A @ B at every target, dense in every entry.
+
+    Unlike the reference, which builds each fused leaf anew from one
+    einsum over the stacked leaf (a (32, 4608, 18432) f32 delta is
+    10.9 GB), this updates the tree IN PLACE, one (n, m) matrix at a time:
+    one f32 GEMM whose epilogue adds into W (``addmm_``; the port's weights
+    are f32), so no delta is allocated. The tree's structure, tuples and lists included, is the
+    caller's own. Unfusing adds -scale * A @ B back, which restores the
+    base to within f32 rounding."""
+
+    def __init__(self, params):
+        self.params = params
+        self.active = None
+
+    def fuse(self, lora: Dict[str, dict], scale: float) -> float:
+        """lora: path -> {"A" (..., n, r), "B" (..., r, m)}; returns the
+        seconds to completion."""
+        synchronize(self.params)
+        t0 = time.perf_counter()
+        for path, w in iter_leaves(self.params):
+            if path not in lora:
+                continue
+            *_, n, m = w.shape
+            a = lora[path]["A"].float().reshape(-1, n, lora[path]["A"]
+                                                .shape[-1])
+            b = lora[path]["B"].float().reshape(a.shape[0], -1, m)
+            for wl, al, bl in zip(w.view(-1, n, m), a, b):
+                wl.addmm_(al, bl, alpha=scale)
+        synchronize(self.params)
+        self.active = (lora, scale)
+        return time.perf_counter() - t0
+
+    def unfuse(self) -> float:
+        if self.active is None:
+            return 0.0
+        lora, scale = self.active
+        t = self.fuse(lora, -scale)
+        self.active = None
+        return t
+
+
 @dataclass
 class FusedDecision:
     """One scheduling step: fuse ``promote`` into the shared base (after
@@ -245,16 +290,39 @@ class FusedLRU:
         return decision
 
 
+def _leaves_or_bundles(tree):
+    """Tensor leaves in ``iter_leaves`` order, with each lazy adapter
+    bundle (``core.adapters.materialize``) as one leaf."""
+    if is_bundle(tree):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves_or_bundles(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves_or_bundles(v)
+    elif tree is not None:
+        yield tree
+
+
 def changed_fraction(base, switched) -> float:
     """%C of the paper's tables: the fraction of weights that differ from
-    the base, over every leaf of two trees of one structure. The per-leaf
-    counts stay on the device and are read once."""
+    the base, over every leaf of two trees of one structure. ``switched``
+    may be a lazily materialized tree, whose bundles are compared layer
+    by layer (``bundle_layers``). The per-leaf counts stay on the device
+    and are read once."""
     a = [x for _, x in iter_leaves(base)]
-    b = [x for _, x in iter_leaves(switched)]
+    b = list(_leaves_or_bundles(switched))
     if len(a) != len(b):
         raise ValueError("changed_fraction compares trees of one structure")
     if not a:
         return 0.0
-    diff = torch.stack([torch.count_nonzero(torch.ne(x, y))
-                        for x, y in zip(a, b)]).sum()
-    return int(diff) / max(sum(x.numel() for x in a), 1)
+    counts = []
+    for x, y in zip(a, b):
+        if is_bundle(y):
+            layers = x.reshape((-1,) + tuple(x.shape[-2:]))
+            counts += [torch.count_nonzero(torch.ne(xl, yl))
+                       for xl, yl in zip(layers, bundle_layers(y))]
+        else:
+            counts.append(torch.count_nonzero(torch.ne(x, y)))
+    return int(torch.stack(counts).sum()) / max(sum(x.numel() for x in a), 1)

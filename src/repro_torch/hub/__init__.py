@@ -8,7 +8,7 @@ ids and prefetches on a worker pool (``PrefetchHandle``), and the
 continuous-batching engines that serve requests through it
 (``ServingEngine`` over lanes, ``PagedServingEngine`` over a page pool;
 versioned hot swap, async prefetch, ``slot_pad``), with the typed errors a
-request can fail with. The fault-injection ladder waits (ROADMAP A8).
+request can fail with (``runtime.faults``).
 """
 from repro_torch.hub.packio import (PackFormatError, QuantPack,  # noqa: F401
                                     load_pack, peek_pack, quantize_pack,

@@ -6,7 +6,8 @@ other's files. The format is numpy and JSON, so this is the reference's
 code with torch tensors at its edges: packs come in with tensors on any
 device and load as CPU tensors (the engines move what they serve). bf16
 values round to nearest even through torch's ``bfloat16``, as
-``ml_dtypes`` does in the reference. Fault injection waits (ROADMAP A8).
+``ml_dtypes`` does in the reference. Fault injection may corrupt a
+payload as it is read (``runtime.faults.corrupt_payload``).
 
 Layout of a ``.shpk`` file:
 

@@ -1,19 +1,23 @@
-"""Training entry point: SHiRA finetuning of one adapter.
+"""Training entry point: finetuning of one adapter, of any kind.
 
 Port of ``repro/launch/train.py``, with its flags. Runs on the card unless
 ``--device cpu`` is given (with ``--smoke`` for the 2-layer config there).
-``--adapter`` takes the reference's ``shira[-<mask>][-hook]``: plain
-``shira`` is the ``wm`` mask, packed; ``-hook`` trains in hook mode. The
-``grad`` and ``snip`` masks need calibration gradients, which the command
-line does not give, so they raise ``ValueError`` as the reference's do.
-``none``, ``lora``, ``dora`` and ``shira-dora`` wait (ROADMAP A2),
-``--ckpt-dir`` waits for checkpointing (A8). ``main`` returns the run's
-numbers as a dict, so scripts can drive it as a user would.
+``--adapter`` takes the reference's specs: ``none`` (full finetuning),
+``lora`` and ``dora`` (rank 16), ``shira-dora`` (the ``wm`` mask), and
+``shira[-<mask>][-hook]``: plain ``shira`` is the ``wm`` mask, packed;
+``-hook`` trains in hook mode. The ``grad`` and ``snip`` masks need
+calibration gradients, which the command line does not give, so they
+raise ``ValueError`` as the reference's do. ``--ckpt-dir`` checkpoints
+the run (every ``TrainerConfig.ckpt_every`` steps and at the end) and
+resumes it from the latest committed step. ``--layers`` cuts the model's depth (the
+port's own flag: full finetuning at starcoder2-7b's full width does not
+fit one card). ``main`` returns the run's numbers as a dict, so scripts
+can drive it as a user would.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch starcoder2-7b \\
       --adapter shira-wm --seq 256 --batch 8 --steps 4
   PYTHONPATH=src python -m repro_torch.launch.train --arch starcoder2-7b \\
-      --smoke --device cpu --adapter shira-wm-hook --steps 3
+      --smoke --device cpu --adapter lora --steps 3 --ckpt-dir /tmp/ck
 """
 from __future__ import annotations
 
@@ -40,13 +44,14 @@ PRESET_100M = ModelConfig(
 
 
 def parse_adapter(spec: str) -> AdapterConfig:
-    """'shira' | 'shira-<mask>' | 'shira-<mask>-hook', as the reference
-    parses them ('none', 'lora', 'dora' and 'shira-dora' wait, ROADMAP
-    A2)."""
-    if spec in ("none", "lora", "dora") or spec.startswith("shira-dora"):
-        raise NotImplementedError(
-            f"--adapter {spec!r} is not ported (ROADMAP A2); use "
-            "shira[-<mask>][-hook]")
+    """'none' | 'lora' | 'dora' | 'shira-dora' | 'shira-<mask>' |
+    'shira-<mask>-hook', as the reference parses them."""
+    if spec == "none":
+        return AdapterConfig(kind="none")
+    if spec in ("lora", "dora"):
+        return AdapterConfig(kind=spec, rank=16)
+    if spec.startswith("shira-dora"):
+        return AdapterConfig(kind="shira-dora", mask="wm")
     if spec.startswith("shira"):
         parts = spec.split("-")
         mask = parts[1] if len(parts) > 1 else "wm"
@@ -69,6 +74,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--task", type=int, default=0)
     ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the model to this many layers (0: all)")
     ap.add_argument("--out", default=None, help="write loss history JSON")
     ap.add_argument("--device", default="cuda",
                     help="torch device; the CPU only when asked for")
@@ -87,6 +94,8 @@ def main(argv: Optional[List[str]] = None, keep: bool = False) -> dict:
                else get_config(args.arch))
     else:
         raise SystemExit("need --arch or --preset")
+    if args.layers:
+        cfg = cfg.replace(num_layers=args.layers)
     shape = ShapeSpec("cli", args.seq, args.batch, "train")
     run = RunConfig(model=cfg, shape=shape,
                     adapter=parse_adapter(args.adapter),
@@ -101,6 +110,9 @@ def main(argv: Optional[List[str]] = None, keep: bool = False) -> dict:
     out = trainer.fit(args.steps, batches=batches)
     losses = [h["loss"] for h in out["history"]]
     step_ms = [h["step_ms"] for h in out["history"]]
+    if not losses:
+        raise SystemExit(f"[train] resumed at step {args.steps} from "
+                         f"{args.ckpt_dir}: no step left to take")
     steady = statistics.median(step_ms[1:] or step_ms)
     print(f"[train] {cfg.name} adapter={args.adapter} "
           f"loss {losses[0]:.4f} -> {losses[-1]:.4f}, "

@@ -17,7 +17,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.adapters import SHIRA_KEY, materialize_leaf
+from repro_torch.core.adapters import is_bundle, materialize_leaf
 from repro_torch.kernels.ops import sidedelta
 from repro_torch.kernels.sidedelta import sidedelta_train
 
@@ -107,11 +107,11 @@ def pdot(x: torch.Tensor, w) -> torch.Tensor:
 
     ``w`` may also be a side-delta bundle: then the result is x @ base plus
     the per-request sparse deltas routed by the bundled ids. A packed-SHiRA
-    bundle (``core.adapters.materialize``) is materialized here, one
-    matrix at a time."""
+    or LoRA/DoRA/SHiRA-DoRA bundle (``core.adapters.materialize``) is
+    materialized here, one matrix at a time."""
     if is_sidedelta(w):
         return _pdot_sidedelta(x, w)
-    if isinstance(w, dict) and SHIRA_KEY in w:
+    if is_bundle(w):
         w = materialize_leaf(w)
     cd = compute_dtype()
     return torch.matmul(x.to(cd), w.to(cd))

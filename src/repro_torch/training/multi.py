@@ -24,7 +24,8 @@ Contract (``tests/test_torch_multiadapter.py``): under f32 compute, adapter
 a of ``MultiAdapterTrainer(run, names, init_key=k)`` fed ``TaskSpec(a)``
 tracks ``Trainer(run, init_key=k + a)`` fed the same stream, step for step,
 within float-summation-order tolerance. ``publish`` pushes the trained
-packs into an ``AdapterStore`` as new versions, which live engines swap in.
+packs into an ``AdapterStore`` as new versions, which live engines swap in,
+and snapshots them into a checkpoint step when given one.
 """
 from __future__ import annotations
 
@@ -45,8 +46,8 @@ from repro_torch.models.layers import (rms_norm, token_nll,
                                        trainable_sidedelta_weight)
 from repro_torch.optim import batched_global_norm, lr_schedule
 from repro_torch.optim.adamw import clip_scale
-from repro_torch.runtime.trainer import (TrainerConfig, check_packed_shira,
-                                         device_batch)
+from repro_torch.core.adapters import map_entries
+from repro_torch.runtime.trainer import TrainerConfig, device_batch
 from repro_torch.training import qstate
 
 
@@ -90,7 +91,10 @@ class MultiAdapterTrainer:
                  tcfg: TrainerConfig = TrainerConfig(), *, init_key: int = 0,
                  base_params=None, moments: str = "f32", fused: bool = True,
                  auxes: Optional[List[dict]] = None, device="cuda"):
-        check_packed_shira(run)
+        if run.adapter.kind != "shira" or not run.adapter.packed:
+            raise ValueError("MultiAdapterTrainer is packed-SHiRA only; "
+                             f"got kind={run.adapter.kind!r} "
+                             f"packed={run.adapter.packed}")
         if moments not in qstate.MOMENT_MODES:
             raise ValueError(f"moments={moments!r} not in "
                              f"{qstate.MOMENT_MODES}")
@@ -284,17 +288,21 @@ class MultiAdapterTrainer:
                     self.auxes[a])
                 for a, name in enumerate(self.names)]
 
-    def publish(self, store, state, *, ckpt=None,
+    def publish(self, store, state, *, ckpt=None, step: Optional[int] = None,
                 values: str = "f32") -> List[str]:
         """Push every adapter's current values into ``store`` as its next
         version (``name@v``); live engines move new requests to them from
-        their next submit. Returns the versioned ids. Snapshots into a
-        checkpoint (``ckpt``) wait (ROADMAP A8)."""
-        if ckpt is not None:
-            raise NotImplementedError("checkpoint snapshots of published "
-                                      "packs wait (ROADMAP A8)")
+        their next submit. With ``ckpt`` (a ``CheckpointManager``) each
+        versioned pack is also snapshotted into the checkpoint's step
+        (``step``, default the state's), committed by the next
+        ``ckpt.save``. Returns the versioned ids."""
+        step = int(state["step"]) if step is None else step
         vids = []
         for pack in self.export_packs(state):
             with trace.span("publish.swap", cat="train", name=pack.name):
-                vids.append(store.publish(pack, values=values))
+                vid = store.publish(pack, values=values)
+                if ckpt is not None:
+                    ckpt.save_adapter(step, map_entries(pack, name=vid),
+                                      values=values)
+            vids.append(vid)
         return vids

@@ -277,11 +277,21 @@ def test_calibrated_masks_train(mask):
 
 
 def test_weight_decay_raises_in_hook_mode():
+    """Hook mode with weight decay no longer raises: the reference decays
+    every weight, masked or not, so the trainable tree copies every leaf
+    (its steps are held against the reference in
+    tests/test_torch_trainer_kinds.py); packed mode decays its values."""
     _, run = _runs(wd=0.1)
-    with pytest.raises(NotImplementedError, match="weight_decay"):
-        Trainer(run, device="cpu")
+    t = Trainer(run, device="cpu")
+    assert t.decay_all
+    state = t.init_state()
+    base = dict(iter_leaves(t.base))
+    assert all(w is not base[p] for p, w in iter_leaves(state["trainable"]))
+    out = t.fit(1, state=state, log=None)
+    assert not torch.equal(dict(iter_leaves(out["state"]["trainable"]))[
+        "embed/emb"], base["embed/emb"])
     _, packed = _runs(packed=True, wd=0.1)
-    Trainer(packed, device="cpu")           # packed mode decays its values
+    assert not Trainer(packed, device="cpu").decay_all
 
 
 @pytest.mark.parametrize("adapter", ["shira", "shira-wm", "shira-struct",
@@ -298,9 +308,10 @@ def test_train_cli_adapters(adapter):
 
 
 def test_train_cli_rejects():
-    for spec in ("none", "lora", "dora", "shira-dora"):
-        with pytest.raises(NotImplementedError, match="A2"):
-            tlaunch.parse_adapter(spec)
+    for spec in ("none", "lora", "dora", "shira-dora"):     # ported kinds
+        assert tlaunch.parse_adapter(spec).kind == spec
+    with pytest.raises(ValueError):
+        tlaunch.parse_adapter("adapter")
     with pytest.raises(ValueError, match="calibration grads"):
         tlaunch.main(["--arch", "starcoder2-7b", "--smoke", "--device", "cpu",
                       "--adapter", "shira-snip-hook", "--steps", "1"])

@@ -34,6 +34,7 @@ from repro.hub.packio import save_pack as j_save
 from repro.models import layers as JL
 from repro.serving import MultiTenantEngine as JMT
 from repro_torch.analysis import trace
+from repro_torch.checkpoint import CheckpointManager
 from repro_torch.core import switching as tsw
 from repro_torch.core.adapters import AdapterPack
 from repro_torch.core.masks import iter_leaves
@@ -314,5 +315,12 @@ def test_multi_adapter_trainer_publish_matches_jax_export(tmp_path):
     assert tm.publish(store, tout["state"]) == ["a0@2", "a1@2"]
     for vid, jpack in zip(vids, jm.export_packs(jout["state"])):
         _held(store, vid, jpack, TOL["atol"])
-    with pytest.raises(NotImplementedError, match="A8"):
-        tm.publish(store, tout["state"], ckpt=object())
+    # with a checkpoint, each versioned pack is snapshotted into the step
+    mgr = CheckpointManager(str(tmp_path / "ck"))
+    assert tm.publish(store, tout["state"], ckpt=mgr) == ["a0@3", "a1@3"]
+    assert mgr.adapters(int(tout["state"]["step"])) == ["a0@3", "a1@3"]
+    snap = mgr.restore_adapter("a0@3", step=int(tout["state"]["step"]))
+    pub = _held(store, "a0@3", jm.export_packs(jout["state"])[0], TOL["atol"])
+    for path, (i, v) in pub.entries.items():
+        assert torch.equal(snap.entries[path][0], i)
+        assert torch.equal(snap.entries[path][1], v)

@@ -194,22 +194,28 @@ def test_export_pack_loads_like_materialize(setup):
                                atol=1e-5)
 
 
-def test_unported_options_raise(setup):
+def test_unported_options_raise(setup, tmp_path):
+    """The reference's "dots" remat policy is the training option still
+    unported; the adapter kinds, checkpoints and fault injection, which
+    raised until they were ported, now run."""
     _, trun, _, _, np_base, np_idx = setup
-    with pytest.raises(NotImplementedError, match="A2"):
-        tlaunch.parse_adapter("lora")
-    with pytest.raises(NotImplementedError, match="A8"):
-        _port_trainer(trun, np_base, np_idx).__class__(
-            trun, TrainerConfig(ckpt_dir="x"), device="cpu")
-    tt = _port_trainer(trun, np_base, np_idx)
-    with pytest.raises(NotImplementedError, match="A8"):
-        tt.fit(1, fault_injector=lambda s: None, log=None)
-    # publish is ported (tests/test_torch_personalization.py); a trainer
-    # with a checkpoint directory, whose snapshot it would take, raises
+    dots = RunConfig(model=trun.model.replace(remat="dots"),
+                     shape=trun.shape, adapter=trun.adapter,
+                     train=trun.train)
+    tt = _port_trainer(dots, np_base, np_idx)
+    with pytest.raises(NotImplementedError, match="dots"):
+        tt.fit(1, log=None)
+    assert tlaunch.parse_adapter("lora").kind == "lora"
+    tt = Trainer(trun, TrainerConfig(ckpt_dir=str(tmp_path)),
+                 base_params=bridge.params_from_numpy(np_base, "cpu"),
+                 aux=bridge.adapter_from_numpy(np_idx, "cpu")[1],
+                 device="cpu")
+    seen = []
+    tt.fit(1, fault_injector=seen.append, log=None)
+    assert seen == [0] and tt.ckpt.steps() == [1]
     lora = RunConfig(model=trun.model, shape=trun.shape,
                      adapter=AdapterConfig(kind="lora"))
-    with pytest.raises(NotImplementedError, match="A2"):
-        Trainer(lora, device="cpu")
+    assert Trainer(lora, device="cpu").trainable0 is not None
 
 
 def test_train_cli_smoke_on_cpu():
