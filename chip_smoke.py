@@ -8,7 +8,9 @@ prints its seconds on a "[time]" line:
   1. device    the card's name and power limit (nvidia-smi)
   2. build     nvcc builds every kernel of csrc/, one process each, at once
   3. kernels   each kernel against its plain version on the card, at
-               starcoder2-7b shapes; times (cold L2) beside the bound:
+               starcoder2-7b shapes (and granite-moe's and the dense
+               configs' attention, sidedelta and scatter_apply shapes);
+               times (cold L2) beside the bound:
                sidedelta (S = 1, 16, 256, with the path each S takes,
                and where the token-minor path starts to pay) and
                scatter_apply (serving), sparse_adamw (blocks and rows,
@@ -55,7 +57,8 @@ prints its seconds on a "[time]" line:
                one wm mask give the same losses to 2e-3; grad and snip
                masks from one batch's calibration gradients train, and
                their exported packs load
-  13. personalization  full width: three f32 packs published as
+  13. personalization  full width, 16 of 32 layers (for the time
+               limit): three f32 packs published as
                adapter_i@1 into an AdapterStore (resident budget one pack,
                pinned staging two), the continuous trace's first 12
                requests, adapter_0@2 published after step 10, the other
@@ -99,13 +102,34 @@ prints its seconds on a "[time]" line:
                fresh Trainer resuming at 6, the state's device-to-host
                copy, save and restore (seconds, bytes), and the trainers'
                publish snapshots read back from the checkpoint
-  20. kinds-consistency  full width, 2 layers, f32: lora, dora and
+  20. kinds-consistency  full width, 1 layer, f32: lora, dora and
                shira-dora losses on the card track the CPU Trainer to 5e-3;
                hook mode with weight decay 0.01: the decayed weights within
                1e-6 of the largest weight of the CPU run's, the masked
                ones as train-consistency holds trained values
-  21. summary   one JSON line of kernel numbers, the card line, and last
-               {"ok": true, "device": {...}}
+  21. moe serve, moe profile, moe continuous, moe train
+               granite-moe-1b-a400m at full width and all 24 layers
+               through phases 4, 5, 7 and 9's code: launch.serve in four
+               modes (no routing choice dropped: every call is under 512
+               tokens), a decode step (base and multi-tenant) and a
+               1024-token prefill under torch.profiler with the MoE time
+               split into routing, experts and their weight casts, and the
+               rest (moe_ranges), the 24-request trace through both
+               engines (bf16 and int8 pages; dropped choices counted),
+               launch.train and MultiAdapterTrainer (f32, int8 moments;
+               the aux and the dropped choices a step)
+  22. moe-consistency  full width, 2 layers, f32: multi-tenant tokens
+               equal the switch-per-request reference, both engines the
+               fixed batch (a 501-token prompt: drop-free calls), and
+               Trainer and MultiAdapterTrainer track the CPU run to 5e-3
+  23. dense     qwen1.5-32b (G 1), deepseek-coder-33b (G 7) and
+               granite-34b (G 48) at full width, each cut to the deepest
+               stack whose f32 parameters and three adapters' packs and
+               tables fit 60 GB (the arithmetic printed): a multi-tenant
+               serve, a multi-tenant decode step under torch.profiler, and
+               at 2 layers in f32 tokens equal to switch-per-request
+  24. summary   one JSON line of kernel numbers, the card line, and last
+               {"ok": true, "device": {...}}, after "[time] total"
 
 Every engine run with no fault injected (phases 7, 8, 13, 14, the
 fault-free slo-chaos pass and the reference runs of 16) must serve every
@@ -145,6 +169,7 @@ each kernel instance's registers and spills and fail on a spill.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import subprocess
@@ -197,6 +222,23 @@ RESUME_TOL = 1e-6              # a resumed run's last loss against a clean
                                # run's: the JAX package's own (test_ft.py)
 WD_TOL = 1e-6                  # hook mode with weight decay, card vs CPU:
                                # decayed weights, of the largest weight
+KINDS_LAYERS = 1               # kinds-consistency's depth: at 2 layers its
+                               # CPU side took ~110 s of the script
+MOE_ARCH = "granite-moe-1b-a400m"  # the MoE slice: full width, 24 layers
+MOE_LONG = 501                 # moe-consistency's long prompt: one call of
+                               # at most 512 tokens drops no routing choice
+DENSE_ARCHS = ("qwen1.5-32b", "deepseek-coder-33b", "granite-34b")
+DENSE_BUDGET = 60e9            # dense configs: f32 parameters, three
+                               # adapters' packs and tables, KV
+ADAPTER_BYTES = 100            # the three serve adapters, per 2% entry of
+                               # a target leaf: their packs (3 x 8 B: int32
+                               # index, f32 value) and, at the peak of a
+                               # fused transition's table rebuild, the five
+                               # slots of the fused state (two diff packs
+                               # of ~2 entries, the negated hot pack) beside
+                               # the three of the unfused one (8 x 9.5 B:
+                               # f32 value, int32 row, column offsets)
+MIN_DEPTH = 8                  # no dense config is cut below this
 
 
 def fail(msg: str) -> None:
@@ -266,10 +308,12 @@ def cold_ms(torch, fn, iters: int, flush) -> float:
 
 
 def device_kernels(torch, prof):
-    """(device ms, launches, name) of each kernel a torch.profiler run saw."""
+    """(device ms, launches, name) of each kernel a torch.profiler run saw
+    (not the device side of the ``moe_ranges`` annotations)."""
     cuda = torch.autograd.DeviceType.CUDA
     return [(getattr(e, "self_device_time_total", 0) / 1e3, e.count, e.key)
-            for e in prof.key_averages() if e.device_type == cuda]
+            for e in prof.key_averages()
+            if e.device_type == cuda and e.key not in MOE_RANGES]
 
 
 def kernel_share(label, kern) -> None:
@@ -390,15 +434,19 @@ def scatter_bytes(torch, w, idx, vals):
 def switch_bound(torch, cfg):
     """(bound, entries, sectors) of one whole adapter load as the serve
     phase's packs make it: every adapted leaf of ``cfg`` (wq, wk, wv, wo,
-    w_up, w_down, each stacked over the layers) at sparsity 0.98, the
-    sectors counted from a draw of the same masks."""
+    w_up, w_down, each stacked over the layers; an MoE model's attention
+    leaves, its experts being no target) at sparsity 0.98, the sectors
+    counted from a draw of the same masks."""
     from repro_torch.core.masks import budget
     d, f, L = cfg.d_model, cfg.d_ff, cfg.num_layers
     kv = cfg.num_kv_heads * cfg.resolved_head_dim
     gen = torch.Generator(device="cuda")
     gen.manual_seed(4)
     nbytes = sectors = entries = 0
-    for n, m in ((d, d), (d, kv), (d, kv), (d, d), (d, f), (f, d)):
+    leaves = [(d, d), (d, kv), (d, kv), (d, d)]
+    if cfg.family != "moe":
+        leaves += [(d, f), (f, d)]
+    for n, m in leaves:
         idx, vals = rand_entries(torch, gen, L, n, m, budget(n, m, 0.98))
         b, s = scatter_bytes(torch, torch.empty((L, n, m), device="meta"),
                              idx, vals)
@@ -526,6 +574,14 @@ def kernels_phase(torch, flush):
                 side.append(sidedelta_case(torch, gen, flush, name, n, m,
                                            S, int8))
         torch.cuda.empty_cache()
+    # granite-moe-1b-a400m's attention leaves (its adapters' targets):
+    # wq (1024, 1024) and wk (1024, 512), decode and a paged chunk
+    for n, m, name in ((1024, 1024, "granite-moe wq"),
+                       (1024, 512, "granite-moe wk")):
+        for S in (1, CHUNK):
+            for int8 in (False, True):
+                side.append(sidedelta_case(torch, gen, flush, name, n, m,
+                                           S, int8))
     sidedelta_crossover(torch, gen, flush, d, f)
     # the fused state of two stacked w_up layers, as MultiTenantEngine
     # builds it with adapter_0 hot: diff packs (whose shorter layer is
@@ -581,8 +637,11 @@ def kernels_phase(torch, flush):
     check_assert_probe(probe)
     torch.cuda.empty_cache()
     # many layers of odd k: layer boundaries inside a block, and at 70,001
-    # layers more layers than a grid dimension holds
-    for nl, n, m, kk in ((37, 96, 160, 307), (70001, 8, 8, 3)):
+    # layers more layers than a grid dimension holds; then granite-moe's
+    # stacked wq leaf and its experts' w_up flattened to (L * E, n, m)
+    for nl, n, m, kk in ((37, 96, 160, 307), (70001, 8, 8, 3),
+                         (24, 1024, 1024, budget(1024, 1024, 0.98)),
+                         (24 * 32, 1024, 512, budget(1024, 512, 0.98))):
         ws = torch.randn((nl, n, m), generator=gen, device="cuda")
         ii = torch.argsort(torch.rand((nl, n * m), generator=gen,
                                       device="cuda"), 1)[:, :kk]
@@ -1133,7 +1192,11 @@ def attention_kernels_phase(torch, flush):
     continuous engine's ``quant_kv``: codes and bf16 scales from
     ``quantize_kv`` of random rows) at the main shapes, pages of 8 and
     G = 48, and at D = 16/32/64, bf16 and f32 q, each held against its
-    plain version on the same dequantized values. The yardstick is one
+    plain version on the same dequantized values. The serving shapes of
+    the configs since the MoE slice follow: granite-moe (KV 8, G 2,
+    D 64), qwen1.5-32b (KV 40, G 1), deepseek-coder-33b (KV 8, G 7) and
+    granite-34b (KV 1, G 48), each kernel and int8 pools, and prefills of
+    (1, 1024) and (8, 16). The yardstick is one
     F.scaled_dot_product_attention(..., enable_gqa=True) call on the same
     inputs, laid out as it wants them beforehand (for paged: a gather of
     the pages, dequantized for int8 pools, then the call)."""
@@ -1259,6 +1322,19 @@ def attention_kernels_phase(torch, flush):
             decode(1, 2, 4, d, 256, (("kv_len 200", 200),))
             paged(1, 2, 4, d, 256, 16, "kv_len 200", 200)
             paged(1, 2, 4, d, 256, 16, "kv_len 200", 200, quant=True)
+        # the serving shapes of the configs since the MoE slice:
+        # granite-moe (KV 8, G 2, D 64), qwen1.5-32b (KV 40, G 1),
+        # deepseek-coder-33b (KV 8, G 7) and granite-34b (KV 1, G 48)
+        for kv, g, dd in ((8, 2, 64), (40, 1, 128), (8, 7, 128),
+                          (1, 48, 128)):
+            if g != 48:     # G = 48's decode cases run above
+                decode(Bd, kv, g, dd, CACHE,
+                       (("(B,) kv_len 1..1056", spread),))
+                paged(Bd, kv, g, dd, CACHE, 16, "kv_len 1..1056", spread)
+                paged(Bd, kv, g, dd, CACHE, 8, "kv_len 1..1056", spread,
+                      quant=True)
+            for Bp, Sp in ((1, 1024), (B, PROMPT)):
+                prefill(Bp, Sp, kv * g, kv, dd)
     return out
 
 
@@ -1342,29 +1418,40 @@ def masked_update_kernels(torch, flush):
     return out
 
 
-def serve_phase(torch):
+SERVE_MODES = (("sequential", [], ("scatter_apply",)),
+               ("fuse", ["--fuse"], ("scatter_apply",)),
+               ("multi-tenant f32", ["--multi-tenant", "--skew", "0.8"],
+                ("sidedelta", "scatter_apply")),
+               ("multi-tenant int8", ["--multi-tenant", "--int8", "--skew",
+                                      "0.8"], ("sidedelta", "scatter_apply")))
+
+
+def serve_phase(torch, arch="starcoder2-7b", layers=0, modes=SERVE_MODES,
+                tag="serve"):
+    """``arch`` at full width (cut to ``layers`` when given) through
+    launch.serve in each of ``modes``: launch counts zeroed before each
+    mode, every kernel of its path launched; an MoE model's routing must
+    drop no choice (every call is under 512 tokens)."""
+    from repro_torch.configs import get_config
     from repro_torch.launch import serve
-    common = ["--arch", "starcoder2-7b", "--batch", str(B), "--prompt-len",
-              str(PROMPT), "--tokens", str(TOKENS), "--adapters", "3"]
+    from repro_torch.models.moe import count_drops
+    cfg = get_config(arch)
+    common = ["--arch", arch, "--batch", str(B), "--prompt-len",
+              str(PROMPT), "--tokens", str(TOKENS), "--adapters", "3"] + (
+                  ["--layers", str(layers)] if layers else [])
     attn = ("flash_prefill", "flash_decode")
-    modes = [("sequential", [], ("scatter_apply",) + attn),
-             ("fuse", ["--fuse"], ("scatter_apply",) + attn),
-             ("multi-tenant f32", ["--multi-tenant", "--skew", "0.8"],
-              ("sidedelta", "scatter_apply") + attn),
-             ("multi-tenant int8", ["--multi-tenant", "--int8", "--skew",
-                                    "0.8"],
-              ("sidedelta", "scatter_apply") + attn)]
     totals = {}
     torch.cuda.reset_peak_memory_stats()
     for label, extra, needed in modes:
         zero_counts()
         t0 = time.perf_counter()
-        stats = serve.main(common + extra)
+        with count_drops() as drops:
+            stats = serve.main(common + extra)
         torch.cuda.synchronize()
         counts = {k: v for k, v in read_counts().items() if v}
         out = stats["last_out"]
         ok = (out.shape == (B, TOKENS) and int(out.min()) >= 0
-              and int(out.max()) < 49152)
+              and int(out.max()) < cfg.vocab_size)
         if "table_bytes" in stats:
             extra_info = (f"tables {stats['table_bytes'] / 1e9:.2f} GB, "
                           f"{stats['tok_s']:.1f} tok/s, "
@@ -1374,21 +1461,29 @@ def serve_phase(torch):
             extra_info = (f"switch ms "
                           f"{[round(x, 3) for x in stats['switch_ms']]}, "
                           f"tok/s {tok_s}")
-        print(f"[serve] {label}: launches {counts}, {extra_info}, "
+        dropped = int(sum(int(d) for d in drops))
+        moe_info = (f", routing: {len(drops)} MoE calls, {dropped} dropped "
+                    "choices" if cfg.family == "moe" else "")
+        print(f"[{tag}] {arch} {label}: launches {counts}, {extra_info}"
+              f"{moe_info}, peak memory "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB, "
               f"{time.perf_counter() - t0:.1f}s wall", flush=True)
         if not ok:
-            fail(f"serve {label}: tokens out of range or misshapen")
-        check_run(f"serve {label}", read_counts(), needed, totals)
+            fail(f"{tag} {label}: tokens out of range or misshapen")
+        if dropped:
+            fail(f"{tag} {label}: {dropped} routing choices dropped in "
+                 "drop-free calls")
+        check_run(f"{tag} {label}", read_counts(), needed + attn, totals)
         del stats, out                 # the next mode builds its own model
         torch.cuda.empty_cache()
     peak = torch.cuda.max_memory_allocated() / 1e9
-    print(f"[serve] peak memory {peak:.1f} GB (max_memory_allocated)",
+    print(f"[{tag}] peak memory {peak:.1f} GB (max_memory_allocated)",
           flush=True)
-    from repro_torch.configs import get_config
-    b, entries, sectors = switch_bound(torch, get_config("starcoder2-7b"))
-    print(f"[serve] a switch's bound (one adapter load, {entries} entries, "
-          f"{sectors} W sectors read and written): {b['bound_ms']:.4f} ms "
-          f"({b['bound_by']})", flush=True)
+    if any("--multi-tenant" not in extra for _, extra, _ in modes):
+        b, entries, sectors = switch_bound(torch, cfg)
+        print(f"[{tag}] a switch's bound (one adapter load, {entries} "
+              f"entries, {sectors} W sectors read and written): "
+              f"{b['bound_ms']:.4f} ms ({b['bound_by']})", flush=True)
     torch.cuda.empty_cache()
     return totals
 
@@ -1512,7 +1607,7 @@ def store_retries(engine):
 
 
 def report_engine(torch, label, engine, futs, wall, peak, vocab, needed,
-                  totals):
+                  totals, tag="continuous"):
     """Print one engine's numbers and fail unless every future is done
     with in-range tokens and every kernel of its path launched."""
     import numpy as np
@@ -1529,7 +1624,7 @@ def report_engine(torch, label, engine, futs, wall, peak, vocab, needed,
                  f"{engine.prefill_chunks}, prefix hits "
                  f"{engine.pool.prefix_hits} ({engine.pool.prefix_shared_tokens}"
                  f" tokens), peak pages {engine.peak_used_pages}")
-    print(f"[continuous] {label}: {len(futs)} requests, {engine.tokens_out} "
+    print(f"[{tag}] {label}: {len(futs)} requests, {engine.tokens_out} "
           f"tokens in {wall:.2f}s ({engine.tokens_out / wall:.1f} tok/s), "
           f"TTFT p50 {np.percentile(ttft, 50):.3f}s p99 "
           f"{np.percentile(ttft, 99):.3f}s, {engine.step_count} decode steps,"
@@ -1539,11 +1634,11 @@ def report_engine(torch, label, engine, futs, wall, peak, vocab, needed,
           f"{ {k: v for k, v in counts.items() if v} }, peak memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB", flush=True)
     if not ok:
-        fail(f"continuous {label}: a request failed or its tokens are out "
-             "of range")
-    hold_as_asked(f"continuous {label}", engine.health(),
-                  store_retries(engine), futs)
-    check_run(f"continuous {label}", counts, needed, totals)
+        fail(f"{tag} {label}: a request failed or its tokens are out of "
+             "range")
+    hold_as_asked(f"{tag} {label}", engine.health(), store_retries(engine),
+                  futs)
+    check_run(f"{tag} {label}", counts, needed, totals)
     return outs
 
 
@@ -1574,7 +1669,7 @@ def continuous_int8_report(outs, kv):
              f"times, {q_int8} through the int8 instance")
 
 
-def continuous_phase(torch):
+def continuous_phase(torch, arch="starcoder2-7b", tag="continuous"):
     """Continuous batching at full width: ``serve --continuous --int8``
     (the CLI, int8 packs and tables), then the 24-request trace through
     ServingEngine (8 lanes of 1056 rows), PagedServingEngine (8 slots,
@@ -1582,7 +1677,10 @@ def continuous_phase(torch):
     and PagedServingEngine(quant_kv=True) (the same pages as int8 codes
     and bf16 scales: continuous-int8) over an AdapterStore of 3 f32 packs
     in a temporary directory, one engine after the other on one copy of
-    the base."""
+    the base. An MoE model's dropped routing choices are counted per
+    engine: the lanes admit a prompt of over 512 tokens in one call, whose
+    capacity may drop choices (the reference's too), the pages' chunks
+    and every decode step are drop-free."""
     import tempfile
     import numpy as np
     from repro_torch.configs import get_config
@@ -1590,23 +1688,26 @@ def continuous_phase(torch):
     from repro_torch.kernels.flash_decode import flash_decode_paged
     from repro_torch.launch import serve
     from repro_torch.models import lm
+    from repro_torch.models.moe import count_drops
     totals = {}
+    cfg = get_config(arch)
     zero_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    stats = serve.main(["--arch", "starcoder2-7b", "--continuous", "--int8",
+    stats = serve.main(["--arch", arch, "--continuous", "--int8",
                         "--requests", str(B), "--slots", str(B),
                         "--prompt-len", "64", "--tokens", "8",
                         "--adapters", "3", "--skew", "0.8"])
     torch.cuda.synchronize()
     counts = read_counts()
-    print(f"[continuous] serve --continuous --int8 ({B} requests, prompt 64,"
+    print(f"[{tag}] {arch} serve --continuous --int8 ({B} requests, prompt 64,"
           f" 8 tokens, {B} lanes): {stats['done']}/{stats['requests']} done,"
           f" {stats['tok_s']:.1f} tok/s, {stats['steps']} decode steps, "
           f"launches { {k: v for k, v in counts.items() if v} }, "
           f"{time.perf_counter() - t0:.1f}s wall", flush=True)
     if stats["done"] != stats["requests"] or any(
-            int(o.min()) < 0 or int(o.max()) >= 49152 for o in stats["outs"]):
+            int(o.min()) < 0 or int(o.max()) >= cfg.vocab_size
+            for o in stats["outs"]):
         fail("serve --continuous: a request failed or is out of range")
     hold_as_asked("serve --continuous", stats["health"],
                   stats["store_retries"], stats["futs"])
@@ -1615,7 +1716,6 @@ def continuous_phase(torch):
     del stats
     torch.cuda.empty_cache()
 
-    cfg = get_config("starcoder2-7b")
     params = lm.init_params(cfg, seed=0, device="cuda")
     packs = serve.make_adapters(cfg, params, 3)
     trace = continuous_trace(cfg.vocab_size, packs)
@@ -1626,7 +1726,7 @@ def continuous_phase(torch):
             store.add(p)
         del packs
         torch.cuda.empty_cache()
-        print(f"[continuous] store: {len(store.names())} f32 packs written in "
+        print(f"[{tag}] store: {len(store.names())} f32 packs written in "
               f"{time.perf_counter() - t0:.1f}s", flush=True)
         outs, kv = {}, {}
         for label, make, needed in (
@@ -1645,16 +1745,22 @@ def continuous_phase(torch):
             flash_decode_paged.int8_launches = 0
             torch.cuda.reset_peak_memory_stats()
             engine = make()
-            futs, wall, peak, steps, profs = drive(torch, engine, trace,
-                                                   CC_TOKENS)
+            with count_drops() as drops:
+                futs, wall, peak, steps, profs = drive(torch, engine, trace,
+                                                       CC_TOKENS)
             if hasattr(engine, "peak_resident"):
                 peak = engine.peak_resident
-            outs[label] = report_engine(torch, label, engine, futs, wall,
-                                        peak, cfg.vocab_size, needed, totals)
+            outs[label] = report_engine(torch, f"{arch} {label}", engine,
+                                        futs, wall, peak, cfg.vocab_size,
+                                        needed, totals, tag)
+            if cfg.family == "moe":
+                print(f"[{tag}] {arch} {label} routing: {len(drops)} MoE "
+                      f"calls, {sum(int(d) for d in drops)} dropped choices",
+                      flush=True)
             kv[label] = (engine.kv_cache_bytes(), peak,
                          flash_decode_paged.launches,
                          flash_decode_paged.int8_launches)
-            step_report(label, steps, profs)
+            step_report(f"{arch} {label}", steps, profs)
             del engine, futs
             torch.cuda.empty_cache()
     continuous_int8_report(outs, kv)
@@ -1663,28 +1769,31 @@ def continuous_phase(torch):
     first = sum(int(a[0]) == int(b[0]) for a, b in pairs)
     split = {i: int(np.argmax(a != b)) for i, (a, b) in enumerate(pairs)
              if not (a == b).all()}
-    print(f"[continuous] bf16: {same}/{len(trace)} requests token-equal "
+    print(f"[{tag}] {arch} bf16: {same}/{len(trace)} requests token-equal "
           f"across the two engines, {first}/{len(trace)} first tokens equal;"
           f" request: first differing token {split}", flush=True)
     del params
     return totals
 
 
-def continuous_consistency_phase(torch):
+def continuous_consistency_phase(torch, arch="starcoder2-7b", long=601,
+                                 tag="continuous-consistency"):
     """Both engines against the fixed batch: full widths cut to 2 layers,
     f32. Each request's tokens from ServingEngine and PagedServingEngine
     must equal its own MultiTenantEngine.generate tokens, on a trace with
     a shared prefix (COW), one prompt under two adapters, an adapter
-    stack, the base model and a 601-token prompt that the paged engine
-    prefills in three chunks of up to 256; the paged engine must share
-    prefix pages and copy on write."""
+    stack, the base model and a ``long`` prompt that the paged engine
+    prefills in chunks of up to 256 (an MoE model's at most 512 tokens,
+    so that the fixed batch's one-call prefill drops no routing choice,
+    as the chunks do not); the paged engine must share prefix pages and
+    copy on write."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.hub import PagedServingEngine, ServingEngine
     from repro_torch.launch import serve
     from repro_torch.models import layers, lm
     from repro_torch.serving import MultiTenantEngine
-    cfg = get_config("starcoder2-7b").replace(num_layers=2)
+    cfg = get_config(arch).replace(num_layers=2)
     T = 8
     rng = np.random.default_rng(7)
     tok = lambda n: rng.integers(0, cfg.vocab_size, n).astype(np.int32)
@@ -1694,7 +1803,7 @@ def continuous_consistency_phase(torch):
     rest = [(np.concatenate([prefix, tok(23)]), "adapter_0"),
             (same, "adapter_1"), (same, "adapter_2"),
             (tok(70), ("adapter_0", "adapter_1")), (tok(19), None),
-            (tok(601), "adapter_1"), first]
+            (tok(long), "adapter_1"), first]
     trace = [first] + rest
     with layers.compute_precision(torch.float32):
         params = lm.init_params(cfg, seed=0, device="cuda")
@@ -1721,28 +1830,29 @@ def continuous_consistency_phase(torch):
         pe.run()
     for label, futs, eng in (("ServingEngine", lane, se),
                              ("PagedServingEngine", paged, pe)):
-        hold_as_asked(f"continuous-consistency {label}", eng.health(), 0,
-                      futs)
+        hold_as_asked(f"{tag} {label}", eng.health(), 0, futs)
         equal = [bool(np.array_equal(f.result(), w))
                  for f, w in zip(futs, want)]
-        print(f"[continuous-consistency] f32, 2 layers, full width, {label}:"
+        print(f"[{tag}] {arch} f32, 2 layers, full width, {label}:"
               f" {sum(equal)}/{len(equal)} requests token-equal to the fixed "
               f"batch", flush=True)
         if not all(equal):
-            fail(f"continuous-consistency: {label} differs from the fixed "
+            fail(f"{tag}: {arch} {label} differs from the fixed "
                  f"batch on requests "
                  f"{[i for i, e in enumerate(equal) if not e]}")
-    print(f"[continuous-consistency] paged: prefix hits "
+    print(f"[{tag}] {arch} paged: prefix hits "
           f"{pe.pool.prefix_hits} ({pe.pool.prefix_shared_tokens} tokens), "
           f"COW copies {pe.pool.cow_copies}, prefill chunks "
           f"{pe.prefill_chunks}", flush=True)
     if pe.pool.prefix_hits < 2 or pe.pool.cow_copies < 1:
-        fail("continuous-consistency: the paged engine did not share the "
+        fail(f"{tag}: the paged engine did not share the "
              "prefix pages or copy on write")
 
 
 PZ_PUBLISH_STEP = 10     # personalization: adapter_0@2 after this step
 PZ_LANES = B             # 8 lanes, as the continuous phase
+PZ_LAYERS = 16           # half of starcoder2-7b's depth, for the
+                         # script's time limit
 
 
 def pz_store(root, files, one):
@@ -1857,9 +1967,10 @@ def pz_time_demote(torch, mt, demote_ms):
 
 
 def personalization_phase(torch):
-    """The personalization loop at full width (starcoder2-7b, bf16
-    compute): three f32 packs at sparsity 0.98 published as adapter_i@1
-    into a store whose resident budget holds one pack and whose pinned
+    """The personalization loop at full width (starcoder2-7b cut to
+    PZ_LAYERS layers, bf16 compute): three f32 packs at sparsity 0.98
+    published as adapter_i@1 into a store whose resident budget holds one
+    pack and whose pinned
     staging tier holds two; the continuous phase's 24-request trace (seed
     0, prompts of 64..1024, skew 0.8), the first 12 submitted at once, and
     after step 10 adapter_0@2 is published (values from a numpy seed) and
@@ -1879,7 +1990,7 @@ def personalization_phase(torch):
     from repro_torch.launch import serve
     from repro_torch.models import lm
     totals = {}
-    cfg = get_config("starcoder2-7b")
+    cfg = get_config("starcoder2-7b").replace(num_layers=PZ_LAYERS)
     params = lm.init_params(cfg, seed=0, device="cuda")
     packs = serve.make_adapters(cfg, params, 3)
     trace_reqs = continuous_trace(cfg.vocab_size, packs)
@@ -2474,19 +2585,84 @@ def faults_consistency_phase(torch):
         fail(f"faults-consistency: {bad}")
 
 
-def profile_phase(torch):
+MOE_RANGES = ("moe_ffn", "moe.route", "moe.experts", "moe.expert_casts")
+
+
+class moe_ranges:
+    """Within the block, every MoE call runs under profiler ranges: the
+    whole FFN (blocks.moe_ffn), its routing (moe.route: softmax, the
+    stable sort, the one-hot cumsum of the slots), the experts
+    (moe._expert_ffn: the three bmm and the casts of the expert weights)
+    and those casts (moe._expert_weight). The rest of moe_ffn is the
+    router's matmul, the dispatch scatter and the combine."""
+
+    def __enter__(self):
+        from torch.profiler import record_function
+        from repro_torch.models import blocks, moe
+
+        def wrap(name, fn):
+            def go(*a, **k):
+                with record_function(name):
+                    return fn(*a, **k)
+            return go
+        self.saved = [(blocks, "moe_ffn", blocks.moe_ffn),
+                      (moe, "route", moe.route),
+                      (moe, "_expert_ffn", moe._expert_ffn),
+                      (moe, "_expert_weight", moe._expert_weight)]
+        for (mod, attr, fn), name in zip(self.saved, MOE_RANGES):
+            setattr(mod, attr, wrap(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, attr, fn in self.saved:
+            setattr(mod, attr, fn)
+
+
+def range_ms(torch, prof):
+    """Device ms of each MOE_RANGES range in a profile (its kernels and its
+    children's), and how many times it ran."""
+    out = {n: [0.0, 0] for n in MOE_RANGES}
+    for e in prof.events():
+        if e.name in out and e.device_type == torch.autograd.DeviceType.CPU:
+            out[e.name][0] += e.device_time_total / 1e3
+            out[e.name][1] += 1
+    return out
+
+
+def print_moe_ranges(torch, label, prof, busy):
+    r = range_ms(torch, prof)
+    (ffn, n), route, experts, casts = (r[k] for k in MOE_RANGES)
+    rest = ffn - route[0] - experts[0]
+    share = lambda x: f" ({x / busy:.1%})" if busy else ""
+    print(f"[profile] {label} MoE ({n} calls): moe_ffn {ffn:.3f} ms"
+          f"{share(ffn)} = routing {route[0]:.3f}{share(route[0])} + experts "
+          f"{experts[0]:.3f}{share(experts[0])} (of it the expert weight "
+          f"casts {casts[0]:.3f}{share(casts[0])}, the bmm and the SwiGLU "
+          f"{experts[0] - casts[0]:.3f}) + router matmul, dispatch and "
+          f"combine {rest:.3f}{share(rest)}" + (
+              "" if ffn else " (the profiler gave the ranges no device "
+              "time: not measured)"), flush=True)
+
+
+def profile_phase(torch, arch="starcoder2-7b", layers=0, prefill=True,
+                  tag="profile", labels=("base", "multi-tenant f32")):
     """Where a full-width decode step (B=8) spends its device time: the
     base model, and multi-tenant with every request on an adapter or the
-    base; then one batch-1, 1024-token prefill of the base model, a lane
-    admission's unit of work. Device time per kernel from torch.profiler;
-    wall time from the host clock around synchronized steps (decode: mean
-    of 3; prefill: one, after a warm-up; profiler off)."""
+    base; then (``prefill``) one batch-1, 1024-token prefill of the base
+    model, a lane admission's unit of work. Device time per kernel from
+    torch.profiler, an MoE model's also per range (``moe_ranges``); wall
+    time from the host clock around synchronized steps (decode: mean of 3;
+    prefill: one, after a warm-up; profiler off)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
     from repro_torch.models import lm
     from repro_torch.serving import MultiTenantEngine
-    cfg = get_config("starcoder2-7b")
+    cfg = get_config(arch)
+    if layers:
+        cfg = cfg.replace(num_layers=layers)
+    moe = cfg.family == "moe"
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if moe else [])
     params = lm.init_params(cfg, seed=0, device="cuda")
     eng = MultiTenantEngine(cfg, params)
     for p in serve.make_adapters(cfg, params, 3):
@@ -2499,6 +2675,8 @@ def profile_phase(torch):
     for label, p in (("base", params),
                      ("multi-tenant f32",
                       eng.wrapped_params(eng.ids_for(names)))):
+        if label not in labels:
+            continue
         logits, caches = lm.prefill(p, cfg, batch, PROMPT + 8)
         nxt = torch.argmax(logits, -1).to(torch.int32)[:, None]
 
@@ -2510,45 +2688,56 @@ def profile_phase(torch):
         for _ in range(3):
             step()
         wall = (time.perf_counter() - t0) / 3 * 1e3
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            step()
+        with moe_ranges() if moe else contextlib.nullcontext():
+            with profile(activities=acts) as prof:
+                step()
         kern = device_kernels(torch, prof)
         busy = sum(k[0] for k in kern)
-        print(f"[profile] {label} decode step (B={B}, {cfg.num_layers} "
-              f"layers): wall "
-              f"{wall:.2f} ms; kernels {busy:.2f} ms"
+        print(f"[{tag}] {arch} {label} decode step (B={B}, "
+              f"{cfg.num_layers} layers): wall {wall:.2f} ms; kernels "
+              f"{busy:.2f} ms in {sum(k[1] for k in kern)} launches"
               + (f" ({busy / wall:.0%} of wall)" if busy else
                  " (profiler saw no device time: not measured)"),
               flush=True)
-        for ms, n, name in sorted(kern, reverse=True)[:6]:
-            print(f"[profile]   {ms:8.3f} ms  x{n:<4d} {name[:90]}")
+        for ms, n, name in sorted(kern, reverse=True)[:8]:
+            print(f"[{tag}]   {ms:8.3f} ms  x{n:<4d} {name[:90]}")
+        kernel_share(f"{arch} {label}", kern)
+        if moe:
+            print_moe_ranges(torch, f"{arch} {label}", prof, busy)
     eng.close()
+    if not prefill:
+        return
 
     # a lane admission's unit of work: one batch-1, 1024-token prefill
     tokens = torch.randint(0, cfg.vocab_size, (1, 1024), generator=gen,
                            device="cuda")
 
-    def prefill():
+    def run_prefill():
         lm.prefill(params, cfg, {"tokens": tokens}, CACHE)
         torch.cuda.synchronize()
-    prefill()
+    run_prefill()
     t0 = time.perf_counter()
-    prefill()
+    run_prefill()
     wall = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        prefill()
+    with moe_ranges() if moe else contextlib.nullcontext():
+        with profile(activities=acts) as prof:
+            run_prefill()
     kern = device_kernels(torch, prof)
     busy = sum(k[0] for k in kern)
     fp = sum(ms for ms, _, name in kern if "flash_prefill" in name)
-    print(f"[profile] base prefill (B=1, S=1024, {cfg.num_layers} layers): "
-          f"wall {wall:.2f} ms; kernels {busy:.2f} ms"
+    print(f"[{tag}] {arch} base prefill (B=1, S=1024, {cfg.num_layers} "
+          f"layers): wall {wall:.2f} ms; kernels {busy:.2f} ms"
           + (f"; flash_prefill {fp:.3f} ms ({fp / busy:.1%})" if busy else
              " (profiler saw no device time: not measured)"), flush=True)
     for ms, n, name in sorted(kern, reverse=True)[:8]:
-        print(f"[profile]   {ms:8.3f} ms  x{n:<4d} {name[:90]}")
+        print(f"[{tag}]   {ms:8.3f} ms  x{n:<4d} {name[:90]}")
+    if moe:
+        print_moe_ranges(torch, f"{arch} base prefill", prof, busy)
 
 
-def consistency_phase(torch):
+def consistency_phase(torch, arch="starcoder2-7b", tag="consistency"):
+    """Full width, 2 layers, f32: multi-tenant tokens equal the
+    switch-per-request reference, unfused and with a hot adapter."""
     from repro_torch.configs import get_config
     from repro_torch.core import FusedLRU
     from repro_torch.launch import serve
@@ -2556,7 +2745,7 @@ def consistency_phase(torch):
     from repro_torch.serving import MultiTenantEngine
     from repro_torch.serving.multitenant import (greedy_decode,
                                                  switch_per_request_reference)
-    cfg = get_config("starcoder2-7b").replace(num_layers=2)
+    cfg = get_config(arch).replace(num_layers=2)
     names = ["adapter_0", "adapter_2", None, "adapter_1", "adapter_0",
              "adapter_1", None, "adapter_2"]
     T = 8
@@ -2584,12 +2773,12 @@ def consistency_phase(torch):
                 lambda t, c, pos: lm.decode_step(p, cfg, t, c, pos))
             equal = bool(torch.equal(out, ref))
             diff = float((logits - ref_logits).abs().max())
-            print(f"[consistency] f32, 2 layers, full width, {label}: tokens "
-                  f"equal {equal}, last-step logits max diff {diff:.3g}",
-                  flush=True)
+            print(f"[{tag}] {arch} f32, 2 layers, full width, {label}: "
+                  f"tokens equal {equal}, last-step logits max diff "
+                  f"{diff:.3g}", flush=True)
             if not equal or (sched is not None and eng.fused != "adapter_0"):
-                fail(f"consistency {label}: multi-tenant tokens differ from "
-                     "the switch-per-request reference")
+                fail(f"{tag} {arch} {label}: multi-tenant tokens differ "
+                     "from the switch-per-request reference")
             eng.close()
 
 
@@ -2633,10 +2822,14 @@ def check_run(label, counts, needed, totals):
         totals[k] = totals.get(k, 0) + v
 
 
-def train_phase(torch):
+def train_phase(torch, arch="starcoder2-7b", tag="train"):
     """Full-width training through the entry points a user calls: the
     launch.train CLI (one packed adapter, Trainer), then
-    MultiAdapterTrainer with 3 adapters, f32 then int8 moments."""
+    MultiAdapterTrainer with 3 adapters, f32 then int8 moments. An MoE
+    model's aux (the loss adds 0.01 of it) and dropped routing choices
+    are printed per step: a step's 2048 or 1536 tokens are one call of
+    each layer, whose capacity may drop choices, as the reference's
+    does."""
     import math
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import (AdapterConfig, RunConfig, ShapeSpec,
@@ -2646,19 +2839,24 @@ def train_phase(torch):
     from repro_torch.kernels.sparse_adamw import (sparse_adamw,
                                                   sparse_adamw_rows)
     from repro_torch.training import MultiAdapterTrainer
+    from repro_torch.models.moe import count_drops
+    moe = get_config(arch).family == "moe"
     totals = {}
     zero_counts()
     sparse_adamw.unaligned_launches = sparse_adamw_rows.unaligned_launches = 0
     sidedelta_dvals.unaligned_launches = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    stats = train.main(["--arch", "starcoder2-7b", "--adapter", "shira-rand",
-                        "--seq", str(TRAIN_SEQ), "--batch", str(TRAIN_BATCH),
-                        "--steps", str(TRAIN_STEPS)], keep=True)
+    with count_drops() as drops:
+        stats = train.main(["--arch", arch, "--adapter", "shira-rand",
+                            "--seq", str(TRAIN_SEQ), "--batch",
+                            str(TRAIN_BATCH), "--steps", str(TRAIN_STEPS)],
+                           keep=True)
     torch.cuda.synchronize()
     counts = read_counts()
     losses = stats["losses"]
-    print(f"[train] Trainer (launch.train, {TRAIN_BATCH}x{TRAIN_SEQ} tokens,"
+    print(f"[{tag}] {arch} Trainer (launch.train, {TRAIN_BATCH}x"
+          f"{TRAIN_SEQ} tokens,"
           f" {stats['trained_values']} packed values): launches {counts}, "
           f"step {stats['steady_step_ms']:.1f} ms (median after the first; "
           f"all {[round(x, 1) for x in stats['step_ms']]}), "
@@ -2666,6 +2864,9 @@ def train_phase(torch):
           f"{losses[-1]:.4f}, peak memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB, "
           f"{time.perf_counter() - t0:.1f}s wall", flush=True)
+    if moe:
+        moe_train_line(tag, "Trainer", stats["trainer"].cfg, stats["aux"],
+                       drops, TRAIN_STEPS)
     if not all(math.isfinite(x) for x in losses):
         fail("Trainer: a loss is not finite")
     check_run("Trainer", counts, ("scatter_apply", "sparse_adamw_blocks"),
@@ -2675,12 +2876,13 @@ def train_phase(torch):
         tr.publish(store, state, "adapter")], [tr.export_pack(state,
                                                              "adapter")])
     c_shira = percent_changed(torch, tr, state)
-    print(f"[train] Trainer (packed SHiRA) %C of the effective weights, "
+    print(f"[{tag}] {arch} Trainer (packed SHiRA) %C of the effective "
+          f"weights, "
           f"layer by layer: {c_shira:.6f}", flush=True)
     del stats, tr, state
     torch.cuda.empty_cache()
 
-    run = RunConfig(model=get_config("starcoder2-7b"),
+    run = RunConfig(model=get_config(arch),
                     shape=ShapeSpec("mt", MT_SEQ, MT_BATCH, "train"),
                     adapter=AdapterConfig(kind="shira", mask="rand",
                                           sparsity=0.98),
@@ -2697,7 +2899,8 @@ def train_phase(torch):
                                  base_params=base, auxes=auxes)
         base, auxes = mt.base, mt.auxes
         setup_s = time.perf_counter() - t0
-        out = mt.fit(MT_STEPS, log=None)
+        with count_drops() as drops:
+            out = mt.fit(MT_STEPS, log=None)
         torch.cuda.synchronize()
         counts = read_counts()
         hist = out["history"]
@@ -2706,7 +2909,8 @@ def train_phase(torch):
         tokens = 3 * MT_BATCH * MT_SEQ
         values = out["state"]["values"]
         finite = all(bool(torch.isfinite(v).all()) for v in values.values())
-        print(f"[train] MultiAdapterTrainer 3 adapters, {moments} moments "
+        print(f"[{tag}] {arch} MultiAdapterTrainer 3 adapters, {moments} "
+              f"moments "
               f"({tokens} tokens a step, "
               f"{sum(v.numel() for v in values.values())} packed values): "
               f"launches {counts}, step {steady:.1f} ms (median after the "
@@ -2716,13 +2920,19 @@ def train_phase(torch):
               f"memory {torch.cuda.max_memory_allocated() / 1e9:.1f} GB, "
               f"set-up {setup_s:.1f}s, {time.perf_counter() - t0:.1f}s wall",
               flush=True)
+        if moe:
+            print(f"[{tag}] {arch} MultiAdapterTrainer {moments}: aux "
+                  f"{[round(h['aux'], 4) for h in hist]}, dropped routing "
+                  f"choices a step {drops_per_step(drops, MT_STEPS)}",
+                  flush=True)
         if not finite or not all(math.isfinite(h["loss"]) for h in hist):
             fail(f"MultiAdapterTrainer {moments}: not finite")
         check_run(f"MultiAdapterTrainer {moments}", counts,
                   ("sidedelta", "sidedelta_dvals", "sparse_adamw_rows"),
                   totals)
         if moments == "f32":
-            profile_train_step(torch, profile, ProfilerActivity, mt, out)
+            profile_train_step(torch, profile, ProfilerActivity, mt, out,
+                               moe)
             publish_check(torch, "MultiAdapterTrainer",
                           lambda store: mt.publish(store, out["state"]),
                           mt.export_packs(out["state"]))
@@ -2741,6 +2951,26 @@ def train_phase(torch):
     if sidedelta_dvals.unaligned_launches:
         fail("train: a dvals launch took the one-token instance")
     return totals, c_shira
+
+
+def drops_per_step(drops, steps):
+    """The dropped routing choices of each step, from ``count_drops``'s
+    list of every MoE call of the run (the same number of calls a
+    step)."""
+    per = len(drops) // steps
+    return [int(sum(int(d) for d in drops[i * per:(i + 1) * per]))
+            for i in range(steps)]
+
+
+def moe_train_line(tag, label, cfg, aux, drops, steps):
+    """A trainer's MoE aux and dropped routing choices, step by step."""
+    from repro_torch.models.moe import expert_capacity
+    T = TRAIN_BATCH * TRAIN_SEQ
+    print(f"[{tag}] {cfg.name} {label}: aux {[round(a, 4) for a in aux]}, "
+          f"dropped routing choices a step {drops_per_step(drops, steps)} "
+          f"({len(drops) // steps} MoE calls a step, each of "
+          f"{T * cfg.moe.top_k} choices into {cfg.moe.num_experts} experts "
+          f"of capacity {expert_capacity(cfg.moe, T)})", flush=True)
 
 
 def percent_changed(torch, tr, state) -> float:
@@ -2780,8 +3010,10 @@ def publish_check(torch, label, publish, trained):
               f"{dt:.1f}s, read back equal to the trained packs", flush=True)
 
 
-def profile_train_step(torch, profile, ProfilerActivity, mt, out):
-    """Device time by kernel of one more multi-adapter step."""
+def profile_train_step(torch, profile, ProfilerActivity, mt, out,
+                       moe=False):
+    """Device time by kernel of one more multi-adapter step (an MoE
+    model's also by ``moe_ranges``)."""
     from repro_torch.runtime.trainer import device_batch
     from repro_torch.training import multi_batch_iterator
     from repro_torch.data import TaskSpec
@@ -2790,19 +3022,25 @@ def profile_train_step(torch, profile, ProfilerActivity, mt, out):
         start_step=MT_STEPS)), mt.device)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        mt.step(out["state"], batch)
-        torch.cuda.synchronize()
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if moe else [])
+    with moe_ranges() if moe else contextlib.nullcontext():
+        with profile(activities=acts) as prof:
+            mt.step(out["state"], batch)
+            torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
     kern = device_kernels(torch, prof)
     busy = sum(k[0] for k in kern)
-    print(f"[profile] multi-adapter train step (3 adapters, f32 moments): "
+    print(f"[profile] {mt.cfg.name} multi-adapter train step (3 adapters, "
+          f"f32 moments): "
           f"wall {wall:.1f} ms (profiler on); kernels {busy:.1f} ms"
           + (f" ({busy / wall:.0%} of wall)" if busy else
              " (profiler saw no device time: not measured)"), flush=True)
     for ms, n, name in sorted(kern, reverse=True)[:10]:
         print(f"[profile]   {ms:9.3f} ms  x{n:<5d} {name[:90]}")
     kernel_share("multi-adapter step", kern)
+    if moe:
+        print_moe_ranges(torch, f"{mt.cfg.name} multi-adapter step", prof,
+                         busy)
 
 
 def train_consistency_phase(torch):
@@ -2837,7 +3075,7 @@ def train_consistency_phase(torch):
     tasks = [TaskSpec(a) for a in range(3)]
     with layers.compute_precision(torch.float32):
         mt = MultiAdapterTrainer(run, names, init_key=0)
-        _, g_mt = mt.loss_and_grads(mt.init_state()["values"], device_batch(
+        _, g_mt, _ = mt.loss_and_grads(mt.init_state()["values"], device_batch(
             next(multi_batch_iterator(cfg, run.shape, 0, tasks)), "cuda"))
         out = mt.fit(steps, log=None)
         packs = mt.export_packs(out["state"])
@@ -3467,19 +3705,19 @@ def checkpoint_phase(torch):
 
 
 def kinds_consistency_phase(torch):
-    """The kinds with the kernels in the loop against the same Trainer on
-    the CPU, where the wrappers compute their plain versions: full width,
-    2 layers, f32, one 16-token sequence a step (the CPU side's size: a
-    few seconds a step). lora, dora and shira-dora: 3 steps of losses to
-    TRAIN_TOL, on the card's factors and mask. Hook mode (shira-wm) with
-    weight_decay 0.01, 2 steps: the weights that only decay (every leaf
-    off the mask) within WD_TOL of the largest weight of the CPU run's;
-    the masked weights, which also move by -lr * U, as train-consistency
-    holds trained values: to rtol = atol = TRAIN_TOL where the first
-    step's gradient is not within GRAD_TOL of zero on the CPU, and, where
-    it is (the two summation orders may disagree on its sign, and Adam's
-    normalised step turns either into a full lr move), counted and held
-    to the largest move that can make, 2 * lr * steps."""
+    """The kinds with the kernels in the loop against the same Trainer on the
+    CPU, where the wrappers compute their plain versions: full width,
+    KINDS_LAYERS layer(s), f32, one 16-token sequence a step (the CPU
+    side's size: a few seconds a step). lora, dora and shira-dora: 3 steps
+    of losses to TRAIN_TOL, on the card's factors and mask. Hook mode
+    (shira-wm) with weight_decay 0.01, 2 steps: the weights that only decay
+    (every leaf off the mask) within WD_TOL of the largest weight of the
+    CPU run's; the masked weights, which also move by -lr * U, as train-
+    consistency holds trained values: to rtol = atol = TRAIN_TOL where the
+    first step's gradient is not within GRAD_TOL of zero on the CPU, and,
+    where it is (the two summation orders may disagree on its sign, and
+    Adam's normalised step turns either into a full lr move), counted and
+    held to the largest move that can make, 2 * lr * steps."""
     from repro_torch.configs import (AdapterConfig, RunConfig, ShapeSpec,
                                      TrainConfig, get_config)
     from repro_torch.core.masks import iter_leaves, map_leaves
@@ -3487,7 +3725,7 @@ def kinds_consistency_phase(torch):
     from repro_torch.models import layers, lm
     from repro_torch.runtime import Trainer
     from repro_torch.runtime.trainer import dense_grads, device_batch
-    cfg = get_config("starcoder2-7b").replace(num_layers=2)
+    cfg = get_config("starcoder2-7b").replace(num_layers=KINDS_LAYERS)
     shape = ShapeSpec("c", 16, 1, "train")
     cpu = lambda t: map_leaves(lambda _, x: x.cpu(), t)
     with layers.compute_precision(torch.float32):
@@ -3510,7 +3748,8 @@ def kinds_consistency_phase(torch):
             t2 = time.perf_counter()
             counts = read_counts()
             d = max(abs(a - b) for a, b in zip(lg, lc))
-            print(f"[kinds-consistency] {kind}, f32, 2 layers, full width: "
+            print(f"[kinds-consistency] {kind}, f32, {KINDS_LAYERS} layer(s), "
+                  f"full width: "
                   f"card losses {lg}, CPU {lc}, max diff {d:.3g} (tol "
                   f"rtol=atol={TRAIN_TOL}); card {t1 - t0:.1f}s, CPU "
                   f"{t2 - t1:.1f}s; launches "
@@ -3558,7 +3797,8 @@ def kinds_consistency_phase(torch):
                 free_d = max(free_d, float(dd[free].max()))
                 free_n += int(free.sum())
         print(f"[kinds-consistency] hook mode (shira-wm) with weight decay "
-              f"0.01, lr {lr}, {steps} steps, f32, 2 layers: weights off "
+              f"0.01, lr {lr}, {steps} steps, f32, {KINDS_LAYERS} layer(s): "
+              f"weights off "
               f"the mask (decay only) max diff {decay_d:.3g} (tol {WD_TOL} "
               f"of {top:.3g}); masked weights max diff {held_d:.3g} (tol "
               f"rtol=atol={TRAIN_TOL}), {free_n} of them with |g| <= "
@@ -3572,6 +3812,163 @@ def kinds_consistency_phase(torch):
                  "from the CPU run")
 
 
+def moe_train_cpu_consistency(torch, arch=MOE_ARCH):
+    """Trainer (packed shira-rand) and MultiAdapterTrainer (3 adapters)
+    with the kernels in the loop against the same trainers on the CPU,
+    where the wrappers compute their plain versions: full width, 2 layers,
+    f32, one 16-token sequence a step (an adapter), the card's indices,
+    3 steps of losses to TRAIN_TOL."""
+    from repro_torch.configs import (AdapterConfig, RunConfig, ShapeSpec,
+                                     TrainConfig, get_config)
+    from repro_torch.core.masks import map_leaves
+    from repro_torch.models import layers, lm
+    from repro_torch.runtime import Trainer
+    from repro_torch.training import MultiAdapterTrainer
+    cfg = get_config(arch).replace(num_layers=2)
+    run = RunConfig(model=cfg, shape=ShapeSpec("c", 16, 1, "train"),
+                    adapter=AdapterConfig(kind="shira", mask="rand",
+                                          sparsity=0.98),
+                    train=TrainConfig(learning_rate=1e-2, total_steps=3,
+                                      warmup_steps=1))
+    cpu = lambda t: map_leaves(lambda _, x: x.cpu(), t)
+    names = ["a0", "a1", "a2"]
+    with layers.compute_precision(torch.float32):
+        base = lm.init_params(cfg, seed=0, device="cuda")
+        base_cpu = cpu(base)
+        for label, make in (
+                ("Trainer", lambda: Trainer(run, base_params=base)),
+                ("MultiAdapterTrainer", lambda: MultiAdapterTrainer(
+                    run, names, base_params=base))):
+            zero_counts()
+            tg = make()
+            if label == "Trainer":
+                tc = Trainer(run, base_params=base_cpu, device="cpu",
+                             aux=cpu(tg.aux))
+                keys = ["loss"]
+            else:
+                tc = MultiAdapterTrainer(run, names, base_params=base_cpu,
+                                         auxes=[cpu(a) for a in tg.auxes],
+                                         device="cpu")
+                keys = [f"loss:{n}" for n in names]
+            t0 = time.perf_counter()
+            hg = tg.fit(3, log=None)["history"]
+            t1 = time.perf_counter()
+            hc = tc.fit(3, log=None)["history"]
+            t2 = time.perf_counter()
+            counts = {k: v for k, v in read_counts().items() if v}
+            d = max(abs(a[k] - b[k]) for a, b in zip(hg, hc) for k in keys)
+            top = max(abs(b[k]) for b in hc for k in keys)
+            print(f"[moe-consistency] {arch} {label}, f32, 2 layers, full "
+                  f"width: card losses {[[h[k] for k in keys] for h in hg]}"
+                  f", CPU {[[h[k] for k in keys] for h in hc]}, aux card "
+                  f"{[round(h['aux'], 5) for h in hg]}, max diff {d:.3g} "
+                  f"(tol rtol=atol={TRAIN_TOL}); card {t1 - t0:.1f}s, CPU "
+                  f"{t2 - t1:.1f}s; launches {counts}", flush=True)
+            if not d <= TRAIN_TOL * (1 + top):
+                fail(f"moe-consistency: {label} departs from the CPU run")
+            if not counts:
+                fail(f"moe-consistency: {label} launched no kernel")
+            del tg, tc
+
+
+def moe_phases(torch):
+    """The MoE slice at full width and depth (MOE_ARCH), through the
+    earlier phases' code: serve (4 modes), profile (decode steps and a
+    1024-token prefill, with moe_ranges), continuous (both engines, bf16
+    and int8 pages), train (both trainers), then moe-consistency at 2
+    layers in f32 (multi-tenant against switch-per-request, both engines
+    against the fixed batch, both trainers against the CPU). Returns the
+    launches."""
+    totals = {}
+    for label, phase, args in (
+            ("moe serve", serve_phase, dict(tag="moe-serve")),
+            ("moe profile", profile_phase, dict(tag="moe-profile")),
+            ("moe continuous", continuous_phase,
+             dict(tag="moe-continuous")),
+            ("moe train", train_phase, dict(tag="moe-train"))):
+        out = timed(label, lambda: phase(torch, MOE_ARCH, **args))
+        if isinstance(out, tuple):          # train_phase: (totals, %C)
+            out = out[0]
+        for k, v in (out or {}).items():
+            totals[k] = totals.get(k, 0) + v
+        torch.cuda.empty_cache()
+
+    def consistency():
+        consistency_phase(torch, MOE_ARCH, tag="moe-consistency")
+        continuous_consistency_phase(torch, MOE_ARCH, long=MOE_LONG,
+                                     tag="moe-consistency")
+        moe_train_cpu_consistency(torch)
+    timed("moe-consistency", consistency)
+    torch.cuda.empty_cache()
+    return totals
+
+
+def dense_depth(torch, cfg):
+    """The deepest stack of ``cfg`` whose f32 parameters, three adapters'
+    packs and side-delta tables at 2% of each target leaf (ADAPTER_BYTES:
+    the tables as a fused transition's rebuild holds them), and the serve
+    batch's bf16 KV fit in DENSE_BUDGET (at least MIN_DEPTH layers, at
+    most the config's); what is left of the card takes the transients (a
+    leaf's table build, the weight casts, the logits). Returns (layers,
+    the arithmetic as text)."""
+    from repro_torch.configs import AdapterConfig
+    from repro_torch.core.masks import is_target, iter_leaves
+    from repro_torch.models import lm
+    one = lm.init_params(cfg.replace(num_layers=1), seed=0, device="cuda")
+    targets = AdapterConfig().target_modules
+    per_layer = sum(x.numel() for _, x in iter_leaves(one["stages"]))
+    target = sum(x.numel() for p, x in iter_leaves(one["stages"])
+                 if is_target(p, x, targets))
+    rest = sum(x.numel() for _, x in iter_leaves(one)) - per_layer
+    del one
+    torch.cuda.empty_cache()
+    kv = B * (PROMPT + TOKENS + 8) * 2 * cfg.num_kv_heads \
+        * cfg.resolved_head_dim * 2
+    adapters = 0.02 * target * ADAPTER_BYTES
+    layer_bytes = per_layer * 4 + adapters + kv
+    fit = int((DENSE_BUDGET - rest * 4) // layer_bytes)
+    layers = min(max(fit, MIN_DEPTH), cfg.num_layers)
+    text = (f"{cfg.num_layers} layers at full width; a layer: {per_layer} "
+            f"f32 parameters = {per_layer * 4 / 1e9:.3f} GB, 2% of its "
+            f"{target} target entries x {ADAPTER_BYTES} B (three packs and "
+            f"the fused state's tables beside the unfused ones) = "
+            f"{adapters / 1e9:.3f} GB, KV of {B} x "
+            f"{PROMPT + TOKENS + 8} rows = {kv / 1e6:.2f} MB; ("
+            f"{DENSE_BUDGET / 1e9:.0f} GB - {rest} embedding, unembedding "
+            f"and norm parameters x 4 B = {rest * 4 / 1e9:.2f} GB) / "
+            f"{layer_bytes / 1e9:.3f} GB = {fit} layers -> {layers}")
+    return layers, text
+
+
+def dense_configs_phase(torch):
+    """qwen1.5-32b (G 1), deepseek-coder-33b (G 7) and granite-34b (G 48)
+    at full width, cut to ``dense_depth``: a multi-tenant serve through
+    launch.serve --layers (3 adapters, B 8, 16 tokens: tok/s, peak memory,
+    flash_decode / flash_prefill / sidedelta launches > 0), one
+    multi-tenant decode step under torch.profiler, and at 2 layers in f32
+    multi-tenant tokens equal to the switch-per-request reference."""
+    from repro_torch.configs import get_config
+    totals = {}
+    mt = (SERVE_MODES[2],)
+    for arch in DENSE_ARCHS:
+        t0 = time.perf_counter()
+        cfg = get_config(arch)
+        layers, text = dense_depth(torch, cfg)
+        print(f"[dense] {arch} (H {cfg.num_heads}, KV {cfg.num_kv_heads}, G "
+              f"{cfg.num_heads // cfg.num_kv_heads}): {text}", flush=True)
+        for k, v in serve_phase(torch, arch, layers, mt, "dense").items():
+            totals[k] = totals.get(k, 0) + v
+        torch.cuda.empty_cache()
+        profile_phase(torch, arch, layers, prefill=False, tag="dense",
+                      labels=("multi-tenant f32",))
+        torch.cuda.empty_cache()
+        consistency_phase(torch, arch, tag="dense-consistency")
+        torch.cuda.empty_cache()
+        print(f"[time] dense {arch} {time.perf_counter() - t0:.1f}s",
+              flush=True)
+    return totals
+
+
 def materialize_dense(torch, base, state, t):
     """{path: base + scatter(values)} of a packed trainer's target leaves,
     by the plain scatter."""
@@ -3583,6 +3980,7 @@ def materialize_dense(torch, base, state, t):
 
 
 def main() -> None:
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         fail("no CUDA device: chip_smoke.py runs on an NVIDIA card")
@@ -3657,6 +4055,11 @@ def main() -> None:
             launches[k] = launches.get(k, 0) + v
         torch.cuda.empty_cache()
     timed("kinds-consistency", kinds_consistency_phase, torch)
+    torch.cuda.empty_cache()
+    for phase in (moe_phases, dense_configs_phase):
+        for k, v in phase(torch).items():
+            launches[k] = launches.get(k, 0) + v
+        torch.cuda.empty_cache()
 
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     main_side = side[0]     # w_up, S=1, f32 tables: the multi-tenant decode
@@ -3713,6 +4116,7 @@ def main() -> None:
         "launches": launches.get("masked_update", 0),
         **{k: masked["f32 W, bool M"][k] for k in keys},
         "max_abs_err": max(r["max_abs_err"] for r in masked.values())})
+    print(f"[time] total {time.perf_counter() - t_start:.1f}s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

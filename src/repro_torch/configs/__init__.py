@@ -1,4 +1,5 @@
 from repro_torch.configs.base import (AdapterConfig, ModelConfig,  # noqa: F401
-                                      RunConfig, ShapeSpec, TrainConfig)
+                                      MoEConfig, RunConfig, ShapeSpec,
+                                      TrainConfig)
 from repro_torch.configs.registry import (ARCH_IDS, get_config,  # noqa: F401
                                           get_smoke_config)

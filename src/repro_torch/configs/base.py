@@ -1,16 +1,16 @@
 """Configuration dataclasses for models, shapes, adapters and training.
 
 A copy of ``repro/configs/base.py``'s ``ShapeSpec``, ``ModelConfig``,
-``AdapterConfig``, ``TrainConfig`` and ``RunConfig``, so the port reads
-configurations without importing the JAX package. The sub-configs of the
-other families (MoE, MLA, SSM) are not copied: those families wait for
-ROADMAP item A9, and ``models.lm`` raises for them.
+``AdapterConfig``, ``TrainConfig``, ``RunConfig`` and ``MoEConfig``, so
+the port reads configurations without importing the JAX package. The
+sub-configs of the families still to port (MLA, SSM) are not copied:
+they wait for ROADMAP item A9, and ``models.lm`` raises for them.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Tuple
+from typing import Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -25,6 +25,18 @@ class ShapeSpec:
     @property
     def tokens(self) -> int:
         return self.seq_len * self.global_batch
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int = 0           # routed experts
+    top_k: int = 0
+    num_shared: int = 0            # always-on shared experts (DeepSeek-V2 style)
+    d_ff: int = 0                  # per-expert hidden dim
+    first_dense_layers: int = 0    # leading layers that use a dense FFN instead
+    first_dense_d_ff: int = 0      # hidden dim of those dense layers
+    capacity_factor: float = 1.25  # train-time token capacity per expert
+    router_jitter: float = 0.0
 
 
 @dataclass(frozen=True)
@@ -47,6 +59,7 @@ class ModelConfig:
     causal: bool = True
     encoder_only: bool = False
     logit_softcap: float = 0.0
+    moe: Optional[MoEConfig] = None
     modality: str = "text"         # text | vision | audio
     num_prefix_embeds: int = 0
     # Head-group padding: q heads per kv group (and kv heads) padded with
@@ -54,8 +67,7 @@ class ModelConfig:
     pad_heads_to: int = 0
     pad_kv_to: int = 0
     attn_repeat_kv: bool = False
-    remat: str = "full"            # full | none: per-layer remat (the
-                                   # reference's "dots" is not ported)
+    remat: str = "full"            # full | dots | none: per-layer remat
 
     @property
     def padded_vocab(self) -> int:

@@ -1,12 +1,14 @@
 """Architecture registry: ``--arch <id>`` -> ModelConfig.
 
-The port serves the dense GQA family. The other architectures of the JAX
-registry are known ids whose configs raise until their family is ported
-(ROADMAP item A9).
+The port serves the dense GQA family and the MoE family with GQA
+attention. The other architectures of the JAX registry are known ids
+whose configs raise until their family is ported (ROADMAP item A9).
 """
 from __future__ import annotations
 
-from repro_torch.configs import starcoder2_7b
+from repro_torch.configs import (deepseek_coder_33b, granite_34b,
+                                 granite_moe_1b_a400m, qwen1_5_32b,
+                                 starcoder2_7b)
 from repro_torch.configs.base import ModelConfig
 
 ARCH_IDS = [
@@ -22,7 +24,18 @@ ARCH_IDS = [
     "granite-34b",
 ]
 
-_PORTED = {"starcoder2-7b": starcoder2_7b}
+_PORTED = {"starcoder2-7b": starcoder2_7b,
+           "granite-moe-1b-a400m": granite_moe_1b_a400m,
+           "deepseek-coder-33b": deepseek_coder_33b,
+           "granite-34b": granite_34b,
+           "qwen1.5-32b": qwen1_5_32b}
+
+_WAITS_FOR = {"deepseek-v2-lite-16b": "MLA attention",
+              "mamba2-780m": "the Mamba2 mixer",
+              "zamba2-2.7b": "the Mamba2 mixer and the shared attention "
+                             "block",
+              "paligemma-3b": "the vision prefix (head_dim 256)",
+              "hubert-xlarge": "the encoder-only audio path"}
 
 
 def _module(arch: str):
@@ -30,8 +43,8 @@ def _module(arch: str):
         raise KeyError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
     if arch not in _PORTED:
         raise NotImplementedError(
-            f"{arch} is not ported yet (ROADMAP A9, other families); "
-            f"ported: {sorted(_PORTED)}")
+            f"{arch} is not ported yet: it waits for {_WAITS_FOR[arch]} "
+            f"(ROADMAP A9, other families); ported: {sorted(_PORTED)}")
     return _PORTED[arch]
 
 

@@ -15,8 +15,10 @@ Port of ``repro/launch/serve.py``. Four modes:
                   continuous batching, the adapters loaded lazily from an
                   ``AdapterStore`` of .shpk files in a temporary directory;
                   ``--int8`` stores int8 packs and serves int8 tables
-Runs on the card unless ``--device cpu`` is given. ``main`` returns the
-run's numbers as a dict, so scripts can drive it as a user would.
+Runs on the card unless ``--device cpu`` is given; ``--layers`` cuts the
+model's depth (a port-only option, as ``launch.train``'s: the dense 32B
+configs fit one card only so). ``main`` returns the run's numbers as a
+dict, so scripts can drive it as a user would.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch starcoder2-7b \
       --multi-tenant --adapters 3 --tokens 16 --batch 8 --batches 4
@@ -207,6 +209,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--int8", action="store_true",
                     help="int8 adapters: quantized store packs (continuous) "
                     "and int8 side-delta tables (multi-tenant, continuous)")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the model to this many layers (0: all)")
     ap.add_argument("--device", default="cuda",
                     help="torch device; the CPU only when asked for")
     return ap.parse_args(argv)
@@ -217,6 +221,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
     if args.int8 and not (args.multi_tenant or args.continuous):
         raise SystemExit("--int8 applies to --multi-tenant and --continuous")
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if args.layers:
+        cfg = cfg.replace(num_layers=args.layers)
     params = lm.init_params(cfg, seed=0, device=args.device)
     packs = make_adapters(cfg, params, args.adapters)
     if args.continuous:

@@ -128,7 +128,8 @@ def main(argv: Optional[List[str]] = None, keep: bool = False) -> dict:
                  if trainer.hook_mode else
                  sum(v.numel() for _, v in
                      iter_leaves(out["state"]["trainable"])))
-    stats = {"losses": losses, "step_ms": step_ms, "steady_step_ms": steady,
+    stats = {"losses": losses, "aux": [h["aux"] for h in out["history"]],
+             "step_ms": step_ms, "steady_step_ms": steady,
              "tokens_per_s": shape.tokens / steady * 1e3,
              "trained_values": n_trained,
              "mask_seconds": trainer.mask_seconds}

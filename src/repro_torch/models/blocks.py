@@ -1,20 +1,28 @@
-"""The dense transformer block (pre-norm GQA attention + MLP).
+"""The transformer blocks: pre-norm GQA attention with a dense MLP or an
+MoE FFN.
 
-Port of the dense block of ``repro/models/blocks.py``. MoE, MLA, Mamba2 and
-the zamba2 shared-attention block wait (ROADMAP A9).
+Port of the dense and MoE blocks of ``repro/models/blocks.py``. A block's
+FFN is its parameters' own: a dense block has ``mlp``, an MoE block
+``moe``, so one function of each entry point (``block_train``,
+``block_prefill``, ``block_decode``, ``block_prefill_chunk``) serves both,
+where the reference has a ``dense_block_*`` and a ``moe_block_*`` of
+each. MLA, Mamba2 and the zamba2 shared-attention block wait (ROADMAP
+A9).
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import init_mlp, init_rms_norm, mlp, rms_norm
+from repro_torch.models.moe import init_moe, moe_ffn
 
 
-def init_dense_block(gen: torch.Generator, cfg: ModelConfig, *, lead=(),
-                     device="cuda") -> dict:
-    """Parameters of ``lead`` stacked dense blocks (leading dims first)."""
+def _init_block(gen: torch.Generator, cfg: ModelConfig, lead, device,
+                ffn: str, make_ffn) -> dict:
     if cfg.attn_type != "gqa":
         raise NotImplementedError(
             f"attn_type {cfg.attn_type!r} is not ported (ROADMAP A9)")
@@ -22,33 +30,55 @@ def init_dense_block(gen: torch.Generator, cfg: ModelConfig, *, lead=(),
         "attn_norm": init_rms_norm(cfg.d_model, lead=lead, device=device),
         "attn": attn.init_gqa(gen, cfg, lead=lead, device=device),
         "mlp_norm": init_rms_norm(cfg.d_model, lead=lead, device=device),
-        "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.act, lead=lead,
-                        device=device),
+        ffn: make_ffn(),
     }
 
 
-def dense_block_train(params, cfg: ModelConfig, h, *, prefix_len=0,
-                      aux=None):
+def init_dense_block(gen: torch.Generator, cfg: ModelConfig, *,
+                     d_ff: Optional[int] = None, lead=(),
+                     device="cuda") -> dict:
+    """Parameters of ``lead`` stacked dense blocks (leading dims first);
+    ``d_ff`` overrides the config's (an MoE model's first dense layers)."""
+    return _init_block(gen, cfg, lead, device, "mlp", lambda: init_mlp(
+        gen, cfg.d_model, d_ff or cfg.d_ff, cfg.act, lead=lead,
+        device=device))
+
+
+def init_moe_block(gen: torch.Generator, cfg: ModelConfig, *, lead=(),
+                   device="cuda") -> dict:
+    """Parameters of ``lead`` stacked MoE blocks."""
+    return _init_block(gen, cfg, lead, device, "moe", lambda: init_moe(
+        gen, cfg, lead=lead, device=device))
+
+
+def _ffn(params, cfg: ModelConfig, h):
+    """h + the block's FFN of its normed input, and the MoE aux loss (None
+    for a dense block)."""
+    x = rms_norm(h, params["mlp_norm"]["scale"], cfg.norm_eps)
+    if "moe" in params:
+        y, lb = moe_ffn(params["moe"], cfg, x)
+        return h + y, lb
+    return h + mlp(params["mlp"], x, cfg.act), None
+
+
+def block_train(params, cfg: ModelConfig, h, *, prefix_len=0, aux=None):
     x = rms_norm(h, params["attn_norm"]["scale"], cfg.norm_eps)
     h = h + attn.gqa_train(params["attn"], cfg, x, prefix_len=prefix_len)
-    x = rms_norm(h, params["mlp_norm"]["scale"], cfg.norm_eps)
-    h = h + mlp(params["mlp"], x, cfg.act)
+    h, lb = _ffn(params, cfg, h)
+    if lb is not None:
+        aux = lb if aux is None else aux + lb
     return h, aux
 
 
-def dense_block_prefill(params, cfg: ModelConfig, h, cache_size, *,
-                        prefix_len=0):
+def block_prefill(params, cfg: ModelConfig, h, cache_size, *, prefix_len=0):
     x = rms_norm(h, params["attn_norm"]["scale"], cfg.norm_eps)
     a, cache = attn.gqa_prefill(params["attn"], cfg, x, cache_size,
                                 prefix_len=prefix_len)
-    h = h + a
-    x = rms_norm(h, params["mlp_norm"]["scale"], cfg.norm_eps)
-    h = h + mlp(params["mlp"], x, cfg.act)
-    return h, cache
+    return _ffn(params, cfg, h + a)[0], cache
 
 
-def dense_block_decode(params, cfg: ModelConfig, h, cache, pos,
-                       block_tables=None):
+def block_decode(params, cfg: ModelConfig, h, cache, pos,
+                 block_tables=None):
     """One decode step; with ``block_tables`` the cache is a page pool
     (``attention.gqa_decode_paged``)."""
     x = rms_norm(h, params["attn_norm"]["scale"], cfg.norm_eps)
@@ -57,20 +87,14 @@ def dense_block_decode(params, cfg: ModelConfig, h, cache, pos,
                                          block_tables, pos)
     else:
         a, cache = attn.gqa_decode(params["attn"], cfg, x, cache, pos)
-    h = h + a
-    x = rms_norm(h, params["mlp_norm"]["scale"], cfg.norm_eps)
-    h = h + mlp(params["mlp"], x, cfg.act)
-    return h, cache
+    return _ffn(params, cfg, h + a)[0], cache
 
 
-def dense_block_prefill_chunk(params, cfg: ModelConfig, h, cache,
-                              block_tables, start, kv_len):
-    """Paged chunk prefill: like dense_block_prefill but writing one chunk
+def block_prefill_chunk(params, cfg: ModelConfig, h, cache, block_tables,
+                        start, kv_len):
+    """Paged chunk prefill: like ``block_prefill`` but writing one chunk
     of positions [start, kv_len) through a block table."""
     x = rms_norm(h, params["attn_norm"]["scale"], cfg.norm_eps)
     a, cache = attn.gqa_prefill_chunk(params["attn"], cfg, x, cache,
                                       block_tables, start, kv_len)
-    h = h + a
-    x = rms_norm(h, params["mlp_norm"]["scale"], cfg.norm_eps)
-    h = h + mlp(params["mlp"], x, cfg.act)
-    return h, cache
+    return _ffn(params, cfg, h + a)[0], cache

@@ -118,6 +118,16 @@ def pdot(x: torch.Tensor, w) -> torch.Tensor:
 
 
 def _pdot_sidedelta(x: torch.Tensor, w: dict) -> torch.Tensor:
+    if x.ndim == 2:
+        # Flattened-token call sites (MoE shared experts): the model only
+        # flattens row-major from (B, S, d), so the request axis comes
+        # back from the bundled per-request ids.
+        B, T = w["sd.ids"].shape[-1], x.shape[0]
+        if T % B:
+            raise ValueError(f"flattened tokens {T} not divisible by batch "
+                             f"{B} at a side-delta weight")
+        y = _pdot_sidedelta(x.reshape(B, T // B, x.shape[-1]), w)
+        return y.reshape(T, y.shape[-1])
     if x.ndim != 3:
         raise ValueError("side-delta weights serve batched (B, S, d) "
                          f"activations, got {tuple(x.shape)}")

@@ -1,14 +1,21 @@
-"""Causal LM assembly for the dense family: embeddings, a stack of dense
-blocks, final norm and unembedding.
+"""Causal LM assembly for the dense and MoE families: embeddings, stages
+of stacked blocks, final norm and unembedding.
 
-Port of ``repro/models/lm.py``. The parameter tree has the reference's
-structure and shapes: layer parameters are stacked along a leading (L,)
-dim in ``params["stages"][0]``. The reference's ``lax.scan`` over that
-stack is a Python loop over the same stacked tensors here; the KV cache is
-stacked the same way, ``KVCache`` of (L, B, S_max, KV, D), and written in
-place. In training, ``jax.checkpoint`` around the scanned layer becomes
-``torch.utils.checkpoint`` around each layer (``cfg.remat``), and around
-each chunk of the loss.
+Port of ``repro/models/lm.py``. A model is a list of stages, each a
+homogeneous stack of blocks:
+
+  dense family  -> [("dense", L)]
+  moe family    -> [("dense_first", first_dense)] + [("moe", rest)]
+
+The parameter tree has the reference's structure and shapes: each
+stage's layer parameters are stacked along a leading (L,) dim in
+``params["stages"][i]``. The reference's ``lax.scan`` over that stack is
+a Python loop over the same stacked tensors here; the KV cache is stacked
+the same way, one ``KVCache`` of (L, B, S_max, KV, D) a stage, and written
+in place. In training, ``jax.checkpoint`` around the scanned layer becomes
+``torch.utils.checkpoint`` around each layer (``cfg.remat``: "full",
+"dots" or "none"), and around each chunk of the loss; MoE stages add
+their load-balance aux, and ``train_loss`` adds 0.01 of it to the loss.
 
 Entry points:
   init_params(cfg, seed, device)                  -> params
@@ -26,10 +33,12 @@ Entry points:
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import blocks as B
@@ -40,11 +49,23 @@ from repro_torch.models.layers import (compute_dtype, embed, init_embedding,
 
 
 def stage_plan(cfg: ModelConfig) -> List[Tuple[str, int]]:
-    if cfg.family == "dense" and cfg.modality == "text":
-        return [("dense", cfg.num_layers)]
+    if cfg.modality == "text" and cfg.attn_type == "gqa":
+        if cfg.family == "dense":
+            return [("dense", cfg.num_layers)]
+        if cfg.family == "moe":
+            fd = cfg.moe.first_dense_layers
+            return ([("dense_first", fd)] if fd else []) + [
+                ("moe", cfg.num_layers - fd)]
     raise NotImplementedError(
-        f"family {cfg.family!r} / modality {cfg.modality!r} is not ported "
-        "(ROADMAP A9, other families)")
+        f"family {cfg.family!r} / modality {cfg.modality!r} / attn_type "
+        f"{cfg.attn_type!r} is not ported (ROADMAP A9, other families)")
+
+
+def _init_stage(gen, cfg: ModelConfig, kind: str, n: int, device):
+    if kind == "moe":
+        return B.init_moe_block(gen, cfg, lead=(n,), device=device)
+    d_ff = cfg.moe.first_dense_d_ff if kind == "dense_first" else None
+    return B.init_dense_block(gen, cfg, d_ff=d_ff, lead=(n,), device=device)
 
 
 class LayerList(list):
@@ -75,8 +96,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda"
     params: Dict[str, Any] = {
         "embed": init_embedding(gen, cfg.padded_vocab, cfg.d_model, device),
         "final_norm": init_rms_norm(cfg.d_model, device=device),
-        "stages": [B.init_dense_block(gen, cfg, lead=(n,), device=device)
-                   for _, n in plan],
+        "stages": [_init_stage(gen, cfg, kind, n, device)
+                   for kind, n in plan],
     }
     if not cfg.tie_embeddings:
         params["unembed"] = {"lm_head": normal_init(
@@ -100,26 +121,44 @@ def _logits(params, cfg: ModelConfig, h):
 # Train
 # ---------------------------------------------------------------------------
 
+# The reference's "dots" policy (``dots_with_no_batch_dims_saveable``)
+# keeps the products without a batch dimension: here the 2-D-weight
+# products of ``pdot``, which reach the dispatcher as ``mm``/``addmm``.
+# Batched products (attention, experts) and everything else recompute.
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
 def _maybe_remat(fn, cfg: ModelConfig):
-    """remat="full" (the default) recomputes ``fn`` in backward; "none"
-    keeps its activations. The reference's "dots" policy is not ported."""
+    """remat="full" (the default) recomputes ``fn`` in backward; "dots"
+    keeps its matmul outputs and recomputes the rest; "none" keeps its
+    activations."""
     if cfg.remat == "none":
         return fn
+    if cfg.remat == "dots":
+        ctx = functools.partial(create_selective_checkpoint_contexts,
+                                _dots_policy)
+        return lambda *a: checkpoint(fn, *a, use_reentrant=False,
+                                     context_fn=ctx)
     if cfg.remat != "full":
-        raise NotImplementedError(f"remat {cfg.remat!r} is not ported; "
-                                  "use 'full' or 'none'")
+        raise ValueError(f"remat must be 'full', 'dots' or 'none', got "
+                         f"{cfg.remat!r}")
     return lambda *a: checkpoint(fn, *a, use_reentrant=False)
 
 
 def _stage_train(stage_params, cfg: ModelConfig, h, aux, prefix_len,
                  n: int):
-    """The ``n`` stacked dense layers of one stage, each (re)materialized
-    under ``cfg.remat``: the layer's weights, SHiRA bundles included, are
-    sliced outside and used inside, so in backward only one layer's
-    effective weights are alive at a time."""
+    """The ``n`` stacked layers of one stage, each (re)materialized under
+    ``cfg.remat``: the layer's weights, SHiRA bundles included, are sliced
+    outside and used inside, so in backward only one layer's effective
+    weights are alive at a time. A layer's FFN (dense or MoE) is its
+    parameters' own (``blocks``)."""
     def body(lp, hh, ax):
-        return B.dense_block_train(lp, cfg, hh, prefix_len=prefix_len,
-                                   aux=ax)
+        return B.block_train(lp, cfg, hh, prefix_len=prefix_len, aux=ax)
 
     body = _maybe_remat(body, cfg)
     for i in range(n):
@@ -173,9 +212,17 @@ def train_loss(params, cfg: ModelConfig, batch) -> Tuple[torch.Tensor, Dict]:
     for sp, (_, n) in zip(params["stages"], stage_plan(cfg)):
         h, aux = _stage_train(sp, cfg, h, aux, prefix_len, n)
     h = rms_norm(h, params["final_norm"]["scale"], cfg.norm_eps)
-    loss = chunked_loss(params, cfg, h, batch["labels"],
-                        batch.get("loss_mask"))
-    return loss, {"ce": loss, "aux": aux}
+    ce = chunked_loss(params, cfg, h, batch["labels"],
+                      batch.get("loss_mask"))
+    return with_aux(cfg, ce, aux), {"ce": ce, "aux": aux}
+
+
+def with_aux(cfg: ModelConfig, loss, aux):
+    """The training loss: an MoE model adds 0.01 of its load-balance
+    aux."""
+    if cfg.family == "moe" or (cfg.moe and cfg.moe.num_experts):
+        return loss + 0.01 * aux
+    return loss
 
 
 # ---------------------------------------------------------------------------
@@ -188,8 +235,8 @@ def prefill(params, cfg: ModelConfig, batch, cache_size: int):
     for sp, (_, n) in zip(params["stages"], stage_plan(cfg)):
         ks, vs = [], []
         for i in range(n):
-            h, c = B.dense_block_prefill(layer_slice(sp, i), cfg, h,
-                                         cache_size, prefix_len=prefix_len)
+            h, c = B.block_prefill(layer_slice(sp, i), cfg, h, cache_size,
+                                   prefix_len=prefix_len)
             ks.append(c.k)
             vs.append(c.v)
         caches.append(KVCache(torch.stack(ks), torch.stack(vs)))
@@ -207,9 +254,9 @@ def decode_step(params, cfg: ModelConfig, tokens, caches, pos,
     h = embed(params["embed"], tokens)
     for sp, cache, (_, n) in zip(params["stages"], caches, stage_plan(cfg)):
         for i in range(n):
-            h, _ = B.dense_block_decode(layer_slice(sp, i), cfg, h,
-                                        _layer_cache(cache, i), pos,
-                                        block_tables=block_tables)
+            h, _ = B.block_decode(layer_slice(sp, i), cfg, h,
+                                  _layer_cache(cache, i), pos,
+                                  block_tables=block_tables)
     h = rms_norm(h, params["final_norm"]["scale"], cfg.norm_eps)
     return _logits(params, cfg, h[:, 0]), caches
 
@@ -225,7 +272,7 @@ def prefill_chunk(params, cfg: ModelConfig, tokens, caches, block_tables,
     kv_len = start + valid
     for sp, cache, (_, n) in zip(params["stages"], caches, stage_plan(cfg)):
         for i in range(n):
-            h, _ = B.dense_block_prefill_chunk(
+            h, _ = B.block_prefill_chunk(
                 layer_slice(sp, i), cfg, h, _layer_cache(cache, i),
                 block_tables, start, kv_len)
     h = rms_norm(h, params["final_norm"]["scale"], cfg.norm_eps)
@@ -256,9 +303,9 @@ def init_cache(cfg: ModelConfig, bsz: int, cache_size: int, device="cuda"):
 
 
 def cache_batch_axes(cfg: ModelConfig):
-    """Per stage, a ``KVCache`` of the batch axis of each leaf: a dense
-    stage's KV leaf is (L, B, S, KV, D), so 1. Lane splicing reads this
-    metadata, not the shapes."""
+    """Per stage, a ``KVCache`` of the batch axis of each leaf: a dense or
+    MoE stage's KV leaf is (L, B, S, KV, D), so 1. Lane splicing reads
+    this metadata, not the shapes."""
     return [KVCache(1, 1) for _ in stage_plan(cfg)]
 
 

@@ -38,7 +38,9 @@ step), and a failed background build is counted in ``async_backoffs``
 and left for the next kick or a synchronous rebuild, as the reference
 leaves its ``prefetch.h2d_failed``. A background build that raised
 anything else is counted in ``async_failed`` and raises where it is
-polled. Spans: ``table_rebuild`` (serving thread), ``prefetch.h2d`` (the
+polled. A pack on an MoE expert leaf is refused at ``register``
+(``ValueError``): the experts' batched products take no side delta.
+Spans: ``table_rebuild`` (serving thread), ``prefetch.h2d`` (the
 build worker), ``prefetch.stall``, ``fuse`` and ``unfuse``.
 """
 from __future__ import annotations
@@ -54,13 +56,14 @@ import torch
 from repro_torch.analysis import trace
 from repro_torch.core.adapters import AdapterPack, apply_pack, pack_to
 from repro_torch.core.fusion import fuse_packs
-from repro_torch.core.masks import iter_leaves, map_leaves
+from repro_torch.core.masks import iter_leaves, leaf_name, map_leaves
 from repro_torch.core.switching import (FusedLRU, SwitchEngine, Tenant,
                                         normalize_tenant, synchronize,
                                         tenant_key, tenant_members)
 from repro_torch.kernels.ops import sidedelta_table
 from repro_torch.models import lm
 from repro_torch.models.layers import sidedelta_weight
+from repro_torch.models.moe import EXPERT_LEAVES
 from repro_torch.runtime import faults
 from repro_torch.runtime.faults import TableBuildError
 
@@ -216,6 +219,14 @@ class MultiTenantEngine:
             if path not in self._shapes:
                 raise KeyError(f"adapter {pack.name!r} targets unknown "
                                f"weight {path!r}")
+            if leaf_name(path) in EXPERT_LEAVES:
+                # the experts' (E, n, m) weights go through batched
+                # products (models.moe), not pdot; the reference registers
+                # such a pack and fails in its first forward
+                raise ValueError(
+                    f"adapter {pack.name!r} targets the expert leaf "
+                    f"{path!r}: side deltas cannot serve the batched expert "
+                    "products (switch or fuse such a pack instead)")
         if background and self._device.type == "cuda":
             with self._on_side():
                 pack = pack_to(pack, self._device, non_blocking=True)

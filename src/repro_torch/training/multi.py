@@ -167,10 +167,11 @@ class MultiAdapterTrainer:
 
         return map_leaves(leaf, self.base)
 
-    def _per_adapter_loss(self, params, batch) -> torch.Tensor:
-        """(A,) mean NLL per adapter: ``lm.chunked_loss``'s math with the
-        sum routed one-hot by each row's adapter, so every adapter's loss
-        is normalized over its own rows only."""
+    def _per_adapter_loss(self, params, batch) -> tuple:
+        """((A,) mean NLL per adapter, the MoE aux over the combined batch):
+        ``lm.chunked_loss``'s math with the sum routed one-hot by each
+        row's adapter, so every adapter's loss is normalized over its own
+        rows only."""
         cfg, A = self.cfg, self.A
         if cfg.modality != "text":
             raise NotImplementedError("multi-adapter training routes by "
@@ -192,7 +193,7 @@ class MultiAdapterTrainer:
                                 batch["ids"].repeat_interleave(S))
         sums = torch.stack([p[0] for p in parts]).sum(0)
         counts = torch.stack([p[1] for p in parts]).sum(0)
-        return sums / torch.clamp(counts, min=1.0)
+        return sums / torch.clamp(counts, min=1.0), aux
 
     # -- one step ------------------------------------------------------------
 
@@ -220,19 +221,23 @@ class MultiAdapterTrainer:
     def loss_and_grads(self, values: Dict[str, torch.Tensor],
                        batch: dict) -> tuple:
         """((A,) per-adapter losses, gradients of the (A, ..., K) values by
-        path) on a device batch, before clipping."""
+        path, the MoE aux) on a device batch, before clipping. The
+        gradients are of the losses' sum plus, for an MoE model, 0.01 of
+        the aux over the combined batch, as the reference's."""
         values = {p: v.detach().requires_grad_(True)
                   for p, v in values.items()}
-        losses = self._per_adapter_loss(self._wrapped_params(values), batch)
-        grads = torch.autograd.grad(losses.sum(), list(values.values()))
-        return losses.detach(), dict(zip(values, grads))
+        losses, aux = self._per_adapter_loss(self._wrapped_params(values),
+                                             batch)
+        grads = torch.autograd.grad(lm.with_aux(self.cfg, losses.sum(), aux),
+                                    list(values.values()))
+        return losses.detach(), dict(zip(values, grads)), aux.detach()
 
     def step(self, state: dict, batch: dict) -> tuple:
         """One optimizer step of every adapter on a device batch; returns
         (new state, metrics as tensors)."""
         tc = self.run.train
         lr = self.schedule(state["step"])
-        losses, grads = self.loss_and_grads(state["values"], batch)
+        losses, grads, aux = self.loss_and_grads(state["values"], batch)
         gnorm = batched_global_norm(grads, self.A)               # (A,)
         if tc.grad_clip > 0:
             scale = clip_scale(gnorm, tc.grad_clip)
@@ -249,7 +254,7 @@ class MultiAdapterTrainer:
                 new[k][p] = t
         new["step"] = step
         return new, {"losses": losses, "loss": losses.mean(),
-                     "grad_norm": gnorm, "lr": lr}
+                     "aux": aux, "grad_norm": gnorm, "lr": lr}
 
     # -- host loop -----------------------------------------------------------
 
@@ -270,7 +275,7 @@ class MultiAdapterTrainer:
             losses = metrics["losses"].tolist()
             dt = time.perf_counter() - t0
             rec = {"loss": float(metrics["loss"]), "lr": metrics["lr"],
-                   "step_ms": dt * 1e3}
+                   "aux": float(metrics["aux"]), "step_ms": dt * 1e3}
             rec.update({f"loss:{n}": v for n, v in zip(self.names, losses)})
             history.append(rec)
             if log and (s % self.tcfg.log_every == 0 or s == steps - 1):

@@ -1,6 +1,7 @@
-"""The port stands alone: nothing under src/repro_torch/ or tools/, and not
-chip_smoke.py, imports jax or the JAX package, and the port imports with
-jax made unimportable."""
+"""The port stands alone: nothing under src/repro_torch/ or tools/, not
+chip_smoke.py and not the port's examples (examples/torch_*.py), imports
+jax or the JAX package, and the port imports with jax made
+unimportable."""
 import ast
 import os
 import subprocess
@@ -11,7 +12,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
-         + sorted((ROOT / "tools").glob("*.py")) + [ROOT / "chip_smoke.py"])
+         + sorted((ROOT / "tools").glob("*.py")) + [ROOT / "chip_smoke.py"]
+         + sorted((ROOT / "examples").glob("torch_*.py")))
 
 
 def _imported_modules(path: Path):
@@ -56,6 +58,7 @@ def test_port_imports_with_jax_blocked():
         "import repro_torch.kernels.flash_prefill, repro_torch.kernels.ref\n"
         "import repro_torch.kernels.masked_update, repro_torch.core.masks\n"
         "import repro_torch.runtime.ft, repro_torch.serving.loadgen\n"
+        "import repro_torch.models.moe\n"
         "assert not any(k == 'jax' or k.startswith(('jax.', 'repro.'))\n"
         "               for k in sys.modules if sys.modules[k] is not None)\n"
     )

@@ -8,6 +8,8 @@ but accumulate in their own order, so single bf16 roundings (2^-8
 relative) flip and propagate; logits, up to ~0.6 here, agree to 1e-2
 (3.2e-3 measured).
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -100,11 +102,21 @@ def test_prefill_decode_bf16(setup):
 
 
 def test_other_families_raise():
+    """MoE plans (dense first layers, then MoE); SSM, hybrid and MLA
+    still raise, naming A9."""
     from repro_torch.configs import get_config
     with pytest.raises(NotImplementedError, match="A9"):
         get_config("mamba2-780m")
-    with pytest.raises(NotImplementedError, match="A9"):
-        TLM.stage_plan(t_smoke("starcoder2-7b").replace(family="moe"))
+    dense = t_smoke("starcoder2-7b")
+    moe = t_smoke("granite-moe-1b-a400m")
+    assert TLM.stage_plan(moe) == [("moe", 2)]
+    first = moe.replace(moe=dataclasses.replace(moe.moe,
+                                                first_dense_layers=1))
+    assert TLM.stage_plan(first) == [("dense_first", 1), ("moe", 1)]
+    for other in (dense.replace(family="ssm"), dense.replace(family="hybrid"),
+                  moe.replace(attn_type="mla")):
+        with pytest.raises(NotImplementedError, match="A9"):
+            TLM.stage_plan(other)
 
 
 @pytest.mark.parametrize("sq,q_chunk,prefix", [(8, 4, 0), (10, 4, 0),

@@ -195,15 +195,16 @@ def test_export_pack_loads_like_materialize(setup):
 
 
 def test_unported_options_raise(setup, tmp_path):
-    """The reference's "dots" remat policy is the training option still
-    unported; the adapter kinds, checkpoints and fault injection, which
-    raised until they were ported, now run."""
+    """The training options that raised until they were ported now run:
+    the adapter kinds, checkpoints and fault injection, and the "dots"
+    remat policy (held against "full" and the JAX package in
+    tests/test_torch_archs.py); an unknown remat policy raises."""
     _, trun, _, _, np_base, np_idx = setup
-    dots = RunConfig(model=trun.model.replace(remat="dots"),
-                     shape=trun.shape, adapter=trun.adapter,
-                     train=trun.train)
-    tt = _port_trainer(dots, np_base, np_idx)
-    with pytest.raises(NotImplementedError, match="dots"):
+    bad = RunConfig(model=trun.model.replace(remat="some"),
+                    shape=trun.shape, adapter=trun.adapter,
+                    train=trun.train)
+    tt = _port_trainer(bad, np_base, np_idx)
+    with pytest.raises(ValueError, match="remat"):
         tt.fit(1, log=None)
     assert tlaunch.parse_adapter("lora").kind == "lora"
     tt = Trainer(trun, TrainerConfig(ckpt_dir=str(tmp_path)),
