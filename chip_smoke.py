@@ -57,7 +57,7 @@ prints its seconds on a "[time]" line:
                one wm mask give the same losses to 2e-3; grad and snip
                masks from one batch's calibration gradients train, and
                their exported packs load
-  13. personalization  full width, 16 of 32 layers (for the time
+  13. personalization  full width, 8 of 32 layers (for the time
                limit): three f32 packs published as
                adapter_i@1 into an AdapterStore (resident budget one pack,
                pinned staging two), the continuous trace's first 12
@@ -96,7 +96,8 @@ prints its seconds on a "[time]" line:
                load and unload of a 138.9M-entry pack, median of 5 each,
                the fuse's bound, the base restored within 1e-5, and the
                fuse's peak (no stacked delta)
-  19. train (checkpoint, preemption)  full width, packed shira-wm: a clean
+  19. train (checkpoint, preemption)  full width, 16 of 32 layers (for
+               the time limit), packed shira-wm: a clean
                6-step fit and one preempted at step 3 (one restore, from
                step 2; last loss within 1e-6; steps [4, 6] committed), a
                fresh Trainer resuming at 6, the state's device-to-host
@@ -122,13 +123,29 @@ prints its seconds on a "[time]" line:
                equal the switch-per-request reference, both engines the
                fixed batch (a 501-token prompt: drop-free calls), and
                Trainer and MultiAdapterTrainer track the CPU run to 5e-3
-  23. dense     qwen1.5-32b (G 1), deepseek-coder-33b (G 7) and
+  23. mla serve, mla profile, mla continuous, mla train
+               deepseek-v2-lite-16b (MLA attention, 64 experts top-6, 2
+               shared, a first dense layer) at full width, at the depths
+               mla_depth prints (all 27 layers where its arithmetic fits
+               MLA_BUDGET), through the same code as 21: launch.serve in
+               four modes, a decode step (base, multi-tenant) and a
+               1024-token prefill under torch.profiler with MLA's
+               attention split out (mla_ranges: the q_eff and w_uv
+               products, scores and softmax, the latent cache write), the
+               24-request trace through both engines on bf16 and int8
+               latent pages (resident requests per GB beside the other
+               archs'), both trainers; sidedelta, scatter_apply and
+               sparse_adamw launch, and no attention kernel: MLA's
+               attention is plain torch, as the reference's is jnp
+  24. mla-consistency  full width, 2 layers, f32: as 22, and the int8
+               latent pages' tokens equal the same engine's on the CPU
+  25. dense     qwen1.5-32b (G 1), deepseek-coder-33b (G 7) and
                granite-34b (G 48) at full width, each cut to the deepest
                stack whose f32 parameters and three adapters' packs and
                tables fit 60 GB (the arithmetic printed): a multi-tenant
                serve, a multi-tenant decode step under torch.profiler, and
                at 2 layers in f32 tokens equal to switch-per-request
-  24. summary   one JSON line of kernel numbers, the card line, and last
+  26. summary   one JSON line of kernel numbers, the card line, and last
                {"ok": true, "device": {...}}, after "[time] total"
 
 Every engine run with no fault injected (phases 7, 8, 13, 14, the
@@ -137,7 +154,11 @@ request as asked: the engines walk
 the fallback ladder by default, so none may be degraded, shed, poisoned
 or failed, no load retried and nothing quarantined (hold_as_asked).
 
-The kernels phase also holds masked_update (the dense-mask apply of hook
+The kernels phase also holds sidedelta at deepseek-v2-lite-16b's widths
+(wq 2048x3072, w_dkv 2048x576, layer 0's MLP 2048x10944 and 10944x2048,
+the shared experts' 2048x2816; S = 1 and 256, f32 and int8 tables) and
+scatter_apply bit for bit at its (26, 2048, 3072) and (26, 512, 2048)
+leaves. It also holds masked_update (the dense-mask apply of hook
 mode) against its plain version, bit for bit, at the stacked (32, 4608,
 18432) w_up leaf with a 1% mask: f32 W with a bool mask, bf16 W with a
 bool mask, f32 W with an f32 mask, beside Tensor.addcmul_. Its
@@ -209,7 +230,8 @@ HOOK_TOL = 2e-3                # hook vs packed losses: the JAX package's
                                # own claim (tests/test_training.py)
 ROUND_TRIP_TOL = 1e-6          # a loaded pack vs the trained weights, of
                                # the largest weight: base + (W - base)
-KV_INT8_MAX = 0.52             # int8 KV bytes of bf16's: (128 + 2) / 256
+KV_INT8_MAX = 0.52             # int8 KV bytes of bf16's: (128 + 2) / 256;
+                               # MLA's latents (512 + 2 + 64 + 2) / 1152
 PEAK_GB_MAX = 72               # slo-chaos: device memory allocated, GB
 FACTOR_KINDS = ("lora", "dora", "shira-dora")
 NONE_BYTES = 20                # full finetuning, a parameter: f32 base,
@@ -218,6 +240,8 @@ NONE_HEADROOM = 8e9            # activations, logits, per-matrix AdamW
                                # outputs, the allocator's slack
 SWITCH_RANK, SWITCH_RUNS = 64, 5   # LoRA fuse vs SHiRA switch
 CKPT_STEPS, CKPT_PREEMPT = 6, 3    # checkpoint phase: ckpt_every 2, keep 2
+CKPT_LAYERS = 16               # its depth: half of starcoder2-7b's 32,
+                               # for the script's time limit
 RESUME_TOL = 1e-6              # a resumed run's last loss against a clean
                                # run's: the JAX package's own (test_ft.py)
 WD_TOL = 1e-6                  # hook mode with weight decay, card vs CPU:
@@ -227,6 +251,16 @@ KINDS_LAYERS = 1               # kinds-consistency's depth: at 2 layers its
 MOE_ARCH = "granite-moe-1b-a400m"  # the MoE slice: full width, 24 layers
 MOE_LONG = 501                 # moe-consistency's long prompt: one call of
                                # at most 512 tokens drops no routing choice
+MLA_ARCH = "deepseek-v2-lite-16b"  # the MLA slice: full width, 27 layers
+MLA_BUDGET = 76e9              # the device bytes mla_depth plans for, of
+                               # the card's 85.0e9: the rest is allocator
+                               # slack and the activations it leaves out
+MT_ENTRY_BYTES = 40            # a multi-adapter trainer, per 2% entry of
+                               # an adapter: index, value, two moments and
+                               # gradient (f32) and the trainable table's
+                               # rows, perm, t_rows and t_perm (int32)
+ATTN_KERNELS = ("flash_decode", "flash_decode_paged", "flash_prefill")
+RESIDENCY = {}                 # (arch, engine) -> resident requests per GB
 DENSE_ARCHS = ("qwen1.5-32b", "deepseek-coder-33b", "granite-34b")
 DENSE_BUDGET = 60e9            # dense configs: f32 parameters, three
                                # adapters' packs and tables, KV
@@ -309,11 +343,12 @@ def cold_ms(torch, fn, iters: int, flush) -> float:
 
 def device_kernels(torch, prof):
     """(device ms, launches, name) of each kernel a torch.profiler run saw
-    (not the device side of the ``moe_ranges`` annotations)."""
+    (not the device side of the ``moe_ranges``/``mla_ranges``
+    annotations)."""
     cuda = torch.autograd.DeviceType.CUDA
     return [(getattr(e, "self_device_time_total", 0) / 1e3, e.count, e.key)
             for e in prof.key_averages()
-            if e.device_type == cuda and e.key not in MOE_RANGES]
+            if e.device_type == cuda and e.key not in MOE_RANGES + MLA_RANGES]
 
 
 def kernel_share(label, kern) -> None:
@@ -431,22 +466,54 @@ def scatter_bytes(torch, w, idx, vals):
     return nl * k * 8 + 64 * sectors, sectors
 
 
+def stage_leaves(torch, cfg):
+    """Per stage of ``cfg``: (layers, {path: (n, m)} of one layer's
+    matrices, one layer's parameters), and the parameters outside the
+    stages, from a model of one layer a stage on the card."""
+    import dataclasses
+    from repro_torch.core.masks import iter_leaves
+    from repro_torch.models import lm
+    plan = lm.stage_plan(cfg)
+    cut = cfg.replace(num_layers=len(plan))
+    if cfg.family == "moe" and cfg.moe.first_dense_layers:
+        cut = cut.replace(moe=dataclasses.replace(cfg.moe,
+                                                  first_dense_layers=1))
+    one = lm.init_params(cut, seed=0, device="cuda")
+    stages = [(n, {p: tuple(x.shape[-2:]) for p, x in iter_leaves(sp)
+                   if x.ndim >= 3},
+               sum(x[0].numel() for _, x in iter_leaves(sp)))
+              for (_, n), sp in zip(plan, one["stages"])]
+    rest = (sum(x.numel() for _, x in iter_leaves(one))
+            - sum(x.numel() for _, x in iter_leaves(one["stages"])))
+    del one
+    torch.cuda.empty_cache()
+    return stages, rest
+
+
+def default_targets(mats):
+    """The (n, m) of each matrix of ``mats`` ({path: (n, m)}) that the
+    default AdapterConfig targets."""
+    from repro_torch.configs import AdapterConfig
+    from repro_torch.core.masks import leaf_name
+    targets = AdapterConfig().target_modules
+    return [nm for p, nm in mats.items() if leaf_name(p) in targets]
+
+
 def switch_bound(torch, cfg):
     """(bound, entries, sectors) of one whole adapter load as the serve
-    phase's packs make it: every adapted leaf of ``cfg`` (wq, wk, wv, wo,
-    w_up, w_down, each stacked over the layers; an MoE model's attention
-    leaves, its experts being no target) at sparsity 0.98, the sectors
+    phase's packs make it: every adapted leaf of ``cfg`` (the default
+    targets: wq, wk, wv, wo, w_up, w_gate, w_down, MLA's w_dkv, w_uk and
+    w_uv, each stacked over its stage's layers; an MoE model's experts
+    are no target, its shared experts are) at sparsity 0.98, the sectors
     counted from a draw of the same masks."""
     from repro_torch.core.masks import budget
-    d, f, L = cfg.d_model, cfg.d_ff, cfg.num_layers
-    kv = cfg.num_kv_heads * cfg.resolved_head_dim
     gen = torch.Generator(device="cuda")
     gen.manual_seed(4)
     nbytes = sectors = entries = 0
-    leaves = [(d, d), (d, kv), (d, kv), (d, d)]
-    if cfg.family != "moe":
-        leaves += [(d, f), (f, d)]
-    for n, m in leaves:
+    stages, _ = stage_leaves(torch, cfg)
+    leaves = [(L, n, m) for L, mats, _ in stages
+              for n, m in default_targets(mats)]
+    for L, n, m in leaves:
         idx, vals = rand_entries(torch, gen, L, n, m, budget(n, m, 0.98))
         b, s = scatter_bytes(torch, torch.empty((L, n, m), device="meta"),
                              idx, vals)
@@ -582,6 +649,18 @@ def kernels_phase(torch, flush):
             for int8 in (False, True):
                 side.append(sidedelta_case(torch, gen, flush, name, n, m,
                                            S, int8))
+    # deepseek-v2-lite-16b's multi-tenant targets: wq, w_dkv, layer 0's
+    # MLP, the shared experts (flattened tokens, the same call)
+    for n, m, name in ((2048, 3072, "deepseek wq"),
+                       (2048, 576, "deepseek w_dkv"),
+                       (2048, 10944, "deepseek layer-0 w_up"),
+                       (10944, 2048, "deepseek layer-0 w_down"),
+                       (2048, 2816, "deepseek shared w_up")):
+        for S in (1, CHUNK):
+            for int8 in (False, True):
+                side.append(sidedelta_case(torch, gen, flush, name, n, m,
+                                           S, int8))
+        torch.cuda.empty_cache()
     sidedelta_crossover(torch, gen, flush, d, f)
     # the fused state of two stacked w_up layers, as MultiTenantEngine
     # builds it with adapter_0 hot: diff packs (whose shorter layer is
@@ -638,10 +717,13 @@ def kernels_phase(torch, flush):
     torch.cuda.empty_cache()
     # many layers of odd k: layer boundaries inside a block, and at 70,001
     # layers more layers than a grid dimension holds; then granite-moe's
-    # stacked wq leaf and its experts' w_up flattened to (L * E, n, m)
+    # stacked wq leaf and its experts' w_up flattened to (L * E, n, m),
+    # and deepseek-v2-lite-16b's MoE-stage wq and w_uk leaves
     for nl, n, m, kk in ((37, 96, 160, 307), (70001, 8, 8, 3),
                          (24, 1024, 1024, budget(1024, 1024, 0.98)),
-                         (24 * 32, 1024, 512, budget(1024, 512, 0.98))):
+                         (24 * 32, 1024, 512, budget(1024, 512, 0.98)),
+                         (26, 2048, 3072, budget(2048, 3072, 0.98)),
+                         (26, 512, 2048, budget(512, 2048, 0.98))):
         ws = torch.randn((nl, n, m), generator=gen, device="cuda")
         ii = torch.argsort(torch.rand((nl, n * m), generator=gen,
                                       device="cuda"), 1)[:, :kk]
@@ -1439,7 +1521,7 @@ def serve_phase(torch, arch="starcoder2-7b", layers=0, modes=SERVE_MODES,
     common = ["--arch", arch, "--batch", str(B), "--prompt-len",
               str(PROMPT), "--tokens", str(TOKENS), "--adapters", "3"] + (
                   ["--layers", str(layers)] if layers else [])
-    attn = ("flash_prefill", "flash_decode")
+    attn, absent = attention_kernels(cfg, "flash_prefill", "flash_decode")
     totals = {}
     torch.cuda.reset_peak_memory_stats()
     for label, extra, needed in modes:
@@ -1473,14 +1555,16 @@ def serve_phase(torch, arch="starcoder2-7b", layers=0, modes=SERVE_MODES,
         if dropped:
             fail(f"{tag} {label}: {dropped} routing choices dropped in "
                  "drop-free calls")
-        check_run(f"{tag} {label}", read_counts(), needed + attn, totals)
+        check_run(f"{tag} {label}", read_counts(), needed + attn, totals,
+                  absent)
         del stats, out                 # the next mode builds its own model
         torch.cuda.empty_cache()
     peak = torch.cuda.max_memory_allocated() / 1e9
     print(f"[{tag}] peak memory {peak:.1f} GB (max_memory_allocated)",
           flush=True)
     if any("--multi-tenant" not in extra for _, extra, _ in modes):
-        b, entries, sectors = switch_bound(torch, cfg)
+        b, entries, sectors = switch_bound(
+            torch, cfg.replace(num_layers=layers) if layers else cfg)
         print(f"[{tag}] a switch's bound (one adapter load, {entries} "
               f"entries, {sectors} W sectors read and written): "
               f"{b['bound_ms']:.4f} ms ({b['bound_by']})", flush=True)
@@ -1607,7 +1691,7 @@ def store_retries(engine):
 
 
 def report_engine(torch, label, engine, futs, wall, peak, vocab, needed,
-                  totals, tag="continuous"):
+                  totals, tag="continuous", absent=()):
     """Print one engine's numbers and fail unless every future is done
     with in-range tokens and every kernel of its path launched."""
     import numpy as np
@@ -1638,15 +1722,16 @@ def report_engine(torch, label, engine, futs, wall, peak, vocab, needed,
              "range")
     hold_as_asked(f"{tag} {label}", engine.health(), store_retries(engine),
                   futs)
-    check_run(f"{tag} {label}", counts, needed, totals)
+    check_run(f"{tag} {label}", counts, needed, totals, absent)
     return outs
 
 
-def continuous_int8_report(outs, kv):
+def continuous_int8_report(outs, kv, mla=False):
     """The int8-KV paged run beside the bf16 one: KV bytes (held to at
     most KV_INT8_MAX of bf16's), resident requests per GB of KV, the
     paged kernel's launches (all through its int8 instance, and more than
-    0), and how many requests give the bf16 pools' tokens (reported, not
+    0; with ``mla`` none: MLA's latent pages are read by plain torch), and
+    how many requests give the bf16 pools' tokens (reported, not
     held)."""
     (b_bytes, b_peak, _, _), (q_bytes, q_peak, q_launch, q_int8) = (
         kv["PagedServingEngine"], kv["PagedServingEngine int8 KV"])
@@ -1664,12 +1749,36 @@ def continuous_int8_report(outs, kv):
     if ratio > KV_INT8_MAX:
         fail(f"continuous-int8: KV bytes {ratio:.4f} of bf16's > "
              f"{KV_INT8_MAX}")
-    if not 0 < q_launch == q_int8:
+    if (q_launch != 0) if mla else not 0 < q_launch == q_int8:
         fail(f"continuous-int8: flash_decode_paged launched {q_launch} "
              f"times, {q_int8} through the int8 instance")
 
 
-def continuous_phase(torch, arch="starcoder2-7b", tag="continuous"):
+def kv_row_bytes(cfg, quant: bool) -> int:
+    """KV bytes a token and layer: K and V (KV heads x head_dim each), or
+    MLA's latents (rank + rope), bf16; int8 with a bf16 scale a row and
+    head."""
+    import math
+    from repro_torch.models import lm
+    return sum(math.prod(t) + 2 * math.prod(t[:-1]) if quant
+               else 2 * math.prod(t) for t in lm.kv_tails(cfg))
+
+
+def residency_report(tag):
+    """Resident requests per GB of KV of each engine beside the other
+    archs' runs in this process, and the KV bytes a token and layer."""
+    from repro_torch.configs import get_config
+    archs = list(dict.fromkeys(a for a, _ in RESIDENCY))
+    for a in archs:
+        c = get_config(a)
+        runs = {e: round(v, 1) for (x, e), v in RESIDENCY.items() if x == a}
+        print(f"[{tag}] resident requests per GB of KV, {a}: {runs}; KV "
+              f"bytes a token and layer {kv_row_bytes(c, False)} bf16, "
+              f"{kv_row_bytes(c, True)} int8", flush=True)
+
+
+def continuous_phase(torch, arch="starcoder2-7b", tag="continuous",
+                     layers=0):
     """Continuous batching at full width: ``serve --continuous --int8``
     (the CLI, int8 packs and tables), then the 24-request trace through
     ServingEngine (8 lanes of 1056 rows), PagedServingEngine (8 slots,
@@ -1691,13 +1800,19 @@ def continuous_phase(torch, arch="starcoder2-7b", tag="continuous"):
     from repro_torch.models.moe import count_drops
     totals = {}
     cfg = get_config(arch)
+    if layers:
+        cfg = cfg.replace(num_layers=layers)
+    attn_dec, absent = attention_kernels(cfg, "flash_prefill",
+                                         "flash_decode")
+    attn_paged, _ = attention_kernels(cfg, "flash_decode_paged")
     zero_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     stats = serve.main(["--arch", arch, "--continuous", "--int8",
                         "--requests", str(B), "--slots", str(B),
                         "--prompt-len", "64", "--tokens", "8",
-                        "--adapters", "3", "--skew", "0.8"])
+                        "--adapters", "3", "--skew", "0.8"] + (
+                            ["--layers", str(layers)] if layers else []))
     torch.cuda.synchronize()
     counts = read_counts()
     print(f"[{tag}] {arch} serve --continuous --int8 ({B} requests, prompt 64,"
@@ -1711,13 +1826,13 @@ def continuous_phase(torch, arch="starcoder2-7b", tag="continuous"):
         fail("serve --continuous: a request failed or is out of range")
     hold_as_asked("serve --continuous", stats["health"],
                   stats["store_retries"], stats["futs"])
-    check_run("serve --continuous", counts,
-              ("flash_prefill", "flash_decode", "sidedelta"), totals)
+    check_run("serve --continuous", counts, attn_dec + ("sidedelta",),
+              totals, absent)
     del stats
     torch.cuda.empty_cache()
 
     params = lm.init_params(cfg, seed=0, device="cuda")
-    packs = serve.make_adapters(cfg, params, 3)
+    packs = serve.make_adapters(cfg, params, 3, multi_tenant=True)
     trace = continuous_trace(cfg.vocab_size, packs)
     with tempfile.TemporaryDirectory(prefix="adapter-store-") as root:
         t0 = time.perf_counter()
@@ -1732,15 +1847,15 @@ def continuous_phase(torch, arch="starcoder2-7b", tag="continuous"):
         for label, make, needed in (
                 ("ServingEngine", lambda: ServingEngine(
                     cfg, params, slots=B, cache_size=CACHE, store=store),
-                 ("flash_prefill", "flash_decode", "sidedelta")),
+                 attn_dec + ("sidedelta",)),
                 ("PagedServingEngine", lambda: PagedServingEngine(
                     cfg, params, slots=B, num_pages=321, page_size=16,
                     chunk_size=CHUNK, store=store),
-                 ("flash_decode_paged", "sidedelta")),
+                 attn_paged + ("sidedelta",)),
                 ("PagedServingEngine int8 KV", lambda: PagedServingEngine(
                     cfg, params, slots=B, num_pages=321, page_size=16,
                     chunk_size=CHUNK, store=store, quant_kv=True),
-                 ("flash_decode_paged", "sidedelta"))):
+                 attn_paged + ("sidedelta",))):
             zero_counts()
             flash_decode_paged.int8_launches = 0
             torch.cuda.reset_peak_memory_stats()
@@ -1752,7 +1867,8 @@ def continuous_phase(torch, arch="starcoder2-7b", tag="continuous"):
                 peak = engine.peak_resident
             outs[label] = report_engine(torch, f"{arch} {label}", engine,
                                         futs, wall, peak, cfg.vocab_size,
-                                        needed, totals, tag)
+                                        needed, totals, tag, absent)
+            RESIDENCY[(arch, label)] = peak / (engine.kv_cache_bytes() / 1e9)
             if cfg.family == "moe":
                 print(f"[{tag}] {arch} {label} routing: {len(drops)} MoE "
                       f"calls, {sum(int(d) for d in drops)} dropped choices",
@@ -1763,7 +1879,8 @@ def continuous_phase(torch, arch="starcoder2-7b", tag="continuous"):
             step_report(f"{arch} {label}", steps, profs)
             del engine, futs
             torch.cuda.empty_cache()
-    continuous_int8_report(outs, kv)
+    continuous_int8_report(outs, kv, mla=cfg.attn_type == "mla")
+    residency_report(tag)
     pairs = list(zip(outs["ServingEngine"], outs["PagedServingEngine"]))
     same = sum(bool((a == b).all()) for a, b in pairs)
     first = sum(int(a[0]) == int(b[0]) for a, b in pairs)
@@ -1777,7 +1894,7 @@ def continuous_phase(torch, arch="starcoder2-7b", tag="continuous"):
 
 
 def continuous_consistency_phase(torch, arch="starcoder2-7b", long=601,
-                                 tag="continuous-consistency"):
+                                 tag="continuous-consistency", quant=False):
     """Both engines against the fixed batch: full widths cut to 2 layers,
     f32. Each request's tokens from ServingEngine and PagedServingEngine
     must equal its own MultiTenantEngine.generate tokens, on a trace with
@@ -1786,9 +1903,16 @@ def continuous_consistency_phase(torch, arch="starcoder2-7b", long=601,
     prefills in chunks of up to 256 (an MoE model's at most 512 tokens,
     so that the fixed batch's one-call prefill drops no routing choice,
     as the chunks do not); the paged engine must share prefix pages and
-    copy on write."""
+    copy on write. With ``quant`` a third run on int8 pages must give
+    each request the tokens of the same engine on the CPU (the port's
+    plain path, which tests/test_torch_mla_serving.py holds to the JAX
+    paged engine's int8 tokens); against the fixed batch its first and
+    whole tokens are counted, not held: a chunk attends to its own
+    latents quantized, so a near tie may flip (the reference's engine
+    flips them too)."""
     import numpy as np
     from repro_torch.configs import get_config
+    from repro_torch.core.masks import map_leaves
     from repro_torch.hub import PagedServingEngine, ServingEngine
     from repro_torch.launch import serve
     from repro_torch.models import layers, lm
@@ -1807,7 +1931,7 @@ def continuous_consistency_phase(torch, arch="starcoder2-7b", long=601,
     trace = [first] + rest
     with layers.compute_precision(torch.float32):
         params = lm.init_params(cfg, seed=0, device="cuda")
-        packs = serve.make_adapters(cfg, params, 3)
+        packs = serve.make_adapters(cfg, params, 3, multi_tenant=True)
         mt = MultiTenantEngine(cfg, params)
         for p in packs:
             mt.register(p)
@@ -1828,6 +1952,41 @@ def continuous_consistency_phase(torch, arch="starcoder2-7b", long=601,
             pe.step()
         paged += [pe.submit(p, a, max_tokens=T) for p, a in rest]
         pe.run()
+        if quant:
+            qe = PagedServingEngine(cfg, params, slots=3, num_pages=80,
+                                    page_size=16, chunk_size=256,
+                                    quant_kv=True)
+            for p in packs:
+                qe.register(p)
+            q8 = [qe.submit(p, a, max_tokens=T) for p, a in trace]
+            qe.run()
+    if quant:
+        hold_as_asked(f"{tag} int8 pages", qe.health(), 0, q8)
+        t0 = time.perf_counter()
+        with layers.compute_precision(torch.float32):
+            qc = PagedServingEngine(cfg, map_leaves(lambda _, x: x.cpu(),
+                                                    params),
+                                    slots=3, num_pages=80, page_size=16,
+                                    chunk_size=256, quant_kv=True)
+            for p in packs:
+                qc.register(p)
+            c8 = [qc.submit(p, a, max_tokens=T) for p, a in trace]
+            qc.run()
+        cpu_s = time.perf_counter() - t0
+        same = [bool(np.array_equal(f.result(), g.result()))
+                for f, g in zip(q8, c8)]
+        firsts = sum(int(f.result()[0]) == int(w[0]) for f, w in zip(q8, want))
+        whole = sum(bool(np.array_equal(f.result(), w))
+                    for f, w in zip(q8, want))
+        print(f"[{tag}] {arch} f32, 2 layers, full width, "
+              f"PagedServingEngine int8 pages: {sum(same)}/{len(same)} "
+              f"requests token-equal to the same engine on the CPU (held; "
+              f"CPU {cpu_s:.1f}s); against the fixed batch {firsts}/"
+              f"{len(want)} first tokens and {whole}/{len(want)} requests "
+              f"equal (reported)", flush=True)
+        if not all(same):
+            fail(f"{tag}: {arch} int8 pages on the card differ from the CPU "
+                 f"on requests {[i for i, e in enumerate(same) if not e]}")
     for label, futs, eng in (("ServingEngine", lane, se),
                              ("PagedServingEngine", paged, pe)):
         hold_as_asked(f"{tag} {label}", eng.health(), 0, futs)
@@ -1851,7 +2010,7 @@ def continuous_consistency_phase(torch, arch="starcoder2-7b", long=601,
 
 PZ_PUBLISH_STEP = 10     # personalization: adapter_0@2 after this step
 PZ_LANES = B             # 8 lanes, as the continuous phase
-PZ_LAYERS = 16           # half of starcoder2-7b's depth, for the
+PZ_LAYERS = 8            # a quarter of starcoder2-7b's depth, for the
                          # script's time limit
 
 
@@ -2586,31 +2745,29 @@ def faults_consistency_phase(torch):
 
 
 MOE_RANGES = ("moe_ffn", "moe.route", "moe.experts", "moe.expert_casts")
+MLA_RANGES = ("mla.attention", "mla.q_eff", "mla.scores", "mla.out",
+              "mla.cache_write", "mla.expand_kv", "mla.attend")
 
 
-class moe_ranges:
-    """Within the block, every MoE call runs under profiler ranges: the
-    whole FFN (blocks.moe_ffn), its routing (moe.route: softmax, the
-    stable sort, the one-hot cumsum of the slots), the experts
-    (moe._expert_ffn: the three bmm and the casts of the expert weights)
-    and those casts (moe._expert_weight). The rest of moe_ffn is the
-    router's matmul, the dispatch scatter and the combine."""
+class wrapped_ranges:
+    """Within the block, each named function (module, attribute, range)
+    runs under a profiler range of that name."""
+
+    def __init__(self, specs):
+        self.specs = specs
 
     def __enter__(self):
         from torch.profiler import record_function
-        from repro_torch.models import blocks, moe
 
         def wrap(name, fn):
             def go(*a, **k):
                 with record_function(name):
                     return fn(*a, **k)
             return go
-        self.saved = [(blocks, "moe_ffn", blocks.moe_ffn),
-                      (moe, "route", moe.route),
-                      (moe, "_expert_ffn", moe._expert_ffn),
-                      (moe, "_expert_weight", moe._expert_weight)]
-        for (mod, attr, fn), name in zip(self.saved, MOE_RANGES):
-            setattr(mod, attr, wrap(name, fn))
+        self.saved = [(mod, attr, getattr(mod, attr))
+                      for mod, attr, _ in self.specs]
+        for mod, attr, name in self.specs:
+            setattr(mod, attr, wrap(name, getattr(mod, attr)))
         return self
 
     def __exit__(self, *exc):
@@ -2618,10 +2775,62 @@ class moe_ranges:
             setattr(mod, attr, fn)
 
 
-def range_ms(torch, prof):
-    """Device ms of each MOE_RANGES range in a profile (its kernels and its
+def moe_ranges():
+    """Every MoE call under profiler ranges: the whole FFN
+    (blocks.moe_ffn), its routing (moe.route: softmax, the stable sort,
+    the one-hot cumsum of the slots), the experts (moe._expert_ffn: the
+    three bmm and the casts of the expert weights) and those casts
+    (moe._expert_weight). The rest of moe_ffn is the router's matmul, the
+    dispatch scatter and the combine."""
+    from repro_torch.models import blocks, moe
+    return wrapped_ranges(list(zip(
+        (blocks, moe, moe, moe),
+        ("moe_ffn", "route", "_expert_ffn", "_expert_weight"), MOE_RANGES)))
+
+
+def mla_ranges():
+    """Every MLA attention call under profiler ranges: the whole call
+    (mla.attention: projections, latents, attention and wo), and within
+    it the absorbed decode's q_eff product (q_nope into the latent space
+    through w_uk), its scores and softmax over [c_kv | k_rope], its out
+    product (probs . c_kv, then w_uv), the latent cache or page write,
+    and the prefill's K/V expansion and attention (chunked_attention)."""
+    from repro_torch.models import attention as A
+    whole = [(A, f, "mla.attention") for f in (
+        "mla_train", "mla_prefill", "mla_decode", "mla_decode_paged",
+        "mla_prefill_chunk")]
+    return wrapped_ranges(whole + [
+        (A, "_mla_q_eff", "mla.q_eff"), (A, "_mla_latent_probs",
+                                         "mla.scores"),
+        (A, "_mla_latent_out", "mla.out"), (A, "_mla_write",
+                                            "mla.cache_write"),
+        (A, "_mla_page_write", "mla.cache_write"),
+        (A, "_mla_expand_kv", "mla.expand_kv"),
+        (A, "chunked_attention", "mla.attend")])
+
+
+def model_ranges(cfg):
+    """The profiler ranges of ``cfg``'s model: moe_ranges for an MoE
+    model, mla_ranges for MLA attention (both for deepseek-v2-lite-16b)."""
+    stack = contextlib.ExitStack()
+    if cfg.family == "moe":
+        stack.enter_context(moe_ranges())
+    if cfg.attn_type == "mla":
+        stack.enter_context(mla_ranges())
+    return stack
+
+
+def print_ranges(torch, cfg, label, prof, busy):
+    if cfg.family == "moe":
+        print_moe_ranges(torch, label, prof, busy)
+    if cfg.attn_type == "mla":
+        print_mla_ranges(torch, label, prof, busy)
+
+
+def range_ms(torch, prof, names):
+    """Device ms of each named range in a profile (its kernels and its
     children's), and how many times it ran."""
-    out = {n: [0.0, 0] for n in MOE_RANGES}
+    out = {n: [0.0, 0] for n in names}
     for e in prof.events():
         if e.name in out and e.device_type == torch.autograd.DeviceType.CPU:
             out[e.name][0] += e.device_time_total / 1e3
@@ -2630,7 +2839,7 @@ def range_ms(torch, prof):
 
 
 def print_moe_ranges(torch, label, prof, busy):
-    r = range_ms(torch, prof)
+    r = range_ms(torch, prof, MOE_RANGES)
     (ffn, n), route, experts, casts = (r[k] for k in MOE_RANGES)
     rest = ffn - route[0] - experts[0]
     share = lambda x: f" ({x / busy:.1%})" if busy else ""
@@ -2641,6 +2850,21 @@ def print_moe_ranges(torch, label, prof, busy):
           f"{experts[0] - casts[0]:.3f}) + router matmul, dispatch and "
           f"combine {rest:.3f}{share(rest)}" + (
               "" if ffn else " (the profiler gave the ranges no device "
+              "time: not measured)"), flush=True)
+
+
+def print_mla_ranges(torch, label, prof, busy):
+    """MLA's attention ms and its parts."""
+    r = range_ms(torch, prof, MLA_RANGES)
+    (whole, n), *parts = (r[k] for k in MLA_RANGES)
+    share = lambda x: f" ({x / busy:.1%})" if busy else ""
+    named = ", ".join(f"{k.split('.')[1]} {ms:.3f}{share(ms)} (x{c})"
+                      for k, (ms, c) in zip(MLA_RANGES[1:], parts) if c)
+    rest = whole - sum(ms for ms, _ in parts)
+    print(f"[profile] {label} MLA attention ({n} calls): {whole:.3f} ms"
+          f"{share(whole)} = {named} + projections, norms, rope and wo "
+          f"{rest:.3f}{share(rest)}" + (
+              "" if whole else " (the profiler gave the ranges no device "
               "time: not measured)"), flush=True)
 
 
@@ -2661,11 +2885,13 @@ def profile_phase(torch, arch="starcoder2-7b", layers=0, prefill=True,
     cfg = get_config(arch)
     if layers:
         cfg = cfg.replace(num_layers=layers)
-    moe = cfg.family == "moe"
-    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if moe else [])
+    ranged = cfg.family == "moe" or cfg.attn_type == "mla"
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU]
+                                      if ranged else [])
+    zero_counts()
     params = lm.init_params(cfg, seed=0, device="cuda")
     eng = MultiTenantEngine(cfg, params)
-    for p in serve.make_adapters(cfg, params, 3):
+    for p in serve.make_adapters(cfg, params, 3, multi_tenant=True):
         eng.register(p)
     names = ["adapter_0", "adapter_1", None, "adapter_2"] * (B // 4)
     gen = torch.Generator(device="cuda")
@@ -2688,7 +2914,7 @@ def profile_phase(torch, arch="starcoder2-7b", layers=0, prefill=True,
         for _ in range(3):
             step()
         wall = (time.perf_counter() - t0) / 3 * 1e3
-        with moe_ranges() if moe else contextlib.nullcontext():
+        with model_ranges(cfg):
             with profile(activities=acts) as prof:
                 step()
         kern = device_kernels(torch, prof)
@@ -2702,10 +2928,11 @@ def profile_phase(torch, arch="starcoder2-7b", layers=0, prefill=True,
         for ms, n, name in sorted(kern, reverse=True)[:8]:
             print(f"[{tag}]   {ms:8.3f} ms  x{n:<4d} {name[:90]}")
         kernel_share(f"{arch} {label}", kern)
-        if moe:
-            print_moe_ranges(torch, f"{arch} {label}", prof, busy)
+        print_ranges(torch, cfg, f"{arch} {label}", prof, busy)
     eng.close()
     if not prefill:
+        check_run(f"{tag} {arch}", read_counts(), (), {},
+                  attention_kernels(cfg)[1])
         return
 
     # a lane admission's unit of work: one batch-1, 1024-token prefill
@@ -2719,7 +2946,7 @@ def profile_phase(torch, arch="starcoder2-7b", layers=0, prefill=True,
     t0 = time.perf_counter()
     run_prefill()
     wall = (time.perf_counter() - t0) * 1e3
-    with moe_ranges() if moe else contextlib.nullcontext():
+    with model_ranges(cfg):
         with profile(activities=acts) as prof:
             run_prefill()
     kern = device_kernels(torch, prof)
@@ -2731,8 +2958,9 @@ def profile_phase(torch, arch="starcoder2-7b", layers=0, prefill=True,
              " (profiler saw no device time: not measured)"), flush=True)
     for ms, n, name in sorted(kern, reverse=True)[:8]:
         print(f"[{tag}]   {ms:8.3f} ms  x{n:<4d} {name[:90]}")
-    if moe:
-        print_moe_ranges(torch, f"{arch} base prefill", prof, busy)
+    print_ranges(torch, cfg, f"{arch} base prefill", prof, busy)
+    check_run(f"{tag} {arch}", read_counts(), (), {},
+              attention_kernels(cfg)[1])
 
 
 def consistency_phase(torch, arch="starcoder2-7b", tag="consistency"):
@@ -2751,7 +2979,7 @@ def consistency_phase(torch, arch="starcoder2-7b", tag="consistency"):
     T = 8
     with layers.compute_precision(torch.float32):
         params = lm.init_params(cfg, seed=0, device="cuda")
-        packs = serve.make_adapters(cfg, params, 3)
+        packs = serve.make_adapters(cfg, params, 3, multi_tenant=True)
         gen = torch.Generator(device="cuda")
         gen.manual_seed(3)
         toks = torch.randint(0, cfg.vocab_size, (len(names), PROMPT),
@@ -2814,15 +3042,30 @@ def read_counts():
     return {k: fn.launches for k, fn in counters().items()}
 
 
-def check_run(label, counts, needed, totals):
+def check_run(label, counts, needed, totals, absent=()):
+    """Fail unless every kernel of ``needed`` launched and none of
+    ``absent`` did; add the counts to ``totals``."""
     for k in needed:
         if counts[k] <= 0:
             fail(f"{label}: kernel {k} was never launched")
+    for k in absent:
+        if counts[k]:
+            fail(f"{label}: kernel {k} launched {counts[k]} times on a "
+                 "path that must not run it")
     for k, v in counts.items():
         totals[k] = totals.get(k, 0) + v
 
 
-def train_phase(torch, arch="starcoder2-7b", tag="train"):
+def attention_kernels(cfg, *names):
+    """(needed, absent) attention kernels of a serving path: GQA needs
+    ``names``; MLA's attention is plain torch (no TPU kernel computes it,
+    as the reference's calls none), so no attention kernel may launch."""
+    if cfg.attn_type == "mla":
+        return (), ATTN_KERNELS
+    return names, ()
+
+
+def train_phase(torch, arch="starcoder2-7b", tag="train", layers=0):
     """Full-width training through the entry points a user calls: the
     launch.train CLI (one packed adapter, Trainer), then
     MultiAdapterTrainer with 3 adapters, f32 then int8 moments. An MoE
@@ -2840,7 +3083,11 @@ def train_phase(torch, arch="starcoder2-7b", tag="train"):
                                                   sparse_adamw_rows)
     from repro_torch.training import MultiAdapterTrainer
     from repro_torch.models.moe import count_drops
-    moe = get_config(arch).family == "moe"
+    cfg = get_config(arch)
+    if layers:
+        cfg = cfg.replace(num_layers=layers)
+    moe = cfg.family == "moe"
+    _, absent = attention_kernels(cfg)
     totals = {}
     zero_counts()
     sparse_adamw.unaligned_launches = sparse_adamw_rows.unaligned_launches = 0
@@ -2850,13 +3097,14 @@ def train_phase(torch, arch="starcoder2-7b", tag="train"):
     with count_drops() as drops:
         stats = train.main(["--arch", arch, "--adapter", "shira-rand",
                             "--seq", str(TRAIN_SEQ), "--batch",
-                            str(TRAIN_BATCH), "--steps", str(TRAIN_STEPS)],
+                            str(TRAIN_BATCH), "--steps", str(TRAIN_STEPS)]
+                           + (["--layers", str(layers)] if layers else []),
                            keep=True)
     torch.cuda.synchronize()
     counts = read_counts()
     losses = stats["losses"]
-    print(f"[{tag}] {arch} Trainer (launch.train, {TRAIN_BATCH}x"
-          f"{TRAIN_SEQ} tokens,"
+    print(f"[{tag}] {arch} Trainer (launch.train, {cfg.num_layers} layers, "
+          f"{TRAIN_BATCH}x{TRAIN_SEQ} tokens,"
           f" {stats['trained_values']} packed values): launches {counts}, "
           f"step {stats['steady_step_ms']:.1f} ms (median after the first; "
           f"all {[round(x, 1) for x in stats['step_ms']]}), "
@@ -2870,7 +3118,7 @@ def train_phase(torch, arch="starcoder2-7b", tag="train"):
     if not all(math.isfinite(x) for x in losses):
         fail("Trainer: a loss is not finite")
     check_run("Trainer", counts, ("scatter_apply", "sparse_adamw_blocks"),
-              totals)
+              totals, absent)
     tr, state = stats.pop("trainer"), stats.pop("state")
     publish_check(torch, "Trainer", lambda store: [
         tr.publish(store, state, "adapter")], [tr.export_pack(state,
@@ -2882,7 +3130,7 @@ def train_phase(torch, arch="starcoder2-7b", tag="train"):
     del stats, tr, state
     torch.cuda.empty_cache()
 
-    run = RunConfig(model=get_config(arch),
+    run = RunConfig(model=cfg,
                     shape=ShapeSpec("mt", MT_SEQ, MT_BATCH, "train"),
                     adapter=AdapterConfig(kind="shira", mask="rand",
                                           sparsity=0.98),
@@ -2910,7 +3158,7 @@ def train_phase(torch, arch="starcoder2-7b", tag="train"):
         values = out["state"]["values"]
         finite = all(bool(torch.isfinite(v).all()) for v in values.values())
         print(f"[{tag}] {arch} MultiAdapterTrainer 3 adapters, {moments} "
-              f"moments "
+              f"moments, {cfg.num_layers} layers "
               f"({tokens} tokens a step, "
               f"{sum(v.numel() for v in values.values())} packed values): "
               f"launches {counts}, step {steady:.1f} ms (median after the "
@@ -2929,10 +3177,9 @@ def train_phase(torch, arch="starcoder2-7b", tag="train"):
             fail(f"MultiAdapterTrainer {moments}: not finite")
         check_run(f"MultiAdapterTrainer {moments}", counts,
                   ("sidedelta", "sidedelta_dvals", "sparse_adamw_rows"),
-                  totals)
+                  totals, absent)
         if moments == "f32":
-            profile_train_step(torch, profile, ProfilerActivity, mt, out,
-                               moe)
+            profile_train_step(torch, profile, ProfilerActivity, mt, out)
             publish_check(torch, "MultiAdapterTrainer",
                           lambda store: mt.publish(store, out["state"]),
                           mt.export_packs(out["state"]))
@@ -3010,10 +3257,9 @@ def publish_check(torch, label, publish, trained):
               f"{dt:.1f}s, read back equal to the trained packs", flush=True)
 
 
-def profile_train_step(torch, profile, ProfilerActivity, mt, out,
-                       moe=False):
+def profile_train_step(torch, profile, ProfilerActivity, mt, out):
     """Device time by kernel of one more multi-adapter step (an MoE
-    model's also by ``moe_ranges``)."""
+    model's also by ``moe_ranges``, MLA's by ``mla_ranges``)."""
     from repro_torch.runtime.trainer import device_batch
     from repro_torch.training import multi_batch_iterator
     from repro_torch.data import TaskSpec
@@ -3022,8 +3268,10 @@ def profile_train_step(torch, profile, ProfilerActivity, mt, out,
         start_step=MT_STEPS)), mt.device)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if moe else [])
-    with moe_ranges() if moe else contextlib.nullcontext():
+    ranged = mt.cfg.family == "moe" or mt.cfg.attn_type == "mla"
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU]
+                                      if ranged else [])
+    with model_ranges(mt.cfg):
         with profile(activities=acts) as prof:
             mt.step(out["state"], batch)
             torch.cuda.synchronize()
@@ -3038,9 +3286,8 @@ def profile_train_step(torch, profile, ProfilerActivity, mt, out,
     for ms, n, name in sorted(kern, reverse=True)[:10]:
         print(f"[profile]   {ms:9.3f} ms  x{n:<5d} {name[:90]}")
     kernel_share("multi-adapter step", kern)
-    if moe:
-        print_moe_ranges(torch, f"{mt.cfg.name} multi-adapter step", prof,
-                         busy)
+    print_ranges(torch, mt.cfg, f"{mt.cfg.name} multi-adapter step", prof,
+                 busy)
 
 
 def train_consistency_phase(torch):
@@ -3574,7 +3821,7 @@ def checkpoint_phase(torch):
     2 steps to 8. Then the state's device-to-host copy, save and restore
     (seconds, bytes; restored bit for bit), Trainer.publish's snapshot into
     the step read back equal, and MultiAdapterTrainer.publish(ckpt=) at 2
-    layers."""
+    layers. The Trainer runs at CKPT_LAYERS of starcoder2-7b's 32."""
     import os
     import tempfile
     from repro_torch.checkpoint import CheckpointManager, flatten
@@ -3585,7 +3832,7 @@ def checkpoint_phase(torch):
     from repro_torch.models import lm
     from repro_torch.runtime import SimulatedPreemption, Trainer, TrainerConfig
     from repro_torch.training import MultiAdapterTrainer
-    cfg = get_config("starcoder2-7b")
+    cfg = get_config("starcoder2-7b").replace(num_layers=CKPT_LAYERS)
     run = RunConfig(model=cfg, shape=ShapeSpec("ck", TRAIN_SEQ, TRAIN_BATCH,
                                                "train"),
                     adapter=AdapterConfig(kind="shira", mask="wm",
@@ -3812,7 +4059,7 @@ def kinds_consistency_phase(torch):
                  "from the CPU run")
 
 
-def moe_train_cpu_consistency(torch, arch=MOE_ARCH):
+def train_cpu_consistency(torch, arch, tag):
     """Trainer (packed shira-rand) and MultiAdapterTrainer (3 adapters)
     with the kernels in the loop against the same trainers on the CPU,
     where the wrappers compute their plain versions: full width, 2 layers,
@@ -3858,35 +4105,40 @@ def moe_train_cpu_consistency(torch, arch=MOE_ARCH):
             counts = {k: v for k, v in read_counts().items() if v}
             d = max(abs(a[k] - b[k]) for a, b in zip(hg, hc) for k in keys)
             top = max(abs(b[k]) for b in hc for k in keys)
-            print(f"[moe-consistency] {arch} {label}, f32, 2 layers, full "
+            print(f"[{tag}] {arch} {label}, f32, 2 layers, full "
                   f"width: card losses {[[h[k] for k in keys] for h in hg]}"
                   f", CPU {[[h[k] for k in keys] for h in hc]}, aux card "
                   f"{[round(h['aux'], 5) for h in hg]}, max diff {d:.3g} "
                   f"(tol rtol=atol={TRAIN_TOL}); card {t1 - t0:.1f}s, CPU "
                   f"{t2 - t1:.1f}s; launches {counts}", flush=True)
             if not d <= TRAIN_TOL * (1 + top):
-                fail(f"moe-consistency: {label} departs from the CPU run")
+                fail(f"{tag}: {label} departs from the CPU run")
             if not counts:
-                fail(f"moe-consistency: {label} launched no kernel")
+                fail(f"{tag}: {label} launched no kernel")
             del tg, tc
 
 
-def moe_phases(torch):
-    """The MoE slice at full width and depth (MOE_ARCH), through the
-    earlier phases' code: serve (4 modes), profile (decode steps and a
-    1024-token prefill, with moe_ranges), continuous (both engines, bf16
-    and int8 pages), train (both trainers), then moe-consistency at 2
-    layers in f32 (multi-tenant against switch-per-request, both engines
-    against the fixed batch, both trainers against the CPU). Returns the
+def slice_phases(torch, arch, tag, serve_layers=0, train_layers=0,
+                 quant=False):
+    """One slice's arch at full width through the earlier phases' code:
+    serve (4 modes), profile (decode steps and a 1024-token prefill, with
+    the model's ranges), continuous (both engines, bf16 and int8 pages),
+    train (both trainers), each at its depth (0: all layers), then
+    ``tag``-consistency at 2 layers in f32 (multi-tenant against
+    switch-per-request, both engines against the fixed batch, with
+    ``quant`` int8 pages too, both trainers against the CPU). Returns the
     launches."""
     totals = {}
     for label, phase, args in (
-            ("moe serve", serve_phase, dict(tag="moe-serve")),
-            ("moe profile", profile_phase, dict(tag="moe-profile")),
-            ("moe continuous", continuous_phase,
-             dict(tag="moe-continuous")),
-            ("moe train", train_phase, dict(tag="moe-train"))):
-        out = timed(label, lambda: phase(torch, MOE_ARCH, **args))
+            ("serve", serve_phase, dict(layers=serve_layers,
+                                        tag=f"{tag}-serve")),
+            ("profile", profile_phase, dict(layers=serve_layers,
+                                            tag=f"{tag}-profile")),
+            ("continuous", continuous_phase,
+             dict(layers=serve_layers, tag=f"{tag}-continuous")),
+            ("train", train_phase, dict(layers=train_layers,
+                                        tag=f"{tag}-train"))):
+        out = timed(f"{tag} {label}", lambda: phase(torch, arch, **args))
         if isinstance(out, tuple):          # train_phase: (totals, %C)
             out = out[0]
         for k, v in (out or {}).items():
@@ -3894,13 +4146,81 @@ def moe_phases(torch):
         torch.cuda.empty_cache()
 
     def consistency():
-        consistency_phase(torch, MOE_ARCH, tag="moe-consistency")
-        continuous_consistency_phase(torch, MOE_ARCH, long=MOE_LONG,
-                                     tag="moe-consistency")
-        moe_train_cpu_consistency(torch)
-    timed("moe-consistency", consistency)
+        consistency_phase(torch, arch, tag=f"{tag}-consistency")
+        continuous_consistency_phase(torch, arch, long=MOE_LONG,
+                                     tag=f"{tag}-consistency", quant=quant)
+        train_cpu_consistency(torch, arch, f"{tag}-consistency")
+    timed(f"{tag}-consistency", consistency)
     torch.cuda.empty_cache()
     return totals
+
+
+def moe_phases(torch):
+    """The MoE slice (MOE_ARCH) at full width and all 24 layers."""
+    return slice_phases(torch, MOE_ARCH, "moe")
+
+
+def mla_depth(torch, cfg):
+    """The deepest stacks of ``cfg`` (an MLA model with a first dense
+    layer) that fit MLA_BUDGET, at least the first dense layers and one
+    MoE layer, at most the config's: for serving, the f32 parameters, the
+    three adapters' packs and tables at 2% of each target leaf
+    (ADAPTER_BYTES), the lanes' latent KV (B x CACHE rows of rank + rope
+    bf16 values a layer) and one MoE call's expert-weight transient (all
+    E experts' three casts to bf16 and the up/gate products' f32 copies);
+    for training, the f32 parameters, three adapters' trainer state
+    (MT_ENTRY_BYTES a 2% entry), the logits of the Trainer's step with
+    their softmax and gradient (3 x 4 B a token and vocab entry) and two
+    expert-weight transients (forward recompute and backward). Returns
+    (serve layers, train layers, the arithmetic as text)."""
+    stages, rest = stage_leaves(torch, cfg)
+    (fd, _, first), (_, _, moe) = stages
+    tgt = [sum(n * m for n, m in default_targets(mats))
+           for _, mats, _ in stages]
+    m, e = cfg.mla, cfg.moe
+    kv = B * CACHE * (m.kv_lora_rank + m.qk_rope_head_dim) * 2
+    cast = e.num_experts * cfg.d_model * e.d_ff * (3 * 2 + 2 * 4)
+    logits = TRAIN_BATCH * TRAIN_SEQ * cfg.padded_vocab * 4 * 3
+    serve_layer = [p * 4 + 0.02 * t * ADAPTER_BYTES + kv
+                   for p, t in zip((first, moe), tgt)]
+    train_layer = [p * 4 + 0.02 * t * 3 * MT_ENTRY_BYTES
+                   for p, t in zip((first, moe), tgt)]
+    depth = lambda per, fixed: min(cfg.num_layers, fd + max(1, int(
+        (MLA_BUDGET - fixed - fd * per[0]) // per[1])))
+    total = lambda per, fixed, n: fixed + fd * per[0] + (n - fd) * per[1]
+    s_fixed, t_fixed = rest * 4 + cast, rest * 4 + logits + 2 * cast
+    serve_l, train_l = depth(serve_layer, s_fixed), depth(train_layer,
+                                                          t_fixed)
+    gb = lambda x: f"{x / 1e9:.3f} GB"
+    text = (f"{cfg.num_layers} layers at full width ({fd} dense first, "
+            f"{first} and {moe} parameters a dense / MoE layer, "
+            f"{tgt[0]} / {tgt[1]} default-target entries, {rest} outside "
+            f"the layers); serve: {rest} x 4 B + the expert-cast transient "
+            f"{gb(cast)} + a dense layer {gb(serve_layer[0])} and a MoE "
+            f"layer {gb(serve_layer[1])} (f32 parameters, 2% x "
+            f"{ADAPTER_BYTES} B, latent KV {gb(kv)}) against "
+            f"{MLA_BUDGET / 1e9:.0f} GB -> {serve_l} layers, "
+            f"{gb(total(serve_layer, s_fixed, serve_l))}; "
+            f"train: {rest} x 4 B + logits {gb(logits)} + two transients "
+            f"+ a dense layer {gb(train_layer[0])} and a MoE layer "
+            f"{gb(train_layer[1])} (f32 parameters, 3 x 2% x "
+            f"{MT_ENTRY_BYTES} B) -> {train_l} layers, "
+            f"{gb(total(train_layer, t_fixed, train_l))}")
+    return serve_l, train_l, text
+
+
+def mla_phases(torch):
+    """The MLA slice (MLA_ARCH) at full width, at mla_depth's depths,
+    through slice_phases, with int8 latent pages in mla-consistency."""
+    from repro_torch.configs import get_config
+    cfg = get_config(MLA_ARCH)
+    serve_l, train_l, text = mla_depth(torch, cfg)
+    print(f"[mla] {MLA_ARCH} (d_model {cfg.d_model}, {cfg.num_heads} heads, "
+          f"kv_lora_rank {cfg.mla.kv_lora_rank}, {cfg.moe.num_experts} "
+          f"experts top-{cfg.moe.top_k}, vocab {cfg.vocab_size}): {text}",
+          flush=True)
+    return slice_phases(torch, MLA_ARCH, "mla", serve_l, train_l,
+                        quant=True)
 
 
 def dense_depth(torch, cfg):
@@ -3911,17 +4231,8 @@ def dense_depth(torch, cfg):
     most the config's); what is left of the card takes the transients (a
     leaf's table build, the weight casts, the logits). Returns (layers,
     the arithmetic as text)."""
-    from repro_torch.configs import AdapterConfig
-    from repro_torch.core.masks import is_target, iter_leaves
-    from repro_torch.models import lm
-    one = lm.init_params(cfg.replace(num_layers=1), seed=0, device="cuda")
-    targets = AdapterConfig().target_modules
-    per_layer = sum(x.numel() for _, x in iter_leaves(one["stages"]))
-    target = sum(x.numel() for p, x in iter_leaves(one["stages"])
-                 if is_target(p, x, targets))
-    rest = sum(x.numel() for _, x in iter_leaves(one)) - per_layer
-    del one
-    torch.cuda.empty_cache()
+    ((_, mats, per_layer),), rest = stage_leaves(torch, cfg)
+    target = sum(n * m for n, m in default_targets(mats))
     kv = B * (PROMPT + TOKENS + 8) * 2 * cfg.num_kv_heads \
         * cfg.resolved_head_dim * 2
     adapters = 0.02 * target * ADAPTER_BYTES
@@ -4056,7 +4367,7 @@ def main() -> None:
         torch.cuda.empty_cache()
     timed("kinds-consistency", kinds_consistency_phase, torch)
     torch.cuda.empty_cache()
-    for phase in (moe_phases, dense_configs_phase):
+    for phase in (moe_phases, mla_phases, dense_configs_phase):
         for k, v in phase(torch).items():
             launches[k] = launches.get(k, 0) + v
         torch.cuda.empty_cache()

@@ -1,10 +1,11 @@
 """Configuration dataclasses for models, shapes, adapters and training.
 
 A copy of ``repro/configs/base.py``'s ``ShapeSpec``, ``ModelConfig``,
-``AdapterConfig``, ``TrainConfig``, ``RunConfig`` and ``MoEConfig``, so
-the port reads configurations without importing the JAX package. The
-sub-configs of the families still to port (MLA, SSM) are not copied:
-they wait for ROADMAP item A9, and ``models.lm`` raises for them.
+``AdapterConfig``, ``TrainConfig``, ``RunConfig``, ``MoEConfig`` and
+``MLAConfig``, so the port reads configurations without importing the JAX
+package. The SSM sub-config of the families still to port (Mamba2,
+zamba2) is not copied: it waits for ROADMAP item A9, and ``models.lm``
+raises for those families.
 """
 from __future__ import annotations
 
@@ -40,6 +41,17 @@ class MoEConfig:
 
 
 @dataclass(frozen=True)
+class MLAConfig:
+    """Multi-head Latent Attention (DeepSeek-V2)."""
+
+    kv_lora_rank: int = 512
+    q_lora_rank: int = 0           # 0 => project q directly from d_model
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str
     family: str                    # dense | moe | ssm | hybrid | vlm | audio
@@ -60,6 +72,7 @@ class ModelConfig:
     encoder_only: bool = False
     logit_softcap: float = 0.0
     moe: Optional[MoEConfig] = None
+    mla: Optional[MLAConfig] = None
     modality: str = "text"         # text | vision | audio
     num_prefix_embeds: int = 0
     # Head-group padding: q heads per kv group (and kv heads) padded with

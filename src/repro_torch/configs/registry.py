@@ -1,14 +1,15 @@
 """Architecture registry: ``--arch <id>`` -> ModelConfig.
 
-The port serves the dense GQA family and the MoE family with GQA
-attention. The other architectures of the JAX registry are known ids
-whose configs raise until their family is ported (ROADMAP item A9).
+The port serves the dense GQA family and the MoE family with GQA or MLA
+attention (deepseek-v2-lite-16b). The other architectures of the JAX
+registry are known ids whose configs raise until their family is ported
+(ROADMAP item A9).
 """
 from __future__ import annotations
 
-from repro_torch.configs import (deepseek_coder_33b, granite_34b,
-                                 granite_moe_1b_a400m, qwen1_5_32b,
-                                 starcoder2_7b)
+from repro_torch.configs import (deepseek_coder_33b, deepseek_v2_lite_16b,
+                                 granite_34b, granite_moe_1b_a400m,
+                                 qwen1_5_32b, starcoder2_7b)
 from repro_torch.configs.base import ModelConfig
 
 ARCH_IDS = [
@@ -28,10 +29,10 @@ _PORTED = {"starcoder2-7b": starcoder2_7b,
            "granite-moe-1b-a400m": granite_moe_1b_a400m,
            "deepseek-coder-33b": deepseek_coder_33b,
            "granite-34b": granite_34b,
-           "qwen1.5-32b": qwen1_5_32b}
+           "qwen1.5-32b": qwen1_5_32b,
+           "deepseek-v2-lite-16b": deepseek_v2_lite_16b}
 
-_WAITS_FOR = {"deepseek-v2-lite-16b": "MLA attention",
-              "mamba2-780m": "the Mamba2 mixer",
+_WAITS_FOR = {"mamba2-780m": "the Mamba2 mixer",
               "zamba2-2.7b": "the Mamba2 mixer and the shared attention "
                              "block",
               "paligemma-3b": "the vision prefix (head_dim 256)",

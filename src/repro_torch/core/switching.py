@@ -309,8 +309,10 @@ def changed_fraction(base, switched) -> float:
     """%C of the paper's tables: the fraction of weights that differ from
     the base, over every leaf of two trees of one structure. ``switched``
     may be a lazily materialized tree, whose bundles are compared layer
-    by layer (``bundle_layers``). The per-leaf counts stay on the device
-    and are read once."""
+    by layer (``bundle_layers``). Stacked leaves are compared one (n, m)
+    matrix at a time, so no comparison of a whole leaf (an MoE stage's
+    experts: billions of entries) is held at once. The per-leaf counts
+    stay on the device and are read once."""
     a = [x for _, x in iter_leaves(base)]
     b = list(_leaves_or_bundles(switched))
     if len(a) != len(b):
@@ -319,10 +321,9 @@ def changed_fraction(base, switched) -> float:
         return 0.0
     counts = []
     for x, y in zip(a, b):
-        if is_bundle(y):
-            layers = x.reshape((-1,) + tuple(x.shape[-2:]))
-            counts += [torch.count_nonzero(torch.ne(xl, yl))
-                       for xl, yl in zip(layers, bundle_layers(y))]
-        else:
-            counts.append(torch.count_nonzero(torch.ne(x, y)))
+        mats = lambda t: t.reshape((-1,) + tuple(t.shape[-2:])) \
+            if t.ndim > 2 else [t]
+        ys = bundle_layers(y) if is_bundle(y) else mats(y)
+        counts += [torch.count_nonzero(torch.ne(xl, yl))
+                   for xl, yl in zip(mats(x), ys)]
     return int(torch.stack(counts).sum()) / max(sum(x.numel() for x in a), 1)

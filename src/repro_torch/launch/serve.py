@@ -15,6 +15,9 @@ Port of ``repro/launch/serve.py``. Four modes:
                   continuous batching, the adapters loaded lazily from an
                   ``AdapterStore`` of .shpk files in a temporary directory;
                   ``--int8`` stores int8 packs and serves int8 tables
+Sequential and ``--fuse`` packs cover every default target; those of the
+multi-tenant and continuous modes leave out MLA's ``w_uk``/``w_uv``
+(``make_adapters``), which side deltas cannot serve.
 Runs on the card unless ``--device cpu`` is given; ``--layers`` cuts the
 model's depth (a port-only option, as ``launch.train``'s: the dense 32B
 configs fit one card only so). ``main`` returns the run's numbers as a
@@ -37,16 +40,26 @@ from repro_torch.core import (FusedLRU, SwitchEngine, init_adapter,
                               pack_from_shira)
 from repro_torch.core.masks import map_leaves
 from repro_torch.models import lm
-from repro_torch.serving.multitenant import (MultiTenantEngine,
+from repro_torch.serving.multitenant import (UNSUPPORTED_LEAVES,
+                                             MultiTenantEngine,
                                              greedy_decode,
                                              serving_cache_size)
 
 
-def make_adapters(cfg, params, n: int, seed: int = 7) -> list:
+def make_adapters(cfg, params, n: int, seed: int = 7,
+                  multi_tenant: bool = False) -> list:
     """n random SHiRA packs (stand-ins for independently trained adapters):
-    ``rand`` masks at sparsity 0.98, values 0.01 * N(0, 1)."""
+    ``rand`` masks at sparsity 0.98 over the default targets, values
+    0.01 * N(0, 1). ``multi_tenant`` leaves out the leaves a side delta
+    cannot serve (``multitenant.UNSUPPORTED_LEAVES``: MLA's ``w_uk`` and
+    ``w_uv``), as the reference's does; no other ported arch has them, so
+    there the packs are the same either way."""
     device = next(iter(params["embed"].values())).device
-    acfg = AdapterConfig(kind="shira", mask="rand", sparsity=0.98)
+    targets = AdapterConfig().target_modules
+    if multi_tenant:
+        targets = tuple(t for t in targets if t not in UNSUPPORTED_LEAVES)
+    acfg = AdapterConfig(kind="shira", mask="rand", sparsity=0.98,
+                         target_modules=targets)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     packs = []
@@ -224,7 +237,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
     if args.layers:
         cfg = cfg.replace(num_layers=args.layers)
     params = lm.init_params(cfg, seed=0, device=args.device)
-    packs = make_adapters(cfg, params, args.adapters)
+    packs = make_adapters(cfg, params, args.adapters,
+                          multi_tenant=args.multi_tenant or args.continuous)
     if args.continuous:
         return serve_continuous(cfg, params, packs, args)
     if args.multi_tenant:

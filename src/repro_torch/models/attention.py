@@ -1,7 +1,7 @@
-"""GQA attention: training, prefill and decode against a contiguous KV
-cache, and the paged paths over a page pool.
+"""GQA and MLA attention: training, prefill and decode against a
+contiguous KV cache, and the paged paths over a page pool.
 
-Port of the GQA part of ``repro/models/attention.py``. Training keeps the
+Port of ``repro/models/attention.py``. Training keeps the
 reference's plain math (``chunked_attention``: scores and softmax in f32
 from compute-dtype operands, probabilities cast back to the compute dtype
 for the value product). Serving sends attention through the port's
@@ -25,8 +25,26 @@ The kernels keep the probabilities in f32 where ``_attend_block`` rounds
 them to the compute dtype: equal in f32, a bf16 rounding apart in bf16.
 ``gqa_prefill_chunk`` keeps them in f32 as the kernels do, so the lane and
 paged engines prefill with the same numerics.
-Caches are written in place (the reference returns updated copies). MLA
-waits (ROADMAP A9).
+Caches are written in place (the reference returns updated copies).
+
+MLA (DeepSeek-V2's multi-head latent attention) is plain torch, as the
+reference's is plain jnp: no TPU kernel computes it (the attention
+kernels take one head size for K and V, and MLA's are 192/128 expanded,
+576/512 absorbed). Its cache holds the latents only, c_kv (rank) and the
+roped k_rope (rope_dim) a token, in ``KVCache.k`` and ``KVCache.v``:
+  mla_train, mla_prefill  expand per-head K/V from the latents through
+                    ``dense`` (compute-dtype ``w_uk``/``w_uv``), then
+                    ``chunked_attention``
+  mla_decode, mla_decode_paged  matrix absorption: the raw f32
+                    ``w_uk``/``w_uv`` reshaped to (rank, H, .), q_nope
+                    taken into the latent space, scores over
+                    [c_kv | k_rope], softmax and both products in f32,
+                    scale 1 / sqrt(qk_nope + qk_rope); positions <= pos
+                    attended (the paged path on the gathered latents)
+  mla_prefill_chunk gathers the latent pages, expands them, and
+                    ``_attend_block`` with the probabilities rounded to the
+                    compute dtype, as ``mla_prefill``: the lane and paged
+                    engines prefill with the same numerics
 """
 from __future__ import annotations
 
@@ -40,14 +58,14 @@ from repro_torch.kernels.flash_decode import (flash_decode_blocks,
                                               flash_decode_paged)
 from repro_torch.kernels.flash_prefill import flash_prefill_blocks
 from repro_torch.models.layers import (apply_rope, compute_dtype, dense,
-                                       glorot)
+                                       glorot, init_rms_norm, rms_norm)
 
 NEG_INF = -1e30
 
 
 class KVCache(NamedTuple):
     k: torch.Tensor  # (B, S_max, KV, D), or (L, B, S_max, KV, D) stacked
-    v: torch.Tensor
+    v: torch.Tensor  # [MLA: c_kv (..., S_max, rank), k_rope (..., rope)]
 
 
 def _attend_block(q, k, v, q_pos, k_pos, causal, prefix_len, kv_len=None,
@@ -91,23 +109,19 @@ def _attend_block(q, k, v, q_pos, k_pos, causal, prefix_len, kv_len=None,
 def chunked_attention(q, k, v, *, causal=True, q_offset=0, prefix_len=0,
                       q_chunk=512, kv_len=None):
     """Attention over q-chunks, so one chunk row of scores is live at a
-    time. q: (B, Sq, H, D)."""
-    B, Sq, H, D = q.shape
+    time. q: (B, Sq, H, D). Chunks of ``q_chunk`` rows and a shorter last
+    one: each query row's attention is its own, so the rows equal the
+    reference's, whose scan needs equal chunks and so shrinks ``q_chunk``
+    to a divisor of Sq (one row a chunk for a prime Sq)."""
     Sk = k.shape[1]
     k_pos = torch.arange(Sk, device=q.device)
-    if Sq <= q_chunk:
-        q_pos = q_offset + torch.arange(Sq, device=q.device)
-        return _attend_block(q, k, v, q_pos, k_pos, causal, prefix_len,
-                             kv_len)
-    while Sq % q_chunk:  # shrink to the nearest divisor of Sq
-        q_chunk -= 1
     outs = []
-    for i in range(Sq // q_chunk):
-        q_pos = q_offset + i * q_chunk + torch.arange(q_chunk,
-                                                      device=q.device)
-        outs.append(_attend_block(q[:, i * q_chunk:(i + 1) * q_chunk], k, v,
-                                  q_pos, k_pos, causal, prefix_len, kv_len))
-    return torch.cat(outs, dim=1)
+    for i in range(0, q.shape[1], q_chunk):
+        qc = q[:, i:i + q_chunk]
+        q_pos = q_offset + i + torch.arange(qc.shape[1], device=q.device)
+        outs.append(_attend_block(qc, k, v, q_pos, k_pos, causal,
+                                  prefix_len, kv_len))
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
 
 
 def padded_heads(cfg: ModelConfig) -> Tuple[int, int]:
@@ -322,4 +336,233 @@ def gqa_prefill_chunk(params, cfg: ModelConfig, x, cache: KVCache,
                         torch.arange(kk.shape[1], device=x.device),
                         causal=cfg.causal, prefix_len=0, kv_len=kv_len,
                         f32_probs=True)
+    return dense(out.reshape(B, C, -1), params["wo"]), cache
+
+
+# ---------------------------------------------------------------------------
+# MLA: multi-head latent attention (DeepSeek-V2)
+# ---------------------------------------------------------------------------
+
+def init_mla(gen: torch.Generator, cfg: ModelConfig, *, lead=(),
+             device="cuda") -> dict:
+    m = cfg.mla
+    d, H = cfg.d_model, cfg.num_heads
+    qk_dim = m.qk_nope_head_dim + m.qk_rope_head_dim
+    lead = tuple(lead)
+    p = {
+        "w_dkv": glorot(gen, lead + (d, m.kv_lora_rank + m.qk_rope_head_dim),
+                        device),
+        "kv_norm": init_rms_norm(m.kv_lora_rank, lead=lead, device=device),
+        "w_uk": glorot(gen, lead + (m.kv_lora_rank, H * m.qk_nope_head_dim),
+                       device),
+        "w_uv": glorot(gen, lead + (m.kv_lora_rank, H * m.v_head_dim),
+                       device),
+        "wo": glorot(gen, lead + (H * m.v_head_dim, d), device),
+    }
+    if m.q_lora_rank:
+        p["wq_a"] = glorot(gen, lead + (d, m.q_lora_rank), device)
+        p["q_norm"] = init_rms_norm(m.q_lora_rank, lead=lead, device=device)
+        p["wq_b"] = glorot(gen, lead + (m.q_lora_rank, H * qk_dim), device)
+    else:
+        p["wq"] = glorot(gen, lead + (d, H * qk_dim), device)
+    return p
+
+
+def _mla_q(params, cfg: ModelConfig, x, positions):
+    """(q_nope (B, S, H, nope), q_rope (B, S, H, rope) roped), in the
+    compute dtype."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    if m.q_lora_rank:
+        qa = rms_norm(dense(x, params["wq_a"]), params["q_norm"]["scale"],
+                      cfg.norm_eps)
+        q = dense(qa, params["wq_b"])
+    else:
+        q = dense(x, params["wq"])
+    q = q.reshape(B, S, cfg.num_heads,
+                  m.qk_nope_head_dim + m.qk_rope_head_dim)
+    q_nope, q_rope = torch.split(q, [m.qk_nope_head_dim, m.qk_rope_head_dim],
+                                 dim=-1)
+    return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
+
+
+def _mla_ckv(params, cfg: ModelConfig, x, positions):
+    """(c_kv (B, S, rank) normed, k_rope (B, S, rope) roped as one head),
+    in the compute dtype."""
+    m = cfg.mla
+    ckv_full = dense(x, params["w_dkv"])
+    c_kv, k_rope = torch.split(ckv_full, [m.kv_lora_rank,
+                                          m.qk_rope_head_dim], dim=-1)
+    c_kv = rms_norm(c_kv, params["kv_norm"]["scale"], cfg.norm_eps)
+    k_rope = apply_rope(k_rope[:, :, None, :], positions,
+                        cfg.rope_theta)[:, :, 0]
+    return c_kv, k_rope
+
+
+def _mla_expand_kv(params, cfg: ModelConfig, c_kv, k_rope):
+    """Per-head K (B, S, H, nope + rope) and V (B, S, H, v) from the
+    latents (train, prefill and chunk paths)."""
+    m = cfg.mla
+    B, S = c_kv.shape[:2]
+    H = cfg.num_heads
+    k_nope = dense(c_kv, params["w_uk"]).reshape(B, S, H, m.qk_nope_head_dim)
+    v = dense(c_kv, params["w_uv"]).reshape(B, S, H, m.v_head_dim)
+    k_rope_b = k_rope[:, :, None, :].expand(B, S, H, m.qk_rope_head_dim)
+    return torch.cat([k_nope, k_rope_b], dim=-1), v
+
+
+def mla_train(params, cfg: ModelConfig, x, *, q_chunk=512, prefix_len=0):
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device)
+    q_nope, q_rope = _mla_q(params, cfg, x, positions)
+    c_kv, k_rope = _mla_ckv(params, cfg, x, positions)
+    k, v = _mla_expand_kv(params, cfg, c_kv, k_rope)
+    out = chunked_attention(torch.cat([q_nope, q_rope], dim=-1), k, v,
+                            causal=cfg.causal, q_chunk=q_chunk,
+                            prefix_len=prefix_len)
+    return dense(out.reshape(B, S, -1), params["wo"])
+
+
+def mla_prefill(params, cfg: ModelConfig, x, cache_size: int, *,
+                q_chunk=512) -> Tuple[torch.Tensor, KVCache]:
+    m = cfg.mla
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device)
+    q_nope, q_rope = _mla_q(params, cfg, x, positions)
+    c_kv, k_rope = _mla_ckv(params, cfg, x, positions)
+    k, v = _mla_expand_kv(params, cfg, c_kv, k_rope)
+    out = chunked_attention(torch.cat([q_nope, q_rope], dim=-1), k, v,
+                            causal=True, q_chunk=q_chunk)
+    cd = compute_dtype()
+    cc = torch.zeros((B, cache_size, m.kv_lora_rank), dtype=cd,
+                     device=x.device)
+    cr = torch.zeros((B, cache_size, m.qk_rope_head_dim), dtype=cd,
+                     device=x.device)
+    cc[:, :S] = c_kv.to(cd)
+    cr[:, :S] = k_rope.to(cd)
+    return dense(out.reshape(B, S, -1), params["wo"]), KVCache(cc, cr)
+
+
+def _mla_q_eff(params, cfg: ModelConfig, q_nope):
+    """q_nope (B, 1, H, nope) taken into the latent space through the raw
+    f32 w_uk (rank, H, nope): (B, 1, H, rank), f32."""
+    m = cfg.mla
+    w_uk = params["w_uk"].reshape(m.kv_lora_rank, cfg.num_heads,
+                                  m.qk_nope_head_dim)
+    return torch.einsum("bqhn,rhn->bqhr", q_nope.float(), w_uk.float())
+
+
+def _mla_latent_probs(cfg: ModelConfig, q_eff, q_rope, cc, cr, last):
+    """Softmax of q_eff . c_kv + q_rope . k_rope, f32, scaled by
+    1 / sqrt(qk_nope + qk_rope) rounded in f32, over positions <= ``last``
+    (a scalar or (B, 1, 1, 1)): (B, H, 1, S)."""
+    m = cfg.mla
+    scale = float(np.float32(1.0) / np.sqrt(
+        np.float32(m.qk_nope_head_dim + m.qk_rope_head_dim)))
+    scores = (torch.einsum("bqhr,bsr->bhqs", q_eff, cc.float())
+              + torch.einsum("bqhd,bsd->bhqs", q_rope.float(),
+                             cr.float())) * scale
+    valid = torch.arange(cc.shape[1], device=cc.device)[
+        None, None, None, :] <= last
+    return torch.softmax(scores.masked_fill(~valid, NEG_INF), dim=-1)
+
+
+def _mla_latent_out(params, cfg: ModelConfig, probs, cc):
+    """probs . c_kv, then out of the latent space through the raw f32
+    w_uv (rank, H, v): (B, 1, H, v) in the compute dtype."""
+    m = cfg.mla
+    out_lat = torch.einsum("bhqs,bsr->bqhr", probs, cc.float())
+    w_uv = params["w_uv"].reshape(m.kv_lora_rank, cfg.num_heads,
+                                  m.v_head_dim)
+    return torch.einsum("bqhr,rhv->bqhv", out_lat,
+                        w_uv.float()).to(compute_dtype())
+
+
+def _mla_absorbed(params, cfg: ModelConfig, q_nope, q_rope, cc, cr, last):
+    """The matrix-absorbed single-query attention over the latents cc
+    (B, S, rank) and cr (B, S, rope), then ``wo``."""
+    B = q_nope.shape[0]
+    q_eff = _mla_q_eff(params, cfg, q_nope)
+    probs = _mla_latent_probs(cfg, q_eff, q_rope, cc, cr, last)
+    out = _mla_latent_out(params, cfg, probs, cc)
+    return dense(out.reshape(B, 1, -1), params["wo"])
+
+
+def _mla_write(cache: KVCache, c_kv, k_rope, pos, positions,
+               vector: bool):
+    """One decode step's latents into the contiguous cache, in place: at
+    the (B, 1) per-request ``positions``, or at the shared index ``pos``."""
+    cd = compute_dtype()
+    if vector:
+        b = torch.arange(c_kv.shape[0], device=c_kv.device)
+        cache.k[b, positions[:, 0]] = c_kv.to(cd)[:, 0]
+        cache.v[b, positions[:, 0]] = k_rope.to(cd)[:, 0]
+    else:
+        p = pos if isinstance(pos, int) else int(pos)
+        cache.k[:, p:p + 1] = c_kv.to(cd)
+        cache.v[:, p:p + 1] = k_rope.to(cd)
+
+
+def mla_decode(params, cfg: ModelConfig, x, cache: KVCache, pos
+               ) -> Tuple[torch.Tensor, KVCache]:
+    """Matrix-absorbed decode. x: (B, 1, d); cache.k = c_kv (B, S, rank),
+    cache.v = k_rope (B, S, rope); pos a scalar or (B,) per-request
+    indices. Writes the cache in place and returns it."""
+    B = x.shape[0]
+    positions, vector = _decode_positions(pos, B, x.device)
+    q_nope, q_rope = _mla_q(params, cfg, x, positions)
+    c_kv, k_rope = _mla_ckv(params, cfg, x, positions)
+    _mla_write(cache, c_kv, k_rope, pos, positions, vector)
+    last = positions[:, 0, None, None, None] if vector else positions[0]
+    return _mla_absorbed(params, cfg, q_nope, q_rope, cache.k, cache.v,
+                         last), cache
+
+
+def _mla_page_write(cache: KVCache, c_kv, k_rope, block_tables, positions,
+                    valid) -> None:
+    """Latent rows into their pages, in place (quantized, into int8
+    ``QuantKV`` pools: one scale a latent row and one a rope row)."""
+    KVC = _paged_kv_mod()
+    KVC.paged_write(cache.k, c_kv, block_tables, positions, valid)
+    KVC.paged_write(cache.v, k_rope, block_tables, positions, valid)
+
+
+def mla_decode_paged(params, cfg: ModelConfig, x, cache: KVCache,
+                     block_tables, pos) -> Tuple[torch.Tensor, KVCache]:
+    """Matrix-absorbed paged decode: cache.k pools c_kv (P, page, rank),
+    cache.v pools k_rope (P, page, rope), bf16/f32 or int8 ``QuantKV``;
+    the new row written through the table, then the absorbed attention
+    on the gathered (dequantized) latents."""
+    KVC = _paged_kv_mod()
+    B = x.shape[0]
+    pos = torch.as_tensor(pos, device=x.device)
+    positions = pos[:, None]
+    q_nope, q_rope = _mla_q(params, cfg, x, positions)
+    c_kv, k_rope = _mla_ckv(params, cfg, x, positions)
+    valid = torch.ones((B, 1), dtype=torch.bool, device=x.device)
+    _mla_page_write(cache, c_kv, k_rope, block_tables, positions, valid)
+    cc = KVC.paged_gather(cache.k, block_tables)          # (B, S_max, rank)
+    cr = KVC.paged_gather(cache.v, block_tables)
+    return _mla_absorbed(params, cfg, q_nope, q_rope, cc, cr,
+                         pos[:, None, None, None]), cache
+
+
+def mla_prefill_chunk(params, cfg: ModelConfig, x, cache: KVCache,
+                      block_tables, start, kv_len
+                      ) -> Tuple[torch.Tensor, KVCache]:
+    """One chunk of a paged MLA prefill: write the chunk's latents, then
+    attend with per-head K/V expanded from the gathered latent view."""
+    KVC = _paged_kv_mod()
+    B, C, _ = x.shape
+    positions = start + torch.arange(C, device=x.device)
+    q_nope, q_rope = _mla_q(params, cfg, x, positions)
+    c_kv, k_rope = _mla_ckv(params, cfg, x, positions)
+    posg = positions[None].expand(B, C)
+    _mla_page_write(cache, c_kv, k_rope, block_tables, posg, posg < kv_len)
+    k, v = _mla_expand_kv(params, cfg,
+                          KVC.paged_gather(cache.k, block_tables),
+                          KVC.paged_gather(cache.v, block_tables))
+    out = _attend_block(torch.cat([q_nope, q_rope], dim=-1), k, v,
+                        positions, torch.arange(k.shape[1], device=x.device),
+                        causal=True, prefix_len=0, kv_len=kv_len)
     return dense(out.reshape(B, C, -1), params["wo"]), cache

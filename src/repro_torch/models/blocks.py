@@ -1,13 +1,14 @@
-"""The transformer blocks: pre-norm GQA attention with a dense MLP or an
-MoE FFN.
+"""The transformer blocks: pre-norm GQA or MLA attention with a dense MLP
+or an MoE FFN.
 
 Port of the dense and MoE blocks of ``repro/models/blocks.py``. A block's
 FFN is its parameters' own: a dense block has ``mlp``, an MoE block
 ``moe``, so one function of each entry point (``block_train``,
 ``block_prefill``, ``block_decode``, ``block_prefill_chunk``) serves both,
 where the reference has a ``dense_block_*`` and a ``moe_block_*`` of
-each. MLA, Mamba2 and the zamba2 shared-attention block wait (ROADMAP
-A9).
+each. The attention is the config's ``attn_type``: "gqa", or "mla"
+(deepseek-v2-lite-16b). Mamba2 and the zamba2 shared-attention block
+wait (ROADMAP A9).
 """
 from __future__ import annotations
 
@@ -21,14 +22,19 @@ from repro_torch.models.layers import init_mlp, init_rms_norm, mlp, rms_norm
 from repro_torch.models.moe import init_moe, moe_ffn
 
 
-def _init_block(gen: torch.Generator, cfg: ModelConfig, lead, device,
-                ffn: str, make_ffn) -> dict:
-    if cfg.attn_type != "gqa":
+def _mla(cfg: ModelConfig) -> bool:
+    if cfg.attn_type not in ("gqa", "mla"):
         raise NotImplementedError(
             f"attn_type {cfg.attn_type!r} is not ported (ROADMAP A9)")
+    return cfg.attn_type == "mla"
+
+
+def _init_block(gen: torch.Generator, cfg: ModelConfig, lead, device,
+                ffn: str, make_ffn) -> dict:
+    init = attn.init_mla if _mla(cfg) else attn.init_gqa
     return {
         "attn_norm": init_rms_norm(cfg.d_model, lead=lead, device=device),
-        "attn": attn.init_gqa(gen, cfg, lead=lead, device=device),
+        "attn": init(gen, cfg, lead=lead, device=device),
         "mlp_norm": init_rms_norm(cfg.d_model, lead=lead, device=device),
         ffn: make_ffn(),
     }
@@ -63,7 +69,8 @@ def _ffn(params, cfg: ModelConfig, h):
 
 def block_train(params, cfg: ModelConfig, h, *, prefix_len=0, aux=None):
     x = rms_norm(h, params["attn_norm"]["scale"], cfg.norm_eps)
-    h = h + attn.gqa_train(params["attn"], cfg, x, prefix_len=prefix_len)
+    fn = attn.mla_train if _mla(cfg) else attn.gqa_train
+    h = h + fn(params["attn"], cfg, x, prefix_len=prefix_len)
     h, lb = _ffn(params, cfg, h)
     if lb is not None:
         aux = lb if aux is None else aux + lb
@@ -72,21 +79,26 @@ def block_train(params, cfg: ModelConfig, h, *, prefix_len=0, aux=None):
 
 def block_prefill(params, cfg: ModelConfig, h, cache_size, *, prefix_len=0):
     x = rms_norm(h, params["attn_norm"]["scale"], cfg.norm_eps)
-    a, cache = attn.gqa_prefill(params["attn"], cfg, x, cache_size,
-                                prefix_len=prefix_len)
+    if _mla(cfg):
+        a, cache = attn.mla_prefill(params["attn"], cfg, x, cache_size)
+    else:
+        a, cache = attn.gqa_prefill(params["attn"], cfg, x, cache_size,
+                                    prefix_len=prefix_len)
     return _ffn(params, cfg, h + a)[0], cache
 
 
 def block_decode(params, cfg: ModelConfig, h, cache, pos,
                  block_tables=None):
     """One decode step; with ``block_tables`` the cache is a page pool
-    (``attention.gqa_decode_paged``)."""
+    (``attention.gqa_decode_paged`` / ``mla_decode_paged``)."""
     x = rms_norm(h, params["attn_norm"]["scale"], cfg.norm_eps)
+    mla = _mla(cfg)
     if block_tables is not None:
-        a, cache = attn.gqa_decode_paged(params["attn"], cfg, x, cache,
-                                         block_tables, pos)
+        fn = attn.mla_decode_paged if mla else attn.gqa_decode_paged
+        a, cache = fn(params["attn"], cfg, x, cache, block_tables, pos)
     else:
-        a, cache = attn.gqa_decode(params["attn"], cfg, x, cache, pos)
+        fn = attn.mla_decode if mla else attn.gqa_decode
+        a, cache = fn(params["attn"], cfg, x, cache, pos)
     return _ffn(params, cfg, h + a)[0], cache
 
 
@@ -95,6 +107,7 @@ def block_prefill_chunk(params, cfg: ModelConfig, h, cache, block_tables,
     """Paged chunk prefill: like ``block_prefill`` but writing one chunk
     of positions [start, kv_len) through a block table."""
     x = rms_norm(h, params["attn_norm"]["scale"], cfg.norm_eps)
-    a, cache = attn.gqa_prefill_chunk(params["attn"], cfg, x, cache,
-                                      block_tables, start, kv_len)
+    fn = attn.mla_prefill_chunk if _mla(cfg) else attn.gqa_prefill_chunk
+    a, cache = fn(params["attn"], cfg, x, cache, block_tables, start,
+                  kv_len)
     return _ffn(params, cfg, h + a)[0], cache

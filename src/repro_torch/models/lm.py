@@ -11,11 +11,13 @@ The parameter tree has the reference's structure and shapes: each
 stage's layer parameters are stacked along a leading (L,) dim in
 ``params["stages"][i]``. The reference's ``lax.scan`` over that stack is
 a Python loop over the same stacked tensors here; the KV cache is stacked
-the same way, one ``KVCache`` of (L, B, S_max, KV, D) a stage, and written
-in place. In training, ``jax.checkpoint`` around the scanned layer becomes
-``torch.utils.checkpoint`` around each layer (``cfg.remat``: "full",
-"dots" or "none"), and around each chunk of the loss; MoE stages add
-their load-balance aux, and ``train_loss`` adds 0.01 of it to the loss.
+the same way, one ``KVCache`` of (L, B, S_max, KV, D) a stage (MLA: the
+latents c_kv (L, B, S_max, rank) and k_rope (L, B, S_max, rope)), and
+written in place. In training, ``jax.checkpoint`` around the scanned
+layer becomes ``torch.utils.checkpoint`` around each layer
+(``cfg.remat``: "full", "dots" or "none"), and around each chunk of the
+loss; MoE stages add their load-balance aux, and ``train_loss`` adds 0.01
+of it to the loss.
 
 Entry points:
   init_params(cfg, seed, device)                  -> params
@@ -49,13 +51,16 @@ from repro_torch.models.layers import (compute_dtype, embed, init_embedding,
 
 
 def stage_plan(cfg: ModelConfig) -> List[Tuple[str, int]]:
-    if cfg.modality == "text" and cfg.attn_type == "gqa":
+    if cfg.modality == "text" and cfg.attn_type in ("gqa", "mla"):
         if cfg.family == "dense":
             return [("dense", cfg.num_layers)]
         if cfg.family == "moe":
+            # a config cut to its first dense layers has no MoE stage (the
+            # reference's plan keeps an empty one, which its scan skips)
             fd = cfg.moe.first_dense_layers
-            return ([("dense_first", fd)] if fd else []) + [
-                ("moe", cfg.num_layers - fd)]
+            rest = cfg.num_layers - fd
+            return ([("dense_first", fd)] if fd else []) + (
+                [("moe", rest)] if rest else [])
     raise NotImplementedError(
         f"family {cfg.family!r} / modality {cfg.modality!r} / attn_type "
         f"{cfg.attn_type!r} is not ported (ROADMAP A9, other families)")
@@ -287,14 +292,29 @@ def _layer_cache(cache: KVCache, i: int) -> KVCache:
     return KVCache(pick(cache.k), pick(cache.v))
 
 
-def _kv_zeros(cfg: ModelConfig, rows: Tuple[int, int], device):
-    """One stacked KVCache per stage: (L, *rows, KV, D) zeros in the
-    compute dtype."""
-    hd = cfg.resolved_head_dim
-    kv = padded_heads(cfg)[1]
-    return [KVCache(*(torch.zeros((n,) + tuple(rows) + (kv, hd),
-                                  dtype=compute_dtype(), device=device)
-                      for _ in range(2)))
+def kv_tails(cfg: ModelConfig) -> KVCache:
+    """The per-token tail of each cache leaf: (KV', D) for K and V, or
+    MLA's latents, (rank,) for c_kv and (rope,) for k_rope."""
+    if cfg.attn_type == "mla":
+        m = cfg.mla
+        return KVCache((m.kv_lora_rank,), (m.qk_rope_head_dim,))
+    tail = (padded_heads(cfg)[1], cfg.resolved_head_dim)
+    return KVCache(tail, tail)
+
+
+def _kv_zeros(cfg: ModelConfig, rows: Tuple[int, int], device,
+              quant: bool = False):
+    """One stacked KVCache per stage: (L, *rows, *tail) zeros in the
+    compute dtype, or with ``quant`` int8 ``QuantKV`` leaves (codes of
+    that shape and bf16 scales (L, *rows, *tail[:-1], 1))."""
+    if quant:
+        # deferred: repro_torch.serving imports the models
+        from repro_torch.serving.kvcache import quant_cache_zeros
+        zeros = lambda shape: quant_cache_zeros(shape, device)
+    else:
+        zeros = lambda shape: torch.zeros(shape, dtype=compute_dtype(),
+                                          device=device)
+    return [KVCache(*(zeros((n,) + tuple(rows) + t) for t in kv_tails(cfg)))
             for _, n in stage_plan(cfg)]
 
 
@@ -304,24 +324,18 @@ def init_cache(cfg: ModelConfig, bsz: int, cache_size: int, device="cuda"):
 
 def cache_batch_axes(cfg: ModelConfig):
     """Per stage, a ``KVCache`` of the batch axis of each leaf: a dense or
-    MoE stage's KV leaf is (L, B, S, KV, D), so 1. Lane splicing reads
-    this metadata, not the shapes."""
+    MoE stage's KV leaf is (L, B, S, KV, D), an MLA stage's (L, B, S,
+    rank) and (L, B, S, rope), so 1. Lane splicing reads this metadata,
+    not the shapes."""
     return [KVCache(1, 1) for _ in stage_plan(cfg)]
 
 
 def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
                      device="cuda", quant: bool = False):
     """One page pool per stage, stacked over layers: (L, num_pages,
-    page_size, KV, D) zeros in the compute dtype, or with ``quant`` int8
-    ``QuantKV`` pools (codes (L, num_pages, page_size, KV, D) and bf16
-    scales (L, num_pages, page_size, KV, 1)). One (B, nblk) block table
-    drives the whole stack."""
-    if not quant:
-        return _kv_zeros(cfg, (num_pages, page_size), device)
-    # deferred: repro_torch.serving imports the models
-    from repro_torch.serving.kvcache import quant_cache_zeros
-    hd = cfg.resolved_head_dim
-    shape = (num_pages, page_size, padded_heads(cfg)[1], hd)
-    return [KVCache(*(quant_cache_zeros((n,) + shape, device)
-                      for _ in range(2)))
-            for _, n in stage_plan(cfg)]
+    page_size, *tail) zeros in the compute dtype (``kv_tails``: (KV, D),
+    or MLA's (rank,) and (rope,)), or with ``quant`` int8 ``QuantKV``
+    pools (codes of that shape and bf16 scales (L, num_pages, page_size,
+    *tail[:-1], 1): one a head, or one a latent row and one a rope row).
+    One (B, nblk) block table drives the whole stack."""
+    return _kv_zeros(cfg, (num_pages, page_size), device, quant)

@@ -39,7 +39,12 @@ and left for the next kick or a synchronous rebuild, as the reference
 leaves its ``prefetch.h2d_failed``. A background build that raised
 anything else is counted in ``async_failed`` and raises where it is
 polled. A pack on an MoE expert leaf is refused at ``register``
-(``ValueError``): the experts' batched products take no side delta.
+(``ValueError``): the experts' batched products take no side delta. So is
+a pack on MLA's ``w_uk``/``w_uv`` (``UNSUPPORTED_LEAVES``), as the
+reference refuses it: absorbed decode reads those weights reshaped, not
+through ``pdot``; exclude them from ``AdapterConfig.target_modules`` when
+serving an MLA arch multi-tenant (``launch.serve.make_adapters(...,
+multi_tenant=True)``).
 Spans: ``table_rebuild`` (serving thread), ``prefetch.h2d`` (the
 build worker), ``prefetch.stall``, ``fuse`` and ``unfuse``.
 """
@@ -69,6 +74,10 @@ from repro_torch.runtime.faults import TableBuildError
 
 BASE = None            # the "no adapter" tenant in a names list
 _BASE_SLOT = "__base__"
+
+# MLA absorbed-decode weights are reshaped, not multiplied through pdot, so
+# a side-delta bundle there would crash (or silently diverge).
+UNSUPPORTED_LEAVES = ("w_uk", "w_uv")
 
 
 def greedy_decode(cfg, batch, tokens: int, prefill, decode):
@@ -216,10 +225,16 @@ class MultiTenantEngine:
         if hasattr(pack, "int8_tables"):     # a hub.packio.QuantPack
             qp, pack = pack, pack.dequantize()
         for path in pack.entries:
+            leaf = leaf_name(path)
+            if leaf in UNSUPPORTED_LEAVES:
+                raise ValueError(
+                    f"adapter {pack.name!r} targets {path!r}: {leaf} is "
+                    "consumed outside pdot (MLA absorbed decode); exclude it "
+                    "from target_modules for multi-tenant serving")
             if path not in self._shapes:
                 raise KeyError(f"adapter {pack.name!r} targets unknown "
                                f"weight {path!r}")
-            if leaf_name(path) in EXPERT_LEAVES:
+            if leaf in EXPERT_LEAVES:
                 # the experts' (E, n, m) weights go through batched
                 # products (models.moe), not pdot; the reference registers
                 # such a pack and fails in its first forward

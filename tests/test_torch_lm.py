@@ -102,8 +102,8 @@ def test_prefill_decode_bf16(setup):
 
 
 def test_other_families_raise():
-    """MoE plans (dense first layers, then MoE); SSM, hybrid and MLA
-    still raise, naming A9."""
+    """MoE plans (dense first layers, then MoE), with GQA or MLA
+    attention; SSM and hybrid still raise, naming A9."""
     from repro_torch.configs import get_config
     with pytest.raises(NotImplementedError, match="A9"):
         get_config("mamba2-780m")
@@ -113,17 +113,21 @@ def test_other_families_raise():
     first = moe.replace(moe=dataclasses.replace(moe.moe,
                                                 first_dense_layers=1))
     assert TLM.stage_plan(first) == [("dense_first", 1), ("moe", 1)]
+    assert TLM.stage_plan(moe.replace(attn_type="mla")) == [("moe", 2)]
     for other in (dense.replace(family="ssm"), dense.replace(family="hybrid"),
-                  moe.replace(attn_type="mla")):
+                  dense.replace(attn_type="none")):
         with pytest.raises(NotImplementedError, match="A9"):
             TLM.stage_plan(other)
 
 
 @pytest.mark.parametrize("sq,q_chunk,prefix", [(8, 4, 0), (10, 4, 0),
-                                               (6, 16, 0), (10, 4, 3)])
+                                               (6, 16, 0), (10, 4, 3),
+                                               (11, 4, 0)])
 def test_chunked_attention(sq, q_chunk, prefix):
-    """The q-chunk loop (a divisor of Sq found by shrinking) against the
-    reference's scan, f32; a prefix-LM prefix is visible to every query."""
+    """The q-chunk loop (chunks of q_chunk and a shorter last one) against
+    the reference's scan (which shrinks q_chunk to a divisor of Sq: one
+    row a chunk at Sq = 11), f32; a prefix-LM prefix is visible to every
+    query."""
     rng = np.random.default_rng(sq)
     q = rng.standard_normal((2, sq, 4, 8)).astype(np.float32)
     k = rng.standard_normal((2, sq, 2, 8)).astype(np.float32)
