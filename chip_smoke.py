@@ -139,13 +139,34 @@ prints its seconds on a "[time]" line:
                attention is plain torch, as the reference's is jnp
   24. mla-consistency  full width, 2 layers, f32: as 22, and the int8
                latent pages' tokens equal the same engine's on the CPU
-  25. dense     qwen1.5-32b (G 1), deepseek-coder-33b (G 7) and
+  25. mamba serve, mamba profile, mamba continuous, mamba train
+               mamba2-780m (Mamba2 / SSD, attention-free) at full width
+               and all 48 layers, its arithmetic printed first
+               ([mamba]: parameters, three adapters at 2% of out_proj,
+               the lanes' state), through the same code as 21: launch.serve
+               in four modes (a switch's ms beside its bound on the
+               (48, 3072, 1536) out_proj leaf), a decode step (base,
+               multi-tenant) and a 1024-token prefill under torch.profiler
+               with the mixer split out (mamba_ranges: projections, conv,
+               the SSD's intra-chunk product, chunk states and recurrence,
+               inter-chunk output, gated norm + out_proj, decode's state
+               update) and the prefill's peak memory, the 24-request trace
+               on the lanes (resident requests per GB of state beside the
+               other archs' KV figures), both trainers; sidedelta,
+               scatter_apply, sparse_adamw and sidedelta_dvals launch, and
+               no attention kernel; PagedServingEngine must refuse the
+               family with the reference's NotImplementedError
+  26. mamba-consistency  full width, 2 layers, f32: multi-tenant tokens
+               equal switch-per-request, the lanes the fixed batch (with
+               prompts of 1 and 2 tokens, shorter than the conv window),
+               and both trainers track the CPU run to 5e-3
+  27. dense     qwen1.5-32b (G 1), deepseek-coder-33b (G 7) and
                granite-34b (G 48) at full width, each cut to the deepest
                stack whose f32 parameters and three adapters' packs and
                tables fit 60 GB (the arithmetic printed): a multi-tenant
                serve, a multi-tenant decode step under torch.profiler, and
                at 2 layers in f32 tokens equal to switch-per-request
-  26. summary   one JSON line of kernel numbers, the card line, and last
+  28. summary   one JSON line of kernel numbers, the card line, and last
                {"ok": true, "device": {...}}, after "[time] total"
 
 Every engine run with no fault injected (phases 7, 8, 13, 14, the
@@ -158,7 +179,13 @@ The kernels phase also holds sidedelta at deepseek-v2-lite-16b's widths
 (wq 2048x3072, w_dkv 2048x576, layer 0's MLP 2048x10944 and 10944x2048,
 the shared experts' 2048x2816; S = 1 and 256, f32 and int8 tables) and
 scatter_apply bit for bit at its (26, 2048, 3072) and (26, 512, 2048)
-leaves. It also holds masked_update (the dense-mask apply of hook
+leaves, and sidedelta at mamba2-780m's out_proj (3072x1536; S = 1, 16
+and 256, f32 and int8 tables) with scatter_apply bit for bit at its
+(48, 3072, 1536) leaf; a phase of its own, kernels (mamba widths), times
+scatter_apply there and sparse_adamw (blocks over the Trainer's (48 k,)
+vector, rows over the multi-adapter trainer's (144, k) f32 rows) beside
+their plain versions, a library call and their bounds, and the training
+kernels' phase adds a dvals case at out_proj's width. It also holds masked_update (the dense-mask apply of hook
 mode) against its plain version, bit for bit, at the stacked (32, 4608,
 18432) w_up leaf with a 1% mask: f32 W with a bool mask, bf16 W with a
 bool mask, f32 W with an f32 mask, beside Tensor.addcmul_. Its
@@ -259,6 +286,7 @@ MT_ENTRY_BYTES = 40            # a multi-adapter trainer, per 2% entry of
                                # an adapter: index, value, two moments and
                                # gradient (f32) and the trainable table's
                                # rows, perm, t_rows and t_perm (int32)
+MAMBA_ARCH = "mamba2-780m"     # the SSM slice: full width, all 48 layers
 ATTN_KERNELS = ("flash_decode", "flash_decode_paged", "flash_prefill")
 RESIDENCY = {}                 # (arch, engine) -> resident requests per GB
 DENSE_ARCHS = ("qwen1.5-32b", "deepseek-coder-33b", "granite-34b")
@@ -343,12 +371,13 @@ def cold_ms(torch, fn, iters: int, flush) -> float:
 
 def device_kernels(torch, prof):
     """(device ms, launches, name) of each kernel a torch.profiler run saw
-    (not the device side of the ``moe_ranges``/``mla_ranges``
-    annotations)."""
+    (not the device side of the ``moe_ranges``/``mla_ranges``/
+    ``mamba_ranges`` annotations)."""
     cuda = torch.autograd.DeviceType.CUDA
+    ranges = MOE_RANGES + MLA_RANGES + MAMBA_RANGES
     return [(getattr(e, "self_device_time_total", 0) / 1e3, e.count, e.key)
             for e in prof.key_averages()
-            if e.device_type == cuda and e.key not in MOE_RANGES + MLA_RANGES]
+            if e.device_type == cuda and e.key not in ranges]
 
 
 def kernel_share(label, kern) -> None:
@@ -661,6 +690,13 @@ def kernels_phase(torch, flush):
                 side.append(sidedelta_case(torch, gen, flush, name, n, m,
                                            S, int8))
         torch.cuda.empty_cache()
+    # mamba2-780m's one multi-tenant target: out_proj (3072, 1536), decode,
+    # a serve prompt and a training sequence's chunk
+    for S in (1, PROMPT, CHUNK):
+        for int8 in (False, True):
+            side.append(sidedelta_case(torch, gen, flush, "mamba out_proj",
+                                       3072, 1536, S, int8))
+    torch.cuda.empty_cache()
     sidedelta_crossover(torch, gen, flush, d, f)
     # the fused state of two stacked w_up layers, as MultiTenantEngine
     # builds it with adapter_0 hot: diff packs (whose shorter layer is
@@ -718,12 +754,14 @@ def kernels_phase(torch, flush):
     # many layers of odd k: layer boundaries inside a block, and at 70,001
     # layers more layers than a grid dimension holds; then granite-moe's
     # stacked wq leaf and its experts' w_up flattened to (L * E, n, m),
-    # and deepseek-v2-lite-16b's MoE-stage wq and w_uk leaves
+    # deepseek-v2-lite-16b's MoE-stage wq and w_uk leaves, and
+    # mamba2-780m's out_proj
     for nl, n, m, kk in ((37, 96, 160, 307), (70001, 8, 8, 3),
                          (24, 1024, 1024, budget(1024, 1024, 0.98)),
                          (24 * 32, 1024, 512, budget(1024, 512, 0.98)),
                          (26, 2048, 3072, budget(2048, 3072, 0.98)),
-                         (26, 512, 2048, budget(512, 2048, 0.98))):
+                         (26, 512, 2048, budget(512, 2048, 0.98)),
+                         (48, 3072, 1536, budget(3072, 1536, 0.98))):
         ws = torch.randn((nl, n, m), generator=gen, device="cuda")
         ii = torch.argsort(torch.rand((nl, n * m), generator=gen,
                                       device="cuda"), 1)[:, :kk]
@@ -1221,12 +1259,99 @@ def train_kernels_phase(torch, flush):
     kernel_ptxas("sidedelta_grad")
     grads = {}
     for label, n, m in (("w_up", d, f), ("wq", d, d), ("wk", d, kv),
-                        ("w_down", f, d)):
+                        ("w_down", f, d), ("mamba out_proj", 3072, 1536)):
         grads[label] = grad_case(torch, gen, flush, label, n, m)
         torch.cuda.empty_cache()
     dvals_edge_cases(torch, gen, d, f)
     torch.cuda.empty_cache()
     return blocks, rows, grads
+
+
+def mamba_kernels(torch, flush):
+    """The SHiRA kernels at mamba2-780m's one target leaf, out_proj (48,
+    3072, 1536) at sparsity 0.98, timed beside their plain versions, one
+    library call and their bounds: scatter_apply (a switch's whole work:
+    load of the ascending pack; bit-equal), sparse_adamw_blocks over the
+    Trainer's packed (48 k,) vector and sparse_adamw_rows over the
+    multi-adapter trainer's (3 x 48, k) f32 rows (within ADAMW_TOL).
+    sidedelta's cases at this width are in the kernels phase, dvals' in
+    the training one. Returns {kernel: numbers}."""
+    from repro_torch.core.masks import budget
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.scatter_apply import (scatter_apply,
+                                                   scatter_apply_plain)
+    from repro_torch.kernels.sparse_adamw import (sparse_adamw,
+                                                  sparse_adamw_plain,
+                                                  sparse_adamw_rows,
+                                                  sparse_adamw_rows_plain)
+    L, n, m = 48, 3072, 1536
+    k = budget(n, m, 0.98)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(6)
+    out = {}
+    w = torch.randn((L, n, m), generator=gen, device="cuda")
+    idx, vals = rand_entries(torch, gen, L, n, m, k)
+    want = scatter_apply_plain(w.clone(), idx, vals, 1.0)
+    scatter_apply(w, idx, vals, 1.0)
+    if not torch.equal(w, want):
+        fail("scatter_apply disagrees with its plain version at mamba's "
+             "out_proj")
+    del want
+    gi = (torch.arange(L, device="cuda")[:, None] * (n * m)
+          + idx.long()).reshape(-1)
+    sign = [-1.0]
+
+    def flip(fn):
+        def go():
+            fn(sign[0])
+            sign[0] = -sign[0]
+        return go
+    upd = {1.0: vals.reshape(-1).clone(), -1.0: -vals.reshape(-1)}
+    nbytes, sectors = scatter_bytes(torch, w, idx, vals)
+    out["scatter_apply"] = r = {
+        "max_abs_err": 0.0,
+        "ms": cold_ms(torch, flip(lambda a: scatter_apply(w, idx, vals, a)),
+                      10, flush),
+        "plain_ms": cold_ms(torch, flip(lambda a: scatter_apply_plain(
+            w, idx, vals, a)), 4, flush),
+        "library_ms": cold_ms(torch, flip(lambda a: w.view(-1).index_put_(
+            (gi,), upd[a], accumulate=True)), 4, flush),
+        **bound(nbytes, 0)}
+    print(f"[kernels] scatter_apply mamba out_proj ({L}, {n}, {m}) "
+          f"K={idx.numel()}: bit-equal, ms={r['ms']:.4f} plain_ms(index_add_)"
+          f"={r['plain_ms']:.4f} library_ms(index_put_ accumulate)="
+          f"{r['library_ms']:.4f} bound_ms={r['bound_ms']:.4f} ({sectors} W "
+          f"sectors): {rate_line(r, nbytes)}", flush=True)
+    del w, idx, vals, gi, upd
+    scalars = ops._adamw_scalars(3, 3e-4, 0.9, 0.999, 1e-8, 0.0)
+    for name, shape, fn, plain in (
+            ("sparse_adamw_blocks", (L * k,), sparse_adamw,
+             sparse_adamw_plain),
+            ("sparse_adamw_rows", (3 * L, k),
+             lambda *a: sparse_adamw_rows(*a[:4], None, None, a[4]),
+             lambda *a: sparse_adamw_rows_plain(*a[:4], None, None, a[4]))):
+        v, g, mu, nu = adamw_inputs(torch, gen, shape)
+        err, _, equal = adamw_close(torch, fn(v, g, mu, nu, scalars),
+                                    plain(v, g, mu, nu, scalars))
+        nbytes = v.numel() * 28
+        out[name] = r = {
+            "max_abs_err": err,
+            "ms": cold_ms(torch, lambda: fn(v, g, mu, nu, scalars), 20,
+                          flush),
+            "plain_ms": cold_ms(torch, lambda: plain(v, g, mu, nu, scalars),
+                                3, flush),
+            "library_ms": fused_adamw_ms(torch, flush, v, g, mu, nu,
+                                         scalars),
+            **bound(nbytes, v.numel() * 15)}
+        print(f"[kernels] {name} mamba out_proj {shape} f32: max_abs_err="
+              f"{err:.3g} bit-equal={equal} (tol rtol=atol={ADAMW_TOL}) "
+              f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.3f} library_ms("
+              f"_fused_adamw_)={r['library_ms']:.4f} bound_ms="
+              f"{r['bound_ms']:.4f} ({r['bound_by']}), "
+              f"{rate_line(r, nbytes)}", flush=True)
+        del v, g, mu, nu
+    torch.cuda.empty_cache()
+    return out
 
 
 def attn_case(torch, flush, label, fn, plain, library, tol, nbytes, flops,
@@ -1764,17 +1889,61 @@ def kv_row_bytes(cfg, quant: bool) -> int:
                else 2 * math.prod(t) for t in lm.kv_tails(cfg))
 
 
+def state_bytes(cfg) -> int:
+    """A request's bytes a layer of a mamba stage, whatever its length:
+    the f32 SSM state (H x P x N) and the two conv windows (d_conv - 1
+    rows of d_inner and of 2 g n) in bf16."""
+    from repro_torch.models.mamba2 import dims
+    d_inner, heads, bc = dims(cfg)
+    s = cfg.ssm
+    return (heads * s.head_dim * s.d_state * 4
+            + (s.d_conv - 1) * (d_inner + bc) * 2)
+
+
 def residency_report(tag):
-    """Resident requests per GB of KV of each engine beside the other
-    archs' runs in this process, and the KV bytes a token and layer."""
+    """Resident requests per GB of KV (a mamba model's: of state) of each
+    engine beside the other archs' runs in this process, and the KV bytes
+    a token and layer (the state bytes a request and layer)."""
     from repro_torch.configs import get_config
     archs = list(dict.fromkeys(a for a, _ in RESIDENCY))
     for a in archs:
         c = get_config(a)
         runs = {e: round(v, 1) for (x, e), v in RESIDENCY.items() if x == a}
+        if c.family == "ssm":
+            per = state_bytes(c) * c.num_layers
+            print(f"[{tag}] resident requests per GB of state, {a}: {runs};"
+                  f" state bytes a request and layer {state_bytes(c)} (f32 "
+                  f"state, bf16 conv windows), {per} a request over "
+                  f"{c.num_layers} layers: {1e9 / per:.2f} requests per GB "
+                  f"whatever the length", flush=True)
+            continue
         print(f"[{tag}] resident requests per GB of KV, {a}: {runs}; KV "
               f"bytes a token and layer {kv_row_bytes(c, False)} bf16, "
               f"{kv_row_bytes(c, True)} int8", flush=True)
+
+
+def paged_refused(torch, cfg, params, tag):
+    """Fail unless PagedServingEngine refuses ``cfg`` (a family with no
+    paged cache) with the reference's NotImplementedError."""
+    from repro_torch.hub import PagedServingEngine
+    try:
+        PagedServingEngine(cfg, params, slots=B, num_pages=321,
+                           page_size=16, chunk_size=CHUNK)
+    except NotImplementedError as e:
+        if "paged" not in str(e):
+            fail(f"{tag}: PagedServingEngine refused {cfg.name} with "
+                 f"another message: {e}")
+        print(f"[{tag}] {cfg.name} PagedServingEngine refused, as the "
+              f"reference's: NotImplementedError({str(e)!r})", flush=True)
+        return
+    fail(f"{tag}: PagedServingEngine accepted {cfg.name}")
+
+
+def has_pages(cfg) -> bool:
+    """Whether the paged engine serves ``cfg``: the dense and MoE families
+    (``lm.init_paged_cache`` refuses the others, as the reference's
+    does)."""
+    return cfg.family in ("dense", "moe")
 
 
 def continuous_phase(torch, arch="starcoder2-7b", tag="continuous",
@@ -1789,7 +1958,9 @@ def continuous_phase(torch, arch="starcoder2-7b", tag="continuous",
     the base. An MoE model's dropped routing choices are counted per
     engine: the lanes admit a prompt of over 512 tokens in one call, whose
     capacity may drop choices (the reference's too), the pages' chunks
-    and every decode step are drop-free."""
+    and every decode step are drop-free. A family with no paged cache
+    (``has_pages``; Mamba2's state is O(1) a request) runs on the lanes
+    alone, and the paged engine must refuse the model."""
     import tempfile
     import numpy as np
     from repro_torch.configs import get_config
@@ -1805,6 +1976,7 @@ def continuous_phase(torch, arch="starcoder2-7b", tag="continuous",
     attn_dec, absent = attention_kernels(cfg, "flash_prefill",
                                          "flash_decode")
     attn_paged, _ = attention_kernels(cfg, "flash_decode_paged")
+    paged = has_pages(cfg)
     zero_counts()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1844,10 +2016,12 @@ def continuous_phase(torch, arch="starcoder2-7b", tag="continuous",
         print(f"[{tag}] store: {len(store.names())} f32 packs written in "
               f"{time.perf_counter() - t0:.1f}s", flush=True)
         outs, kv = {}, {}
-        for label, make, needed in (
-                ("ServingEngine", lambda: ServingEngine(
-                    cfg, params, slots=B, cache_size=CACHE, store=store),
-                 attn_dec + ("sidedelta",)),
+        engines = [
+            ("ServingEngine", lambda: ServingEngine(
+                cfg, params, slots=B, cache_size=CACHE, store=store),
+             attn_dec + ("sidedelta",))]
+        if paged:
+            engines += [
                 ("PagedServingEngine", lambda: PagedServingEngine(
                     cfg, params, slots=B, num_pages=321, page_size=16,
                     chunk_size=CHUNK, store=store),
@@ -1855,7 +2029,8 @@ def continuous_phase(torch, arch="starcoder2-7b", tag="continuous",
                 ("PagedServingEngine int8 KV", lambda: PagedServingEngine(
                     cfg, params, slots=B, num_pages=321, page_size=16,
                     chunk_size=CHUNK, store=store, quant_kv=True),
-                 attn_paged + ("sidedelta",))):
+                 attn_paged + ("sidedelta",))]
+        for label, make, needed in engines:
             zero_counts()
             flash_decode_paged.int8_launches = 0
             torch.cuda.reset_peak_memory_stats()
@@ -1879,6 +2054,11 @@ def continuous_phase(torch, arch="starcoder2-7b", tag="continuous",
             step_report(f"{arch} {label}", steps, profs)
             del engine, futs
             torch.cuda.empty_cache()
+    if not paged:
+        paged_refused(torch, cfg, params, tag)
+        residency_report(tag)
+        del params
+        return totals
     continuous_int8_report(outs, kv, mla=cfg.attn_type == "mla")
     residency_report(tag)
     pairs = list(zip(outs["ServingEngine"], outs["PagedServingEngine"]))
@@ -1909,7 +2089,10 @@ def continuous_consistency_phase(torch, arch="starcoder2-7b", long=601,
     paged engine's int8 tokens); against the fixed batch its first and
     whole tokens are counted, not held: a chunk attends to its own
     latents quantized, so a near tie may flip (the reference's engine
-    flips them too)."""
+    flips them too). A family with no paged cache (``has_pages``: Mamba2)
+    runs on the lanes alone, on a trace that adds prompts of 1 and 2
+    tokens (shorter than its conv window), and the paged engine must
+    refuse the model."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.core.masks import map_leaves
@@ -1918,6 +2101,7 @@ def continuous_consistency_phase(torch, arch="starcoder2-7b", long=601,
     from repro_torch.models import layers, lm
     from repro_torch.serving import MultiTenantEngine
     cfg = get_config(arch).replace(num_layers=2)
+    paged = has_pages(cfg)
     T = 8
     rng = np.random.default_rng(7)
     tok = lambda n: rng.integers(0, cfg.vocab_size, n).astype(np.int32)
@@ -1928,6 +2112,8 @@ def continuous_consistency_phase(torch, arch="starcoder2-7b", long=601,
             (same, "adapter_1"), (same, "adapter_2"),
             (tok(70), ("adapter_0", "adapter_1")), (tok(19), None),
             (tok(long), "adapter_1"), first]
+    if not paged:
+        rest += [(tok(1), "adapter_2"), (tok(2), None)]
     trace = [first] + rest
     with layers.compute_precision(torch.float32):
         params = lm.init_params(cfg, seed=0, device="cuda")
@@ -1938,20 +2124,26 @@ def continuous_consistency_phase(torch, arch="starcoder2-7b", long=601,
         want = [mt.generate({"tokens": torch.from_numpy(p[None].copy()).to(
             "cuda")}, [a], T)[0][0].cpu().numpy() for p, a in trace]
         se = ServingEngine(cfg, params, slots=3, cache_size=640)
-        pe = PagedServingEngine(cfg, params, slots=3, num_pages=80,
-                                page_size=16, chunk_size=256)
-        for e in (se, pe):
-            for p in packs:
-                e.register(p)
+        for p in packs:
+            se.register(p)
         lane = [se.submit(p, a, max_tokens=T) for p, a in trace]
         se.run()
-        # the first request's prompt pages are registered before the rest
-        # arrive, so they can share its prefix
-        paged = [pe.submit(*first, max_tokens=T)]
-        while not paged[0].tokens:
-            pe.step()
-        paged += [pe.submit(p, a, max_tokens=T) for p, a in rest]
-        pe.run()
+        runs = [("ServingEngine", lane, se)]
+        if paged:
+            pe = PagedServingEngine(cfg, params, slots=3, num_pages=80,
+                                    page_size=16, chunk_size=256)
+            for p in packs:
+                pe.register(p)
+            # the first request's prompt pages are registered before the
+            # rest arrive, so they can share its prefix
+            pf = [pe.submit(*first, max_tokens=T)]
+            while not pf[0].tokens:
+                pe.step()
+            pf += [pe.submit(p, a, max_tokens=T) for p, a in rest]
+            pe.run()
+            runs.append(("PagedServingEngine", pf, pe))
+        else:
+            paged_refused(torch, cfg, params, tag)
         if quant:
             qe = PagedServingEngine(cfg, params, slots=3, num_pages=80,
                                     page_size=16, chunk_size=256,
@@ -1987,8 +2179,7 @@ def continuous_consistency_phase(torch, arch="starcoder2-7b", long=601,
         if not all(same):
             fail(f"{tag}: {arch} int8 pages on the card differ from the CPU "
                  f"on requests {[i for i, e in enumerate(same) if not e]}")
-    for label, futs, eng in (("ServingEngine", lane, se),
-                             ("PagedServingEngine", paged, pe)):
+    for label, futs, eng in runs:
         hold_as_asked(f"{tag} {label}", eng.health(), 0, futs)
         equal = [bool(np.array_equal(f.result(), w))
                  for f, w in zip(futs, want)]
@@ -1999,6 +2190,8 @@ def continuous_consistency_phase(torch, arch="starcoder2-7b", long=601,
             fail(f"{tag}: {arch} {label} differs from the fixed "
                  f"batch on requests "
                  f"{[i for i, e in enumerate(equal) if not e]}")
+    if not paged:
+        return
     print(f"[{tag}] {arch} paged: prefix hits "
           f"{pe.pool.prefix_hits} ({pe.pool.prefix_shared_tokens} tokens), "
           f"COW copies {pe.pool.cow_copies}, prefill chunks "
@@ -2747,6 +2940,9 @@ def faults_consistency_phase(torch):
 MOE_RANGES = ("moe_ffn", "moe.route", "moe.experts", "moe.expert_casts")
 MLA_RANGES = ("mla.attention", "mla.q_eff", "mla.scores", "mla.out",
               "mla.cache_write", "mla.expand_kv", "mla.attend")
+MAMBA_RANGES = ("mamba.mixer", "mamba.project", "mamba.conv",
+                "mamba.ssd_intra", "mamba.ssd_states", "mamba.ssd_inter",
+                "mamba.gated_out", "mamba.state_update")
 
 
 class wrapped_ranges:
@@ -2809,14 +3005,44 @@ def mla_ranges():
         (A, "chunked_attention", "mla.attend")])
 
 
+def mamba_ranges():
+    """Every Mamba2 mixer call under profiler ranges: the whole mixer
+    (mamba.mixer: mamba_train, mamba_prefill, mamba_decode), and within
+    it the four input projections (_project, with dt's softplus), the
+    depthwise conv (_causal_conv, and decode's _conv_step), the SSD's
+    intra-chunk product (_ssd_intra), its chunk states and the recurrence
+    over chunks (_ssd_states), its inter-chunk output (_ssd_inter), the
+    gated RMSNorm with out_proj (_gated_out) and decode's state update
+    (_ssm_step). The rest of the mixer is the skip (D x), the B/C split
+    and decode's window write."""
+    from repro_torch.models import mamba2 as M
+    whole = [(M, f, "mamba.mixer") for f in (
+        "mamba_train", "mamba_prefill", "mamba_decode")]
+    return wrapped_ranges(whole + [
+        (M, "_project", "mamba.project"), (M, "_causal_conv", "mamba.conv"),
+        (M, "_conv_step", "mamba.conv"), (M, "_ssd_intra", "mamba.ssd_intra"),
+        (M, "_ssd_states", "mamba.ssd_states"),
+        (M, "_ssd_inter", "mamba.ssd_inter"),
+        (M, "_gated_out", "mamba.gated_out"),
+        (M, "_ssm_step", "mamba.state_update")])
+
+
+def ranged(cfg) -> bool:
+    """Whether ``cfg``'s model has profiler ranges (model_ranges)."""
+    return (cfg.family in ("moe", "ssm") or cfg.attn_type == "mla")
+
+
 def model_ranges(cfg):
     """The profiler ranges of ``cfg``'s model: moe_ranges for an MoE
-    model, mla_ranges for MLA attention (both for deepseek-v2-lite-16b)."""
+    model, mla_ranges for MLA attention (both for deepseek-v2-lite-16b),
+    mamba_ranges for Mamba2."""
     stack = contextlib.ExitStack()
     if cfg.family == "moe":
         stack.enter_context(moe_ranges())
     if cfg.attn_type == "mla":
         stack.enter_context(mla_ranges())
+    if cfg.family == "ssm":
+        stack.enter_context(mamba_ranges())
     return stack
 
 
@@ -2825,6 +3051,8 @@ def print_ranges(torch, cfg, label, prof, busy):
         print_moe_ranges(torch, label, prof, busy)
     if cfg.attn_type == "mla":
         print_mla_ranges(torch, label, prof, busy)
+    if cfg.family == "ssm":
+        print_mamba_ranges(torch, label, prof, busy)
 
 
 def range_ms(torch, prof, names):
@@ -2868,6 +3096,24 @@ def print_mla_ranges(torch, label, prof, busy):
               "time: not measured)"), flush=True)
 
 
+def print_mamba_ranges(torch, label, prof, busy):
+    """The Mamba2 mixers' ms, their parts, and the SSD's share (intra-chunk,
+    chunk states and recurrence, inter-chunk)."""
+    r = range_ms(torch, prof, MAMBA_RANGES)
+    (whole, n), *parts = (r[k] for k in MAMBA_RANGES)
+    share = lambda x: f" ({x / busy:.1%})" if busy else ""
+    named = ", ".join(f"{k.split('.')[1]} {ms:.3f}{share(ms)} (x{c})"
+                      for k, (ms, c) in zip(MAMBA_RANGES[1:], parts) if c)
+    ssd = sum(r[k][0] for k in ("mamba.ssd_intra", "mamba.ssd_states",
+                                "mamba.ssd_inter"))
+    rest = whole - sum(ms for ms, _ in parts)
+    print(f"[profile] {label} Mamba2 mixers ({n} calls): {whole:.3f} ms"
+          f"{share(whole)} = {named} + skip, B/C split and window writes "
+          f"{rest:.3f}{share(rest)}; the SSD scan {ssd:.3f} ms{share(ssd)}"
+          + ("" if whole else " (the profiler gave the ranges no device "
+             "time: not measured)"), flush=True)
+
+
 def profile_phase(torch, arch="starcoder2-7b", layers=0, prefill=True,
                   tag="profile", labels=("base", "multi-tenant f32")):
     """Where a full-width decode step (B=8) spends its device time: the
@@ -2885,9 +3131,8 @@ def profile_phase(torch, arch="starcoder2-7b", layers=0, prefill=True,
     cfg = get_config(arch)
     if layers:
         cfg = cfg.replace(num_layers=layers)
-    ranged = cfg.family == "moe" or cfg.attn_type == "mla"
     acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU]
-                                      if ranged else [])
+                                      if ranged(cfg) else [])
     zero_counts()
     params = lm.init_params(cfg, seed=0, device="cuda")
     eng = MultiTenantEngine(cfg, params)
@@ -2943,9 +3188,13 @@ def profile_phase(torch, arch="starcoder2-7b", layers=0, prefill=True,
         lm.prefill(params, cfg, {"tokens": tokens}, CACHE)
         torch.cuda.synchronize()
     run_prefill()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     run_prefill()
     wall = (time.perf_counter() - t0) * 1e3
+    transient = (torch.cuda.max_memory_allocated() - before) / 1e9
     with model_ranges(cfg):
         with profile(activities=acts) as prof:
             run_prefill()
@@ -2953,7 +3202,8 @@ def profile_phase(torch, arch="starcoder2-7b", layers=0, prefill=True,
     busy = sum(k[0] for k in kern)
     fp = sum(ms for ms, _, name in kern if "flash_prefill" in name)
     print(f"[{tag}] {arch} base prefill (B=1, S=1024, {cfg.num_layers} "
-          f"layers): wall {wall:.2f} ms; kernels {busy:.2f} ms"
+          f"layers): wall {wall:.2f} ms, peak memory above the model's "
+          f"{transient:.3f} GB; kernels {busy:.2f} ms"
           + (f"; flash_prefill {fp:.3f} ms ({fp / busy:.1%})" if busy else
              " (profiler saw no device time: not measured)"), flush=True)
     for ms, n, name in sorted(kern, reverse=True)[:8]:
@@ -3059,8 +3309,9 @@ def check_run(label, counts, needed, totals, absent=()):
 def attention_kernels(cfg, *names):
     """(needed, absent) attention kernels of a serving path: GQA needs
     ``names``; MLA's attention is plain torch (no TPU kernel computes it,
-    as the reference's calls none), so no attention kernel may launch."""
-    if cfg.attn_type == "mla":
+    as the reference's calls none) and Mamba2 has no attention, so there
+    no attention kernel may launch."""
+    if cfg.attn_type != "gqa":
         return (), ATTN_KERNELS
     return names, ()
 
@@ -3268,9 +3519,8 @@ def profile_train_step(torch, profile, ProfilerActivity, mt, out):
         start_step=MT_STEPS)), mt.device)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    ranged = mt.cfg.family == "moe" or mt.cfg.attn_type == "mla"
     acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU]
-                                      if ranged else [])
+                                      if ranged(mt.cfg) else [])
     with model_ranges(mt.cfg):
         with profile(activities=acts) as prof:
             mt.step(out["state"], batch)
@@ -4122,10 +4372,12 @@ def slice_phases(torch, arch, tag, serve_layers=0, train_layers=0,
                  quant=False):
     """One slice's arch at full width through the earlier phases' code:
     serve (4 modes), profile (decode steps and a 1024-token prefill, with
-    the model's ranges), continuous (both engines, bf16 and int8 pages),
-    train (both trainers), each at its depth (0: all layers), then
+    the model's ranges), continuous (both engines, bf16 and int8 pages;
+    for a family with no pages the lanes alone, the paged engine
+    refusing), train
+    (both trainers), each at its depth (0: all layers), then
     ``tag``-consistency at 2 layers in f32 (multi-tenant against
-    switch-per-request, both engines against the fixed batch, with
+    switch-per-request, the engines against the fixed batch, with
     ``quant`` int8 pages too, both trainers against the CPU). Returns the
     launches."""
     totals = {}
@@ -4221,6 +4473,36 @@ def mla_phases(torch):
           flush=True)
     return slice_phases(torch, MLA_ARCH, "mla", serve_l, train_l,
                         quant=True)
+
+
+def mamba_phases(torch):
+    """The SSM slice (MAMBA_ARCH) at full width and all 48 layers through
+    slice_phases, the lanes alone (the paged engine refuses the family);
+    prints the arithmetic first: parameters, three adapters at 2% of
+    out_proj, the lanes' state."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.masks import budget
+    cfg = get_config(MAMBA_ARCH)
+    ((L, mats, per_layer),), rest = stage_leaves(torch, cfg)
+    (n, m), = default_targets(mats)
+    params = L * per_layer + rest
+    entries = L * budget(n, m, 0.98)
+    per = state_bytes(cfg) * L
+    s = cfg.ssm
+    print(f"[mamba] {MAMBA_ARCH} (d_model {cfg.d_model}, d_inner "
+          f"{s.expand * cfg.d_model}, {cfg.num_heads} heads of {s.head_dim},"
+          f" d_state {s.d_state}, chunk {s.chunk}, vocab {cfg.vocab_size}, "
+          f"tied embeddings): {L} layers of {per_layer} parameters and "
+          f"{rest} outside them = {params} parameters, {params * 4 / 1e9:.3f}"
+          f" GB in f32; the one default target out_proj ({n}, {m}) a layer:"
+          f" three adapters at 2% = 3 x {entries} entries = "
+          f"{3 * entries * 8 / 1e6:.1f} MB of packs (int32 index, f32 "
+          f"value); a lane's state {per} bytes over {L} layers ("
+          f"{state_bytes(cfg)} a layer: f32 state {cfg.num_heads} x "
+          f"{s.head_dim} x {s.d_state}, bf16 windows), {B} lanes "
+          f"{B * per / 1e9:.3f} GB, {1e9 / per:.2f} requests per GB "
+          f"whatever the length", flush=True)
+    return slice_phases(torch, MAMBA_ARCH, "mamba")
 
 
 def dense_depth(torch, cfg):
@@ -4323,6 +4605,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     masked = timed("kernels (masked_update)", masked_update_kernels, torch,
                    flush)
+    timed("kernels (mamba widths)", mamba_kernels, torch, flush)
     del scratch
     torch.cuda.empty_cache()
     launches = timed("serve", serve_phase, torch)
@@ -4367,8 +4650,13 @@ def main() -> None:
         torch.cuda.empty_cache()
     timed("kinds-consistency", kinds_consistency_phase, torch)
     torch.cuda.empty_cache()
-    for phase in (moe_phases, mla_phases, dense_configs_phase):
-        for k, v in phase(torch).items():
+    for phase in (moe_phases, mla_phases, mamba_phases,
+                  dense_configs_phase):
+        totals = phase(torch)
+        if phase is mamba_phases:
+            print(f"[mamba] launches over the mamba phases: "
+                  f"{ {k: v for k, v in totals.items() if v} }", flush=True)
+        for k, v in totals.items():
             launches[k] = launches.get(k, 0) + v
         torch.cuda.empty_cache()
 

@@ -1,11 +1,11 @@
 """Configuration dataclasses for models, shapes, adapters and training.
 
 A copy of ``repro/configs/base.py``'s ``ShapeSpec``, ``ModelConfig``,
-``AdapterConfig``, ``TrainConfig``, ``RunConfig``, ``MoEConfig`` and
-``MLAConfig``, so the port reads configurations without importing the JAX
-package. The SSM sub-config of the families still to port (Mamba2,
-zamba2) is not copied: it waits for ROADMAP item A9, and ``models.lm``
-raises for those families.
+``AdapterConfig``, ``TrainConfig``, ``RunConfig``, ``MoEConfig``,
+``MLAConfig`` and ``SSMConfig``, so the port reads configurations without
+importing the JAX package. The hybrid family's ``hybrid_attn_every``
+(zamba2's shared attention block) is not copied: it waits for ROADMAP
+item A9, and ``models.lm`` raises for that family.
 """
 from __future__ import annotations
 
@@ -52,6 +52,20 @@ class MLAConfig:
 
 
 @dataclass(frozen=True)
+class SSMConfig:
+    """Mamba2 / SSD mixer."""
+
+    d_state: int = 128
+    expand: int = 2
+    head_dim: int = 64
+    d_conv: int = 4
+    n_groups: int = 1
+    chunk: int = 128               # SSD chunk length
+    dt_min: float = 0.001
+    dt_max: float = 0.1
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str
     family: str                    # dense | moe | ssm | hybrid | vlm | audio
@@ -73,6 +87,7 @@ class ModelConfig:
     logit_softcap: float = 0.0
     moe: Optional[MoEConfig] = None
     mla: Optional[MLAConfig] = None
+    ssm: Optional[SSMConfig] = None
     modality: str = "text"         # text | vision | audio
     num_prefix_embeds: int = 0
     # Head-group padding: q heads per kv group (and kv heads) padded with

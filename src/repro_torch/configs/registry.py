@@ -1,15 +1,15 @@
 """Architecture registry: ``--arch <id>`` -> ModelConfig.
 
-The port serves the dense GQA family and the MoE family with GQA or MLA
-attention (deepseek-v2-lite-16b). The other architectures of the JAX
-registry are known ids whose configs raise until their family is ported
-(ROADMAP item A9).
+The port serves the dense GQA family, the MoE family with GQA or MLA
+attention (deepseek-v2-lite-16b) and the SSM family (mamba2-780m). The
+other architectures of the JAX registry are known ids whose configs raise
+until their family is ported (ROADMAP item A9).
 """
 from __future__ import annotations
 
 from repro_torch.configs import (deepseek_coder_33b, deepseek_v2_lite_16b,
                                  granite_34b, granite_moe_1b_a400m,
-                                 qwen1_5_32b, starcoder2_7b)
+                                 mamba2_780m, qwen1_5_32b, starcoder2_7b)
 from repro_torch.configs.base import ModelConfig
 
 ARCH_IDS = [
@@ -30,11 +30,11 @@ _PORTED = {"starcoder2-7b": starcoder2_7b,
            "deepseek-coder-33b": deepseek_coder_33b,
            "granite-34b": granite_34b,
            "qwen1.5-32b": qwen1_5_32b,
-           "deepseek-v2-lite-16b": deepseek_v2_lite_16b}
+           "deepseek-v2-lite-16b": deepseek_v2_lite_16b,
+           "mamba2-780m": mamba2_780m}
 
-_WAITS_FOR = {"mamba2-780m": "the Mamba2 mixer",
-              "zamba2-2.7b": "the Mamba2 mixer and the shared attention "
-                             "block",
+_WAITS_FOR = {"zamba2-2.7b": "the shared attention block and the D = 80 "
+                             "flash instances",
               "paligemma-3b": "the vision prefix (head_dim 256)",
               "hubert-xlarge": "the encoder-only audio path"}
 

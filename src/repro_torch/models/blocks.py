@@ -1,14 +1,16 @@
-"""The transformer blocks: pre-norm GQA or MLA attention with a dense MLP
-or an MoE FFN.
+"""The blocks: pre-norm GQA or MLA attention with a dense MLP or an MoE
+FFN, and the Mamba2 block (norm + SSD mixer, no FFN).
 
-Port of the dense and MoE blocks of ``repro/models/blocks.py``. A block's
-FFN is its parameters' own: a dense block has ``mlp``, an MoE block
-``moe``, so one function of each entry point (``block_train``,
-``block_prefill``, ``block_decode``, ``block_prefill_chunk``) serves both,
-where the reference has a ``dense_block_*`` and a ``moe_block_*`` of
-each. The attention is the config's ``attn_type``: "gqa", or "mla"
-(deepseek-v2-lite-16b). Mamba2 and the zamba2 shared-attention block
-wait (ROADMAP A9).
+Port of the dense, MoE and Mamba2 blocks of ``repro/models/blocks.py``.
+A transformer block's FFN is its parameters' own: a dense block has
+``mlp``, an MoE block ``moe``, so one function of each entry point
+(``block_train``, ``block_prefill``, ``block_decode``,
+``block_prefill_chunk``) serves both, where the reference has a
+``dense_block_*`` and a ``moe_block_*`` of each. The attention is the
+config's ``attn_type``: "gqa", or "mla" (deepseek-v2-lite-16b). A stage's
+kind picks its functions (``block_fns``): "mamba" the ``mamba_block_*``
+ones (mamba2-780m, ``attn_type="none"``), every other kind the
+transformer's. The zamba2 shared-attention block waits (ROADMAP A9).
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba2
 from repro_torch.models.layers import init_mlp, init_rms_norm, mlp, rms_norm
 from repro_torch.models.moe import init_moe, moe_ffn
 
@@ -111,3 +114,47 @@ def block_prefill_chunk(params, cfg: ModelConfig, h, cache, block_tables,
     a, cache = fn(params["attn"], cfg, x, cache, block_tables, start,
                   kv_len)
     return _ffn(params, cfg, h + a)[0], cache
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 block (norm + SSD mixer, no FFN: mamba2-780m)
+# ---------------------------------------------------------------------------
+
+def init_mamba_block(gen: torch.Generator, cfg: ModelConfig, *, lead=(),
+                     device="cuda") -> dict:
+    """Parameters of ``lead`` stacked Mamba2 blocks."""
+    return {"norm": init_rms_norm(cfg.d_model, lead=lead, device=device),
+            "mixer": mamba2.init_mamba(gen, cfg, lead=lead, device=device)}
+
+
+def mamba_block_train(params, cfg: ModelConfig, h, *, prefix_len=0,
+                      aux=None):
+    x = rms_norm(h, params["norm"]["scale"], cfg.norm_eps)
+    return h + mamba2.mamba_train(params["mixer"], cfg, x), aux
+
+
+def mamba_block_prefill(params, cfg: ModelConfig, h, cache_size, *,
+                        prefix_len=0):
+    """``cache_size`` is unused: the state is O(1) a request."""
+    x = rms_norm(h, params["norm"]["scale"], cfg.norm_eps)
+    y, cache = mamba2.mamba_prefill(params["mixer"], cfg, x)
+    return h + y, cache
+
+
+def mamba_block_decode(params, cfg: ModelConfig, h, cache, pos,
+                       block_tables=None):
+    """The state is O(1) a request: paging does not apply, and
+    ``block_tables`` only keeps the signature uniform (``lm`` refuses a
+    paged cache for this family)."""
+    del block_tables
+    x = rms_norm(h, params["norm"]["scale"], cfg.norm_eps)
+    y, cache = mamba2.mamba_decode(params["mixer"], cfg, x, cache, pos)
+    return h + y, cache
+
+
+def block_fns(kind: str):
+    """(train, prefill, decode) of a stage's blocks: the Mamba2 block's
+    for a "mamba" stage, the transformer block's for the others."""
+    if kind == "mamba":
+        return mamba_block_train, mamba_block_prefill, mamba_block_decode
+    return block_train, block_prefill, block_decode

@@ -1,19 +1,24 @@
-"""Causal LM assembly for the dense and MoE families: embeddings, stages
-of stacked blocks, final norm and unembedding.
+"""Causal LM assembly for the dense, MoE and SSM families: embeddings,
+stages of stacked blocks, final norm and unembedding.
 
 Port of ``repro/models/lm.py``. A model is a list of stages, each a
 homogeneous stack of blocks:
 
   dense family  -> [("dense", L)]
   moe family    -> [("dense_first", first_dense)] + [("moe", rest)]
+  ssm family    -> [("mamba", L)]
 
 The parameter tree has the reference's structure and shapes: each
 stage's layer parameters are stacked along a leading (L,) dim in
 ``params["stages"][i]``. The reference's ``lax.scan`` over that stack is
 a Python loop over the same stacked tensors here; the KV cache is stacked
 the same way, one ``KVCache`` of (L, B, S_max, KV, D) a stage (MLA: the
-latents c_kv (L, B, S_max, rank) and k_rope (L, B, S_max, rope)), and
-written in place. In training, ``jax.checkpoint`` around the scanned
+latents c_kv (L, B, S_max, rank) and k_rope (L, B, S_max, rope); a mamba
+stage a ``MambaCache`` of the f32 state (L, B, H, P, N) and the conv
+windows (L, B, d_conv - 1, C)), and written in place. A stage's kind
+picks its block functions (``blocks.block_fns``). The paged entry points
+cover the dense and MoE families and refuse the others, as the
+reference's do. In training, ``jax.checkpoint`` around the scanned
 layer becomes ``torch.utils.checkpoint`` around each layer
 (``cfg.remat``: "full", "dots" or "none"), and around each chunk of the
 loss; MoE stages add their load-balance aux, and ``train_loss`` adds 0.01
@@ -45,12 +50,16 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import blocks as B
 from repro_torch.models.attention import KVCache, padded_heads
+from repro_torch.models.mamba2 import MambaCache
+from repro_torch.models.mamba2 import dims as mamba_dims
 from repro_torch.models.layers import (compute_dtype, embed, init_embedding,
                                        init_rms_norm, normal_init, rms_norm,
                                        token_nll, unembed)
 
 
 def stage_plan(cfg: ModelConfig) -> List[Tuple[str, int]]:
+    if cfg.modality == "text" and cfg.family == "ssm":
+        return [("mamba", cfg.num_layers)]
     if cfg.modality == "text" and cfg.attn_type in ("gqa", "mla"):
         if cfg.family == "dense":
             return [("dense", cfg.num_layers)]
@@ -67,6 +76,8 @@ def stage_plan(cfg: ModelConfig) -> List[Tuple[str, int]]:
 
 
 def _init_stage(gen, cfg: ModelConfig, kind: str, n: int, device):
+    if kind == "mamba":
+        return B.init_mamba_block(gen, cfg, lead=(n,), device=device)
     if kind == "moe":
         return B.init_moe_block(gen, cfg, lead=(n,), device=device)
     d_ff = cfg.moe.first_dense_d_ff if kind == "dense_first" else None
@@ -155,15 +166,17 @@ def _maybe_remat(fn, cfg: ModelConfig):
     return lambda *a: checkpoint(fn, *a, use_reentrant=False)
 
 
-def _stage_train(stage_params, cfg: ModelConfig, h, aux, prefix_len,
-                 n: int):
-    """The ``n`` stacked layers of one stage, each (re)materialized under
-    ``cfg.remat``: the layer's weights, SHiRA bundles included, are sliced
-    outside and used inside, so in backward only one layer's effective
-    weights are alive at a time. A layer's FFN (dense or MoE) is its
-    parameters' own (``blocks``)."""
+def _stage_train(stage_params, kind: str, cfg: ModelConfig, h, aux,
+                 prefix_len, n: int):
+    """The ``n`` stacked layers of one stage of ``kind``, each
+    (re)materialized under ``cfg.remat``: the layer's weights, SHiRA
+    bundles included, are sliced outside and used inside, so in backward
+    only one layer's effective weights are alive at a time. A layer's FFN
+    (dense or MoE) is its parameters' own (``blocks``)."""
+    train_fn = B.block_fns(kind)[0]
+
     def body(lp, hh, ax):
-        return B.block_train(lp, cfg, hh, prefix_len=prefix_len, aux=ax)
+        return train_fn(lp, cfg, hh, prefix_len=prefix_len, aux=ax)
 
     body = _maybe_remat(body, cfg)
     for i in range(n):
@@ -214,8 +227,8 @@ def chunked_loss(params, cfg: ModelConfig, h, labels,
 def train_loss(params, cfg: ModelConfig, batch) -> Tuple[torch.Tensor, Dict]:
     h, prefix_len = embed_inputs(params, cfg, batch)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    for sp, (_, n) in zip(params["stages"], stage_plan(cfg)):
-        h, aux = _stage_train(sp, cfg, h, aux, prefix_len, n)
+    for sp, (kind, n) in zip(params["stages"], stage_plan(cfg)):
+        h, aux = _stage_train(sp, kind, cfg, h, aux, prefix_len, n)
     h = rms_norm(h, params["final_norm"]["scale"], cfg.norm_eps)
     ce = chunked_loss(params, cfg, h, batch["labels"],
                       batch.get("loss_mask"))
@@ -237,14 +250,17 @@ def with_aux(cfg: ModelConfig, loss, aux):
 def prefill(params, cfg: ModelConfig, batch, cache_size: int):
     h, prefix_len = embed_inputs(params, cfg, batch)
     caches = []
-    for sp, (_, n) in zip(params["stages"], stage_plan(cfg)):
-        ks, vs = [], []
+    for sp, (kind, n) in zip(params["stages"], stage_plan(cfg)):
+        prefill_fn = B.block_fns(kind)[1]
+        layers = []
         for i in range(n):
-            h, c = B.block_prefill(layer_slice(sp, i), cfg, h, cache_size,
-                                   prefix_len=prefix_len)
-            ks.append(c.k)
-            vs.append(c.v)
-        caches.append(KVCache(torch.stack(ks), torch.stack(vs)))
+            h, c = prefill_fn(layer_slice(sp, i), cfg, h, cache_size,
+                              prefix_len=prefix_len)
+            layers.append(c)
+        # a stage's cache is its block's cache type (KVCache, MambaCache),
+        # each field stacked over the layers
+        caches.append(type(layers[0])(*(torch.stack(f)
+                                        for f in zip(*layers))))
     h = rms_norm(h, params["final_norm"]["scale"], cfg.norm_eps)
     return _logits(params, cfg, h[:, -1]), caches
 
@@ -257,11 +273,13 @@ def decode_step(params, cfg: ModelConfig, tokens, caches, pos,
     the (B,) per-request write index. Returns (logits (B, V), caches); the
     caches are updated in place."""
     h = embed(params["embed"], tokens)
-    for sp, cache, (_, n) in zip(params["stages"], caches, stage_plan(cfg)):
+    for sp, cache, (kind, n) in zip(params["stages"], caches,
+                                    stage_plan(cfg)):
+        decode_fn = B.block_fns(kind)[2]
         for i in range(n):
-            h, _ = B.block_decode(layer_slice(sp, i), cfg, h,
-                                  _layer_cache(cache, i), pos,
-                                  block_tables=block_tables)
+            h, _ = decode_fn(layer_slice(sp, i), cfg, h,
+                             _layer_cache(cache, i), pos,
+                             block_tables=block_tables)
     h = rms_norm(h, params["final_norm"]["scale"], cfg.norm_eps)
     return _logits(params, cfg, h[:, 0]), caches
 
@@ -273,6 +291,9 @@ def prefill_chunk(params, cfg: ModelConfig, tokens, caches, block_tables,
     (padding columns write to the scratch page and are masked out of
     attention). Returns (logits of the last real token (B, V), caches),
     the pools written in place."""
+    if cfg.family not in ("dense", "moe") or cfg.modality != "text":
+        raise NotImplementedError(
+            "chunked paged prefill covers dense/moe text models")
     h = embed(params["embed"], tokens)
     kv_len = start + valid
     for sp, cache, (_, n) in zip(params["stages"], caches, stage_plan(cfg)):
@@ -284,12 +305,13 @@ def prefill_chunk(params, cfg: ModelConfig, tokens, caches, block_tables,
     return _logits(params, cfg, h[:, valid - 1]), caches
 
 
-def _layer_cache(cache: KVCache, i: int) -> KVCache:
-    """Layer ``i`` of a stacked cache: each tensor's i-th entry (an int8
-    pool, a ``QuantKV`` of stacked codes and scales, gives both)."""
+def _layer_cache(cache, i: int):
+    """Layer ``i`` of a stacked cache (a ``KVCache`` or a
+    ``MambaCache``): each tensor's i-th entry, a view (an int8 pool, a
+    ``QuantKV`` of stacked codes and scales, gives both)."""
     pick = lambda x: type(x)(*(t[i] for t in x)) if isinstance(
         x, tuple) else x[i]
-    return KVCache(pick(cache.k), pick(cache.v))
+    return type(cache)(*(pick(x) for x in cache))
 
 
 def kv_tails(cfg: ModelConfig) -> KVCache:
@@ -318,16 +340,35 @@ def _kv_zeros(cfg: ModelConfig, rows: Tuple[int, int], device,
             for _, n in stage_plan(cfg)]
 
 
+def _mamba_zeros(cfg: ModelConfig, n: int, bsz: int, device) -> MambaCache:
+    """A mamba stage's cache: the f32 state (n, bsz, H, P, N) and the conv
+    windows (n, bsz, d_conv - 1, C) in the compute dtype, zeros."""
+    d_inner, n_heads, bc_dim = mamba_dims(cfg)
+    s = cfg.ssm
+    win = lambda c: torch.zeros((n, bsz, s.d_conv - 1, c),
+                                dtype=compute_dtype(), device=device)
+    return MambaCache(
+        ssm=torch.zeros((n, bsz, n_heads, s.head_dim, s.d_state),
+                        dtype=torch.float32, device=device),
+        conv_x=win(d_inner), conv_bc=win(bc_dim))
+
+
 def init_cache(cfg: ModelConfig, bsz: int, cache_size: int, device="cuda"):
+    """Zero caches, one a stage: a KV stripe of ``cache_size`` rows a
+    request, or a mamba stage's O(1) state (``cache_size`` unused)."""
+    if cfg.family == "ssm":
+        return [_mamba_zeros(cfg, n, bsz, device)
+                for _, n in stage_plan(cfg)]
     return _kv_zeros(cfg, (bsz, cache_size), device)
 
 
 def cache_batch_axes(cfg: ModelConfig):
-    """Per stage, a ``KVCache`` of the batch axis of each leaf: a dense or
+    """Per stage, a cache tuple of the batch axis of each leaf: a dense or
     MoE stage's KV leaf is (L, B, S, KV, D), an MLA stage's (L, B, S,
-    rank) and (L, B, S, rope), so 1. Lane splicing reads this metadata,
-    not the shapes."""
-    return [KVCache(1, 1) for _ in stage_plan(cfg)]
+    rank) and (L, B, S, rope), a mamba stage's (L, B, ...), so 1. Lane
+    splicing reads this metadata, not the shapes."""
+    return [MambaCache(1, 1, 1) if kind == "mamba" else KVCache(1, 1)
+            for kind, _ in stage_plan(cfg)]
 
 
 def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
@@ -337,5 +378,10 @@ def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,
     or MLA's (rank,) and (rope,)), or with ``quant`` int8 ``QuantKV``
     pools (codes of that shape and bf16 scales (L, num_pages, page_size,
     *tail[:-1], 1): one a head, or one a latent row and one a rope row).
-    One (B, nblk) block table drives the whole stack."""
+    One (B, nblk) block table drives the whole stack. The other families
+    refuse, with the reference's message."""
+    if cfg.family not in ("dense", "moe") or cfg.modality != "text":
+        raise NotImplementedError(
+            "paged KV covers dense/moe text models; ssm/hybrid state is O(1) "
+            "per request and vlm prefixes are not token-addressed")
     return _kv_zeros(cfg, (num_pages, page_size), device, quant)

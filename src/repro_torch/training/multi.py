@@ -178,8 +178,8 @@ class MultiAdapterTrainer:
                                       "token rows; text modality only")
         h, prefix_len = lm.embed_inputs(params, cfg, batch)
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
-        for sp, (_, n) in zip(params["stages"], lm.stage_plan(cfg)):
-            h, aux = lm._stage_train(sp, cfg, h, aux, prefix_len, n)
+        for sp, (kind, n) in zip(params["stages"], lm.stage_plan(cfg)):
+            h, aux = lm._stage_train(sp, kind, cfg, h, aux, prefix_len, n)
         h = rms_norm(h, params["final_norm"]["scale"], cfg.norm_eps)
         B, S, _ = h.shape
         adapters = torch.arange(A, device=h.device)
