@@ -109,8 +109,10 @@ prints its seconds on a "[time]" line:
                1e-6 of the largest weight of the CPU run's, the masked
                ones as train-consistency holds trained values
   21. moe serve, moe profile, moe continuous, moe train
-               granite-moe-1b-a400m at full width and all 24 layers
-               through phases 4, 5, 7 and 9's code: launch.serve in four
+               granite-moe-1b-a400m at full width, cut to 12 of its 24
+               layers (MOE_LAYERS, printed: since the hybrid slice, for
+               the script's time limit) through phases 4, 5, 7 and 9's
+               code: launch.serve in four
                modes (no routing choice dropped: every call is under 512
                tokens), a decode step (base and multi-tenant) and a
                1024-token prefill under torch.profiler with the MoE time
@@ -127,7 +129,9 @@ prints its seconds on a "[time]" line:
                deepseek-v2-lite-16b (MLA attention, 64 experts top-6, 2
                shared, a first dense layer) at full width, at the depths
                mla_depth prints (all 27 layers where its arithmetic fits
-               MLA_BUDGET), through the same code as 21: launch.serve in
+               MLA_BUDGET), cut to at most 14 (MLA_LAYERS, printed: since
+               the hybrid slice, for the script's time limit), through
+               the same code as 21: launch.serve in
                four modes, a decode step (base, multi-tenant) and a
                1024-token prefill under torch.profiler with MLA's
                attention split out (mla_ranges: the q_eff and w_uv
@@ -160,13 +164,40 @@ prints its seconds on a "[time]" line:
                equal switch-per-request, the lanes the fixed batch (with
                prompts of 1 and 2 tokens, shorter than the conv window),
                and both trainers track the CPU run to 5e-3
-  27. dense     qwen1.5-32b (G 1), deepseek-coder-33b (G 7) and
+  27. zamba serve, zamba profile, zamba continuous, zamba train
+               zamba2-2.7b (the hybrid: 9 groups of 6 Mamba2 layers, each
+               followed by one shared attention + MLP block of 32 heads of
+               80, fed concat(hidden, embedding) through w_fuse) at full
+               width and all 54 layers, its arithmetic printed first
+               ([zamba]: parameters, three adapters at 2% of out_proj and
+               of the shared block's seven target leaves, a lane's state
+               and KV), through the same code as 21: launch.serve in four
+               modes (a switch's ms beside its bound), a decode step (base,
+               multi-tenant) and a 1024-token prefill under torch.profiler
+               with the mixers split out (mamba_ranges) and the shared
+               block (hybrid_ranges: w_fuse, its attention and the flash
+               kernels within it, its MLP), flash_decode launched once at
+               each of the 9 sites a decode step and flash_prefill once
+               at each a prefill, the 24-request trace on the lanes
+               (resident requests per GB of state and KV), both trainers;
+               sidedelta, scatter_apply, sparse_adamw, sidedelta_dvals,
+               flash_decode and flash_prefill launch (the D = 80
+               instances), flash_decode_paged never; PagedServingEngine
+               must refuse the family with the reference's
+               NotImplementedError
+  28. zamba-consistency  full width, 2 groups (12 layers), f32:
+               multi-tenant tokens equal switch-per-request, the lanes the
+               fixed batch (prompts of 1 and 2 tokens included), and both
+               trainers track the CPU run to 5e-3
+  29. dense     qwen1.5-32b (G 1), deepseek-coder-33b (G 7) and
                granite-34b (G 48) at full width, each cut to the deepest
                stack whose f32 parameters and three adapters' packs and
                tables fit 60 GB (the arithmetic printed): a multi-tenant
                serve, a multi-tenant decode step under torch.profiler, and
                at 2 layers in f32 tokens equal to switch-per-request
-  28. summary   one JSON line of kernel numbers, the card line, and last
+  30. summary   one JSON line of kernel numbers (the D = 80 instances of
+               flash_decode and flash_prefill on rows of their own), the
+               card line, and last
                {"ok": true, "device": {...}}, after "[time] total"
 
 Every engine run with no fault injected (phases 7, 8, 13, 14, the
@@ -185,7 +216,15 @@ and 256, f32 and int8 tables) with scatter_apply bit for bit at its
 scatter_apply there and sparse_adamw (blocks over the Trainer's (48 k,)
 vector, rows over the multi-adapter trainer's (144, k) f32 rows) beside
 their plain versions, a library call and their bounds, and the training
-kernels' phase adds a dvals case at out_proj's width. It also holds masked_update (the dense-mask apply of hook
+kernels' phase adds a dvals case at out_proj's width. A phase of its
+own, kernels (zamba widths), holds sidedelta at zamba2-2.7b's out_proj
+(5120x2560) and the shared block's w_up (2560x10240) widths and
+scatter_apply bit for bit on its (9, 6, 5120, 2560) out_proj stack (two
+leading dims; timed beside its bound) and the shared (2560, 10240) w_up.
+The attention phase holds the D = 80 instances that zamba2's shared
+block takes (decode (8, 32, 1, 80) at S = 1056, (B,) and scalar kv_len;
+causal prefills (1, 1024), (1, 777) and (8, 16) of 32 heads), and
+flash_decode_paged must refuse D = 80 on the card. It also holds masked_update (the dense-mask apply of hook
 mode) against its plain version, bit for bit, at the stacked (32, 4608,
 18432) w_up leaf with a 1% mask: f32 W with a bool mask, bf16 W with a
 bool mask, f32 W with an f32 mask, beside Tensor.addcmul_. Its
@@ -276,9 +315,14 @@ WD_TOL = 1e-6                  # hook mode with weight decay, card vs CPU:
 KINDS_LAYERS = 1               # kinds-consistency's depth: at 2 layers its
                                # CPU side took ~110 s of the script
 MOE_ARCH = "granite-moe-1b-a400m"  # the MoE slice: full width, 24 layers
+MOE_LAYERS = 12                # its phases' depth since the hybrid slice,
+                               # for the script's time limit (24 before)
 MOE_LONG = 501                 # moe-consistency's long prompt: one call of
                                # at most 512 tokens drops no routing choice
 MLA_ARCH = "deepseek-v2-lite-16b"  # the MLA slice: full width, 27 layers
+MLA_LAYERS = 14                # its phases' deepest cut since the hybrid
+                               # slice (the first dense layer and 13 MoE),
+                               # for the script's time limit (27 before)
 MLA_BUDGET = 76e9              # the device bytes mla_depth plans for, of
                                # the card's 85.0e9: the rest is allocator
                                # slack and the activations it leaves out
@@ -287,6 +331,7 @@ MT_ENTRY_BYTES = 40            # a multi-adapter trainer, per 2% entry of
                                # gradient (f32) and the trainable table's
                                # rows, perm, t_rows and t_perm (int32)
 MAMBA_ARCH = "mamba2-780m"     # the SSM slice: full width, all 48 layers
+ZAMBA_ARCH = "zamba2-2.7b"     # the hybrid slice: full width, all 54 layers
 ATTN_KERNELS = ("flash_decode", "flash_decode_paged", "flash_prefill")
 RESIDENCY = {}                 # (arch, engine) -> resident requests per GB
 DENSE_ARCHS = ("qwen1.5-32b", "deepseek-coder-33b", "granite-34b")
@@ -372,9 +417,9 @@ def cold_ms(torch, fn, iters: int, flush) -> float:
 def device_kernels(torch, prof):
     """(device ms, launches, name) of each kernel a torch.profiler run saw
     (not the device side of the ``moe_ranges``/``mla_ranges``/
-    ``mamba_ranges`` annotations)."""
+    ``mamba_ranges``/``hybrid_ranges`` annotations)."""
     cuda = torch.autograd.DeviceType.CUDA
-    ranges = MOE_RANGES + MLA_RANGES + MAMBA_RANGES
+    ranges = MOE_RANGES + MLA_RANGES + MAMBA_RANGES + HYBRID_RANGES
     return [(getattr(e, "self_device_time_total", 0) / 1e3, e.count, e.key)
             for e in prof.key_averages()
             if e.device_type == cuda and e.key not in ranges]
@@ -498,19 +543,23 @@ def scatter_bytes(torch, w, idx, vals):
 def stage_leaves(torch, cfg):
     """Per stage of ``cfg``: (layers, {path: (n, m)} of one layer's
     matrices, one layer's parameters), and the parameters outside the
-    stages, from a model of one layer a stage on the card."""
+    stages (a hybrid model's shared block among them), from a model of one
+    layer a stage on the card (a hybrid stage: one group of one layer)."""
     import dataclasses
     from repro_torch.core.masks import iter_leaves
     from repro_torch.models import lm
     plan = lm.stage_plan(cfg)
     cut = cfg.replace(num_layers=len(plan))
+    lead = 1                        # stacked dims in front of a layer
     if cfg.family == "moe" and cfg.moe.first_dense_layers:
         cut = cut.replace(moe=dataclasses.replace(cfg.moe,
                                                   first_dense_layers=1))
+    if cfg.family == "hybrid":
+        cut, lead = cut.replace(hybrid_attn_every=1), 2
     one = lm.init_params(cut, seed=0, device="cuda")
     stages = [(n, {p: tuple(x.shape[-2:]) for p, x in iter_leaves(sp)
-                   if x.ndim >= 3},
-               sum(x[0].numel() for _, x in iter_leaves(sp)))
+                   if x.ndim >= lead + 2},
+               sum(x[(0,) * lead].numel() for _, x in iter_leaves(sp)))
               for (_, n), sp in zip(plan, one["stages"])]
     rest = (sum(x.numel() for _, x in iter_leaves(one))
             - sum(x.numel() for _, x in iter_leaves(one["stages"])))
@@ -528,13 +577,28 @@ def default_targets(mats):
     return [nm for p, nm in mats.items() if leaf_name(p) in targets]
 
 
+def shared_targets(cfg):
+    """(path, (n, m)) of the default targets of a hybrid model's shared
+    block (zamba2): wq, wk, wv, wo, w_up, w_gate, w_down, one unstacked
+    matrix each, which one entry set adapts at every site; w_fuse is no
+    target."""
+    d, f, hd = cfg.d_model, cfg.d_ff, cfg.resolved_head_dim
+    q, kv = cfg.num_heads * hd, cfg.num_kv_heads * hd
+    return [("shared_attn/attn/wq", (d, q)), ("shared_attn/attn/wk", (d, kv)),
+            ("shared_attn/attn/wv", (d, kv)), ("shared_attn/attn/wo", (q, d)),
+            ("shared_attn/mlp/w_up", (d, f)),
+            ("shared_attn/mlp/w_gate", (d, f)),
+            ("shared_attn/mlp/w_down", (f, d))]
+
+
 def switch_bound(torch, cfg):
     """(bound, entries, sectors) of one whole adapter load as the serve
     phase's packs make it: every adapted leaf of ``cfg`` (the default
     targets: wq, wk, wv, wo, w_up, w_gate, w_down, MLA's w_dkv, w_uk and
-    w_uv, each stacked over its stage's layers; an MoE model's experts
-    are no target, its shared experts are) at sparsity 0.98, the sectors
-    counted from a draw of the same masks."""
+    w_uv, Mamba2's out_proj, each stacked over its stage's layers; an MoE
+    model's experts are no target, its shared experts are; a hybrid
+    model's shared block's seven, once each) at sparsity 0.98, the
+    sectors counted from a draw of the same masks."""
     from repro_torch.core.masks import budget
     gen = torch.Generator(device="cuda")
     gen.manual_seed(4)
@@ -542,6 +606,8 @@ def switch_bound(torch, cfg):
     stages, _ = stage_leaves(torch, cfg)
     leaves = [(L, n, m) for L, mats, _ in stages
               for n, m in default_targets(mats)]
+    if cfg.family == "hybrid":
+        leaves += [(1, n, m) for _, (n, m) in shared_targets(cfg)]
     for L, n, m in leaves:
         idx, vals = rand_entries(torch, gen, L, n, m, budget(n, m, 0.98))
         b, s = scatter_bytes(torch, torch.empty((L, n, m), device="meta"),
@@ -1354,6 +1420,89 @@ def mamba_kernels(torch, flush):
     return out
 
 
+def zamba_kernels(torch, flush):
+    """The SHiRA serving kernels at zamba2-2.7b's target leaves, sparsity
+    0.98: scatter_apply bit for bit on the (9, 6, 5120, 2560) out_proj
+    stack (two leading dims: a switch's whole load of that leaf, timed
+    beside its plain version, index_put_ and its sector bound) and on the
+    shared block's unstacked (2560, 10240) w_up (one entry set that
+    serves all 9 sites); sidedelta at out_proj's (5120x2560) and the
+    shared w_up's widths, S = 1 (decode) and 256, f32 and int8 tables,
+    within SIDEDELTA_TOL. Returns {"scatter_apply": numbers, "sidedelta":
+    [numbers]}."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.masks import budget
+    from repro_torch.kernels.scatter_apply import (scatter_apply,
+                                                   scatter_apply_plain)
+    cfg = get_config(ZAMBA_ARCH)
+    g, k = cfg.num_layers // cfg.hybrid_attn_every, cfg.hybrid_attn_every
+    d, f = cfg.d_model, cfg.d_ff
+    n, m = cfg.ssm.expand * d, d
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(8)
+    out = {"sidedelta": []}
+    for label, nn, mm in (("zamba out_proj", n, m),
+                          ("zamba shared w_up", d, f)):
+        for S in (1, CHUNK):
+            for int8 in (False, True):
+                out["sidedelta"].append(sidedelta_case(
+                    torch, gen, flush, label, nn, mm, S, int8))
+    torch.cuda.empty_cache()
+    # the shared block's w_up: one (K,) entry set on a 2-D leaf
+    w = torch.randn((d, f), generator=gen, device="cuda")
+    idx, vals = rand_entries(torch, gen, 1, d, f, budget(d, f, 0.98))
+    idx, vals = idx[0], vals[0]
+    want = scatter_apply_plain(w.clone(), idx, vals, 0.5)
+    scatter_apply(w, idx, vals, 0.5)
+    if not torch.equal(w, want):
+        fail("scatter_apply disagrees with its plain version at zamba's "
+             "shared w_up")
+    print(f"[kernels] scatter_apply zamba shared w_up ({d}, {f}) "
+          f"K={idx.numel()}: bit-equal", flush=True)
+    del w, want, idx, vals
+    # the (g, k, n, m) out_proj stack
+    kk = budget(n, m, 0.98)
+    w = torch.randn((g, k, n, m), generator=gen, device="cuda")
+    idx, vals = rand_entries(torch, gen, g * k, n, m, kk)
+    idx, vals = idx.reshape(g, k, kk), vals.reshape(g, k, kk)
+    want = scatter_apply_plain(w.clone(), idx, vals, 1.0)
+    scatter_apply(w, idx, vals, 1.0)
+    if not torch.equal(w, want):
+        fail("scatter_apply disagrees with its plain version at zamba's "
+             "(g, k) out_proj stack")
+    del want
+    gi = (torch.arange(g * k, device="cuda")[:, None] * (n * m)
+          + idx.reshape(g * k, kk).long()).reshape(-1)
+    sign = [-1.0]
+
+    def flip(fn):
+        def go():
+            fn(sign[0])
+            sign[0] = -sign[0]
+        return go
+    upd = {1.0: vals.reshape(-1).clone(), -1.0: -vals.reshape(-1)}
+    nbytes, sectors = scatter_bytes(torch, w.reshape(g * k, n, m),
+                                    idx.reshape(g * k, kk),
+                                    vals.reshape(g * k, kk))
+    out["scatter_apply"] = r = {
+        "max_abs_err": 0.0,
+        "ms": cold_ms(torch, flip(lambda a: scatter_apply(w, idx, vals, a)),
+                      10, flush),
+        "plain_ms": cold_ms(torch, flip(lambda a: scatter_apply_plain(
+            w, idx, vals, a)), 4, flush),
+        "library_ms": cold_ms(torch, flip(lambda a: w.view(-1).index_put_(
+            (gi,), upd[a], accumulate=True)), 4, flush),
+        **bound(nbytes, 0)}
+    print(f"[kernels] scatter_apply zamba out_proj ({g}, {k}, {n}, {m}) "
+          f"K={idx.numel()}: bit-equal, ms={r['ms']:.4f} plain_ms(index_add_)"
+          f"={r['plain_ms']:.4f} library_ms(index_put_ accumulate)="
+          f"{r['library_ms']:.4f} bound_ms={r['bound_ms']:.4f} ({sectors} W "
+          f"sectors): {rate_line(r, nbytes)}", flush=True)
+    del w, idx, vals, gi, upd
+    torch.cuda.empty_cache()
+    return out
+
+
 def attn_case(torch, flush, label, fn, plain, library, tol, nbytes, flops,
               bf16, iters=20, hi_lo=False):
     """One attention kernel against its plain version on the same inputs:
@@ -1403,7 +1552,12 @@ def attention_kernels_phase(torch, flush):
     the configs since the MoE slice follow: granite-moe (KV 8, G 2,
     D 64), qwen1.5-32b (KV 40, G 1), deepseek-coder-33b (KV 8, G 7) and
     granite-34b (KV 1, G 48), each kernel and int8 pools, and prefills of
-    (1, 1024) and (8, 16). The yardstick is one
+    (1, 1024) and (8, 16). zamba2-2.7b's shared block takes the D = 80
+    instances (32 heads of 80, G = 1): decode at the lanes' shape with
+    (B,) and scalar kv_len, and prefills of (1, 1024), (1, 777) (a
+    partial last tile; row 63 of every full one) and (8, 16); the paged
+    kernel must refuse D = 80 on the card, since no path pages such a
+    cache (returned under "d80" too). The yardstick is one
     F.scaled_dot_product_attention(..., enable_gqa=True) call on the same
     inputs, laid out as it wants them beforehand (for paged: a gather of
     the pages, dequantized for int8 pools, then the call)."""
@@ -1422,6 +1576,7 @@ def attention_kernels_phase(torch, flush):
     Bd, KV, G, D = B, 4, 9, 128
     H = KV * G
     out = {"flash_decode": [], "flash_decode_paged": [], "flash_prefill": []}
+    d80 = {"flash_decode": [], "flash_prefill": []}
     spread = torch.linspace(1, CACHE, Bd, device="cuda").round().to(
         torch.int32)
     for dt in (torch.bfloat16, torch.float32):
@@ -1542,6 +1697,26 @@ def attention_kernels_phase(torch, flush):
                       quant=True)
             for Bp, Sp in ((1, 1024), (B, PROMPT)):
                 prefill(Bp, Sp, kv * g, kv, dd)
+        # zamba2-2.7b's shared block: 32 heads of 80, G = 1
+        n0 = {k: len(out[k]) for k in d80}
+        decode(Bd, 32, 1, 80, CACHE, (("(B,) kv_len 1..1056", spread),
+                                      ("scalar kv_len 700", 700)))
+        for Bp, Sp in ((1, 1024), (1, 777), (B, PROMPT)):
+            prefill(Bp, Sp, 32, 32, 80)
+        for k in d80:
+            d80[k] += out[k][n0[k]:]
+    q = torch.zeros((1, 2, 1, 80), dtype=torch.bfloat16, device="cuda")
+    pool = torch.zeros((2, 16, 2, 80), dtype=torch.bfloat16, device="cuda")
+    try:
+        flash_decode_paged(q, pool, pool, torch.ones(
+            (1, 1), dtype=torch.int32, device="cuda"), 1)
+    except ValueError as e:
+        print(f"[kernels] flash_decode_paged refuses D = 80 on the card "
+              f"(no path pages such a cache): {e}", flush=True)
+    else:
+        fail("flash_decode_paged accepted D = 80, which no path pages and "
+             "no case holds")
+    out["d80"] = d80
     return out
 
 
@@ -1909,6 +2084,18 @@ def residency_report(tag):
     for a in archs:
         c = get_config(a)
         runs = {e: round(v, 1) for (x, e), v in RESIDENCY.items() if x == a}
+        if c.family == "hybrid":
+            g = c.num_layers // c.hybrid_attn_every
+            st, kvt = state_bytes(c) * c.num_layers, kv_row_bytes(c, False)
+            print(f"[{tag}] resident requests per GB of state and KV, {a}: "
+                  f"{runs}; a request's state {st} bytes over "
+                  f"{c.num_layers} mamba layers ({state_bytes(c)} a layer) "
+                  f"and KV {kvt * g} bytes a token over the shared block's "
+                  f"{g} sites ({kvt} a site), bf16: a {CACHE}-row lane "
+                  f"{st + CACHE * kvt * g} bytes, "
+                  f"{1e9 / (st + CACHE * kvt * g):.2f} lanes per GB",
+                  flush=True)
+            continue
         if c.family == "ssm":
             per = state_bytes(c) * c.num_layers
             print(f"[{tag}] resident requests per GB of state, {a}: {runs};"
@@ -2100,7 +2287,7 @@ def continuous_consistency_phase(torch, arch="starcoder2-7b", long=601,
     from repro_torch.launch import serve
     from repro_torch.models import layers, lm
     from repro_torch.serving import MultiTenantEngine
-    cfg = get_config(arch).replace(num_layers=2)
+    cfg = two_layers(get_config(arch))
     paged = has_pages(cfg)
     T = 8
     rng = np.random.default_rng(7)
@@ -2170,7 +2357,7 @@ def continuous_consistency_phase(torch, arch="starcoder2-7b", long=601,
         firsts = sum(int(f.result()[0]) == int(w[0]) for f, w in zip(q8, want))
         whole = sum(bool(np.array_equal(f.result(), w))
                     for f, w in zip(q8, want))
-        print(f"[{tag}] {arch} f32, 2 layers, full width, "
+        print(f"[{tag}] {arch} f32, {cfg.num_layers} layers, full width, "
               f"PagedServingEngine int8 pages: {sum(same)}/{len(same)} "
               f"requests token-equal to the same engine on the CPU (held; "
               f"CPU {cpu_s:.1f}s); against the fixed batch {firsts}/"
@@ -2183,9 +2370,9 @@ def continuous_consistency_phase(torch, arch="starcoder2-7b", long=601,
         hold_as_asked(f"{tag} {label}", eng.health(), 0, futs)
         equal = [bool(np.array_equal(f.result(), w))
                  for f, w in zip(futs, want)]
-        print(f"[{tag}] {arch} f32, 2 layers, full width, {label}:"
-              f" {sum(equal)}/{len(equal)} requests token-equal to the fixed "
-              f"batch", flush=True)
+        print(f"[{tag}] {arch} f32, {cfg.num_layers} layers, full width, "
+              f"{label}: {sum(equal)}/{len(equal)} requests token-equal to "
+              f"the fixed batch", flush=True)
         if not all(equal):
             fail(f"{tag}: {arch} {label} differs from the fixed "
                  f"batch on requests "
@@ -2943,6 +3130,8 @@ MLA_RANGES = ("mla.attention", "mla.q_eff", "mla.scores", "mla.out",
 MAMBA_RANGES = ("mamba.mixer", "mamba.project", "mamba.conv",
                 "mamba.ssd_intra", "mamba.ssd_states", "mamba.ssd_inter",
                 "mamba.gated_out", "mamba.state_update")
+HYBRID_RANGES = ("hybrid.shared", "hybrid.w_fuse", "hybrid.attention",
+                 "hybrid.mlp")
 
 
 class wrapped_ranges:
@@ -3027,22 +3216,45 @@ def mamba_ranges():
         (M, "_ssm_step", "mamba.state_update")])
 
 
+def hybrid_ranges():
+    """zamba2's shared block under profiler ranges, at each of its sites:
+    the whole block (hybrid.shared: blocks.shared_attn_*), its input
+    fusion concat(h, emb) . w_fuse (hybrid.w_fuse: blocks._fuse), its
+    attention (hybrid.attention: attention.gqa_*, the q/k/v projections,
+    rope, the cache write and wo) and its MLP (hybrid.mlp: blocks.mlp).
+    The rest of the block is its two norms and residuals. The flash
+    kernels launch through ctypes, outside the dispatcher whose ops the
+    profiler ties to a range, so no range holds their device time:
+    print_hybrid_ranges adds them by name."""
+    from repro_torch.models import attention as A
+    from repro_torch.models import blocks as Bk
+    whole = [(Bk, f, "hybrid.shared") for f in (
+        "shared_attn_train", "shared_attn_prefill", "shared_attn_decode")]
+    attn = [(A, f, "hybrid.attention") for f in (
+        "gqa_train", "gqa_prefill", "gqa_decode")]
+    return wrapped_ranges(whole + attn + [
+        (Bk, "_fuse", "hybrid.w_fuse"), (Bk, "mlp", "hybrid.mlp")])
+
+
 def ranged(cfg) -> bool:
     """Whether ``cfg``'s model has profiler ranges (model_ranges)."""
-    return (cfg.family in ("moe", "ssm") or cfg.attn_type == "mla")
+    return (cfg.family in ("moe", "ssm", "hybrid") or cfg.attn_type == "mla")
 
 
 def model_ranges(cfg):
     """The profiler ranges of ``cfg``'s model: moe_ranges for an MoE
     model, mla_ranges for MLA attention (both for deepseek-v2-lite-16b),
-    mamba_ranges for Mamba2."""
+    mamba_ranges for Mamba2, and for the hybrid both mamba_ranges and
+    hybrid_ranges."""
     stack = contextlib.ExitStack()
     if cfg.family == "moe":
         stack.enter_context(moe_ranges())
     if cfg.attn_type == "mla":
         stack.enter_context(mla_ranges())
-    if cfg.family == "ssm":
+    if cfg.family in ("ssm", "hybrid"):
         stack.enter_context(mamba_ranges())
+    if cfg.family == "hybrid":
+        stack.enter_context(hybrid_ranges())
     return stack
 
 
@@ -3051,8 +3263,10 @@ def print_ranges(torch, cfg, label, prof, busy):
         print_moe_ranges(torch, label, prof, busy)
     if cfg.attn_type == "mla":
         print_mla_ranges(torch, label, prof, busy)
-    if cfg.family == "ssm":
+    if cfg.family in ("ssm", "hybrid"):
         print_mamba_ranges(torch, label, prof, busy)
+    if cfg.family == "hybrid":
+        print_hybrid_ranges(torch, label, prof, busy)
 
 
 def range_ms(torch, prof, names):
@@ -3114,6 +3328,43 @@ def print_mamba_ranges(torch, label, prof, busy):
              "time: not measured)"), flush=True)
 
 
+def print_hybrid_ranges(torch, label, prof, busy):
+    """The shared block's ms at its sites and its parts: w_fuse, the
+    attention (its torch ops by range, the flash kernels by name) and the
+    MLP."""
+    r = range_ms(torch, prof, HYBRID_RANGES)
+    (ops, n), (fuse, _), (att, _), (mlp, _) = (r[k] for k in HYBRID_RANGES)
+    flash = [(getattr(e, "self_device_time_total", 0) / 1e3, e.count)
+             for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and ("flash_decode" in e.key or "flash_prefill" in e.key)]
+    kern, nk = sum(f[0] for f in flash), sum(f[1] for f in flash)
+    whole = ops + kern
+    share = lambda x: f" ({x / busy:.1%})" if busy else ""
+    rest = ops - fuse - att - mlp
+    print(f"[profile] {label} shared block ({n} sites): {whole:.3f} ms"
+          f"{share(whole)} = w_fuse {fuse:.3f}{share(fuse)} + attention "
+          f"{att + kern:.3f}{share(att + kern)} (its torch ops "
+          f"{att:.3f}, the flash kernels {kern:.3f}{share(kern)} in {nk} "
+          f"launches) + MLP {mlp:.3f}{share(mlp)} + norms and residuals "
+          f"{rest:.3f}{share(rest)}" + (
+              "" if ops else " (the profiler gave the ranges no device "
+              "time: not measured)"), flush=True)
+
+
+def attention_launches(cfg, label, before, after, name, tag):
+    """Print the launches of the attention kernel ``name`` between two
+    read_counts; a hybrid model's shared block must launch it once at
+    each of its sites, num_layers / hybrid_attn_every times."""
+    n = after[name] - before[name]
+    print(f"[{tag}] {cfg.name} {label}: {name} launches {n}", flush=True)
+    if cfg.family == "hybrid":
+        sites = cfg.num_layers // cfg.hybrid_attn_every
+        if n != sites:
+            fail(f"{tag} {label}: {name} launched {n} times, not once at "
+                 f"each of the shared block's {sites} sites")
+
+
 def profile_phase(torch, arch="starcoder2-7b", layers=0, prefill=True,
                   tag="profile", labels=("base", "multi-tenant f32")):
     """Where a full-width decode step (B=8) spends its device time: the
@@ -3159,9 +3410,13 @@ def profile_phase(torch, arch="starcoder2-7b", layers=0, prefill=True,
         for _ in range(3):
             step()
         wall = (time.perf_counter() - t0) / 3 * 1e3
+        before = read_counts()
         with model_ranges(cfg):
             with profile(activities=acts) as prof:
                 step()
+        if cfg.attn_type == "gqa":
+            attention_launches(cfg, f"{label} decode step", before,
+                               read_counts(), "flash_decode", tag)
         kern = device_kernels(torch, prof)
         busy = sum(k[0] for k in kern)
         print(f"[{tag}] {arch} {label} decode step (B={B}, "
@@ -3195,9 +3450,13 @@ def profile_phase(torch, arch="starcoder2-7b", layers=0, prefill=True,
     run_prefill()
     wall = (time.perf_counter() - t0) * 1e3
     transient = (torch.cuda.max_memory_allocated() - before) / 1e9
+    counts = read_counts()
     with model_ranges(cfg):
         with profile(activities=acts) as prof:
             run_prefill()
+    if cfg.attn_type == "gqa":
+        attention_launches(cfg, "prefill (B=1, S=1024)", counts,
+                           read_counts(), "flash_prefill", tag)
     kern = device_kernels(torch, prof)
     busy = sum(k[0] for k in kern)
     fp = sum(ms for ms, _, name in kern if "flash_prefill" in name)
@@ -3223,7 +3482,7 @@ def consistency_phase(torch, arch="starcoder2-7b", tag="consistency"):
     from repro_torch.serving import MultiTenantEngine
     from repro_torch.serving.multitenant import (greedy_decode,
                                                  switch_per_request_reference)
-    cfg = get_config(arch).replace(num_layers=2)
+    cfg = two_layers(get_config(arch))
     names = ["adapter_0", "adapter_2", None, "adapter_1", "adapter_0",
              "adapter_1", None, "adapter_2"]
     T = 8
@@ -3251,9 +3510,9 @@ def consistency_phase(torch, arch="starcoder2-7b", tag="consistency"):
                 lambda t, c, pos: lm.decode_step(p, cfg, t, c, pos))
             equal = bool(torch.equal(out, ref))
             diff = float((logits - ref_logits).abs().max())
-            print(f"[{tag}] {arch} f32, 2 layers, full width, {label}: "
-                  f"tokens equal {equal}, last-step logits max diff "
-                  f"{diff:.3g}", flush=True)
+            print(f"[{tag}] {arch} f32, {cfg.num_layers} layers, full "
+                  f"width, {label}: tokens equal {equal}, last-step "
+                  f"logits max diff {diff:.3g}", flush=True)
             if not equal or (sched is not None and eng.fused != "adapter_0"):
                 fail(f"{tag} {arch} {label}: multi-tenant tokens differ "
                      "from the switch-per-request reference")
@@ -3310,10 +3569,20 @@ def attention_kernels(cfg, *names):
     """(needed, absent) attention kernels of a serving path: GQA needs
     ``names``; MLA's attention is plain torch (no TPU kernel computes it,
     as the reference's calls none) and Mamba2 has no attention, so there
-    no attention kernel may launch."""
+    no attention kernel may launch; a hybrid model's shared block pages
+    nothing (the paged engine refuses the family), so flash_decode_paged
+    may not."""
     if cfg.attn_type != "gqa":
         return (), ATTN_KERNELS
+    if cfg.family == "hybrid":
+        return names, ("flash_decode_paged",)
     return names, ()
+
+
+def two_layers(cfg):
+    """``cfg`` cut for the f32 consistency phases: 2 layers, a hybrid
+    model 2 groups (2 x hybrid_attn_every layers)."""
+    return cfg.replace(num_layers=2 * (cfg.hybrid_attn_every or 1))
 
 
 def train_phase(torch, arch="starcoder2-7b", tag="train", layers=0):
@@ -4321,7 +4590,7 @@ def train_cpu_consistency(torch, arch, tag):
     from repro_torch.models import layers, lm
     from repro_torch.runtime import Trainer
     from repro_torch.training import MultiAdapterTrainer
-    cfg = get_config(arch).replace(num_layers=2)
+    cfg = two_layers(get_config(arch))
     run = RunConfig(model=cfg, shape=ShapeSpec("c", 16, 1, "train"),
                     adapter=AdapterConfig(kind="shira", mask="rand",
                                           sparsity=0.98),
@@ -4355,8 +4624,8 @@ def train_cpu_consistency(torch, arch, tag):
             counts = {k: v for k, v in read_counts().items() if v}
             d = max(abs(a[k] - b[k]) for a, b in zip(hg, hc) for k in keys)
             top = max(abs(b[k]) for b in hc for k in keys)
-            print(f"[{tag}] {arch} {label}, f32, 2 layers, full "
-                  f"width: card losses {[[h[k] for k in keys] for h in hg]}"
+            print(f"[{tag}] {arch} {label}, f32, {cfg.num_layers} layers, "
+                  f"full width: card losses {[[h[k] for k in keys] for h in hg]}"
                   f", CPU {[[h[k] for k in keys] for h in hc]}, aux card "
                   f"{[round(h['aux'], 5) for h in hg]}, max diff {d:.3g} "
                   f"(tol rtol=atol={TRAIN_TOL}); card {t1 - t0:.1f}s, CPU "
@@ -4408,8 +4677,12 @@ def slice_phases(torch, arch, tag, serve_layers=0, train_layers=0,
 
 
 def moe_phases(torch):
-    """The MoE slice (MOE_ARCH) at full width and all 24 layers."""
-    return slice_phases(torch, MOE_ARCH, "moe")
+    """The MoE slice (MOE_ARCH) at full width, cut to MOE_LAYERS of its 24
+    layers for the script's time limit (printed)."""
+    print(f"[moe] {MOE_ARCH}: serve, profile, continuous and train at "
+          f"{MOE_LAYERS} of 24 layers (cut for the script's time limit since "
+          f"the hybrid slice; all 24 before)", flush=True)
+    return slice_phases(torch, MOE_ARCH, "moe", MOE_LAYERS, MOE_LAYERS)
 
 
 def mla_depth(torch, cfg):
@@ -4469,8 +4742,11 @@ def mla_phases(torch):
     serve_l, train_l, text = mla_depth(torch, cfg)
     print(f"[mla] {MLA_ARCH} (d_model {cfg.d_model}, {cfg.num_heads} heads, "
           f"kv_lora_rank {cfg.mla.kv_lora_rank}, {cfg.moe.num_experts} "
-          f"experts top-{cfg.moe.top_k}, vocab {cfg.vocab_size}): {text}",
-          flush=True)
+          f"experts top-{cfg.moe.top_k}, vocab {cfg.vocab_size}): {text}; "
+          f"cut to at most {MLA_LAYERS} layers for the script's time limit "
+          f"since the hybrid slice: serve {min(serve_l, MLA_LAYERS)}, train "
+          f"{min(train_l, MLA_LAYERS)}", flush=True)
+    serve_l, train_l = min(serve_l, MLA_LAYERS), min(train_l, MLA_LAYERS)
     return slice_phases(torch, MLA_ARCH, "mla", serve_l, train_l,
                         quant=True)
 
@@ -4503,6 +4779,46 @@ def mamba_phases(torch):
           f"{B * per / 1e9:.3f} GB, {1e9 / per:.2f} requests per GB "
           f"whatever the length", flush=True)
     return slice_phases(torch, MAMBA_ARCH, "mamba")
+
+
+def zamba_phases(torch):
+    """The hybrid slice (ZAMBA_ARCH) at full width and all 54 layers
+    through slice_phases, the lanes alone (the paged engine refuses the
+    family); prints the arithmetic first: parameters, three adapters at 2%
+    of out_proj and of the shared block's seven target leaves, a lane's
+    state and KV."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.masks import budget
+    cfg = get_config(ZAMBA_ARCH)
+    ((L, mats, per_layer),), rest = stage_leaves(torch, cfg)
+    (n, m), = default_targets(mats)
+    shared = shared_targets(cfg)
+    g, k = L // cfg.hybrid_attn_every, cfg.hybrid_attn_every
+    params = L * per_layer + rest
+    e_out = L * budget(n, m, 0.98)
+    e_shared = sum(budget(a, b, 0.98) for _, (a, b) in shared)
+    block = sum(a * b for _, (a, b) in shared)
+    st, kvt = state_bytes(cfg) * L, kv_row_bytes(cfg, False) * g
+    lane = st + CACHE * kvt
+    s = cfg.ssm
+    print(f"[zamba] {ZAMBA_ARCH} (d_model {cfg.d_model}, d_inner "
+          f"{s.expand * cfg.d_model}, {cfg.d_model * s.expand // s.head_dim}"
+          f" SSM heads of {s.head_dim}, d_state {s.d_state}, chunk "
+          f"{s.chunk}; the shared block: {cfg.num_heads} heads of "
+          f"{cfg.resolved_head_dim}, KV {cfg.num_kv_heads}, d_ff {cfg.d_ff},"
+          f" after each group of {k}; vocab {cfg.vocab_size}): {L} mamba "
+          f"layers of {per_layer} parameters and {rest} outside them (the "
+          f"shared block's {block} target-leaf entries and w_fuse "
+          f"{2 * cfg.d_model * cfg.d_model} among them) = {params} "
+          f"parameters, {params * 4 / 1e9:.3f} GB in f32; targets out_proj "
+          f"({g}, {k}, {n}, {m}) and the shared block's seven: three "
+          f"adapters at 2% = 3 x ({e_out} + {e_shared}) entries = "
+          f"{3 * (e_out + e_shared) * 8 / 1e6:.1f} MB of packs (int32 "
+          f"index, f32 value); a lane's state {st} bytes over {L} layers "
+          f"({state_bytes(cfg)} a layer) and KV {kvt} bytes a token over "
+          f"{g} sites, {lane} bytes a {CACHE}-row lane, {B} lanes "
+          f"{B * lane / 1e9:.3f} GB", flush=True)
+    return slice_phases(torch, ZAMBA_ARCH, "zamba")
 
 
 def dense_depth(torch, cfg):
@@ -4606,6 +4922,8 @@ def main() -> None:
     masked = timed("kernels (masked_update)", masked_update_kernels, torch,
                    flush)
     timed("kernels (mamba widths)", mamba_kernels, torch, flush)
+    torch.cuda.empty_cache()
+    timed("kernels (zamba widths)", zamba_kernels, torch, flush)
     del scratch
     torch.cuda.empty_cache()
     launches = timed("serve", serve_phase, torch)
@@ -4650,12 +4968,16 @@ def main() -> None:
         torch.cuda.empty_cache()
     timed("kinds-consistency", kinds_consistency_phase, torch)
     torch.cuda.empty_cache()
-    for phase in (moe_phases, mla_phases, mamba_phases,
+    zamba = {}
+    for phase in (moe_phases, mla_phases, mamba_phases, zamba_phases,
                   dense_configs_phase):
         totals = phase(torch)
-        if phase is mamba_phases:
-            print(f"[mamba] launches over the mamba phases: "
+        if phase in (mamba_phases, zamba_phases):
+            tag = "mamba" if phase is mamba_phases else "zamba"
+            print(f"[{tag}] launches over the {tag} phases: "
                   f"{ {k: v for k, v in totals.items() if v} }", flush=True)
+        if phase is zamba_phases:
+            zamba = totals
         for k, v in totals.items():
             launches[k] = launches.get(k, 0) + v
         torch.cuda.empty_cache()
@@ -4707,6 +5029,20 @@ def main() -> None:
             "launches": launches.get(name, 0),
             **{k: attn[name][0][k] for k in keys},
             "max_abs_err": max(r["max_abs_err"] for r in attn[name])})
+    # the D = 80 instances (zamba2's shared block): its bf16 decode and
+    # prefill at the lanes' shapes, the largest error over their cases,
+    # the launches of the zamba phases (which attend at D = 80 only)
+    for name, src, rep in (
+            ("flash_decode", "flash_decode.cu", "flash_decode.py:71"),
+            ("flash_prefill", "flash_prefill.cu", "flash_prefill.py:74")):
+        d80 = attn["d80"][name]
+        kernels.append({
+            "name": f"{name} (D = 80)", "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": f"src/repro/kernels/{rep}",
+            "launches": zamba.get(name, 0),
+            **{k: d80[0][k] for k in keys},
+            "max_abs_err": max(r["max_abs_err"] for r in d80)})
     # masked_update's row: the hook path's case (f32 W, bool M)
     kernels.append({
         "name": "masked_update", "route": "cuda",

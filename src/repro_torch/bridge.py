@@ -5,7 +5,12 @@ two packages runs both on the same numbers: the JAX tree or pack is turned
 into numpy arrays (``jax.tree.map(np.asarray, tree)``) and handed to these
 functions: a base, a LoRA / DoRA factor tree (``params_from_numpy``, for
 ``runtime.Trainer(trainable0=...)``), SHiRA indices, a pack, a hook-mode
-state. Nothing here imports JAX.
+state. Caches cross both ways: a JAX cache tree given as numpy becomes
+the port's (``params_from_numpy`` maps each cache NamedTuple to the
+port's of the same fields: ``KVCache``, ``MambaCache``, ``QuantKV``, a
+hybrid stage's {"mamba", "attn"} dict of them as it stands), and
+``tree_to_numpy`` gives any port tree back as numpy for the JAX package.
+Nothing here imports JAX.
 """
 from __future__ import annotations
 
@@ -16,6 +21,12 @@ import torch
 
 from repro_torch.core.adapters import AdapterPack
 from repro_torch.core.masks import iter_leaves, map_leaves
+from repro_torch.models.attention import KVCache
+from repro_torch.models.mamba2 import MambaCache
+from repro_torch.serving.kvcache import QuantKV
+
+# the port's cache NamedTuples, by their fields
+_CACHES = {t._fields: t for t in (KVCache, MambaCache, QuantKV)}
 
 
 def params_from_numpy(tree, device="cuda"):
@@ -28,11 +39,31 @@ def params_from_numpy(tree, device="cuda"):
     (seeded by Python's per-process ``hash``) cannot be made again."""
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
+    if hasattr(tree, "_fields"):        # a cache NamedTuple
+        return _CACHES.get(tree._fields, type(tree))(
+            *(params_from_numpy(v, device) for v in tree))
     if isinstance(tree, (list, tuple)):
         return type(tree)(params_from_numpy(v, device) for v in tree)
     if tree is None:
         return None
     return torch.from_numpy(np.array(tree, copy=True)).to(device)
+
+
+def tree_to_numpy(tree):
+    """A nested dict/list/tuple/NamedTuple of torch tensors -> the same
+    structure of numpy arrays on the host (bf16 as f32, which numpy lacks;
+    every other dtype kept), None kept: a port tree, caches included, for
+    the JAX package (``jax.tree.map(jnp.asarray, ...)``)."""
+    if isinstance(tree, dict):
+        return {k: tree_to_numpy(v) for k, v in tree.items()}
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(tree_to_numpy(v) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_to_numpy(v) for v in tree)
+    if tree is None:
+        return None
+    t = tree.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
 def pack_from_numpy(name: str, entries: Dict[str, Tuple[np.ndarray,

@@ -3,9 +3,7 @@
 A copy of ``repro/configs/base.py``'s ``ShapeSpec``, ``ModelConfig``,
 ``AdapterConfig``, ``TrainConfig``, ``RunConfig``, ``MoEConfig``,
 ``MLAConfig`` and ``SSMConfig``, so the port reads configurations without
-importing the JAX package. The hybrid family's ``hybrid_attn_every``
-(zamba2's shared attention block) is not copied: it waits for ROADMAP
-item A9, and ``models.lm`` raises for that family.
+importing the JAX package.
 """
 from __future__ import annotations
 
@@ -88,6 +86,9 @@ class ModelConfig:
     moe: Optional[MoEConfig] = None
     mla: Optional[MLAConfig] = None
     ssm: Optional[SSMConfig] = None
+    # Hybrid (zamba2): a single *shared* attention block applied after every
+    # ``hybrid_attn_every`` SSM layers (weights reused at every site).
+    hybrid_attn_every: int = 0
     modality: str = "text"         # text | vision | audio
     num_prefix_embeds: int = 0
     # Head-group padding: q heads per kv group (and kv heads) padded with

@@ -1,7 +1,8 @@
 """Architecture registry: ``--arch <id>`` -> ModelConfig.
 
 The port serves the dense GQA family, the MoE family with GQA or MLA
-attention (deepseek-v2-lite-16b) and the SSM family (mamba2-780m). The
+attention (deepseek-v2-lite-16b), the SSM family (mamba2-780m) and the
+hybrid (zamba2-2.7b: Mamba2 groups and one shared attention block). The
 other architectures of the JAX registry are known ids whose configs raise
 until their family is ported (ROADMAP item A9).
 """
@@ -9,7 +10,8 @@ from __future__ import annotations
 
 from repro_torch.configs import (deepseek_coder_33b, deepseek_v2_lite_16b,
                                  granite_34b, granite_moe_1b_a400m,
-                                 mamba2_780m, qwen1_5_32b, starcoder2_7b)
+                                 mamba2_780m, qwen1_5_32b, starcoder2_7b,
+                                 zamba2_2_7b)
 from repro_torch.configs.base import ModelConfig
 
 ARCH_IDS = [
@@ -31,11 +33,10 @@ _PORTED = {"starcoder2-7b": starcoder2_7b,
            "granite-34b": granite_34b,
            "qwen1.5-32b": qwen1_5_32b,
            "deepseek-v2-lite-16b": deepseek_v2_lite_16b,
-           "mamba2-780m": mamba2_780m}
+           "mamba2-780m": mamba2_780m,
+           "zamba2-2.7b": zamba2_2_7b}
 
-_WAITS_FOR = {"zamba2-2.7b": "the shared attention block and the D = 80 "
-                             "flash instances",
-              "paligemma-3b": "the vision prefix (head_dim 256)",
+_WAITS_FOR = {"paligemma-3b": "the vision prefix (head_dim 256)",
               "hubert-xlarge": "the encoder-only audio path"}
 
 

@@ -99,7 +99,6 @@ from repro_torch.core.switching import (FusedLRU, Tenant, normalize_tenant,
                                         prior_version, split_version,
                                         tenant_members)
 from repro_torch.models import lm
-from repro_torch.models.attention import KVCache
 from repro_torch.runtime import faults
 from repro_torch.runtime.faults import (AdapterUnavailable, EngineWatchdog,
                                         RequestShed, ServingError,
@@ -170,10 +169,15 @@ class _Pending:
         self.handles = handles or []   # in-flight store prefetches
 
 
-def _slot_insert(big: KVCache, small: KVCache, slot: int,
-                 axes: KVCache) -> None:
+def _slot_insert(big, small, slot: int, axes) -> None:
     """Splice a batch-1 cache into lane ``slot`` of the shared cache, in
-    place, along each leaf's batch axis (``lm.cache_batch_axes``)."""
+    place, along each leaf's batch axis (``lm.cache_batch_axes``): a
+    stage's ``KVCache`` or ``MambaCache``, or a hybrid stage's
+    {"mamba", "attn"} dict of them."""
+    if isinstance(big, dict):
+        for key in big:
+            _slot_insert(big[key], small[key], slot, axes[key])
+        return
     for bg, sm, ax in zip(big, small, axes):
         bg.select(ax, slot).copy_(sm.select(ax, 0))
 

@@ -339,6 +339,10 @@ flash_decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
   constexpr int LD = D + 8;                 // a K/V/q row, padded 16 bytes
   constexpr int kChunks = D / 8;            // 16-byte chunks a row
   constexpr int kRowStep = kThreads / kChunks;
+  // every thread copies (D = 16, 32, 64, 128); else (D = 80: 12 rows a pass
+  // over 120 threads) the threads past kRowStep * kChunks copy nothing, so
+  // that each row has one owner
+  constexpr bool kAllCopy = kRowStep * kChunks == kThreads;
   constexpr int kPLD = kSplit + 8;          // a row of p, padded 16 bytes
   constexpr int kNT = D / 8;                // output column tiles
   constexpr int kNTW = (kNT + kWarps - 1) / kWarps;
@@ -372,13 +376,14 @@ flash_decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const int n = min(kSplit, len - t0);
   const int cr = tid / kChunks;             // this thread's copies: rows
   const int ce = tid % kChunks * 8;         // cr + i kRowStep, column ce
+  const bool copier = kAllCopy || cr < kRowStep;
   const int* bt = kPaged ? block_tables + static_cast<long long>(b) * nblk
                          : nullptr;
   if constexpr (kQ8) {
     load_q8_rows<D, kPaged>(ks, vs, LD, static_cast<const signed char*>(k),
                             k_scale, static_cast<const signed char*>(v),
                             v_scale, bt, page, b, S, t0, n, KV, h);
-  } else {
+  } else if (copier) {
     const __nv_bfloat16* kb = static_cast<const __nv_bfloat16*>(k);
     const __nv_bfloat16* vb = static_cast<const __nv_bfloat16*>(v);
 #pragma unroll
@@ -392,6 +397,7 @@ flash_decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
     }
   }
   auto load_q = [&](int g0) {               // heads past G read as 0
+    if (!copier) return;
 #pragma unroll
     for (int r = cr; r < kGroup; r += kRowStep) {
       const bool ok = g0 + r < G;
@@ -553,6 +559,10 @@ flash_decode_f32_kernel(const float* __restrict__ q,
   constexpr int kPairs = D / 2;             // P.V: a thread per column pair
   constexpr int R = kThreads / kPairs;      // ... and head lane
   constexpr int kPer = (kGroup + R - 1) / R;
+  // every thread owns a (column pair, head lane) (D = 16, 32, 64, 128);
+  // else (D = 80: 3 head lanes over 120 threads) the threads past
+  // R * kPairs own none, so that each output has one owner
+  constexpr bool kAllPV = R * kPairs == kThreads;
   constexpr int kPS = kSplit + 4;           // a row of ps, float4-aligned
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* ks = reinterpret_cast<float*>(smem_raw);  // kSplit x LD
@@ -657,7 +667,7 @@ flash_decode_f32_kernel(const float* __restrict__ q,
     __syncthreads();
     {  // P.V: thread (column pair cp, head lane hl) takes heads hl, hl + R
       const int cp = tid % kPairs;
-      const int hl = tid / kPairs;
+      const int hl = kAllPV || tid < R * kPairs ? tid / kPairs : kGroup;
       float a0[kPer], a1[kPer];
 #pragma unroll
       for (int i = 0; i < kPer; ++i) a0[i] = a1[i] = 0.f;
@@ -761,12 +771,17 @@ int run_split(const SplitArgs& a, bool bf16) {
                              a);
 }
 
+// D = 80 (zamba2's shared block) has contiguous instances only: no path
+// pages a D = 80 cache (the paged engine refuses the hybrid family).
 template <bool kPaged, bool kQ8>
 int split_by_dim(const SplitArgs& a, int D, bool bf16) {
   switch (D) {
     case 16: return run_split<16, kPaged, kQ8>(a, bf16);
     case 32: return run_split<32, kPaged, kQ8>(a, bf16);
     case 64: return run_split<64, kPaged, kQ8>(a, bf16);
+    case 80:
+      if constexpr (!kPaged) return run_split<80, kPaged, kQ8>(a, bf16);
+      return static_cast<int>(cudaErrorInvalidValue);
     case 128: return run_split<128, kPaged, kQ8>(a, bf16);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -776,7 +791,7 @@ int split_by_dim(const SplitArgs& a, int D, bool bf16) {
 
 // Contiguous caches. q (B, KV, G, D) and k, v (B, S, KV, D), 16-byte
 // aligned; kv_len (B,) int32; out (B, KV, G, D); q, k, v and out share one
-// dtype, f32 or bf16 (is_bf16). D in {16, 32, 64, 128}, any G >= 1.
+// dtype, f32 or bf16 (is_bf16). D in {16, 32, 64, 80, 128}, any G >= 1.
 // nsplit = ceil(S / 64), the splits the caller sized part for: f32 scratch
 // of B * KV * nsplit * G * (D + 2) floats (unused, and may be null, when
 // nsplit is 1); tickets: B * KV int32 zeros, left zero. Returns

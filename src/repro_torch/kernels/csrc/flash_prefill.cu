@@ -49,7 +49,11 @@
 // rows' scores of a tile, one key per lane, so the online softmax's max
 // and sum are warp shuffles; K rows are padded to D + 1 floats so the
 // lanes' dot products hit distinct banks. Each thread then owns one output
-// column for 64 / (256 / D) query rows in registers.
+// column for 64 / (256 / D) query rows in registers. Where D does not divide
+// 256 (D = 80: 3 rows a pass over 240 threads), the first (256 / D) * D
+// threads own the columns, 22 passes cover the 64 rows, and the passes past
+// row 63 are skipped; where it does (16, 32, 64, 128) every thread owns a
+// column and 64 / (256 / D) passes cover the tile exactly.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -113,9 +117,11 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int lane = tid & 31;
   const int warp = tid >> 5;
   constexpr int R = kThreads / D;            // query rows per pass
-  constexpr int kRows = kBQ / R;
+  constexpr int kRows = (kBQ + R - 1) / R;   // passes over the tile
+  // every thread owns a column and the passes tile the rows exactly
+  constexpr bool kExact = R * D == kThreads && kRows * R == kBQ;
   const int d = tid % D;
-  const int r0 = tid / D;
+  const int r0 = tid / D;                    // < R for the column owners
   const int nq = min(kBQ, Sq - q0);
 
   for (int e = tid; e < kBQ * D; e += kThreads) {
@@ -176,6 +182,7 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < kRows; ++i) {
       const int r = r0 + R * i;
+      if (!kExact && (r0 >= R || r >= kBQ)) continue;
       float a = acc[i] * cs[r];
       const float* pr = ps + r * kBK;
       for (int c = 0; c < n; ++c) a = fmaf(pr[c], vs[c * D + d], a);
@@ -186,7 +193,7 @@ flash_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
     const int r = r0 + R * i;
-    if (r < nq) {
+    if ((kExact || r0 < R) && r < nq) {
       store(out + ((static_cast<long long>(b) * Sq + q0 + r) * H + h) * D + d,
             acc[i] / fmaxf(ls[r], 1e-30f));
     }
@@ -209,6 +216,13 @@ flash_prefill_mma_kernel(const __nv_bfloat16* __restrict__ q,
   constexpr int LD = D + kPad;              // a shared row, in bf16
   constexpr int kChunks = D / 8;            // 16-byte chunks a row
   constexpr int kRowStep = kMmaThreads / kChunks;  // rows a copy pass
+  // every thread copies and the passes tile the 64 rows exactly (D = 16,
+  // 32, 64, 128); else (D = 80: 12 rows a pass over 120 threads) the
+  // threads past kRowStep * kChunks copy nothing and each copy stops at the
+  // tile's last row, so that no row has two owners and none is written past
+  // the tile
+  constexpr bool kExact =
+      kRowStep * kChunks == kMmaThreads && kMmaBK % kRowStep == 0;
   constexpr int kTile = kMmaBK * LD;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // 2 stages
@@ -233,6 +247,7 @@ flash_prefill_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const long long kvrow = static_cast<long long>(KV) * D;
   const int cr = tid / kChunks;             // this thread's copies: rows
   const int ce = tid % kChunks * 8;         // cr + i kRowStep, column ce
+  const bool copier = kExact || cr < kRowStep;
   const __nv_bfloat16* qg =
       q + (static_cast<long long>(b) * Sq + q0) * qrow + h * D + ce;
   const __nv_bfloat16* kg =
@@ -246,6 +261,7 @@ flash_prefill_mma_kernel(const __nv_bfloat16* __restrict__ q,
     const int t0 = t * kMmaBK + cr;
 #pragma unroll
     for (int r = 0; r < kMmaBK; r += kRowStep) {
+      if (!kExact && (!copier || cr + r >= kMmaBK)) continue;
       const bool ok = t0 + r < kv_end;
       const long long off = ok ? (t0 + r) * kvrow : 0;
       cp_async16(kd + r * LD * 2, kg + off, ok);
@@ -254,6 +270,7 @@ flash_prefill_mma_kernel(const __nv_bfloat16* __restrict__ q,
   };
 #pragma unroll
   for (int r = 0; r < kMmaBQ; r += kRowStep) {
+    if (!kExact && (!copier || cr + r >= kMmaBQ)) continue;
     const bool ok = cr + r < nq;
     cp_async16(smem_addr(qs + (cr + r) * LD + ce),
                qg + (ok ? (cr + r) * qrow : 0), ok);
@@ -450,6 +467,7 @@ int by_dim(const Args& a, int D, bool bf16) {
     case 16: return bf16 ? run_bf16<16>(a) : run_f32<16>(a);
     case 32: return bf16 ? run_bf16<32>(a) : run_f32<32>(a);
     case 64: return bf16 ? run_bf16<64>(a) : run_f32<64>(a);
+    case 80: return bf16 ? run_bf16<80>(a) : run_f32<80>(a);
     case 128: return bf16 ? run_bf16<128>(a) : run_f32<128>(a);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -459,7 +477,7 @@ int by_dim(const Args& a, int D, bool bf16) {
 
 // q (B, Sq, H, D); k, v (B, Skv, KV, D); out (B, Sq, H, D); one dtype for
 // all, f32 or bf16 (is_bf16), each pointer 16-byte aligned. H a multiple of
-// KV, D in {16, 32, 64, 128}, causal 0 or 1. Returns cudaGetLastError()
+// KV, D in {16, 32, 64, 80, 128}, causal 0 or 1. Returns cudaGetLastError()
 // after the launch.
 extern "C" int flash_prefill_launch(const void* q, const void* k,
                                     const void* v, int is_bf16, void* out,

@@ -46,7 +46,10 @@ import torch
 from repro_torch.kernels import build
 
 _DTYPES = (torch.float32, torch.bfloat16)
-_DIMS = (16, 32, 64, 128)
+_DIMS = (16, 32, 64, 80, 128)       # contiguous caches (80: zamba2's shared
+                                    # attention block)
+_PAGED_DIMS = (16, 32, 64, 128)     # page pools: no path pages D = 80 (the
+                                    # paged engine refuses the hybrid)
 SPLIT = 64                  # positions per CTA (kSplit, which the launch
                             # checks through nsplit)
 _TICKETS = {}               # (device, stream) -> the merge's int32 tickets
@@ -156,7 +159,7 @@ def _check(q, k, v, what: str) -> None:
                         f"{q.dtype} / {k.dtype} / {v.dtype}")
 
 
-def _check_cuda(name, tensors) -> None:
+def _check_cuda(name, tensors, dims=_DIMS) -> None:
     dev = tensors[0].device
     if dev.type != "cuda":
         raise RuntimeError(f"{name} runs on cuda or cpu, not {dev}")
@@ -166,8 +169,8 @@ def _check_cuda(name, tensors) -> None:
         if not t.is_contiguous():
             raise ValueError(f"{name} operands must be contiguous")
     B, KV, G, D = tensors[0].shape
-    if D not in _DIMS:
-        raise ValueError(f"{name} takes D in {_DIMS}, got D={D}")
+    if D not in dims:
+        raise ValueError(f"{name} takes D in {dims}, got D={D}")
     if B > 65535 or KV > 65535:
         raise ValueError(f"{name} grid too large for B={B}, KV={KV}")
 
@@ -278,7 +281,8 @@ def flash_decode_paged(q: torch.Tensor, k_pool, v_pool,
         return flash_decode_paged_plain(q, k_pool, v_pool, block_tables,
                                         kv_len)
     pools = (*k_pool, *v_pool) if q8 else (k_pool, v_pool)
-    _check_cuda("flash_decode_paged", (q, *pools, block_tables, kv_len))
+    _check_cuda("flash_decode_paged", (q, *pools, block_tables, kv_len),
+                _PAGED_DIMS)
     _check_aligned("flash_decode_paged",
                    (q, k_pool[0], v_pool[0]) if q8 else (q, k_pool, v_pool))
     B, KV, G, D = q.shape

@@ -31,7 +31,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.flash_decode import softmax_scale
 
 _DTYPES = (torch.float32, torch.bfloat16)
-_DIMS = (16, 32, 64, 128)
+_DIMS = (16, 32, 64, 80, 128)      # 80: zamba2's shared attention block
 
 
 def flash_prefill_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -10,7 +10,10 @@ A transformer block's FFN is its parameters' own: a dense block has
 config's ``attn_type``: "gqa", or "mla" (deepseek-v2-lite-16b). A stage's
 kind picks its functions (``block_fns``): "mamba" the ``mamba_block_*``
 ones (mamba2-780m, ``attn_type="none"``), every other kind the
-transformer's. The zamba2 shared-attention block waits (ROADMAP A9).
+transformer's. zamba2's shared block (``init_shared_attn``,
+``shared_attn_*``) is one dense GQA block whose weights serve every site
+of the hybrid stack, fed ``concat(hidden, embedding)`` through
+``w_fuse``.
 """
 from __future__ import annotations
 
@@ -21,7 +24,8 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba2
-from repro_torch.models.layers import init_mlp, init_rms_norm, mlp, rms_norm
+from repro_torch.models.layers import (dense, glorot, init_mlp,
+                                       init_rms_norm, mlp, rms_norm)
 from repro_torch.models.moe import init_moe, moe_ffn
 
 
@@ -150,6 +154,45 @@ def mamba_block_decode(params, cfg: ModelConfig, h, cache, pos,
     x = rms_norm(h, params["norm"]["scale"], cfg.norm_eps)
     y, cache = mamba2.mamba_decode(params["mixer"], cfg, x, cache, pos)
     return h + y, cache
+
+
+# ---------------------------------------------------------------------------
+# zamba2's shared attention block: ONE set of weights applied at several
+# depth sites. Its input is concat(hidden, initial embedding) fused down to
+# d_model by w_fuse; the block body's output replaces only its own input's
+# share of the residual stream.
+# ---------------------------------------------------------------------------
+
+def init_shared_attn(gen: torch.Generator, cfg: ModelConfig,
+                     device="cuda") -> dict:
+    """A dense block (GQA attention and MLP, no stacked dims) plus
+    ``w_fuse`` (2 d_model, d_model), glorot."""
+    p = init_dense_block(gen, cfg, device=device)
+    p["w_fuse"] = glorot(gen, (2 * cfg.d_model, cfg.d_model), device)
+    return p
+
+
+def _fuse(params, h, emb):
+    """u = concat(h, emb) . w_fuse (a side-delta or SHiRA bundle too)."""
+    return dense(torch.cat([h, emb], dim=-1), params["w_fuse"])
+
+
+def shared_attn_train(params, cfg: ModelConfig, h, emb):
+    u = _fuse(params, h, emb)
+    out, _ = block_train(params, cfg, u)
+    return h + (out - u)            # the residual of the block body only
+
+
+def shared_attn_prefill(params, cfg: ModelConfig, h, emb, cache_size):
+    u = _fuse(params, h, emb)
+    out, cache = block_prefill(params, cfg, u, cache_size)
+    return h + (out - u), cache
+
+
+def shared_attn_decode(params, cfg: ModelConfig, h, emb, cache, pos):
+    u = _fuse(params, h, emb)
+    out, cache = block_decode(params, cfg, u, cache, pos)
+    return h + (out - u), cache
 
 
 def block_fns(kind: str):

@@ -1,12 +1,14 @@
-"""Causal LM assembly for the dense, MoE and SSM families: embeddings,
-stages of stacked blocks, final norm and unembedding.
+"""Causal LM assembly for the dense, MoE, SSM and hybrid families:
+embeddings, stages of stacked blocks, final norm and unembedding.
 
 Port of ``repro/models/lm.py``. A model is a list of stages, each a
 homogeneous stack of blocks:
 
-  dense family  -> [("dense", L)]
-  moe family    -> [("dense_first", first_dense)] + [("moe", rest)]
-  ssm family    -> [("mamba", L)]
+  dense family    -> [("dense", L)]
+  moe family      -> [("dense_first", first_dense)] + [("moe", rest)]
+  ssm family      -> [("mamba", L)]
+  hybrid (zamba2) -> [("hybrid", L)]  groups of ``hybrid_attn_every`` mamba
+                     layers, each followed by the shared attention block
 
 The parameter tree has the reference's structure and shapes: each
 stage's layer parameters are stacked along a leading (L,) dim in
@@ -16,13 +18,20 @@ the same way, one ``KVCache`` of (L, B, S_max, KV, D) a stage (MLA: the
 latents c_kv (L, B, S_max, rank) and k_rope (L, B, S_max, rope); a mamba
 stage a ``MambaCache`` of the f32 state (L, B, H, P, N) and the conv
 windows (L, B, d_conv - 1, C)), and written in place. A stage's kind
-picks its block functions (``blocks.block_fns``). The paged entry points
-cover the dense and MoE families and refuse the others, as the
-reference's do. In training, ``jax.checkpoint`` around the scanned
-layer becomes ``torch.utils.checkpoint`` around each layer
-(``cfg.remat``: "full", "dots" or "none"), and around each chunk of the
-loss; MoE stages add their load-balance aux, and ``train_loss`` adds 0.01
-of it to the loss.
+picks its block functions (``blocks.block_fns``). A hybrid stage's mamba
+leaves are stacked (g, k, ...) over its g groups of k layers, and its one
+shared block (``params["shared_attn"]``, no stacked dims) is fed
+``concat(hidden, embedding)`` after each group; its cache is the
+reference's nested {"mamba": MambaCache (g, k, B, ...), "attn": KVCache
+(g, B, S_max, KV, D)}. ``layer_slice`` and ``_layer_cache`` take one
+leading dim off, so a hybrid stage slices the group, then the layer. The
+paged entry points cover the dense and MoE families and refuse the
+others, as the reference's do. In training, ``jax.checkpoint`` around
+the scanned layer becomes ``torch.utils.checkpoint`` around each layer
+(a hybrid stage's around each group, as the reference's), under
+``cfg.remat`` ("full", "dots" or "none"), and around each chunk of the
+loss; MoE stages add their load-balance aux, and ``train_loss`` adds
+0.01 of it to the loss.
 
 Entry points:
   init_params(cfg, seed, device)                  -> params
@@ -60,6 +69,8 @@ from repro_torch.models.layers import (compute_dtype, embed, init_embedding,
 def stage_plan(cfg: ModelConfig) -> List[Tuple[str, int]]:
     if cfg.modality == "text" and cfg.family == "ssm":
         return [("mamba", cfg.num_layers)]
+    if cfg.modality == "text" and cfg.family == "hybrid":
+        return [("hybrid", cfg.num_layers)]
     if cfg.modality == "text" and cfg.attn_type in ("gqa", "mla"):
         if cfg.family == "dense":
             return [("dense", cfg.num_layers)]
@@ -75,7 +86,19 @@ def stage_plan(cfg: ModelConfig) -> List[Tuple[str, int]]:
         f"{cfg.attn_type!r} is not ported (ROADMAP A9, other families)")
 
 
+def _groups(cfg: ModelConfig, n: int) -> Tuple[int, int]:
+    """(g, k): a hybrid stage of ``n`` layers as g groups of k mamba
+    layers."""
+    k = cfg.hybrid_attn_every
+    if k < 1 or n % k:
+        raise ValueError(f"layers {n} % hybrid_attn_every {k} != 0")
+    return n // k, k
+
+
 def _init_stage(gen, cfg: ModelConfig, kind: str, n: int, device):
+    if kind == "hybrid":
+        return B.init_mamba_block(gen, cfg, lead=_groups(cfg, n),
+                                  device=device)
     if kind == "mamba":
         return B.init_mamba_block(gen, cfg, lead=(n,), device=device)
     if kind == "moe":
@@ -93,7 +116,9 @@ class LayerList(list):
 def layer_slice(tree, i: int):
     """Layer ``i`` of a stacked parameter tree (side-delta and SHiRA
     bundles too: every tensor carries the leading layer dim; a bundle's
-    plain numbers pass through; a ``LayerList`` gives its i-th entry)."""
+    plain numbers pass through; a ``LayerList`` gives its i-th entry).
+    Of a hybrid stage's (g, k, ...) tree it gives group ``i``, whose
+    layers a second call slices."""
     if isinstance(tree, dict):
         return {k: layer_slice(v, i) for k, v in tree.items()}
     if isinstance(tree, (torch.Tensor, LayerList)):
@@ -118,6 +143,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda"
     if not cfg.tie_embeddings:
         params["unembed"] = {"lm_head": normal_init(
             gen, (cfg.d_model, cfg.padded_vocab), 0.02, device)}
+    if cfg.family == "hybrid":
+        params["shared_attn"] = B.init_shared_attn(gen, cfg, device)
     return params
 
 
@@ -167,12 +194,28 @@ def _maybe_remat(fn, cfg: ModelConfig):
 
 
 def _stage_train(stage_params, kind: str, cfg: ModelConfig, h, aux,
-                 prefix_len, n: int):
+                 prefix_len, n: int, shared=None):
     """The ``n`` stacked layers of one stage of ``kind``, each
     (re)materialized under ``cfg.remat``: the layer's weights, SHiRA
     bundles included, are sliced outside and used inside, so in backward
     only one layer's effective weights are alive at a time. A layer's FFN
-    (dense or MoE) is its parameters' own (``blocks``)."""
+    (dense or MoE) is its parameters' own (``blocks``). A hybrid stage
+    runs its groups, each (re)materialized whole as the reference's scan
+    body is: k mamba layers, then the ``shared`` block fed the stage's
+    input as the embedding stream."""
+    if kind == "hybrid":
+        emb = h
+        g, k = _groups(cfg, n)
+
+        def group(gp, hh):
+            for i in range(k):
+                hh, _ = B.mamba_block_train(layer_slice(gp, i), cfg, hh)
+            return B.shared_attn_train(shared, cfg, hh, emb)
+
+        group = _maybe_remat(group, cfg)
+        for j in range(g):
+            h = group(layer_slice(stage_params, j), h)
+        return h, aux
     train_fn = B.block_fns(kind)[0]
 
     def body(lp, hh, ax):
@@ -228,7 +271,8 @@ def train_loss(params, cfg: ModelConfig, batch) -> Tuple[torch.Tensor, Dict]:
     h, prefix_len = embed_inputs(params, cfg, batch)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for sp, (kind, n) in zip(params["stages"], stage_plan(cfg)):
-        h, aux = _stage_train(sp, kind, cfg, h, aux, prefix_len, n)
+        h, aux = _stage_train(sp, kind, cfg, h, aux, prefix_len, n,
+                              shared=params.get("shared_attn"))
     h = rms_norm(h, params["final_norm"]["scale"], cfg.norm_eps)
     ce = chunked_loss(params, cfg, h, batch["labels"],
                       batch.get("loss_mask"))
@@ -247,10 +291,55 @@ def with_aux(cfg: ModelConfig, loss, aux):
 # Serve
 # ---------------------------------------------------------------------------
 
+def _stacked(caches):
+    """Caches of one type (KVCache, MambaCache), each field stacked over
+    the list."""
+    return type(caches[0])(*(torch.stack(f) for f in zip(*caches)))
+
+
+def _hybrid_prefill(sp, cfg: ModelConfig, h, cache_size, n, shared):
+    """A hybrid stage's prefill: per group, k mamba layers then the shared
+    block; returns (h, the stage's nested cache)."""
+    emb = h
+    g, k = _groups(cfg, n)
+    mamba, attn = [], []
+    for j in range(g):
+        gp = layer_slice(sp, j)
+        layers = []
+        for i in range(k):
+            h, c = B.mamba_block_prefill(layer_slice(gp, i), cfg, h,
+                                         cache_size)
+            layers.append(c)
+        mamba.append(_stacked(layers))
+        h, c = B.shared_attn_prefill(shared, cfg, h, emb, cache_size)
+        attn.append(c)
+    return h, {"mamba": _stacked(mamba), "attn": _stacked(attn)}
+
+
+def _hybrid_decode(sp, cfg: ModelConfig, h, cache, n, pos, shared):
+    """A hybrid stage's decode step, its nested cache written in place:
+    per group, k mamba layers then the shared block."""
+    emb = h
+    g, k = _groups(cfg, n)
+    for j in range(g):
+        gp, mc = layer_slice(sp, j), _layer_cache(cache["mamba"], j)
+        for i in range(k):
+            h, _ = B.mamba_block_decode(layer_slice(gp, i), cfg, h,
+                                        _layer_cache(mc, i), pos)
+        h, _ = B.shared_attn_decode(shared, cfg, h, emb,
+                                    _layer_cache(cache["attn"], j), pos)
+    return h
+
+
 def prefill(params, cfg: ModelConfig, batch, cache_size: int):
     h, prefix_len = embed_inputs(params, cfg, batch)
     caches = []
     for sp, (kind, n) in zip(params["stages"], stage_plan(cfg)):
+        if kind == "hybrid":
+            h, c = _hybrid_prefill(sp, cfg, h, cache_size, n,
+                                   params["shared_attn"])
+            caches.append(c)
+            continue
         prefill_fn = B.block_fns(kind)[1]
         layers = []
         for i in range(n):
@@ -259,8 +348,7 @@ def prefill(params, cfg: ModelConfig, batch, cache_size: int):
             layers.append(c)
         # a stage's cache is its block's cache type (KVCache, MambaCache),
         # each field stacked over the layers
-        caches.append(type(layers[0])(*(torch.stack(f)
-                                        for f in zip(*layers))))
+        caches.append(_stacked(layers))
     h = rms_norm(h, params["final_norm"]["scale"], cfg.norm_eps)
     return _logits(params, cfg, h[:, -1]), caches
 
@@ -271,10 +359,17 @@ def decode_step(params, cfg: ModelConfig, tokens, caches, pos,
     (B,) tensor of per-request indices. With ``block_tables`` ((B, nblk)
     int32) the caches are page pools (``init_paged_cache``) and ``pos`` is
     the (B,) per-request write index. Returns (logits (B, V), caches); the
-    caches are updated in place."""
+    caches are updated in place. A hybrid model refuses block tables, as
+    the reference's does."""
+    if block_tables is not None and cfg.family == "hybrid":
+        raise NotImplementedError("paged decode covers attention caches only")
     h = embed(params["embed"], tokens)
     for sp, cache, (kind, n) in zip(params["stages"], caches,
                                     stage_plan(cfg)):
+        if kind == "hybrid":
+            h = _hybrid_decode(sp, cfg, h, cache, n, pos,
+                               params["shared_attn"])
+            continue
         decode_fn = B.block_fns(kind)[2]
         for i in range(n):
             h, _ = decode_fn(layer_slice(sp, i), cfg, h,
@@ -308,7 +403,8 @@ def prefill_chunk(params, cfg: ModelConfig, tokens, caches, block_tables,
 def _layer_cache(cache, i: int):
     """Layer ``i`` of a stacked cache (a ``KVCache`` or a
     ``MambaCache``): each tensor's i-th entry, a view (an int8 pool, a
-    ``QuantKV`` of stacked codes and scales, gives both)."""
+    ``QuantKV`` of stacked codes and scales, gives both). Of a hybrid
+    stage's (g, k, B, ...) mamba leaves it gives group ``i``."""
     pick = lambda x: type(x)(*(t[i] for t in x)) if isinstance(
         x, tuple) else x[i]
     return type(cache)(*(pick(x) for x in cache))
@@ -340,35 +436,51 @@ def _kv_zeros(cfg: ModelConfig, rows: Tuple[int, int], device,
             for _, n in stage_plan(cfg)]
 
 
-def _mamba_zeros(cfg: ModelConfig, n: int, bsz: int, device) -> MambaCache:
-    """A mamba stage's cache: the f32 state (n, bsz, H, P, N) and the conv
-    windows (n, bsz, d_conv - 1, C) in the compute dtype, zeros."""
+def _mamba_zeros(cfg: ModelConfig, lead, bsz: int, device) -> MambaCache:
+    """A mamba stage's cache: the f32 state (*lead, bsz, H, P, N) and the
+    conv windows (*lead, bsz, d_conv - 1, C) in the compute dtype, zeros;
+    ``lead`` is (L,), or a hybrid stage's (g, k)."""
     d_inner, n_heads, bc_dim = mamba_dims(cfg)
     s = cfg.ssm
-    win = lambda c: torch.zeros((n, bsz, s.d_conv - 1, c),
+    lead = tuple(lead)
+    win = lambda c: torch.zeros(lead + (bsz, s.d_conv - 1, c),
                                 dtype=compute_dtype(), device=device)
     return MambaCache(
-        ssm=torch.zeros((n, bsz, n_heads, s.head_dim, s.d_state),
+        ssm=torch.zeros(lead + (bsz, n_heads, s.head_dim, s.d_state),
                         dtype=torch.float32, device=device),
         conv_x=win(d_inner), conv_bc=win(bc_dim))
 
 
 def init_cache(cfg: ModelConfig, bsz: int, cache_size: int, device="cuda"):
     """Zero caches, one a stage: a KV stripe of ``cache_size`` rows a
-    request, or a mamba stage's O(1) state (``cache_size`` unused)."""
+    request, a mamba stage's O(1) state (``cache_size`` unused), or a
+    hybrid stage's {"mamba": state (g, k, ...), "attn": the shared block's
+    KV stripe at each of its g sites}."""
     if cfg.family == "ssm":
-        return [_mamba_zeros(cfg, n, bsz, device)
+        return [_mamba_zeros(cfg, (n,), bsz, device)
                 for _, n in stage_plan(cfg)]
+    if cfg.family == "hybrid":
+        out = []
+        for _, n in stage_plan(cfg):
+            g, k = _groups(cfg, n)
+            out.append({"mamba": _mamba_zeros(cfg, (g, k), bsz, device),
+                        "attn": KVCache(*(torch.zeros(
+                            (g, bsz, cache_size) + t, dtype=compute_dtype(),
+                            device=device) for t in kv_tails(cfg)))})
+        return out
     return _kv_zeros(cfg, (bsz, cache_size), device)
 
 
 def cache_batch_axes(cfg: ModelConfig):
     """Per stage, a cache tuple of the batch axis of each leaf: a dense or
     MoE stage's KV leaf is (L, B, S, KV, D), an MLA stage's (L, B, S,
-    rank) and (L, B, S, rope), a mamba stage's (L, B, ...), so 1. Lane
-    splicing reads this metadata, not the shapes."""
-    return [MambaCache(1, 1, 1) if kind == "mamba" else KVCache(1, 1)
-            for kind, _ in stage_plan(cfg)]
+    rank) and (L, B, S, rope), a mamba stage's (L, B, ...), so 1; a hybrid
+    stage's mamba leaves (g, k, B, ...), 2, and its attention leaves
+    (g, B, S, KV, D), 1. Lane splicing reads this metadata, not the
+    shapes."""
+    axes = {"mamba": MambaCache(1, 1, 1), "dense": KVCache(1, 1),
+            "hybrid": {"mamba": MambaCache(2, 2, 2), "attn": KVCache(1, 1)}}
+    return [axes.get(kind, axes["dense"]) for kind, _ in stage_plan(cfg)]
 
 
 def init_paged_cache(cfg: ModelConfig, num_pages: int, page_size: int,

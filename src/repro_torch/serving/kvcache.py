@@ -98,10 +98,13 @@ def cache_bytes(shape: Tuple[int, ...], quant: bool) -> int:
 
 
 def leaves(tree) -> List[torch.Tensor]:
-    """The tensors of a cache tree: a tensor, a ``QuantKV``, a ``KVCache``
-    or a list of them, in order."""
+    """The tensors of a cache tree: a tensor, a ``QuantKV``, a ``KVCache``,
+    a ``MambaCache``, a hybrid stage's {"mamba", "attn"} dict, or a list
+    of them, in order."""
     if isinstance(tree, torch.Tensor):
         return [tree]
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in leaves(tree[k])]
     return [t for x in tree for t in leaves(x)]
 
 

@@ -179,7 +179,8 @@ class MultiAdapterTrainer:
         h, prefix_len = lm.embed_inputs(params, cfg, batch)
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
         for sp, (kind, n) in zip(params["stages"], lm.stage_plan(cfg)):
-            h, aux = lm._stage_train(sp, kind, cfg, h, aux, prefix_len, n)
+            h, aux = lm._stage_train(sp, kind, cfg, h, aux, prefix_len, n,
+                                     shared=params.get("shared_attn"))
         h = rms_norm(h, params["final_norm"]["scale"], cfg.norm_eps)
         B, S, _ = h.shape
         adapters = torch.arange(A, device=h.device)

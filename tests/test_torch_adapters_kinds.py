@@ -82,13 +82,29 @@ def base():
 
 
 def _factors(jbase, kind):
-    """The JAX adapter of ``kind`` with every factor moved off its init
-    (B nonzero, m off the base's norm), as numpy."""
+    """The JAX adapter tree of ``kind`` (its paths and shapes), with every
+    factor drawn from numpy over the sorted leaf paths, as numpy: A at its
+    init's scale (normal / sqrt(n)), B nonzero, m off the base's column
+    norm. The reference's own A draws are salted by Python's per-process
+    ``hash`` of the path, so they differ from process to process; these
+    are the same in every process."""
     jrun, trun = _runs(kind)
     t, aux = jcore.init_adapter(jax.random.PRNGKey(0), jbase, jrun.adapter)
+    init = _flat(t)
     rng = np.random.default_rng(1)
-    t = jax.tree.map(lambda x: np.asarray(x) + (0.05 * rng.standard_normal(
-        x.shape)).astype(np.float32), t)
+    drawn = {}
+    for p in sorted(init):
+        x = init[p]
+        noise = 0.05 * rng.standard_normal(x.shape)
+        if p.endswith("/A"):
+            drawn[p] = rng.standard_normal(x.shape) / np.sqrt(x.shape[-2])
+        elif p.endswith("/B"):
+            drawn[p] = noise
+        else:                               # m: the column norm, moved
+            drawn[p] = x + noise
+        drawn[p] = drawn[p].astype(np.float32)
+    t = jax.tree_util.tree_map_with_path(
+        lambda p, _: drawn[jcore.masks.path_str(p)], t)
     return jrun, trun, t, aux
 
 

@@ -3,17 +3,18 @@ against the JAX package.
 
 Configs: ``get_config`` / ``get_smoke_config`` return the reference's
 values for granite-moe-1b-a400m, deepseek-v2-lite-16b (its ``mla``
-compared as a dict), mamba2-780m (its ``ssm`` so too), deepseek-coder-33b,
-granite-34b and qwen1.5-32b (every field the port keeps; the reference's
-``fsdp``, a sharding policy, has no field in the one-card port, nor has
-``hybrid_attn_every``, zamba2's); the three architectures still to port
-raise ``NotImplementedError`` naming A9.
+compared as a dict), mamba2-780m and zamba2-2.7b (their ``ssm`` so too),
+deepseek-coder-33b, granite-34b and qwen1.5-32b (every field the port
+keeps; the reference's ``fsdp``, a sharding policy, has no field in the
+one-card port); the two architectures still to port raise
+``NotImplementedError`` naming A9.
 
 Entry points: ``train_loss`` (loss and MoE aux), ``prefill`` and
 ``decode_step``, on the smoke configs of the three dense archs,
 granite-moe, deepseek-v2-lite-16b (MLA attention, shared experts, a
-first dense layer) and mamba2-780m (Mamba2 blocks), and on a GQA variant of granite-moe with shared experts
-and a first dense layer; JAX weights cross over through ``bridge``, tokens are
+first dense layer), mamba2-780m (Mamba2 blocks) and zamba2-2.7b (Mamba2
+groups and the shared attention block), and on a GQA variant of
+granite-moe with shared experts and a first dense layer; JAX weights cross over through ``bridge``, tokens are
 numpy draws. In f32 every logit agrees to 1e-5 (f32 sums in another
 order). The paged entry points are held in test_torch_archs_paged.py,
 remat="dots" and the launch CLIs in test_torch_remat.py.
@@ -40,11 +41,11 @@ from repro_torch.models import lm as TLM
 from test_torch_moe import variant
 
 NEW = ["granite-moe-1b-a400m", "deepseek-coder-33b", "granite-34b",
-       "qwen1.5-32b", "deepseek-v2-lite-16b", "mamba2-780m"]
-UNPORTED = ["zamba2-2.7b", "paligemma-3b", "hubert-xlarge"]
+       "qwen1.5-32b", "deepseek-v2-lite-16b", "mamba2-780m", "zamba2-2.7b"]
+UNPORTED = ["paligemma-3b", "hubert-xlarge"]
 CASES = ["granite-moe-1b-a400m", "moe-variant", "deepseek-coder-33b",
          "granite-34b", "qwen1.5-32b", "deepseek-v2-lite-16b"]
-MODELS = CASES + ["mamba2-780m"]     # CASES: the paged ones
+MODELS = CASES + ["mamba2-780m", "zamba2-2.7b"]   # CASES: the paged ones
 F32_TOL = 1e-5
 B, S, STEPS = 2, 8, 2
 
@@ -62,7 +63,7 @@ def test_configs_match_reference(arch):
     for jget, tget in ((j_config, get_config), (j_smoke, get_smoke_config)):
         t, j = _fields(tget(arch)), _fields(jget(arch))
         assert {k: j[k] for k in t} == t
-        assert set(j) - set(t) == {"hybrid_attn_every", "fsdp"}
+        assert set(j) - set(t) == {"fsdp"}
         assert tget(arch).padded_vocab == jget(arch).padded_vocab
 
 

@@ -45,7 +45,9 @@ def _close(port, want, dt):
 DECODE_SHAPES = [(1, 1, 1, 64, 512, 256), (2, 2, 4, 64, 1024, 512),
                  (2, 1, 8, 128, 768, 256), (2, 2, 9, 32, 300, 100),
                  # granite-34b's grouping: one KV head for 48 query heads
-                 (2, 1, 48, 128, 256, 128)]
+                 (2, 1, 48, 128, 256, 128),
+                 # zamba2's shared block: heads of 80, G = 1
+                 (2, 4, 1, 80, 300, 100)]
 
 
 @pytest.mark.parametrize("B,KV,G,D,S,sb", DECODE_SHAPES)
@@ -126,7 +128,10 @@ def test_flash_decode_paged_pages_straddle_splits(G, dt):
 
 PREFILL_SHAPES = [(2, 13, 6, 2, 16), (1, 40, 18, 2, 32),
                   # several 64-row tiles with a ragged tail, G = 9, D = 128
-                  (1, 150, 18, 2, 128)]
+                  (1, 150, 18, 2, 128),
+                  # zamba2's shared block: heads of 80, G = 1, row 63 of
+                  # two full tiles and a ragged third
+                  (1, 130, 4, 4, 80)]
 
 
 @pytest.mark.parametrize("B,S,H,KV,D", PREFILL_SHAPES)

@@ -25,7 +25,7 @@ from repro.models import lm as JLM
 from repro_torch import bridge
 from repro_torch import core as tcore
 from repro_torch.configs import (AdapterConfig, RunConfig, ShapeSpec,
-                                 TrainConfig)
+                                 TrainConfig, get_smoke_config)
 from repro_torch.core.masks import iter_leaves
 from repro_torch.launch import serve as tserve
 from repro_torch.launch import train as ttrain
@@ -121,10 +121,12 @@ def test_remat_dots_multi_adapter():
 
 @pytest.mark.parametrize("arch", NEW)
 def test_launch_serve_and_train_take_the_new_archs(arch):
+    # one layer, or a hybrid model's one group
+    layers = get_smoke_config(arch).hybrid_attn_every or 1
     stats = tserve.main(["--arch", arch, "--smoke", "--device", "cpu",
                          "--multi-tenant", "--adapters", "2", "--tokens", "2",
                          "--batch", "2", "--prompt-len", "4", "--batches",
-                         "1", "--layers", "1"])
+                         "1", "--layers", str(layers)])
     assert stats["last_out"].shape == (2, 2)
     out = ttrain.main(["--arch", arch, "--smoke", "--device", "cpu",
                        "--adapter", "shira-rand", "--steps", "1", "--seq",
