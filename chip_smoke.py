@@ -29,7 +29,9 @@ prints its seconds on a "[time]" line:
                prefill with flash_prefill's share (torch.profiler)
   6. consistency  full width, 2 layers, f32: multi-tenant tokens equal the
                switch-per-request reference, unfused and with a hot adapter
-  7. continuous  full width: serve --continuous --int8, then a 24-request
+  7. continuous  full width, 16 of 32 layers (CC_LAYERS, printed: since
+               the vision and audio slice, for the script's time limit):
+               serve --continuous --int8, then a 24-request
                trace (prompts of 64..1024 tokens, half with one shared
                256-token prefix, 32 tokens each) through ServingEngine,
                PagedServingEngine and PagedServingEngine(quant_kv=True)
@@ -129,8 +131,9 @@ prints its seconds on a "[time]" line:
                deepseek-v2-lite-16b (MLA attention, 64 experts top-6, 2
                shared, a first dense layer) at full width, at the depths
                mla_depth prints (all 27 layers where its arithmetic fits
-               MLA_BUDGET), cut to at most 14 (MLA_LAYERS, printed: since
-               the hybrid slice, for the script's time limit), through
+               MLA_BUDGET), cut to at most 8 (MLA_LAYERS, printed: since
+               the vision and audio slice, for the script's time limit;
+               14 since the hybrid slice), through
                the same code as 21: launch.serve in
                four modes, a decode step (base, multi-tenant) and a
                1024-token prefill under torch.profiler with MLA's
@@ -144,8 +147,10 @@ prints its seconds on a "[time]" line:
   24. mla-consistency  full width, 2 layers, f32: as 22, and the int8
                latent pages' tokens equal the same engine's on the CPU
   25. mamba serve, mamba profile, mamba continuous, mamba train
-               mamba2-780m (Mamba2 / SSD, attention-free) at full width
-               and all 48 layers, its arithmetic printed first
+               mamba2-780m (Mamba2 / SSD, attention-free) at full width,
+               cut to 24 of its 48 layers (MAMBA_LAYERS, printed: since
+               the vision and audio slice, for the script's time limit),
+               its arithmetic printed first
                ([mamba]: parameters, three adapters at 2% of out_proj,
                the lanes' state), through the same code as 21: launch.serve
                in four modes (a switch's ms beside its bound on the
@@ -168,7 +173,9 @@ prints its seconds on a "[time]" line:
                zamba2-2.7b (the hybrid: 9 groups of 6 Mamba2 layers, each
                followed by one shared attention + MLP block of 32 heads of
                80, fed concat(hidden, embedding) through w_fuse) at full
-               width and all 54 layers, its arithmetic printed first
+               width, cut to 30 of its 54 layers, 5 of the 9 groups
+               (ZAMBA_LAYERS, printed: since the vision and audio slice,
+               for the script's time limit), its arithmetic printed first
                ([zamba]: parameters, three adapters at 2% of out_proj and
                of the shared block's seven target leaves, a lane's state
                and KV), through the same code as 21: launch.serve in four
@@ -177,7 +184,7 @@ prints its seconds on a "[time]" line:
                with the mixers split out (mamba_ranges) and the shared
                block (hybrid_ranges: w_fuse, its attention and the flash
                kernels within it, its MLP), flash_decode launched once at
-               each of the 9 sites a decode step and flash_prefill once
+               each of the 5 sites a decode step and flash_prefill once
                at each a prefill, the 24-request trace on the lanes
                (resident requests per GB of state and KV), both trainers;
                sidedelta, scatter_apply, sparse_adamw, sidedelta_dvals,
@@ -189,15 +196,54 @@ prints its seconds on a "[time]" line:
                multi-tenant tokens equal switch-per-request, the lanes the
                fixed batch (prompts of 1 and 2 tokens included), and both
                trainers track the CPU run to 5e-3
-  29. dense     qwen1.5-32b (G 1), deepseek-coder-33b (G 7) and
+  29. vlm serve, vlm profile, vlm continuous, vlm train
+               paligemma-3b (18 layers of 8 query heads of 256 over one KV
+               head, gelu, a 257,280-row tied embedding; 256 zero patch
+               embeddings before every prompt, a prefix-LM prefix) at full
+               width and all 18 layers, its arithmetic printed first
+               ([vlm]: parameters, three adapters at 2%, a lane's KV rows
+               with the prefix), through the same code as 21: launch.serve
+               in four modes (prompts of 16 after the patches; a switch's
+               ms beside its bound), a decode step (base, multi-tenant:
+               flash_decode once a layer, D = 256) and a batch-1 prefill of
+               256 patches + 768 tokens under torch.profiler with the plain
+               prefix attention's share (prefix_ranges), the 24-request
+               trace on the lanes (1056 + 256 rows each), launch.train at
+               8 x 512 (256 patches + 256 tokens); sidedelta,
+               scatter_apply, sparse_adamw and flash_decode launch,
+               flash_prefill and flash_decode_paged never (the prefix
+               prefill is plain chunked_attention); PagedServingEngine and
+               MultiAdapterTrainer must refuse the family with the
+               reference's NotImplementedError
+  30. vlm-consistency  full width, 2 layers, f32: multi-tenant tokens
+               equal switch-per-request with seeded patch embeddings (each
+               request its own), the lanes the fixed batch, and the Trainer
+               tracks the CPU run to 5e-3
+  31. audio encode, audio train, audio-consistency
+               hubert-xlarge (encoder only: 48 layers of 16 heads of 80,
+               bidirectional, gelu, an untied 504-class head; frame
+               embeddings in) at full width and all 48 layers, its
+               arithmetic printed first ([audio]): lm.encode of 8 x 1024
+               frames for the base, after SwitchEngine switches to each of
+               three adapters (the switch's ms beside its bound), with all
+               three fused and unloaded again (the base within 1e-5), one
+               encode under torch.profiler (flash_prefill's share,
+               non-causal D = 80, once a layer), launch.serve's exit and
+               both engines' refusals with the reference's messages;
+               launch.train at 8 x 256 frames and MultiAdapterTrainer's
+               refusal; at 2 layers in f32 the card's encode against the
+               CPU's (every frame's argmax equal, within 1e-4 of the
+               largest logit) and the Trainer against the CPU run
+  32. dense     qwen1.5-32b (G 1), deepseek-coder-33b (G 7) and
                granite-34b (G 48) at full width, each cut to the deepest
                stack whose f32 parameters and three adapters' packs and
                tables fit 60 GB (the arithmetic printed): a multi-tenant
                serve, a multi-tenant decode step under torch.profiler, and
                at 2 layers in f32 tokens equal to switch-per-request
-  30. summary   one JSON line of kernel numbers (the D = 80 instances of
-               flash_decode and flash_prefill on rows of their own), the
-               card line, and last
+  33. summary   one JSON line of kernel numbers (the D = 80 instances of
+               flash_decode and flash_prefill, flash_decode's D = 256
+               instance and flash_prefill's non-causal D = 80 case on rows
+               of their own), the card line, and last
                {"ok": true, "device": {...}}, after "[time] total"
 
 Every engine run with no fault injected (phases 7, 8, 13, 14, the
@@ -223,8 +269,14 @@ scatter_apply bit for bit on its (9, 6, 5120, 2560) out_proj stack (two
 leading dims; timed beside its bound) and the shared (2560, 10240) w_up.
 The attention phase holds the D = 80 instances that zamba2's shared
 block takes (decode (8, 32, 1, 80) at S = 1056, (B,) and scalar kv_len;
-causal prefills (1, 1024), (1, 777) and (8, 16) of 32 heads), and
-flash_decode_paged must refuse D = 80 on the card. It also holds masked_update (the dense-mask apply of hook
+causal prefills (1, 1024), (1, 777) and (8, 16) of 32 heads), the
+D = 256 instances paligemma-3b's decode takes ((8, 1, 8, 256) at S =
+1312, the lanes' rows with the prefix, (B,) and scalar kv_len) and the
+non-causal prefills of hubert-xlarge's encode ((8, 1024) and (1, 777) of
+16 heads of 80), and flash_decode_paged must refuse D = 80 and D = 256
+on the card. It prints every flash_decode instance's registers and
+spills, and flash_prefill's, and fails if a flash_decode instance or a
+D = 80 flash_prefill instance spills. It also holds masked_update (the dense-mask apply of hook
 mode) against its plain version, bit for bit, at the stacked (32, 4608,
 18432) w_up leaf with a 1% mask: f32 W with a bool mask, bf16 W with a
 bool mask, f32 W with an f32 mask, beside Tensor.addcmul_. Its
@@ -283,6 +335,9 @@ B, PROMPT, TOKENS = 8, 16, 16  # serving batch, prompt and generated tokens
 CACHE = 1056                   # the lane engine's rows a request: prompts
                                # up to 1024 + 32 generated tokens
 CC_REQUESTS, CC_TOKENS = 24, 32   # the continuous-batching trace
+CC_LAYERS = 16                 # phase 7's depth since the vision and audio
+                               # slice: half of starcoder2-7b's 32, for the
+                               # script's time limit (32 before)
 CHUNK = 256                    # the paged engine's prefill chunk, and a
                                # training sequence's rows
 IDS = [0, 1, 2, -1, 0, 1, 2, 0]
@@ -320,9 +375,10 @@ MOE_LAYERS = 12                # its phases' depth since the hybrid slice,
 MOE_LONG = 501                 # moe-consistency's long prompt: one call of
                                # at most 512 tokens drops no routing choice
 MLA_ARCH = "deepseek-v2-lite-16b"  # the MLA slice: full width, 27 layers
-MLA_LAYERS = 14                # its phases' deepest cut since the hybrid
-                               # slice (the first dense layer and 13 MoE),
-                               # for the script's time limit (27 before)
+MLA_LAYERS = 8                 # its phases' deepest cut since the vision
+                               # and audio slice (the first dense layer and
+                               # 7 MoE), for the script's time limit (14
+                               # since the hybrid slice, 27 before)
 MLA_BUDGET = 76e9              # the device bytes mla_depth plans for, of
                                # the card's 85.0e9: the rest is allocator
                                # slack and the activations it leaves out
@@ -330,8 +386,20 @@ MT_ENTRY_BYTES = 40            # a multi-adapter trainer, per 2% entry of
                                # an adapter: index, value, two moments and
                                # gradient (f32) and the trainable table's
                                # rows, perm, t_rows and t_perm (int32)
-MAMBA_ARCH = "mamba2-780m"     # the SSM slice: full width, all 48 layers
-ZAMBA_ARCH = "zamba2-2.7b"     # the hybrid slice: full width, all 54 layers
+MAMBA_ARCH = "mamba2-780m"     # the SSM slice: full width, 48 layers
+MAMBA_LAYERS = 24              # its phases' depth since the vision and
+                               # audio slice, for the script's time limit
+ZAMBA_ARCH = "zamba2-2.7b"     # the hybrid slice: full width, 54 layers
+ZAMBA_LAYERS = 30              # its phases' depth since the vision and
+                               # audio slice: 5 of its 9 groups of 6, for
+                               # the script's time limit
+VLM_ARCH = "paligemma-3b"      # the vision slice: full width, all 18 layers
+VLM_PREFIX = 256               # its patch embeddings, a prefix of cache rows
+AUDIO_ARCH = "hubert-xlarge"   # the audio slice: full width, all 48 layers
+ENCODE_FRAMES = 1024           # hubert-xlarge's encode: B x 1024 frames
+ENCODE_TOL = 1e-4              # audio-consistency: card against CPU encode
+                               # logits, of the largest logit (f32 sums of
+                               # 48 layers in another order)
 ATTN_KERNELS = ("flash_decode", "flash_decode_paged", "flash_prefill")
 RESIDENCY = {}                 # (arch, engine) -> resident requests per GB
 DENSE_ARCHS = ("qwen1.5-32b", "deepseek-coder-33b", "granite-34b")
@@ -417,9 +485,10 @@ def cold_ms(torch, fn, iters: int, flush) -> float:
 def device_kernels(torch, prof):
     """(device ms, launches, name) of each kernel a torch.profiler run saw
     (not the device side of the ``moe_ranges``/``mla_ranges``/
-    ``mamba_ranges``/``hybrid_ranges`` annotations)."""
+    ``mamba_ranges``/``hybrid_ranges``/``prefix_ranges`` annotations)."""
     cuda = torch.autograd.DeviceType.CUDA
-    ranges = MOE_RANGES + MLA_RANGES + MAMBA_RANGES + HYBRID_RANGES
+    ranges = (MOE_RANGES + MLA_RANGES + MAMBA_RANGES + HYBRID_RANGES
+              + PREFIX_RANGES)
     return [(getattr(e, "self_device_time_total", 0) / 1e3, e.count, e.key)
             for e in prof.key_averages()
             if e.device_type == cuda and e.key not in ranges]
@@ -998,17 +1067,19 @@ def ptxas_lines(log: str):
             yield fn, ln.strip()
 
 
-def kernel_ptxas(name: str) -> None:
+def kernel_ptxas(name: str, held: str = "") -> None:
     """Prints the -Xptxas -v lines (registers, spills) of every kernel
     instance of library ``name``; fails if the log is missing or an
-    instance spills."""
+    instance whose name contains ``held`` (every instance by default)
+    spills."""
     from repro_torch.kernels import build
     lines = list(ptxas_lines(build.ptxas(name)))
     if not any("spill stores" in ln for _, ln in lines):
         fail(f"{name}: no ptxas log beside its library")
     for fn, ln in lines:
         print(f"[kernels] {name} ptxas: {fn}: {ln}", flush=True)
-        if re.search(r"[1-9]\d* bytes spill (stores|loads)", ln):
+        if held in fn and re.search(r"[1-9]\d* bytes spill (stores|loads)",
+                                    ln):
             fail(f"{name}: {fn} spills registers")
 
 
@@ -1504,33 +1575,28 @@ def zamba_kernels(torch, flush):
 
 
 def attn_case(torch, flush, label, fn, plain, library, tol, nbytes, flops,
-              bf16, iters=20, hi_lo=False):
+              bf16, iters=20):
     """One attention kernel against its plain version on the same inputs:
     max_abs_err within ``tol``, then cold-L2 times of the kernel, the plain
     version and the library call, and the bound from this call's bytes
-    and operations. ``flops`` counts the score products (q . k) and the
-    value products (p . v) alike: the scores take the bf16 tensor-core
-    rate when the inputs are ``bf16``, the value products keep p in f32
-    and take the f32 rate, unless ``hi_lo``: then p . v runs on the tensor
-    cores as two bf16 products (p = hi + lo) and counts twice at the bf16
-    rate, and the count with p . v at the f32 rate is printed beside it."""
+    and the operations the function needs: ``flops`` counts the score
+    products (q . k) and the value products (p . v), all at the rate of
+    the inputs' type (the bf16 tensor-core rate when ``bf16``, else the
+    f32 rate), whatever a kernel does within (flash_prefill's bf16 p . v
+    runs as two products, p = hi + lo, 1.5x these operations)."""
     got = fn()
     want = plain()
     err = float((got.float() - want.float()).abs().max())
     if not err <= tol:
         fail(f"{label}: max_abs_err {err} > {tol}")
-    f32_pv = bound(nbytes, flops / 2 * (1 if bf16 else 2),
-                   flops / 2 if bf16 else 0)
     r = {"max_abs_err": err, "ms": cold_ms(torch, fn, iters, flush),
          "plain_ms": cold_ms(torch, plain, 3, flush),
          "library_ms": cold_ms(torch, library, 10, flush),
-         **(bound(nbytes, 0, 3 * flops / 2) if hi_lo and bf16 else f32_pv)}
+         **bound(nbytes, 0 if bf16 else flops, flops if bf16 else 0)}
     print(f"[kernels] {label}: max_abs_err={err:.3g} (tol {tol}) "
           f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.3f} library_ms(sdpa)="
           f"{r['library_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
-          f"({r['bound_by']})" + (
-              f" [p.v at the f32 rate: {f32_pv['bound_ms']:.4f}]"
-              if hi_lo and bf16 else ""), flush=True)
+          f"({r['bound_by']})", flush=True)
     return r
 
 
@@ -1557,7 +1623,12 @@ def attention_kernels_phase(torch, flush):
     (B,) and scalar kv_len, and prefills of (1, 1024), (1, 777) (a
     partial last tile; row 63 of every full one) and (8, 16); the paged
     kernel must refuse D = 80 on the card, since no path pages such a
-    cache (returned under "d80" too). The yardstick is one
+    cache (returned under "d80" too). paligemma-3b's decode takes the
+    D = 256 instances (8 heads over one KV head) at the lanes' 1056 rows
+    after its 256-row prefix, (B,) and scalar kv_len ("d256"), and
+    hubert-xlarge's encode the non-causal prefill at 16 heads of 80,
+    (8, 1024) and (1, 777) ("bidir"); the paged kernel must refuse
+    D = 256 too. The yardstick is one
     F.scaled_dot_product_attention(..., enable_gqa=True) call on the same
     inputs, laid out as it wants them beforehand (for paged: a gather of
     the pages, dequantized for int8 pools, then the call)."""
@@ -1571,12 +1642,18 @@ def attention_kernels_phase(torch, flush):
     from repro_torch.kernels.flash_prefill import (flash_prefill_blocks,
                                                    flash_prefill_plain)
     from repro_torch.serving.kvcache import quantize_kv
+    # every flash_decode instance (D = 256's among them) must not spill;
+    # of flash_prefill the D = 80 instances that hubert's encode takes (f32
+    # at D = 32 spills 4 bytes, as it always has)
+    kernel_ptxas("flash_decode")
+    kernel_ptxas("flash_prefill", held="Li80E")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(4)
     Bd, KV, G, D = B, 4, 9, 128
     H = KV * G
     out = {"flash_decode": [], "flash_decode_paged": [], "flash_prefill": []}
     d80 = {"flash_decode": [], "flash_prefill": []}
+    d256, bidir = [], []
     spread = torch.linspace(1, CACHE, Bd, device="cuda").round().to(
         torch.int32)
     for dt in (torch.bfloat16, torch.float32):
@@ -1605,20 +1682,21 @@ def attention_kernels_phase(torch, flush):
                     2 * q.numel() * es + 2 * rows * KV * D * es + Bd * 4,
                     4 * rows * KV * G * D, bf))
 
-        def prefill(Bp, Sp, H, KV, D):
+        def prefill(Bp, Sp, H, KV, D, causal=True):
             q, k, v = r(Bp, Sp, H, D), r(Bp, Sp, KV, D), r(Bp, Sp, KV, D)
             qs = q.transpose(1, 2)
             ks, vs = k.transpose(1, 2), v.transpose(1, 2)
+            keys = Sp * (Sp + 1) // 2 if causal else Sp * Sp
             out["flash_prefill"].append(attn_case(
-                torch, flush, f"flash_prefill {tag} causal B={Bp} S={Sp} "
+                torch, flush, f"flash_prefill {tag} "
+                f"{'causal' if causal else 'non-causal'} B={Bp} S={Sp} "
                 f"H={H} KV={KV} D={D}",
-                lambda: flash_prefill_blocks(q, k, v, causal=True),
-                lambda: flash_prefill_plain(q, k, v, True),
+                lambda: flash_prefill_blocks(q, k, v, causal=causal),
+                lambda: flash_prefill_plain(q, k, v, causal),
                 lambda: F.scaled_dot_product_attention(
-                    qs, ks, vs, is_causal=True, enable_gqa=True), tol,
+                    qs, ks, vs, is_causal=causal, enable_gqa=True), tol,
                 (2 * q.numel() + 2 * k.numel()) * es,
-                4 * D * H * Bp * Sp * (Sp + 1) // 2, bf, iters=10,
-                hi_lo=True))
+                4 * D * H * Bp * keys, bf, iters=10))
 
         def paged(Bd, KV, G, D, S, page, name, kl, quant=False):
             """A shuffled pool of ``page``-row pages, tables S positions
@@ -1705,18 +1783,39 @@ def attention_kernels_phase(torch, flush):
             prefill(Bp, Sp, 32, 32, 80)
         for k in d80:
             d80[k] += out[k][n0[k]:]
-    q = torch.zeros((1, 2, 1, 80), dtype=torch.bfloat16, device="cuda")
-    pool = torch.zeros((2, 16, 2, 80), dtype=torch.bfloat16, device="cuda")
-    try:
-        flash_decode_paged(q, pool, pool, torch.ones(
-            (1, 1), dtype=torch.int32, device="cuda"), 1)
-    except ValueError as e:
-        print(f"[kernels] flash_decode_paged refuses D = 80 on the card "
-              f"(no path pages such a cache): {e}", flush=True)
-    else:
-        fail("flash_decode_paged accepted D = 80, which no path pages and "
-             "no case holds")
+        # paligemma-3b's decode: 8 heads of 256 over one KV head, the
+        # lanes' 1056 rows after the 256-row prefix (each lane holds the
+        # prefix and a token at least); hubert-xlarge's encode: 16 heads
+        # of 80, bidirectional
+        n0 = len(out["flash_decode"])
+        S256 = CACHE + VLM_PREFIX
+        lanes = torch.linspace(VLM_PREFIX + 1, S256, Bd,
+                               device="cuda").round().to(torch.int32)
+        decode(Bd, 1, 8, 256, S256,
+               ((f"(B,) kv_len {VLM_PREFIX + 1}..{S256}", lanes),
+                (f"scalar kv_len {700 + VLM_PREFIX}", 700 + VLM_PREFIX)))
+        d256 += out["flash_decode"][n0:]
+        n0 = len(out["flash_prefill"])
+        for Bp, Sp in ((B, ENCODE_FRAMES), (1, 777)):
+            prefill(Bp, Sp, 16, 16, 80, causal=False)
+        bidir += out["flash_prefill"][n0:]
+    for D, why in ((80, "the hybrid family"), (256, "the vision family")):
+        q = torch.zeros((1, 2, 1, D), dtype=torch.bfloat16, device="cuda")
+        pool = torch.zeros((2, 16, 2, D), dtype=torch.bfloat16,
+                           device="cuda")
+        try:
+            flash_decode_paged(q, pool, pool, torch.ones(
+                (1, 1), dtype=torch.int32, device="cuda"), 1)
+        except ValueError as e:
+            print(f"[kernels] flash_decode_paged refuses D = {D} on the card"
+                  f" (no path pages such a cache: the paged engine refuses "
+                  f"{why}): {e}", flush=True)
+        else:
+            fail(f"flash_decode_paged accepted D = {D}, which no path pages "
+                 "and no case holds")
     out["d80"] = d80
+    out["d256"] = d256
+    out["bidir"] = bidir
     return out
 
 
@@ -1798,6 +1897,19 @@ def masked_update_kernels(torch, flush):
     case("f32 W, f32 M", w, mask_f)
     del w, mask_f, v
     return out
+
+
+def with_patches(torch, cfg, batch, gen=None):
+    """``batch`` with a vision model's patch embeddings (B, prefix_rows,
+    d_model) f32 on the card: zeros, as the serve CLI and the lane engine
+    give a request, or with ``gen`` N(0, 1) draws; another model's batch
+    as it is."""
+    if not cfg.prefix_rows:
+        return batch
+    shape = (batch["tokens"].shape[0], cfg.prefix_rows, cfg.d_model)
+    return {**batch, "patch_embeds": (
+        torch.zeros(shape, device="cuda") if gen is None else
+        torch.randn(shape, generator=gen, device="cuda"))}
 
 
 SERVE_MODES = (("sequential", [], ("scatter_apply",)),
@@ -2147,7 +2259,9 @@ def continuous_phase(torch, arch="starcoder2-7b", tag="continuous",
     capacity may drop choices (the reference's too), the pages' chunks
     and every decode step are drop-free. A family with no paged cache
     (``has_pages``; Mamba2's state is O(1) a request) runs on the lanes
-    alone, and the paged engine must refuse the model."""
+    alone, and the paged engine must refuse the model. A vision model's
+    lanes hold its patch prefix's rows besides (1056 + 256), and each
+    request is admitted with zero patch embeddings."""
     import tempfile
     import numpy as np
     from repro_torch.configs import get_config
@@ -2160,6 +2274,7 @@ def continuous_phase(torch, arch="starcoder2-7b", tag="continuous",
     cfg = get_config(arch)
     if layers:
         cfg = cfg.replace(num_layers=layers)
+    lane_rows = CACHE + cfg.prefix_rows
     attn_dec, absent = attention_kernels(cfg, "flash_prefill",
                                          "flash_decode")
     attn_paged, _ = attention_kernels(cfg, "flash_decode_paged")
@@ -2205,7 +2320,7 @@ def continuous_phase(torch, arch="starcoder2-7b", tag="continuous",
         outs, kv = {}, {}
         engines = [
             ("ServingEngine", lambda: ServingEngine(
-                cfg, params, slots=B, cache_size=CACHE, store=store),
+                cfg, params, slots=B, cache_size=lane_rows, store=store),
              attn_dec + ("sidedelta",))]
         if paged:
             engines += [
@@ -2279,7 +2394,8 @@ def continuous_consistency_phase(torch, arch="starcoder2-7b", long=601,
     flips them too). A family with no paged cache (``has_pages``: Mamba2)
     runs on the lanes alone, on a trace that adds prompts of 1 and 2
     tokens (shorter than its conv window), and the paged engine must
-    refuse the model."""
+    refuse the model. A vision model's fixed batch gives each request the
+    zero patch embeddings its lane gives it, before its prompt."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.core.masks import map_leaves
@@ -2308,9 +2424,11 @@ def continuous_consistency_phase(torch, arch="starcoder2-7b", long=601,
         mt = MultiTenantEngine(cfg, params)
         for p in packs:
             mt.register(p)
-        want = [mt.generate({"tokens": torch.from_numpy(p[None].copy()).to(
-            "cuda")}, [a], T)[0][0].cpu().numpy() for p, a in trace]
-        se = ServingEngine(cfg, params, slots=3, cache_size=640)
+        want = [mt.generate(with_patches(torch, cfg, {
+            "tokens": torch.from_numpy(p[None].copy()).to("cuda")}), [a],
+            T)[0][0].cpu().numpy() for p, a in trace]
+        se = ServingEngine(cfg, params, slots=3,
+                           cache_size=640 + cfg.prefix_rows)
         for p in packs:
             se.register(p)
         lane = [se.submit(p, a, max_tokens=T) for p, a in trace]
@@ -3132,6 +3250,7 @@ MAMBA_RANGES = ("mamba.mixer", "mamba.project", "mamba.conv",
                 "mamba.gated_out", "mamba.state_update")
 HYBRID_RANGES = ("hybrid.shared", "hybrid.w_fuse", "hybrid.attention",
                  "hybrid.mlp")
+PREFIX_RANGES = ("vlm.prefix_attention",)
 
 
 class wrapped_ranges:
@@ -3236,16 +3355,37 @@ def hybrid_ranges():
         (Bk, "_fuse", "hybrid.w_fuse"), (Bk, "mlp", "hybrid.mlp")])
 
 
+def prefix_ranges():
+    """A vision model's plain prefix attention under a profiler range:
+    every chunked_attention call (the prefill's, whose patch prefix no
+    attention kernel computes; the score product, its masks and softmax,
+    the value product; the projections and rope are outside it)."""
+    from repro_torch.models import attention as A
+    return wrapped_ranges([(A, "chunked_attention", PREFIX_RANGES[0])])
+
+
+def print_prefix_ranges(torch, label, prof, busy):
+    (ms, n), = range_ms(torch, prof, PREFIX_RANGES).values()
+    if not n:                           # a decode step attends on the kernel
+        return
+    share = f" ({ms / busy:.1%})" if busy else ""
+    print(f"[profile] {label} plain prefix attention (chunked_attention, "
+          f"{n} calls): {ms:.3f} ms{share}" + (
+              "" if ms else " (the profiler gave the range no "
+              "device time: not measured)"), flush=True)
+
+
 def ranged(cfg) -> bool:
     """Whether ``cfg``'s model has profiler ranges (model_ranges)."""
-    return (cfg.family in ("moe", "ssm", "hybrid") or cfg.attn_type == "mla")
+    return (cfg.family in ("moe", "ssm", "hybrid") or cfg.attn_type == "mla"
+            or cfg.modality == "vision")
 
 
 def model_ranges(cfg):
     """The profiler ranges of ``cfg``'s model: moe_ranges for an MoE
     model, mla_ranges for MLA attention (both for deepseek-v2-lite-16b),
-    mamba_ranges for Mamba2, and for the hybrid both mamba_ranges and
-    hybrid_ranges."""
+    mamba_ranges for Mamba2, for the hybrid both mamba_ranges and
+    hybrid_ranges, and prefix_ranges for a vision model."""
     stack = contextlib.ExitStack()
     if cfg.family == "moe":
         stack.enter_context(moe_ranges())
@@ -3255,6 +3395,8 @@ def model_ranges(cfg):
         stack.enter_context(mamba_ranges())
     if cfg.family == "hybrid":
         stack.enter_context(hybrid_ranges())
+    if cfg.modality == "vision":
+        stack.enter_context(prefix_ranges())
     return stack
 
 
@@ -3267,6 +3409,8 @@ def print_ranges(torch, cfg, label, prof, busy):
         print_mamba_ranges(torch, label, prof, busy)
     if cfg.family == "hybrid":
         print_hybrid_ranges(torch, label, prof, busy)
+    if cfg.modality == "vision":
+        print_prefix_ranges(torch, label, prof, busy)
 
 
 def range_ms(torch, prof, names):
@@ -3355,9 +3499,14 @@ def print_hybrid_ranges(torch, label, prof, busy):
 def attention_launches(cfg, label, before, after, name, tag):
     """Print the launches of the attention kernel ``name`` between two
     read_counts; a hybrid model's shared block must launch it once at
-    each of its sites, num_layers / hybrid_attn_every times."""
+    each of its sites, num_layers / hybrid_attn_every times, and a vision
+    model's decode step once a layer."""
     n = after[name] - before[name]
     print(f"[{tag}] {cfg.name} {label}: {name} launches {n}", flush=True)
+    if cfg.modality == "vision" and name == "flash_decode":
+        if n != cfg.num_layers:
+            fail(f"{tag} {label}: {name} launched {n} times, not once in "
+                 f"each of the {cfg.num_layers} layers")
     if cfg.family == "hybrid":
         sites = cfg.num_layers // cfg.hybrid_attn_every
         if n != sites:
@@ -3382,6 +3531,7 @@ def profile_phase(torch, arch="starcoder2-7b", layers=0, prefill=True,
     cfg = get_config(arch)
     if layers:
         cfg = cfg.replace(num_layers=layers)
+    P = cfg.prefix_rows
     acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU]
                                       if ranged(cfg) else [])
     zero_counts()
@@ -3392,18 +3542,18 @@ def profile_phase(torch, arch="starcoder2-7b", layers=0, prefill=True,
     names = ["adapter_0", "adapter_1", None, "adapter_2"] * (B // 4)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(5)
-    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, PROMPT),
-                                     generator=gen, device="cuda")}
+    batch = with_patches(torch, cfg, {"tokens": torch.randint(
+        0, cfg.vocab_size, (B, PROMPT), generator=gen, device="cuda")})
     for label, p in (("base", params),
                      ("multi-tenant f32",
                       eng.wrapped_params(eng.ids_for(names)))):
         if label not in labels:
             continue
-        logits, caches = lm.prefill(p, cfg, batch, PROMPT + 8)
+        logits, caches = lm.prefill(p, cfg, batch, P + PROMPT + 8)
         nxt = torch.argmax(logits, -1).to(torch.int32)[:, None]
 
         def step():
-            lm.decode_step(p, cfg, nxt, caches, PROMPT)
+            lm.decode_step(p, cfg, nxt, caches, P + PROMPT)
             torch.cuda.synchronize()
         step()
         t0 = time.perf_counter()
@@ -3420,7 +3570,8 @@ def profile_phase(torch, arch="starcoder2-7b", layers=0, prefill=True,
         kern = device_kernels(torch, prof)
         busy = sum(k[0] for k in kern)
         print(f"[{tag}] {arch} {label} decode step (B={B}, "
-              f"{cfg.num_layers} layers): wall {wall:.2f} ms; kernels "
+              f"{cfg.num_layers} layers{f', {P} prefix rows' if P else ''}"
+              f"): wall {wall:.2f} ms; kernels "
               f"{busy:.2f} ms in {sum(k[1] for k in kern)} launches"
               + (f" ({busy / wall:.0%} of wall)" if busy else
                  " (profiler saw no device time: not measured)"),
@@ -3435,12 +3586,14 @@ def profile_phase(torch, arch="starcoder2-7b", layers=0, prefill=True,
                   attention_kernels(cfg)[1])
         return
 
-    # a lane admission's unit of work: one batch-1, 1024-token prefill
-    tokens = torch.randint(0, cfg.vocab_size, (1, 1024), generator=gen,
-                           device="cuda")
+    # a lane admission's unit of work: one batch-1, 1024-token prefill (a
+    # vision model's: its patches and 1024 - P tokens)
+    pre = with_patches(torch, cfg, {"tokens": torch.randint(
+        0, cfg.vocab_size, (1, 1024 - P), generator=gen, device="cuda")})
+    what = f"{P} patches + {1024 - P} tokens" if P else "S=1024"
 
     def run_prefill():
-        lm.prefill(params, cfg, {"tokens": tokens}, CACHE)
+        lm.prefill(params, cfg, pre, CACHE + P)
         torch.cuda.synchronize()
     run_prefill()
     torch.cuda.synchronize()
@@ -3455,12 +3608,12 @@ def profile_phase(torch, arch="starcoder2-7b", layers=0, prefill=True,
         with profile(activities=acts) as prof:
             run_prefill()
     if cfg.attn_type == "gqa":
-        attention_launches(cfg, "prefill (B=1, S=1024)", counts,
+        attention_launches(cfg, f"prefill (B=1, {what})", counts,
                            read_counts(), "flash_prefill", tag)
     kern = device_kernels(torch, prof)
     busy = sum(k[0] for k in kern)
     fp = sum(ms for ms, _, name in kern if "flash_prefill" in name)
-    print(f"[{tag}] {arch} base prefill (B=1, S=1024, {cfg.num_layers} "
+    print(f"[{tag}] {arch} base prefill (B=1, {what}, {cfg.num_layers} "
           f"layers): wall {wall:.2f} ms, peak memory above the model's "
           f"{transient:.3f} GB; kernels {busy:.2f} ms"
           + (f"; flash_prefill {fp:.3f} ms ({fp / busy:.1%})" if busy else
@@ -3474,13 +3627,16 @@ def profile_phase(torch, arch="starcoder2-7b", layers=0, prefill=True,
 
 def consistency_phase(torch, arch="starcoder2-7b", tag="consistency"):
     """Full width, 2 layers, f32: multi-tenant tokens equal the
-    switch-per-request reference, unfused and with a hot adapter."""
+    switch-per-request reference, unfused and with a hot adapter (a
+    vision model's requests with seeded patch embeddings, each its own in
+    the reference)."""
     from repro_torch.configs import get_config
     from repro_torch.core import FusedLRU
     from repro_torch.launch import serve
     from repro_torch.models import layers, lm
     from repro_torch.serving import MultiTenantEngine
     from repro_torch.serving.multitenant import (greedy_decode,
+                                                 serving_cache_size,
                                                  switch_per_request_reference)
     cfg = two_layers(get_config(arch))
     names = ["adapter_0", "adapter_2", None, "adapter_1", "adapter_0",
@@ -3493,8 +3649,9 @@ def consistency_phase(torch, arch="starcoder2-7b", tag="consistency"):
         gen.manual_seed(3)
         toks = torch.randint(0, cfg.vocab_size, (len(names), PROMPT),
                              generator=gen, device="cuda")
+        batch = with_patches(torch, cfg, {"tokens": toks}, gen)
         ref, ref_logits, _ = switch_per_request_reference(
-            cfg, params, packs, toks, names, T)
+            cfg, params, packs, toks, names, T, batch.get("patch_embeds"))
         # promote_at 0.1: adapter_0 wins the three-way tie on its name
         for label, sched in (("unfused", None),
                              ("adapter_0 fused", FusedLRU(promote_at=0.1,
@@ -3502,11 +3659,11 @@ def consistency_phase(torch, arch="starcoder2-7b", tag="consistency"):
             eng = MultiTenantEngine(cfg, params, scheduler=sched)
             for p in packs:
                 eng.register(p)
-            out, _ = eng.generate({"tokens": toks}, names, T)
+            out, _ = eng.generate(batch, names, T)
             p = eng.wrapped_params(eng.ids_for(names))
             _, logits = greedy_decode(
-                cfg, {"tokens": toks}, T,
-                lambda b: lm.prefill(p, cfg, b, PROMPT + T + 8),
+                cfg, batch, T, lambda b: lm.prefill(
+                    p, cfg, b, serving_cache_size(cfg, PROMPT, T)),
                 lambda t, c, pos: lm.decode_step(p, cfg, t, c, pos))
             equal = bool(torch.equal(out, ref))
             diff = float((logits - ref_logits).abs().max())
@@ -3571,11 +3728,16 @@ def attention_kernels(cfg, *names):
     as the reference's calls none) and Mamba2 has no attention, so there
     no attention kernel may launch; a hybrid model's shared block pages
     nothing (the paged engine refuses the family), so flash_decode_paged
-    may not."""
+    may not; a vision model pages nothing either, and prefills its patch
+    prefix through the plain chunked_attention, so neither
+    flash_decode_paged nor flash_prefill may launch."""
     if cfg.attn_type != "gqa":
         return (), ATTN_KERNELS
     if cfg.family == "hybrid":
         return names, ("flash_decode_paged",)
+    if cfg.modality == "vision":
+        return (tuple(n for n in names if n != "flash_prefill"),
+                ("flash_decode_paged", "flash_prefill"))
     return names, ()
 
 
@@ -3592,7 +3754,9 @@ def train_phase(torch, arch="starcoder2-7b", tag="train", layers=0):
     model's aux (the loss adds 0.01 of it) and dropped routing choices
     are printed per step: a step's 2048 or 1536 tokens are one call of
     each layer, whose capacity may drop choices, as the reference's
-    does."""
+    does. A vision model's sequences hold its patch prefix besides (256 +
+    256 positions), an audio model's are frames; neither has a
+    multi-adapter trainer, which must refuse them (``multi_refused``)."""
     import math
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.configs import (AdapterConfig, RunConfig, ShapeSpec,
@@ -3607,6 +3771,7 @@ def train_phase(torch, arch="starcoder2-7b", tag="train", layers=0):
     if layers:
         cfg = cfg.replace(num_layers=layers)
     moe = cfg.family == "moe"
+    seq = TRAIN_SEQ + cfg.prefix_rows
     _, absent = attention_kernels(cfg)
     totals = {}
     zero_counts()
@@ -3616,7 +3781,7 @@ def train_phase(torch, arch="starcoder2-7b", tag="train", layers=0):
     t0 = time.perf_counter()
     with count_drops() as drops:
         stats = train.main(["--arch", arch, "--adapter", "shira-rand",
-                            "--seq", str(TRAIN_SEQ), "--batch",
+                            "--seq", str(seq), "--batch",
                             str(TRAIN_BATCH), "--steps", str(TRAIN_STEPS)]
                            + (["--layers", str(layers)] if layers else []),
                            keep=True)
@@ -3624,11 +3789,12 @@ def train_phase(torch, arch="starcoder2-7b", tag="train", layers=0):
     counts = read_counts()
     losses = stats["losses"]
     print(f"[{tag}] {arch} Trainer (launch.train, {cfg.num_layers} layers, "
-          f"{TRAIN_BATCH}x{TRAIN_SEQ} tokens,"
+          f"{TRAIN_BATCH}x{seq} positions,"
           f" {stats['trained_values']} packed values): launches {counts}, "
           f"step {stats['steady_step_ms']:.1f} ms (median after the first; "
           f"all {[round(x, 1) for x in stats['step_ms']]}), "
-          f"{stats['tokens_per_s']:.0f} tokens/s, loss {losses[0]:.4f} -> "
+          f"{stats['tokens_per_s']:.0f} {stats['rate_unit']}, loss "
+          f"{losses[0]:.4f} -> "
           f"{losses[-1]:.4f}, peak memory "
           f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB, "
           f"{time.perf_counter() - t0:.1f}s wall", flush=True)
@@ -3649,6 +3815,12 @@ def train_phase(torch, arch="starcoder2-7b", tag="train", layers=0):
           f"layer by layer: {c_shira:.6f}", flush=True)
     del stats, tr, state
     torch.cuda.empty_cache()
+    if cfg.modality != "text":
+        multi_refused(torch, cfg, tag)
+        if sparse_adamw.unaligned_launches:
+            fail("train: a sparse_adamw update took the one-element "
+                 "instance")
+        return totals, c_shira
 
     run = RunConfig(model=cfg,
                     shape=ShapeSpec("mt", MT_SEQ, MT_BATCH, "train"),
@@ -3718,6 +3890,34 @@ def train_phase(torch, arch="starcoder2-7b", tag="train", layers=0):
     if sidedelta_dvals.unaligned_launches:
         fail("train: a dvals launch took the one-token instance")
     return totals, c_shira
+
+
+def multi_refused(torch, cfg, tag):
+    """Fail unless MultiAdapterTrainer refuses ``cfg`` (a vision or audio
+    model) with the reference's NotImplementedError at its first step;
+    its tables are built at 2 layers for the time it takes."""
+    from repro_torch.configs import (AdapterConfig, RunConfig, ShapeSpec,
+                                     TrainConfig)
+    from repro_torch.training import MultiAdapterTrainer
+    run = RunConfig(model=two_layers(cfg), shape=ShapeSpec(
+        "r", 16 + cfg.prefix_rows, 1, "train"),
+                    adapter=AdapterConfig(kind="shira", mask="rand",
+                                          sparsity=0.98),
+                    train=TrainConfig(total_steps=1, warmup_steps=1))
+    mt = MultiAdapterTrainer(run, ["a0", "a1"])
+    try:
+        mt.fit(1, log=None)
+    except NotImplementedError as e:
+        if "text modality only" not in str(e):
+            fail(f"{tag}: MultiAdapterTrainer refused {cfg.name} with "
+                 f"another message: {e}")
+        print(f"[{tag}] {cfg.name} MultiAdapterTrainer refused at its first "
+              f"step, as the reference's: NotImplementedError({str(e)!r})",
+              flush=True)
+    else:
+        fail(f"{tag}: MultiAdapterTrainer trained {cfg.name}")
+    del mt
+    torch.cuda.empty_cache()
 
 
 def drops_per_step(drops, steps):
@@ -4582,8 +4782,10 @@ def train_cpu_consistency(torch, arch, tag):
     """Trainer (packed shira-rand) and MultiAdapterTrainer (3 adapters)
     with the kernels in the loop against the same trainers on the CPU,
     where the wrappers compute their plain versions: full width, 2 layers,
-    f32, one 16-token sequence a step (an adapter), the card's indices,
-    3 steps of losses to TRAIN_TOL."""
+    f32, one 16-token sequence a step (an adapter; a vision model's after
+    its patch prefix), the card's indices, 3 steps of losses to
+    TRAIN_TOL. A vision or audio model has the Trainer alone (the
+    multi-adapter trainer refuses it: ``multi_refused``)."""
     from repro_torch.configs import (AdapterConfig, RunConfig, ShapeSpec,
                                      TrainConfig, get_config)
     from repro_torch.core.masks import map_leaves
@@ -4591,7 +4793,8 @@ def train_cpu_consistency(torch, arch, tag):
     from repro_torch.runtime import Trainer
     from repro_torch.training import MultiAdapterTrainer
     cfg = two_layers(get_config(arch))
-    run = RunConfig(model=cfg, shape=ShapeSpec("c", 16, 1, "train"),
+    run = RunConfig(model=cfg, shape=ShapeSpec("c", 16 + cfg.prefix_rows,
+                                               1, "train"),
                     adapter=AdapterConfig(kind="shira", mask="rand",
                                           sparsity=0.98),
                     train=TrainConfig(learning_rate=1e-2, total_steps=3,
@@ -4604,7 +4807,8 @@ def train_cpu_consistency(torch, arch, tag):
         for label, make in (
                 ("Trainer", lambda: Trainer(run, base_params=base)),
                 ("MultiAdapterTrainer", lambda: MultiAdapterTrainer(
-                    run, names, base_params=base))):
+                    run, names, base_params=base)))[
+                        :1 if cfg.modality != "text" else 2]:
             zero_counts()
             tg = make()
             if label == "Trainer":
@@ -4744,7 +4948,8 @@ def mla_phases(torch):
           f"kv_lora_rank {cfg.mla.kv_lora_rank}, {cfg.moe.num_experts} "
           f"experts top-{cfg.moe.top_k}, vocab {cfg.vocab_size}): {text}; "
           f"cut to at most {MLA_LAYERS} layers for the script's time limit "
-          f"since the hybrid slice: serve {min(serve_l, MLA_LAYERS)}, train "
+          f"(14 since the hybrid slice, {MLA_LAYERS} since the vision and "
+          f"audio slice): serve {min(serve_l, MLA_LAYERS)}, train "
           f"{min(train_l, MLA_LAYERS)}", flush=True)
     serve_l, train_l = min(serve_l, MLA_LAYERS), min(train_l, MLA_LAYERS)
     return slice_phases(torch, MLA_ARCH, "mla", serve_l, train_l,
@@ -4778,7 +4983,13 @@ def mamba_phases(torch):
           f"{s.head_dim} x {s.d_state}, bf16 windows), {B} lanes "
           f"{B * per / 1e9:.3f} GB, {1e9 / per:.2f} requests per GB "
           f"whatever the length", flush=True)
-    return slice_phases(torch, MAMBA_ARCH, "mamba")
+    print(f"[mamba] serve, profile, continuous and train at "
+          f"{MAMBA_LAYERS} of {L} layers (cut for the script's time limit "
+          f"since the vision and audio slice; all {L} before): the "
+          f"arithmetic above counts the whole model, the engines' resident "
+          f"requests per GB {MAMBA_LAYERS} layers", flush=True)
+    return slice_phases(torch, MAMBA_ARCH, "mamba", MAMBA_LAYERS,
+                        MAMBA_LAYERS)
 
 
 def zamba_phases(torch):
@@ -4818,7 +5029,279 @@ def zamba_phases(torch):
           f"({state_bytes(cfg)} a layer) and KV {kvt} bytes a token over "
           f"{g} sites, {lane} bytes a {CACHE}-row lane, {B} lanes "
           f"{B * lane / 1e9:.3f} GB", flush=True)
-    return slice_phases(torch, ZAMBA_ARCH, "zamba")
+    print(f"[zamba] serve, profile, continuous and train at "
+          f"{ZAMBA_LAYERS} of {L} layers ({ZAMBA_LAYERS // k} of {g} groups:"
+          f" cut for the script's time limit since the vision and audio "
+          f"slice; all {L} before): the arithmetic above and in the "
+          f"residency line counts the whole model, the engines' resident "
+          f"requests per GB {ZAMBA_LAYERS} layers", flush=True)
+    return slice_phases(torch, ZAMBA_ARCH, "zamba", ZAMBA_LAYERS,
+                        ZAMBA_LAYERS)
+
+
+def vlm_phases(torch):
+    """The vision slice (VLM_ARCH) at full width and all 18 layers through
+    slice_phases, the lanes alone (the paged engine refuses the family);
+    prints the arithmetic first: parameters, three adapters at 2% of the
+    default targets, a lane's KV rows with the patch prefix."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.masks import budget
+    cfg = get_config(VLM_ARCH)
+    ((L, mats, per_layer),), rest = stage_leaves(torch, cfg)
+    targets = default_targets(mats)
+    params = L * per_layer + rest
+    entries = L * sum(budget(n, m, 0.98) for n, m in targets)
+    P = cfg.prefix_rows
+    rows, kvt = CACHE + P, kv_row_bytes(cfg, False) * L
+    hd, kv = cfg.resolved_head_dim, cfg.num_kv_heads
+    print(f"[vlm] {VLM_ARCH} (d_model {cfg.d_model}, {cfg.num_heads} heads "
+          f"of {hd} over {kv} KV head (G = {cfg.num_heads // kv}), d_ff "
+          f"{cfg.d_ff}, gelu, vocab {cfg.vocab_size}, the tied embedding "
+          f"({cfg.padded_vocab}, {cfg.d_model}); {P} patch "
+          f"embeddings a request): {L} layers of {per_layer} parameters and "
+          f"{rest} outside them = {params} parameters, "
+          f"{params * 4 / 1e9:.3f} GB in f32; targets {targets} a layer: "
+          f"three adapters at 2% = 3 x {entries} entries = "
+          f"{3 * entries * 8 / 1e6:.1f} MB of packs (int32 index, f32 "
+          f"value); a lane's KV {rows} rows ({CACHE} + the {P}-row "
+          f"prefix) x {kvt} bytes a token over {L} layers = "
+          f"{rows * kvt / 1e6:.1f} MB, {B} lanes {B * rows * kvt / 1e9:.3f} "
+          f"GB", flush=True)
+    totals = slice_phases(torch, VLM_ARCH, "vlm")
+    check_run("vlm phases", totals, ("sidedelta", "scatter_apply",
+                                     "sparse_adamw_blocks", "flash_decode"),
+              {}, ("flash_decode_paged", "flash_prefill"))
+    return totals
+
+
+def encoder_refused(torch, cfg, params, tag):
+    """Fail unless the serve CLI exits for ``cfg`` (encoder only) with the
+    reference's message before it builds anything, and both engines
+    refuse it with the reference's ValueError."""
+    from repro_torch.hub import PagedServingEngine, ServingEngine
+    from repro_torch.launch import serve
+    msg = "encoder-only archs have no decode serving path"
+    try:
+        serve.main(["--arch", cfg.name])
+    except SystemExit as e:
+        if str(e) != msg:
+            fail(f"{tag}: launch.serve exited for {cfg.name} with another "
+                 f"message: {e}")
+        print(f"[{tag}] launch.serve --arch {cfg.name} exits, as the "
+              f"reference's: SystemExit({str(e)!r})", flush=True)
+    else:
+        fail(f"{tag}: launch.serve served {cfg.name}")
+    for name, make in (
+            ("ServingEngine", lambda: ServingEngine(
+                cfg, params, slots=B, cache_size=CACHE)),
+            ("PagedServingEngine", lambda: PagedServingEngine(
+                cfg, params, slots=B, num_pages=321, page_size=16,
+                chunk_size=CHUNK))):
+        try:
+            make()
+        except ValueError as e:
+            if str(e) != msg:
+                fail(f"{tag}: {name} refused {cfg.name} with another "
+                     f"message: {e}")
+            print(f"[{tag}] {cfg.name} {name} refused, as the reference's:"
+                  f" ValueError({str(e)!r})", flush=True)
+        else:
+            fail(f"{tag}: {name} accepted {cfg.name}")
+
+
+def audio_encode_phase(torch, cfg, tag="audio"):
+    """hubert-xlarge at full width: lm.encode of B x ENCODE_FRAMES frames
+    for the base, after SwitchEngine switches to each of three adapters
+    (the switch's ms beside its bound), after fusing all three, and after
+    unloading them (the target leaves restored within RESTORE_TOL); one
+    base encode under torch.profiler, flash_prefill's share; flash_prefill
+    launched once a layer an encode, non-causal; the serve CLI's exit and
+    the engines' refusals. Returns the launches."""
+    import statistics
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import AdapterConfig, ShapeSpec
+    from repro_torch.core import SwitchEngine
+    from repro_torch.core.masks import iter_leaves, leaf_name
+    from repro_torch.data import make_batch
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    totals = {}
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    frames = torch.from_numpy(make_batch(cfg, ShapeSpec(
+        "e", ENCODE_FRAMES, B, "train"), 0, 0)["frame_embeds"]).to("cuda")
+    batch = {"frame_embeds": frames}
+
+    def enc():
+        out = lm.encode(params, cfg, batch)
+        torch.cuda.synchronize()
+        return out
+
+    def timed_encode(label, want=None):
+        before = read_counts()["flash_prefill"]
+        logits = enc()
+        n = read_counts()["flash_prefill"] - before
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            enc()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        ok = (logits.shape == (B, ENCODE_FRAMES, cfg.padded_vocab)
+              and bool(torch.isfinite(logits[..., :cfg.vocab_size]).all()))
+        diff = ("" if want is None else
+                f", frames whose argmax moved from the base's "
+                f"{int((logits.argmax(-1) != want.argmax(-1)).sum())}/"
+                f"{B * ENCODE_FRAMES}")
+        print(f"[{tag}] {cfg.name} encode {label} ({B} x {ENCODE_FRAMES} "
+              f"frames, {cfg.num_layers} layers): "
+              f"{statistics.median(walls):.2f} ms (median of 3, wall, "
+              f"synchronized), flash_prefill launches {n}{diff}", flush=True)
+        if not ok:
+            fail(f"{tag} encode {label}: logits misshapen or not finite")
+        if n != cfg.num_layers:
+            fail(f"{tag} encode {label}: flash_prefill launched {n} times, "
+                 f"not once in each of the {cfg.num_layers} layers")
+        return logits
+
+    base = timed_encode("base")
+    targets = AdapterConfig().target_modules
+    saved = {p: w.clone() for p, w in iter_leaves(params)
+             if leaf_name(p) in targets}
+    packs = serve.make_adapters(cfg, params, 3)
+    b, entries, sectors = switch_bound(torch, cfg)
+    eng = SwitchEngine(params)
+    for pack in packs:
+        st = eng.switch(pack)
+        print(f"[{tag}] {cfg.name} switched to {pack.name}: "
+              f"{st.seconds * 1e3:.3f} ms, {st.entries_written} entries "
+              f"(bound {b['bound_ms']:.4f} ms, {b['bound_by']}: {entries} "
+              f"entries, {sectors} W sectors read and written)", flush=True)
+        timed_encode(f"on {pack.name}", base)
+    while eng.active:
+        eng.unload()
+    st = eng.load_fused(packs)
+    print(f"[{tag}] {cfg.name} fused {len(packs)} adapters: "
+          f"{sum(x.seconds for x in st) * 1e3:.3f} ms, "
+          f"{sum(x.entries_written for x in st)} entries", flush=True)
+    timed_encode("with all three fused", base)
+    while eng.active:
+        eng.unload()
+    err = max(float((w - saved[p]).abs().max())
+              for p, w in iter_leaves(params) if p in saved)
+    print(f"[{tag}] {cfg.name} unloaded: target leaves within {err:.3g} of "
+          f"the base (tol {RESTORE_TOL})", flush=True)
+    if not err <= RESTORE_TOL:
+        fail(f"{tag}: the base was not restored after unload")
+    del saved, packs
+    check_run(f"{tag} encode", read_counts(), ("flash_prefill",
+                                               "scatter_apply"), totals,
+              ("flash_decode", "flash_decode_paged"))
+    print(f"[{tag}] peak memory {torch.cuda.max_memory_allocated() / 1e9:.1f}"
+          f" GB (max_memory_allocated)", flush=True)
+
+    # one base encode under the profiler
+    zero_counts()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        enc()
+    kern = device_kernels(torch, prof)
+    busy = sum(k[0] for k in kern)
+    fp = sum(ms for ms, _, name in kern if "flash_prefill" in name)
+    n = read_counts()["flash_prefill"]
+    print(f"[{tag}-profile] {cfg.name} encode ({B} x {ENCODE_FRAMES} frames,"
+          f" {cfg.num_layers} layers): kernels {busy:.2f} ms in "
+          f"{sum(k[1] for k in kern)} launches"
+          + (f"; flash_prefill (non-causal, D = 80) {fp:.3f} ms "
+             f"({fp / busy:.1%}) in {n} launches" if busy else
+             " (profiler saw no device time: not measured)"), flush=True)
+    for ms, k, name in sorted(kern, reverse=True)[:8]:
+        print(f"[{tag}-profile]   {ms:8.3f} ms  x{k:<4d} {name[:90]}")
+    kernel_share(f"{cfg.name} encode", kern)
+    if n != cfg.num_layers:
+        fail(f"{tag} profile: flash_prefill launched {n} times")
+    check_run(f"{tag} profile", read_counts(), (), totals)
+    encoder_refused(torch, cfg, params, tag)
+    del params, base
+    torch.cuda.empty_cache()
+    return totals
+
+
+def audio_consistency_phase(torch, cfg, tag="audio-consistency"):
+    """Full width, 2 layers, f32: lm.encode on the card (flash_prefill's
+    f32 instance) against the same call on the CPU (its plain version):
+    every frame's argmax equal, the logits within ENCODE_TOL of the
+    largest; then the Trainer against the CPU run (train_cpu_
+    consistency)."""
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.core.masks import map_leaves
+    from repro_torch.data import make_batch
+    from repro_torch.models import layers, lm
+    cfg2 = two_layers(cfg)
+    frames = torch.from_numpy(make_batch(cfg2, ShapeSpec(
+        "c", ENCODE_FRAMES, 2, "train"), 1, 0)["frame_embeds"])
+    with layers.compute_precision(torch.float32):
+        params = lm.init_params(cfg2, seed=0, device="cuda")
+        zero_counts()
+        card = lm.encode(params, cfg2,
+                         {"frame_embeds": frames.to("cuda")})
+        n = read_counts()["flash_prefill"]
+        t0 = time.perf_counter()
+        cpu = lm.encode(map_leaves(lambda _, x: x.cpu(), params), cfg2,
+                        {"frame_embeds": frames})
+        cpu_s = time.perf_counter() - t0
+    card = card.cpu()[..., :cfg2.vocab_size]
+    cpu = cpu[..., :cfg2.vocab_size]
+    top = float(cpu.abs().max())
+    err = float((card - cpu).abs().max())
+    moved = int((card.argmax(-1) != cpu.argmax(-1)).sum())
+    print(f"[{tag}] {cfg.name} f32, {cfg2.num_layers} layers, full width, "
+          f"encode of 2 x {ENCODE_FRAMES} frames: card (flash_prefill, {n} "
+          f"launches) against CPU (plain; {cpu_s:.1f}s): max abs diff "
+          f"{err:.3g} of the largest logit {top:.3g} (tol {ENCODE_TOL} of "
+          f"it), frames whose argmax differs {moved}/{2 * ENCODE_FRAMES}",
+          flush=True)
+    if moved or not err <= ENCODE_TOL * top or n != cfg2.num_layers:
+        fail(f"{tag}: the card's encode departs from the CPU's")
+    del params
+    train_cpu_consistency(torch, cfg.name, tag)
+
+
+def audio_phases(torch):
+    """The audio slice (AUDIO_ARCH, encoder only) at full width and all 48
+    layers: its arithmetic first (parameters, three adapters at 2% of the
+    default targets), then audio encode (with its profile, the CLI's exit
+    and the engines' refusals), audio train (launch.train, packed SHiRA,
+    8 x 256 frames; the multi-adapter trainer refusing) and
+    audio-consistency at 2 layers in f32. Returns the launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.masks import budget
+    cfg = get_config(AUDIO_ARCH)
+    ((L, mats, per_layer),), rest = stage_leaves(torch, cfg)
+    targets = default_targets(mats)
+    params = L * per_layer + rest
+    entries = L * sum(budget(n, m, 0.98) for n, m in targets)
+    print(f"[audio] {AUDIO_ARCH} (d_model {cfg.d_model}, {cfg.num_heads} "
+          f"heads of {cfg.resolved_head_dim}, bidirectional, d_ff "
+          f"{cfg.d_ff}, gelu, {cfg.vocab_size} classes, an untied head "
+          f"({cfg.d_model}, {cfg.padded_vocab}); frame embeddings in, no "
+          f"decode): {L} layers of {per_layer} parameters and {rest} outside"
+          f" them = {params} parameters, {params * 4 / 1e9:.3f} GB in f32; "
+          f"targets {targets} a layer: three adapters at 2% = 3 x {entries}"
+          f" entries = {3 * entries * 8 / 1e6:.1f} MB of packs", flush=True)
+    totals = {}
+    for label, fn in (
+            ("audio encode", lambda: audio_encode_phase(torch, cfg)),
+            ("audio train", lambda: train_phase(torch, AUDIO_ARCH,
+                                                tag="audio-train")[0]),
+            ("audio-consistency", lambda: audio_consistency_phase(torch,
+                                                                  cfg))):
+        for k, v in (timed(label, fn) or {}).items():
+            totals[k] = totals.get(k, 0) + v
+        torch.cuda.empty_cache()
+    check_run("audio phases", totals, ("flash_prefill", "scatter_apply",
+                                       "sparse_adamw_blocks"), {},
+              ("flash_decode", "flash_decode_paged"))
+    return totals
 
 
 def dense_depth(torch, cfg):
@@ -4932,7 +5415,13 @@ def main() -> None:
     torch.cuda.empty_cache()
     timed("consistency", consistency_phase, torch)
     torch.cuda.empty_cache()
-    for k, v in timed("continuous", continuous_phase, torch).items():
+    print(f"[continuous] starcoder2-7b: serve --continuous and the "
+          f"24-request trace at {CC_LAYERS} of 32 layers (cut for the "
+          f"script's time limit since the vision and audio slice; all 32 "
+          f"before): KV and resident requests per GB below are of "
+          f"{CC_LAYERS} layers", flush=True)
+    for k, v in timed("continuous", lambda: continuous_phase(
+            torch, layers=CC_LAYERS)).items():
         launches[k] = launches.get(k, 0) + v
     torch.cuda.empty_cache()
     timed("continuous-consistency", continuous_consistency_phase, torch)
@@ -4968,16 +5457,15 @@ def main() -> None:
         torch.cuda.empty_cache()
     timed("kinds-consistency", kinds_consistency_phase, torch)
     torch.cuda.empty_cache()
-    zamba = {}
-    for phase in (moe_phases, mla_phases, mamba_phases, zamba_phases,
-                  dense_configs_phase):
-        totals = phase(torch)
-        if phase in (mamba_phases, zamba_phases):
-            tag = "mamba" if phase is mamba_phases else "zamba"
+    by_slice = {}
+    for tag, phase in (("moe", moe_phases), ("mla", mla_phases),
+                       ("mamba", mamba_phases), ("zamba", zamba_phases),
+                       ("vlm", vlm_phases), ("audio", audio_phases),
+                       ("dense", dense_configs_phase)):
+        totals = by_slice[tag] = phase(torch)
+        if tag in ("mamba", "zamba", "vlm", "audio"):
             print(f"[{tag}] launches over the {tag} phases: "
                   f"{ {k: v for k, v in totals.items() if v} }", flush=True)
-        if phase is zamba_phases:
-            zamba = totals
         for k, v in totals.items():
             launches[k] = launches.get(k, 0) + v
         torch.cuda.empty_cache()
@@ -5040,9 +5528,26 @@ def main() -> None:
             "name": f"{name} (D = 80)", "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}",
             "replaces": f"src/repro/kernels/{rep}",
-            "launches": zamba.get(name, 0),
+            "launches": by_slice["zamba"].get(name, 0),
             **{k: d80[0][k] for k in keys},
             "max_abs_err": max(r["max_abs_err"] for r in d80)})
+    # the D = 256 decode instance (paligemma-3b) and the non-causal D = 80
+    # prefill (hubert-xlarge's encode): the bf16 case at each path's shape,
+    # the largest error over their cases, the launches of the phases that
+    # take them (the vision phases decode at D = 256 only, the audio
+    # phases prefill non-causally at D = 80 only)
+    for name, src, rep, cases, tag in (
+            ("flash_decode (D = 256)", "flash_decode.cu",
+             "flash_decode.py:71", attn["d256"], "vlm"),
+            ("flash_prefill (D = 80, non-causal)", "flash_prefill.cu",
+             "flash_prefill.py:74", attn["bidir"], "audio")):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": f"src/repro/kernels/{rep}",
+            "launches": by_slice[tag].get(name.split(" ")[0], 0),
+            **{k: cases[0][k] for k in keys},
+            "max_abs_err": max(r["max_abs_err"] for r in cases)})
     # masked_update's row: the hook path's case (f32 W, bool M)
     kernels.append({
         "name": "masked_update", "route": "cuda",

@@ -109,6 +109,13 @@ class ModelConfig:
     def resolved_head_dim(self) -> int:
         return self.head_dim or (self.d_model // self.num_heads)
 
+    @property
+    def prefix_rows(self) -> int:
+        """The positions a request's vision prefix (its patch embeddings)
+        holds before its prompt, in the sequence and in the KV cache; 0
+        for the other modalities."""
+        return self.num_prefix_embeds if self.modality == "vision" else 0
+
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 

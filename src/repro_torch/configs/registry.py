@@ -1,17 +1,17 @@
 """Architecture registry: ``--arch <id>`` -> ModelConfig.
 
-The port serves the dense GQA family, the MoE family with GQA or MLA
-attention (deepseek-v2-lite-16b), the SSM family (mamba2-780m) and the
-hybrid (zamba2-2.7b: Mamba2 groups and one shared attention block). The
-other architectures of the JAX registry are known ids whose configs raise
-until their family is ported (ROADMAP item A9).
+Every id of the JAX registry: the dense GQA family, the MoE family with
+GQA or MLA attention (deepseek-v2-lite-16b), the SSM family
+(mamba2-780m), the hybrid (zamba2-2.7b: Mamba2 groups and one shared
+attention block), the vision prefix-LM (paligemma-3b) and the audio
+encoder (hubert-xlarge). An unknown id raises ``KeyError``.
 """
 from __future__ import annotations
 
 from repro_torch.configs import (deepseek_coder_33b, deepseek_v2_lite_16b,
                                  granite_34b, granite_moe_1b_a400m,
-                                 mamba2_780m, qwen1_5_32b, starcoder2_7b,
-                                 zamba2_2_7b)
+                                 hubert_xlarge, mamba2_780m, paligemma_3b,
+                                 qwen1_5_32b, starcoder2_7b, zamba2_2_7b)
 from repro_torch.configs.base import ModelConfig
 
 ARCH_IDS = [
@@ -27,27 +27,22 @@ ARCH_IDS = [
     "granite-34b",
 ]
 
-_PORTED = {"starcoder2-7b": starcoder2_7b,
-           "granite-moe-1b-a400m": granite_moe_1b_a400m,
-           "deepseek-coder-33b": deepseek_coder_33b,
-           "granite-34b": granite_34b,
-           "qwen1.5-32b": qwen1_5_32b,
-           "deepseek-v2-lite-16b": deepseek_v2_lite_16b,
-           "mamba2-780m": mamba2_780m,
-           "zamba2-2.7b": zamba2_2_7b}
-
-_WAITS_FOR = {"paligemma-3b": "the vision prefix (head_dim 256)",
-              "hubert-xlarge": "the encoder-only audio path"}
+_MODULES = {"starcoder2-7b": starcoder2_7b,
+            "granite-moe-1b-a400m": granite_moe_1b_a400m,
+            "deepseek-coder-33b": deepseek_coder_33b,
+            "granite-34b": granite_34b,
+            "qwen1.5-32b": qwen1_5_32b,
+            "deepseek-v2-lite-16b": deepseek_v2_lite_16b,
+            "mamba2-780m": mamba2_780m,
+            "zamba2-2.7b": zamba2_2_7b,
+            "paligemma-3b": paligemma_3b,
+            "hubert-xlarge": hubert_xlarge}
 
 
 def _module(arch: str):
-    if arch not in ARCH_IDS:
+    if arch not in _MODULES:
         raise KeyError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
-    if arch not in _PORTED:
-        raise NotImplementedError(
-            f"{arch} is not ported yet: it waits for {_WAITS_FOR[arch]} "
-            f"(ROADMAP A9, other families); ported: {sorted(_PORTED)}")
-    return _PORTED[arch]
+    return _MODULES[arch]
 
 
 def get_config(arch: str) -> ModelConfig:

@@ -1,15 +1,21 @@
-"""Deterministic synthetic data pipeline (text modality).
+"""Deterministic synthetic data pipeline, every modality.
 
-A copy of ``repro/data/pipeline.py``'s text path, so the port makes the
-same batches without importing the JAX package: numpy draws, bit-identical
-to the reference's for the same (seed, step, task). A ``TaskSpec`` defines
+A copy of ``repro/data/pipeline.py``, so the port makes the same batches
+without importing the JAX package: numpy draws, bit-identical to the
+reference's for the same (seed, step, task). A ``TaskSpec`` defines
 an affine next-token rule
 
     t_{i+1} = (a * t_i + b) mod V'        over a vocab slice V' <= V
 
 with per-task (a, b, V'), so adapters trained on different task ids learn
-different rules. The vision and audio stubs wait with their families
-(ROADMAP A9).
+different rules.
+
+The modality frontends are stubs, as in the reference: an audio batch is
+precomputed frame embeddings with random class labels, a vision batch a
+text stream after ``num_prefix_embeds`` precomputed patch embeddings
+(``_stub_embeds``: 0.02 N(0, 1) in f32). A vision batch's ``seq_len``
+counts the patches, so its text is ``seq_len - num_prefix_embeds`` tokens
+(none where ``seq_len <= num_prefix_embeds``, as the reference's).
 """
 from __future__ import annotations
 
@@ -50,14 +56,29 @@ def _token_stream(cfg: ModelConfig, n: int, s: int, seed: int, step: int,
     return np.concatenate(toks, axis=1).astype(np.int32)  # (n, s+1)
 
 
+def _stub_embeds(n: int, s: int, d: int, seed: int, step: int) -> np.ndarray:
+    rng = np.random.RandomState((seed * 7919 + step * 17) % (2 ** 31))
+    return (rng.randn(n, s, d) * 0.02).astype(np.float32)
+
+
 def make_batch(cfg: ModelConfig, shape: ShapeSpec, seed: int, step: int,
                task: TaskSpec = TaskSpec()) -> Dict[str, np.ndarray]:
-    """Global train batch: {"tokens", "labels"} int32 (batch, seq)."""
-    if cfg.modality != "text":
-        raise NotImplementedError(
-            f"modality {cfg.modality!r} is not ported (ROADMAP A9)")
-    stream = _token_stream(cfg, shape.global_batch, shape.seq_len, seed,
-                           step, task)
+    """Global train batch for any modality: text {"tokens", "labels"}
+    int32 (batch, seq); audio {"frame_embeds" f32 (batch, seq, d_model),
+    "labels"}; vision the text of ``seq - num_prefix_embeds`` tokens and
+    "patch_embeds" f32 (batch, num_prefix_embeds, d_model)."""
+    n, s = shape.global_batch, shape.seq_len
+    if cfg.modality == "audio":
+        emb = _stub_embeds(n, s, cfg.d_model, seed, step)
+        rng = np.random.RandomState((seed + step) % (2 ** 31))
+        labels = rng.randint(0, cfg.vocab_size, size=(n, s)).astype(np.int32)
+        return {"frame_embeds": emb, "labels": labels}
+    if cfg.modality == "vision":
+        p = cfg.prefix_rows
+        stream = _token_stream(cfg, n, s - p, seed, step, task)
+        return {"tokens": stream[:, :-1], "labels": stream[:, 1:],
+                "patch_embeds": _stub_embeds(n, p, cfg.d_model, seed, step)}
+    stream = _token_stream(cfg, n, s, seed, step, task)
     return {"tokens": stream[:, :-1], "labels": stream[:, 1:]}
 
 

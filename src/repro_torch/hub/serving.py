@@ -13,6 +13,9 @@ its cache into the lane's row along the batch axis that
 ``lm.cache_batch_axes`` names. Every live lane then decodes in one step at
 its own position: ``flash_decode`` with per-request lengths, which stops
 at each lane's length. A lane is busy for its request's whole lifetime.
+A vision model's request is admitted with zero patch embeddings before
+its prompt, as the reference's; they hold ``num_prefix_embeds`` of the
+lane's rows.
 
 **PagedServingEngine**, the paged engine (dense text models). KV memory is
 one page pool per layer stack (``lm.init_paged_cache``); each request owns
@@ -704,7 +707,8 @@ class ServingEngine(_EngineCommon):
         prompt = np.asarray(prompt_tokens, np.int32).reshape(-1)
         # the final generated token is returned but never written back to
         # the cache, so a request needs one slot less than prompt+max_tokens
-        need = prompt.shape[0] + max_tokens - 1
+        # (and a vision model's prefix rows besides)
+        need = prompt.shape[0] + self.cfg.prefix_rows + max_tokens - 1
         if need > self.cache_size:
             raise ValueError(f"prompt ({prompt.shape[0]}) + max_tokens "
                              f"({max_tokens}) needs {need} cache slots, "
@@ -738,12 +742,16 @@ class ServingEngine(_EngineCommon):
             wp = self.engine.wrapped_params(ids, stale_ok=stale)
             batch = {"tokens": torch.from_numpy(p.prompt[None].copy()).to(
                 self.device)}
+            if self.cfg.prefix_rows:            # zero patch embeddings
+                batch["patch_embeds"] = torch.zeros(
+                    (1, self.cfg.prefix_rows, self.cfg.d_model),
+                    device=self.device)
             logits, c1 = lm.prefill(wp, self.cfg, batch, self.cache_size)
             for big, small, ax in zip(self.caches, c1, self._axes):
                 _slot_insert(big, small, slot, ax)
             self._active[slot] = p
             p.fut.submitted_step = self.step_count
-            self._pos[slot] = p.prompt.shape[0]
+            self._pos[slot] = p.prompt.shape[0] + self.cfg.prefix_rows
             self._emit(slot, int(torch.argmax(logits[0])))
 
     def step(self) -> bool:

@@ -339,9 +339,10 @@ flash_decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
   constexpr int LD = D + 8;                 // a K/V/q row, padded 16 bytes
   constexpr int kChunks = D / 8;            // 16-byte chunks a row
   constexpr int kRowStep = kThreads / kChunks;
-  // every thread copies (D = 16, 32, 64, 128); else (D = 80: 12 rows a pass
-  // over 120 threads) the threads past kRowStep * kChunks copy nothing, so
-  // that each row has one owner
+  // every thread copies (D = 16, 32, 64, 128, 256: 4 rows a pass at 256,
+  // 16 B a thread); else (D = 80: 12 rows a pass over 120 threads) the
+  // threads past kRowStep * kChunks copy nothing, so that each row has one
+  // owner
   constexpr bool kAllCopy = kRowStep * kChunks == kThreads;
   constexpr int kPLD = kSplit + 8;          // a row of p, padded 16 bytes
   constexpr int kNT = D / 8;                // output column tiles
@@ -559,7 +560,7 @@ flash_decode_f32_kernel(const float* __restrict__ q,
   constexpr int kPairs = D / 2;             // P.V: a thread per column pair
   constexpr int R = kThreads / kPairs;      // ... and head lane
   constexpr int kPer = (kGroup + R - 1) / R;
-  // every thread owns a (column pair, head lane) (D = 16, 32, 64, 128);
+  // every thread owns a (column pair, head lane) (D = 16, 32, 64, 128, 256);
   // else (D = 80: 3 head lanes over 120 threads) the threads past
   // R * kPairs own none, so that each output has one owner
   constexpr bool kAllPV = R * kPairs == kThreads;
@@ -771,8 +772,9 @@ int run_split(const SplitArgs& a, bool bf16) {
                              a);
 }
 
-// D = 80 (zamba2's shared block) has contiguous instances only: no path
-// pages a D = 80 cache (the paged engine refuses the hybrid family).
+// D = 80 (zamba2's shared block) and D = 256 (paligemma-3b) have
+// contiguous instances only: no path pages such a cache (the paged engine
+// refuses the hybrid and vision families).
 template <bool kPaged, bool kQ8>
 int split_by_dim(const SplitArgs& a, int D, bool bf16) {
   switch (D) {
@@ -783,6 +785,9 @@ int split_by_dim(const SplitArgs& a, int D, bool bf16) {
       if constexpr (!kPaged) return run_split<80, kPaged, kQ8>(a, bf16);
       return static_cast<int>(cudaErrorInvalidValue);
     case 128: return run_split<128, kPaged, kQ8>(a, bf16);
+    case 256:
+      if constexpr (!kPaged) return run_split<256, kPaged, kQ8>(a, bf16);
+      return static_cast<int>(cudaErrorInvalidValue);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -791,7 +796,8 @@ int split_by_dim(const SplitArgs& a, int D, bool bf16) {
 
 // Contiguous caches. q (B, KV, G, D) and k, v (B, S, KV, D), 16-byte
 // aligned; kv_len (B,) int32; out (B, KV, G, D); q, k, v and out share one
-// dtype, f32 or bf16 (is_bf16). D in {16, 32, 64, 80, 128}, any G >= 1.
+// dtype, f32 or bf16 (is_bf16). D in {16, 32, 64, 80, 128, 256}, any
+// G >= 1.
 // nsplit = ceil(S / 64), the splits the caller sized part for: f32 scratch
 // of B * KV * nsplit * G * (D + 2) floats (unused, and may be null, when
 // nsplit is 1); tickets: B * KV int32 zeros, left zero. Returns

@@ -46,10 +46,12 @@ import torch
 from repro_torch.kernels import build
 
 _DTYPES = (torch.float32, torch.bfloat16)
-_DIMS = (16, 32, 64, 80, 128)       # contiguous caches (80: zamba2's shared
-                                    # attention block)
-_PAGED_DIMS = (16, 32, 64, 128)     # page pools: no path pages D = 80 (the
-                                    # paged engine refuses the hybrid)
+_DIMS = (16, 32, 64, 80, 128, 256)  # contiguous caches (80: zamba2's
+                                    # shared attention block; 256:
+                                    # paligemma-3b)
+_PAGED_DIMS = (16, 32, 64, 128)     # page pools: no path pages D = 80 or
+                                    # 256 (the paged engine refuses the
+                                    # hybrid and vision families)
 SPLIT = 64                  # positions per CTA (kSplit, which the launch
                             # checks through nsplit)
 _TICKETS = {}               # (device, stream) -> the merge's int32 tickets

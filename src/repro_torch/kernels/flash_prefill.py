@@ -12,6 +12,8 @@ the CUDA kernel reads q in place and masks the tails instead. Causal
 positions align from 0 (query i sees keys 0..i). Bidirectionally the
 reference lets its zero-padded keys into the softmax, so the two agree
 there only where Skv is a multiple of its kv block; this port masks them.
+``lm.encode`` (hubert-xlarge: 16 heads of 80) is the path that takes the
+bidirectional mode, at Skv = Sq, so no key row is padded.
 
 On CUDA tensors ``flash_prefill_blocks`` launches ``csrc/flash_prefill.cu``
 (its note says what bounds it and how the design answers): for bf16 a
@@ -32,6 +34,8 @@ from repro_torch.kernels.flash_decode import softmax_scale
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _DIMS = (16, 32, 64, 80, 128)      # 80: zamba2's shared attention block
+                                   # (causal) and hubert-xlarge (``encode``,
+                                   # bidirectional)
 
 
 def flash_prefill_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

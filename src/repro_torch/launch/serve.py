@@ -15,6 +15,10 @@ Port of ``repro/launch/serve.py``. Four modes:
                   continuous batching, the adapters loaded lazily from an
                   ``AdapterStore`` of .shpk files in a temporary directory;
                   ``--int8`` stores int8 packs and serves int8 tables
+A vision model's batches carry zero patch embeddings before their
+prompts, as the reference's; an encoder-only model (hubert-xlarge) has no
+decode path, and ``main`` exits with the reference's message before
+building anything (serve it through ``lm.encode``).
 Sequential and ``--fuse`` packs cover every default target; those of the
 multi-tenant and continuous modes leave out MLA's ``w_uk``/``w_uv``
 (``make_adapters``), which side deltas cannot serve.
@@ -87,6 +91,16 @@ def _prompts(cfg, batch: int, prompt_len: int, seed: int, device):
                          generator=gen, device=device)
 
 
+def _batch(cfg, batch: int, prompt_len: int, seed: int, device) -> dict:
+    """A serve batch: the prompts, and a vision model's zero patch
+    embeddings (B, num_prefix_embeds, d_model), as the reference's."""
+    out = {"tokens": _prompts(cfg, batch, prompt_len, seed, device)}
+    if cfg.prefix_rows:
+        out["patch_embeds"] = torch.zeros(
+            (batch, cfg.prefix_rows, cfg.d_model), device=device)
+    return out
+
+
 def serve_multi_tenant(cfg, params, packs, args) -> dict:
     engine = MultiTenantEngine(cfg, params, scheduler=FusedLRU(),
                                table_dtype="int8" if args.int8 else "f32")
@@ -97,8 +111,7 @@ def serve_multi_tenant(cfg, params, packs, args) -> dict:
     total, t_total, table_bytes = 0, 0.0, 0
     for step in range(args.batches):
         names = tenant_mix(rng, packs, B, args.skew)
-        batch = {"tokens": _prompts(cfg, B, args.prompt_len, 1 + step,
-                                    args.device)}
+        batch = _batch(cfg, B, args.prompt_len, 1 + step, args.device)
         out, dt = engine.generate(batch, names, args.tokens)
         table_bytes = max(table_bytes, engine.table_nbytes()["total"])
         total += B * args.tokens
@@ -130,7 +143,8 @@ def serve_continuous(cfg, params, packs, args) -> dict:
         engine = ServingEngine(
             cfg, params, slots=args.slots or args.batch, store=store,
             table_dtype="int8" if args.int8 else "f32",
-            cache_size=args.prompt_len + args.tokens + 8)
+            cache_size=args.prompt_len + cfg.prefix_rows + args.tokens
+            + 8)
         rng = np.random.default_rng(0)
         futs = []
         for r in range(args.requests):
@@ -164,7 +178,7 @@ def serve_switching(cfg, params, packs, args) -> dict:
     stats = {"tok_s": {}, "switch_ms": []}
 
     def serve_batch(label):
-        batch = {"tokens": _prompts(cfg, B, args.prompt_len, 1, args.device)}
+        batch = _batch(cfg, B, args.prompt_len, 1, args.device)
         t0 = time.perf_counter()
         out, _ = greedy_decode(
             cfg, batch, args.tokens,
@@ -234,6 +248,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
     if args.int8 and not (args.multi_tenant or args.continuous):
         raise SystemExit("--int8 applies to --multi-tenant and --continuous")
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if cfg.encoder_only:
+        raise SystemExit("encoder-only archs have no decode serving path")
     if args.layers:
         cfg = cfg.replace(num_layers=args.layers)
     params = lm.init_params(cfg, seed=0, device=args.device)

@@ -12,7 +12,10 @@ the run (every ``TrainerConfig.ckpt_every`` steps and at the end) and
 resumes it from the latest committed step. ``--layers`` cuts the model's depth (the
 port's own flag: full finetuning at starcoder2-7b's full width does not
 fit one card). ``main`` returns the run's numbers as a dict, so scripts
-can drive it as a user would.
+can drive it as a user would. ``--arch hubert-xlarge`` trains on frame
+embeddings and ``--arch paligemma-3b`` on a text stream after its patch
+embeddings (``--seq`` counts the 256 patches), as ``data.make_batch``
+makes them.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch starcoder2-7b \\
       --adapter shira-wm --seq 256 --batch 8 --steps 4
@@ -58,6 +61,14 @@ def parse_adapter(spec: str) -> AdapterConfig:
         hook = len(parts) > 2 and parts[2] == "hook"
         return AdapterConfig(kind="shira", mask=mask, packed=not hook)
     raise ValueError(spec)
+
+
+def rate_unit(cfg: ModelConfig) -> str:
+    """What a step's ``seq * batch`` counts, per second: tokens; an audio
+    model's frames; a vision model's text tokens and patches together."""
+    return {"audio": "frames/s",
+            "vision": "positions/s (text tokens + patches)"}.get(
+                cfg.modality, "tokens/s")
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -114,10 +125,11 @@ def main(argv: Optional[List[str]] = None, keep: bool = False) -> dict:
         raise SystemExit(f"[train] resumed at step {args.steps} from "
                          f"{args.ckpt_dir}: no step left to take")
     steady = statistics.median(step_ms[1:] or step_ms)
+    unit = rate_unit(cfg)
     print(f"[train] {cfg.name} adapter={args.adapter} "
           f"loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
           f"step {steady:.1f} ms (median after the first), "
-          f"{shape.tokens / steady * 1e3:.0f} tokens/s")
+          f"{shape.tokens / steady * 1e3:.0f} {unit}")
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
         with open(args.out, "w") as f:
@@ -130,7 +142,7 @@ def main(argv: Optional[List[str]] = None, keep: bool = False) -> dict:
                      iter_leaves(out["state"]["trainable"])))
     stats = {"losses": losses, "aux": [h["aux"] for h in out["history"]],
              "step_ms": step_ms, "steady_step_ms": steady,
-             "tokens_per_s": shape.tokens / steady * 1e3,
+             "tokens_per_s": shape.tokens / steady * 1e3, "rate_unit": unit,
              "trained_values": n_trained,
              "mask_seconds": trainer.mask_seconds}
     if keep:

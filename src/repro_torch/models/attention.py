@@ -6,9 +6,12 @@ reference's plain math (``chunked_attention``: scores and softmax in f32
 from compute-dtype operands, probabilities cast back to the compute dtype
 for the value product). Serving sends attention through the port's
 attention kernels, where the reference's model never calls its Pallas ones:
-  gqa_prefill       ``flash_prefill_blocks`` when causal with no prefix
-                    (starcoder2-7b's case, and lane admission), else
-                    ``chunked_attention``
+  gqa_prefill       ``flash_prefill_blocks``, causal or bidirectional as
+                    the config, when there is no prefix (starcoder2-7b's
+                    case, and lane admission), else ``chunked_attention``
+                    (paligemma-3b's patch prefix)
+  gqa_encode        the same with no cache (``lm.encode``; hubert-xlarge's
+                    bidirectional attention)
   gqa_decode        ``flash_decode_blocks`` with kv_len = pos + 1, a scalar
                     or (B,) per-request lengths
   gqa_decode_paged  writes through the block table, then
@@ -205,17 +208,29 @@ def gqa_train(params, cfg: ModelConfig, x, *, prefix_len=0, q_chunk=512):
     return dense(out.reshape(B, S, -1), params["wo"])
 
 
+def _serve_attention(cfg: ModelConfig, q, k, v, prefix_len, q_chunk):
+    """A whole sequence's attention outside training: the kernel where
+    there is no prefix, the plain chunked path with one."""
+    kr, vr = _maybe_repeat_kv(cfg, k), _maybe_repeat_kv(cfg, v)
+    if prefix_len == 0:
+        return flash_prefill_blocks(q, kr, vr, causal=cfg.causal)
+    return chunked_attention(q, kr, vr, causal=cfg.causal,
+                             prefix_len=prefix_len, q_chunk=q_chunk)
+
+
+def gqa_encode(params, cfg: ModelConfig, x, *, prefix_len=0, q_chunk=512):
+    """``gqa_prefill`` with no cache."""
+    B, S, _ = x.shape
+    q, k, v = _gqa_qkv(params, cfg, x, torch.arange(S, device=x.device))
+    out = _serve_attention(cfg, q, k, v, prefix_len, q_chunk)
+    return dense(out.reshape(B, S, -1), params["wo"])
+
+
 def gqa_prefill(params, cfg: ModelConfig, x, cache_size: int, *,
                 prefix_len=0, q_chunk=512) -> Tuple[torch.Tensor, KVCache]:
     B, S, _ = x.shape
-    positions = torch.arange(S, device=x.device)
-    q, k, v = _gqa_qkv(params, cfg, x, positions)
-    kr, vr = _maybe_repeat_kv(cfg, k), _maybe_repeat_kv(cfg, v)
-    if cfg.causal and prefix_len == 0:
-        out = flash_prefill_blocks(q, kr, vr, causal=True)
-    else:
-        out = chunked_attention(q, kr, vr, causal=cfg.causal,
-                                prefix_len=prefix_len, q_chunk=q_chunk)
+    q, k, v = _gqa_qkv(params, cfg, x, torch.arange(S, device=x.device))
+    out = _serve_attention(cfg, q, k, v, prefix_len, q_chunk)
     hd = cfg.resolved_head_dim
     KV = padded_heads(cfg)[1]
     cd = compute_dtype()

@@ -4,7 +4,7 @@ FFN, and the Mamba2 block (norm + SSD mixer, no FFN).
 Port of the dense, MoE and Mamba2 blocks of ``repro/models/blocks.py``.
 A transformer block's FFN is its parameters' own: a dense block has
 ``mlp``, an MoE block ``moe``, so one function of each entry point
-(``block_train``, ``block_prefill``, ``block_decode``,
+(``block_train``, ``block_encode``, ``block_prefill``, ``block_decode``,
 ``block_prefill_chunk``) serves both, where the reference has a
 ``dense_block_*`` and a ``moe_block_*`` of each. The attention is the
 config's ``attn_type``: "gqa", or "mla" (deepseek-v2-lite-16b). A stage's
@@ -32,7 +32,7 @@ from repro_torch.models.moe import init_moe, moe_ffn
 def _mla(cfg: ModelConfig) -> bool:
     if cfg.attn_type not in ("gqa", "mla"):
         raise NotImplementedError(
-            f"attn_type {cfg.attn_type!r} is not ported (ROADMAP A9)")
+            f"attn_type {cfg.attn_type!r} has no transformer block")
     return cfg.attn_type == "mla"
 
 
@@ -82,6 +82,13 @@ def block_train(params, cfg: ModelConfig, h, *, prefix_len=0, aux=None):
     if lb is not None:
         aux = lb if aux is None else aux + lb
     return h, aux
+
+
+def block_encode(params, cfg: ModelConfig, h, *, prefix_len=0):
+    """A full-sequence GQA block with no cache (``lm.encode``)."""
+    x = rms_norm(h, params["attn_norm"]["scale"], cfg.norm_eps)
+    h = h + attn.gqa_encode(params["attn"], cfg, x, prefix_len=prefix_len)
+    return _ffn(params, cfg, h)[0]
 
 
 def block_prefill(params, cfg: ModelConfig, h, cache_size, *, prefix_len=0):

@@ -1,10 +1,10 @@
-"""Causal LM assembly for the dense, MoE, SSM and hybrid families:
-embeddings, stages of stacked blocks, final norm and unembedding.
+"""LM assembly for every family: embeddings (with the vision and audio
+stubs), stages of stacked blocks, final norm and unembedding.
 
 Port of ``repro/models/lm.py``. A model is a list of stages, each a
 homogeneous stack of blocks:
 
-  dense family    -> [("dense", L)]
+  dense family    -> [("dense", L)]  (the vlm and audio families too)
   moe family      -> [("dense_first", first_dense)] + [("moe", rest)]
   ssm family      -> [("mamba", L)]
   hybrid (zamba2) -> [("hybrid", L)]  groups of ``hybrid_attn_every`` mamba
@@ -31,11 +31,15 @@ the scanned layer becomes ``torch.utils.checkpoint`` around each layer
 (a hybrid stage's around each group, as the reference's), under
 ``cfg.remat`` ("full", "dots" or "none"), and around each chunk of the
 loss; MoE stages add their load-balance aux, and ``train_loss`` adds
-0.01 of it to the loss.
+0.01 of it to the loss. A vision batch's ``patch_embeds`` are a
+prefix-LM prefix before its tokens (its loss counts the text only); an
+audio batch's ``frame_embeds`` replace the token embeddings.
 
 Entry points:
   init_params(cfg, seed, device)                  -> params
   train_loss(params, cfg, batch)                  -> (loss, metrics)
+  encode(params, cfg, batch)                      -> logits (B, S, V), no
+                                                     cache (encoder only)
   prefill(params, cfg, batch, cache_size)         -> (last_logits, caches)
   decode_step(params, cfg, tokens, caches, pos[, block_tables])
                                                   -> (logits, caches)
@@ -67,12 +71,12 @@ from repro_torch.models.layers import (compute_dtype, embed, init_embedding,
 
 
 def stage_plan(cfg: ModelConfig) -> List[Tuple[str, int]]:
-    if cfg.modality == "text" and cfg.family == "ssm":
+    if cfg.family == "ssm":
         return [("mamba", cfg.num_layers)]
-    if cfg.modality == "text" and cfg.family == "hybrid":
+    if cfg.family == "hybrid":
         return [("hybrid", cfg.num_layers)]
-    if cfg.modality == "text" and cfg.attn_type in ("gqa", "mla"):
-        if cfg.family == "dense":
+    if cfg.attn_type in ("gqa", "mla"):
+        if cfg.family in ("dense", "vlm", "audio"):
             return [("dense", cfg.num_layers)]
         if cfg.family == "moe":
             # a config cut to its first dense layers has no MoE stage (the
@@ -82,8 +86,8 @@ def stage_plan(cfg: ModelConfig) -> List[Tuple[str, int]]:
             return ([("dense_first", fd)] if fd else []) + (
                 [("moe", rest)] if rest else [])
     raise NotImplementedError(
-        f"family {cfg.family!r} / modality {cfg.modality!r} / attn_type "
-        f"{cfg.attn_type!r} is not ported (ROADMAP A9, other families)")
+        f"family {cfg.family!r} / attn_type {cfg.attn_type!r} has no "
+        f"stage plan")
 
 
 def _groups(cfg: ModelConfig, n: int) -> Tuple[int, int]:
@@ -149,9 +153,18 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda"
 
 
 def embed_inputs(params, cfg: ModelConfig, batch) -> Tuple[torch.Tensor, int]:
-    """Returns (h, prefix_len): token embeddings, no prefix (text models;
-    ``stage_plan`` rejects the other modalities)."""
-    return embed(params["embed"], batch["tokens"]), 0
+    """Returns (h, prefix_len): the token embeddings (text); the frame
+    embeddings in the compute dtype (audio); or the patch embeddings in
+    the compute dtype prepended to the token embeddings, the patches
+    being the prefix (vision)."""
+    if cfg.modality == "audio":
+        return batch["frame_embeds"].to(compute_dtype()), 0
+    h = embed(params["embed"], batch["tokens"])
+    if cfg.modality == "vision":
+        patches = batch["patch_embeds"].to(device=h.device,
+                                           dtype=compute_dtype())
+        return torch.cat([patches, h], dim=1), patches.shape[1]
+    return h, 0
 
 
 def _logits(params, cfg: ModelConfig, h):
@@ -274,9 +287,30 @@ def train_loss(params, cfg: ModelConfig, batch) -> Tuple[torch.Tensor, Dict]:
         h, aux = _stage_train(sp, kind, cfg, h, aux, prefix_len, n,
                               shared=params.get("shared_attn"))
     h = rms_norm(h, params["final_norm"]["scale"], cfg.norm_eps)
+    h = h[:, prefix_len:]               # a vision loss is over the text
     ce = chunked_loss(params, cfg, h, batch["labels"],
                       batch.get("loss_mask"))
     return with_aux(cfg, ce, aux), {"ce": ce, "aux": aux}
+
+
+@torch.no_grad()
+def encode(params, cfg: ModelConfig, batch) -> torch.Tensor:
+    """Encoder-only serving (hubert): full-sequence logits (B, S, padded
+    vocab), no cache. It runs one dense GQA stage, the plan of every
+    encoder-only config, each block's attention through
+    ``blocks.block_encode`` (``flash_prefill_blocks``, bidirectional for
+    hubert); another plan raises."""
+    plan = stage_plan(cfg)
+    if cfg.attn_type != "gqa" or plan != [("dense", cfg.num_layers)]:
+        raise NotImplementedError(
+            f"lm.encode runs one dense GQA stage; {cfg.name} plans {plan} "
+            f"with attn_type {cfg.attn_type!r}")
+    h, prefix_len = embed_inputs(params, cfg, batch)
+    sp = params["stages"][0]
+    for i in range(cfg.num_layers):
+        h = B.block_encode(layer_slice(sp, i), cfg, h, prefix_len=prefix_len)
+    h = rms_norm(h, params["final_norm"]["scale"], cfg.norm_eps)
+    return _logits(params, cfg, h)
 
 
 def with_aux(cfg: ModelConfig, loss, aux):

@@ -115,7 +115,8 @@ def dense_grads(params, cfg: ModelConfig, batch: dict,
 
 def device_batch(batch, device) -> Dict[str, torch.Tensor]:
     """numpy batch -> tensors on ``device``: tokens and labels int64 (for
-    indexing), everything else as it is."""
+    indexing), everything else as it is (a vision batch's patch_embeds
+    and an audio batch's frame_embeds stay f32)."""
     return {k: torch.from_numpy(v).to(device, torch.int64)
             if k in ("tokens", "labels") else torch.from_numpy(v).to(device)
             for k, v in batch.items()}

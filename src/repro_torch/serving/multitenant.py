@@ -82,10 +82,12 @@ UNSUPPORTED_LEAVES = ("w_uk", "w_uv")
 
 def greedy_decode(cfg, batch, tokens: int, prefill, decode):
     """The serving decode loop, shared by the engine and the sequential
-    reference. prefill(batch) -> (logits, caches); decode(tok, caches, pos)
-    -> (logits, caches). Returns (greedy tokens (B, tokens) int32, last-step
-    logits (B, V)), after the device has finished."""
-    pos0 = batch["tokens"].shape[1]
+    reference, so the position bookkeeping (the vision prefix included)
+    cannot drift between them. prefill(batch) -> (logits, caches);
+    decode(tok, caches, pos) -> (logits, caches). Returns (greedy tokens
+    (B, tokens) int32, last-step logits (B, V)), after the device has
+    finished."""
+    pos0 = batch["tokens"].shape[1] + cfg.prefix_rows
     logits, caches = prefill(batch)
     nxt = torch.argmax(logits, -1).to(torch.int32)[:, None]
     outs = [nxt]
@@ -99,17 +101,21 @@ def greedy_decode(cfg, batch, tokens: int, prefill, decode):
 
 
 def serving_cache_size(cfg, prompt_len: int, tokens: int) -> int:
-    """KV-cache slots for a serve call: prompt + generated + slack."""
-    return prompt_len + tokens + 8
+    """KV-cache slots for a serve call: prompt + generated + slack, plus
+    the vision prefix (the patch embeddings hold cache rows too)."""
+    return prompt_len + cfg.prefix_rows + tokens + 8
 
 
 def switch_per_request_reference(cfg, params, packs, toks, names,
-                                 tokens: int):
+                                 tokens: int, patch_embeds=None):
     """Ground truth: serve each request ALONE after rapid-switching
     (``SwitchEngine``) to its adapter. toks: (B, S) int tensor; names:
-    per-request adapter name or None. Returns (greedy tokens (B, tokens)
-    int32, last-step logits (B, V) f32, seconds). ``params`` is switched in
-    place and unloaded again at the end."""
+    per-request adapter name or None; ``patch_embeds`` (B, P, d_model), a
+    vision model's prefix, each request given its own (the reference's
+    builds a batch of tokens alone, which a vision model cannot prefill).
+    Returns (greedy tokens (B, tokens) int32, last-step logits (B, V) f32,
+    seconds). ``params`` is switched in place and unloaded again at the
+    end."""
     B, S = toks.shape
     cs = serving_cache_size(cfg, S, tokens)
     by_name = {p.name: p for p in packs}
@@ -121,8 +127,11 @@ def switch_per_request_reference(cfg, params, packs, toks, names,
             engine.unload()
         if name is not None:
             engine.load(by_name[name])
+        batch = {"tokens": toks[b:b + 1]}
+        if patch_embeds is not None:
+            batch["patch_embeds"] = patch_embeds[b:b + 1]
         seq, logits = greedy_decode(
-            cfg, {"tokens": toks[b:b + 1]}, tokens,
+            cfg, batch, tokens,
             lambda bb: lm.prefill(engine.params, cfg, bb, cs),
             lambda t, c, pos: lm.decode_step(engine.params, cfg, t, c, pos))
         out.append(seq[0])
@@ -692,8 +701,10 @@ class MultiTenantEngine:
 
     def generate(self, batch, names: Sequence[Optional[str]], tokens: int,
                  cache_size: Optional[int] = None):
-        """Greedy-decode ``tokens`` tokens for a mixed-adapter batch.
-        Returns (out_tokens (B, tokens) int32, seconds)."""
+        """Greedy-decode ``tokens`` tokens for a mixed-adapter batch (a
+        vision model's ``patch_embeds`` prefill with it, each request's
+        side delta on its prefix rows too). Returns (out_tokens
+        (B, tokens) int32, seconds)."""
         cs = cache_size or serving_cache_size(
             self.cfg, batch["tokens"].shape[1], tokens)
         self.schedule(names)

@@ -1,7 +1,8 @@
 """repro_torch.data against repro.data: the port's copy of the synthetic
 pipeline makes the same batches, byte for byte, for the same (seed, step,
 task), as the trainers' parity tests assume; and the multi-adapter
-stream's row blocks are the single-task streams."""
+stream's row blocks are the single-task streams. The vision and audio
+batches are held in test_torch_vlm.py and test_torch_audio.py."""
 import numpy as np
 import pytest
 
@@ -68,9 +69,3 @@ def test_multi_batch_iterator_matches_jax_and_single_streams():
         for a, it in enumerate(singles):
             for k, v in next(it).items():
                 np.testing.assert_array_equal(mb[k][a * n:(a + 1) * n], v)
-
-
-def test_other_modalities_raise():
-    with pytest.raises(NotImplementedError, match="A9"):
-        make_batch(CFG.replace(modality="vision"),
-                   ShapeSpec("t", 8, 2, "train"), 0, 0)

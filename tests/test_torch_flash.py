@@ -47,7 +47,9 @@ DECODE_SHAPES = [(1, 1, 1, 64, 512, 256), (2, 2, 4, 64, 1024, 512),
                  # granite-34b's grouping: one KV head for 48 query heads
                  (2, 1, 48, 128, 256, 128),
                  # zamba2's shared block: heads of 80, G = 1
-                 (2, 4, 1, 80, 300, 100)]
+                 (2, 4, 1, 80, 300, 100),
+                 # paligemma-3b: 8 heads of 256 over one KV head
+                 (2, 1, 8, 256, 300, 100)]
 
 
 @pytest.mark.parametrize("B,KV,G,D,S,sb", DECODE_SHAPES)
@@ -131,7 +133,9 @@ PREFILL_SHAPES = [(2, 13, 6, 2, 16), (1, 40, 18, 2, 32),
                   (1, 150, 18, 2, 128),
                   # zamba2's shared block: heads of 80, G = 1, row 63 of
                   # two full tiles and a ragged third
-                  (1, 130, 4, 4, 80)]
+                  (1, 130, 4, 4, 80),
+                  # hubert-xlarge's encoder: 16 heads of 80, G = 1
+                  (1, 32, 16, 16, 80)]
 
 
 @pytest.mark.parametrize("B,S,H,KV,D", PREFILL_SHAPES)

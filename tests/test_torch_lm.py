@@ -103,15 +103,15 @@ def test_prefill_decode_bf16(setup):
 
 def test_other_families_raise():
     """MoE plans (dense first layers, then MoE), with GQA or MLA
-    attention, the SSM plan (one mamba stage) and the hybrid plan (one
-    hybrid stage); the vision and audio modalities and a dense config
-    without attention still raise, naming A9."""
+    attention, the SSM plan (one mamba stage), the hybrid plan (one
+    hybrid stage) and the vision and audio families' dense plan; a dense
+    config without attention still raises."""
     from repro_torch.configs import get_config
-    with pytest.raises(NotImplementedError, match="A9"):
-        get_config("paligemma-3b")
     assert TLM.stage_plan(get_config("mamba2-780m")) == [("mamba", 48)]
     assert TLM.stage_plan(t_smoke("mamba2-780m")) == [("mamba", 4)]
     assert TLM.stage_plan(get_config("zamba2-2.7b")) == [("hybrid", 54)]
+    assert TLM.stage_plan(get_config("paligemma-3b")) == [("dense", 18)]
+    assert TLM.stage_plan(get_config("hubert-xlarge")) == [("dense", 48)]
     dense = t_smoke("starcoder2-7b")
     moe = t_smoke("granite-moe-1b-a400m")
     assert TLM.stage_plan(moe) == [("moe", 2)]
@@ -119,11 +119,12 @@ def test_other_families_raise():
                                                 first_dense_layers=1))
     assert TLM.stage_plan(first) == [("dense_first", 1), ("moe", 1)]
     assert TLM.stage_plan(moe.replace(attn_type="mla")) == [("moe", 2)]
-    for other in (dense.replace(modality="vision"),
-                  dense.replace(modality="audio"),
-                  dense.replace(attn_type="none")):
-        with pytest.raises(NotImplementedError, match="A9"):
-            TLM.stage_plan(other)
+    for family in ("vlm", "audio"):
+        assert TLM.stage_plan(dense.replace(family=family)) == [("dense", 2)]
+        with pytest.raises(NotImplementedError, match="stage plan"):
+            TLM.stage_plan(dense.replace(family=family, attn_type="none"))
+    with pytest.raises(NotImplementedError, match="stage plan"):
+        TLM.stage_plan(dense.replace(attn_type="none"))
 
 
 @pytest.mark.parametrize("sq,q_chunk,prefix", [(8, 4, 0), (10, 4, 0),

@@ -8,8 +8,9 @@ values (through ``sidedelta_train``) equal remat="full"'s to 1e-6 of the
 largest, and the JAX package's "dots" within 1e-6, in f32 (losses ~5 and
 gradients ~1e-2 here: the two frameworks' sums in another order differ by
 under 5e-7 in the loss and ~1e-8 in a gradient). ``launch.serve`` (with
-``--layers``) and ``launch.train`` take the four new ids with ``--smoke
---device cpu``.
+``--layers``) and ``launch.train`` take the ids ported since the MoE
+slice with ``--smoke --device cpu``; for hubert-xlarge, encoder only,
+the serve CLI exits with the reference's message.
 """
 import jax
 import jax.numpy as jnp
@@ -121,14 +122,20 @@ def test_remat_dots_multi_adapter():
 
 @pytest.mark.parametrize("arch", NEW)
 def test_launch_serve_and_train_take_the_new_archs(arch):
-    # one layer, or a hybrid model's one group
-    layers = get_smoke_config(arch).hybrid_attn_every or 1
-    stats = tserve.main(["--arch", arch, "--smoke", "--device", "cpu",
-                         "--multi-tenant", "--adapters", "2", "--tokens", "2",
-                         "--batch", "2", "--prompt-len", "4", "--batches",
-                         "1", "--layers", str(layers)])
-    assert stats["last_out"].shape == (2, 2)
+    # one layer, or a hybrid model's one group; an encoder-only model has
+    # no decode path (the CLI exits, as the reference's does), and a
+    # vision model's --seq counts its patch prefix
+    cfg = get_smoke_config(arch)
+    layers = cfg.hybrid_attn_every or 1
+    argv = ["--arch", arch, "--smoke", "--device", "cpu", "--multi-tenant",
+            "--adapters", "2", "--tokens", "2", "--batch", "2",
+            "--prompt-len", "4", "--batches", "1", "--layers", str(layers)]
+    if cfg.encoder_only:
+        with pytest.raises(SystemExit, match="encoder-only"):
+            tserve.main(argv)
+    else:
+        assert tserve.main(argv)["last_out"].shape == (2, 2)
     out = ttrain.main(["--arch", arch, "--smoke", "--device", "cpu",
                        "--adapter", "shira-rand", "--steps", "1", "--seq",
-                       "8", "--batch", "2"])
+                       str(8 + cfg.num_prefix_embeds), "--batch", "2"])
     assert np.isfinite(out["losses"]).all()
