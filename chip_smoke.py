@@ -10,7 +10,8 @@ prints its seconds on a "[time]" line:
   3. kernels   each kernel against its plain version on the card, at
                starcoder2-7b shapes (and granite-moe's and the dense
                configs' attention, sidedelta and scatter_apply shapes);
-               times (cold L2) beside the bound:
+               times (cold L2) beside the bound (each wrapper's cost()
+               over analysis.roofline.HW, the card's peaks):
                sidedelta (S = 1, 16, 256, with the path each S takes,
                and where the token-minor path starts to pay) and
                scatter_apply (serving), sparse_adamw (blocks and rows,
@@ -42,7 +43,9 @@ prints its seconds on a "[time]" line:
                through the int8 instance (continuous-int8)
   8. continuous-consistency  full width, 2 layers, f32: both engines'
                tokens equal each request's fixed-batch tokens, with COW
-  9. train     full width: repro_torch.launch.train (packed SHiRA, Trainer)
+  9. train     full width, 16 of 32 layers (TRAIN_LAYERS, printed: since
+               the analysis slice, for the script's time limit):
+               repro_torch.launch.train (packed SHiRA, Trainer)
                and MultiAdapterTrainer (3 adapters, f32 then int8
                moments), launch counts > 0 for every kernel of each path,
                and a torch.profiler breakdown of one multi-adapter step
@@ -73,7 +76,25 @@ prints its seconds on a "[time]" line:
   14. personalization-consistency  full width, 2 layers, f32: each
                request through the swap equals a run of the same engine
                that saw only its version, both engines, both modes
-  15. slo-chaos  full width: the reference's slo_load.py --chaos on
+  15. analysis  the port's analysis modules on the card: (a) the profile
+               phase's three steps (base and multi-tenant decode, the
+               1024-token prefill) through analysis.profile.program_cost
+               (each kernel at its wrapper's cost()) and
+               roofline.roofline_terms at the card's HW: compute, memory,
+               bound_ms, the dominant term beside the step's device and
+               wall ms (a bound over SHARE_MAX of the device time fails);
+               (b) replay.join_costs of a traced full-width base-decode
+               lane run against the base step's cost (measured/model);
+               (c) the personalization traces replayed: the port's spans
+               cover >= 0.90 of every run's wall less the harness's own
+               spans, realized overlap >= 0.5 of each async run
+               against its sync run, critical path, a what-if; (d)
+               sidedelta's two paths timed at the classes the serve and
+               continuous phases planned (observe()), starcoder2-7b's
+               full-width w_up and w_down ones and a 2-layer f32 serve's,
+               the winners saved under build/ and installed, that serve's
+               tokens unchanged with the cache hit, the cache cleared
+  16. slo-chaos  full width: the reference's slo_load.py --chaos on
                PagedServingEngine (async prefetch): LoadGen traffic (seed
                0, Zipf over 4 f32 packs, 2 of them cold, an overload
                phase), a fault-free pass and a chaos pass under a seeded
@@ -81,11 +102,11 @@ prints its seconds on a "[time]" line:
                draw in the pass; latency, TTFT, goodput, the injector's
                counts, health(); every future terminal and typed, every
                kind fired, one poisoned slot, nothing pinned, <= 72 GB
-  16. faults-consistency  full width, 2 layers, f32: a poisoned slot's
+  17. faults-consistency  full width, 2 layers, f32: a poisoned slot's
                survivors, a degrade to name@v-1, crash recovery after a
                SimulatedPreemption (both engines), and int8 pages' first
                tokens equal their fault-free or unquantized runs
-  17. train (kinds)  full width, through repro_torch.launch.train at the
+  18. train (kinds)  full width, through repro_torch.launch.train at the
                train phase's shapes: --adapter lora, dora, shira-dora (32
                layers) and none (full finetuning, cut to the deepest stack
                that fits, its arithmetic printed): step ms, tokens/s, peak
@@ -93,27 +114,30 @@ prints its seconds on a "[time]" line:
                on every kind, scatter_apply on shira-dora), %C of the
                effective weights layer by layer (shira-dora < 0.05, lora
                above 5x the packed SHiRA run's)
-  18. switch (LoRA vs SHiRA)  full width, 32 layers, six target leaves:
+  19. switch (LoRA vs SHiRA)  full width, 32 layers, six target leaves:
                LoraEngine fuse and unfuse at rank 64 beside SwitchEngine
                load and unload of a 138.9M-entry pack, median of 5 each,
                the fuse's bound, the base restored within 1e-5, and the
                fuse's peak (no stacked delta)
-  19. train (checkpoint, preemption)  full width, 16 of 32 layers (for
+  20. train (checkpoint, preemption)  full width, 16 of 32 layers (for
                the time limit), packed shira-wm: a clean
                6-step fit and one preempted at step 3 (one restore, from
                step 2; last loss within 1e-6; steps [4, 6] committed), a
                fresh Trainer resuming at 6, the state's device-to-host
                copy, save and restore (seconds, bytes), and the trainers'
                publish snapshots read back from the checkpoint
-  20. kinds-consistency  full width, 1 layer, f32: lora, dora and
-               shira-dora losses on the card track the CPU Trainer to 5e-3;
+  21. kinds-consistency  full width, 1 layer, f32: lora, dora and
+               shira-dora losses on the card track the CPU Trainer to 5e-3
+               over CPU_STEPS = 2 steps (3 before the analysis slice, for
+               the script's time limit, as in 23, 25, 27, 29, 31 and 32);
                hook mode with weight decay 0.01: the decayed weights within
                1e-6 of the largest weight of the CPU run's, the masked
                ones as train-consistency holds trained values
-  21. moe serve, moe profile, moe continuous, moe train
-               granite-moe-1b-a400m at full width, cut to 12 of its 24
-               layers (MOE_LAYERS, printed: since the hybrid slice, for
-               the script's time limit) through phases 4, 5, 7 and 9's
+  22. moe serve, moe profile, moe continuous, moe train
+               granite-moe-1b-a400m at full width, cut to 8 of its 24
+               layers (MOE_LAYERS, printed: since the analysis slice, 12
+               since the hybrid slice, for the script's time limit)
+               through phases 4, 5, 7 and 9's
                code: launch.serve in four
                modes (no routing choice dropped: every call is under 512
                tokens), a decode step (base and multi-tenant) and a
@@ -123,18 +147,18 @@ prints its seconds on a "[time]" line:
                engines (bf16 and int8 pages; dropped choices counted),
                launch.train and MultiAdapterTrainer (f32, int8 moments;
                the aux and the dropped choices a step)
-  22. moe-consistency  full width, 2 layers, f32: multi-tenant tokens
+  23. moe-consistency  full width, 2 layers, f32: multi-tenant tokens
                equal the switch-per-request reference, both engines the
                fixed batch (a 501-token prompt: drop-free calls), and
                Trainer and MultiAdapterTrainer track the CPU run to 5e-3
-  23. mla serve, mla profile, mla continuous, mla train
+  24. mla serve, mla profile, mla continuous, mla train
                deepseek-v2-lite-16b (MLA attention, 64 experts top-6, 2
                shared, a first dense layer) at full width, at the depths
                mla_depth prints (all 27 layers where its arithmetic fits
                MLA_BUDGET), cut to at most 8 (MLA_LAYERS, printed: since
                the vision and audio slice, for the script's time limit;
                14 since the hybrid slice), through
-               the same code as 21: launch.serve in
+               the same code as 22: launch.serve in
                four modes, a decode step (base, multi-tenant) and a
                1024-token prefill under torch.profiler with MLA's
                attention split out (mla_ranges: the q_eff and w_uv
@@ -144,15 +168,15 @@ prints its seconds on a "[time]" line:
                archs'), both trainers; sidedelta, scatter_apply and
                sparse_adamw launch, and no attention kernel: MLA's
                attention is plain torch, as the reference's is jnp
-  24. mla-consistency  full width, 2 layers, f32: as 22, and the int8
+  25. mla-consistency  full width, 2 layers, f32: as 23, and the int8
                latent pages' tokens equal the same engine's on the CPU
-  25. mamba serve, mamba profile, mamba continuous, mamba train
+  26. mamba serve, mamba profile, mamba continuous, mamba train
                mamba2-780m (Mamba2 / SSD, attention-free) at full width,
                cut to 24 of its 48 layers (MAMBA_LAYERS, printed: since
                the vision and audio slice, for the script's time limit),
                its arithmetic printed first
                ([mamba]: parameters, three adapters at 2% of out_proj,
-               the lanes' state), through the same code as 21: launch.serve
+               the lanes' state), through the same code as 22: launch.serve
                in four modes (a switch's ms beside its bound on the
                (48, 3072, 1536) out_proj leaf), a decode step (base,
                multi-tenant) and a 1024-token prefill under torch.profiler
@@ -165,11 +189,11 @@ prints its seconds on a "[time]" line:
                scatter_apply, sparse_adamw and sidedelta_dvals launch, and
                no attention kernel; PagedServingEngine must refuse the
                family with the reference's NotImplementedError
-  26. mamba-consistency  full width, 2 layers, f32: multi-tenant tokens
+  27. mamba-consistency  full width, 2 layers, f32: multi-tenant tokens
                equal switch-per-request, the lanes the fixed batch (with
                prompts of 1 and 2 tokens, shorter than the conv window),
                and both trainers track the CPU run to 5e-3
-  27. zamba serve, zamba profile, zamba continuous, zamba train
+  28. zamba serve, zamba profile, zamba continuous, zamba train
                zamba2-2.7b (the hybrid: 9 groups of 6 Mamba2 layers, each
                followed by one shared attention + MLP block of 32 heads of
                80, fed concat(hidden, embedding) through w_fuse) at full
@@ -178,7 +202,7 @@ prints its seconds on a "[time]" line:
                for the script's time limit), its arithmetic printed first
                ([zamba]: parameters, three adapters at 2% of out_proj and
                of the shared block's seven target leaves, a lane's state
-               and KV), through the same code as 21: launch.serve in four
+               and KV), through the same code as 22: launch.serve in four
                modes (a switch's ms beside its bound), a decode step (base,
                multi-tenant) and a 1024-token prefill under torch.profiler
                with the mixers split out (mamba_ranges) and the shared
@@ -192,17 +216,17 @@ prints its seconds on a "[time]" line:
                instances), flash_decode_paged never; PagedServingEngine
                must refuse the family with the reference's
                NotImplementedError
-  28. zamba-consistency  full width, 2 groups (12 layers), f32:
+  29. zamba-consistency  full width, 2 groups (12 layers), f32:
                multi-tenant tokens equal switch-per-request, the lanes the
                fixed batch (prompts of 1 and 2 tokens included), and both
                trainers track the CPU run to 5e-3
-  29. vlm serve, vlm profile, vlm continuous, vlm train
+  30. vlm serve, vlm profile, vlm continuous, vlm train
                paligemma-3b (18 layers of 8 query heads of 256 over one KV
                head, gelu, a 257,280-row tied embedding; 256 zero patch
                embeddings before every prompt, a prefix-LM prefix) at full
                width and all 18 layers, its arithmetic printed first
                ([vlm]: parameters, three adapters at 2%, a lane's KV rows
-               with the prefix), through the same code as 21: launch.serve
+               with the prefix), through the same code as 22: launch.serve
                in four modes (prompts of 16 after the patches; a switch's
                ms beside its bound), a decode step (base, multi-tenant:
                flash_decode once a layer, D = 256) and a batch-1 prefill of
@@ -215,11 +239,11 @@ prints its seconds on a "[time]" line:
                prefill is plain chunked_attention); PagedServingEngine and
                MultiAdapterTrainer must refuse the family with the
                reference's NotImplementedError
-  30. vlm-consistency  full width, 2 layers, f32: multi-tenant tokens
+  31. vlm-consistency  full width, 2 layers, f32: multi-tenant tokens
                equal switch-per-request with seeded patch embeddings (each
                request its own), the lanes the fixed batch, and the Trainer
                tracks the CPU run to 5e-3
-  31. audio encode, audio train, audio-consistency
+  32. audio encode, audio train, audio-consistency
                hubert-xlarge (encoder only: 48 layers of 16 heads of 80,
                bidirectional, gelu, an untied 504-class head; frame
                embeddings in) at full width and all 48 layers, its
@@ -234,20 +258,20 @@ prints its seconds on a "[time]" line:
                refusal; at 2 layers in f32 the card's encode against the
                CPU's (every frame's argmax equal, within 1e-4 of the
                largest logit) and the Trainer against the CPU run
-  32. dense     qwen1.5-32b (G 1), deepseek-coder-33b (G 7) and
+  33. dense     qwen1.5-32b (G 1), deepseek-coder-33b (G 7) and
                granite-34b (G 48) at full width, each cut to the deepest
                stack whose f32 parameters and three adapters' packs and
                tables fit 60 GB (the arithmetic printed): a multi-tenant
                serve, a multi-tenant decode step under torch.profiler, and
                at 2 layers in f32 tokens equal to switch-per-request
-  33. summary   one JSON line of kernel numbers (the D = 80 instances of
+  34. summary   one JSON line of kernel numbers (the D = 80 instances of
                flash_decode and flash_prefill, flash_decode's D = 256
                instance and flash_prefill's non-causal D = 80 case on rows
                of their own), the card line, and last
                {"ok": true, "device": {...}}, after "[time] total"
 
 Every engine run with no fault injected (phases 7, 8, 13, 14, the
-fault-free slo-chaos pass and the reference runs of 16) must serve every
+fault-free slo-chaos pass and the reference runs of 17) must serve every
 request as asked: the engines walk
 the fallback ladder by default, so none may be degraded, shed, poisoned
 or failed, no load retried and nothing quarantined (hold_as_asked).
@@ -293,7 +317,7 @@ fused pack, on (37, 96, 160) with k = 307 and (70001, 8, 8) with k = 3
 (layer boundaries inside a block, more layers than a grid dimension
 holds), and on the (32, 4608, 18432) leaf with ascending and shuffled
 indices; its bound counts the 32-byte sectors of W its entries touch
-(scatter_bytes). A pack with repeated indices (ROADMAP C3) loads
+(scatter_apply.sector_bytes). A pack with repeated indices (ROADMAP C3) loads
 through apply_pack within one ulp of its plain version's sum, and a
 second process shows the kernel's assertion on an unmerged row; the
 merged-form check is timed on the leaf. The train phases publish the
@@ -320,9 +344,6 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
-F32_FLOP_PER_S = 67e12         # H100 SXM f32 rate outside the tensor cores
-BF16_FLOP_PER_S = 989e12       # H100 SXM dense bf16 tensor-core rate
 ATTN_TOL = {"bf16": 1e-2,      # 2.5x the largest bf16 error measured on the
             "f32": 1e-5}       # card (3.9e-3, one bf16 ulp near 1)
 SIDEDELTA_TOL = 1e-4           # f32 sums of ~400 products in another order
@@ -342,6 +363,9 @@ CHUNK = 256                    # the paged engine's prefill chunk, and a
                                # training sequence's rows
 IDS = [0, 1, 2, -1, 0, 1, 2, 0]
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 256, 8, 4   # launch.train phase
+TRAIN_LAYERS = 16              # phase 9's depth since the analysis slice:
+                               # half of starcoder2-7b's 32, for the
+                               # script's time limit (32 before)
 MT_SEQ, MT_BATCH, MT_STEPS = 256, 2, 3            # per adapter, A = 3
 MT_IDS = [0, 0, 1, 1, 2, 2]    # the multi-adapter batch: T_a = 512 tokens
 MU_DENSITY = 0.01              # masked_update's mask: 1% of the leaf
@@ -369,9 +393,16 @@ WD_TOL = 1e-6                  # hook mode with weight decay, card vs CPU:
                                # decayed weights, of the largest weight
 KINDS_LAYERS = 1               # kinds-consistency's depth: at 2 layers its
                                # CPU side took ~110 s of the script
+CPU_STEPS = 2                  # steps of the card-vs-CPU trainer checks
+                               # (kinds-consistency's factor kinds and each
+                               # slice's Trainer and MultiAdapterTrainer):
+                               # 3 before the analysis slice; their CPU
+                               # side, ~105 s of the script at 3, is the
+                               # part of its time that moves most by host
 MOE_ARCH = "granite-moe-1b-a400m"  # the MoE slice: full width, 24 layers
-MOE_LAYERS = 12                # its phases' depth since the hybrid slice,
-                               # for the script's time limit (24 before)
+MOE_LAYERS = 8                 # its phases' depth since the analysis
+                               # slice, for the script's time limit (12
+                               # since the hybrid slice, 24 before)
 MOE_LONG = 501                 # moe-consistency's long prompt: one call of
                                # at most 512 tokens drops no routing choice
 MLA_ARCH = "deepseek-v2-lite-16b"  # the MLA slice: full width, 27 layers
@@ -429,16 +460,29 @@ def timed(label: str, fn, *args):
     return out
 
 
+def card_hw():
+    """The card's published peaks (H100 SXM, 700 W): the port's
+    ``analysis.roofline.HW``."""
+    from repro_torch.analysis.roofline import HW
+    return HW()
+
+
 def bound(nbytes: float, flops: float, bf16_flops: float = 0) -> dict:
     """The least time the card could take: bytes over the memory rate or
     the operations over the peak rate of their operands' type, whichever
     is larger. ``flops`` have an f32 operand (non-tensor-core rate);
     ``bf16_flops`` are products of two bf16 operands summed in f32, which
     the tensor cores compute exactly."""
-    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    o_ms = (flops / F32_FLOP_PER_S + bf16_flops / BF16_FLOP_PER_S) * 1e3
+    hw = card_hw()
+    b_ms = nbytes / hw.hbm_bw * 1e3
+    o_ms = (flops / hw.f32_flops + bf16_flops / hw.peak_flops) * 1e3
     return {"bound_ms": max(b_ms, o_ms),
             "bound_by": "bytes" if b_ms >= o_ms else "operations"}
+
+
+def bound_of(cost: dict) -> dict:
+    """``bound`` of a kernel wrapper's ``cost()``."""
+    return bound(cost["bytes_accessed"], cost["flops"], cost["bf16_flops"])
 
 
 def card_line() -> str:
@@ -593,22 +637,6 @@ def check_assert_probe(proc) -> None:
              + out[-2000:])
 
 
-def scatter_bytes(torch, w, idx, vals):
-    """(bytes, sectors) that scatter_apply(w, idx, vals) must move: the
-    index and value of every entry read once, and each 32-byte sector of W
-    that holds an applied entry (value not 0, index inside its matrix) read
-    and written once, counted from the indices at W's own addresses."""
-    n, m = w.shape[-2:]
-    nl, k = idx.numel() // idx.shape[-1], idx.shape[-1]
-    i = idx.reshape(nl, k).long()
-    keep = (vals.reshape(nl, k) != 0) & (i >= 0) & (i < n * m)
-    first = w.data_ptr() % 32 // 4      # W's first element within a sector
-    flat = (torch.arange(nl, device=i.device)[:, None] * (n * m) + i
-            + first)[keep]
-    sectors = int(torch.unique(flat // 8).numel())
-    return nl * k * 8 + 64 * sectors, sectors
-
-
 def stage_leaves(torch, cfg):
     """Per stage of ``cfg``: (layers, {path: (n, m)} of one layer's
     matrices, one layer's parameters), and the parameters outside the
@@ -669,6 +697,7 @@ def switch_bound(torch, cfg):
     model's shared block's seven, once each) at sparsity 0.98, the
     sectors counted from a draw of the same masks."""
     from repro_torch.core.masks import budget
+    from repro_torch.kernels.scatter_apply import sector_bytes
     gen = torch.Generator(device="cuda")
     gen.manual_seed(4)
     nbytes = sectors = entries = 0
@@ -679,8 +708,8 @@ def switch_bound(torch, cfg):
         leaves += [(1, n, m) for _, (n, m) in shared_targets(cfg)]
     for L, n, m in leaves:
         idx, vals = rand_entries(torch, gen, L, n, m, budget(n, m, 0.98))
-        b, s = scatter_bytes(torch, torch.empty((L, n, m), device="meta"),
-                             idx, vals)
+        b, s = sector_bytes(torch.empty((L, n, m), device="meta"), idx,
+                            vals)
         nbytes, sectors = nbytes + b, sectors + s
         entries += idx.numel()
         del idx, vals
@@ -696,6 +725,7 @@ def sidedelta_case(torch, gen, flush, label, n, m, S, int8, slots=None,
     from repro_torch.core.masks import budget
     from repro_torch.kernels import ops
     from repro_torch.kernels.sidedelta import (kernel_path, sidedelta,
+                                               sidedelta_cost,
                                                sidedelta_plain)
     if slots is None:
         slots = [rand_entries(torch, gen, 1, n, m, budget(n, m, 0.98))
@@ -733,16 +763,8 @@ def sidedelta_case(torch, gen, flush, label, n, m, S, int8, slots=None,
     xf = x.float()
     library_ms = cold_ms(torch, lambda: torch.bmm(xf, per_req), 5, flush)
     del dense, per_req
-    used = sorted({a for a in IDS if a >= 0})
-    entry_bytes = t["rows"].element_size() + t["vals"].element_size()
-    table_bytes = sum(int(valid[a]) * entry_bytes + (m + 1) * 4 +
-                      (4 if int8 else 0) for a in used)
-    nbytes = x.numel() * 2 + ids.numel() * 4 + table_bytes + B * S * m * 4
-    flops = sum(2 * S * int(valid[a]) for a in IDS if a >= 0)
-    b_ms, o_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
     r = {"label": label, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-         "library_ms": library_ms, "bound_ms": max(b_ms, o_ms),
-         "bound_by": "bytes" if b_ms >= o_ms else "operations",
+         "library_ms": library_ms, **bound_of(sidedelta_cost(*args)),
          "K": [int(valid[a]) for a in range(len(slots))]}
     print(f"[kernels] sidedelta {label} ({n}x{m}) K={r['K']} S={S} "
           f"{'int8/int16' if int8 else 'f32/int32'} "
@@ -981,7 +1003,8 @@ def kernels_phase(torch, flush):
     if not ok:
         fail("merged_form refused a pack of ascending unique indices")
     del hi, hv
-    nbytes, sectors = scatter_bytes(torch, w, idx, vals)
+    from repro_torch.kernels.scatter_apply import sector_bytes
+    nbytes, sectors = sector_bytes(w, idx, vals)
     scat = {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
             "library_ms": library_ms, **bound(nbytes, 0)}
     print(f"[kernels] scatter_apply ms={ms:.4f} (shuffled {shuffled_ms:.4f})"
@@ -1093,8 +1116,10 @@ def adamw_kernels(torch, flush, cfg):
     from repro_torch.core.masks import budget
     from repro_torch.kernels import ops
     from repro_torch.kernels.sparse_adamw import (sparse_adamw,
+                                                  sparse_adamw_cost,
                                                   sparse_adamw_plain,
                                                   sparse_adamw_rows,
+                                                  sparse_adamw_rows_cost,
                                                   sparse_adamw_rows_plain)
     from repro_torch.training import qstate
     kernel_ptxas("sparse_adamw")
@@ -1115,13 +1140,14 @@ def adamw_kernels(torch, flush, cfg):
               "plain_ms": cold_ms(torch, lambda: sparse_adamw_plain(
                   v, g, m, u, scalars), 3, flush),
               "library_ms": fused_adamw_ms(torch, flush, v, g, m, u, scalars),
-              **bound(v.numel() * 28, v.numel() * 15)}
+              **bound_of(sparse_adamw_cost(v, g, m, u, scalars))}
+    blocks_bytes = sparse_adamw_cost(v, g, m, u, scalars)["bytes_accessed"]
     print(f"[kernels] sparse_adamw_blocks w_up leaf ({L}*{k},): "
           f"max_abs_err={err:.3g} max_rel_err={rel:.3g} bit-equal={equal} "
           f"(tol rtol=atol={ADAMW_TOL}) ms={blocks['ms']:.4f} "
           f"plain_ms={blocks['plain_ms']:.3f} library_ms(_fused_adamw_)="
           f"{blocks['library_ms']} bound_ms={blocks['bound_ms']:.4f} "
-          f"({blocks['bound_by']}), {rate_line(blocks, v.numel() * 28)}",
+          f"({blocks['bound_by']}), {rate_line(blocks, blocks_bytes)}",
           flush=True)
     # the one-element instance: every operand one element past its start
     before = sparse_adamw.unaligned_launches
@@ -1136,7 +1162,7 @@ def adamw_kernels(torch, flush, cfg):
     ms1 = cold_ms(torch, lambda: sparse_adamw(*views, scalars), 10, flush)
     print(f"[kernels] sparse_adamw_blocks at offset 1 (one-element "
           f"instance): max_abs_err={err1:.3g} ms={ms1:.4f}, "
-          f"{v.numel() * 28 / ms1 / 1e9:.3f} TB/s", flush=True)
+          f"{blocks_bytes / ms1 / 1e9:.3f} TB/s", flush=True)
     del v, g, m, u, views, got
 
     R = 3 * L
@@ -1150,7 +1176,8 @@ def adamw_kernels(torch, flush, cfg):
         want = sparse_adamw_rows_plain(*args)
         err, rel, equal = adamw_close(torch, got, want)
         del got, want
-        nbytes = v.numel() * (20 + 2 * mq.element_size())
+        c = sparse_adamw_rows_cost(*args)
+        nbytes = c["bytes_accessed"]
         r = {"max_abs_err": err,
              "ms": cold_ms(torch, lambda: sparse_adamw_rows(*args), 10,
                            flush),
@@ -1158,7 +1185,7 @@ def adamw_kernels(torch, flush, cfg):
                  *args), 3, flush),
              "library_ms": (fused_adamw_ms(torch, flush, v, g, m, u, scalars)
                             if mode == "f32" else None),
-             **bound(nbytes, v.numel() * 15)}
+             **bound_of(c)}
         rows[mode] = r
         print(f"[kernels] sparse_adamw_rows ({R}, {k}) {mode} moments: "
               f"max_abs_err={err:.3g} max_rel_err={rel:.3g} bit-equal="
@@ -1232,9 +1259,10 @@ def grad_case(torch, gen, flush, label, n, m):
     from repro_torch.core.masks import budget
     from repro_torch.kernels import ops
     from repro_torch.kernels.sidedelta import (_launch_dvals,
-                                               _sidedelta_dvals,
+                                               _sidedelta_dvals, dvals_cost,
                                                group_by_adapter, kernel_path,
-                                               sidedelta, sidedelta_dvals,
+                                               sidedelta, sidedelta_cost,
+                                               sidedelta_dvals,
                                                sidedelta_dvals_plain,
                                                sidedelta_plain, token_minor)
     A, S = 3, MT_SEQ
@@ -1276,18 +1304,16 @@ def grad_case(torch, gen, flush, label, n, m):
                             flush),
         "library_ms": cold_ms(torch, lambda: torch.bmm(xf, dense_f), 5,
                               flush),
-        **bound(x.numel() * 2 + A * k * 8 + A * (m + 1) * 4 + Bt * S * m * 4,
-                2 * S * k * Bt)}
+        **bound_of(sidedelta_cost(*fw_args))}
     del dense_f, xf
     dense_t = dense.reshape(A, n, m).transpose(1, 2)[ids.long()]
-    nbytes_dx = dy.numel() * 4 + A * k * 8 + A * (n + 1) * 4 + Bt * S * n * 4
     out["dx"] = {"max_abs_err": err,
                  "ms": cold_ms(torch, lambda: sidedelta(*dx_args), 10, flush),
                  "plain_ms": cold_ms(torch, lambda: sidedelta_plain(*dx_args),
                                      2, flush),
                  "library_ms": cold_ms(torch, lambda: torch.bmm(dy, dense_t),
                                        5, flush),
-                 **bound(nbytes_dx, 2 * S * k * Bt)}
+                 **bound_of(sidedelta_cost(*dx_args))}
     del dense, dense_t, col
     dv_args = (x, dy, t["rows"], t["colptr"], ids)
     want = sidedelta_dvals_plain(*dv_args)
@@ -1303,7 +1329,7 @@ def grad_case(torch, gen, flush, label, n, m):
     if not err <= SIDEDELTA_TOL:
         fail(f"sidedelta_dvals {label}: max_abs_err {err} > {SIDEDELTA_TOL}")
     del want
-    nbytes_dv = x.numel() * 2 + dy.numel() * 4 + A * k * 8 + A * (m + 1) * 4
+    nbytes_dv = dvals_cost(*dv_args)["bytes_accessed"]
     out["dvals"] = {
         "max_abs_err": err,
         "ms": cold_ms(torch, alone, 10, flush),
@@ -1314,7 +1340,7 @@ def grad_case(torch, gen, flush, label, n, m):
         "plain_ms": cold_ms(torch, lambda: sidedelta_dvals_plain(*dv_args),
                             2, flush),
         "library_ms": sampled_addmm_ms(torch, flush, t, x, dy, A, n, m, S),
-        **bound(nbytes_dv, 2 * S * k * Bt)}
+        **bound_of(dvals_cost(*dv_args))}
     del xT, dyT, dv_out
     # the wrapper's prep for dx (and dvals, which shares it): the grouping
     # and dy in token-minor order
@@ -1416,10 +1442,13 @@ def mamba_kernels(torch, flush):
     from repro_torch.core.masks import budget
     from repro_torch.kernels import ops
     from repro_torch.kernels.scatter_apply import (scatter_apply,
-                                                   scatter_apply_plain)
+                                                   scatter_apply_plain,
+                                                   sector_bytes)
     from repro_torch.kernels.sparse_adamw import (sparse_adamw,
+                                                  sparse_adamw_cost,
                                                   sparse_adamw_plain,
                                                   sparse_adamw_rows,
+                                                  sparse_adamw_rows_cost,
                                                   sparse_adamw_rows_plain)
     L, n, m = 48, 3072, 1536
     k = budget(n, m, 0.98)
@@ -1444,7 +1473,7 @@ def mamba_kernels(torch, flush):
             sign[0] = -sign[0]
         return go
     upd = {1.0: vals.reshape(-1).clone(), -1.0: -vals.reshape(-1)}
-    nbytes, sectors = scatter_bytes(torch, w, idx, vals)
+    nbytes, sectors = sector_bytes(w, idx, vals)
     out["scatter_apply"] = r = {
         "max_abs_err": 0.0,
         "ms": cold_ms(torch, flip(lambda a: scatter_apply(w, idx, vals, a)),
@@ -1461,16 +1490,18 @@ def mamba_kernels(torch, flush):
           f"sectors): {rate_line(r, nbytes)}", flush=True)
     del w, idx, vals, gi, upd
     scalars = ops._adamw_scalars(3, 3e-4, 0.9, 0.999, 1e-8, 0.0)
-    for name, shape, fn, plain in (
+    for name, shape, fn, plain, cost in (
             ("sparse_adamw_blocks", (L * k,), sparse_adamw,
-             sparse_adamw_plain),
+             sparse_adamw_plain, sparse_adamw_cost),
             ("sparse_adamw_rows", (3 * L, k),
              lambda *a: sparse_adamw_rows(*a[:4], None, None, a[4]),
-             lambda *a: sparse_adamw_rows_plain(*a[:4], None, None, a[4]))):
+             lambda *a: sparse_adamw_rows_plain(*a[:4], None, None, a[4]),
+             lambda *a: sparse_adamw_rows_cost(*a[:4], None, None, a[4]))):
         v, g, mu, nu = adamw_inputs(torch, gen, shape)
         err, _, equal = adamw_close(torch, fn(v, g, mu, nu, scalars),
                                     plain(v, g, mu, nu, scalars))
-        nbytes = v.numel() * 28
+        c = cost(v, g, mu, nu, scalars)
+        nbytes = c["bytes_accessed"]
         out[name] = r = {
             "max_abs_err": err,
             "ms": cold_ms(torch, lambda: fn(v, g, mu, nu, scalars), 20,
@@ -1479,7 +1510,7 @@ def mamba_kernels(torch, flush):
                                 3, flush),
             "library_ms": fused_adamw_ms(torch, flush, v, g, mu, nu,
                                          scalars),
-            **bound(nbytes, v.numel() * 15)}
+            **bound_of(c)}
         print(f"[kernels] {name} mamba out_proj {shape} f32: max_abs_err="
               f"{err:.3g} bit-equal={equal} (tol rtol=atol={ADAMW_TOL}) "
               f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.3f} library_ms("
@@ -1504,7 +1535,8 @@ def zamba_kernels(torch, flush):
     from repro_torch.configs import get_config
     from repro_torch.core.masks import budget
     from repro_torch.kernels.scatter_apply import (scatter_apply,
-                                                   scatter_apply_plain)
+                                                   scatter_apply_plain,
+                                                   sector_bytes)
     cfg = get_config(ZAMBA_ARCH)
     g, k = cfg.num_layers // cfg.hybrid_attn_every, cfg.hybrid_attn_every
     d, f = cfg.d_model, cfg.d_ff
@@ -1552,9 +1584,7 @@ def zamba_kernels(torch, flush):
             sign[0] = -sign[0]
         return go
     upd = {1.0: vals.reshape(-1).clone(), -1.0: -vals.reshape(-1)}
-    nbytes, sectors = scatter_bytes(torch, w.reshape(g * k, n, m),
-                                    idx.reshape(g * k, kk),
-                                    vals.reshape(g * k, kk))
+    nbytes, sectors = sector_bytes(w, idx, vals)
     out["scatter_apply"] = r = {
         "max_abs_err": 0.0,
         "ms": cold_ms(torch, flip(lambda a: scatter_apply(w, idx, vals, a)),
@@ -1574,16 +1604,15 @@ def zamba_kernels(torch, flush):
     return out
 
 
-def attn_case(torch, flush, label, fn, plain, library, tol, nbytes, flops,
-              bf16, iters=20):
+def attn_case(torch, flush, label, fn, plain, library, tol, cost,
+              iters=20):
     """One attention kernel against its plain version on the same inputs:
     max_abs_err within ``tol``, then cold-L2 times of the kernel, the plain
-    version and the library call, and the bound from this call's bytes
-    and the operations the function needs: ``flops`` counts the score
-    products (q . k) and the value products (p . v), all at the rate of
-    the inputs' type (the bf16 tensor-core rate when ``bf16``, else the
-    f32 rate), whatever a kernel does within (flash_prefill's bf16 p . v
-    runs as two products, p = hi + lo, 1.5x these operations)."""
+    version and the library call, and the bound from the wrapper's
+    ``cost()`` of this call: its bytes, and the score products (q . k) and
+    value products (p . v) the function needs, all at the rate of the
+    inputs' type, whatever a kernel does within (flash_prefill's bf16
+    p . v runs as two products, p = hi + lo, 1.5x these operations)."""
     got = fn()
     want = plain()
     err = float((got.float() - want.float()).abs().max())
@@ -1592,7 +1621,7 @@ def attn_case(torch, flush, label, fn, plain, library, tol, nbytes, flops,
     r = {"max_abs_err": err, "ms": cold_ms(torch, fn, iters, flush),
          "plain_ms": cold_ms(torch, plain, 3, flush),
          "library_ms": cold_ms(torch, library, 10, flush),
-         **bound(nbytes, 0 if bf16 else flops, flops if bf16 else 0)}
+         **bound_of(cost)}
     print(f"[kernels] {label}: max_abs_err={err:.3g} (tol {tol}) "
           f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.3f} library_ms(sdpa)="
           f"{r['library_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
@@ -1635,11 +1664,14 @@ def attention_kernels_phase(torch, flush):
     import torch.nn.functional as F
     from repro_torch.kernels.flash_decode import (decode_lengths,
                                                   flash_decode_blocks,
+                                                  flash_decode_cost,
                                                   flash_decode_paged,
+                                                  flash_decode_paged_cost,
                                                   flash_decode_paged_plain,
                                                   flash_decode_plain,
                                                   paged_gather)
     from repro_torch.kernels.flash_prefill import (flash_prefill_blocks,
+                                                   flash_prefill_cost,
                                                    flash_prefill_plain)
     from repro_torch.serving.kvcache import quantize_kv
     # every flash_decode instance (D = 256's among them) must not spill;
@@ -1657,9 +1689,8 @@ def attention_kernels_phase(torch, flush):
     spread = torch.linspace(1, CACHE, Bd, device="cuda").round().to(
         torch.int32)
     for dt in (torch.bfloat16, torch.float32):
-        es = 2 if dt == torch.bfloat16 else 4
         tag = "bf16" if dt == torch.bfloat16 else "f32"
-        tol, bf = ATTN_TOL[tag], dt == torch.bfloat16
+        tol = ATTN_TOL[tag]
         r = lambda *s: torch.randn(s, generator=gen, device="cuda").to(dt)
 
         def decode(Bd, KV, G, D, S, kls):
@@ -1671,7 +1702,6 @@ def attention_kernels_phase(torch, flush):
                 lens = decode_lengths(kl, Bd, "cuda")
                 mask = (torch.arange(S, device="cuda")[None, :]
                         < lens.long()[:, None])[:, None, None, :]
-                rows = int(lens.sum())
                 out["flash_decode"].append(attn_case(
                     torch, flush, f"flash_decode {tag} ({Bd},{KV},{G},{D}) "
                     f"S={S} {name}",
@@ -1679,14 +1709,12 @@ def attention_kernels_phase(torch, flush):
                     lambda: flash_decode_plain(q, k, v, lens),
                     lambda: F.scaled_dot_product_attention(
                         qs, ks, vs, attn_mask=mask, enable_gqa=True), tol,
-                    2 * q.numel() * es + 2 * rows * KV * D * es + Bd * 4,
-                    4 * rows * KV * G * D, bf))
+                    flash_decode_cost(q, k, v, kl)))
 
         def prefill(Bp, Sp, H, KV, D, causal=True):
             q, k, v = r(Bp, Sp, H, D), r(Bp, Sp, KV, D), r(Bp, Sp, KV, D)
             qs = q.transpose(1, 2)
             ks, vs = k.transpose(1, 2), v.transpose(1, 2)
-            keys = Sp * (Sp + 1) // 2 if causal else Sp * Sp
             out["flash_prefill"].append(attn_case(
                 torch, flush, f"flash_prefill {tag} "
                 f"{'causal' if causal else 'non-causal'} B={Bp} S={Sp} "
@@ -1695,8 +1723,7 @@ def attention_kernels_phase(torch, flush):
                 lambda: flash_prefill_plain(q, k, v, causal),
                 lambda: F.scaled_dot_product_attention(
                     qs, ks, vs, is_causal=causal, enable_gqa=True), tol,
-                (2 * q.numel() + 2 * k.numel()) * es,
-                4 * D * H * Bp * keys, bf, iters=10))
+                flash_prefill_cost(q, k, v, causal), iters=10))
 
         def paged(Bd, KV, G, D, S, page, name, kl, quant=False):
             """A shuffled pool of ``page``-row pages, tables S positions
@@ -1719,10 +1746,8 @@ def attention_kernels_phase(torch, flush):
                 kp, vp = (quantize_kv(torch.randn(
                     (P, page, KV, D), generator=gen, device="cuda").to(
                         torch.bfloat16)) for _ in range(2))
-                row_bytes = D + 2               # codes and a bf16 scale
             else:
                 kp, vp = r(P, page, KV, D), r(P, page, KV, D)
-                row_bytes = D * es
             qs = q.reshape(Bd, KV * G, 1, D)
             mask = (torch.arange(nblk * page, device="cuda")[None, :]
                     < lens.long()[:, None])[:, None, None, :]
@@ -1732,7 +1757,6 @@ def attention_kernels_phase(torch, flush):
                 vv = paged_gather(vp, bt).to(dt).transpose(1, 2)
                 return F.scaled_dot_product_attention(
                     qs, kk, vv, attn_mask=mask, enable_gqa=True)
-            rows = int(lens.sum())
             out["flash_decode_paged"].append(attn_case(
                 torch, flush, f"flash_decode_paged "
                 f"{'int8 pools, ' if quant else ''}{tag}"
@@ -1741,8 +1765,7 @@ def attention_kernels_phase(torch, flush):
                 lambda: flash_decode_paged(q, kp, vp, bt, lens),
                 lambda: flash_decode_paged_plain(q, kp, vp, bt, lens),
                 paged_sdpa, tol,
-                2 * q.numel() * es + 2 * rows * KV * row_bytes
-                + bt.numel() * 4 + Bd * 4, 4 * rows * KV * G * D, bf))
+                flash_decode_paged_cost(q, kp, vp, bt, lens)))
             out["flash_decode_paged"][-1]["int8"] = quant
 
         decode(Bd, KV, G, D, CACHE, (("(B,) kv_len 1..1056", spread),
@@ -1831,7 +1854,9 @@ def masked_update_kernels(torch, flush):
     the 32-byte sectors of W that hold a masked entry, counted on this
     run's mask: the update is in place."""
     from repro_torch.kernels.masked_update import (masked_update,
-                                                   masked_update_plain)
+                                                   masked_update_cost,
+                                                   masked_update_plain,
+                                                   written_sectors)
     L, d, f = 32, 4608, 18432
     n = L * d * f
     alpha = -3e-4
@@ -1859,8 +1884,7 @@ def masked_update_kernels(torch, flush):
             w[0][~on].view(bits), first[~on].view(bits)))
         del first
         per = 32 // w.element_size()        # W entries a 32-byte sector
-        sectors = sum(int(m[i].reshape(-1, per).ne(0).any(1).sum())
-                      for i in range(L))
+        sectors = written_sectors(w, m)
         if not equal or err != 0.0 or not moved:
             fail(f"masked_update {label}: not bit-equal to its plain version"
                  f" (max_abs_err {err})")
@@ -1871,8 +1895,7 @@ def masked_update_kernels(torch, flush):
                  w0[i], m[i], v[i], alpha) for i in range(L)], 2, flush),
              "library_ms": cold_ms(torch, lambda: w.addcmul_(
                  m, v, value=alpha), 10, flush),
-             **bound(n * (w.element_size() + m.element_size() + 4)
-                     + 32 * sectors, 3 * n)}
+             **bound_of(masked_update_cost(w, m, v, alpha))}
         print(f"[kernels] masked_update ({L}, {d}, {f}) {label}, "
               f"{int(m[0].count_nonzero())} of {d * f} entries a layer, "
               f"{sectors} of {n // per} W sectors written: "
@@ -2510,6 +2533,9 @@ PZ_PUBLISH_STEP = 10     # personalization: adapter_0@2 after this step
 PZ_LANES = B             # 8 lanes, as the continuous phase
 PZ_LAYERS = 8            # a quarter of starcoder2-7b's depth, for the
                          # script's time limit
+PZ_TRACES = {}           # (engine, async_prefetch) -> the run's events
+                         # and wall seconds, which the analysis phase
+                         # replays
 
 
 def pz_store(root, files, one):
@@ -2531,6 +2557,7 @@ def pz_drive(torch, engine, store, trace_reqs, v2, max_tokens):
     seconds, per-step (wall s, prefilled, build in flight), the steps at
     which a request on adapter_0@1 was still open and adapter_0@1 had left
     the engine, peak staged bytes)."""
+    from repro_torch.analysis import trace
     half = len(trace_reqs) // 2
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2541,9 +2568,13 @@ def pz_drive(torch, engine, store, trace_reqs, v2, max_tokens):
     while engine.pending() or not published:
         if not published and (engine.step_count >= PZ_PUBLISH_STEP
                               or not engine.pending()):
-            store.publish(v2)
-            futs += [engine.submit(p, a, max_tokens=max_tokens)
-                     for p, a in trace_reqs[half:]]
+            # the operator's publish (the pack written to the store) and
+            # the second half's submits, on the serving thread: a span of
+            # the harness's own, so that a replay attributes their time
+            with trace.span("publish", cat="harness"):
+                store.publish(v2)
+                futs += [engine.submit(p, a, max_tokens=max_tokens)
+                         for p, a in trace_reqs[half:]]
             published = True
         admitted = sum(f.submitted_step is not None for f in futs)
         chunks = getattr(engine, "prefill_chunks", 0)
@@ -2551,7 +2582,11 @@ def pz_drive(torch, engine, store, trace_reqs, v2, max_tokens):
         bf = mt._build_fut is not None and not mt._build_fut[1].done()
         ts = time.perf_counter()
         engine.step()
-        torch.cuda.synchronize()
+        # the card finishing the step's work after its spans closed (and,
+        # with async_prefetch, any build queued on the side stream): the
+        # harness's own span, so that a replay sees where that time went
+        with trace.span("drain", cat="harness"):
+            torch.cuda.synchronize()
         wall = time.perf_counter() - ts
         # a build ran beside this step: in flight when it began, kicked
         # during it, or still running when it ended
@@ -2703,6 +2738,7 @@ def personalization_phase(torch):
                 finally:
                     trace.uninstall()
                 counts = read_counts()
+                PZ_TRACES[label, mode] = tr.events(), wall
                 outs[label, mode] = pz_report(
                     torch, tag, eng, store, futs, wall, steps, early, staged,
                     tr, demote_ms, cfg.vocab_size, needed, counts, totals)
@@ -2920,6 +2956,296 @@ class Recorder:
 
     def pending(self):
         return self.engine.pending()
+
+
+ANALYSIS_TOKENS = 8      # the traced lane run: tokens a request
+SHARE_MAX = 1.05         # a step's roofline bound over its device time:
+                         # above this the cost count is wrong
+COVERAGE_MIN = 0.90      # replay gates, benchmarks/check_replay.py's
+REALIZED_MIN = 0.5       # defaults
+AUTOTUNE_CLASSES = 24    # the observed sidedelta classes swept, most
+                         # requested first (the lanes' admissions plan one
+                         # per prompt length)
+AUTOTUNE_REPS = 5        # best of, a path and class
+PLAN_CACHE = ROOT / "build" / "plan_cache.json"
+
+
+def traced_lanes(torch, cfg, params):
+    """A traced base-decode run of the lane engine at ``cfg``'s width: B
+    requests of PROMPT tokens, ANALYSIS_TOKENS each, every request on the
+    base, after a one-request warm-up. Returns the run's events."""
+    import numpy as np
+    from repro_torch.analysis import trace
+    from repro_torch.hub import ServingEngine
+    rng = np.random.default_rng(9)
+    eng = ServingEngine(cfg, params, slots=B,
+                        cache_size=PROMPT + ANALYSIS_TOKENS)
+    eng.submit(rng.integers(0, cfg.vocab_size, PROMPT), None, max_tokens=2)
+    eng.run()
+    tr = trace.install(trace.Tracer(capacity=1 << 20))
+    try:
+        futs = [eng.submit(rng.integers(0, cfg.vocab_size, PROMPT), None,
+                           max_tokens=ANALYSIS_TOKENS) for _ in range(B)]
+        eng.run()
+    finally:
+        trace.uninstall()
+    eng.shutdown()
+    if not all(f.done() and len(f.result()) == ANALYSIS_TOKENS
+               for f in futs):
+        fail("analysis: the traced lane run did not serve every request")
+    return tr.events()
+
+
+def analysis_roofline(analysis):
+    """(a) Each profiled step's program cost against the card's roofline:
+    terms, the dominant one, the bound beside the step's measured device
+    and wall ms. A bound above SHARE_MAX of the device time is a count
+    that cannot be true."""
+    from repro_torch.analysis import roofline
+    hw = roofline.HW()
+    for label in ("base", "multi-tenant f32", "base prefill"):
+        a = analysis[label]
+        c, cfg = a["cost"], a["cfg"]
+        r = roofline.roofline_terms({"mesh": (1,), "shape": a["shape"],
+                                     "cost": c, "collectives": {
+                                         "total_bytes": 0}}, cfg, hw)
+        n = roofline.count_params(cfg)["total"]
+        bound_ms = r["bound_s"] * 1e3
+        print(f"[analysis] roofline {label} ({a['shape'].name}): "
+              f"{c['flops'] / 1e9:.1f} GFLOP ({c['dot_flops'] / 1e9:.1f} in "
+              f"matmuls), {c['bytes_accessed'] / 1e9:.2f} GB "
+              f"({c['bytes_accessed'] / n:.2f} B a parameter of "
+              f"{n / 1e9:.3f} B) in {c['ops']} ops, kernels "
+              f"{c['kernel_calls']}, {c['ops_without_cost']:.0f} not "
+              f"costed: compute {r['compute_s'] * 1e3:.3f} ms, memory "
+              f"{r['memory_s'] * 1e3:.3f} ms, bound_ms {bound_ms:.3f} "
+              f"({r['dominant']}); model FLOPs {r['model_flops_global']:.4g},"
+              f" useful ratio {r['useful_flops_ratio']:.3f}, roofline "
+              f"fraction {r['roofline_fraction']:.3f}", flush=True)
+        if not a["device_ms"]:
+            fail(f"analysis: {label}'s device time was not measured")
+        share = bound_ms / a["device_ms"]
+        print(f"[analysis] roofline {label}: device {a['device_ms']:.2f} ms,"
+              f" wall {a['wall_ms']:.2f} ms; bound_ms / device_ms "
+              f"{share:.3f}, bound_ms / wall_ms "
+              f"{bound_ms / a['wall_ms']:.3f} (card: {hw.hbm_bw / 1e12} TB/s,"
+              f" {hw.peak_flops / 1e12:.0f} TFLOP/s bf16)", flush=True)
+        if "memory" in a:
+            m = a["memory"]
+            print(f"[analysis] memory_summary {label}: arguments "
+                  f"{m['args_mb']} MB, output "
+                  f"{m['output_size_in_bytes'] / 1e6:.1f} MB, temporaries "
+                  f"{m['temp_mb']} MB (the allocator's peak), peak "
+                  f"{m['peak_device_mb']} MB", flush=True)
+        if not share <= SHARE_MAX:
+            fail(f"analysis: {label}'s roofline bound {bound_ms:.3f} ms is "
+                 f"{share:.3f} of its measured {a['device_ms']:.2f} device "
+                 f"ms (> {SHARE_MAX}): the cost count is wrong")
+
+
+def uncovered(events, top: int = 3):
+    """The ``top`` longest intervals between the serving thread's
+    top-level spans: (ms from the first span, ms long, the instants in
+    it)."""
+    from repro_torch.analysis import replay
+    sps = [e for e in replay.main_spans(events) if e.get("depth", 0) == 0]
+    t0 = sps[0]["ts"] if sps else 0.0
+    gaps, end = [], t0
+    for e in sps:
+        if e["ts"] > end:
+            gaps.append((e["ts"] - end, end))
+        end = max(end, e["ts"] + e["dur"])
+    out = []
+    for dur, lo in sorted(gaps, reverse=True)[:top]:
+        names = sorted({e["name"] for e in events if e.get("ph") == "i"
+                        and lo <= e["ts"] <= lo + dur})
+        out.append((round((lo - t0) / 1e3, 1), round(dur / 1e3, 1), names))
+    return out
+
+
+def port_events(events):
+    """(the trace without the harness's own spans, the microseconds of the
+    harness's top-level spans on the serving thread: ``pz_drive``'s
+    publish and per-step drains)."""
+    from repro_torch.analysis import replay
+    held = sum(e["dur"] for e in replay.main_spans(events)
+               if e.get("cat") == "harness" and e.get("depth", 0) == 0)
+    return [e for e in events if e.get("cat") != "harness"], held
+
+
+def analysis_replay(analysis):
+    """(b) The traced lane run's decode spans joined with the base decode
+    step's cost (measured / modelled time); (c) the personalization runs'
+    traces replayed without the harness's own spans: the coverage gated is
+    the port's spans' share of every run's measured wall less the
+    harness's spans (as the reference's test holds a traced run's; the
+    share with the harness's spans counted is printed beside it), the
+    async runs' realized overlap against their sync run, the async runs'
+    critical path and a what-if of table builds hidden under decode."""
+    from repro_torch.analysis import replay
+    from repro_torch.analysis.roofline import HW
+    lanes = analysis["lanes"]
+    jc = replay.join_costs(lanes, {"decode": analysis["base"]["cost"]},
+                           HW())["decode"]
+    att = replay.attribute(lanes)
+    print(f"[analysis] join_costs: {jc['count']:.0f} decode spans of the "
+          f"lane engine (base, B={B}), mean {jc['measured_us_mean'] / 1e3:.3f}"
+          f" ms against the roofline model's {jc['model_us'] / 1e3:.3f} ms: "
+          f"measured/model {jc['ratio']:.2f}; the trace's coverage "
+          f"{att['coverage']:.1%}, self ms by span "
+          f"{ {k: round(v / 1e3, 1) for k, v in att['by_name'].items()} }",
+          flush=True)
+    if not jc["count"]:
+        fail("analysis: the traced lane run has no decode span")
+    for label in ("ServingEngine", "PagedServingEngine"):
+        runs = {}
+        for mode in (False, True):
+            ev, wall = PZ_TRACES[label, mode]
+            runs[mode], held = port_events(ev)
+            att = replay.attribute(runs[mode], wall_us=wall * 1e6 - held)
+            print(f"[analysis] replay personalization {label} async_prefetch"
+                  f"={mode}: {att['spans']} spans of the port, coverage "
+                  f"{att['coverage']:.1%} of the run's {wall:.2f} s wall "
+                  f"less the harness's {held / 1e6:.2f} s (min "
+                  f"{COVERAGE_MIN:.0%}; with the harness's spans "
+                  f"{replay.attribute(ev, wall_us=wall * 1e6)['coverage']:.1%}"
+                  f"); the largest gaps between top-level spans "
+                  f"{uncovered(ev)}", flush=True)
+            if not att["coverage"] >= COVERAGE_MIN:
+                fail(f"analysis: {label} async_prefetch={mode}: the port's "
+                     f"spans cover {att['coverage']:.1%} of the trace's wall")
+        vo = replay.verify_overlap(runs[True], baseline=runs[False])
+        alone = replay.verify_overlap(runs[True])
+        workers = {k: round(v / 1e3, 1)
+                   for k, v in vo["async_by_name"].items()}
+        print(f"[analysis] replay personalization {label}: "
+              f"{vo['async_spans']} worker spans {workers} ms; "
+              f"{vo['measured_hidden_us'] / 1e3:.1f} ms hidden under "
+              f"{vo['under']} of {vo['predicted_hidden_us'] / 1e3:.1f} ms the"
+              f" sync run's what-if predicts: realized "
+              f"{vo['realized_frac']:.1%} (min {REALIZED_MIN:.0%}); against "
+              f"the async run's own bound "
+              f"{alone['predicted_hidden_us'] / 1e3:.1f} ms: "
+              f"{alone['realized_frac']:.1%}", flush=True)
+        if not vo["async_spans"]:
+            fail(f"analysis: {label}'s async run has no worker span")
+        if not vo["realized_frac"] >= REALIZED_MIN:
+            fail(f"analysis: {label}'s async run realized "
+                 f"{vo['realized_frac']:.1%} of the predicted hiding")
+        top = [(r["name"], round(r["self_us"] / 1e3, 1), round(r["frac"], 3))
+               for r in replay.critical_path(runs[True], top=5)]
+        wi = replay.what_if(runs[True], overlap=("table_rebuild",),
+                            under="decode")
+        print(f"[analysis] replay personalization {label} async: critical "
+              f"path (name, self ms, share) {top}; what_if table_rebuild "
+              f"under decode: {wi['baseline_us'] / 1e3:.1f} -> "
+              f"{wi['replayed_us'] / 1e3:.1f} ms ({wi['hidden_us'] / 1e3:.1f}"
+              f" ms hidden, {wi['speedup']:.3f}x)", flush=True)
+
+
+def mt_f32_tokens(torch, cfg, params, packs):
+    """A multi-tenant serve at ``cfg``, f32: B requests of PROMPT tokens
+    over three adapters and the base, TOKENS tokens each (seed 12)."""
+    from repro_torch.models import layers
+    from repro_torch.serving import MultiTenantEngine
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(12)
+    toks = torch.randint(0, cfg.vocab_size, (B, PROMPT), generator=gen,
+                         device="cuda")
+    names = ["adapter_0", "adapter_1", None, "adapter_2"] * (B // 4)
+    with layers.compute_precision(torch.float32):
+        eng = MultiTenantEngine(cfg, params)
+        for p in packs:
+            eng.register(p)
+        out, _ = eng.generate({"tokens": toks}, names, TOKENS)
+        eng.close()
+    return out
+
+
+def analysis_autotune(torch, observed):
+    """(d) sidedelta's paths timed at every class the serve and continuous
+    phases planned (the AUTOTUNE_CLASSES most requested of ``observed``),
+    starcoder2-7b's full-width w_up and w_down classes and a 2-layer f32
+    multi-tenant serve's: both paths on the same inputs within
+    SIDEDELTA_TOL, each's best of AUTOTUNE_REPS, the winner beside the
+    static rule's choice. The winners are saved under build/ and
+    installed; the 2-layer serve's tokens must equal its tokens without
+    the cache, with the cache hit; then the cache is cleared."""
+    import importlib
+    from repro_torch.analysis import autotune
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    sd = importlib.import_module("repro_torch.kernels.sidedelta")
+    cfg = two_layers(get_config("starcoder2-7b"))
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    packs = serve.make_adapters(cfg, params, 3, multi_tenant=True)
+    autotune.clear_observed()
+    with autotune.observe():
+        want = mt_f32_tokens(torch, cfg, params, packs)
+    f32 = autotune.observed_shapes()
+    served = observed[:AUTOTUNE_CLASSES]
+    classes = list(dict.fromkeys(
+        served + autotune.full_width_classes("starcoder2-7b") + f32))
+    print(f"[analysis] autotune: {len(observed)} sidedelta classes observed "
+          f"in the serve and continuous phases, the {len(served)} most "
+          f"requested swept, with {len(classes) - len(served)} more "
+          f"(starcoder2-7b's w_up and w_down at full width, the 2-layer f32 "
+          f"serve's)", flush=True)
+    plans, differ = {}, 0
+    for key in classes:
+        inputs = autotune.class_inputs(key)
+        paths = autotune.candidates(key)
+        outs = [autotune.run_plan(key, p, inputs) for p in paths]
+        err = max([float((o - outs[0]).abs().max()) for o in outs[1:]]
+                  + [0.0])
+        if not err <= SIDEDELTA_TOL:
+            fail(f"analysis: sidedelta's paths differ by {err} at {key}")
+        times = {p: autotune.measure_plan(key, p, reps=AUTOTUNE_REPS,
+                                          inputs=inputs) for p in paths}
+        plans[key] = win = min(times, key=times.get)
+        static = sd.static_path(*key[:2])
+        differ += win != static
+        where = ("observed" if key in served else "f32 serve" if key in f32
+                 else "full width")
+        print(f"[analysis] autotune B={key[0]} S={key[1]} {key[2]}x{key[3]} "
+              f"K={key[4]} x {key[5]} B ({where}): "
+              + ", ".join(f"{p} {t * 1e3:.4f} ms" for p, t in times.items())
+              + f"; winner {win}, static rule {static}"
+              f"{' (differs)' if win != static else ''}; paths differ by "
+              f"{err:.3g}", flush=True)
+        del inputs, outs
+    path = autotune.save_cache(plans, str(PLAN_CACHE), meta={
+        "arch": "starcoder2-7b", "source": "chip_smoke.py analysis",
+        "device": torch.cuda.get_device_name(0), "card": card_line(),
+        "changed_vs_static": differ})
+    autotune.install(plans, replace=True)
+    sd.plan_cache_stats.update(hits=0, misses=0, rejected=0)
+    try:
+        got = mt_f32_tokens(torch, cfg, params, packs)
+        stats = dict(sd.plan_cache_stats)
+    finally:
+        sd.clear_plan_cache()
+    equal = bool(torch.equal(got, want))
+    print(f"[analysis] autotune: {len(plans)} plans, {differ} differ from "
+          f"the static rule, saved to {Path(path).relative_to(ROOT)} and "
+          f"installed; the 2-layer f32 multi-tenant serve with the cache: "
+          f"lookups {stats}, tokens equal to the run without it: {equal}; "
+          f"cache cleared", flush=True)
+    if not stats["hits"]:
+        fail("analysis: the installed plan cache was never hit")
+    if not equal:
+        fail("analysis: the plan cache changed the served tokens")
+    del params, packs
+
+
+def analysis_phase(torch, analysis, observed):
+    """The analysis modules on the card: (a) the roofline of the profiled
+    steps, (b) join_costs of a traced lane run, (c) the personalization
+    traces replayed, (d) sidedelta path autotuning."""
+    analysis_roofline(analysis)
+    analysis_replay(analysis)
+    analysis_autotune(torch, observed)
 
 
 def goodput(futs, wall, slo_ms):
@@ -3515,16 +3841,21 @@ def attention_launches(cfg, label, before, after, name, tag):
 
 
 def profile_phase(torch, arch="starcoder2-7b", layers=0, prefill=True,
-                  tag="profile", labels=("base", "multi-tenant f32")):
+                  tag="profile", labels=("base", "multi-tenant f32"),
+                  analysis=None):
     """Where a full-width decode step (B=8) spends its device time: the
     base model, and multi-tenant with every request on an adapter or the
     base; then (``prefill``) one batch-1, 1024-token prefill of the base
     model, a lane admission's unit of work. Device time per kernel from
     torch.profiler, an MoE model's also per range (``moe_ranges``); wall
     time from the host clock around synchronized steps (decode: mean of 3;
-    prefill: one, after a warm-up; profiler off)."""
+    prefill: one, after a warm-up; profiler off). With ``analysis`` (a
+    dict), each step's ``program_cost``, its device and wall ms and its
+    shape land there by label, and a traced lane-engine run of base
+    decode (``traced_lanes``) under "lanes", for ``analysis_phase``."""
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.configs import get_config
+    from repro_torch.analysis.profile import memory_summary, program_cost
+    from repro_torch.configs import ShapeSpec, get_config
     from repro_torch.launch import serve
     from repro_torch.models import lm
     from repro_torch.serving import MultiTenantEngine
@@ -3580,7 +3911,16 @@ def profile_phase(torch, arch="starcoder2-7b", layers=0, prefill=True,
             print(f"[{tag}]   {ms:8.3f} ms  x{n:<4d} {name[:90]}")
         kernel_share(f"{arch} {label}", kern)
         print_ranges(torch, cfg, f"{arch} {label}", prof, busy)
+        if analysis is not None:
+            analysis[label] = {
+                "cost": program_cost(lm.decode_step, p, cfg, nxt, caches,
+                                     P + PROMPT),
+                "device_ms": busy, "wall_ms": wall, "cfg": cfg,
+                "shape": ShapeSpec(f"decode, B={B}", P + PROMPT + 8, B,
+                                   "decode")}
     eng.close()
+    if analysis is not None:
+        analysis["lanes"] = traced_lanes(torch, cfg, params)
     if not prefill:
         check_run(f"{tag} {arch}", read_counts(), (), {},
                   attention_kernels(cfg)[1])
@@ -3621,6 +3961,14 @@ def profile_phase(torch, arch="starcoder2-7b", layers=0, prefill=True,
     for ms, n, name in sorted(kern, reverse=True)[:8]:
         print(f"[{tag}]   {ms:8.3f} ms  x{n:<4d} {name[:90]}")
     print_ranges(torch, cfg, f"{arch} base prefill", prof, busy)
+    if analysis is not None:
+        analysis["base prefill"] = {
+            "cost": program_cost(lm.prefill, params, cfg, pre, CACHE + P),
+            "memory": memory_summary(lm.prefill, params, cfg, pre,
+                                     CACHE + P),
+            "device_ms": busy, "wall_ms": wall, "cfg": cfg,
+            "shape": ShapeSpec(f"prefill, B=1, S={1024 - P}", 1024 - P, 1,
+                               "prefill")}
     check_run(f"{tag} {arch}", read_counts(), (), {},
               attention_kernels(cfg)[1])
 
@@ -4511,8 +4859,8 @@ def switch_lora_phase(torch):
           flush=True)
     print(f"[switch] the fuse's bound: {nbytes / 1e9:.2f} GB and "
           f"{flops / 1e9:.1f} GFLOP f32 -> {b['bound_ms']:.3f} ms "
-          f"({b['bound_by']}; bytes {nbytes / HBM_BYTES_PER_S * 1e3:.3f} ms, "
-          f"f32 {flops / F32_FLOP_PER_S * 1e3:.3f} ms), fuse at "
+          f"({b['bound_by']}; bytes {nbytes / card_hw().hbm_bw * 1e3:.3f} "
+          f"ms, f32 {flops / card_hw().f32_flops * 1e3:.3f} ms), fuse at "
           f"{b['bound_ms'] / med['fuse']:.1%} of it; fuse / SHiRA load "
           f"{med['fuse'] / med['load']:.2f}x; the fuse's peak over what was "
           f"allocated before it {extra / 1e6:.1f} MB (one layer's f32 delta "
@@ -4674,7 +5022,7 @@ def kinds_consistency_phase(torch):
     """The kinds with the kernels in the loop against the same Trainer on the
     CPU, where the wrappers compute their plain versions: full width,
     KINDS_LAYERS layer(s), f32, one 16-token sequence a step (the CPU
-    side's size: a few seconds a step). lora, dora and shira-dora: 3 steps
+    side's size: a few seconds a step). lora, dora and shira-dora: CPU_STEPS
     of losses to TRAIN_TOL, on the card's factors and mask. Hook mode
     (shira-wm) with weight_decay 0.01, 2 steps: the weights that only decay
     (every leaf off the mask) within WD_TOL of the largest weight of the
@@ -4700,7 +5048,7 @@ def kinds_consistency_phase(torch):
         for kind in FACTOR_KINDS:
             run = RunConfig(model=cfg, shape=shape, adapter=AdapterConfig(
                 kind=kind, mask="wm", sparsity=0.98, rank=16),
-                train=TrainConfig(learning_rate=1e-3, total_steps=3,
+                train=TrainConfig(learning_rate=1e-3, total_steps=CPU_STEPS,
                                   warmup_steps=1))
             zero_counts()
             tg = Trainer(run, base_params=base)
@@ -4708,14 +5056,14 @@ def kinds_consistency_phase(torch):
                          trainable0=cpu(tg.trainable0),
                          aux=None if tg.aux is None else cpu(tg.aux))
             t0 = time.perf_counter()
-            lg = [h["loss"] for h in tg.fit(3, log=None)["history"]]
+            lg = [h["loss"] for h in tg.fit(CPU_STEPS, log=None)["history"]]
             t1 = time.perf_counter()
-            lc = [h["loss"] for h in tc.fit(3, log=None)["history"]]
+            lc = [h["loss"] for h in tc.fit(CPU_STEPS, log=None)["history"]]
             t2 = time.perf_counter()
             counts = read_counts()
             d = max(abs(a - b) for a, b in zip(lg, lc))
             print(f"[kinds-consistency] {kind}, f32, {KINDS_LAYERS} layer(s), "
-                  f"full width: "
+                  f"full width, {CPU_STEPS} steps (CPU_STEPS): "
                   f"card losses {lg}, CPU {lc}, max diff {d:.3g} (tol "
                   f"rtol=atol={TRAIN_TOL}); card {t1 - t0:.1f}s, CPU "
                   f"{t2 - t1:.1f}s; launches "
@@ -4783,7 +5131,7 @@ def train_cpu_consistency(torch, arch, tag):
     with the kernels in the loop against the same trainers on the CPU,
     where the wrappers compute their plain versions: full width, 2 layers,
     f32, one 16-token sequence a step (an adapter; a vision model's after
-    its patch prefix), the card's indices, 3 steps of losses to
+    its patch prefix), the card's indices, CPU_STEPS steps of losses to
     TRAIN_TOL. A vision or audio model has the Trainer alone (the
     multi-adapter trainer refuses it: ``multi_refused``)."""
     from repro_torch.configs import (AdapterConfig, RunConfig, ShapeSpec,
@@ -4797,8 +5145,8 @@ def train_cpu_consistency(torch, arch, tag):
                                                1, "train"),
                     adapter=AdapterConfig(kind="shira", mask="rand",
                                           sparsity=0.98),
-                    train=TrainConfig(learning_rate=1e-2, total_steps=3,
-                                      warmup_steps=1))
+                    train=TrainConfig(learning_rate=1e-2,
+                                      total_steps=CPU_STEPS, warmup_steps=1))
     cpu = lambda t: map_leaves(lambda _, x: x.cpu(), t)
     names = ["a0", "a1", "a2"]
     with layers.compute_precision(torch.float32):
@@ -4821,15 +5169,15 @@ def train_cpu_consistency(torch, arch, tag):
                                          device="cpu")
                 keys = [f"loss:{n}" for n in names]
             t0 = time.perf_counter()
-            hg = tg.fit(3, log=None)["history"]
+            hg = tg.fit(CPU_STEPS, log=None)["history"]
             t1 = time.perf_counter()
-            hc = tc.fit(3, log=None)["history"]
+            hc = tc.fit(CPU_STEPS, log=None)["history"]
             t2 = time.perf_counter()
             counts = {k: v for k, v in read_counts().items() if v}
             d = max(abs(a[k] - b[k]) for a, b in zip(hg, hc) for k in keys)
             top = max(abs(b[k]) for b in hc for k in keys)
             print(f"[{tag}] {arch} {label}, f32, {cfg.num_layers} layers, "
-                  f"full width: card losses {[[h[k] for k in keys] for h in hg]}"
+                  f"full width, {CPU_STEPS} steps (CPU_STEPS): card losses {[[h[k] for k in keys] for h in hg]}"
                   f", CPU {[[h[k] for k in keys] for h in hc]}, aux card "
                   f"{[round(h['aux'], 5) for h in hg]}, max diff {d:.3g} "
                   f"(tol rtol=atol={TRAIN_TOL}); card {t1 - t0:.1f}s, CPU "
@@ -4884,8 +5232,9 @@ def moe_phases(torch):
     """The MoE slice (MOE_ARCH) at full width, cut to MOE_LAYERS of its 24
     layers for the script's time limit (printed)."""
     print(f"[moe] {MOE_ARCH}: serve, profile, continuous and train at "
-          f"{MOE_LAYERS} of 24 layers (cut for the script's time limit since "
-          f"the hybrid slice; all 24 before)", flush=True)
+          f"{MOE_LAYERS} of 24 layers (cut for the script's time limit: 12 "
+          f"since the hybrid slice, 8 since the analysis slice; all 24 "
+          f"before)", flush=True)
     return slice_phases(torch, MOE_ARCH, "moe", MOE_LAYERS, MOE_LAYERS)
 
 
@@ -5409,9 +5758,13 @@ def main() -> None:
     timed("kernels (zamba widths)", zamba_kernels, torch, flush)
     del scratch
     torch.cuda.empty_cache()
-    launches = timed("serve", serve_phase, torch)
+    from repro_torch.analysis import autotune
+    autotune.clear_observed()
+    with autotune.observe():        # the classes sidedelta plans, for the
+        launches = timed("serve", serve_phase, torch)   # analysis phase
     torch.cuda.empty_cache()
-    timed("profile", profile_phase, torch)
+    analysis = {}
+    timed("profile", lambda: profile_phase(torch, analysis=analysis))
     torch.cuda.empty_cache()
     timed("consistency", consistency_phase, torch)
     torch.cuda.empty_cache()
@@ -5420,13 +5773,19 @@ def main() -> None:
           f"script's time limit since the vision and audio slice; all 32 "
           f"before): KV and resident requests per GB below are of "
           f"{CC_LAYERS} layers", flush=True)
-    for k, v in timed("continuous", lambda: continuous_phase(
-            torch, layers=CC_LAYERS)).items():
-        launches[k] = launches.get(k, 0) + v
+    with autotune.observe():
+        for k, v in timed("continuous", lambda: continuous_phase(
+                torch, layers=CC_LAYERS)).items():
+            launches[k] = launches.get(k, 0) + v
+    observed = autotune.observed_shapes()
     torch.cuda.empty_cache()
     timed("continuous-consistency", continuous_consistency_phase, torch)
     torch.cuda.empty_cache()
-    totals, c_shira = timed("train", train_phase, torch)
+    print(f"[train] starcoder2-7b: launch.train and MultiAdapterTrainer at "
+          f"{TRAIN_LAYERS} of 32 layers (TRAIN_LAYERS: cut for the script's "
+          f"time limit since the analysis slice; all 32 before)", flush=True)
+    totals, c_shira = timed("train", lambda: train_phase(
+        torch, layers=TRAIN_LAYERS))
     for k, v in totals.items():
         launches[k] = launches.get(k, 0) + v
     torch.cuda.empty_cache()
@@ -5442,6 +5801,9 @@ def main() -> None:
         launches[k] = launches.get(k, 0) + v
     torch.cuda.empty_cache()
     timed("personalization-consistency", pz_consistency_phase, torch)
+    torch.cuda.empty_cache()
+    timed("analysis", analysis_phase, torch, analysis, observed)
+    PZ_TRACES.clear()
     torch.cuda.empty_cache()
     for k, v in timed("slo-chaos", slo_chaos_phase, torch).items():
         launches[k] = launches.get(k, 0) + v

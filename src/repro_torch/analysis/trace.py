@@ -1,8 +1,9 @@
 """Low-overhead host-side tracer: spans, instants, counters.
 
 The port's own copy of ``repro/analysis/trace.py`` (standard library
-only), event for event, so that ``repro.analysis.replay`` and
-``benchmarks/check_replay.py`` read a trace of either package. The
+only), event for event, so that the port's replay cost model
+(``repro_torch.analysis.replay``) and the reference's read a trace of
+either package. The
 engines, the adapter store, the switch and the trainers call
 ``trace.span(...)`` / ``trace.instant(...)`` / ``trace.counter(...)`` at
 the phases the replay cost model attributes time to. Tracing is OFF by

@@ -1,9 +1,9 @@
 """Configuration dataclasses for models, shapes, adapters and training.
 
-A copy of ``repro/configs/base.py``'s ``ShapeSpec``, ``ModelConfig``,
-``AdapterConfig``, ``TrainConfig``, ``RunConfig``, ``MoEConfig``,
-``MLAConfig`` and ``SSMConfig``, so the port reads configurations without
-importing the JAX package.
+A copy of ``repro/configs/base.py``'s ``ShapeSpec``, ``SHAPES``,
+``ModelConfig``, ``AdapterConfig``, ``TrainConfig``, ``RunConfig``,
+``MoEConfig``, ``MLAConfig`` and ``SSMConfig``, so the port reads
+configurations without importing the JAX package.
 """
 from __future__ import annotations
 
@@ -24,6 +24,16 @@ class ShapeSpec:
     @property
     def tokens(self) -> int:
         return self.seq_len * self.global_batch
+
+
+# The four assigned LM-family shapes (the reference's, which
+# ``analysis.roofline.model_flops`` reads by name).
+SHAPES = {
+    "train_4k": ShapeSpec("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524_288, 1, "decode"),
+}
 
 
 @dataclass(frozen=True)
@@ -97,6 +107,12 @@ class ModelConfig:
     pad_kv_to: int = 0
     attn_repeat_kv: bool = False
     remat: str = "full"            # full | dots | none: per-layer remat
+
+    @property
+    def subquadratic(self) -> bool:
+        """Sub-quadratic sequence mixing (drives long_500k's
+        applicability)."""
+        return self.family in ("ssm", "hybrid")
 
     @property
     def padded_vocab(self) -> int:

@@ -34,7 +34,9 @@ On CPU tensors they compute the plain versions, which follow the TPU
 kernel's arithmetic (f32 scores with 1/sqrt(D) rounded in f32, p kept in
 f32, f32 accumulation, output divided by max(l, 1e-30) and cast to q's
 dtype) in one dense softmax instead of an online one. The tests and
-``chip_smoke.py`` hold the kernels against them.
+``chip_smoke.py`` hold the kernels against them. ``flash_decode_cost`` and
+``flash_decode_paged_cost`` give the work each function needs
+(``kernels.counting``).
 """
 from __future__ import annotations
 
@@ -44,6 +46,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.counting import counted
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _DIMS = (16, 32, 64, 80, 128, 256)  # contiguous caches (80: zamba2's
@@ -124,6 +127,37 @@ def flash_decode_paged_plain(q: torch.Tensor, k_pool, v_pool,
     version."""
     return _attend_plain(q, paged_gather(k_pool, block_tables),
                          paged_gather(v_pool, block_tables), kv_len)
+
+
+def _decode_cost(q, kv_len, row_bytes: int, extra_bytes: int) -> dict:
+    """q read and the output written, each request's ``kv_len`` rows of K
+    and V read (``row_bytes`` a row and KV head); q . k and p . v once a
+    row, at q's rate."""
+    B, KV, G, D = q.shape
+    rows = int(decode_lengths(kv_len, B, q.device).sum())
+    ops = float(4 * rows * KV * G * D)
+    bf16 = q.dtype == torch.bfloat16
+    return {"flops": 0.0 if bf16 else ops, "bf16_flops": ops if bf16 else 0.0,
+            "bytes_accessed": float(2 * q.numel() * q.element_size()
+                                    + 2 * rows * KV * row_bytes
+                                    + extra_bytes + B * 4)}
+
+
+def flash_decode_cost(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      kv_len) -> dict:
+    """The work of one ``flash_decode_blocks`` call on this call's
+    lengths."""
+    return _decode_cost(q, kv_len, q.shape[-1] * q.element_size(), 0)
+
+
+def flash_decode_paged_cost(q: torch.Tensor, k_pool, v_pool,
+                            block_tables: torch.Tensor, kv_len) -> dict:
+    """The work of one ``flash_decode_paged`` call on this call's lengths:
+    an int8 pool's rows are D codes and a bf16 scale; the block tables
+    read once."""
+    D = q.shape[-1]
+    row = D + 2 if isinstance(k_pool, tuple) else D * q.element_size()
+    return _decode_cost(q, kv_len, row, block_tables.numel() * 4)
 
 
 def _check_q8(q, k, v) -> None:
@@ -227,6 +261,7 @@ def _partials(q: torch.Tensor, S: int):
     return nsplit, part
 
 
+@counted(flash_decode_cost, "flash_decode", dots=True)
 def flash_decode_blocks(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         kv_len) -> torch.Tensor:
     """q: (B, KV, G, D); k/v: (B, S, KV, D); kv_len a scalar or (B,).
@@ -261,6 +296,7 @@ def flash_decode_blocks(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_decode_blocks.launches = 0    # kernel launches (CUDA tensors only)
 
 
+@counted(flash_decode_paged_cost, "flash_decode_paged", dots=True)
 def flash_decode_paged(q: torch.Tensor, k_pool, v_pool,
                        block_tables: torch.Tensor, kv_len) -> torch.Tensor:
     """q: (B, KV, G, D); k_pool/v_pool: (P, page, KV, D) physical pages in

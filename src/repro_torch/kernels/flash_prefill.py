@@ -22,6 +22,8 @@ split into two bf16 terms), for f32 a plain FMA kernel. On CPU tensors it
 computes ``flash_prefill_plain``, the same arithmetic (f32 scores with
 1/sqrt(D) rounded in f32, p kept in f32, f32 accumulation, output divided
 by max(l, 1e-30) and cast to q's dtype) in one dense softmax.
+``flash_prefill_cost`` gives the work the function needs
+(``kernels.counting``).
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.counting import counted
 from repro_torch.kernels.flash_decode import softmax_scale
 
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -57,6 +60,27 @@ def flash_prefill_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (out / l.clamp(min=1e-30)).reshape(B, Sq, H, D).to(q.dtype)
 
 
+def flash_prefill_cost(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       causal: bool = True) -> dict:
+    """The work of one ``flash_prefill_blocks`` call: q, k, v read and the
+    output written once; q . k and p . v once for each key a query sees,
+    at the inputs' rate (whatever the kernel does within: its bf16 p . v
+    runs as two products, p = hi + lo)."""
+    B, Sq, H, D = q.shape
+    Skv = k.shape[1]
+    if not causal:
+        keys = Sq * Skv
+    elif Skv >= Sq:                     # query i sees keys 0..i
+        keys = Sq * (Sq + 1) // 2
+    else:
+        keys = Skv * (Skv + 1) // 2 + (Sq - Skv) * Skv
+    ops = float(4 * D * H * B * keys)
+    bf16 = q.dtype == torch.bfloat16
+    return {"flops": 0.0 if bf16 else ops, "bf16_flops": ops if bf16 else 0.0,
+            "bytes_accessed": float((2 * q.numel() + 2 * k.numel())
+                                    * q.element_size())}
+
+
 def _check(q, k, v) -> None:
     if q.ndim != 4 or k.ndim != 4 or v.shape != k.shape:
         raise ValueError(f"q (B, Sq, H, D) and k/v (B, Skv, KV, D) expected, "
@@ -80,6 +104,7 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+@counted(flash_prefill_cost, "flash_prefill", dots=True)
 def flash_prefill_blocks(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          causal: bool = True) -> torch.Tensor:
     """q: (B, Sq, H, D); k/v: (B, Skv, KV, D). Returns (B, Sq, H, D) in q's

@@ -13,7 +13,8 @@ On CUDA tensors the wrapper launches ``csrc/masked_update.cu`` (one
 launch for the whole leaf, stacked layers included); on CPU tensors it
 computes ``masked_update_plain``, which the tests and ``chip_smoke.py``
 hold the kernel against bit for bit. Both update ``w`` in place, as the
-Pallas kernel aliases its output to W.
+Pallas kernel aliases its output to W. ``masked_update_cost`` gives the
+work the kernel does (``kernels.counting``).
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.counting import counted
 
 _W_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _M_DTYPES = {torch.bool: 0, torch.uint8: 0, torch.float32: 1}
@@ -33,6 +35,35 @@ def masked_update_plain(w: torch.Tensor, mask: torch.Tensor,
     operation rounded on its own, cast to w's dtype."""
     out = w.float() + (alpha * mask.float()) * vals
     return w.copy_(out)
+
+
+def written_sectors(w: torch.Tensor, mask: torch.Tensor) -> int:
+    """The 32-byte sectors of W (from its first element) that hold a
+    masked entry: those the update writes."""
+    per = 32 // w.element_size()        # W entries a 32-byte sector
+    flat = mask.reshape(-1)
+    chunk = per << 24
+    sectors = 0
+    for lo in range(0, flat.numel(), chunk):  # bounded temporaries
+        part = flat[lo:lo + chunk]
+        if part.numel() % per:
+            part = torch.cat([part, part.new_zeros(per - part.numel() % per)])
+        sectors += int(part.reshape(-1, per).ne(0).any(1).sum())
+    return sectors
+
+
+def masked_update_cost(w: torch.Tensor, mask: torch.Tensor,
+                       vals: torch.Tensor, alpha: float = 1.0) -> dict:
+    """The work of one ``masked_update`` call: W, M and V read whole (a NaN
+    in V or a -0 in W changes W off the mask too), and only the 32-byte
+    sectors of W that hold a masked entry written, counted on this call's
+    mask (the update is in place); a multiply, a multiply and an add an
+    element (f32)."""
+    n = w.numel()
+    return {"flops": float(3 * n), "bf16_flops": 0.0,
+            "bytes_accessed": float(n * (w.element_size()
+                                         + mask.element_size() + 4)
+                                    + 32 * written_sectors(w, mask))}
 
 
 def _check(w, mask, vals) -> None:
@@ -61,6 +92,7 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+@counted(masked_update_cost, "masked_update")
 def masked_update(w: torch.Tensor, mask: torch.Tensor, vals: torch.Tensor,
                   alpha: float = 1.0) -> torch.Tensor:
     """w += alpha * (mask * vals), in place; returns w. CPU tensors take

@@ -14,7 +14,9 @@ triggered". ``ordered=False`` takes unique indices in any order,
 unchecked. On CPU tensors it computes ``scatter_apply_plain``, an
 index_add_ with the same rounding, which the tests and ``chip_smoke.py``
 hold the kernel against. Both update ``w`` in place: the full-width base
-does not fit on the card twice.
+does not fit on the card twice. ``scatter_apply_cost`` gives the work the
+kernel does (``kernels.counting``): its bytes are W's 32-byte sectors
+that the entries touch (``sector_bytes``).
 """
 from __future__ import annotations
 
@@ -23,6 +25,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.counting import counted
 
 
 def scatter_apply_plain(w: torch.Tensor, idx: torch.Tensor,
@@ -35,6 +38,31 @@ def scatter_apply_plain(w: torch.Tensor, idx: torch.Tensor,
     flat = (layer + idx.reshape(nl, -1).long()).reshape(-1)
     w.view(-1).index_add_(0, flat, vals.reshape(-1) * alpha)
     return w
+
+
+def sector_bytes(w: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor):
+    """(bytes, sectors) that scatter_apply(w, idx, vals) must move: the
+    index and value of every entry read once, and each 32-byte sector of W
+    that holds an applied entry (value not 0, index inside its matrix) read
+    and written once, counted from the indices at W's own addresses."""
+    n, m = w.shape[-2:]
+    nl, k = idx.numel() // idx.shape[-1], idx.shape[-1]
+    i = idx.reshape(nl, k).long()
+    keep = (vals.reshape(nl, k) != 0) & (i >= 0) & (i < n * m)
+    first = w.data_ptr() % 32 // 4      # W's first element within a sector
+    flat = (torch.arange(nl, device=i.device)[:, None] * (n * m) + i
+            + first)[keep]
+    sectors = int(torch.unique(flat // 8).numel())
+    return nl * k * 8 + 64 * sectors, sectors
+
+
+def scatter_apply_cost(w: torch.Tensor, idx: torch.Tensor,
+                       vals: torch.Tensor, alpha: float = 1.0, *,
+                       ordered: bool = True) -> dict:
+    """The work of one ``scatter_apply`` call: ``sector_bytes`` on this
+    call's entries (the bound counts no operations)."""
+    nbytes, _ = sector_bytes(w, idx, vals)
+    return {"flops": 0.0, "bf16_flops": 0.0, "bytes_accessed": float(nbytes)}
 
 
 def _check(w, idx, vals) -> None:
@@ -62,6 +90,7 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+@counted(scatter_apply_cost, "scatter_apply")
 def scatter_apply(w: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor,
                   alpha: float = 1.0, *, ordered: bool = True
                   ) -> torch.Tensor:

@@ -31,15 +31,23 @@ differentiates its XLA twin ``_sidedelta_xla`` instead):
 ``sidedelta_dvals`` launches ``csrc/sidedelta_grad.cu`` for the second on
 CUDA tensors and computes ``sidedelta_dvals_plain`` on CPU tensors. Both
 gradients read one grouping of the requests and one token-minor dy.
+
+``sidedelta_cost`` and ``dvals_cost`` give the work each kernel does
+(``kernels.counting``; the bounds of ``chip_smoke.py``). An autotuned plan
+cache (``install_plan_cache``, filled by ``analysis/autotune.py`` from
+measured times) maps a call's class (B, S, n, m, K, x itemsize) to the
+path ``kernel_path`` returns before its static rule; nothing installs one
+by default.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.counting import counted, uncounted
 
 _X_DTYPES = (torch.float32, torch.bfloat16)
 _ROW_DTYPES = (torch.int32, torch.int16)
@@ -117,14 +125,87 @@ def _fn(name: str):
     return fn
 
 
-def kernel_path(B: int, S: int) -> str:
-    """The kernel path the wrapper takes for B requests of S rows: "rows"
-    (a table walk per row) for decode (S == 1) and for calls of fewer
-    tokens than ROWS_BELOW gives, where it measured faster on the H100;
-    "tokens" (token-minor, a table walk per adapter and tile of 128
-    tokens) otherwise."""
+def static_path(B: int, S: int) -> str:
+    """The static rule: "rows" (a table walk per row) for decode (S == 1)
+    and for calls of fewer tokens than ROWS_BELOW gives, where it measured
+    faster on the H100; "tokens" (token-minor, a table walk per adapter
+    and tile of 128 tokens) otherwise."""
     below = ROWS_BELOW[0] if B == 1 else ROWS_BELOW[1]
     return "rows" if S == 1 or B * S < below else "tokens"
+
+
+def grid_fits(B: int, S: int, m: int) -> bool:
+    """Both paths' grids hold the call (the limits the wrapper checks)."""
+    return -(-m // 8) <= 65535 and S <= 65535 and B * S <= 65535 * TILE
+
+
+# ---------------------------------------------------------------------------
+# The autotuned plan cache: ``analysis/autotune.py`` measures both paths
+# per call class and installs the winners here; ``kernel_path`` consults
+# it before the static rule. Entries are checked at lookup (a path name,
+# and grids that hold the class), so a stale or hand-edited cache falls
+# back to the rule instead of reaching a launch.
+# ---------------------------------------------------------------------------
+
+PATHS = ("rows", "tokens")
+PlanKey = Tuple[int, int, int, int, int, int]     # B, S, n, m, K, itemsize
+
+_PLAN_CACHE: Dict[PlanKey, str] = {}
+plan_cache_stats = {"hits": 0, "misses": 0, "rejected": 0}
+
+
+def plan_cache_key(B: int, S: int, n: int, m: int, K: int,
+                   x_itemsize: int = 2) -> PlanKey:
+    """One call class = one cache entry: B requests of S rows, an (n, m)
+    leaf, tables K entries wide, x of ``x_itemsize`` bytes."""
+    return (int(B), int(S), int(n), int(m), int(K), int(x_itemsize))
+
+
+def plan_is_valid(key: PlanKey, path) -> bool:
+    """A usable entry: a path's name, at a class whose grids fit."""
+    B, S, _, m = key[:4]
+    return path in PATHS and grid_fits(B, S, m)
+
+
+def install_plan_cache(plans: Dict[PlanKey, str],
+                       replace: bool = False) -> int:
+    """Merge autotuned paths into the cache; returns entries installed."""
+    global _PLAN_CACHE
+    if replace:
+        _PLAN_CACHE = {}
+    for key, path in plans.items():
+        _PLAN_CACHE[tuple(int(x) for x in key)] = path
+    return len(_PLAN_CACHE)
+
+
+def clear_plan_cache() -> None:
+    _PLAN_CACHE.clear()
+    for k in plan_cache_stats:
+        plan_cache_stats[k] = 0
+
+
+def plan_cache() -> Dict[PlanKey, str]:
+    return dict(_PLAN_CACHE)
+
+
+def kernel_path(B: int, S: int, n: Optional[int] = None,
+                m: Optional[int] = None, K: Optional[int] = None,
+                x_itemsize: int = 2) -> str:
+    """The path the wrapper takes for B requests of S rows: the plan
+    cache's entry for the class (B, S, n, m, K, x_itemsize) when one is
+    installed and valid, else ``static_path``. Without the leaf's (n, m,
+    K), or with no cache installed (the default), only the static rule
+    answers, and nothing is counted."""
+    if n is not None and _PLAN_CACHE:
+        key = plan_cache_key(B, S, n, m, K, x_itemsize)
+        if key in _PLAN_CACHE:
+            cached = _PLAN_CACHE[key]
+            if plan_is_valid(key, cached):
+                plan_cache_stats["hits"] += 1
+                return cached
+            plan_cache_stats["rejected"] += 1
+        plan_cache_stats["misses"] += 1
+    return static_path(B, S)
 
 
 def group_by_adapter(ids: torch.Tensor, A: int):
@@ -151,6 +232,31 @@ def token_minor(x: torch.Tensor, order: torch.Tensor) -> torch.Tensor:
     return xT.copy_(x.index_select(0, order).reshape(T, n).t())
 
 
+def sidedelta_cost(x: torch.Tensor, rows: torch.Tensor, vals: torch.Tensor,
+                   colptr: torch.Tensor, ids: torch.Tensor,
+                   scale: Optional[torch.Tensor] = None,
+                   grouped=None) -> dict:
+    """The work of one ``sidedelta`` call on this run's tables: x and ids
+    read once, each adapter a request uses read once (its valid entries,
+    its column offsets, an int8 table's scale), the f32 output written;
+    a multiply and an add for each valid entry of each request's adapter,
+    on every row (f32)."""
+    B, S, _ = x.shape
+    A = rows.shape[0]
+    m = colptr.shape[-1] - 1
+    valid = colptr[:, m].tolist()
+    req = [a for a in ids.tolist() if 0 <= a < A]
+    entry = rows.element_size() + vals.element_size()
+    table = sum(valid[a] * entry + (m + 1) * 4 + (4 if scale is not None
+                                                  else 0)
+                for a in set(req))
+    return {"flops": float(sum(2 * S * valid[a] for a in req)),
+            "bf16_flops": 0.0,
+            "bytes_accessed": float(x.numel() * x.element_size()
+                                    + ids.numel() * 4 + table
+                                    + B * S * m * 4)}
+
+
 def sidedelta(x: torch.Tensor, rows: torch.Tensor, vals: torch.Tensor,
               colptr: torch.Tensor, ids: torch.Tensor,
               scale: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -159,10 +265,15 @@ def sidedelta(x: torch.Tensor, rows: torch.Tensor, vals: torch.Tensor,
     return _sidedelta(x, rows, vals, colptr, ids, scale)
 
 
+@counted(sidedelta_cost, "sidedelta")
 def _sidedelta(x, rows, vals, colptr, ids, scale=None, grouped=None):
     """``sidedelta``; ``grouped`` = (order, rptr, xT) from
     ``group_by_adapter`` and ``token_minor`` when the caller has them."""
     _check(x, rows, vals, colptr, ids, scale)
+    B, S, n = x.shape
+    A, K = rows.shape
+    m = colptr.shape[1] - 1
+    path = kernel_path(B, S, n, m, K, x.element_size())
     if x.device.type == "cpu":
         return sidedelta_plain(x, rows, vals, colptr, ids, scale)
     if x.device.type != "cuda":
@@ -175,12 +286,9 @@ def _sidedelta(x, rows, vals, colptr, ids, scale=None, grouped=None):
                                f"{x.device}")
         if not t.is_contiguous():
             raise ValueError("sidedelta operands must be contiguous")
-    B, S, n = x.shape
-    A, K = rows.shape
-    m = colptr.shape[1] - 1
-    if -(-m // 8) > 65535 or S > 65535 or B * S > 65535 * TILE:
+    if not grid_fits(B, S, m):
         raise ValueError(f"sidedelta grid too large for m={m}, B={B}, S={S}")
-    if kernel_path(B, S) == "tokens":
+    if path == "tokens":
         return _launch_tokens(x, rows, vals, colptr, ids, scale, grouped)
     return _launch_rows(x, rows, vals, colptr, ids, scale)
 
@@ -264,6 +372,24 @@ def sidedelta_dvals_plain(x: torch.Tensor, dy: torch.Tensor,
     return out
 
 
+def dvals_cost(x: torch.Tensor, dy: torch.Tensor, rows: torch.Tensor,
+               colptr: torch.Tensor, ids: torch.Tensor, grouped=None) -> dict:
+    """The work of one ``sidedelta_dvals`` call: x and dy read once, every
+    table entry's row read and its f32 gradient written, the column
+    offsets read; a multiply and an add for each valid entry of each
+    request's adapter, on every row (f32)."""
+    S = x.shape[1]
+    A, K = rows.shape
+    m = colptr.shape[-1] - 1
+    valid = colptr[:, m].tolist()
+    flops = sum(2 * S * valid[a] for a in ids.tolist() if 0 <= a < A)
+    return {"flops": float(flops), "bf16_flops": 0.0,
+            "bytes_accessed": float(x.numel() * x.element_size()
+                                    + dy.numel() * dy.element_size()
+                                    + A * K * (rows.element_size() + 4)
+                                    + A * (m + 1) * 4)}
+
+
 def _check_dvals(x, dy, rows, colptr, ids) -> None:
     if x.ndim != 3 or dy.ndim != 3 or dy.shape[:2] != x.shape[:2]:
         raise ValueError(f"x (B, S, n) and dy (B, S, m) expected, got "
@@ -344,6 +470,7 @@ def sidedelta_dvals(x: torch.Tensor, dy: torch.Tensor, rows: torch.Tensor,
     return _sidedelta_dvals(x, dy, rows, colptr, ids)
 
 
+@counted(dvals_cost, "sidedelta_dvals")
 def _sidedelta_dvals(x, dy, rows, colptr, ids, grouped=None):
     """``sidedelta_dvals``; ``grouped`` = (order, rptr, dyT) from
     ``group_by_adapter`` and ``token_minor`` when the caller has them."""
@@ -394,8 +521,9 @@ class _SideDelta(torch.autograd.Function):
         dx = dvals = None
         grouped = None
         if dy.device.type == "cuda":    # one grouping and dyT for both
-            order, rptr = group_by_adapter(ids, rows.shape[0])
-            grouped = (order, rptr, token_minor(dy, order))
+            with uncounted():           # the kernels' own preparation
+                order, rptr = group_by_adapter(ids, rows.shape[0])
+                grouped = (order, rptr, token_minor(dy, order))
         if ctx.needs_input_grad[0]:
             vals_t = vals.gather(1, t_perm.long())
             # f32 here, cast to x's dtype as the reference's f32 twin casts

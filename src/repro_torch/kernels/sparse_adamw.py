@@ -29,7 +29,9 @@ consecutive elements in 16-byte accesses, and a persistent grid keeps
 enough loads in flight to fill the memory system. A vector needs every
 pointer aligned to its bytes (``vector_width``): whole tensors always are;
 a view at another offset takes the one-element instance of the same
-kernel, counted apart in ``unaligned_launches``.
+kernel, counted apart in ``unaligned_launches``. ``sparse_adamw_cost`` and
+``sparse_adamw_rows_cost`` give the work each entry point does
+(``kernels.counting``).
 """
 from __future__ import annotations
 
@@ -39,6 +41,7 @@ from typing import Iterable, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.counting import counted
 
 _MOMENT_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 Out = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -71,6 +74,24 @@ def sparse_adamw_rows_plain(v, g, mu, nu, mu_scale, nu_scale,
     else:
         m_prev, u_prev = mu.float(), nu.float()
     return _adamw_math(v, g, m_prev, u_prev, scalars)
+
+
+def sparse_adamw_cost(v, g, mu, nu, scalars) -> dict:
+    """The work of one ``sparse_adamw`` call: v, g and both f32 moments
+    read, v', m and u written (28 bytes an element); 15 f32 operations an
+    element."""
+    return {"flops": float(15 * v.numel()), "bf16_flops": 0.0,
+            "bytes_accessed": float(28 * v.numel())}
+
+
+def sparse_adamw_rows_cost(v, g, mu, nu, mu_scale, nu_scale,
+                           scalars) -> dict:
+    """The work of one ``sparse_adamw_rows`` call: v and g read and v', m
+    and u written in f32, both moments read in their stored type; 15 f32
+    operations an element."""
+    return {"flops": float(15 * v.numel()), "bf16_flops": 0.0,
+            "bytes_accessed": float(v.numel()
+                                    * (20 + 2 * mu.element_size()))}
 
 
 def _check(v, g, mu, nu, mu_scale, nu_scale, ndim: int) -> None:
@@ -142,6 +163,7 @@ def _launch(wrapper, streamed, scales, head, scalars) -> None:
         wrapper.unaligned_launches += 1
 
 
+@counted(sparse_adamw_cost, "sparse_adamw_blocks")
 def sparse_adamw(v: torch.Tensor, g: torch.Tensor, mu: torch.Tensor,
                  nu: torch.Tensor, scalars: Sequence[float]) -> Out:
     """One packed (K,) vector: returns (v', m, u), all f32 (K,). CPU
@@ -158,6 +180,7 @@ def sparse_adamw(v: torch.Tensor, g: torch.Tensor, mu: torch.Tensor,
     return tuple(outs)
 
 
+@counted(sparse_adamw_rows_cost, "sparse_adamw_rows")
 def sparse_adamw_rows(v: torch.Tensor, g: torch.Tensor, mu: torch.Tensor,
                       nu: torch.Tensor, mu_scale: Optional[torch.Tensor],
                       nu_scale: Optional[torch.Tensor],

@@ -293,11 +293,13 @@ def _chip_smoke():
 
 
 def test_scatter_bytes_counts_touched_sectors():
-    """chip_smoke.py's bound for scatter_apply, on a pattern counted by
-    hand: 8 B an entry, and 64 B (read and written) for each 32-byte
-    sector of W that holds an applied entry; entries of value 0 and
-    indices outside the matrix touch nothing; sectors follow W's own
-    address, so a view one element in shifts them."""
+    """scatter_apply's bound (``sector_bytes``, which its ``cost()`` and
+    chip_smoke.py's bounds count), on a pattern counted by hand: 8 B an
+    entry, and 64 B (read and written) for each 32-byte sector of W that
+    holds an applied entry; entries of value 0 and indices outside the
+    matrix touch nothing; sectors follow W's own address, so a view one
+    element in shifts them."""
+    from repro_torch.kernels.scatter_apply import sector_bytes
     cs = _chip_smoke()
     idx = torch.tensor([[7, 8, 31, 40], [8, 3, 0, 5]], dtype=torch.int32)
     vals = torch.tensor([[1.0, 1.0, 1.0, 1.0], [1.0, 1.0, 0.0, 1.0]])
@@ -305,15 +307,15 @@ def test_scatter_bytes_counts_touched_sectors():
     assert w.data_ptr() % 32 == 0
     # layer 0: 7 -> sector 0, 8 -> 1, 31 -> 3, 40 outside; layer 1 (from
     # element 32, sector 4): 8 -> 5, 3 and 5 -> 4, 0 has value 0
-    assert cs.scatter_bytes(torch, w, idx, vals) == (8 * 8 + 5 * 64, 5)
+    assert sector_bytes(w, idx, vals) == (8 * 8 + 5 * 64, 5)
     shifted = torch.zeros(65)[1:].reshape(2, 4, 8)
     # one element in: layer 0 at 8, 9, 32 -> sectors 1, 1, 4; layer 1 at
     # 41, 36, 38 -> sectors 5, 4, 4 (sector 4 straddles the two layers and
     # counts once)
-    assert cs.scatter_bytes(torch, shifted, idx, vals) == (8 * 8 + 3 * 64, 3)
-    b = cs.bound(*cs.scatter_bytes(torch, w, idx, vals)[:1], 0)
+    assert sector_bytes(shifted, idx, vals) == (8 * 8 + 3 * 64, 3)
+    b = cs.bound(*sector_bytes(w, idx, vals)[:1], 0)
     assert b["bound_by"] == "bytes"
-    assert b["bound_ms"] == pytest.approx(384 / cs.HBM_BYTES_PER_S * 1e3)
+    assert b["bound_ms"] == pytest.approx(384 / cs.card_hw().hbm_bw * 1e3)
 
 
 def test_wrappers_run_on_cuda_or_cpu_only():

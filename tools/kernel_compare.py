@@ -167,6 +167,7 @@ def scatter_cases(torch, gen, mods, libs):
     bytes the case must move)."""
     d, f, L = 4608, 18432, 32
     from repro_torch.core.masks import budget
+    from repro_torch.kernels.scatter_apply import sector_bytes
     k = budget(d, f, 0.98)
     w = torch.randn((L, d, f), generator=gen, device="cuda")
     idx, vals = cs.rand_entries(torch, gen, L, d, f, k)
@@ -180,7 +181,7 @@ def scatter_cases(torch, gen, mods, libs):
                           device="cuda")
     probe = probe[~torch.isin(probe, gi)]
     probe_before = w.view(-1)[probe].clone()
-    nbytes, _ = cs.scatter_bytes(torch, w, idx, vals)
+    nbytes, _ = sector_bytes(w, idx, vals)
 
     def leaf(entries, ordered=True):
         def apply(name, a):
@@ -398,7 +399,7 @@ def main() -> None:
             rate = ""
             if case.startswith("scatter_apply"):
                 rate = (f", {info / med / 1e9:.3f} TB/s, "
-                        f"{info / cs.HBM_BYTES_PER_S * 1e3 / med:.1%} of the "
+                        f"{info / cs.card_hw().hbm_bw * 1e3 / med:.1%} of the "
                         f"sector bound")
             else:
                 b, nbytes, gathered = info
