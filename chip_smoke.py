@@ -30,8 +30,9 @@ prints its seconds on a "[time]" line:
                prefill with flash_prefill's share (torch.profiler)
   6. consistency  full width, 2 layers, f32: multi-tenant tokens equal the
                switch-per-request reference, unfused and with a hot adapter
-  7. continuous  full width, 16 of 32 layers (CC_LAYERS, printed: since
-               the vision and audio slice, for the script's time limit):
+  7. continuous  full width, 12 of 32 layers (CC_LAYERS, printed: since
+               the distributed slice, for the script's time limit; 16
+               since the vision and audio slice):
                serve --continuous --int8, then a 24-request
                trace (prompts of 64..1024 tokens, half with one shared
                256-token prefix, 32 tokens each) through ServingEngine,
@@ -94,7 +95,10 @@ prints its seconds on a "[time]" line:
                full-width w_up and w_down ones and a 2-layer f32 serve's,
                the winners saved under build/ and installed, that serve's
                tokens unchanged with the cache hit, the cache cleared
-  16. slo-chaos  full width: the reference's slo_load.py --chaos on
+  16. slo-chaos  full width, 16 of 32 layers (SLO_LAYERS, printed: since
+               the distributed slice, for the script's time limit; its 30
+               s of arrivals a pass are fixed, the rest is depth): the
+               reference's slo_load.py --chaos on
                PagedServingEngine (async prefetch): LoadGen traffic (seed
                0, Zipf over 4 f32 packs, 2 of them cold, an overload
                phase), a fault-free pass and a chaos pass under a seeded
@@ -155,9 +159,10 @@ prints its seconds on a "[time]" line:
                deepseek-v2-lite-16b (MLA attention, 64 experts top-6, 2
                shared, a first dense layer) at full width, at the depths
                mla_depth prints (all 27 layers where its arithmetic fits
-               MLA_BUDGET), cut to at most 8 (MLA_LAYERS, printed: since
-               the vision and audio slice, for the script's time limit;
-               14 since the hybrid slice), through
+               MLA_BUDGET), cut to at most 6 (MLA_LAYERS, printed: since
+               the distributed slice, for the script's time limit; 8
+               since the vision and audio slice, 14 since the hybrid
+               slice), through
                the same code as 22: launch.serve in
                four modes, a decode step (base, multi-tenant) and a
                1024-token prefill under torch.profiler with MLA's
@@ -197,9 +202,10 @@ prints its seconds on a "[time]" line:
                zamba2-2.7b (the hybrid: 9 groups of 6 Mamba2 layers, each
                followed by one shared attention + MLP block of 32 heads of
                80, fed concat(hidden, embedding) through w_fuse) at full
-               width, cut to 30 of its 54 layers, 5 of the 9 groups
-               (ZAMBA_LAYERS, printed: since the vision and audio slice,
-               for the script's time limit), its arithmetic printed first
+               width, cut to 24 of its 54 layers, 4 of the 9 groups
+               (ZAMBA_LAYERS, printed: since the distributed slice, for
+               the script's time limit; 30 since the vision and audio
+               slice), its arithmetic printed first
                ([zamba]: parameters, three adapters at 2% of out_proj and
                of the shared block's seven target leaves, a lane's state
                and KV), through the same code as 22: launch.serve in four
@@ -264,7 +270,39 @@ prints its seconds on a "[time]" line:
                tables fit 60 GB (the arithmetic printed): a multi-tenant
                serve, a multi-tenant decode step under torch.profiler, and
                at 2 layers in f32 tokens equal to switch-per-request
-  34. summary   one JSON line of kernel numbers (the D = 80 instances of
+  34. distributed  the launch modules on torch.distributed: (a) world
+               size 1 through NCCL on a (1, 1) mesh, starcoder2-7b at full
+               width and DIST_LAYERS = 4 (printed): the packed SHiRA step
+               on shard-local indices split from a rand pack at 0.99 for 3
+               steps, its f32 losses within 1e-5 of
+               make_shira_train_step(mesh=None), the prefill and decode
+               steps' tokens equal the unsharded ones', scatter_apply,
+               flash_prefill and flash_decode launched on that path, and
+               granite-moe's moe_ffn under "moe_ep_mesh" equal to the dense
+               dispatch on a drop-free call; (b) four ranks on cuda:0
+               through gloo (NCCL refuses two ranks on one device), a
+               (2, 2) mesh, spawned here, each loading the build phase's
+               kernels: gloo's all_reduce, all_gather and reduce_scatter
+               probed on CUDA tensors, then for starcoder2-7b and
+               granite-moe (EP over 2) at full width and 2 layers the
+               packed SHiRA step and the full-finetune step with fsdp=True,
+               2 steps each, their f32 cross-entropies within 1e-4 of one
+               rank's on the same batches, decode logits on local heads
+               within the bf16 attention tolerance (starcoder2-7b) or
+               f32's (granite-moe), each rank's collective bytes, one TP
+               block's equal to the count by hand, the step's wall beside
+               its device time; granite-moe in bf16: the expert-parallel
+               moe_ffn within 0.05 of the dense dispatch on each rank,
+               and, on a DIST_MOE_PROMPT = 32-token prompt, every route
+               that differs from one rank's on a one-rank margin below
+               bf16's rounding of its router product, the logits within
+               2e of one rank's at every step no flipped route reaches (e
+               one rank's own bf16 error against the f32 model); (c) the dry
+               run (launch.dryrun, one CPU process a cell, after (b)):
+               starcoder2-7b and granite-moe train_4k on the 16 x 16 and
+               2 x 16 x 16 meshes, --adapter none and shira: GB, TFLOP
+               and collective GB a rank
+  35. summary   one JSON line of kernel numbers (the D = 80 instances of
                flash_decode and flash_prefill, flash_decode's D = 256
                instance and flash_prefill's non-causal D = 80 case on rows
                of their own), the card line, and last
@@ -356,9 +394,10 @@ B, PROMPT, TOKENS = 8, 16, 16  # serving batch, prompt and generated tokens
 CACHE = 1056                   # the lane engine's rows a request: prompts
                                # up to 1024 + 32 generated tokens
 CC_REQUESTS, CC_TOKENS = 24, 32   # the continuous-batching trace
-CC_LAYERS = 16                 # phase 7's depth since the vision and audio
-                               # slice: half of starcoder2-7b's 32, for the
-                               # script's time limit (32 before)
+CC_LAYERS = 12                 # phase 7's depth since the distributed
+                               # slice, for the script's time limit (16
+                               # since the vision and audio slice, 32
+                               # before)
 CHUNK = 256                    # the paged engine's prefill chunk, and a
                                # training sequence's rows
 IDS = [0, 1, 2, -1, 0, 1, 2, 0]
@@ -378,6 +417,9 @@ ROUND_TRIP_TOL = 1e-6          # a loaded pack vs the trained weights, of
 KV_INT8_MAX = 0.52             # int8 KV bytes of bf16's: (128 + 2) / 256;
                                # MLA's latents (512 + 2 + 64 + 2) / 1152
 PEAK_GB_MAX = 72               # slo-chaos: device memory allocated, GB
+SLO_LAYERS = 16                # slo-chaos's depth since the distributed
+                               # slice, for the script's time limit (32
+                               # before)
 FACTOR_KINDS = ("lora", "dora", "shira-dora")
 NONE_BYTES = 20                # full finetuning, a parameter: f32 base,
                                # trainable copy, two moments and gradient
@@ -406,10 +448,11 @@ MOE_LAYERS = 8                 # its phases' depth since the analysis
 MOE_LONG = 501                 # moe-consistency's long prompt: one call of
                                # at most 512 tokens drops no routing choice
 MLA_ARCH = "deepseek-v2-lite-16b"  # the MLA slice: full width, 27 layers
-MLA_LAYERS = 8                 # its phases' deepest cut since the vision
-                               # and audio slice (the first dense layer and
-                               # 7 MoE), for the script's time limit (14
-                               # since the hybrid slice, 27 before)
+MLA_LAYERS = 6                 # its phases' deepest cut since the
+                               # distributed slice (the first dense layer
+                               # and 5 MoE), for the script's time limit (8
+                               # since the vision and audio slice, 14 since
+                               # the hybrid slice, 27 before)
 MLA_BUDGET = 76e9              # the device bytes mla_depth plans for, of
                                # the card's 85.0e9: the rest is allocator
                                # slack and the activations it leaves out
@@ -421,9 +464,10 @@ MAMBA_ARCH = "mamba2-780m"     # the SSM slice: full width, 48 layers
 MAMBA_LAYERS = 24              # its phases' depth since the vision and
                                # audio slice, for the script's time limit
 ZAMBA_ARCH = "zamba2-2.7b"     # the hybrid slice: full width, 54 layers
-ZAMBA_LAYERS = 30              # its phases' depth since the vision and
-                               # audio slice: 5 of its 9 groups of 6, for
-                               # the script's time limit
+ZAMBA_LAYERS = 24              # its phases' depth since the distributed
+                               # slice: 4 of its 9 groups of 6, for the
+                               # script's time limit (30 since the vision
+                               # and audio slice, 54 before)
 VLM_ARCH = "paligemma-3b"      # the vision slice: full width, all 18 layers
 VLM_PREFIX = 256               # its patch embeddings, a prefix of cache rows
 AUDIO_ARCH = "hubert-xlarge"   # the audio slice: full width, all 48 layers
@@ -3351,7 +3395,10 @@ def slo_chaos_phase(torch):
     from repro_torch.runtime import faults
     from repro_torch.serving import loadgen
     zero_counts()
-    cfg = get_config("starcoder2-7b")
+    cfg = get_config("starcoder2-7b").replace(num_layers=SLO_LAYERS)
+    print(f"[slo-chaos] starcoder2-7b at full width, {SLO_LAYERS} of 32 "
+          f"layers (SLO_LAYERS: cut for the script's time limit since the "
+          f"distributed slice; all 32 before)", flush=True)
     params = lm.init_params(cfg, seed=0, device="cuda")
     packs = serve.make_adapters(cfg, params, 4)
     names = [p.name for p in packs]
@@ -5297,8 +5344,9 @@ def mla_phases(torch):
           f"kv_lora_rank {cfg.mla.kv_lora_rank}, {cfg.moe.num_experts} "
           f"experts top-{cfg.moe.top_k}, vocab {cfg.vocab_size}): {text}; "
           f"cut to at most {MLA_LAYERS} layers for the script's time limit "
-          f"(14 since the hybrid slice, {MLA_LAYERS} since the vision and "
-          f"audio slice): serve {min(serve_l, MLA_LAYERS)}, train "
+          f"(14 since the hybrid slice, 8 since the vision and audio "
+          f"slice, {MLA_LAYERS} since the distributed slice): serve "
+          f"{min(serve_l, MLA_LAYERS)}, train "
           f"{min(train_l, MLA_LAYERS)}", flush=True)
     serve_l, train_l = min(serve_l, MLA_LAYERS), min(train_l, MLA_LAYERS)
     return slice_phases(torch, MLA_ARCH, "mla", serve_l, train_l,
@@ -5380,8 +5428,9 @@ def zamba_phases(torch):
           f"{B * lane / 1e9:.3f} GB", flush=True)
     print(f"[zamba] serve, profile, continuous and train at "
           f"{ZAMBA_LAYERS} of {L} layers ({ZAMBA_LAYERS // k} of {g} groups:"
-          f" cut for the script's time limit since the vision and audio "
-          f"slice; all {L} before): the arithmetic above and in the "
+          f" cut for the script's time limit: 30 since the vision and "
+          f"audio slice, {ZAMBA_LAYERS} since the distributed slice; all "
+          f"{L} before): the arithmetic above and in the "
           f"residency line counts the whole model, the engines' resident "
           f"requests per GB {ZAMBA_LAYERS} layers", flush=True)
     return slice_phases(torch, ZAMBA_ARCH, "zamba", ZAMBA_LAYERS,
@@ -5720,6 +5769,804 @@ def materialize_dense(torch, base, state, t):
             for p, w in iter_leaves(base) if p in idx}
 
 
+# ---------------------------------------------------------------------------
+# 34. distributed: the launch modules (mesh, sharding, steps, dryrun) on
+# torch.distributed
+# ---------------------------------------------------------------------------
+
+DIST_ARCH = "starcoder2-7b"
+DIST_MOE = "granite-moe-1b-a400m"
+DIST_LAYERS = 4          # (a)'s depth at world size 1 (NCCL): full width
+DIST_STEPS = 3           # (a)'s train steps, mesh against mesh=None
+DIST4_LAYERS = 2         # (b)'s depth: four ranks share the one card
+DIST4_STEPS = 2          # (b)'s steps of each train step
+DIST_BATCH = (4, 256)    # a train batch: 4 x 256 tokens (data shards of 2)
+DIST_PROMPT = 128        # the serve checks' prompts: 4 x 128 tokens
+DIST_MOE_PROMPT = 32     # granite-moe's bf16 witness: 4 x 32 tokens, so
+                         # that some row-steps lie beyond every flipped
+                         # route's reach (none did at 128)
+DIST_DECODE = 8          # and their decode steps
+DIST_TOL = 1e-5          # (a): f32 losses, the mesh step against mesh=None
+DIST4_TOL = 1e-4         # (b): f32 losses over 4 ranks against one
+                         # rank's over the same two data shards
+                         # (4608-wide sums split across ranks)
+DIST_EP_TOL = 0.05       # (b): bf16 expert-parallel moe_ffn against the
+                         # dense dispatch on the same tokens (the
+                         # reference's bf16 tolerance for the same check)
+BF16_U = 2.0 ** -8       # bf16's unit roundoff (8 significant bits)
+DIST_CELLS = (("starcoder2-7b", "granite-moe-1b-a400m"), ("train_4k",))
+DIST_PATH = ("scatter_apply", "flash_prefill", "flash_decode")
+
+
+def dist_inputs(torch, arch, layers, fsdp=False):
+    """(cfg, global f32 params, the global rand pack at 0.99, the train
+    batches): the same on every rank, from seeds."""
+    from repro_torch.configs import AdapterConfig, ShapeSpec, get_config
+    from repro_torch.core import masks as MK
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.models import lm
+    cfg = get_config(arch).replace(num_layers=layers, fsdp=fsdp)
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    acfg = AdapterConfig(kind="shira", mask="rand", sparsity=0.99)
+    pack = MK.make_packed_indices(params, acfg, gen)
+    B, S = DIST_BATCH
+    batches = [make_batch(cfg, ShapeSpec("dist", S, B, "train"), 0, i)
+               for i in range(DIST_STEPS)]
+    return cfg, params, pack, acfg, batches
+
+
+def dist_rows(torch, batch, mesh):
+    """This rank's data-parallel rows of a numpy batch, on the card."""
+    n, i = mesh.shape.get("data", 1), mesh.coord("data")
+    per = batch["tokens"].shape[0] // n
+    return {k: torch.from_numpy(v[i * per:(i + 1) * per]).to("cuda").long()
+            for k, v in batch.items()}
+
+
+def dist_shira_state(torch, params, pack, pspecs, mesh):
+    """Shard-local indices split from the global pack (core.adapters.
+    split_packed: (L, DPC, TPC, Ks) over each leaf's tiles), this rank's
+    slice of them, and a zero train state of their values."""
+    from repro_torch.core import adapters as A
+    from repro_torch.core.masks import iter_leaves, map_leaves
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch import steps as S
+    specs, shapes = dict(iter_leaves(pspecs)), dict(iter_leaves(params))
+    idx4 = {}
+    for p, i in iter_leaves(pack):
+        s = list(specs[p]) + [None] * 3
+        tiles = (shd._axis_prod(mesh, s[1]), shd._axis_prod(mesh, s[2]))
+        idx4[p] = A.split_packed(i, torch.zeros(i.shape, device="cuda"),
+                                 shapes[p].shape, tiles)[0]
+    vspecs = S.value_specs(pspecs, idx4)
+    local = map_leaves(lambda p, _: shd.local_shard(idx4[p], vspecs[p], mesh),
+                       pack)
+    vals = map_leaves(lambda _, t: torch.zeros(t.shape, device="cuda"), local)
+    return local, dist_state(torch, vals)
+
+
+def dist_state(torch, trainable):
+    from repro_torch.core.masks import map_leaves
+    zeros = lambda: map_leaves(lambda _, t: torch.zeros_like(t), trainable)
+    return {"trainable": trainable, "step": 0, "mu": zeros(), "nu": zeros()}
+
+
+def dist_metrics(m) -> dict:
+    return {k: float(v) for k, v in m.items()}
+
+
+def dist_serve(torch, cfg, params, mesh, prompt, force=None):
+    """Prefill + DIST_DECODE decode steps in bf16 through the steps
+    (mesh=None: the unsharded steps), greedy or fed the tokens ``force``:
+    the tokens and every step's logits."""
+    from repro_torch.launch import steps as S
+    P = prompt.shape[1]
+    size = P + DIST_DECODE + 1
+    prefill = S.make_prefill_step(cfg, size, mesh)
+    decode = S.make_decode_step(cfg, mesh)
+    logits, caches = prefill(params, {"tokens": prompt})
+    toks, outs = [], [logits]
+    for i in range(DIST_DECODE):
+        nxt = (torch.argmax(logits, -1)[:, None] if force is None
+               else force[:, i:i + 1].to(prompt.device))
+        toks.append(nxt)
+        logits, caches = decode(params, caches, nxt, P + i)
+        outs.append(logits)
+    return torch.cat(toks, 1), torch.stack(outs, 1).float()
+
+
+def dist_serve_precision(torch, arch):
+    """(b)'s held serving precision: bf16, but f32 for the MoE model, whose
+    routing flips on near-tied experts when the TP ranks' bf16 partial
+    sums round the hidden state another way: a flipped route is another
+    model output, not a tolerance. Its bf16 run is held by
+    ``dist_moe_bf16`` instead."""
+    from repro_torch.models import layers
+    if arch == DIST_MOE:
+        return layers.compute_precision(torch.float32)
+    return contextlib.nullcontext()
+
+
+def dist_prompt(torch, cfg):
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    return torch.randint(0, cfg.vocab_size, (DIST_BATCH[0], DIST_PROMPT),
+                         generator=gen, device="cuda")
+
+
+def dist_world1(torch, tmp):
+    """(a) World size 1 through NCCL on a (1, 1) mesh, full width, at
+    DIST_LAYERS: the packed SHiRA step on shard-local indices against
+    make_shira_train_step(mesh=None), the prefill and decode steps against
+    the unsharded ones, granite-moe's moe_ffn under "moe_ep_mesh" against
+    the dense dispatch. Returns the path's launch counts."""
+    import torch.distributed as dist
+    from repro_torch.configs import TrainConfig
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.actctx import sharding_hints
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import layers, lm
+    from repro_torch.models.moe import moe_ffn
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/nccl", rank=0,
+                            world_size=1)
+    try:
+        probe = torch.full((8,), 3.0, device="cuda")
+        dist.all_reduce(probe)
+        if not bool((probe == 3.0).all()):
+            fail("distributed: NCCL all_reduce of world size 1 changed its "
+                 "input")
+        mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+        print(f"[distributed] (a) NCCL {dist.get_backend()}, world size "
+              f"{dist.get_world_size()}, {mesh}; {DIST_ARCH} at full width, "
+              f"{DIST_LAYERS} of 32 layers (DIST_LAYERS)", flush=True)
+        tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=1)
+        with layers.compute_precision(torch.float32):
+            cfg, params, pack, acfg, batches = dist_inputs(
+                torch, DIST_ARCH, DIST_LAYERS)
+            pspecs = shd.param_specs(params, cfg, mesh)
+            base = shd.shard_tree(params, pspecs, mesh)
+            idx, state = dist_shira_state(torch, params, pack, pspecs, mesh)
+            step = S.make_shira_train_step(cfg, tcfg, acfg, mesh, pspecs)
+            zero_counts()
+            got, walls = [], []
+            for b in batches:
+                t0 = time.perf_counter()
+                state, m = step(state, dist_rows(torch, b, mesh), base, idx)
+                got.append(dist_metrics(m))
+                walls.append((time.perf_counter() - t0) * 1e3)
+            del state, idx
+        with torch.no_grad():
+            prompt = dist_prompt(torch, cfg)
+            toks, logits = dist_serve(torch, cfg, base, mesh, prompt)
+        counts = read_counts()
+        check_run("distributed (a)", counts, DIST_PATH, {})
+        with layers.compute_precision(torch.float32):
+            ref_step = S.make_shira_train_step(cfg, tcfg, acfg)
+            state = dist_state(torch, dist_zeros(torch, pack))
+            ref = []
+            for b in batches:
+                state, m = ref_step(state, dist_rows(torch, b, mesh), params,
+                                    pack)
+                ref.append(dist_metrics(m))
+            del state
+        with torch.no_grad():
+            rtoks, rlogits = dist_serve(torch, cfg, params, None, prompt)
+        dl = max(abs(g["loss"] - r["loss"]) for g, r in zip(got, ref))
+        print(f"[distributed] (a) SHiRA step on the mesh: losses "
+              f"{[round(g['loss'], 6) for g in got]}, mesh=None "
+              f"{[round(r['loss'], 6) for r in ref]}: max diff {dl:.3g} "
+              f"(tol {DIST_TOL}); steps {[round(w, 1) for w in walls]} ms "
+              f"(wall, {DIST_BATCH[0]} x {DIST_BATCH[1]} tokens, f32)",
+              flush=True)
+        if not dl <= DIST_TOL:
+            fail("distributed (a): the sharded SHiRA step's losses depart "
+                 "from mesh=None's")
+        same = bool(torch.equal(toks, rtoks))
+        ld = float((logits - rlogits).abs().max())
+        print(f"[distributed] (a) prefill + {DIST_DECODE} decode steps, "
+              f"bf16: tokens equal the unsharded steps' {same}, logits max "
+              f"diff {ld:.3g}; launches on the path {counts}", flush=True)
+        if not same:
+            fail("distributed (a): the mesh's serving tokens differ")
+        del base, params, pack, logits, rlogits
+        torch.cuda.empty_cache()
+        # granite-moe: expert-parallel dispatch on the (1, 1) mesh
+        from repro_torch.configs import get_config
+        from repro_torch.models.lm import layer_slice
+        mcfg = get_config(DIST_MOE).replace(num_layers=2)
+        mp = lm.init_params(mcfg, seed=0, device="cuda")
+        moe = layer_slice(mp["stages"][0], 0)["moe"]
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(2)
+        x = torch.randn((4, 128, mcfg.d_model), generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        with torch.no_grad():
+            y, aux = moe_ffn(moe, mcfg, x)
+            with sharding_hints(moe_ep_mesh=(mesh, 1)):
+                y_ep, aux_ep = moe_ffn(moe, mcfg, x)
+        md = float((y.float() - y_ep.float()).abs().max())
+        print(f"[distributed] (a) {DIST_MOE} moe_ffn (full width, 512 "
+              f"tokens: drop-free) under moe_ep_mesh: max diff {md:.3g} "
+              f"against the dense dispatch, aux {float(aux_ep):.6f} vs "
+              f"{float(aux):.6f}", flush=True)
+        if md > 0 or float(aux) != float(aux_ep):
+            fail("distributed (a): expert-parallel moe_ffn departs from the "
+                 "dense dispatch on one rank")
+        del mp, moe, x, y, y_ep
+        torch.cuda.empty_cache()
+        return counts
+    finally:
+        dist.destroy_process_group()
+
+
+def dist_zeros(torch, pack):
+    """Zero packed values shaped as the pack's indices (None elsewhere)."""
+    from repro_torch.core.masks import map_leaves
+    return map_leaves(lambda _, i: torch.zeros(i.shape, device="cuda"),
+                      pack)
+
+
+def dist_refs(torch):
+    """The single-rank runs (b) is held against, at DIST4_LAYERS, f32:
+    per arch the unsharded SHiRA and full-finetune steps' metrics on the
+    global batches, and bf16 serving logits."""
+    from repro_torch.configs import TrainConfig
+    from repro_torch.core.masks import map_leaves
+    from repro_torch.launch import steps as S
+    from repro_torch.models import layers
+    # two slices of each batch, the mesh's data shards: the MoE aux of
+    # each shard is its own, as under expert parallelism
+    tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=1, microbatch=2)
+    out = {}
+    for arch in (DIST_ARCH, DIST_MOE):
+        with layers.compute_precision(torch.float32):
+            cfg, params, pack, acfg, batches = dist_inputs(
+                torch, arch, DIST4_LAYERS, fsdp=True)
+            batches = batches[:DIST4_STEPS]
+            whole = lambda b: {k: torch.from_numpy(v).to("cuda").long()
+                               for k, v in b.items()}
+            step = S.make_shira_train_step(cfg, tcfg, acfg)
+            state = dist_state(torch, dist_zeros(torch, pack))
+            shira = []
+            for b in batches:
+                state, m = step(state, whole(b), params, pack)
+                shira.append(dist_metrics(m))
+            del state
+            step = S.make_train_step(cfg, tcfg)
+            state = dist_state(torch, map_leaves(lambda _, t: t.clone(),
+                                                 params))
+            full = []
+            for b in batches:
+                state, m = step(state, whole(b))
+                full.append(dist_metrics(m))
+            del state
+            torch.cuda.empty_cache()
+        prompt = dist_prompt(torch, cfg)
+        with torch.no_grad(), dist_serve_precision(torch, arch):
+            toks, logits = dist_serve(torch, cfg, params, None, prompt)
+        out[arch] = {"shira": shira, "full": full, "tokens": toks.cpu(),
+                     "logits": logits.cpu()}
+        if arch == DIST_MOE:
+            from repro_torch.models import moe
+            short = prompt[:, :DIST_MOE_PROMPT]
+            with torch.no_grad(), moe.record_routes() as calls:
+                toks, logits = dist_serve(torch, cfg, params, None, short)
+            # the f32 model on the same tokens: one rank's own bf16 error
+            # where the two route alike, the scale the mesh is held at
+            with torch.no_grad(), layers.compute_precision(torch.float32), \
+                    moe.record_routes() as f32_calls:
+                _, f32 = dist_serve(torch, cfg, params, None, short, toks)
+            out[arch]["bf16"] = {
+                "tokens": toks.cpu(), "logits": logits.cpu(),
+                "f32_logits": f32.cpu(),
+                "f32_routes": [c["top_i"].cpu() for c in f32_calls],
+                "routes": [{k: v.cpu() for k, v in c.items()}
+                           for c in calls]}
+        del params, pack
+        torch.cuda.empty_cache()
+    return out
+
+
+def dist_probe(torch, mesh):
+    """One call of each collective the steps use, on CUDA tensors through
+    gloo, checked: all_reduce (sum, max), all_gather, reduce_scatter."""
+    from repro_torch.launch import mesh as M
+    r = torch.distributed.get_rank()
+    for axis in ("model", "data"):
+        i = mesh.axis_names.index(axis)
+        # the ranks that differ from this one along ``axis`` only (ranks
+        # lie row-major over the mesh, as init_device_mesh lays them out)
+        stride = 1
+        for size in mesh.devices_shape[i + 1:]:
+            stride *= size
+        peers = [r + (j - mesh.coord(axis)) * stride
+                 for j in range(mesh.shape[axis])]
+        x = torch.full((4,), float(r + 1), device="cuda")
+        got = {"all_reduce sum": (M.all_reduce(mesh, x, axis),
+                                  sum(p + 1 for p in peers)),
+               "all_reduce max": (M.all_reduce(mesh, x, axis, "max"),
+                                  max(p + 1 for p in peers)),
+               "reduce_scatter": (M.reduce_scatter(mesh, x, axis),
+                                  sum(p + 1 for p in peers)),
+               "all_gather": (M.all_gather(mesh, x[:1] * 0 + mesh.coord(
+                   axis), axis), None)}
+        for k, (t, want) in got.items():
+            ok = (t.tolist() == [float(j) for j in range(mesh.shape[axis])]
+                  if want is None else bool((t == want).all()))
+            if t.device.type != "cuda" or not ok:
+                raise RuntimeError(f"gloo {k} over {axis} on CUDA tensors: "
+                                   f"{t.device} {t.tolist()}")
+
+
+def dist_ep_combine(torch, cfg, params, local, mesh) -> float:
+    """(b) The bf16 expert-parallel moe_ffn of layer 0 on this rank's
+    shard (its E / 2 experts, the partial outputs summed over ``model``)
+    against the dense dispatch of every expert on the same tokens (its data
+    shard, 2 of 4 x 128 tokens, drop-free): the max |y| difference. The same
+    input gives the same routes, so only the combine's order differs."""
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.actctx import sharding_hints
+    from repro_torch.models.lm import layer_slice
+    from repro_torch.models.moe import moe_ffn
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    x = torch.randn((4, 128, cfg.d_model), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    x = x[mesh.coord("data") * 2:(mesh.coord("data") + 1) * 2]
+    full = layer_slice(params["stages"][0], 0)["moe"]
+    mine = layer_slice(local["stages"][0], 0)["moe"]
+    hints = S.sharding_hints_for(cfg.replace(fsdp=False), None, mesh)
+    with torch.no_grad():
+        y, _ = moe_ffn(full, cfg, x)
+        with sharding_hints(**hints):
+            y_ep, _ = moe_ffn(mine, cfg, x)
+    return float((y.float() - y_ep.float()).abs().max())
+
+
+def route_witness(torch, ref, mesh, B, layers, k):
+    """(b)'s bf16 witness for the MoE model's routes. ``ref``: one rank's
+    recorded calls (``moe.record_routes``: x, w, logits, top_i over the B
+    rows); ``mesh``: per data rank, its calls' top_i over its rows. A call
+    of S tokens a row runs layer (call index % layers) at the row's next S
+    positions. Returns (flips, gaps): each token whose expert set differs,
+    as a dict of row, layer, pos, one rank's margin ``gap`` of the most
+    separated pair that swapped (an expert the mesh lost over one it
+    gained), its ``bound``, bf16's rounding of the router's product there,
+    2^-8 * sum_i |x_i| (|w_ia| + |w_ib|) (one rounding of the hidden
+    state, for each of the two), and ``primary`` (no route of an earlier
+    layer flipped in its row at its position or before, so the hidden
+    state it routed on came through the same experts); and every one-rank
+    token's margin between its k-th and (k+1)-th logit."""
+    per = B // len(mesh)
+    pos = [0] * layers
+    flips, gaps = [], []
+    for c, call in enumerate(ref):
+        layer = c % layers
+        T = call["top_i"].shape[0]
+        S_c = T // B
+        want = call["top_i"].reshape(B, S_c, k)
+        got = torch.cat([m[c].reshape(per, S_c, k) for m in mesh])
+        vals = torch.sort(call["logits"], -1, descending=True)[0]
+        gaps.append(vals[:, k - 1] - vals[:, k])
+        differ = (torch.sort(want, -1)[0] != torch.sort(got, -1)[0]).any(-1)
+        for b, sq in differ.nonzero().tolist():
+            t = b * S_c + sq
+            a_set = set(want[b, sq].tolist())
+            g_set = set(got[b, sq].tolist())
+            lg = call["logits"][t]
+            a = max(a_set - g_set, key=lambda e: float(lg[e]))
+            g = min(g_set - a_set, key=lambda e: float(lg[e]))
+            xa = call["x"][t].float().abs()
+            w = call["w"].float().abs()
+            flips.append({"row": b, "layer": layer, "pos": pos[layer] + sq,
+                          "gap": float(lg[a] - lg[g]),
+                          "bound": BF16_U * float(xa @ (w[:, a] + w[:, g]))})
+        pos[layer] += S_c
+    for f in flips:
+        f["primary"] = not any(e["row"] == f["row"] and e["layer"] <
+                               f["layer"] and e["pos"] <= f["pos"]
+                               for e in flips)
+    return flips, torch.cat(gaps)
+
+
+def clean_steps(flips, B, layers, positions):
+    """(B, steps) True where no flipped route can reach the step's logits:
+    no flip in its row at an earlier layer than the last at its position
+    or before, none in the last layer at its position."""
+    out = [[True] * len(positions) for _ in range(B)]
+    for f in flips:
+        for s, q in enumerate(positions):
+            if (f["layer"] < layers - 1 and f["pos"] <= q) or \
+                    f["pos"] == q:
+                out[f["row"]][s] = False
+    return out
+
+
+def dist_rank(rank, world, tmp, out, ref_tokens):
+    """(b) One of four ranks on cuda:0 through gloo, on a (2, 2) mesh;
+    its decode is fed the single-rank run's tokens ``ref_tokens``."""
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    from repro_torch.analysis.profile import (collective_bytes,
+                                              collective_summary)
+    from repro_torch.configs import TrainConfig
+    from repro_torch.core.masks import iter_leaves
+    from repro_torch.kernels import build
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.actctx import sharding_hints
+    from repro_torch.models import blocks, layers, lm
+    missing = [n for n in ("scatter_apply", "flash_prefill", "flash_decode")
+               if not build.library_path(n).exists()]
+    if missing:
+        raise RuntimeError(f"rank {rank}: kernels {missing} not built by "
+                           "the build phase")
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/gloo",
+                            rank=rank, world_size=world)
+    mesh = M.make_mesh((2, 2), ("data", "model"), "cuda")
+    dist_probe(torch, mesh)
+    tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=1)
+    res = {"coords": mesh.coords, "rank": rank}
+    zero_counts()
+    for arch in (DIST_ARCH, DIST_MOE):
+        r = res[arch] = {}
+        with layers.compute_precision(torch.float32):
+            cfg, params, pack, acfg, batches = dist_inputs(
+                torch, arch, DIST4_LAYERS, fsdp=True)
+            batches = batches[:DIST4_STEPS]
+            # the packed SHiRA step (no FSDP: the values are the trained
+            # part; the base is TP-sharded)
+            scfg = cfg.replace(fsdp=False)
+            pspecs = shd.param_specs(params, scfg, mesh)
+            r["specs"] = {p: repr(s) for p, s in iter_leaves(pspecs)
+                          if p.startswith("embed") or p.startswith("unembed")}
+            base = shd.shard_tree(params, pspecs, mesh)
+            idx, state = dist_shira_state(torch, params, pack, pspecs, mesh)
+            step = S.make_shira_train_step(scfg, tcfg, acfg, mesh, pspecs)
+            r["shira"], walls = [], []
+            for i, b in enumerate(batches):
+                rows = dist_rows(torch, b, mesh)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with M.record() as ev:
+                    state, m = step(state, rows, base, idx)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                r["shira"].append(dist_metrics(m))
+            r["shira_coll"] = collective_summary(ev)
+            r["shira_wall_ms"] = walls[-1] * 1e3
+            from torch.profiler import ProfilerActivity, profile
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                state, _ = step(state, dist_rows(torch, batches[-1], mesh),
+                                base, idx)
+                torch.cuda.synchronize()
+            r["shira_device_ms"] = sum(
+                getattr(e, "self_device_time_total", 0)
+                for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+            if arch == DIST_ARCH:
+                # one TP block, forward and backward, counted by hand
+                B, Sq = DIST_BATCH
+                x = torch.randn((B // 2, Sq, cfg.d_model), device="cuda",
+                                requires_grad=True)
+
+                def block():
+                    with sharding_hints(tp=shd.TPLayout(scfg, mesh)):
+                        h, _ = blocks.block_train(
+                            lm.layer_slice(base["stages"][0], 0), scfg, x)
+                        h.sum().backward()
+                r["block_coll"] = collective_bytes(block)
+                r["block_hand"] = 4 * (B // 2) * Sq * cfg.d_model * 4
+            del state, idx, base
+            torch.cuda.empty_cache()
+            # the full-finetune step with fsdp=True
+            pspecs = shd.param_specs(params, cfg, mesh)
+            local = shd.shard_tree(params, pspecs, mesh)
+            step = S.make_train_step(cfg, tcfg, mesh, pspecs)
+            state = dist_state(torch, local)
+            r["full"], walls = [], []
+            for b in batches:
+                rows = dist_rows(torch, b, mesh)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with M.record() as ev:
+                    state, m = step(state, rows)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                r["full"].append(dist_metrics(m))
+            r["full_coll"] = collective_summary(ev)
+            r["full_wall_ms"] = walls[-1] * 1e3
+            del state, local
+            torch.cuda.empty_cache()
+        # decode on local heads, bf16
+        serve = S.serve_param_shardings(cfg, mesh)
+        local = shd.shard_tree(params, serve, mesh)
+        if arch == DIST_MOE:
+            r["ep_diff"] = dist_ep_combine(torch, cfg, params, local, mesh)
+        del params, pack
+        torch.cuda.empty_cache()
+        prompt = dist_prompt(torch, cfg)
+        per = prompt.shape[0] // 2
+        rows = slice(mesh.coord("data") * per, (mesh.coord("data") + 1) * per)
+        with torch.no_grad(), dist_serve_precision(torch, arch):
+            toks, logits = dist_serve(torch, cfg, local, mesh, prompt[rows],
+                                      ref_tokens[arch][rows])
+        r["tokens"], r["logits"] = toks.cpu(), logits.cpu()
+        if arch == DIST_MOE:
+            from repro_torch.models import moe
+            with torch.no_grad(), moe.record_routes() as calls:
+                _, logits = dist_serve(
+                    torch, cfg, local, mesh, prompt[rows, :DIST_MOE_PROMPT],
+                    ref_tokens["bf16"][rows])
+            r["bf16_logits"] = logits.cpu()
+            r["bf16_routes"] = [c["top_i"].cpu() for c in calls]
+        del local
+        torch.cuda.empty_cache()
+    res["counts"] = read_counts()
+    allres = [None] * world
+    dist.all_gather_object(allres, res)
+    if rank == 0:
+        torch.save(allres, out)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def dist_four(torch, tmp, refs):
+    """(b) Spawn four ranks on cuda:0 through gloo; hold their losses and
+    decode logits against the single-rank runs, print their collective
+    bytes and the gloo step's wall against its device time."""
+    import torch.multiprocessing as mp
+    out = f"{tmp}/four.pt"
+    t0 = time.perf_counter()
+    ref_tokens = {a: r["tokens"] for a, r in refs.items()}
+    ref_tokens["bf16"] = refs[DIST_MOE]["bf16"]["tokens"]
+    mp.spawn(dist_rank, args=(4, tmp, out, ref_tokens), nprocs=4)
+    ranks = torch.load(out, weights_only=False)
+    print(f"[distributed] (b) 4 ranks on cuda:0 through gloo, a (2, 2) mesh, "
+          f"{DIST4_LAYERS} layers at full width: "
+          f"{time.perf_counter() - t0:.1f} s (spawn included); gloo "
+          f"all_reduce, all_gather and "
+          f"reduce_scatter each probed on CUDA tensors", flush=True)
+    counts = {}
+    for r in ranks:
+        for k, v in r["counts"].items():
+            counts[k] = counts.get(k, 0) + v
+    check_run("distributed (b)", counts, DIST_PATH, {})
+    from repro_torch.configs import get_config
+    for arch in (DIST_ARCH, DIST_MOE):
+        ref = refs[arch]
+        r0 = ranks[0][arch]
+        print(f"[distributed] (b) {arch}: embedding specs {r0['specs']} "
+              f"(the padded vocabulary, {get_config(arch).padded_vocab} "
+              f"rows, divides the model axis, so the vocab-parallel form "
+              f"is taken, not the d-sharded fallback)", flush=True)
+        for mode in ("shira", "full"):
+            got = r0[mode]
+            d = max(abs(g["loss"] - w["loss"]) for g, w in zip(got,
+                                                               ref[mode]))
+            gn = max(abs(g["grad_norm"] - w["grad_norm"]) / w["grad_norm"]
+                     for g, w in zip(got, ref[mode]))
+            tag = "full (fsdp)" if mode == "full" else mode
+            print(f"[distributed] (b) {arch} {tag}: "
+                  f"loss {[round(g['loss'], 6) for g in got]} against one "
+                  f"rank's {[round(w['loss'], 6) for w in ref[mode]]}: max "
+                  f"diff {d:.3g} (tol {DIST4_TOL}); aux "
+                  f"{[round(g['aux'], 6) for g in got]}; grad norm "
+                  f"rel diff {gn:.3g}; step wall {r0[mode + '_wall_ms']:.1f} "
+                  f"ms on rank 0", flush=True)
+            if not d <= DIST4_TOL:
+                fail(f"distributed (b): {arch} {mode} departs from one rank")
+            for i, rr in enumerate(ranks):
+                c = rr[arch][mode + "_coll"]
+                print(f"[distributed] (b)   rank {i} {tuple(rr['coords'])}: "
+                      f"{mode} step collectives {c['total_bytes'] / 1e6:.2f} "
+                      f"MB ({c['by_kind_count']})", flush=True)
+        print(f"[distributed] (b) {arch} SHiRA step on rank 0: wall "
+              f"{r0['shira_wall_ms']:.1f} ms, device "
+              f"{r0['shira_device_ms']:.1f} ms (gloo stages each collective "
+              f"through the host)", flush=True)
+        if arch == DIST_ARCH:
+            for i, rr in enumerate(ranks):
+                c = rr[arch]["block_coll"]
+                print(f"[distributed] (b)   rank {i}: one TP block forward "
+                      f"+ backward {c['total_bytes']} bytes "
+                      f"({c['by_kind_count']}), by hand "
+                      f"{rr[arch]['block_hand']} (4 all-reduces of "
+                      f"B/2 x S x d f32 over 2 ranks)", flush=True)
+                if c["total_bytes"] != rr[arch]["block_hand"]:
+                    fail("distributed (b): a TP block's collective bytes "
+                         "differ from the count by hand")
+        # decode logits: data rank 0 holds rows [0, B/2), data rank 1 the rest
+        rows = {}
+        for rr in ranks:
+            rows[rr["coords"][0]] = rr[arch]
+        V = get_config(arch).vocab_size      # the pad columns are -1e30
+        logits = torch.cat([rows[0]["logits"], rows[1]["logits"]])[..., :V]
+        want = ref["logits"][..., :V]
+        scale = float(want.abs().max())
+        ld = float((logits - want).abs().max())
+        same = float((logits.argmax(-1) == want.argmax(-1)).float().mean())
+        tol = DIST4_TOL if arch == DIST_MOE else ATTN_TOL["bf16"]
+        print(f"[distributed] (b) {arch} "
+              f"{'f32' if arch == DIST_MOE else 'bf16'} prefill + "
+              f"{DIST_DECODE} decode steps on local heads, fed one rank's "
+              f"greedy tokens: logits max diff {ld:.3g} (tol {tol} x max(1, "
+              f"max |logit| {scale:.3g})), argmax equal {same:.1%}",
+              flush=True)
+        if not ld <= tol * max(1.0, scale):
+            fail(f"distributed (b): {arch}'s decode logits on local heads "
+                 "depart from one rank's")
+        if arch == DIST_MOE:
+            dist_moe_bf16(torch, ranks, ref["bf16"], get_config(arch))
+    return counts
+
+
+def dist_moe_bf16(torch, ranks, ref, cfg):
+    """(b) The MoE model's bf16 serving on the mesh: the expert-parallel
+    combine against the dense dispatch on each rank; then, fed one rank's
+    bf16 greedy tokens, every token whose expert set differs from one
+    rank's, each primary flip's margin against bf16's rounding of its
+    router product, and the logits at every step that no flipped route
+    can reach held within 2e of one rank's, e one rank's own bf16 error
+    (its largest distance from the f32 model's logits at the steps that
+    no route the two choose differently reaches): two bf16 runs that each
+    lie within e of the f32 model lie within 2e of each other."""
+    B, L, k = DIST_BATCH[0], DIST4_LAYERS, cfg.moe.top_k
+    ep = [rr[DIST_MOE]["ep_diff"] for rr in ranks]
+    print(f"[distributed] (b) {DIST_MOE} bf16 moe_ffn, expert-parallel over "
+          f"2 ({cfg.moe.num_experts // 2} experts a rank) against the dense "
+          f"dispatch on each rank's 256 tokens: max diff per rank "
+          f"{[f'{e:.3g}' for e in ep]} (tol {DIST_EP_TOL})", flush=True)
+    if not max(ep) <= DIST_EP_TOL:
+        fail("distributed (b): the bf16 expert-parallel combine departs from "
+             "the dense dispatch")
+    data = {}
+    for rr in ranks:                 # model rank 0 of each data rank
+        if rr["coords"][1] == 0:
+            data[rr["coords"][0]] = rr[DIST_MOE]
+    mesh = [data[d]["bf16_routes"] for d in sorted(data)]
+    if any(len(m) != len(ref["routes"]) for m in mesh):
+        fail("distributed (b): the mesh made another number of moe_ffn "
+             "calls than one rank")
+    flips, gaps = route_witness(torch, ref["routes"], mesh, B, L, k)
+    prim = [f for f in flips if f["primary"]]
+    worst = max(prim, key=lambda f: f["gap"] / f["bound"], default=None)
+    top = max((f["gap"] for f in prim), default=0.0)
+    below = float((gaps <= top).float().mean())
+    print(f"[distributed] (b) {DIST_MOE} bf16 routes on the mesh against one "
+          f"rank: {len(flips)} of {gaps.numel()} token-layer routes differ "
+          f"({len(prim)} primary, {len(flips) - len(prim)} downstream of an "
+          f"earlier layer's flip); primary flips' one-rank margin max "
+          f"{top:.4g}, max margin / bf16 rounding bound "
+          f"{(worst['gap'] / worst['bound']) if worst else 0.0:.3g}; "
+          f"median k-th minus (k+1)-th logit over every token "
+          f"{float(gaps.median()):.4g}, {below:.2%} of tokens at or below "
+          f"the largest flipped margin", flush=True)
+    for f in flips[:12]:
+        print(f"[distributed] (b)   flip row {f['row']} layer {f['layer']} "
+              f"pos {f['pos']}: margin {f['gap']:.4g}, bound "
+              f"{f['bound']:.4g}{'' if f['primary'] else ' (downstream)'}",
+              flush=True)
+    if worst is not None and worst["gap"] > worst["bound"]:
+        fail("distributed (b): a route flipped on the mesh where one rank's "
+             "margin exceeds bf16's rounding of the router product")
+    P = DIST_MOE_PROMPT
+    positions = [P - 1] + [P + i for i in range(DIST_DECODE)]
+    clean = torch.tensor(clean_steps(flips, B, L, positions))
+    V = cfg.vocab_size
+    got = torch.cat([data[d]["bf16_logits"] for d in sorted(data)])[..., :V]
+    want = ref["logits"][..., :V]
+    scale = float(want.abs().max())
+    diff = (got - want).abs().amax(-1)                 # (B, steps)
+    f32 = ref["f32_logits"][..., :V]
+    f32_flips, _ = route_witness(torch, ref["routes"], [ref["f32_routes"]],
+                                 B, L, k)
+    alike = torch.tensor(clean_steps(f32_flips, B, L, positions))
+    pick = lambda t, m: float(t[m].max()) if bool(m.any()) else 0.0
+    held = pick(diff, clean)
+    e_one = pick((want - f32).abs().amax(-1), alike)
+    e_mesh = pick((got - f32).abs().amax(-1), alike & clean)
+    same = float((got.argmax(-1) == want.argmax(-1))[clean].float().mean()) \
+        if bool(clean.any()) else 1.0
+    print(f"[distributed] (b) {DIST_MOE} bf16 against f32 on one rank: "
+          f"{len(f32_flips)} of {gaps.numel()} routes differ; at the "
+          f"{int(alike.sum())} row-steps none reaches, one rank's bf16 "
+          f"error e = {e_one:.3g}, the mesh's {e_mesh:.3g} (at "
+          f"{int((alike & clean).sum())} also out of the mesh's flips' "
+          f"reach)", flush=True)
+    print(f"[distributed] (b) {DIST_MOE} bf16 prefill ({DIST_MOE_PROMPT} "
+          f"tokens, DIST_MOE_PROMPT) + {DIST_DECODE} decode steps: "
+          f"{int(clean.sum())} of {clean.numel()} row-steps no flipped route "
+          f"reaches: logits max diff {held:.3g} against one rank's (tol 2e "
+          f"= {2 * e_one:.3g}; {ATTN_TOL['bf16']} x max |logit| "
+          f"{scale:.3g} would be {ATTN_TOL['bf16'] * max(1.0, scale):.3g})"
+          f", argmax equal "
+          f"{same:.1%}; over every row-step max diff {float(diff.max()):.3g}"
+          f", argmax equal "
+          f"{float((got.argmax(-1) == want.argmax(-1)).float().mean()):.1%}",
+          flush=True)
+    if not held <= 2 * e_one:
+        fail(f"distributed (b): {DIST_MOE}'s bf16 logits depart from one "
+             "rank's where no route flipped")
+
+
+def dist_dryrun_start():
+    """(c) The dry run's cells, one CPU process each (the machine's cores
+    are free once (b) is done): (process, out path) a cell."""
+    import os
+    outs = []
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1",
+               CUDA_VISIBLE_DEVICES="")
+    for arch in DIST_CELLS[0]:
+        for mesh in ("single", "multi"):
+            for adapter in ("none", "shira"):
+                path = (ROOT / "build" / "dryrun"
+                        / f"chip_{arch}_{mesh}_{adapter}.json")
+                path.parent.mkdir(parents=True, exist_ok=True)
+                if path.exists():
+                    path.unlink()
+                cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
+                       "--arch", arch, "--shape", ",".join(DIST_CELLS[1]),
+                       "--mesh", mesh, "--adapter", adapter,
+                       "--out", str(path)]
+                outs.append((subprocess.Popen(
+                    cmd, env=env, cwd=str(ROOT), stdout=subprocess.PIPE,
+                    stderr=subprocess.STDOUT, text=True), path))
+    return outs
+
+
+def dist_dryrun_report(procs):
+    for proc, path in procs:
+        log, _ = proc.communicate(timeout=600)
+        if proc.returncode:
+            fail(f"distributed (c): launch.dryrun failed:\n{log[-2000:]}")
+        for r in json.loads(path.read_text()):
+            if not r.get("ok") or r["cost"] is None:
+                fail(f"distributed (c): cell {r['arch']} {r['shape']} "
+                     f"{r['mesh']} {r.get('error') or r.get('reason')}")
+            print(f"[distributed] (c) dryrun {r['arch']} {r['shape']} mesh "
+                  f"{tuple(r['mesh'])} --adapter {r['adapter']}: "
+                  f"{r['memory']['per_rank_gb']:.3f} GB a rank (params "
+                  f"{r['memory']['params_bytes'] / 1e9:.3f}), "
+                  f"{r['cost']['flops'] / 1e12:.1f} TFLOP, collectives "
+                  f"{r['collectives']['total_gb']:.2f} GB (pod axis "
+                  f"{r['collectives']['pod_axis_bytes'] / 1e9:.2f}), meta run "
+                  f"{r['compile_s']} s", flush=True)
+
+
+def distributed_phase(torch):
+    """34. The launch modules on torch.distributed: (a) world size 1
+    through NCCL, (b) four ranks on cuda:0 through gloo, (c) the dry run's
+    cells. Returns the launch counts of (a)'s and (b)'s sharded paths."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        counts = dict(dist_world1(torch, tmp))
+        refs = dist_refs(torch)
+        torch.cuda.empty_cache()
+        print(f"[distributed] (a) and the one-rank references: "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        for k, v in dist_four(torch, tmp, refs).items():
+            counts[k] = counts.get(k, 0) + v
+    t0 = time.perf_counter()
+    procs = dist_dryrun_start()
+    try:
+        dist_dryrun_report(procs)
+    finally:
+        for proc, _ in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    print(f"[distributed] (c) {len(procs)} cells, one process each: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return counts
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import torch
@@ -5770,8 +6617,9 @@ def main() -> None:
     torch.cuda.empty_cache()
     print(f"[continuous] starcoder2-7b: serve --continuous and the "
           f"24-request trace at {CC_LAYERS} of 32 layers (cut for the "
-          f"script's time limit since the vision and audio slice; all 32 "
-          f"before): KV and resident requests per GB below are of "
+          f"script's time limit: 16 since the vision and audio slice, "
+          f"{CC_LAYERS} since the distributed slice; all 32 before): KV "
+          f"and resident requests per GB below are of "
           f"{CC_LAYERS} layers", flush=True)
     with autotune.observe():
         for k, v in timed("continuous", lambda: continuous_phase(
@@ -5831,6 +6679,9 @@ def main() -> None:
         for k, v in totals.items():
             launches[k] = launches.get(k, 0) + v
         torch.cuda.empty_cache()
+    for k, v in timed("distributed", distributed_phase, torch).items():
+        launches[k] = launches.get(k, 0) + v
+    torch.cuda.empty_cache()
 
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     main_side = side[0]     # w_up, S=1, f32 tables: the multi-tenant decode

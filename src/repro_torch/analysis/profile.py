@@ -33,13 +33,22 @@ Ops it could not cost (a sparse or nested operand) are counted in
                                   the high-water mark of live op outputs
                                   on the CPU)
 
-Collective bytes (``hlo.collective_bytes``) wait for the launch slice: the
-port has no collective yet.
+  collective_bytes(fn, *args, **kw)   the collectives ``fn`` issues
+                                  through ``launch.mesh``, per rank, at the
+                                  reference's ring model (``hlo.py``'s
+                                  ``_ring_bytes``), on a real mesh or an
+                                  abstract one (the dry run)
+
+A collective is not compute: ``program_cost`` counts the ops it runs on
+an abstract mesh as nothing (``launch.mesh`` issues them under
+``counting.uncounted``), and a real one's communication is not a
+dispatched op.
 """
 from __future__ import annotations
 
 import weakref
-from typing import Any, Dict, Tuple
+from collections import defaultdict
+from typing import Any, Dict, List, Tuple
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -67,12 +76,29 @@ _VIEWS = {aten._unsafe_view.default, aten.lift_fresh.default}  # unannotated
 
 
 def _tensors(tree):
+    """The tensors of an op's arguments or result: nested tuples, lists
+    and dicts walked directly (every dispatch goes through here; the
+    generic pytree flatten took half of a dry-run cell's time), any other
+    container through ``tree_flatten``."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, (tuple, list)):
+        return [t for x in tree for t in _tensors(x)]
+    if isinstance(tree, dict):
+        return [t for x in tree.values() for t in _tensors(x)]
+    if tree is None or isinstance(tree, (int, float, bool, str,
+                                         torch.dtype, torch.device)):
+        return []
     return [t for t in tree_flatten(tree)[0] if isinstance(t, torch.Tensor)]
 
 
 def _key(t: torch.Tensor):
-    return (t.untyped_storage().data_ptr(), t.storage_offset(),
-            tuple(t.shape), tuple(t.stride()), t.dtype)
+    st = t.untyped_storage()
+    # a "meta" storage (the dry run's) has no address: its handle tells
+    # storages apart
+    ptr = st._cdata if t.device.type == "meta" else st.data_ptr()
+    return (ptr, t.storage_offset(), tuple(t.shape), tuple(t.stride()),
+            t.dtype)
 
 
 def _region(t: torch.Tensor) -> int:
@@ -292,3 +318,57 @@ def memory_summary(fn, *args, **kwargs) -> Dict[str, Any]:
             "args_mb": round(args_b / 1e6, 1),
             "peak_device_mb": round((args_b + temp + out_b - alias) / 1e6,
                                     1)}
+
+
+# ---------------------------------------------------------------------------
+# Collective bytes (``hlo.collective_bytes``)
+# ---------------------------------------------------------------------------
+
+def ring_bytes(kind: str, result_bytes: float, s: int) -> float:
+    """Bytes a rank sends for one collective of group size ``s`` (the
+    reference's ring model): all-reduce 2·R·(s-1)/s, all-gather R·(s-1)/s
+    (R the gathered result), reduce-scatter R·(s-1) (R the scattered
+    result), all-to-all R·(s-1)/s, collective-permute R."""
+    frac = (s - 1) / s
+    if kind == "all-reduce":
+        return 2.0 * result_bytes * frac
+    if kind == "all-gather":
+        return result_bytes * frac
+    if kind == "reduce-scatter":
+        return result_bytes * (s - 1)
+    if kind in ("all-to-all", "ragged-all-to-all", "collective-broadcast"):
+        return result_bytes * frac
+    return float(result_bytes)  # collective-permute
+
+
+def collective_summary(events: List[dict]) -> Dict[str, Any]:
+    """The reference's ``collective_bytes`` record of the collectives
+    ``launch.mesh.record()`` collected: ``by_kind_bytes``,
+    ``by_kind_count``, ``total_bytes``, ``total_gb``, and
+    ``pod_axis_bytes`` (the traffic of collectives over the ``pod`` axis,
+    the slow link between pods)."""
+    by_bytes: Dict[str, float] = defaultdict(float)
+    by_count: Dict[str, int] = defaultdict(int)
+    pod = 0.0
+    for ev in events:
+        b = ring_bytes(ev["kind"], ev["result_bytes"], ev["group"])
+        by_bytes[ev["kind"]] += b
+        by_count[ev["kind"]] += 1
+        if ev["axis"] == "pod":
+            pod += b
+    total = sum(by_bytes.values())
+    return {"by_kind_bytes": {k: int(v) for k, v in by_bytes.items()},
+            "by_kind_count": dict(by_count),
+            "total_bytes": int(total), "total_gb": total / 1e9,
+            "pod_axis_bytes": int(pod)}
+
+
+def collective_bytes(fn, *args, **kwargs) -> Dict[str, Any]:
+    """Run ``fn(*args, **kwargs)`` once and count, for this rank, the
+    collectives it issues through ``launch.mesh`` (``collective_summary``).
+    An all-reduce over a tuple of axes runs axis after axis and counts as
+    one a non-trivial axis."""
+    from repro_torch.launch import mesh as M
+    with M.record() as events:
+        fn(*args, **kwargs)
+    return collective_summary(events)

@@ -101,6 +101,9 @@ class ModelConfig:
     hybrid_attn_every: int = 0
     modality: str = "text"         # text | vision | audio
     num_prefix_embeds: int = 0
+    # Distribution policy: shard parameters along the ``data`` axis too
+    # (``launch.sharding``).
+    fsdp: bool = False
     # Head-group padding: q heads per kv group (and kv heads) padded with
     # zero-initialised dead heads; the model function is unchanged.
     pad_heads_to: int = 0

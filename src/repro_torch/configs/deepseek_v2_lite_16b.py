@@ -4,8 +4,8 @@
 27L d_model=2048 16H, per-expert d_ff=1408, vocab=102400. Layer 0 uses a dense
 FFN (d_ff=10944) as in the HF config. MLA: q projected directly
 (q_lora_rank=0 in the Lite variant), kv_lora_rank=512, nope/rope head dims
-128/64, v_head_dim=128. The reference's ``fsdp`` (a sharding policy) has
-no field here: the port runs on one card.
+128/64, v_head_dim=128. Trained with FSDP (``fsdp``: parameters also sharded
+over the ``data`` axis).
 """
 from repro_torch.configs.base import MLAConfig, ModelConfig, MoEConfig
 
@@ -18,6 +18,7 @@ CONFIG = ModelConfig(
     moe=MoEConfig(num_experts=64, top_k=6, num_shared=2, d_ff=1408,
                   first_dense_layers=1, first_dense_d_ff=10944,
                   capacity_factor=1.25),
+    fsdp=True,
 )
 
 SMOKE_CONFIG = CONFIG.replace(
@@ -28,4 +29,5 @@ SMOKE_CONFIG = CONFIG.replace(
     moe=MoEConfig(num_experts=4, top_k=2, num_shared=1, d_ff=32,
                   first_dense_layers=1, first_dense_d_ff=64,
                   capacity_factor=1.25),
+    fsdp=False,
 )

@@ -441,3 +441,99 @@ def materialize(params, trainable, aux, acfg: AdapterConfig,
         lambda p, w: factor_weight(w, factors[p], acfg.kind, scale, a,
                                    idx.get(p)) if p in factors else w,
         params)
+
+
+# ---------------------------------------------------------------------------
+# Shard-local materialize (the multi-rank training path)
+# ---------------------------------------------------------------------------
+
+def materialize_sharded(params, values, indices, alpha: float = 1.0):
+    """W_eff = W + alpha * scatter(values) with SHARD-LOCAL packed indices.
+
+    ``params`` holds this rank's shards; an ``indices``/``values`` leaf is
+    (L, DPC, TPC, Ks) globally, per (dim 1, dim 2) tile of the stacked
+    (L, n, m) weight as its sharding spec splits it (DPC, TPC the
+    products of those entries' axis sizes), Ks flat indices into the
+    LOCAL (n/DPC, m/TPC) tile. This rank holds its (L, 1, 1, Ks) slice and
+    scatters it into its tile through the ``scatter_apply`` kernel, one
+    launch a leaf, with no communication (``_Materialize``: the gradient
+    is the gather of dW at the local indices, so the values' gradients
+    are sharded as the weights are). The caller cut the tiles
+    (``split_packed``, ``launch.sharding.local_shard``); the scatter needs
+    neither the mesh nor the specs."""
+    vals = dict(M.iter_leaves(values))
+    idx = dict(M.iter_leaves(indices))
+
+    def leaf(p, w):
+        if p not in idx or vals.get(p) is None:
+            return w
+        L = w.shape[0]
+        return _Materialize.apply(w, idx[p].reshape(L, -1),
+                                  vals[p].reshape(L, -1), alpha)
+
+    return M.map_leaves(leaf, params)
+
+
+def padding_mask(idx: torch.Tensor) -> torch.Tensor:
+    """True at the padding entries of merged-form rows (..., K): index 0
+    past the first place (a real index ascends, so 0 can only come
+    first). Their values stay 0 when their gradient is kept at 0."""
+    pos = torch.arange(idx.shape[-1], device=idx.device)
+    return (pos >= 1) & (idx == 0)
+
+
+def split_packed(idx: torch.Tensor, vals: torch.Tensor, shape, tiles
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """A global pack leaf, (L, K) ascending flat indices into (n, m) and
+    its values, split into shard-local tiles: ``tiles`` = (DPC, TPC), the
+    ways the leaf's spec splits dims 1 and 2 (``launch.sharding``). Returns
+    (indices, values, place), each (L, DPC, TPC, Ks) with Ks the most
+    entries any tile holds: a tile's entries in ascending local order
+    ((r mod n/DPC) * m/TPC + c mod m/TPC), then padding (index 0, value
+    0; ``padding_mask``), and ``place`` each entry's position in the
+    global row (-1 at padding; ``join_packed`` reverses the split). Every
+    tile must hold an entry: an empty tile's row would read as an entry
+    at index 0."""
+    L, K = idx.shape
+    n, m = shape[-2:]
+    dpc, tpc = tiles
+    nl, ml = n // dpc, m // tpc
+    i = idx.long()
+    r, c = i // m, i % m
+    tile = (r // nl) * tpc + c // ml
+    local = (r % nl) * ml + c % ml
+    ntile = dpc * tpc
+    # ascending global order is ascending local order within a tile: a
+    # stable sort by tile keeps it
+    key = torch.arange(L, device=i.device)[:, None] * ntile + tile
+    order = torch.sort(key.reshape(-1), stable=True).indices
+    counts = torch.bincount(key.reshape(-1), minlength=L * ntile)
+    if bool((counts == 0).any()):
+        raise ValueError("split_packed: a tile holds no entry of the pack")
+    ks = int(counts.max())
+    start = torch.cumsum(counts, 0) - counts
+    slot = torch.arange(L * K, device=i.device) - start[key.reshape(-1)[
+        order]]
+    dst = key.reshape(-1)[order] * ks + slot
+    out_i = torch.zeros(L * ntile * ks, dtype=torch.int32, device=i.device)
+    out_v = torch.zeros(L * ntile * ks, dtype=vals.dtype, device=i.device)
+    place = torch.full((L * ntile * ks,), -1, dtype=torch.long,
+                       device=i.device)
+    out_i[dst] = local.reshape(-1)[order].to(torch.int32)
+    out_v[dst] = vals.reshape(-1)[order]
+    place[dst] = order % K
+    shp = (L, dpc, tpc, ks)
+    return out_i.reshape(shp), out_v.reshape(shp), place.reshape(shp)
+
+
+def join_packed(tile_vals: torch.Tensor, place: torch.Tensor, K: int
+                ) -> torch.Tensor:
+    """(L, DPC, TPC, Ks) tile values back to the (L, K) global row order
+    of ``split_packed``'s ``place``."""
+    L = tile_vals.shape[0]
+    out = torch.zeros((L, K), dtype=tile_vals.dtype, device=tile_vals.device)
+    pl = place.reshape(L, -1)
+    keep = pl >= 0
+    rows = torch.arange(L, device=pl.device)[:, None].expand_as(pl)
+    out[rows[keep], pl[keep]] = tile_vals.reshape(L, -1)[keep]
+    return out

@@ -16,6 +16,8 @@ text stream after ``num_prefix_embeds`` precomputed patch embeddings
 (``_stub_embeds``: 0.02 N(0, 1) in f32). A vision batch's ``seq_len``
 counts the patches, so its text is ``seq_len - num_prefix_embeds`` tokens
 (none where ``seq_len <= num_prefix_embeds``, as the reference's).
+``SyntheticTask.host_batch`` slices a data-parallel rank's rows out of the
+global batch.
 """
 from __future__ import annotations
 
@@ -38,6 +40,27 @@ class TaskSpec:
         a = int(rng.randint(2, v - 1)) | 1
         b = int(rng.randint(1, v - 1))
         return a, b, v
+
+
+class SyntheticTask:
+    """One (config, shape, seed, task) stream of global batches, and a
+    host's (a data-parallel rank's) contiguous slice of each."""
+
+    def __init__(self, cfg: ModelConfig, shape: ShapeSpec, seed: int = 0,
+                 task: TaskSpec = TaskSpec()):
+        self.cfg, self.shape, self.seed, self.task = cfg, shape, seed, task
+
+    def global_batch(self, step: int) -> Dict[str, np.ndarray]:
+        return make_batch(self.cfg, self.shape, self.seed, step, self.task)
+
+    def host_batch(self, step: int, host_index: int,
+                   host_count: int) -> Dict[str, np.ndarray]:
+        full = self.global_batch(step)
+        bsz = self.shape.global_batch
+        assert bsz % host_count == 0
+        per = bsz // host_count
+        sl = slice(host_index * per, (host_index + 1) * per)
+        return {k: v[sl] for k, v in full.items()}
 
 
 def _token_stream(cfg: ModelConfig, n: int, s: int, seed: int, step: int,

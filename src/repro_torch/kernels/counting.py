@@ -10,7 +10,8 @@ is the same on either device.
 ``counted(cost)`` wraps a wrapper so; ``uncounted()`` hides operand
 preparation that a caller does for the kernel calls that follow (the
 sidedelta backward's grouping). With no counter active both cost one list
-check.
+check. ``on_meta()`` lets the dry run's "meta" tensors through the
+wrappers (``plain_device``).
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ import functools
 from typing import Callable, List
 
 _ACTIVE: List = []      # counters, innermost last (analysis.profile)
+_ON_META = [0]          # depth of on_meta() contexts
 
 
 def push(counter) -> None:
@@ -69,3 +71,23 @@ def uncounted():
         yield
     finally:
         c.resume()
+
+
+@contextlib.contextmanager
+def on_meta():
+    """Let the kernel wrappers take "meta" tensors (the dry run, which
+    runs a step on shapes only): there they compute their plain version,
+    which on meta tensors only carries the shapes through. Outside it a
+    meta tensor raises, as any device but the CPU and CUDA does."""
+    _ON_META[0] += 1
+    try:
+        yield
+    finally:
+        _ON_META[0] -= 1
+
+
+def plain_device(device) -> bool:
+    """Whether a wrapper computes its plain version on ``device``: the
+    CPU, or "meta" inside ``on_meta()``."""
+    return device.type == "cpu" or (device.type == "meta"
+                                    and _ON_META[0] > 0)

@@ -46,7 +46,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.counting import counted
+from repro_torch.kernels.counting import counted, plain_device
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _DIMS = (16, 32, 64, 80, 128, 256)  # contiguous caches (80: zamba2's
@@ -134,7 +134,9 @@ def _decode_cost(q, kv_len, row_bytes: int, extra_bytes: int) -> dict:
     and V read (``row_bytes`` a row and KV head); q . k and p . v once a
     row, at q's rate."""
     B, KV, G, D = q.shape
-    rows = int(decode_lengths(kv_len, B, q.device).sum())
+    # a dry run's "meta" q carries an int length: count it on the host
+    dev = "cpu" if q.device.type == "meta" else q.device
+    rows = int(decode_lengths(kv_len, B, dev).sum())
     ops = float(4 * rows * KV * G * D)
     bf16 = q.dtype == torch.bfloat16
     return {"flops": 0.0 if bf16 else ops, "bf16_flops": ops if bf16 else 0.0,
@@ -267,12 +269,13 @@ def flash_decode_blocks(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q: (B, KV, G, D); k/v: (B, S, KV, D); kv_len a scalar or (B,).
     Returns (B, KV, G, D) in q's dtype. S is not padded: the kernel stops
     at each length. CPU tensors take ``flash_decode_plain``; CUDA tensors
-    launch the kernel or raise."""
+    launch the kernel or raise ("meta" tensors under
+    ``counting.on_meta()``, the dry run's, the plain version too)."""
     _check(q, k, v, "k/v")
     kv_len = decode_lengths(kv_len, q.shape[0], q.device)
     if k.shape[0] != q.shape[0]:
         raise ValueError(f"k batch {k.shape[0]} != q batch {q.shape[0]}")
-    if q.device.type == "cpu":
+    if plain_device(q.device):
         return flash_decode_plain(q, k, v, kv_len)
     _check_cuda("flash_decode", (q, k, v, kv_len))
     _check_aligned("flash_decode", (q, k, v))

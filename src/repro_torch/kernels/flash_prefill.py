@@ -32,7 +32,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.counting import counted
+from repro_torch.kernels.counting import counted, plain_device
 from repro_torch.kernels.flash_decode import softmax_scale
 
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -109,9 +109,10 @@ def flash_prefill_blocks(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          causal: bool = True) -> torch.Tensor:
     """q: (B, Sq, H, D); k/v: (B, Skv, KV, D). Returns (B, Sq, H, D) in q's
     dtype. CPU tensors take ``flash_prefill_plain``; CUDA tensors launch
-    the kernel or raise."""
+    the kernel or raise ("meta" tensors under ``counting.on_meta()``, the
+    dry run's, the plain version too)."""
     _check(q, k, v)
-    if q.device.type == "cpu":
+    if plain_device(q.device):
         return flash_prefill_plain(q, k, v, causal)
     if q.device.type != "cuda":
         raise RuntimeError(f"flash_prefill runs on cuda or cpu, not "

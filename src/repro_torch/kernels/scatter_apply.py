@@ -25,7 +25,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.counting import counted
+from repro_torch.kernels.counting import counted, plain_device
 
 
 def scatter_apply_plain(w: torch.Tensor, idx: torch.Tensor,
@@ -60,7 +60,13 @@ def scatter_apply_cost(w: torch.Tensor, idx: torch.Tensor,
                        vals: torch.Tensor, alpha: float = 1.0, *,
                        ordered: bool = True) -> dict:
     """The work of one ``scatter_apply`` call: ``sector_bytes`` on this
-    call's entries (the bound counts no operations)."""
+    call's entries (the bound counts no operations). On "meta" tensors
+    (the dry run), whose entries are unknown, each entry gets a sector of
+    its own: the most the call can move."""
+    if w.device.type == "meta":
+        nk = idx.numel()
+        return {"flops": 0.0, "bf16_flops": 0.0,
+                "bytes_accessed": float(nk * 8 + 64 * nk)}
     nbytes, _ = sector_bytes(w, idx, vals)
     return {"flops": 0.0, "bf16_flops": 0.0, "bytes_accessed": float(nbytes)}
 
@@ -95,11 +101,12 @@ def scatter_apply(w: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor,
                   alpha: float = 1.0, *, ordered: bool = True
                   ) -> torch.Tensor:
     """w += alpha * scatter(vals at idx) per trailing (n, m) matrix, in
-    place; returns w. CPU tensors take ``scatter_apply_plain``; CUDA
-    tensors launch the kernel or raise. The kernel asserts that the rows
+    place; returns w. CPU tensors take ``scatter_apply_plain`` (so do
+    "meta" ones under ``counting.on_meta()``, the dry run's); CUDA tensors
+    launch the kernel or raise. The kernel asserts that the rows
     are merged unless ``ordered`` is False."""
     _check(w, idx, vals)
-    if w.device.type == "cpu":
+    if plain_device(w.device):
         return scatter_apply_plain(w, idx, vals, alpha)
     if w.device.type != "cuda":
         raise RuntimeError(f"scatter_apply runs on cuda or cpu, not "

@@ -1,1 +1,2 @@
-"""Command-line entry points."""
+"""Command-line entry points (serve, train, dryrun) and the multi-rank
+launch modules (mesh, actctx, sharding, steps)."""

@@ -30,6 +30,12 @@ them to the compute dtype: equal in f32, a bf16 rounding apart in bf16.
 paged engines prefill with the same numerics.
 Caches are written in place (the reference returns updated copies).
 
+Under the launch layer's "tp" hint (``launch.sharding.TPLayout``) the GQA
+train, prefill and decode paths run on one rank's heads: wq/wk/wv local
+columns (``_gqa_qkv_tp``), each local q head with its own KV head, the
+cache holding the rank's KV heads, wo row-parallel (``_out_proj``). The
+paged paths and MLA have no TP form.
+
 MLA (DeepSeek-V2's multi-head latent attention) is plain torch, as the
 reference's is plain jnp: no TPU kernel computes it (the attention
 kernels take one head size for K and V, and MLA's are 192/128 expanded,
@@ -60,8 +66,10 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.flash_decode import (flash_decode_blocks,
                                               flash_decode_paged)
 from repro_torch.kernels.flash_prefill import flash_prefill_blocks
+from repro_torch.launch import mesh as MESH
 from repro_torch.models.layers import (apply_rope, compute_dtype, dense,
-                                       glorot, init_rms_norm, rms_norm)
+                                       glorot, init_rms_norm, rms_norm,
+                                       tp_layout, tp_row)
 
 NEG_INF = -1e30
 
@@ -179,6 +187,9 @@ def init_gqa(gen: torch.Generator, cfg: ModelConfig, *, lead=(),
 
 
 def _gqa_qkv(params, cfg: ModelConfig, x, positions):
+    tp = tp_layout()
+    if tp is not None:
+        return _gqa_qkv_tp(params, cfg, x, positions, tp)
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
     Hp, KVp = padded_heads(cfg)
@@ -191,11 +202,75 @@ def _gqa_qkv(params, cfg: ModelConfig, x, positions):
 
 
 def _maybe_repeat_kv(cfg: ModelConfig, t):
-    """(B, S, KV', D) -> (B, S, H', D) when attn_repeat_kv."""
-    if not cfg.attn_repeat_kv:
+    """(B, S, KV', D) -> (B, S, H', D) when attn_repeat_kv. Under the
+    "tp" hint K and V already come grouped for the rank's heads
+    (``_local_kv``)."""
+    if not cfg.attn_repeat_kv or tp_layout() is not None:
         return t
     Hp, KVp = padded_heads(cfg)
     return torch.repeat_interleave(t, Hp // KVp, dim=2)
+
+
+def _gqa_qkv_tp(params, cfg: ModelConfig, x, positions, tp):
+    """q, k, v for this rank's heads under the "tp" hint. wq/wk/wv are
+    column-parallel unless the head guard replicates them. Sharded, their
+    input goes through ``copy_to``; a replicated wk/wv beside a sharded
+    wq gives every KV head, whose gradient each rank sees only from its
+    own q heads, so k and v go through ``copy_to`` instead. Each local q
+    head then meets its KV head h // G (``_local_kv``)."""
+    B, S, d = x.shape
+    hd = cfg.resolved_head_dim
+    Hp, KVp = padded_heads(cfg)
+    wq, sq = tp.weight(params["wq"], "wq", (d, Hp * hd))
+    wk, sk = tp.weight(params["wk"], "wk", (d, KVp * hd))
+    wv, _ = tp.weight(params["wv"], "wv", (d, KVp * hd))
+    q_sh, kv_sh = tp.sharded(sq, -1), tp.sharded(sk, -1)
+    xq = MESH.copy_to(tp.mesh, x, "model") if q_sh else x
+    xkv = xq if kv_sh else x
+    q = dense(xq, wq, params.get("bq")).reshape(B, S, -1, hd)
+    k = dense(xkv, wk, params.get("bk")).reshape(B, S, -1, hd)
+    v = dense(xkv, wv, params.get("bv")).reshape(B, S, -1, hd)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    if q_sh and not kv_sh:
+        k = MESH.copy_to(tp.mesh, k, "model")
+        v = MESH.copy_to(tp.mesh, v, "model")
+    sel = _local_kv(cfg, tp, q.shape[2], k.shape[2], q_sh, kv_sh)
+    if sel is not None:
+        idx = torch.tensor(sel, device=k.device)
+        k, v = k.index_select(2, idx), v.index_select(2, idx)
+    return q, k, v
+
+
+def _local_kv(cfg: ModelConfig, tp, hl: int, kvl: int, q_sh: bool,
+              kv_sh: bool):
+    """The KV heads (local indices) this rank's ``hl`` q heads attend, so
+    that local q head j meets entry j // (hl / len): global q head h meets
+    KV head h // G. None when that is the local KV heads as they are."""
+    Hp, KVp = padded_heads(cfg)
+    G = Hp // KVp
+    h0 = tp.rank * hl if q_sh else 0
+    off = tp.rank * kvl if kv_sh else 0
+    ids = [(h0 + j) // G - off for j in range(hl)]
+    if hl % G == 0 and h0 % G == 0:
+        sel = ids[::G]
+    elif min(ids) == max(ids):
+        sel = ids[:1]
+    else:
+        sel = ids
+    return None if sel == list(range(kvl)) else sel
+
+
+def _out_proj(params, cfg: ModelConfig, o):
+    """o @ wo; under the "tp" hint row-parallel (an all-reduce of the
+    heads' partial sums over ``model``) unless the head guard replicates
+    wo."""
+    tp = tp_layout()
+    if tp is None:
+        return dense(o, params["wo"])
+    Hp, _ = padded_heads(cfg)
+    d = cfg.d_model
+    return tp_row(o, params["wo"], "wo", (Hp * cfg.resolved_head_dim, d), tp)
 
 
 def gqa_train(params, cfg: ModelConfig, x, *, prefix_len=0, q_chunk=512):
@@ -205,7 +280,7 @@ def gqa_train(params, cfg: ModelConfig, x, *, prefix_len=0, q_chunk=512):
     out = chunked_attention(q, _maybe_repeat_kv(cfg, k),
                             _maybe_repeat_kv(cfg, v), causal=cfg.causal,
                             prefix_len=prefix_len, q_chunk=q_chunk)
-    return dense(out.reshape(B, S, -1), params["wo"])
+    return _out_proj(params, cfg, out.reshape(B, S, -1))
 
 
 def _serve_attention(cfg: ModelConfig, q, k, v, prefix_len, q_chunk):
@@ -223,7 +298,7 @@ def gqa_encode(params, cfg: ModelConfig, x, *, prefix_len=0, q_chunk=512):
     B, S, _ = x.shape
     q, k, v = _gqa_qkv(params, cfg, x, torch.arange(S, device=x.device))
     out = _serve_attention(cfg, q, k, v, prefix_len, q_chunk)
-    return dense(out.reshape(B, S, -1), params["wo"])
+    return _out_proj(params, cfg, out.reshape(B, S, -1))
 
 
 def gqa_prefill(params, cfg: ModelConfig, x, cache_size: int, *,
@@ -232,13 +307,13 @@ def gqa_prefill(params, cfg: ModelConfig, x, cache_size: int, *,
     q, k, v = _gqa_qkv(params, cfg, x, torch.arange(S, device=x.device))
     out = _serve_attention(cfg, q, k, v, prefix_len, q_chunk)
     hd = cfg.resolved_head_dim
-    KV = padded_heads(cfg)[1]
+    KV = k.shape[2]         # this rank's KV heads under the "tp" hint
     cd = compute_dtype()
     ck = torch.zeros((B, cache_size, KV, hd), dtype=cd, device=x.device)
     cv = torch.zeros((B, cache_size, KV, hd), dtype=cd, device=x.device)
     ck[:, :S] = k.to(cd)
     cv[:, :S] = v.to(cd)
-    return dense(out.reshape(B, S, -1), params["wo"]), KVCache(ck, cv)
+    return _out_proj(params, cfg, out.reshape(B, S, -1)), KVCache(ck, cv)
 
 
 def _decode_positions(pos, B: int, device) -> Tuple[torch.Tensor, bool]:
@@ -284,7 +359,7 @@ def gqa_decode(params, cfg: ModelConfig, x, cache: KVCache, pos
         cache.v[:, p:p + 1] = v.to(cd)
         kv_len = p + 1
     out = _flash_decode(cfg, q, cache.k, cache.v, kv_len)
-    return dense(out.reshape(B, 1, -1), params["wo"]), cache
+    return _out_proj(params, cfg, out.reshape(B, 1, -1)), cache
 
 
 # ---------------------------------------------------------------------------

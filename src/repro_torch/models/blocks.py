@@ -71,7 +71,15 @@ def _ffn(params, cfg: ModelConfig, h):
     if "moe" in params:
         y, lb = moe_ffn(params["moe"], cfg, x)
         return h + y, lb
-    return h + mlp(params["mlp"], x, cfg.act), None
+    return h + mlp(params["mlp"], x, cfg.act, dense_d_ff(cfg)), None
+
+
+def dense_d_ff(cfg: ModelConfig) -> int:
+    """The hidden width of a dense block's MLP: an MoE model's first dense
+    layers take ``first_dense_d_ff`` (``lm._init_stage``)."""
+    if cfg.family == "moe" and cfg.moe.first_dense_d_ff:
+        return cfg.moe.first_dense_d_ff
+    return cfg.d_ff
 
 
 def block_train(params, cfg: ModelConfig, h, *, prefix_len=0, aux=None):

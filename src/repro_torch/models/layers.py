@@ -7,6 +7,15 @@ casts each weight to the compute dtype at every call, as the reference
 does; that cast is the largest non-kernel cost of a decode step (PERF.md).
 Leaf names follow the reference's convention (``wq wk wv wo w_up w_gate
 w_down emb lm_head scale b*``), which the adapter machinery keys off.
+
+Under the launch layer's "tp" hint (``launch.actctx``, a
+``launch.sharding.TPLayout``) the leaves are one rank's local shards and
+the TP/FSDP forward below runs (``tp_column``, ``tp_row``, ``mlp`` with
+its ``d_ff``, ``embed_tp``, ``tp_unembed_weight``, ``vocab_parallel_nll``):
+a column-parallel leaf keeps a local output behind ``copy_to`` (identity
+forward, all-reduce backward), a row-parallel one all-reduces its partial
+sums, an FSDP leaf is gathered over ``data`` (its gradient
+reduce-scattered), the vocabulary is split over ``model``.
 """
 from __future__ import annotations
 
@@ -20,6 +29,8 @@ import torch.nn.functional as F
 from repro_torch.core.adapters import is_bundle, materialize_leaf
 from repro_torch.kernels.ops import sidedelta
 from repro_torch.kernels.sidedelta import sidedelta_train
+from repro_torch.launch import mesh as MESH
+from repro_torch.launch.actctx import hint
 
 COMPUTE_DTYPE = torch.bfloat16  # default; see compute_precision()
 
@@ -235,7 +246,13 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, act: str = "silu",
     return p
 
 
-def mlp(params: dict, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
+def mlp(params: dict, x: torch.Tensor, act: str = "silu",
+        d_ff: Optional[int] = None) -> torch.Tensor:
+    """The MLP; under the "tp" hint its TP form, which needs the global
+    hidden width ``d_ff``."""
+    tp = tp_layout()
+    if tp is not None:
+        return _mlp_tp(params, x, act, tp, d_ff)
     up = dense(x, params["w_up"])
     if act == "silu":
         gate = dense(x, params["w_gate"])
@@ -273,3 +290,132 @@ def unembed(params: Optional[dict], h: torch.Tensor,
         pad = torch.arange(w.shape[-1], device=logits.device) >= logical_vocab
         logits = logits.masked_fill(pad, -1e30)
     return logits
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism (the launch layer's "tp" hint)
+# ---------------------------------------------------------------------------
+
+def tp_layout():
+    """The installed ``launch.sharding.TPLayout``, or None."""
+    return hint("tp")
+
+
+def tp_column(x: torch.Tensor, w, name: str, shape, tp, b=None,
+              copied: bool = False):
+    """x @ w (+ b) for a column-parallel leaf of global ``shape``: with its
+    output dim split over ``model`` the result is this rank's columns and
+    ``x`` goes through ``copy_to`` first (unless the caller ``copied``
+    it); a replicated leaf gives the whole product. Returns (y, whether
+    the output is split)."""
+    w, spec = tp.weight(w, name, shape)
+    col = tp.sharded(spec, -1)
+    if col and not copied:
+        x = MESH.copy_to(tp.mesh, x, "model")
+    y = pdot(x, w)
+    if b is not None:
+        y = y + b.to(y.dtype)
+    return y, col
+
+
+def tp_row(x: torch.Tensor, w, name: str, shape, tp) -> torch.Tensor:
+    """x @ w for a row-parallel leaf: with its input dim split over
+    ``model`` each rank's product is a partial sum, all-reduced."""
+    w, spec = tp.weight(w, name, shape)
+    y = pdot(x, w)
+    if tp.sharded(spec, -2):
+        y = MESH.reduce_from(tp.mesh, y, "model")
+    return y
+
+
+def _mlp_tp(params: dict, x: torch.Tensor, act: str, tp,
+            d_ff: Optional[int]) -> torch.Tensor:
+    if d_ff is None:
+        raise ValueError("the TP mlp needs its global d_ff")
+    d = x.shape[-1]
+    w, spec = tp.weight(params["w_up"], "w_up", (d, d_ff))
+    col = tp.sharded(spec, -1)
+    xc = MESH.copy_to(tp.mesh, x, "model") if col else x
+    up = pdot(xc, w)
+    if act == "silu":
+        gate, _ = tp_column(xc, params["w_gate"], "w_gate", (d, d_ff), tp,
+                            copied=True)
+        h = F.silu(gate.float()).to(compute_dtype()) * up
+    else:
+        h = F.gelu(up.float(), approximate="tanh").to(compute_dtype())
+    return tp_row(h, params["w_down"], "w_down", (d_ff, d), tp)
+
+
+def embed_tp(params: dict, tokens: torch.Tensor, vocab: int, d: int, tp
+             ) -> torch.Tensor:
+    """The TP embedding lookup of a (vocab, d) table: vocab-parallel (a
+    masked lookup of this rank's rows, then an all-reduce over ``model``),
+    or d-sharded (the reference's fallback ``P(None, "model")``: this
+    rank's columns, all-gathered), or replicated."""
+    w, spec = tp.weight(params["emb"], "emb", (vocab, d))
+    cd = compute_dtype()
+    if tp.sharded(spec, 0):
+        vl = w.shape[0]
+        loc = tokens.long() - tp.rank * vl
+        mine = (loc >= 0) & (loc < vl)
+        h = w[loc.clamp(0, vl - 1)] * mine[..., None].to(w.dtype)
+        return MESH.reduce_from(tp.mesh, h.to(cd), "model")
+    h = w[tokens].to(cd)
+    if tp.sharded(spec, 1):
+        h = MESH.gather_from(tp.mesh, h, "model", -1)
+    return h
+
+
+def tp_unembed_weight(params: dict, tie_to_params: Optional[dict],
+                      vocab: int, d: int, tp):
+    """(w (d, V_local), first vocab row of this rank, vocab-parallel?):
+    the unembedding as the loss and the serving logits use it. Tied, the
+    embedding table transposed; a vocab-parallel leaf keeps its columns;
+    the d-sharded fallback (``lm_head`` ``P("model", None)``, or a tied
+    ``emb`` ``P(None, "model")``) is all-gathered over ``model``."""
+    if tie_to_params is not None:
+        w, spec = tp.weight(tie_to_params["emb"], "emb", (vocab, d))
+        if tp.sharded(spec, 0):
+            return w.T, tp.rank * w.shape[0], True
+        if tp.sharded(spec, 1):
+            w = MESH.gather_from(tp.mesh, w, "model", 1)
+        return w.T, 0, False
+    w, spec = tp.weight(params["lm_head"], "lm_head", (d, vocab))
+    if tp.sharded(spec, 1):
+        return w, tp.rank * w.shape[1], True
+    if tp.sharded(spec, 0):
+        w = MESH.gather_from(tp.mesh, w, "model", 0)
+    return w, 0, False
+
+
+def tp_logits(h: torch.Tensor, w: torch.Tensor, v0: int,
+              softcap: float = 0.0, logical_vocab: int = 0
+              ) -> torch.Tensor:
+    """``unembed`` over the columns [v0, v0 + w.shape[1]) of the padded
+    vocabulary: f32 logits, pad columns masked to -1e30."""
+    cd = compute_dtype()
+    logits = torch.matmul(h.to(cd).float(), w.to(cd).float())
+    if softcap > 0.0:
+        logits = torch.tanh(logits / softcap) * softcap
+    if logical_vocab:
+        col = v0 + torch.arange(w.shape[-1], device=logits.device)
+        logits = logits.masked_fill(col >= logical_vocab, -1e30)
+    return logits
+
+
+def vocab_parallel_nll(logits: torch.Tensor, labels: torch.Tensor, v0: int,
+                       mesh) -> torch.Tensor:
+    """Per-token NLL from this rank's vocabulary columns (logits (T,
+    V_local) f32, columns from v0): the max, the sum of exponentials and
+    the target logit each all-reduced over ``model``; the f32 logits are
+    never gathered."""
+    m = MESH.all_reduce(mesh, logits.detach().amax(-1), "model", "max")
+    s = MESH.reduce_from(mesh, torch.exp(logits - m[:, None]).sum(-1),
+                         "model")
+    vl = logits.shape[-1]
+    loc = labels.long() - v0
+    mine = (loc >= 0) & (loc < vl)
+    t = torch.gather(logits, -1, loc.clamp(0, vl - 1)[:, None])[:, 0]
+    t = MESH.reduce_from(mesh, torch.where(mine, t, torch.zeros_like(t)),
+                         "model")
+    return torch.log(s) + m - t

@@ -26,7 +26,11 @@ reference's nested {"mamba": MambaCache (g, k, B, ...), "attn": KVCache
 (g, B, S_max, KV, D)}. ``layer_slice`` and ``_layer_cache`` take one
 leading dim off, so a hybrid stage slices the group, then the layer. The
 paged entry points cover the dense and MoE families and refuse the
-others, as the reference's do. In training, ``jax.checkpoint`` around
+others, as the reference's do. Under the launch layer's "tp" hint
+(``launch.sharding.TPLayout``; the dense GQA and MoE-with-GQA families)
+the parameters are one rank's shards: the embedding is vocab-parallel
+(or d-sharded, the reference's fallback), the blocks tensor-parallel,
+the loss a vocab-parallel cross-entropy, the serving logits gathered. In training, ``jax.checkpoint`` around
 the scanned layer becomes ``torch.utils.checkpoint`` around each layer
 (a hybrid stage's around each group, as the reference's), under
 ``cfg.remat`` ("full", "dots" or "none"), and around each chunk of the
@@ -65,9 +69,13 @@ from repro_torch.models import blocks as B
 from repro_torch.models.attention import KVCache, padded_heads
 from repro_torch.models.mamba2 import MambaCache
 from repro_torch.models.mamba2 import dims as mamba_dims
-from repro_torch.models.layers import (compute_dtype, embed, init_embedding,
-                                       init_rms_norm, normal_init, rms_norm,
-                                       token_nll, unembed)
+from repro_torch.models.layers import (compute_dtype, embed, embed_tp,
+                                       init_embedding, init_rms_norm,
+                                       normal_init, rms_norm, tp_layout,
+                                       tp_logits, tp_unembed_weight,
+                                       token_nll, unembed,
+                                       vocab_parallel_nll)
+from repro_torch.launch import mesh as MESH
 
 
 def stage_plan(cfg: ModelConfig) -> List[Tuple[str, int]]:
@@ -136,7 +144,10 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda"
     The tree and shapes equal ``repro.models.lm.init_params``'s; the draws
     do not (tests cross weights over with ``repro_torch.bridge``)."""
     plan = stage_plan(cfg)
-    gen = torch.Generator(device=device)
+    # "meta" (the dry run's abstract parameters) draws nothing: a CPU
+    # generator stands in
+    meta = torch.device(device).type == "meta"
+    gen = torch.Generator(device="cpu" if meta else device)
     gen.manual_seed(seed)
     params: Dict[str, Any] = {
         "embed": init_embedding(gen, cfg.padded_vocab, cfg.d_model, device),
@@ -159,7 +170,7 @@ def embed_inputs(params, cfg: ModelConfig, batch) -> Tuple[torch.Tensor, int]:
     being the prefix (vision)."""
     if cfg.modality == "audio":
         return batch["frame_embeds"].to(compute_dtype()), 0
-    h = embed(params["embed"], batch["tokens"])
+    h = _embed(params, cfg, batch["tokens"])
     if cfg.modality == "vision":
         patches = batch["patch_embeds"].to(device=h.device,
                                            dtype=compute_dtype())
@@ -167,7 +178,30 @@ def embed_inputs(params, cfg: ModelConfig, batch) -> Tuple[torch.Tensor, int]:
     return h, 0
 
 
+def _embed(params, cfg: ModelConfig, tokens):
+    tp = tp_layout()
+    if tp is None:
+        return embed(params["embed"], tokens)
+    return embed_tp(params["embed"], tokens, cfg.padded_vocab, cfg.d_model,
+                    tp)
+
+
+def _tp_unembed(params, cfg: ModelConfig, tp):
+    tie = params["embed"] if cfg.tie_embeddings else None
+    return tp_unembed_weight(params.get("unembed"), tie, cfg.padded_vocab,
+                             cfg.d_model, tp)
+
+
 def _logits(params, cfg: ModelConfig, h):
+    """Serving logits (..., padded vocab); under the "tp" hint the rank's
+    vocabulary columns, all-gathered over ``model``."""
+    tp = tp_layout()
+    if tp is not None:
+        w, v0, vp = _tp_unembed(params, cfg, tp)
+        logits = tp_logits(h, w, v0, cfg.logit_softcap, cfg.vocab_size)
+        if vp:
+            logits = MESH.all_gather(tp.mesh, logits, "model", -1)
+        return logits
     tie = params["embed"]["emb"] if cfg.tie_embeddings else None
     return unembed(params.get("unembed"), h, tie_to=tie,
                    softcap=cfg.logit_softcap, logical_vocab=cfg.vocab_size)
@@ -268,12 +302,41 @@ def _loss_chunks(params, cfg: ModelConfig, h, chunk_fn, *xs):
             for i in range(0, T, c)]
 
 
+def _loss_chunks_tp(params, cfg: ModelConfig, h, tp, labels, mf):
+    """``_loss_chunks`` of the masked NLL sum under the "tp" hint: the
+    unembedding gathered once (FSDP), each chunk's logits over this
+    rank's vocabulary columns and the vocab-parallel NLL
+    (``layers.vocab_parallel_nll``), or over the whole vocabulary where
+    the unembedding is not vocab-parallel."""
+    Bq, S, d = h.shape
+    T = Bq * S
+    hf = h.reshape(T, d)
+    w, v0, vp = _tp_unembed(params, cfg, tp)
+    c = _pick_chunk(T)
+
+    def body(hc, lc, mc, ww):
+        if vp:
+            hc = MESH.copy_to(tp.mesh, hc, "model")
+        logits = tp_logits(hc, ww, v0, cfg.logit_softcap, cfg.vocab_size)
+        nll = (vocab_parallel_nll(logits, lc, v0, tp.mesh) if vp
+               else token_nll(logits, lc))
+        return (nll * mc).sum()
+
+    return [checkpoint(body, hf[i:i + c], labels[i:i + c], mf[i:i + c], w,
+                       use_reentrant=False)
+            for i in range(0, T, c)]
+
+
 def chunked_loss(params, cfg: ModelConfig, h, labels,
                  loss_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean token NLL; never materialises the full (T, vocab) logits."""
     T = h.shape[0] * h.shape[1]
     mf = (torch.ones((T,), dtype=torch.float32, device=h.device)
           if loss_mask is None else loss_mask.reshape(T).float())
+    tp = tp_layout()
+    if tp is not None:
+        parts = _loss_chunks_tp(params, cfg, h, tp, labels.reshape(T), mf)
+        return torch.stack(parts).sum() / torch.clamp(mf.sum(), min=1.0)
     parts = _loss_chunks(params, cfg, h,
                          lambda lg, lc, mc: (token_nll(lg, lc) * mc).sum(),
                          labels.reshape(T), mf)
@@ -397,7 +460,7 @@ def decode_step(params, cfg: ModelConfig, tokens, caches, pos,
     the reference's does."""
     if block_tables is not None and cfg.family == "hybrid":
         raise NotImplementedError("paged decode covers attention caches only")
-    h = embed(params["embed"], tokens)
+    h = _embed(params, cfg, tokens)
     for sp, cache, (kind, n) in zip(params["stages"], caches,
                                     stage_plan(cfg)):
         if kind == "hybrid":

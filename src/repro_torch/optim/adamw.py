@@ -17,7 +17,7 @@ trained, as ``core.masks.map_leaves`` builds them.
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, NamedTuple, Tuple
+from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -63,8 +63,13 @@ def clip_scale(gnorm: torch.Tensor, clip: float) -> torch.Tensor:
 
 
 def adamw_update(grads, state: AdamWState, trainable, tcfg: TrainConfig,
-                 lr) -> Tuple[Any, AdamWState, dict]:
-    gnorm = global_norm(grads)
+                 lr, gnorm: Optional[torch.Tensor] = None
+                 ) -> Tuple[Any, AdamWState, dict]:
+    """One AdamW step over a tree. ``gnorm``, the global gradient norm the
+    clip reads, defaults to ``global_norm(grads)``; a sharded step passes
+    the norm over every rank's shards (``launch.steps``)."""
+    if gnorm is None:
+        gnorm = global_norm(grads)
     if tcfg.grad_clip > 0:
         scale = clip_scale(gnorm, tcfg.grad_clip)
         grads = map_leaves(lambda _, g: g * scale, grads)

@@ -5,9 +5,8 @@ Configs: ``get_config`` / ``get_smoke_config`` return the reference's
 values for granite-moe-1b-a400m, deepseek-v2-lite-16b (its ``mla``
 compared as a dict), mamba2-780m and zamba2-2.7b (their ``ssm`` so too),
 deepseek-coder-33b, granite-34b, qwen1.5-32b, paligemma-3b and
-hubert-xlarge (every field the port keeps; the reference's ``fsdp``, a
-sharding policy, has no field in the one-card port); an unknown id
-raises ``KeyError``.
+hubert-xlarge (every field, ``fsdp`` included); an unknown id raises
+``KeyError``.
 
 Entry points: ``train_loss`` (loss and MoE aux), ``prefill`` and
 ``decode_step``, on the smoke configs of the three dense archs,
@@ -63,7 +62,7 @@ def test_configs_match_reference(arch):
     for jget, tget in ((j_config, get_config), (j_smoke, get_smoke_config)):
         t, j = _fields(tget(arch)), _fields(jget(arch))
         assert {k: j[k] for k in t} == t
-        assert set(j) - set(t) == {"fsdp"}
+        assert set(j) == set(t)
         assert tget(arch).padded_vocab == jget(arch).padded_vocab
 
 

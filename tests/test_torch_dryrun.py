@@ -1,0 +1,165 @@
+"""Collective bytes and the dry run.
+
+  * ``analysis.profile.ring_bytes`` is the reference's ring model
+    (``repro.analysis.hlo._ring_bytes``) on the same (kind, bytes, group);
+  * one TP block (starcoder2's smoke config, forward and backward on an
+    abstract (1, 4) mesh: 4 q heads one a rank, its 2 KV heads replicated)
+    issues the all-reduces worked out by hand, and one FSDP block on
+    (4, 1) the all-gathers and reduce-scatters of its six matrices;
+  * ``launch.dryrun.lower_cell`` on smoke configs over an abstract (2, 2)
+    mesh writes the reference's record fields, its per-rank memory equals
+    the bytes of the shards ``local_shard`` cuts, a family with no TP
+    forward gets ``"cost": null`` and a reason (ROADMAP A11), a
+    sequence-sharded cache too (A12); the CLI writes its records.
+"""
+import json
+import os
+
+import pytest
+import torch
+
+from repro.analysis.hlo import _ring_bytes
+from repro_torch.analysis.profile import collective_bytes, ring_bytes
+from repro_torch.configs import get_smoke_config
+from repro_torch.configs.base import ShapeSpec
+from repro_torch.core.masks import iter_leaves
+from repro_torch.launch import dryrun as D
+from repro_torch.launch import sharding as shd
+from repro_torch.launch import steps as S
+from repro_torch.launch.actctx import sharding_hints
+from repro_torch.launch.mesh import abstract_mesh
+from repro_torch.models import blocks as TB
+from repro_torch.models import layers as TL
+from repro_torch.models import lm as TLM
+
+RECORD = {"arch", "shape", "mesh", "axes", "kind", "adapter", "variant",
+          "tags", "lower_s", "compile_s", "memory", "cost", "cost_xla_raw",
+          "collectives", "ok"}
+
+
+@pytest.mark.parametrize("kind", ["all-reduce", "all-gather",
+                                  "reduce-scatter", "all-to-all",
+                                  "collective-permute"])
+@pytest.mark.parametrize("group", [2, 4, 16, 32])
+def test_ring_model_matches_reference(kind, group):
+    for nbytes in (0, 1, 4096, 123_456_789):
+        assert ring_bytes(kind, nbytes, group) == _ring_bytes(kind, nbytes,
+                                                              group)
+
+
+def _block(cfg, mesh, B=2, S=8):
+    params = TLM.init_params(cfg, 0, device="cpu")
+    specs = shd.param_specs(params, cfg, mesh)
+    local = shd.shard_tree(params, specs, mesh)
+    layer = TLM.layer_slice(local["stages"][0], 0)
+    for _, t in iter_leaves(layer):
+        t.requires_grad_(True)
+    x = torch.randn(B, S, cfg.d_model, requires_grad=True)
+
+    def run():
+        with TL.compute_precision(torch.float32), \
+                sharding_hints(tp=shd.TPLayout(cfg, mesh)):
+            h, _ = TB.block_train(layer, cfg, x)
+            h.sum().backward()
+    return run
+
+
+def test_one_tp_block_counts_by_hand():
+    cfg = get_smoke_config("starcoder2-7b").replace(num_layers=1)
+    mesh = abstract_mesh((1, 4), ("data", "model"))
+    got = collective_bytes(_block(cfg, mesh))
+    R = 2 * 8 * cfg.d_model * 4                 # one (B, S, d) f32 tensor
+    Rk = 2 * 8 * cfg.num_kv_heads * cfg.resolved_head_dim * 4
+    # forward: wo's and w_down's partial sums; backward: dx into the
+    # column-parallel wq and w_up, and the replicated k and v, whose
+    # gradient each rank sees from its own q head only
+    assert got["by_kind_count"] == {"all-reduce": 6}
+    assert got["by_kind_bytes"]["all-reduce"] == int(
+        2 * (4 * R + 2 * Rk) * 3 / 4)
+    assert got["total_bytes"] == got["by_kind_bytes"]["all-reduce"]
+    assert got["pod_axis_bytes"] == 0
+
+
+def test_one_fsdp_block_counts_by_hand():
+    cfg = get_smoke_config("starcoder2-7b").replace(num_layers=1, fsdp=True)
+    mesh = abstract_mesh((4, 1), ("data", "model"))
+    got = collective_bytes(_block(cfg, mesh))
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    mats = [d * cfg.num_heads * hd, d * cfg.num_kv_heads * hd,
+            d * cfg.num_kv_heads * hd, cfg.num_heads * hd * d,
+            d * cfg.d_ff, cfg.d_ff * d]
+    W = 4 * sum(mats)                           # f32 bytes, gathered
+    assert got["by_kind_count"] == {"all-gather": 6, "reduce-scatter": 6}
+    assert got["by_kind_bytes"]["all-gather"] == int(W * 3 / 4)
+    assert got["by_kind_bytes"]["reduce-scatter"] == int(W / 4 * 3)
+
+
+def test_pod_axis_bytes_count_the_pod_link():
+    mesh = abstract_mesh((2, 2, 2), ("pod", "data", "model"))
+    from repro_torch.launch import mesh as M
+    got = collective_bytes(lambda: M.all_reduce(
+        mesh, torch.zeros(256), ("pod", "data")))
+    assert got["by_kind_count"] == {"all-reduce": 2}
+    assert got["pod_axis_bytes"] == int(2 * 1024 * 1 / 2)
+
+
+@pytest.mark.parametrize("arch", ["starcoder2-7b", "granite-moe-1b-a400m",
+                                  "qwen1.5-32b"])
+@pytest.mark.parametrize("kind,adapter", [("train", "none"),
+                                          ("train", "shira"),
+                                          ("prefill", "none"),
+                                          ("decode", "none")])
+def test_lower_cell_records_cost_on_tp_families(arch, kind, adapter):
+    cfg = get_smoke_config(arch)
+    mesh = abstract_mesh((2, 2), ("data", "model"))
+    rec = D.lower_cell(arch, ShapeSpec("t", 32, 4, kind), mesh,
+                       adapter=adapter, cfg=cfg)
+    assert RECORD <= set(rec) and rec["ok"]
+    assert rec["cost"]["flops"] > 0 and rec["cost"]["ops_without_cost"] == 0
+    assert rec["collectives"]["total_bytes"] > 0
+    assert rec["cost_xla_raw"] is None       # no compiler's own count
+    assert rec["memory"]["per_rank_gb"] > 0
+    if kind == "train" and adapter == "none":
+        # the memory is the bytes of the shards a rank holds
+        params = TLM.init_params(cfg, 0, device="cpu")
+        local = shd.shard_tree(params, shd.param_specs(params, cfg, mesh),
+                               mesh)
+        nb = sum(t.numel() * t.element_size() for _, t in iter_leaves(local))
+        assert rec["memory"]["params_bytes"] == nb
+        assert rec["memory"]["opt_state_bytes"] == 2 * nb
+
+
+@pytest.mark.parametrize("arch", ["mamba2-780m", "zamba2-2.7b",
+                                  "deepseek-v2-lite-16b", "paligemma-3b",
+                                  "hubert-xlarge"])
+def test_lower_cell_null_cost_without_tp_forward(arch):
+    cfg = get_smoke_config(arch)
+    mesh = abstract_mesh((2, 2), ("data", "model"))
+    for kind in ("train", "prefill"):
+        rec = D.lower_cell(arch, ShapeSpec("t", 300, 4, kind), mesh,
+                           cfg=cfg)
+        assert RECORD <= set(rec) and rec["ok"]
+        assert rec["cost"] is None and "ROADMAP A11" in rec["reason"]
+        assert rec["memory"]["per_rank_gb"] > 0
+
+
+def test_lower_cell_null_cost_on_sequence_sharded_cache():
+    cfg = get_smoke_config("starcoder2-7b")      # 2 KV heads
+    mesh = abstract_mesh((1, 4), ("data", "model"))
+    rec = D.lower_cell("starcoder2-7b", ShapeSpec("d", 32, 4, "decode"),
+                       mesh, cfg=cfg)
+    assert rec["cost"] is None and "ROADMAP A12" in rec["reason"]
+
+
+def test_cli_writes_records(tmp_path):
+    out = tmp_path / "dryrun.json"
+    D.main(["--arch", "mamba2-780m,starcoder2-7b", "--shape",
+            "decode_32k,long_500k", "--mesh", "both", "--out", str(out)])
+    recs = json.loads(out.read_text())
+    # mamba2: decode_32k and long_500k; starcoder2: decode_32k (its 4 KV
+    # heads shard the sequence on 16-way TP); on both meshes
+    assert len(recs) == 6 and all(r["ok"] for r in recs)
+    assert all(RECORD <= set(r) and r["cost"] is None for r in recs)
+    assert {tuple(r["mesh"]) for r in recs} == {(16, 16), (2, 16, 16)}
+    assert D.DEFAULT_OUT.startswith("build" + os.sep) or \
+        D.DEFAULT_OUT.startswith("build/")

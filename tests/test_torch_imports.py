@@ -58,7 +58,10 @@ def test_port_imports_with_jax_blocked():
         "import repro_torch.kernels.flash_prefill, repro_torch.kernels.ref\n"
         "import repro_torch.kernels.masked_update, repro_torch.core.masks\n"
         "import repro_torch.runtime.ft, repro_torch.serving.loadgen\n"
-        "import repro_torch.models.moe\n"
+        "import repro_torch.models.moe, repro_torch.launch.mesh\n"
+        "import repro_torch.launch.sharding, repro_torch.launch.steps\n"
+        "import repro_torch.launch.dryrun, repro_torch.launch.actctx\n"
+        "import repro_torch.analysis.profile\n"
         "assert not any(k == 'jax' or k.startswith(('jax.', 'repro.'))\n"
         "               for k in sys.modules if sys.modules[k] is not None)\n"
     )

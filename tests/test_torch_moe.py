@@ -296,3 +296,36 @@ def test_expert_packs_switch_and_refuse_side_deltas():
     toks = jnp.zeros((1, 4), jnp.int32)
     with pytest.raises(AttributeError, match="astype"):
         jeng.generate({"tokens": toks}, ["e"], 2)
+
+
+@pytest.mark.parametrize("case", ["drops", "ties-bf16"])
+def test_record_routes_holds_each_calls_routing(case, monkeypatch):
+    """``record_routes`` keeps each call's router input, weight, logits
+    and chosen experts: the experts the reference chose, the logits the
+    router's product of the recorded input and weight; the dense and the
+    expert-parallel dispatch record the same; nothing is recorded outside
+    the context."""
+    from repro_torch.launch.actctx import sharding_hints
+    from repro_torch.launch.mesh import abstract_mesh
+    bf16 = case == "ties-bf16"
+    jdt, tdt = ((jnp.bfloat16, torch.bfloat16) if bf16
+                else (jnp.float32, torch.float32))
+    with JL.compute_precision(jdt), TL.compute_precision(tdt):
+        jcfg, tcfg, jp, tp, x = _moe_case(case, monkeypatch)
+        _, _, top_ref = _ref_moe(jp, jcfg, x, monkeypatch)
+        xt = torch.from_numpy(x.copy())
+        with TMOE.record_routes() as calls:
+            TMOE.moe_ffn(tp, tcfg, xt)
+            with sharding_hints(moe_ep_mesh=(abstract_mesh(
+                    (1, 1), ("data", "model")), 1)):
+                TMOE.moe_ffn(tp, tcfg, xt)
+        TMOE.moe_ffn(tp, tcfg, xt)
+    assert len(calls) == 2
+    T = x.shape[0] * x.shape[1]
+    for c in calls:
+        assert c["x"].dtype == tdt and c["x"].shape == (T, jcfg.d_model)
+        np.testing.assert_array_equal(c["top_i"].numpy(), top_ref)
+        with TL.compute_precision(tdt):
+            want = TL.dense(c["x"], c["w"]).float()
+        assert torch.equal(c["logits"], want)
+        assert torch.equal(c["x"], xt.reshape(T, -1).to(tdt))

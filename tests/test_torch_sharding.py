@@ -1,0 +1,142 @@
+"""The port's sharding rules against the JAX package's, leaf by leaf.
+
+``launch.sharding.param_specs`` (head-alignment guard and vocab
+fallbacks included), ``cache_specs`` and ``batch_spec`` give the JAX
+package's specs over the same paths, for all ten archs on the abstract
+meshes (16, 16), (2, 16, 16), (2, 2), (1, 4) and (4, 1); the JAX side
+reads ``jax.eval_shape``'s parameter tree, the port's a "meta" tree.
+Also: ``local_shard`` cuts the tiles a spec names, and ``TPLayout``
+refuses a family with no TP forward.
+"""
+import jax
+import numpy as np
+import pytest
+import torch
+from jax.sharding import PartitionSpec as JP
+
+from repro.configs import ARCH_IDS, SHAPES
+from repro.configs import get_config as j_config
+from repro.launch import sharding as jshd
+from repro.launch.steps import abstract_params as j_abstract_params
+from repro.core.masks import path_str
+from repro_torch.configs import get_config
+from repro_torch.configs.base import ShapeSpec
+from repro_torch.core.masks import iter_leaves
+from repro_torch.launch import sharding as tshd
+from repro_torch.launch.mesh import abstract_mesh
+from repro_torch.launch.steps import abstract_params
+
+MESHES = {"16x16": ((16, 16), ("data", "model")),
+          "2x16x16": ((2, 16, 16), ("pod", "data", "model")),
+          "2x2": ((2, 2), ("data", "model")),
+          "1x4": ((1, 4), ("data", "model")),
+          "4x1": ((4, 1), ("data", "model"))}
+
+
+class FakeMesh:
+    """Just enough mesh for the JAX package's spec computation."""
+
+    def __init__(self, shape, axes):
+        self.axis_names = axes
+        self.shape = dict(zip(axes, shape))
+
+
+def canon(x):
+    """Nested plain structure: specs as tuples of entries, named tuples as
+    dicts of their fields."""
+    if isinstance(x, (JP, tshd.P)):
+        return tuple(tuple(e) if isinstance(e, (list, tuple)) else e
+                     for e in x)
+    if hasattr(x, "_fields"):
+        return {f: canon(getattr(x, f)) for f in x._fields}
+    if isinstance(x, dict):
+        return {k: canon(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [canon(v) for v in x]
+    return x
+
+
+_PARAMS = {}
+
+
+def params_of(arch):
+    if arch not in _PARAMS:
+        jp = j_abstract_params(j_config(arch))
+        _PARAMS[arch] = (jp, abstract_params(get_config(arch)))
+    return _PARAMS[arch]
+
+
+@pytest.mark.parametrize("mesh_name", list(MESHES))
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_param_specs_match_reference(arch, mesh_name):
+    shape, axes = MESHES[mesh_name]
+    jp, tp = params_of(arch)
+    js = jshd.param_specs(jp, j_config(arch), FakeMesh(shape, axes))
+    ts = tshd.param_specs(tp, get_config(arch), abstract_mesh(shape, axes))
+    jflat = {path_str(p): canon(s) for p, s in
+             jax.tree_util.tree_flatten_with_path(
+                 js, is_leaf=lambda x: isinstance(x, JP))[0]}
+    tflat = {p: canon(s) for p, s in iter_leaves(ts)}
+    assert tflat == jflat
+    # the port's params have the reference's shapes, leaf by leaf
+    jshape = {path_str(p): tuple(x.shape) for p, x in
+              jax.tree_util.tree_flatten_with_path(jp)[0]}
+    assert {p: tuple(t.shape) for p, t in iter_leaves(tp)} == jshape
+
+
+@pytest.mark.parametrize("mesh_name", list(MESHES))
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_cache_and_batch_specs_match_reference(arch, mesh_name):
+    shape, axes = MESHES[mesh_name]
+    jm, tm = FakeMesh(shape, axes), abstract_mesh(shape, axes)
+    jc, tc = j_config(arch), get_config(arch)
+    for sname, sp in SHAPES.items():
+        tsp = ShapeSpec(sp.name, sp.seq_len, sp.global_batch, sp.kind)
+        assert canon(tshd.batch_spec(tc, tsp, tm)) == canon(
+            jshd.batch_spec(jc, sp, jm)), sname
+        assert tshd.cache_batch_axes(tc, tsp, tm) == \
+            jshd.cache_batch_axes(jc, sp, jm)
+        if sp.kind == "decode":
+            assert canon(tshd.cache_specs(tc, tsp, tm)) == canon(
+                jshd.cache_specs(jc, sp, jm)), sname
+
+
+def test_local_shard_cuts_tiles():
+    mesh = abstract_mesh((2, 2), ("data", "model"), coords=(1, 0))
+    w = torch.arange(3 * 8 * 6, dtype=torch.float32).reshape(3, 8, 6)
+    spec = tshd.P(None, "data", "model")
+    got = tshd.local_shard(w, spec, mesh)
+    assert torch.equal(got, w[:, 4:, :3])
+    got = tshd.local_shard(w, spec, mesh, coords={"data": 0, "model": 1})
+    assert torch.equal(got, w[:, :4, 3:])
+    assert tshd.local_shard(w, tshd.P(), mesh) is w
+    assert tshd.local_shape((3, 8, 6), spec, mesh) == (3, 4, 3)
+    # a tuple entry is row-major over its axes
+    m3 = abstract_mesh((2, 2, 2), ("pod", "data", "model"), coords=(1, 0, 1))
+    v = torch.arange(8.0)
+    assert torch.equal(tshd.local_shard(v, tshd.P(("pod", "data")), m3),
+                       v[4:6])
+
+
+@pytest.mark.parametrize("arch", ["mamba2-780m", "deepseek-v2-lite-16b",
+                                  "zamba2-2.7b", "paligemma-3b",
+                                  "hubert-xlarge"])
+def test_tp_layout_refuses_families_without_tp_forward(arch):
+    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+        tshd.TPLayout(get_config(arch), abstract_mesh((1, 4),
+                                                      ("data", "model")))
+
+
+def test_tp_layout_specs_follow_the_rules():
+    cfg = get_config("starcoder2-7b")
+    lay = tshd.TPLayout(cfg, abstract_mesh((2, 2), ("data", "model")))
+    hd = cfg.resolved_head_dim
+    assert lay.spec("wq", (cfg.d_model, cfg.num_heads * hd)) == \
+        tshd.P(None, "model")
+    assert lay.sharded(lay.spec("wo", (cfg.num_heads * hd, cfg.d_model)), -2)
+    # 16-way TP splits neither 36 q heads nor 4 KV heads: replicated
+    lay16 = tshd.TPLayout(cfg, abstract_mesh((16, 16), ("data", "model")))
+    assert lay16.spec("wq", (cfg.d_model, cfg.num_heads * hd)) == \
+        tshd.P(None, None)
+    assert np.all([e is None for e in lay16.spec(
+        "wk", (cfg.d_model, cfg.num_kv_heads * hd))])
