@@ -19,7 +19,8 @@ prints its seconds on a "[time]" line:
                and gradients (dx through the forward kernel, dvals) of
                training, and the attention kernels flash_decode ((B,) and
                scalar kv_len), flash_decode_paged (pages of 16, 8, 24;
-               G = 9 and 48; and int8 pools) and flash_prefill, bf16 and
+               G = 9 and 48; and int8 pools), flash_decode's log-sum-exp
+               instance (kv_len 0 among them) and flash_prefill, bf16 and
                f32, beside F.scaled_dot_product_attention
   4. serve     starcoder2-7b at full width through repro_torch.launch.serve:
                sequential switching, --fuse, --multi-tenant (f32, int8);
@@ -30,9 +31,10 @@ prints its seconds on a "[time]" line:
                prefill with flash_prefill's share (torch.profiler)
   6. consistency  full width, 2 layers, f32: multi-tenant tokens equal the
                switch-per-request reference, unfused and with a hot adapter
-  7. continuous  full width, 12 of 32 layers (CC_LAYERS, printed: since
-               the distributed slice, for the script's time limit; 16
-               since the vision and audio slice):
+  7. continuous  full width, 8 of 32 layers (CC_LAYERS, printed: since
+               the sequence-sharded slice, for the script's time limit;
+               12 since the distributed slice, 16 since the vision and
+               audio slice):
                serve --continuous --int8, then a 24-request
                trace (prompts of 64..1024 tokens, half with one shared
                256-token prefix, 32 tokens each) through ServingEngine,
@@ -44,8 +46,9 @@ prints its seconds on a "[time]" line:
                through the int8 instance (continuous-int8)
   8. continuous-consistency  full width, 2 layers, f32: both engines'
                tokens equal each request's fixed-batch tokens, with COW
-  9. train     full width, 16 of 32 layers (TRAIN_LAYERS, printed: since
-               the analysis slice, for the script's time limit):
+  9. train     full width, 8 of 32 layers (TRAIN_LAYERS, printed: since
+               the sequence-sharded slice, for the script's time limit;
+               16 since the analysis slice):
                repro_torch.launch.train (packed SHiRA, Trainer)
                and MultiAdapterTrainer (3 adapters, f32 then int8
                moments), launch counts > 0 for every kernel of each path,
@@ -138,9 +141,10 @@ prints its seconds on a "[time]" line:
                1e-6 of the largest weight of the CPU run's, the masked
                ones as train-consistency holds trained values
   22. moe serve, moe profile, moe continuous, moe train
-               granite-moe-1b-a400m at full width, cut to 8 of its 24
-               layers (MOE_LAYERS, printed: since the analysis slice, 12
-               since the hybrid slice, for the script's time limit)
+               granite-moe-1b-a400m at full width, cut to 6 of its 24
+               layers (MOE_LAYERS, printed: since the sequence-sharded
+               slice, 8 since the analysis slice, 12 since the hybrid
+               slice, for the script's time limit)
                through phases 4, 5, 7 and 9's
                code: launch.serve in four
                modes (no routing choice dropped: every call is under 512
@@ -159,10 +163,10 @@ prints its seconds on a "[time]" line:
                deepseek-v2-lite-16b (MLA attention, 64 experts top-6, 2
                shared, a first dense layer) at full width, at the depths
                mla_depth prints (all 27 layers where its arithmetic fits
-               MLA_BUDGET), cut to at most 6 (MLA_LAYERS, printed: since
-               the distributed slice, for the script's time limit; 8
-               since the vision and audio slice, 14 since the hybrid
-               slice), through
+               MLA_BUDGET), cut to at most 4 (MLA_LAYERS, printed: since
+               the sequence-sharded slice, for the script's time limit; 6
+               since the distributed slice, 8 since the vision and audio
+               slice, 14 since the hybrid slice), through
                the same code as 22: launch.serve in
                four modes, a decode step (base, multi-tenant) and a
                1024-token prefill under torch.profiler with MLA's
@@ -177,8 +181,9 @@ prints its seconds on a "[time]" line:
                latent pages' tokens equal the same engine's on the CPU
   26. mamba serve, mamba profile, mamba continuous, mamba train
                mamba2-780m (Mamba2 / SSD, attention-free) at full width,
-               cut to 24 of its 48 layers (MAMBA_LAYERS, printed: since
-               the vision and audio slice, for the script's time limit),
+               cut to 16 of its 48 layers (MAMBA_LAYERS, printed: since
+               the sequence-sharded slice, for the script's time limit;
+               24 since the vision and audio slice),
                its arithmetic printed first
                ([mamba]: parameters, three adapters at 2% of out_proj,
                the lanes' state), through the same code as 22: launch.serve
@@ -202,10 +207,11 @@ prints its seconds on a "[time]" line:
                zamba2-2.7b (the hybrid: 9 groups of 6 Mamba2 layers, each
                followed by one shared attention + MLP block of 32 heads of
                80, fed concat(hidden, embedding) through w_fuse) at full
-               width, cut to 24 of its 54 layers, 4 of the 9 groups
-               (ZAMBA_LAYERS, printed: since the distributed slice, for
-               the script's time limit; 30 since the vision and audio
-               slice), its arithmetic printed first
+               width, cut to 18 of its 54 layers, 3 of the 9 groups
+               (ZAMBA_LAYERS, printed: since the sequence-sharded slice,
+               for the script's time limit; 24 since the distributed
+               slice, 30 since the vision and audio slice), its
+               arithmetic printed first
                ([zamba]: parameters, three adapters at 2% of out_proj and
                of the shared block's seven target leaves, a lane's state
                and KV), through the same code as 22: launch.serve in four
@@ -297,15 +303,29 @@ prints its seconds on a "[time]" line:
                that differs from one rank's on a one-rank margin below
                bf16's rounding of its router product, the logits within
                2e of one rank's at every step no flipped route reaches (e
-               one rank's own bf16 error against the f32 model); (c) the dry
-               run (launch.dryrun, one CPU process a cell, after (b)):
-               starcoder2-7b and granite-moe train_4k on the 16 x 16 and
-               2 x 16 x 16 meshes, --adapter none and shira: GB, TFLOP
-               and collective GB a rank
+               one rank's own bf16 error against the f32 model); then, on
+               the same ranks, sequence-sharded serving (SEQ_CASES, full
+               width, SEQ_LAYERS = 2): starcoder2-7b on (4, 1), batch 1,
+               a 32,768-row cache (8,192 a rank), prompts of 25,000 and
+               1,000 tokens, and granite-34b on (1, 4), batch 2, 16,384
+               rows, 10,000 tokens (q gathered over ``model``), 8 decode
+               steps each: f32 greedy tokens equal one rank's unsharded
+               run's and logits within 1e-4, bf16 logits fed one rank's
+               tokens within ATTN_TOL["bf16"] x max(1, max |logit|), each
+               rank's collective bytes for a decode step, its wall beside
+               its device time, flash_decode's log-sum-exp instance
+               launched (its counts zeroed just before these cases);
+               (c) the dry run (launch.dryrun, one CPU process a cell,
+               after (b)): starcoder2-7b and granite-moe
+               train_4k on the 16 x 16 and 2 x 16 x 16 meshes, --adapter
+               none and shira, and starcoder2-7b's decode_32k and
+               prefill_32k on 16 x 16 (DIST_SEQ_CELLS): GB, TFLOP and
+               collective GB a rank
   35. summary   one JSON line of kernel numbers (the D = 80 instances of
                flash_decode and flash_prefill, flash_decode's D = 256
-               instance and flash_prefill's non-causal D = 80 case on rows
-               of their own), the card line, and last
+               instance, its log-sum-exp instance and flash_prefill's
+               non-causal D = 80 case on rows of their own), the card
+               line, and last
                {"ok": true, "device": {...}}, after "[time] total"
 
 Every engine run with no fault injected (phases 7, 8, 13, 14, the
@@ -373,6 +393,7 @@ from __future__ import annotations
 import contextlib
 import json
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -385,6 +406,16 @@ sys.path.insert(0, str(ROOT / "src"))
 ATTN_TOL = {"bf16": 1e-2,      # 2.5x the largest bf16 error measured on the
             "f32": 1e-5}       # card (3.9e-3, one bf16 ulp near 1)
 SIDEDELTA_TOL = 1e-4           # f32 sums of ~400 products in another order
+LSE_TOL = 1e-4                 # flash_decode's log-sum-exp, ~9 at 8,192
+                               # rows: f32 sums of up to 8,192 terms in
+                               # another order, exp2 against exp
+LSE_SHAPES = ((1, 4, 9, 128, 8192),   # (B, KV, G, D, S): starcoder2-7b's
+              (2, 1, 48, 128, 4096),  # decode_32k over 4 ranks,
+                                      # granite-34b's gathered q (48 heads
+                                      # over one KV head) over 4 ranks,
+              (8, 8, 2, 64, 2048))    # and granite-moe's decode_32k on
+                                      # 16 x 16 (the D = 64 instance: 16
+                                      # gathered q heads, 2,048 rows a rank)
 RESTORE_TOL = 1e-5             # the JAX package's load/unload tolerance
 ADAMW_TOL = 1e-6               # rtol = atol: the JAX package's own, and the
                                # kernel rounds as its plain version does
@@ -394,17 +425,19 @@ B, PROMPT, TOKENS = 8, 16, 16  # serving batch, prompt and generated tokens
 CACHE = 1056                   # the lane engine's rows a request: prompts
                                # up to 1024 + 32 generated tokens
 CC_REQUESTS, CC_TOKENS = 24, 32   # the continuous-batching trace
-CC_LAYERS = 12                 # phase 7's depth since the distributed
-                               # slice, for the script's time limit (16
+CC_LAYERS = 8                  # phase 7's depth since the sequence-
+                               # sharded slice, for the script's time
+                               # limit (12 since the distributed slice, 16
                                # since the vision and audio slice, 32
                                # before)
 CHUNK = 256                    # the paged engine's prefill chunk, and a
                                # training sequence's rows
 IDS = [0, 1, 2, -1, 0, 1, 2, 0]
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 256, 8, 4   # launch.train phase
-TRAIN_LAYERS = 16              # phase 9's depth since the analysis slice:
-                               # half of starcoder2-7b's 32, for the
-                               # script's time limit (32 before)
+TRAIN_LAYERS = 8               # phase 9's depth since the sequence-
+                               # sharded slice, for the script's time
+                               # limit (16 since the analysis slice, 32
+                               # before)
 MT_SEQ, MT_BATCH, MT_STEPS = 256, 2, 3            # per adapter, A = 3
 MT_IDS = [0, 0, 1, 1, 2, 2]    # the multi-adapter batch: T_a = 512 tokens
 MU_DENSITY = 0.01              # masked_update's mask: 1% of the leaf
@@ -442,15 +475,17 @@ CPU_STEPS = 2                  # steps of the card-vs-CPU trainer checks
                                # side, ~105 s of the script at 3, is the
                                # part of its time that moves most by host
 MOE_ARCH = "granite-moe-1b-a400m"  # the MoE slice: full width, 24 layers
-MOE_LAYERS = 8                 # its phases' depth since the analysis
-                               # slice, for the script's time limit (12
+MOE_LAYERS = 6                 # its phases' depth since the sequence-
+                               # sharded slice, for the script's time
+                               # limit (8 since the analysis slice, 12
                                # since the hybrid slice, 24 before)
 MOE_LONG = 501                 # moe-consistency's long prompt: one call of
                                # at most 512 tokens drops no routing choice
 MLA_ARCH = "deepseek-v2-lite-16b"  # the MLA slice: full width, 27 layers
-MLA_LAYERS = 6                 # its phases' deepest cut since the
-                               # distributed slice (the first dense layer
-                               # and 5 MoE), for the script's time limit (8
+MLA_LAYERS = 4                 # its phases' deepest cut since the
+                               # sequence-sharded slice (the first dense
+                               # layer and 3 MoE), for the script's time
+                               # limit (6 since the distributed slice, 8
                                # since the vision and audio slice, 14 since
                                # the hybrid slice, 27 before)
 MLA_BUDGET = 76e9              # the device bytes mla_depth plans for, of
@@ -461,12 +496,15 @@ MT_ENTRY_BYTES = 40            # a multi-adapter trainer, per 2% entry of
                                # gradient (f32) and the trainable table's
                                # rows, perm, t_rows and t_perm (int32)
 MAMBA_ARCH = "mamba2-780m"     # the SSM slice: full width, 48 layers
-MAMBA_LAYERS = 24              # its phases' depth since the vision and
-                               # audio slice, for the script's time limit
+MAMBA_LAYERS = 16              # its phases' depth since the sequence-
+                               # sharded slice, for the script's time
+                               # limit (24 since the vision and audio
+                               # slice, 48 before)
 ZAMBA_ARCH = "zamba2-2.7b"     # the hybrid slice: full width, 54 layers
-ZAMBA_LAYERS = 24              # its phases' depth since the distributed
-                               # slice: 4 of its 9 groups of 6, for the
-                               # script's time limit (30 since the vision
+ZAMBA_LAYERS = 18              # its phases' depth since the sequence-
+                               # sharded slice: 3 of its 9 groups of 6,
+                               # for the script's time limit (24 since the
+                               # distributed slice, 30 since the vision
                                # and audio slice, 54 before)
 VLM_ARCH = "paligemma-3b"      # the vision slice: full width, all 18 layers
 VLM_PREFIX = 256               # its patch embeddings, a prefix of cache rows
@@ -550,7 +588,12 @@ def kernel_name(mangled: str) -> str:
 
 
 def cold_ms(torch, fn, iters: int, flush) -> float:
-    """Mean device time of fn over ``iters`` launches, L2 flushed before
+    """Mean device time of fn over ``iters`` launches (``cold_times``)."""
+    return statistics.fmean(cold_times(torch, fn, iters, flush))
+
+
+def cold_times(torch, fn, iters: int, flush) -> list:
+    """Device ms of each of ``iters`` launches of fn, L2 flushed before
     each (a decode step streams other weights between two calls). The card
     spins ~1 ms before each start event, so the host has enqueued fn's
     launches by the time it is timed: host overhead is not counted unless
@@ -567,7 +610,7 @@ def cold_ms(torch, fn, iters: int, flush) -> float:
         e.record()
         events.append((s, e))
     torch.cuda.synchronize()
-    return sum(s.elapsed_time(e) for s, e in events) / iters
+    return [s.elapsed_time(e) for s, e in events]
 
 
 def device_kernels(torch, prof):
@@ -788,7 +831,8 @@ def sidedelta_case(torch, gen, flush, label, n, m, S, int8, slots=None,
     err = float((got - want).abs().max())
     if not err <= SIDEDELTA_TOL:
         fail(f"sidedelta {label}: max_abs_err {err} > {SIDEDELTA_TOL}")
-    ms = cold_ms(torch, lambda: sidedelta(*args), 20, flush)
+    times = cold_times(torch, lambda: sidedelta(*args), 20, flush)
+    ms = statistics.fmean(times)
     plain_ms = cold_ms(torch, lambda: sidedelta_plain(*args), 3, flush)
     # yardstick: one batched matmul against densified per-request dW
     valid = t["colptr"][:, -1].long()
@@ -809,7 +853,7 @@ def sidedelta_case(torch, gen, flush, label, n, m, S, int8, slots=None,
     del dense, per_req
     r = {"label": label, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
          "library_ms": library_ms, **bound_of(sidedelta_cost(*args)),
-         "K": [int(valid[a]) for a in range(len(slots))]}
+         "K": [int(valid[a]) for a in range(len(slots))], "times": times}
     print(f"[kernels] sidedelta {label} ({n}x{m}) K={r['K']} S={S} "
           f"{'int8/int16' if int8 else 'f32/int32'} "
           f"path={kernel_path(B, S)}: "
@@ -918,9 +962,16 @@ def kernels_phase(torch, flush):
                                 False, slots=slots, pad_to=2 * pad)
         again = sidedelta_case(torch, gen, flush, "w_up fused state", d,
                                f, S, False, slots=slots)
-        ref_ms = (tight["ms"] + again["ms"]) / 2
-        if padded["ms"] > 1.25 * ref_ms + 0.01:
-            fail(f"padding is walked: padded {padded['ms']:.4f} ms vs "
+        # the gate reads each case's median launch: one launch stalled by
+        # something else on the card moves a mean of 20 by a lot (C6)
+        med = lambda r: statistics.median(r["times"])
+        ref_ms = (med(tight) + med(again)) / 2
+        if med(padded) > 1.25 * ref_ms + 0.01:
+            for r in (tight, padded, again):
+                print(f"[kernels] sidedelta {r['label']} S={S} launches "
+                      f"(ms): {[round(t, 4) for t in r['times']]}",
+                      flush=True)
+            fail(f"padding is walked: padded median {med(padded):.4f} ms vs "
                  f"{ref_ms:.4f} ms unpadded (S={S})")
         side += [tight, padded, again]
 
@@ -1673,6 +1724,64 @@ def attn_case(torch, flush, label, fn, plain, library, tol, cost,
     return r
 
 
+def lse_case(torch, flush, label, q, k, v, kl):
+    """The log-sum-exp instance of flash_decode against its plain version
+    on the same inputs: the f32 output within ATTN_TOL["f32"] whatever the
+    inputs' dtype (the instance writes f32 and the plain version upcasts
+    the same inputs, so nothing is rounded to bf16), lse within LSE_TOL
+    where finite and -inf exactly where the plain version's is (kv_len 0,
+    beside a zero output); its cold-L2 time beside the existing instance's
+    on the same inputs, the plain version's, SDPA's and the bound of its
+    ``cost()``."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_decode import (decode_lengths,
+                                                  flash_decode_blocks,
+                                                  flash_decode_cost,
+                                                  flash_decode_plain)
+    Bd, KV, G, D = q.shape
+    S = k.shape[1]
+    tol = ATTN_TOL["f32"]
+    lens = decode_lengths(kl, Bd, "cuda")
+    out, lse = flash_decode_blocks(q, k, v, kl, lse=True)
+    want, wlse = flash_decode_plain(q, k, v, lens, lse=True)
+    if out.dtype != torch.float32 or lse.shape != (Bd, KV, G):
+        fail(f"{label}: the log-sum-exp instance gave {out.dtype} "
+             f"{tuple(lse.shape)}")
+    fin = torch.isfinite(wlse)
+    if bool(torch.isnan(out).any()) or bool(torch.isnan(lse).any()) or \
+            not torch.equal(torch.isfinite(lse), fin) or \
+            not bool((lse[~fin] == wlse[~fin]).all()):
+        fail(f"{label}: lse {lse.flatten()[:4].tolist()} where the plain "
+             f"version has {wlse.flatten()[:4].tolist()}")
+    err = float((out - want).abs().max())
+    lerr = float((lse[fin] - wlse[fin]).abs().max()) if bool(fin.any()) \
+        else 0.0
+    if not (err <= tol and lerr <= LSE_TOL):
+        fail(f"{label}: max_abs_err {err} (tol {tol}), lse {lerr} (tol "
+             f"{LSE_TOL})")
+    qs = q.reshape(Bd, KV * G, 1, D)
+    ks, vs = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+    mask = (torch.arange(S, device="cuda")[None, :]
+            < lens.long()[:, None])[:, None, None, :]
+    r = {"max_abs_err": max(err, lerr),
+         "ms": cold_ms(torch, lambda: flash_decode_blocks(q, k, v, kl,
+                                                          lse=True), 20,
+                       flush),
+         "base_ms": cold_ms(torch, lambda: flash_decode_blocks(q, k, v, kl),
+                            20, flush),
+         "plain_ms": cold_ms(torch, lambda: flash_decode_plain(
+             q, k, v, lens, lse=True), 3, flush),
+         "library_ms": cold_ms(torch, lambda: F.scaled_dot_product_attention(
+             qs, ks, vs, attn_mask=mask, enable_gqa=True), 10, flush),
+         **bound_of(flash_decode_cost(q, k, v, kl, lse=True))}
+    print(f"[kernels] {label}: max_abs_err={err:.3g} (tol {tol}) lse "
+          f"err={lerr:.3g} (tol {LSE_TOL}) ms={r['ms']:.4f} (the existing "
+          f"instance {r['base_ms']:.4f}) plain_ms={r['plain_ms']:.3f} "
+          f"library_ms(sdpa)={r['library_ms']:.4f} bound_ms="
+          f"{r['bound_ms']:.4f} ({r['bound_by']})", flush=True)
+    return r
+
+
 def attention_kernels_phase(torch, flush):
     """flash_decode, flash_decode_paged and flash_prefill against their
     plain versions at the continuous-batching shapes of starcoder2-7b (KV
@@ -1701,7 +1810,12 @@ def attention_kernels_phase(torch, flush):
     after its 256-row prefix, (B,) and scalar kv_len ("d256"), and
     hubert-xlarge's encode the non-causal prefill at 16 heads of 80,
     (8, 1024) and (1, 777) ("bidir"); the paged kernel must refuse
-    D = 256 too. The yardstick is one
+    D = 256 too. The log-sum-exp instance of flash_decode (sequence-
+    sharded serving) runs at LSE_SHAPES, one rank's shard of
+    starcoder2-7b's decode_32k, granite-34b's gathered q and granite-moe's
+    decode_32k on 16 x 16 (its D = 64 instance), with kv_len
+    S, 0 (a rank that holds none of the positions), 1 and 700 ("lse",
+    ``lse_case``). The yardstick is one
     F.scaled_dot_product_attention(..., enable_gqa=True) call on the same
     inputs, laid out as it wants them beforehand (for paged: a gather of
     the pages, dequantized for int8 pools, then the call)."""
@@ -1729,7 +1843,7 @@ def attention_kernels_phase(torch, flush):
     H = KV * G
     out = {"flash_decode": [], "flash_decode_paged": [], "flash_prefill": []}
     d80 = {"flash_decode": [], "flash_prefill": []}
-    d256, bidir = [], []
+    d256, bidir, lse = [], [], []
     spread = torch.linspace(1, CACHE, Bd, device="cuda").round().to(
         torch.int32)
     for dt in (torch.bfloat16, torch.float32):
@@ -1866,6 +1980,12 @@ def attention_kernels_phase(torch, flush):
         for Bp, Sp in ((B, ENCODE_FRAMES), (1, 777)):
             prefill(Bp, Sp, 16, 16, 80, causal=False)
         bidir += out["flash_prefill"][n0:]
+        for Bl, kv, g, dd, Sl in LSE_SHAPES:
+            q, k, v = r(Bl, kv, g, dd), r(Bl, Sl, kv, dd), r(Bl, Sl, kv, dd)
+            for kl in (Sl, 0, 1, 700):
+                lse.append(lse_case(
+                    torch, flush, f"flash_decode log-sum-exp {tag} "
+                    f"({Bl},{kv},{g},{dd}) S={Sl} kv_len {kl}", q, k, v, kl))
     for D, why in ((80, "the hybrid family"), (256, "the vision family")):
         q = torch.zeros((1, 2, 1, D), dtype=torch.bfloat16, device="cuda")
         pool = torch.zeros((2, 16, 2, D), dtype=torch.bfloat16,
@@ -1883,6 +2003,7 @@ def attention_kernels_phase(torch, flush):
     out["d80"] = d80
     out["d256"] = d256
     out["bidir"] = bidir
+    out["lse"] = lse
     return out
 
 
@@ -4095,12 +4216,19 @@ def counters():
 
 
 def zero_counts():
+    from repro_torch.kernels.flash_decode import flash_decode_blocks
     for fn in counters().values():
         fn.launches = 0
+    flash_decode_blocks.lse_launches = 0
 
 
 def read_counts():
-    return {k: fn.launches for k, fn in counters().items()}
+    """Each counter's launches, and flash_decode's log-sum-exp instance's
+    (which its ``launches`` count too) as "flash_decode (lse)"."""
+    from repro_torch.kernels.flash_decode import flash_decode_blocks
+    out = {k: fn.launches for k, fn in counters().items()}
+    out["flash_decode (lse)"] = flash_decode_blocks.lse_launches
+    return out
 
 
 def check_run(label, counts, needed, totals, absent=()):
@@ -5280,8 +5408,9 @@ def moe_phases(torch):
     layers for the script's time limit (printed)."""
     print(f"[moe] {MOE_ARCH}: serve, profile, continuous and train at "
           f"{MOE_LAYERS} of 24 layers (cut for the script's time limit: 12 "
-          f"since the hybrid slice, 8 since the analysis slice; all 24 "
-          f"before)", flush=True)
+          f"since the hybrid slice, 8 since the analysis slice, "
+          f"{MOE_LAYERS} since the sequence-sharded slice; all 24 before)",
+          flush=True)
     return slice_phases(torch, MOE_ARCH, "moe", MOE_LAYERS, MOE_LAYERS)
 
 
@@ -5345,7 +5474,8 @@ def mla_phases(torch):
           f"experts top-{cfg.moe.top_k}, vocab {cfg.vocab_size}): {text}; "
           f"cut to at most {MLA_LAYERS} layers for the script's time limit "
           f"(14 since the hybrid slice, 8 since the vision and audio "
-          f"slice, {MLA_LAYERS} since the distributed slice): serve "
+          f"slice, 6 since the distributed slice, {MLA_LAYERS} since the "
+          f"sequence-sharded slice): serve "
           f"{min(serve_l, MLA_LAYERS)}, train "
           f"{min(train_l, MLA_LAYERS)}", flush=True)
     serve_l, train_l = min(serve_l, MLA_LAYERS), min(train_l, MLA_LAYERS)
@@ -5381,8 +5511,9 @@ def mamba_phases(torch):
           f"{B * per / 1e9:.3f} GB, {1e9 / per:.2f} requests per GB "
           f"whatever the length", flush=True)
     print(f"[mamba] serve, profile, continuous and train at "
-          f"{MAMBA_LAYERS} of {L} layers (cut for the script's time limit "
-          f"since the vision and audio slice; all {L} before): the "
+          f"{MAMBA_LAYERS} of {L} layers (cut for the script's time limit: "
+          f"24 since the vision and audio slice, {MAMBA_LAYERS} since the "
+          f"sequence-sharded slice; all {L} before): the "
           f"arithmetic above counts the whole model, the engines' resident "
           f"requests per GB {MAMBA_LAYERS} layers", flush=True)
     return slice_phases(torch, MAMBA_ARCH, "mamba", MAMBA_LAYERS,
@@ -5429,7 +5560,8 @@ def zamba_phases(torch):
     print(f"[zamba] serve, profile, continuous and train at "
           f"{ZAMBA_LAYERS} of {L} layers ({ZAMBA_LAYERS // k} of {g} groups:"
           f" cut for the script's time limit: 30 since the vision and "
-          f"audio slice, {ZAMBA_LAYERS} since the distributed slice; all "
+          f"audio slice, 24 since the distributed slice, {ZAMBA_LAYERS} "
+          f"since the sequence-sharded slice; all "
           f"{L} before): the arithmetic above and in the "
           f"residency line counts the whole model, the engines' resident "
           f"requests per GB {ZAMBA_LAYERS} layers", flush=True)
@@ -5795,7 +5927,21 @@ DIST_EP_TOL = 0.05       # (b): bf16 expert-parallel moe_ffn against the
                          # reference's bf16 tolerance for the same check)
 BF16_U = 2.0 ** -8       # bf16's unit roundoff (8 significant bits)
 DIST_CELLS = (("starcoder2-7b", "granite-moe-1b-a400m"), ("train_4k",))
+DIST_SEQ_CELLS = ("starcoder2-7b", ("decode_32k", "prefill_32k"))  # (c),
+                         # on 16 x 16: the sequence over ``model``
 DIST_PATH = ("scatter_apply", "flash_prefill", "flash_decode")
+SEQ_LAYERS = 2           # (b)'s sequence-sharded serving: full width, 2
+SEQ_DECODE = 8           # layers, 8 greedy decode steps a prompt
+SEQ_CASES = (            # (arch, mesh, batch, cache rows, prompt lengths)
+    # decode_32k's 32,768 rows over 4 data ranks (batch 1, below the dp
+    # size): 25,000 tokens put keys on every rank and the decode writes on
+    # rank 3; 1,000 leave three ranks empty
+    ("starcoder2-7b", (4, 1), 1, 32_768, (25_000, 1_000)),
+    # one KV head against 4-way TP: the sequence over ``model``, 12 q heads
+    # a rank gathered to 48 for the attention (the gather-q case)
+    ("granite-34b", (1, 4), 2, 16_384, (10_000,)),
+)
+DIST_SEQ_PATH = ("flash_prefill", "flash_decode", "flash_decode (lse)")
 
 
 def dist_inputs(torch, arch, layers, fsdp=False):
@@ -5857,23 +6003,34 @@ def dist_metrics(m) -> dict:
     return {k: float(v) for k, v in m.items()}
 
 
-def dist_serve(torch, cfg, params, mesh, prompt, force=None):
-    """Prefill + DIST_DECODE decode steps in bf16 through the steps
-    (mesh=None: the unsharded steps), greedy or fed the tokens ``force``:
-    the tokens and every step's logits."""
+def dist_serve(torch, cfg, params, mesh, prompt, force=None, size=None,
+               steps=DIST_DECODE, with_caches=False):
+    """Prefill + ``steps`` decode steps in bf16 through the steps
+    (mesh=None: the unsharded steps), greedy or fed the tokens ``force``,
+    into caches of ``size`` rows (the prompt and the steps by default; the
+    serving shape is then a batch of the prompt's rows): the tokens and
+    every step's logits, and with ``with_caches`` the caches and the
+    decode step."""
+    from repro_torch.configs import ShapeSpec
     from repro_torch.launch import steps as S
     P = prompt.shape[1]
-    size = P + DIST_DECODE + 1
-    prefill = S.make_prefill_step(cfg, size, mesh)
-    decode = S.make_decode_step(cfg, mesh)
+    shape = None
+    if size is not None:
+        shape = ShapeSpec("serve", size, prompt.shape[0], "decode")
+    size = size or P + DIST_DECODE + 1
+    prefill = S.make_prefill_step(cfg, size, mesh, shape)
+    decode = S.make_decode_step(cfg, mesh, shape)
     logits, caches = prefill(params, {"tokens": prompt})
     toks, outs = [], [logits]
-    for i in range(DIST_DECODE):
+    for i in range(steps):
         nxt = (torch.argmax(logits, -1)[:, None] if force is None
                else force[:, i:i + 1].to(prompt.device))
         toks.append(nxt)
         logits, caches = decode(params, caches, nxt, P + i)
         outs.append(logits)
+    if with_caches:
+        return (torch.cat(toks, 1), torch.stack(outs, 1).float(), caches,
+                decode)
     return torch.cat(toks, 1), torch.stack(outs, 1).float()
 
 
@@ -6070,6 +6227,101 @@ def dist_refs(torch):
     return out
 
 
+def seq_prompt(torch, cfg, batch, P):
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(P)
+    return torch.randint(0, cfg.vocab_size, (batch, P), generator=gen,
+                         device="cuda")
+
+
+def dist_seq_refs(torch):
+    """(b)'s sequence-sharded cases on one rank, unsharded (mesh=None):
+    for each case and prompt, the f32 greedy tokens and logits and the bf16
+    greedy tokens and logits, on the card's caches of the case's rows."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers, lm
+    out = {}
+    for arch, _, batch, rows, prompts in SEQ_CASES:
+        cfg = get_config(arch).replace(num_layers=SEQ_LAYERS)
+        params = lm.init_params(cfg, seed=0, device="cuda")
+        for P in prompts:
+            prompt = seq_prompt(torch, cfg, batch, P)
+            with torch.no_grad(), layers.compute_precision(torch.float32):
+                toks, logits = dist_serve(torch, cfg, params, None, prompt,
+                                          size=rows, steps=SEQ_DECODE)
+            with torch.no_grad():
+                toks16, logits16 = dist_serve(torch, cfg, params, None,
+                                              prompt, size=rows,
+                                              steps=SEQ_DECODE)
+            out[(arch, P)] = {"tokens": toks.cpu(), "logits": logits.cpu(),
+                              "bf16_tokens": toks16.cpu(),
+                              "bf16_logits": logits16.cpu()}
+            del logits, logits16
+        del params
+        torch.cuda.empty_cache()
+    return out
+
+
+def dist_seq_rank(torch, case, seq_refs):
+    """(b) One rank's sequence-sharded serving of one of SEQ_CASES: its
+    mesh, the weights' serving shards, and per prompt the f32 greedy run,
+    the bf16 run fed one rank's bf16 tokens, then one more bf16 decode
+    step's collectives and wall (recorded) and device time (profiled)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.analysis.profile import collective_summary
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch import steps as S
+    from repro_torch.models import layers, lm
+    arch, shape, batch, rows, prompts = case
+    mesh = M.make_mesh(shape, ("data", "model"), "cuda")
+    cfg = get_config(arch).replace(num_layers=SEQ_LAYERS)
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    local = shd.shard_tree(params, S.serve_param_shardings(cfg, mesh), mesh)
+    del params
+    torch.cuda.empty_cache()
+    sshape = ShapeSpec("serve", rows, batch, "decode")
+    out = {"coords": mesh.coords,
+           "axes": shd.kv_seq_axes(cfg, shd.cache_specs(cfg, sshape,
+                                                       mesh))}
+    for P in prompts:
+        ref = seq_refs[(arch, P)]
+        prompt = seq_prompt(torch, cfg, batch, P)
+        with torch.no_grad(), layers.compute_precision(torch.float32):
+            toks, logits = dist_serve(torch, cfg, local, mesh, prompt,
+                                      size=rows, steps=SEQ_DECODE)
+        with torch.no_grad():
+            _, logits16, caches, decode = dist_serve(
+                torch, cfg, local, mesh, prompt, force=ref["bf16_tokens"],
+                size=rows, steps=SEQ_DECODE, with_caches=True)
+            # one more step, at the position after the fed ones, timed
+            at = P + SEQ_DECODE
+            tok = ref["bf16_tokens"][:, -1:].to("cuda")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with M.record() as ev:
+                decode(local, caches, tok, at)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                decode(local, caches, tok, at)
+                torch.cuda.synchronize()
+            held = int(caches[0].k.shape[2])
+            del caches
+        out[P] = {"tokens": toks.cpu(), "logits": logits.cpu(),
+                  "bf16_logits": logits16.cpu(), "wall_ms": wall,
+                  "device_ms": sum(
+                      getattr(e, "self_device_time_total", 0)
+                      for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA)
+                  / 1e3, "coll": collective_summary(ev), "cache_rows": held}
+        torch.cuda.empty_cache()
+    del local
+    torch.cuda.empty_cache()
+    return out
+
+
 def dist_probe(torch, mesh):
     """One call of each collective the steps use, on CUDA tensors through
     gloo, checked: all_reduce (sum, max), all_gather, reduce_scatter."""
@@ -6185,9 +6437,11 @@ def clean_steps(flips, B, layers, positions):
     return out
 
 
-def dist_rank(rank, world, tmp, out, ref_tokens):
+def dist_rank(rank, world, tmp, out, ref_tokens, seq_refs):
     """(b) One of four ranks on cuda:0 through gloo, on a (2, 2) mesh;
-    its decode is fed the single-rank run's tokens ``ref_tokens``."""
+    its decode is fed the single-rank run's tokens ``ref_tokens``. Then
+    the sequence-sharded cases (SEQ_CASES, each on its own mesh of the
+    four ranks), held against ``seq_refs``."""
     import torch
     import torch.distributed as dist
     torch.cuda.set_device(0)
@@ -6308,6 +6562,10 @@ def dist_rank(rank, world, tmp, out, ref_tokens):
         del local
         torch.cuda.empty_cache()
     res["counts"] = read_counts()
+    zero_counts()      # the sequence-sharded path's launches, on their own
+    for case in SEQ_CASES:
+        res[("seq",) + case[:2]] = dist_seq_rank(torch, case, seq_refs)
+    res["seq_counts"] = read_counts()
     allres = [None] * world
     dist.all_gather_object(allres, res)
     if rank == 0:
@@ -6316,27 +6574,31 @@ def dist_rank(rank, world, tmp, out, ref_tokens):
     dist.destroy_process_group()
 
 
-def dist_four(torch, tmp, refs):
+def dist_four(torch, tmp, refs, seq_refs):
     """(b) Spawn four ranks on cuda:0 through gloo; hold their losses and
     decode logits against the single-rank runs, print their collective
-    bytes and the gloo step's wall against its device time."""
+    bytes and the gloo step's wall against its device time; then the
+    sequence-sharded cases (``dist_seq_report``)."""
     import torch.multiprocessing as mp
     out = f"{tmp}/four.pt"
     t0 = time.perf_counter()
     ref_tokens = {a: r["tokens"] for a, r in refs.items()}
     ref_tokens["bf16"] = refs[DIST_MOE]["bf16"]["tokens"]
-    mp.spawn(dist_rank, args=(4, tmp, out, ref_tokens), nprocs=4)
+    mp.spawn(dist_rank, args=(4, tmp, out, ref_tokens, seq_refs), nprocs=4)
     ranks = torch.load(out, weights_only=False)
     print(f"[distributed] (b) 4 ranks on cuda:0 through gloo, a (2, 2) mesh, "
           f"{DIST4_LAYERS} layers at full width: "
           f"{time.perf_counter() - t0:.1f} s (spawn included); gloo "
           f"all_reduce, all_gather and "
           f"reduce_scatter each probed on CUDA tensors", flush=True)
-    counts = {}
+    counts, seq_counts = {}, {}
     for r in ranks:
-        for k, v in r["counts"].items():
-            counts[k] = counts.get(k, 0) + v
+        for total, key in ((counts, "counts"), (seq_counts, "seq_counts")):
+            for k, v in r[key].items():
+                total[k] = total.get(k, 0) + v
     check_run("distributed (b)", counts, DIST_PATH, {})
+    check_run("distributed (b) sequence-sharded", seq_counts, DIST_SEQ_PATH,
+              counts)
     from repro_torch.configs import get_config
     for arch in (DIST_ARCH, DIST_MOE):
         ref = refs[arch]
@@ -6403,7 +6665,65 @@ def dist_four(torch, tmp, refs):
                  "depart from one rank's")
         if arch == DIST_MOE:
             dist_moe_bf16(torch, ranks, ref["bf16"], get_config(arch))
+    dist_seq_report(torch, ranks, seq_refs)
     return counts
+
+
+def dist_seq_report(torch, ranks, seq_refs):
+    """(b) The sequence-sharded cases: on every rank the f32 greedy tokens
+    equal one rank's unsharded run's and the logits lie within DIST4_TOL
+    of it, absolute; the bf16 logits, fed one rank's bf16 greedy tokens,
+    within ATTN_TOL["bf16"] x max(1, max |logit|), as the head-sharded
+    serve holds them (bf16 rounds relative to the logits' size); each
+    rank's collective bytes for one decode step, and rank 0's decode wall
+    beside its device time."""
+    from repro_torch.configs import get_config
+    for arch, shape, batch, rows, prompts in SEQ_CASES:
+        V = get_config(arch).vocab_size      # the pad columns are -1e30
+        got = [rr[("seq", arch, shape)] for rr in ranks]
+        want_rows = rows // (shape[0] * shape[1])  # over all four ranks
+        if any(g[P]["cache_rows"] != want_rows for g in got for P in prompts):
+            fail(f"distributed (b): {arch}'s caches on {shape} do not hold "
+                 f"{want_rows} rows a rank")
+        print(f"[distributed] (b) {arch} sequence-sharded on {shape}, "
+              f"{SEQ_LAYERS} layers at full width, batch {batch}, a cache "
+              f"of {rows} rows: {got[0][prompts[0]]['cache_rows']} a rank, "
+              f"the sequence over {got[0]['axes']}", flush=True)
+        for P in prompts:
+            ref = seq_refs[(arch, P)]
+            want, want16 = ref["logits"][..., :V], ref["bf16_logits"][..., :V]
+            scale = float(want.abs().max())
+            same = all(torch.equal(g[P]["tokens"].cpu(), ref["tokens"])
+                       for g in got)
+            ld = max(float((g[P]["logits"][..., :V] - want).abs().max())
+                     for g in got)
+            ld16 = max(float((g[P]["bf16_logits"][..., :V] - want16)
+                             .abs().max()) for g in got)
+            print(f"[distributed] (b) {arch} prompt {P} + {SEQ_DECODE} "
+                  f"decode steps: f32 greedy tokens equal one rank's on "
+                  f"every rank {same}, logits max diff {ld:.3g} (tol "
+                  f"{DIST4_TOL}, max |logit| {scale:.3g}); bf16 fed one "
+                  f"rank's tokens: logits max diff {ld16:.3g} (tol "
+                  f"{ATTN_TOL['bf16']} x max(1, "
+                  f"{float(want16.abs().max()):.3g})); one decode step on "
+                  f"rank 0: wall {got[0][P]['wall_ms']:.2f} ms, device "
+                  f"{got[0][P]['device_ms']:.3f} ms", flush=True)
+            for i, g in enumerate(got):
+                c = g[P]["coll"]
+                print(f"[distributed] (b)   rank {i} {tuple(g['coords'])}: "
+                      f"one bf16 decode step's collectives "
+                      f"{c['total_bytes']} bytes ({c['by_kind_count']})",
+                      flush=True)
+            if not same:
+                fail(f"distributed (b): {arch}'s sequence-sharded greedy "
+                     f"tokens (prompt {P}) differ from one rank's")
+            if not ld <= DIST4_TOL:
+                fail(f"distributed (b): {arch}'s sequence-sharded f32 logits "
+                     f"(prompt {P}) depart from one rank's")
+            if not ld16 <= ATTN_TOL["bf16"] * max(
+                    1.0, float(want16.abs().max())):
+                fail(f"distributed (b): {arch}'s sequence-sharded bf16 "
+                     f"logits (prompt {P}) depart from one rank's")
 
 
 def dist_moe_bf16(torch, ranks, ref, cfg):
@@ -6517,6 +6837,16 @@ def dist_dryrun_start():
                 outs.append((subprocess.Popen(
                     cmd, env=env, cwd=str(ROOT), stdout=subprocess.PIPE,
                     stderr=subprocess.STDOUT, text=True), path))
+    arch, shapes = DIST_SEQ_CELLS
+    path = ROOT / "build" / "dryrun" / f"chip_{arch}_seq.json"
+    if path.exists():
+        path.unlink()
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+           "--shape", ",".join(shapes), "--mesh", "single", "--out",
+           str(path)]
+    outs.append((subprocess.Popen(
+        cmd, env=env, cwd=str(ROOT), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True), path))
     return outs
 
 
@@ -6533,7 +6863,9 @@ def dist_dryrun_report(procs):
                   f"{tuple(r['mesh'])} --adapter {r['adapter']}: "
                   f"{r['memory']['per_rank_gb']:.3f} GB a rank (params "
                   f"{r['memory']['params_bytes'] / 1e9:.3f}), "
-                  f"{r['cost']['flops'] / 1e12:.1f} TFLOP, collectives "
+                  f"{r['cost']['flops'] / 1e12:.3f} TFLOP, "
+                  f"{r['cost']['bytes_accessed'] / 1e9:.3f} GB accessed, "
+                  f"collectives "
                   f"{r['collectives']['total_gb']:.2f} GB (pod axis "
                   f"{r['collectives']['pod_axis_bytes'] / 1e9:.2f}), meta run "
                   f"{r['compile_s']} s", flush=True)
@@ -6548,10 +6880,11 @@ def distributed_phase(torch):
         t0 = time.perf_counter()
         counts = dict(dist_world1(torch, tmp))
         refs = dist_refs(torch)
+        seq_refs = dist_seq_refs(torch)
         torch.cuda.empty_cache()
         print(f"[distributed] (a) and the one-rank references: "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
-        for k, v in dist_four(torch, tmp, refs).items():
+        for k, v in dist_four(torch, tmp, refs, seq_refs).items():
             counts[k] = counts.get(k, 0) + v
     t0 = time.perf_counter()
     procs = dist_dryrun_start()
@@ -6617,8 +6950,9 @@ def main() -> None:
     torch.cuda.empty_cache()
     print(f"[continuous] starcoder2-7b: serve --continuous and the "
           f"24-request trace at {CC_LAYERS} of 32 layers (cut for the "
-          f"script's time limit: 16 since the vision and audio slice, "
-          f"{CC_LAYERS} since the distributed slice; all 32 before): KV "
+          f"script's time limit: 16 since the vision and audio slice, 12 "
+          f"since the distributed slice, {CC_LAYERS} since the sequence-"
+          f"sharded slice; all 32 before): KV "
           f"and resident requests per GB below are of "
           f"{CC_LAYERS} layers", flush=True)
     with autotune.observe():
@@ -6631,7 +6965,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     print(f"[train] starcoder2-7b: launch.train and MultiAdapterTrainer at "
           f"{TRAIN_LAYERS} of 32 layers (TRAIN_LAYERS: cut for the script's "
-          f"time limit since the analysis slice; all 32 before)", flush=True)
+          f"time limit: 16 since the analysis slice, {TRAIN_LAYERS} since "
+          f"the sequence-sharded slice; all 32 before)", flush=True)
     totals, c_shira = timed("train", lambda: train_phase(
         torch, layers=TRAIN_LAYERS))
     for k, v in totals.items():
@@ -6761,6 +7096,16 @@ def main() -> None:
             "launches": by_slice[tag].get(name.split(" ")[0], 0),
             **{k: cases[0][k] for k in keys},
             "max_abs_err": max(r["max_abs_err"] for r in cases)})
+    # flash_decode's log-sum-exp instance (sequence-sharded serving): its
+    # bf16 case at one rank's shard of starcoder2-7b's decode_32k, the
+    # largest error over its cases, its launches on the mesh decode steps
+    kernels.append({
+        "name": "flash_decode (log-sum-exp)", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
+        "replaces": "src/repro/kernels/flash_decode.py:71",
+        "launches": launches.get("flash_decode (lse)", 0),
+        **{k: attn["lse"][0][k] for k in keys},
+        "max_abs_err": max(r["max_abs_err"] for r in attn["lse"])})
     # masked_update's row: the hook path's case (f32 W, bool M)
     kernels.append({
         "name": "masked_update", "route": "cuda",

@@ -23,6 +23,13 @@
 // block_tables[b, t / page], row t % page. Entry 0 is the scratch page;
 // positions >= kv_len are masked, so scratch entries and unwritten page
 // tails contribute nothing. A request with kv_len 0 gets zeros.
+// The log-sum-exp instance (contiguous caches; sequence-sharded serving,
+// where each rank attends its own shard of the cache and the ranks then
+// merge their softmaxes): the output, acc / l as above, is f32 whatever q's
+// dtype, so that the ranks merge in f32 and round once, and beside it
+// lse[b, h, g] = m + log(l) in f32 and natural-log units, from the max and
+// sum the split-K merge (or the one working split) already holds. A request
+// with kv_len 0 gets zeros and lse -inf, which weigh nothing in the merge.
 // int8 pools (the reference's QuantKV pages, src/repro/serving/kvcache.py):
 // codes (P, page, KV, D) int8 and one bf16 absmax scale per (row, head),
 // scales (P, page, KV, 1). A CTA reads its rows' codes in 16-byte loads
@@ -73,6 +80,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "tile_ops.cuh"
 
 namespace {
@@ -81,6 +90,7 @@ constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kSplit = 64;       // positions per CTA
 constexpr int kGroup = 16;       // query heads per pass
+constexpr float kLn2 = 0.69314718055994531f;
 static_assert(2 * kSplit == kThreads, "a thread per (row, head parity)");
 // The split-K kernels' launch bounds name a minimum of one CTA an SM:
 // without it ptxas spills registers at some D to raise occupancy.
@@ -218,12 +228,13 @@ __device__ __forceinline__ void store_pair(__nv_bfloat16* p, float x,
 // into o = out[b, h] and resets the ticket to 0 for the next launch. Warp w
 // merges heads w, w + 4, ..., kMergeHeads of them at once so that their
 // loads overlap; lane j holds split s0 + j's m, l and weight
-// exp(m_s - max m), and column pairs j, j + 32, ...
+// exp(m_s - max m), and column pairs j, j + 32, ... kLse: lane 0 also
+// writes lo[g] = max m + log(sum l), in natural-log units.
 constexpr int kMergeHeads = 4;
-template <int D, bool kLog2, typename T>
+template <int D, bool kLog2, bool kLse, typename T>
 __device__ __forceinline__ void merge_if_last(const float* part,
-                                              int* tickets, T* o, int G,
-                                              int nwork, int nsplit,
+                                              int* tickets, T* o, float* lo,
+                                              int G, int nwork, int nsplit,
                                               long long bh) {
   constexpr int kPairs = D / 2;
   constexpr int kPL = (kPairs + 31) / 32;   // column pairs a lane
@@ -299,8 +310,13 @@ __device__ __forceinline__ void merge_if_last(const float* part,
     }
 #pragma unroll
     for (int i = 0; i < kH; ++i) {
-      const float d = fmaxf(warp_sum(l[i]), 1e-30f);
+      const float lt = warp_sum(l[i]);
+      const float d = fmaxf(lt, 1e-30f);
       if (i >= nh) continue;
+      if constexpr (kLse) {
+        if (lane == 0)
+          lo[g0 + kWarps * i] = (kLog2 ? m[i] * kLn2 : m[i]) + logf(lt);
+      }
       T* og = o + (g0 + kWarps * i) * D;
 #pragma unroll
       for (int c = 0; c < kPL; ++c) {
@@ -322,8 +338,9 @@ __device__ __forceinline__ void merge_if_last(const float* part,
 // positions a request can hold: the cache's rows, or a pool's nblk * page.
 //
 // kQ8: the pools are int8 codes with bf16 scales (k_scale, v_scale),
-// dequantized into the same shared rows by load_q8_rows.
-template <int D, bool kPaged, bool kQ8>
+// dequantized into the same shared rows by load_q8_rows. kLse: the output is
+// f32 and lse (B, KV, G) f32 is written beside it.
+template <int D, bool kPaged, bool kQ8, bool kLse>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
                         const void* __restrict__ k,
@@ -332,7 +349,9 @@ flash_decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
                         const __nv_bfloat16* __restrict__ v_scale,
                         const int* __restrict__ kv_len,
                         const int* __restrict__ block_tables,
-                        __nv_bfloat16* __restrict__ out,
+                        std::conditional_t<kLse, float, __nv_bfloat16>*
+                            __restrict__ out,
+                        float* __restrict__ lse,
                         float* __restrict__ part, int* __restrict__ tickets,
                         int KV, int G, int S, int page, int nblk, int nsplit,
                         float scale) {
@@ -367,10 +386,13 @@ flash_decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const int len = max(0, min(kv_len[b], S));
   const int nwork = (len + kSplit - 1) / kSplit;
   const long long bh = static_cast<long long>(b) * KV + h;
-  __nv_bfloat16* o = out + bh * G * D;
+  auto* o = out + bh * G * D;
+  float* lo = kLse ? lse + bh * G : nullptr;
   if (split >= max(nwork, 1)) return;
-  if (nwork == 0) {                         // kv_len 0: zeros
+  if (nwork == 0) {                         // kv_len 0: zeros (lse -inf)
     for (int i = tid; i < G * D; i += kThreads) store(o + i, 0.f);
+    if constexpr (kLse)
+      for (int i = tid; i < G; i += kThreads) lo[i] = -INFINITY;
     return;
   }
   const int t0 = split * kSplit;
@@ -524,18 +546,23 @@ flash_decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
         }
       }
     }
-    if (!direct && tid < ng) {
+    if ((!direct || kLse) && tid < ng) {
       float m = rmax[tid], l = 0.f;
       for (int w = 0; w < kWarps; ++w) {
         m = fmaxf(m, rmax[w * kGroup + tid]);
         l += rsum[w * kGroup + tid];
       }
-      pb[G * D + g0 + tid] = m;
-      pb[G * D + G + g0 + tid] = l;
+      if (!direct) {
+        pb[G * D + g0 + tid] = m;
+        pb[G * D + G + g0 + tid] = l;
+      } else if constexpr (kLse) {
+        lo[g0 + tid] = m * kLn2 + logf(l);  // m in units of log2
+      }
     }
     __syncthreads();                        // q, p and the sums are reused
   }
-  if (!direct) merge_if_last<D, true>(part, tickets, o, G, nwork, nsplit, bh);
+  if (!direct)
+    merge_if_last<D, true, kLse>(part, tickets, o, lo, G, nwork, nsplit, bh);
 }
 
 // f32 caches: plain f32 FMA, which the 1e-5 check of the f32 consistency
@@ -543,7 +570,8 @@ flash_decode_mma_kernel(const __nv_bfloat16* __restrict__ q,
 // thread (row r, parity hp) dots cache row r with heads hp, hp + 2, ...;
 // a warp per head takes the split's max and sum; thread (column pair cp,
 // head lane hl) accumulates p . V for heads hl, hl + R, ... in registers.
-template <int D, bool kPaged, bool kQ8>
+// kLse: lse (B, KV, G) is written beside the output.
+template <int D, bool kPaged, bool kQ8, bool kLse>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_decode_f32_kernel(const float* __restrict__ q,
                         const void* __restrict__ k,
@@ -552,7 +580,8 @@ flash_decode_f32_kernel(const float* __restrict__ q,
                         const __nv_bfloat16* __restrict__ v_scale,
                         const int* __restrict__ kv_len,
                         const int* __restrict__ block_tables,
-                        float* __restrict__ out, float* __restrict__ part,
+                        float* __restrict__ out, float* __restrict__ lse,
+                        float* __restrict__ part,
                         int* __restrict__ tickets, int KV, int G, int S,
                         int page, int nblk, int nsplit, float scale) {
   constexpr int LD = D + 4;                 // a shared row, padded 16 bytes
@@ -582,9 +611,12 @@ flash_decode_f32_kernel(const float* __restrict__ q,
   const int nwork = (len + kSplit - 1) / kSplit;
   const long long bh = static_cast<long long>(b) * KV + h;
   float* o = out + bh * G * D;
+  float* lo = kLse ? lse + bh * G : nullptr;
   if (split >= max(nwork, 1)) return;
-  if (nwork == 0) {                         // kv_len 0: zeros
+  if (nwork == 0) {                         // kv_len 0: zeros (lse -inf)
     for (int i = tid; i < G * D; i += kThreads) o[i] = 0.f;
+    if constexpr (kLse)
+      for (int i = tid; i < G; i += kThreads) lo[i] = -INFINITY;
     return;
   }
   const int t0 = split * kSplit;
@@ -713,10 +745,15 @@ flash_decode_f32_kernel(const float* __restrict__ q,
         pb[G * D + g0 + tid] = ml[tid];
         pb[G * D + G + g0 + tid] = ml[kGroup + tid];
       }
+      if constexpr (kLse) {
+        if (direct && tid < ng)
+          lo[g0 + tid] = ml[tid] + logf(ml[kGroup + tid]);
+      }
     }
     __syncthreads();                        // qs, ps, ml are reused next
   }
-  if (!direct) merge_if_last<D, false>(part, tickets, o, G, nwork, nsplit, bh);
+  if (!direct)
+    merge_if_last<D, false, kLse>(part, tickets, o, lo, G, nwork, nsplit, bh);
 }
 
 struct SplitArgs {
@@ -728,6 +765,7 @@ struct SplitArgs {
   const int* kv_len;
   const int* block_tables;      // paged only
   void* out;
+  float* lse;                   // the log-sum-exp instance only
   float* part;
   int* tickets;
   int B, KV, G, S, page, nblk, nsplit;
@@ -739,7 +777,7 @@ struct SplitArgs {
 // its scratch.
 int splits(int S) { return S > kSplit ? (S + kSplit - 1) / kSplit : 1; }
 
-template <typename T, typename Kernel>
+template <typename T, typename TO, typename Kernel>
 int launch_split(Kernel kernel, size_t smem, const SplitArgs& a) {
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -751,44 +789,58 @@ int launch_split(Kernel kernel, size_t smem, const SplitArgs& a) {
       static_cast<const T*>(a.q), a.k, a.v,
       static_cast<const __nv_bfloat16*>(a.k_scale),
       static_cast<const __nv_bfloat16*>(a.v_scale), a.kv_len, a.block_tables,
-      static_cast<T*>(a.out), a.part, a.tickets, a.KV, a.G, a.S, a.page,
-      a.nblk, a.nsplit, a.scale);
+      static_cast<TO*>(a.out), a.lse, a.part, a.tickets, a.KV, a.G, a.S,
+      a.page, a.nblk, a.nsplit, a.scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D, bool kPaged, bool kQ8>
+template <int D, bool kPaged, bool kQ8, bool kLse>
 int run_split(const SplitArgs& a, bool bf16) {
   if (bf16) {
     constexpr size_t smem = sizeof(__nv_bfloat16) *
         ((2 * kSplit + kGroup) * (D + 8) + 2 * kGroup * (kSplit + 8)) +
         sizeof(float) * 2 * kWarps * kGroup;
-    return launch_split<__nv_bfloat16>(
-        flash_decode_mma_kernel<D, kPaged, kQ8>, smem, a);
+    return launch_split<__nv_bfloat16,
+                        std::conditional_t<kLse, float, __nv_bfloat16>>(
+        flash_decode_mma_kernel<D, kPaged, kQ8, kLse>, smem, a);
   }
   constexpr size_t smem = sizeof(float) *
       (2 * kSplit * (D + 4) + kGroup * D + kGroup * (kSplit + 4) +
        2 * kGroup);
-  return launch_split<float>(flash_decode_f32_kernel<D, kPaged, kQ8>, smem,
-                             a);
+  return launch_split<float, float>(
+      flash_decode_f32_kernel<D, kPaged, kQ8, kLse>, smem, a);
 }
 
 // D = 80 (zamba2's shared block) and D = 256 (paligemma-3b) have
 // contiguous instances only: no path pages such a cache (the paged engine
-// refuses the hybrid and vision families).
-template <bool kPaged, bool kQ8>
+// refuses the hybrid and vision families). kLse: contiguous caches, and
+// only the head dims of the families with a TP forward (64: granite-moe;
+// 128: the dense GQA models), the ones that serve sequence-sharded.
+template <bool kPaged, bool kQ8, bool kLse = false>
 int split_by_dim(const SplitArgs& a, int D, bool bf16) {
-  switch (D) {
-    case 16: return run_split<16, kPaged, kQ8>(a, bf16);
-    case 32: return run_split<32, kPaged, kQ8>(a, bf16);
-    case 64: return run_split<64, kPaged, kQ8>(a, bf16);
-    case 80:
-      if constexpr (!kPaged) return run_split<80, kPaged, kQ8>(a, bf16);
-      return static_cast<int>(cudaErrorInvalidValue);
-    case 128: return run_split<128, kPaged, kQ8>(a, bf16);
-    case 256:
-      if constexpr (!kPaged) return run_split<256, kPaged, kQ8>(a, bf16);
-      return static_cast<int>(cudaErrorInvalidValue);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  static_assert(!(kLse && kPaged), "the log-sum-exp instance is contiguous");
+  if constexpr (kLse) {
+    switch (D) {
+      case 64: return run_split<64, false, false, true>(a, bf16);
+      case 128: return run_split<128, false, false, true>(a, bf16);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  } else {
+    switch (D) {
+      case 16: return run_split<16, kPaged, kQ8, false>(a, bf16);
+      case 32: return run_split<32, kPaged, kQ8, false>(a, bf16);
+      case 64: return run_split<64, kPaged, kQ8, false>(a, bf16);
+      case 80:
+        if constexpr (!kPaged)
+          return run_split<80, kPaged, kQ8, false>(a, bf16);
+        return static_cast<int>(cudaErrorInvalidValue);
+      case 128: return run_split<128, kPaged, kQ8, false>(a, bf16);
+      case 256:
+        if constexpr (!kPaged)
+          return run_split<256, kPaged, kQ8, false>(a, bf16);
+        return static_cast<int>(cudaErrorInvalidValue);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
   }
 }
 
@@ -810,11 +862,31 @@ extern "C" int flash_decode_launch(const void* q, const void* k,
                                    void* stream) {
   if (G < 1 || S < 0 || nsplit != splits(S))
     return static_cast<int>(cudaErrorInvalidValue);
-  const SplitArgs a{q, k, v, nullptr, nullptr, kv_len, nullptr, out,
+  const SplitArgs a{q, k, v, nullptr, nullptr, kv_len, nullptr, out, nullptr,
                     static_cast<float*>(part), static_cast<int*>(tickets), B,
                     KV, G, S, 0, 0, nsplit, scale,
                     static_cast<cudaStream_t>(stream)};
   return split_by_dim<false, false>(a, D, is_bf16 != 0);
+}
+
+// The log-sum-exp instance, contiguous caches: as flash_decode_launch, but
+// D in {64, 128}, out (B, KV, G, D) is f32 whatever q's dtype, and lse
+// (B, KV, G) f32 receives m + log(l) (-inf, beside a zero output, where
+// kv_len is 0).
+extern "C" int flash_decode_lse_launch(const void* q, const void* k,
+                                       const void* v, int is_bf16,
+                                       const int* kv_len, void* out,
+                                       void* lse, void* part, void* tickets,
+                                       int B, int KV, int G, int D, int S,
+                                       int nsplit, float scale,
+                                       void* stream) {
+  if (G < 1 || S < 0 || nsplit != splits(S) || lse == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const SplitArgs a{q, k, v, nullptr, nullptr, kv_len, nullptr, out,
+                    static_cast<float*>(lse), static_cast<float*>(part),
+                    static_cast<int*>(tickets), B, KV, G, S, 0, 0, nsplit,
+                    scale, static_cast<cudaStream_t>(stream)};
+  return split_by_dim<false, false, true>(a, D, is_bf16 != 0);
 }
 
 // Page pools. q (B, KV, G, D) and k, v (P, page, KV, D), 16-byte aligned;
@@ -837,7 +909,8 @@ extern "C" int flash_decode_paged_launch(const void* q, const void* k,
       block_tables == nullptr || nsplit != splits(static_cast<int>(S)))
     return static_cast<int>(cudaErrorInvalidValue);
   const SplitArgs a{q, k, v, nullptr, nullptr, kv_len, block_tables, out,
-                    static_cast<float*>(part), static_cast<int*>(tickets), B,
+                    nullptr, static_cast<float*>(part),
+                    static_cast<int*>(tickets), B,
                     KV, G, static_cast<int>(S), page, nblk, nsplit, scale,
                     static_cast<cudaStream_t>(stream)};
   return split_by_dim<true, false>(a, D, is_bf16 != 0);
@@ -859,7 +932,8 @@ extern "C" int flash_decode_paged_q8_launch(
       nsplit != splits(static_cast<int>(S)))
     return static_cast<int>(cudaErrorInvalidValue);
   const SplitArgs a{q, k, v, k_scale, v_scale, kv_len, block_tables, out,
-                    static_cast<float*>(part), static_cast<int*>(tickets), B,
+                    nullptr, static_cast<float*>(part),
+                    static_cast<int*>(tickets), B,
                     KV, G, static_cast<int>(S), page, nblk, nsplit, scale,
                     static_cast<cudaStream_t>(stream)};
   return split_by_dim<true, true>(a, D, is_bf16 != 0);

@@ -10,8 +10,18 @@ the output are (B, KV, G, D), the reference's layout. ``kv_len`` is a
 scalar shared by the batch (the reference's entry) or (B,) per-request
 lengths, which the lane engine needs. Positions >= kv_len[b]
 are masked, so a paged table's scratch entries (page 0) and unwritten page
-tails contribute nothing. kv_len must be >= 1: an empty request gets zeros
-here, where the reference would average the whole masked cache.
+tails contribute nothing. A request of kv_len 0 gets zeros here, where the
+reference would average the whole masked cache.
+
+``flash_decode_blocks(..., lse=True)`` is the log-sum-exp instance that
+sequence-sharded serving needs (each rank attends its shard of the cache,
+then ``launch.mesh.softmax_merge`` merges the ranks): it returns the
+output in f32 whatever q's dtype, and beside it lse = m + log(l), the
+softmax's max plus the log of its sum, f32 (B, KV, G); a request of
+kv_len 0 (a shard that holds none of its positions) gets zeros and lse
+-inf. On the card it takes D in ``LSE_DIMS`` (64 and 128, the head dims of
+the families that serve sequence-sharded). Its launches are counted in
+``flash_decode_blocks.lse_launches`` besides ``launches``.
 
 On CUDA tensors the wrappers launch ``csrc/flash_decode.cu`` (its note says
 what bounds it and how the design answers): split-K, for a contiguous
@@ -55,6 +65,9 @@ _DIMS = (16, 32, 64, 80, 128, 256)  # contiguous caches (80: zamba2's
 _PAGED_DIMS = (16, 32, 64, 128)     # page pools: no path pages D = 80 or
                                     # 256 (the paged engine refuses the
                                     # hybrid and vision families)
+LSE_DIMS = (64, 128)                # the log-sum-exp instance: the head
+                                    # dims of the families with a TP
+                                    # forward (granite-moe; dense GQA)
 SPLIT = 64                  # positions per CTA (kSplit, which the launch
                             # checks through nsplit)
 _TICKETS = {}               # (device, stream) -> the merge's int32 tickets
@@ -78,24 +91,30 @@ def decode_lengths(kv_len, batch: int, device) -> torch.Tensor:
     return kl.to(torch.int32).contiguous()
 
 
-def _attend_plain(q, k, v, kv_len):
+def _attend_plain(q, k, v, kv_len, lse: bool = False):
     """q (B, KV, G, D); k, v (B, S, KV, D); kv_len (B,). The masked softmax
-    of the kernel in f32, dense."""
+    of the kernel in f32, dense: the output in q's dtype, or with ``lse``
+    (the output in f32, lse (B, KV, G) f32: -inf where kv_len is 0)."""
     S = k.shape[1]
     s = torch.einsum("bhgd,bshd->bhgs", q.float(), k.float())
     s = s * softmax_scale(q.shape[-1])
     mask = (torch.arange(S, device=q.device)[None, :]
             < kv_len.to(q.device).long()[:, None])[:, None, None, :]
     s = s.masked_fill(~mask, -1e30)
-    p = torch.exp(s - s.amax(-1, keepdim=True)) * mask
-    out = torch.einsum("bhgs,bshd->bhgd", p, v.float())
-    return (out / p.sum(-1, keepdim=True).clamp(min=1e-30)).to(q.dtype)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m) * mask
+    l = p.sum(-1, keepdim=True)
+    out = torch.einsum("bhgs,bshd->bhgd", p, v.float()) / l.clamp(min=1e-30)
+    if lse:     # an empty row: -1e30 + log(0) = -inf
+        return out, (m + torch.log(l))[..., 0]
+    return out.to(q.dtype)
 
 
 def flash_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                       kv_len: torch.Tensor) -> torch.Tensor:
-    """The plain version of ``flash_decode_blocks``."""
-    return _attend_plain(q, k, v, kv_len)
+                       kv_len: torch.Tensor, lse: bool = False):
+    """The plain version of ``flash_decode_blocks`` (with ``lse``, of its
+    log-sum-exp instance: (out f32, lse f32))."""
+    return _attend_plain(q, k, v, kv_len, lse)
 
 
 def dequantize_rows(codes: torch.Tensor, scales: torch.Tensor
@@ -146,10 +165,15 @@ def _decode_cost(q, kv_len, row_bytes: int, extra_bytes: int) -> dict:
 
 
 def flash_decode_cost(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      kv_len) -> dict:
+                      kv_len, lse: bool = False) -> dict:
     """The work of one ``flash_decode_blocks`` call on this call's
-    lengths."""
-    return _decode_cost(q, kv_len, q.shape[-1] * q.element_size(), 0)
+    lengths; the log-sum-exp instance writes its output in f32 and lse
+    (B, KV, G) f32 besides."""
+    extra = 0
+    if lse:
+        B, KV, G, D = q.shape
+        extra = B * KV * G * (D * (4 - q.element_size()) + 4)
+    return _decode_cost(q, kv_len, q.shape[-1] * q.element_size(), extra)
 
 
 def flash_decode_paged_cost(q: torch.Tensor, k_pool, v_pool,
@@ -216,6 +240,8 @@ def _check_cuda(name, tensors, dims=_DIMS) -> None:
 _P, _F, _I = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
 _ARGTYPES = {   # the C signatures of csrc/flash_decode.cu, stream last
     "flash_decode_launch": [_P] * 3 + [_I] + [_P] * 4 + [_I] * 6 + [_F, _P],
+    "flash_decode_lse_launch": [_P] * 3 + [_I] + [_P] * 5 + [_I] * 6
+                               + [_F, _P],
     "flash_decode_paged_launch": [_P] * 3 + [_I] + [_P] * 5 + [_I] * 7
                                  + [_F, _P],
     "flash_decode_paged_q8_launch": [_P] * 5 + [_I] + [_P] * 5 + [_I] * 7
@@ -265,38 +291,50 @@ def _partials(q: torch.Tensor, S: int):
 
 @counted(flash_decode_cost, "flash_decode", dots=True)
 def flash_decode_blocks(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        kv_len) -> torch.Tensor:
-    """q: (B, KV, G, D); k/v: (B, S, KV, D); kv_len a scalar or (B,).
-    Returns (B, KV, G, D) in q's dtype. S is not padded: the kernel stops
-    at each length. CPU tensors take ``flash_decode_plain``; CUDA tensors
-    launch the kernel or raise ("meta" tensors under
-    ``counting.on_meta()``, the dry run's, the plain version too)."""
+                        kv_len, lse: bool = False):
+    """q: (B, KV, G, D); k/v: (B, S, KV, D); kv_len a scalar or (B,), 0
+    allowed. Returns (B, KV, G, D) in q's dtype; with ``lse`` the
+    log-sum-exp instance's (out f32, lse (B, KV, G) f32). S is not
+    padded: the kernel stops at each length. CPU tensors take
+    ``flash_decode_plain``; CUDA tensors launch the kernel or raise
+    ("meta" tensors under ``counting.on_meta()``, the dry run's, the plain
+    version too)."""
     _check(q, k, v, "k/v")
     kv_len = decode_lengths(kv_len, q.shape[0], q.device)
     if k.shape[0] != q.shape[0]:
         raise ValueError(f"k batch {k.shape[0]} != q batch {q.shape[0]}")
     if plain_device(q.device):
-        return flash_decode_plain(q, k, v, kv_len)
-    _check_cuda("flash_decode", (q, k, v, kv_len))
+        return flash_decode_plain(q, k, v, kv_len, lse)
+    _check_cuda("flash_decode", (q, k, v, kv_len), LSE_DIMS if lse else _DIMS)
     _check_aligned("flash_decode", (q, k, v))
     B, KV, G, D = q.shape
     S = k.shape[1]
-    out = torch.empty_like(q)
+    out = torch.empty(q.shape, dtype=torch.float32 if lse else q.dtype,
+                      device=q.device)
+    lse_out = (torch.empty((B, KV, G), dtype=torch.float32, device=q.device)
+               if lse else None)
     if out.numel() == 0:
-        return out
+        return (out, lse_out) if lse else out
     nsplit, part = _partials(q, S)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    _check_launch("flash_decode", _fn("flash_decode_launch")(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        int(q.dtype == torch.bfloat16), kv_len.data_ptr(), out.data_ptr(),
-        part.data_ptr() if part is not None else None,
-        _tickets(q.device, stream, B * KV).data_ptr(), B, KV, G, D, S,
-        nsplit, softmax_scale(D), stream))
+    head = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            int(q.dtype == torch.bfloat16), kv_len.data_ptr(), out.data_ptr())
+    tail = (part.data_ptr() if part is not None else None,
+            _tickets(q.device, stream, B * KV).data_ptr(), B, KV, G, D, S,
+            nsplit, softmax_scale(D), stream)
+    if lse:
+        _check_launch("flash_decode", _fn("flash_decode_lse_launch")(
+            *head, lse_out.data_ptr(), *tail))
+        flash_decode_blocks.lse_launches += 1
+        flash_decode_blocks.launches += 1
+        return out, lse_out
+    _check_launch("flash_decode", _fn("flash_decode_launch")(*head, *tail))
     flash_decode_blocks.launches += 1
     return out
 
 
 flash_decode_blocks.launches = 0    # kernel launches (CUDA tensors only)
+flash_decode_blocks.lse_launches = 0  # of them, the log-sum-exp instance
 
 
 @counted(flash_decode_paged_cost, "flash_decode_paged", dots=True)

@@ -12,6 +12,11 @@ port's model reads:
   "moe_ep_mesh"  (mesh, ep): expert-parallel MoE dispatch over the
                  ``model`` axis (``models.moe._moe_ffn_ep``) when the
                  expert count divides ep.
+  "kv_seq"       a ``launch.sharding.SeqLayout``: the serving caches hold
+                 this rank's shard of the KV sequence (KV heads that do
+                 not divide ``model``, or a batch below the dp size);
+                 ``models.attention``'s prefill writes the rank's rows and
+                 its decode merges the ranks' softmaxes.
 
 The reference's "act" and "loss_act" hints are installed too
 (``launch.steps.sharding_hints_for``) and read by nothing: they constrain

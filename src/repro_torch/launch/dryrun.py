@@ -14,9 +14,10 @@ writes the reference's record fields from what it can know:
     (``analysis.profile.collective_bytes``'s record): from running rank
     0's step on the "meta" device over the abstract mesh, where its
     collectives communicate nothing and are counted at the ring model.
-    That runs where the family has its TP forward and the cell's cache (if
-    any) is head-sharded; other cells carry ``"cost": null`` and a
-    ``reason`` (ROADMAP A11, A12, A13). No cell is skipped silently.
+    That runs where the family has its TP forward, whether the cell's
+    cache (if any) is sharded by KV heads or by sequence; the other
+    families' cells carry ``"cost": null`` and a ``reason`` (ROADMAP A11,
+    A13). No cell is skipped silently.
   * ``lower_s``: seconds to build the step and its abstract inputs;
     ``compile_s``: seconds of the meta run (0 where it did not run);
   * ``cost_xla_raw``: always null. The reference's is XLA's own aggregate
@@ -83,14 +84,12 @@ def _memory(**parts: int) -> Dict[str, Any]:
     return out
 
 
-def _why_not(cfg, kind: str, cspec) -> Optional[str]:
+def _why_not(cfg) -> Optional[str]:
     """Why a cell's step cannot run on the mesh yet, or None."""
     if not shd.has_tp_forward(cfg):
         return (f"{cfg.family}/{cfg.attn_type}/{cfg.modality} has no TP "
                 "forward yet (ROADMAP A11); its cost waits for it "
                 "(ROADMAP A13)")
-    if kind != "train" and cspec is not None and shd.seq_sharded(cspec):
-        return S.SEQ_SHARDED
     return None
 
 
@@ -114,7 +113,6 @@ def lower_cell(arch: str, shape_name: str, mesh, *, adapter: str = "none",
     shape = SHAPES[shape_name] if isinstance(shape_name, str) else shape_name
     t0 = time.time()
     loc = lambda tree, specs: S.local_meta(tree, specs, mesh)
-    cspec = None
     if shape.kind == "train":
         tcfg = TrainConfig()
         state_spec, bspec = S.train_shardings(cfg, shape, mesh)
@@ -184,7 +182,7 @@ def lower_cell(arch: str, shape_name: str, mesh, *, adapter: str = "none",
            "kind": shape.kind, "adapter": adapter, "variant": variant,
            "tags": extra_tags, "memory": memory, "cost": None,
            "cost_xla_raw": None, "collectives": None, "ok": True}
-    reason = _why_not(cfg, shape.kind, cspec)
+    reason = _why_not(cfg)
     if reason is not None:
         rec["reason"] = reason
         rec["lower_s"] = round(time.time() - t0, 1)

@@ -27,7 +27,9 @@ a tuple of them. Over a tuple they run axis after axis: an all-reduce is
 then hierarchical, and gathers and scatters keep the tuple's row-major
 rank order. An axis of size 1 costs nothing and is not recorded. The
 autograd forms the model uses (``copy_to``, ``reduce_from``,
-``gather_from``, ``fsdp_gather``, ``mean_from``) are built on them.
+``gather_from``, ``fsdp_gather``, ``mean_from``) are built on them, and
+so is ``softmax_merge``, which joins the partial softmaxes of ranks that
+each attended a shard of a sequence (sequence-sharded serving).
 ``record()`` collects each collective a rank issues, with its result's
 bytes and its group's size (``analysis.profile.collective_bytes``).
 """
@@ -297,6 +299,25 @@ def all_to_all(mesh: Mesh, x: torch.Tensor, axes: Axes) -> torch.Tensor:
         t = _all_to_all1(mesh, t.movedim(i, 0).contiguous(), ax[i])
         t = t.movedim(0, i)
     return t.reshape(x.shape)
+
+
+def softmax_merge(mesh: Mesh, out: torch.Tensor, lse: torch.Tensor,
+                  axes: Axes) -> torch.Tensor:
+    """The attention over a whole sequence from each rank's over its
+    shard: ``out`` (..., D) f32, the rank's softmax-weighted values, and
+    ``lse`` (...) f32, the log of its softmax's sum (-inf for a rank whose
+    shard held no attended position). The max of lse is all-reduced over
+    ``axes``, each rank weighted by w = exp(lse - max), and w * out and w
+    summed over ``axes`` in one all-reduce; the result, (..., D) f32, is
+    the same on every rank of the group. A row no rank attended (lse -inf
+    everywhere) comes back 0."""
+    if _trivial(mesh, axes):
+        return out
+    top = all_reduce(mesh, lse, axes, "max")
+    top = torch.where(torch.isinf(top), torch.zeros_like(top), top)
+    w = torch.exp(lse - top)[..., None]
+    both = all_reduce(mesh, torch.cat([w * out, w], dim=-1), axes, "sum")
+    return both[..., :-1] / both[..., -1:].clamp(min=1e-30)
 
 
 # ---------------------------------------------------------------------------

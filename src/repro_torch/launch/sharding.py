@@ -285,16 +285,19 @@ def cache_specs(cfg: ModelConfig, shape: ShapeSpec, mesh):
     return out
 
 
-def seq_sharded(spec_tree) -> bool:
-    """Whether a cache spec tree shards a KV cache's sequence dim (a
-    dense stage's (L, B, S, KV, D) leaves)."""
+def kv_seq_axes(cfg: ModelConfig, spec_tree) -> Tuple[str, ...]:
+    """The axes ``cfg``'s cache spec tree shards a KV cache's sequence dim
+    over, or (): the S of a GQA stage's (L, B, S, KV, D) leaves, of an MLA
+    stage's (L, B, S, r)."""
     from repro_torch.models.attention import KVCache
+    seq = -2 if cfg.attn_type == "mla" else -3
     stages = spec_tree if isinstance(spec_tree, list) else [spec_tree]
     for st in stages:
         kv = st["attn"] if isinstance(st, dict) else st
-        if isinstance(kv, KVCache) and len(kv.k) >= 3 and kv.k[-3] is not None:
-            return True
-    return False
+        if isinstance(kv, KVCache) and len(kv.k) >= -seq and \
+                kv.k[seq] is not None:
+            return _entry_axes(kv.k[seq])
+    return ()
 
 
 # ---------------------------------------------------------------------------
@@ -307,6 +310,29 @@ def _coord_index(mesh, entry, coords: Optional[Dict[str, int]]) -> int:
         c = (coords or {}).get(a, mesh.coord(a))
         i = i * axis_size(mesh, a) + c
     return i
+
+
+class SeqLayout:
+    """The "kv_seq" hint: each rank's KV caches hold its shard of the
+    sequence, cut over ``axes`` as ``local_shard`` cuts it (row-major over
+    the axes, so the rank's rows start at ``index`` times the local
+    length). The model writes only the rows it holds and merges the ranks'
+    attention with ``launch.mesh.softmax_merge`` over ``axes``."""
+
+    def __init__(self, mesh, axes):
+        self.mesh, self.axes = mesh, tuple(_entry_axes(axes))
+        self.n = _axis_prod(mesh, self.axes)
+        self.index = _coord_index(mesh, self.axes, None)
+
+    def local_len(self, cache_size: int) -> int:
+        if cache_size % self.n:
+            raise ValueError(f"a cache of {cache_size} rows does not divide "
+                             f"over {self.axes} ({self.n} ranks)")
+        return cache_size // self.n
+
+    def offset(self, local_len: int) -> int:
+        """The first global position of this rank's rows."""
+        return self.index * local_len
 
 
 def local_shape(shape, spec: P, mesh) -> Tuple[int, ...]:

@@ -22,10 +22,13 @@ TP/FSDP forward and expert-parallel dispatch issue them
     ``adamw_update``.
 The dense GQA and MoE-with-GQA families have the TP forward; the others
 run on meshes that shard none of their leaves and otherwise raise
-``NotImplementedError`` naming the ROADMAP item. The serving steps refuse
-a cache spec that shards the cache *sequence* (KV heads that do not
-divide ``model``): the cross-rank softmax merge needs ``flash_decode``'s
-log-sum-exp (ROADMAP A12).
+``NotImplementedError`` naming the ROADMAP item. Where the cache spec
+shards the KV *sequence* (KV heads that do not divide ``model``, or a
+batch below the dp size: ``sharding.kv_cache_spec``), the serving steps
+of the families with a TP forward install the "kv_seq" hint: each rank's
+cache holds its rows of the sequence, and decode merges the ranks'
+softmaxes (``models.attention``). The other families keep whole caches on
+every rank (their sequence-sharded form waits for A11).
 
 ``abstract_*`` build "meta" tensors of the global shapes (no data, no
 memory); ``local_meta`` cuts them to a rank's shard shapes, so the dry run
@@ -50,12 +53,6 @@ from repro_torch.launch.sharding import P
 from repro_torch.models import lm
 from repro_torch.models.layers import cast_compute
 from repro_torch.optim.adamw import AdamWState, adamw_update, lr_schedule
-
-SEQ_SHARDED = ("the cache spec shards the KV sequence (KV heads that do not "
-               "divide the model axis): sequence-sharded decode waits for "
-               "flash_decode's log-sum-exp and the cross-rank merge "
-               "(ROADMAP A12)")
-
 
 # ---------------------------------------------------------------------------
 # Hints, gradient sync, the sharded norm
@@ -287,11 +284,13 @@ def _serve_hints(cfg: ModelConfig, mesh, shape: Optional[ShapeSpec],
     scfg = cfg.replace(fsdp=False)
     specs = shd.param_specs(abstract_params(scfg), scfg, mesh)
     hints = _mesh_hints(scfg, mesh, specs, shape)
-    if cache:
+    if cache and shd.has_tp_forward(scfg):
+        # the other families keep whole caches on every rank (ROADMAP A11)
         shape = shape or ShapeSpec("step", 1, _dp_size(mesh), "decode")
-        if shd.seq_sharded(shd.cache_specs(scfg, shape, mesh)) and \
-                shd.shards_any(specs):
-            raise NotImplementedError(SEQ_SHARDED)
+        seq = shd.SeqLayout(mesh, shd.kv_seq_axes(
+            scfg, shd.cache_specs(scfg, shape, mesh)))
+        if seq.n > 1:
+            hints["kv_seq"] = seq
     return hints
 
 
@@ -299,8 +298,10 @@ def make_prefill_step(cfg: ModelConfig, cache_size: int, mesh=None,
                       shape: Optional[ShapeSpec] = None) -> Callable:
     """``prefill_step(params, batch) -> (last logits, caches)``. With
     ``mesh``: this rank's serving shards (``serve_param_shardings``) and
-    batch shard; the cache holds the rank's KV heads (``kv_cache_spec``
-    shards it by heads; a sequence-sharded spec raises)."""
+    batch shard (the whole batch where ``shape``'s is below the dp size);
+    the cache holds the rank's shard of it as ``kv_cache_spec`` lays it
+    out, by KV heads or by sequence (``cache_size`` rows over the
+    sequence's ranks)."""
     hints = _serve_hints(cfg, mesh, shape)
 
     def prefill_step(params, batch):

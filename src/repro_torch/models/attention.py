@@ -36,6 +36,21 @@ columns (``_gqa_qkv_tp``), each local q head with its own KV head, the
 cache holding the rank's KV heads, wo row-parallel (``_out_proj``). The
 paged paths and MLA have no TP form.
 
+Under the "kv_seq" hint as well (``launch.sharding.SeqLayout``: KV heads
+that do not divide ``model``, or a batch below the dp size) each rank's
+cache holds its shard of the sequence, ``cache_size / n`` rows from
+``offset`` = the rank's row-major index over the hint's axes times that
+length, the cut ``local_shard`` makes. ``gqa_prefill`` attends the whole
+prompt as above and writes the rows it holds; ``gqa_decode`` writes the
+new row on the rank that holds its position, attends its shard with
+kv_len clamp(pos + 1 - offset, 0, local length) on the log-sum-exp
+instance of ``flash_decode_blocks`` and merges the ranks
+(``launch.mesh.softmax_merge``). Where the q heads are split over
+``model`` but the KV heads are not (the cache holds every KV head), each
+rank all-gathers q over ``model``, attends every head over its shard,
+merges and keeps its own heads for the row-parallel wo (the gather-q
+case).
+
 MLA (DeepSeek-V2's multi-head latent attention) is plain torch, as the
 reference's is plain jnp: no TPU kernel computes it (the attention
 kernels take one head size for K and V, and MLA's are 192/128 expanded,
@@ -67,6 +82,7 @@ from repro_torch.kernels.flash_decode import (flash_decode_blocks,
                                               flash_decode_paged)
 from repro_torch.kernels.flash_prefill import flash_prefill_blocks
 from repro_torch.launch import mesh as MESH
+from repro_torch.launch.actctx import hint
 from repro_torch.models.layers import (apply_rope, compute_dtype, dense,
                                        glorot, init_rms_norm, rms_norm,
                                        tp_layout, tp_row)
@@ -186,10 +202,14 @@ def init_gqa(gen: torch.Generator, cfg: ModelConfig, *, lead=(),
     return p
 
 
-def _gqa_qkv(params, cfg: ModelConfig, x, positions):
+def _gqa_qkv(params, cfg: ModelConfig, x, positions, all_kv=False):
+    """q, k, v; under the "tp" hint this rank's heads, and with ``all_kv``
+    k and v as the rank computes them (every KV head where wk/wv are
+    replicated: what a sequence-sharded cache holds), not picked for its q
+    heads."""
     tp = tp_layout()
     if tp is not None:
-        return _gqa_qkv_tp(params, cfg, x, positions, tp)
+        return _gqa_qkv_tp(params, cfg, x, positions, tp, all_kv)
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim
     Hp, KVp = padded_heads(cfg)
@@ -211,7 +231,8 @@ def _maybe_repeat_kv(cfg: ModelConfig, t):
     return torch.repeat_interleave(t, Hp // KVp, dim=2)
 
 
-def _gqa_qkv_tp(params, cfg: ModelConfig, x, positions, tp):
+def _gqa_qkv_tp(params, cfg: ModelConfig, x, positions, tp,
+                all_kv=False):
     """q, k, v for this rank's heads under the "tp" hint. wq/wk/wv are
     column-parallel unless the head guard replicates them. Sharded, their
     input goes through ``copy_to``; a replicated wk/wv beside a sharded
@@ -235,11 +256,27 @@ def _gqa_qkv_tp(params, cfg: ModelConfig, x, positions, tp):
     if q_sh and not kv_sh:
         k = MESH.copy_to(tp.mesh, k, "model")
         v = MESH.copy_to(tp.mesh, v, "model")
-    sel = _local_kv(cfg, tp, q.shape[2], k.shape[2], q_sh, kv_sh)
-    if sel is not None:
-        idx = torch.tensor(sel, device=k.device)
-        k, v = k.index_select(2, idx), v.index_select(2, idx)
+    if not all_kv:
+        k, v = _pick_kv(cfg, tp, q.shape[2], k), _pick_kv(cfg, tp,
+                                                          q.shape[2], v)
     return q, k, v
+
+
+def _head_split(cfg: ModelConfig, tp) -> Tuple[bool, bool]:
+    """(q heads split over ``model``, KV heads split over ``model``)."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    Hp, KVp = padded_heads(cfg)
+    return (tp.sharded(tp.spec("wq", (d, Hp * hd)), -1),
+            tp.sharded(tp.spec("wk", (d, KVp * hd)), -1))
+
+
+def _pick_kv(cfg: ModelConfig, tp, hl: int, t):
+    """The KV heads of ``t`` (B, S, kvl, D) that this rank's ``hl`` q heads
+    attend (``_local_kv``)."""
+    sel = _local_kv(cfg, tp, hl, t.shape[2], *_head_split(cfg, tp))
+    if sel is None:
+        return t
+    return t.index_select(2, torch.tensor(sel, device=t.device))
 
 
 def _local_kv(cfg: ModelConfig, tp, hl: int, kvl: int, q_sh: bool,
@@ -301,18 +338,36 @@ def gqa_encode(params, cfg: ModelConfig, x, *, prefix_len=0, q_chunk=512):
     return _out_proj(params, cfg, out.reshape(B, S, -1))
 
 
+def seq_layout():
+    """The installed "kv_seq" hint (``launch.sharding.SeqLayout``), or
+    None."""
+    return hint("kv_seq")
+
+
 def gqa_prefill(params, cfg: ModelConfig, x, cache_size: int, *,
                 prefix_len=0, q_chunk=512) -> Tuple[torch.Tensor, KVCache]:
+    """The whole prompt's attention, and a cache of ``cache_size`` rows
+    holding its K/V; under the "kv_seq" hint this rank's rows of it."""
     B, S, _ = x.shape
-    q, k, v = _gqa_qkv(params, cfg, x, torch.arange(S, device=x.device))
+    seq = seq_layout()
+    q, k, v = _gqa_qkv(params, cfg, x, torch.arange(S, device=x.device),
+                       all_kv=seq is not None)
+    kc, vc, start = k, v, 0
+    if seq is not None:     # k, v as the cache holds them; q's heads' pick
+        tp = tp_layout()
+        k, v = _pick_kv(cfg, tp, q.shape[2], k), _pick_kv(cfg, tp,
+                                                          q.shape[2], v)
+        cache_size = seq.local_len(cache_size)
+        start = min(seq.offset(cache_size), S)
     out = _serve_attention(cfg, q, k, v, prefix_len, q_chunk)
     hd = cfg.resolved_head_dim
-    KV = k.shape[2]         # this rank's KV heads under the "tp" hint
+    KV = kc.shape[2]        # this rank's KV heads under the "tp" hint
     cd = compute_dtype()
     ck = torch.zeros((B, cache_size, KV, hd), dtype=cd, device=x.device)
     cv = torch.zeros((B, cache_size, KV, hd), dtype=cd, device=x.device)
-    ck[:, :S] = k.to(cd)
-    cv[:, :S] = v.to(cd)
+    rows = min(S - start, cache_size)
+    ck[:, :rows] = kc[:, start:start + rows].to(cd)
+    cv[:, :rows] = vc[:, start:start + rows].to(cd)
     return _out_proj(params, cfg, out.reshape(B, S, -1)), KVCache(ck, cv)
 
 
@@ -346,6 +401,10 @@ def gqa_decode(params, cfg: ModelConfig, x, cache: KVCache, pos
     per-request indices. Writes the cache in place and returns it."""
     B = x.shape[0]
     positions, vector = _decode_positions(pos, B, x.device)
+    seq = seq_layout()
+    if seq is not None:
+        return _gqa_decode_seq(params, cfg, x, cache, pos, positions, vector,
+                               seq)
     q, k, v = _gqa_qkv(params, cfg, x, positions)
     cd = compute_dtype()
     if vector:
@@ -360,6 +419,50 @@ def gqa_decode(params, cfg: ModelConfig, x, cache: KVCache, pos
         kv_len = p + 1
     out = _flash_decode(cfg, q, cache.k, cache.v, kv_len)
     return _out_proj(params, cfg, out.reshape(B, 1, -1)), cache
+
+
+def _gqa_decode_seq(params, cfg: ModelConfig, x, cache: KVCache, pos,
+                    positions, vector: bool, seq):
+    """``gqa_decode`` on a cache that holds this rank's shard of the
+    sequence (the "kv_seq" hint): the rank that holds the position writes
+    the row, every rank attends its shard on the log-sum-exp instance, the
+    ranks' softmaxes merge over the hint's axes (in f32, rounded to the
+    compute dtype once); the gather-q case (q heads split over ``model``,
+    KV heads not) attends every head and keeps the rank's own."""
+    B = x.shape[0]
+    q, k, v = _gqa_qkv(params, cfg, x, positions, all_kv=True)
+    cd = compute_dtype()
+    n = cache.k.shape[1]
+    off = seq.offset(n)
+    if vector:
+        p = positions[:, 0]
+        b = torch.arange(B, device=x.device)
+        at = (p - off).clamp(0, n - 1)
+        mine = ((p >= off) & (p < off + n))[:, None, None]
+        for c, t in ((cache.k, k), (cache.v, v)):
+            c[b, at] = torch.where(mine, t.to(cd)[:, 0], c[b, at])
+        kv_len = (p + 1 - off).clamp(0, n)
+    else:
+        p = (pos if isinstance(pos, int) else int(pos)) - off
+        if 0 <= p < n:
+            cache.k[:, p:p + 1] = k.to(cd)
+            cache.v[:, p:p + 1] = v.to(cd)
+        kv_len = min(max(p + 1, 0), n)
+    tp = tp_layout()
+    q_sh, kv_sh = _head_split(cfg, tp)
+    gather = q_sh and not kv_sh
+    hl = q.shape[2]
+    if gather:
+        q = MESH.all_gather(tp.mesh, q, "model", dim=2)
+    H, D = q.shape[2], q.shape[3]
+    KV = cache.k.shape[2]
+    q = q.to(cache.k.dtype).reshape(B, KV, H // KV, D).contiguous()
+    out, lse = flash_decode_blocks(q, cache.k, cache.v, kv_len, lse=True)
+    out = MESH.softmax_merge(seq.mesh, out, lse, seq.axes).reshape(
+        B, 1, H, D)
+    if gather:
+        out = out[:, :, tp.rank * hl:(tp.rank + 1) * hl]
+    return _out_proj(params, cfg, out.to(cd).reshape(B, 1, -1)), cache
 
 
 # ---------------------------------------------------------------------------

@@ -19,9 +19,15 @@ through ``bridge``; the parent computes the JAX references meanwhile:
   * every collective of ``launch.mesh`` (all_reduce sum, max and mean,
     all_gather, reduce_scatter, all_to_all) over one axis and over the
     tuple ("data", "model") of a real (2, 2) mesh, against numpy;
-  * prefill and decode on head-sharded meshes: greedy tokens equal the
-    JAX run's, logits within 1e-4; a mesh whose cache spec shards the
-    sequence refuses (ROADMAP A12).
+  * prefill and decode on head-sharded meshes, and on sequence-sharded
+    ones (a 5-token prompt into a 32-row cache, 12 decode steps, so some
+    shards start empty and the writes cross shard boundaries): starcoder2
+    on (1, 4) (the gather-q case: its 4 q heads split, its 2 KV heads
+    not), on (4, 1) with batch 2 and on (2, 2) with batch 1 (the sequence
+    over ``data``), granite-moe on (1, 4) and granite-34b on (2, 2) with
+    batch 1 (one KV head: the sequence over ("data", "model"), q
+    gathered): greedy tokens equal the JAX package's unsharded run's,
+    logits within 1e-4.
 
 ``SyntheticTask.host_batch`` equals the reference's. The vocabulary
 fallbacks run on 3 ranks in test_torch_distributed_fallback.py.
@@ -149,11 +155,11 @@ def jax_train(spec, mode, steps, tcfg_kw=None, indices=None, seed=0):
     return params, batches, out
 
 
-def jax_serve(spec, params, prompt, steps):
+def jax_serve(spec, params, prompt, steps, size=None):
     """Greedy tokens and logits of a prefill and ``steps`` decode steps
-    (jitted, f32)."""
+    into a cache of ``size`` rows (jitted, f32)."""
     cfg = j_cfg(spec)
-    size = prompt.shape[1] + steps + 1
+    size = size or prompt.shape[1] + steps + 1
     toks, logit_list = [], []
     with JL.compute_precision(jnp.float32):
         prefill = jax.jit(lambda p, t: JLM.prefill(p, cfg, {"tokens": t},
@@ -183,10 +189,17 @@ TRAIN4 = [("sc_full_fsdp", SC_FSDP, "full", (2, 2)),
           ("sc_shira", SC, "shira", (4, 1)),
           ("gm_full", GM, "full", (1, 4)),
           ("gm_shira", GM, "shira", (1, 4))]
-# head-sharded on (2, 2); (1, 4) shards the sequence of starcoder2's 2 KV
-# heads and refuses
-SERVE4 = (("serve_sc@2x2", SC, (2, 2)), ("serve_sc@1x4", SC, (1, 4)),
-          ("serve_gm@2x2", GM, (2, 2)))
+GR = ("granite-34b", {})
+# head-sharded on (2, 2): the prompt (4, 6) and 4 decode steps
+SERVE4 = (("serve_sc@2x2", SC, (2, 2)), ("serve_gm@2x2", GM, (2, 2)))
+# sequence-sharded: (key, spec, mesh, batch), a 5-token prompt into a
+# 32-row cache and 12 decode steps; on (4, 1) the positions go as (B,)
+# tensors, the per-request form
+SEQ4 = (("seq_sc@1x4", SC, (1, 4), 2), ("seq_sc@4x1", SC, (4, 1), 2),
+        ("seq_sc@2x2", SC, (2, 2), 1), ("seq_gm@1x4", GM, (1, 4), 2),
+        ("seq_gr@2x2", GR, (2, 2), 1))
+SEQ_VECTOR_POS = ("seq_sc@4x1",)
+SEQ_PROMPT, SEQ_CACHE, SEQ_STEPS = 5, 32, 12
 
 
 def _job_key(name, mesh):
@@ -263,7 +276,7 @@ def _extra_jobs(jobs, inputs):
     return references
 
 
-def run_cases(train, serve, nprocs, extras=False):
+def run_cases(train, serve, nprocs, extras=False, seq=()):
     """Spawn ``nprocs`` ranks on the jobs of these cases, compute the JAX
     references while they run, and return (references, results)."""
     tmp = tempfile.mkdtemp()
@@ -291,10 +304,23 @@ def run_cases(train, serve, nprocs, extras=False):
         jobs[key] = {"kind": "serve", "cfg": spec, "mesh": mesh,
                      "params": np_tree(serve_params[key]), "prompt": prompt,
                      "steps": 4}
+    seq_prompts = {}
+    for key, spec, mesh, batch in seq:
+        serve_params[key] = JLM.init_params(j_cfg(spec),
+                                            jax.random.PRNGKey(0))
+        seq_prompts[key] = np.random.RandomState(6).randint(
+            0, 100, (batch, SEQ_PROMPT)).astype(np.int32)
+        jobs[key] = {"kind": "serve", "cfg": spec, "mesh": mesh,
+                     "params": np_tree(serve_params[key]),
+                     "prompt": seq_prompts[key], "steps": SEQ_STEPS,
+                     "size": SEQ_CACHE, "vector_pos": key in SEQ_VECTOR_POS}
     proc = _spawn(jobs, nprocs, tmp)
     # the JAX references, meanwhile
     for key, spec, _ in serve:
         refs[key] = jax_serve(spec, serve_params[key], prompt, 4)
+    for key, spec, _, _ in seq:
+        refs[key] = jax_serve(spec, serve_params[key], seq_prompts[key],
+                              SEQ_STEPS, SEQ_CACHE)
     for name, spec, mode, mesh in train:
         if name not in refs:
             refs[name] = jax_train(spec, mode, STEPS,
@@ -306,7 +332,7 @@ def run_cases(train, serve, nprocs, extras=False):
 
 @pytest.fixture(scope="module")
 def runs():
-    return run_cases(TRAIN4, SERVE4, 4, extras=True)
+    return run_cases(TRAIN4, SERVE4, 4, extras=True, seq=SEQ4)
 
 
 def _ok(res, key):
@@ -407,10 +433,19 @@ def test_head_sharded_prefill_decode_match_jax(runs, key):
     np.testing.assert_allclose(r["logits"], logits, atol=1e-4, rtol=0)
 
 
-def test_sequence_sharded_cache_refuses(runs):
-    _, res = runs
-    r = _ok(res, "serve_sc@1x4")
-    assert "ROADMAP A12" in r.get("refused", ""), r
+@pytest.mark.parametrize("case", SEQ4, ids=lambda c: c[0])
+def test_sequence_sharded_prefill_decode_match_jax(runs, case):
+    """Each rank holds SEQ_CACHE / 4 (or / 2) rows of the cache; the
+    merged decode equals the JAX package's unsharded decode_step."""
+    refs, res = runs
+    key, _, mesh, _ = case
+    toks, logits = refs[key]
+    r = _ok(res, key)
+    n = 2 if key == "seq_sc@2x2" else 4
+    assert r["cache_rows"] == SEQ_CACHE // n, r["cache_rows"]
+    assert r["coll"]["by_kind_count"].get("all-reduce", 0) > 0
+    np.testing.assert_array_equal(r["tokens"], toks)
+    np.testing.assert_allclose(r["logits"], logits, atol=1e-4, rtol=0)
 
 
 def test_host_batch_matches_reference():

@@ -5,12 +5,17 @@
   * one TP block (starcoder2's smoke config, forward and backward on an
     abstract (1, 4) mesh: 4 q heads one a rank, its 2 KV heads replicated)
     issues the all-reduces worked out by hand, and one FSDP block on
-    (4, 1) the all-gathers and reduce-scatters of its six matrices;
+    (4, 1) the all-gathers and reduce-scatters of its six matrices; one
+    sequence-sharded decode layer on (1, 4) (q gathered, the softmaxes
+    merged over ``model``) and on (4, 1) (merged over ``data``) the
+    gather and all-reduces worked out by hand;
   * ``launch.dryrun.lower_cell`` on smoke configs over an abstract (2, 2)
     mesh writes the reference's record fields, its per-rank memory equals
     the bytes of the shards ``local_shard`` cuts, a family with no TP
-    forward gets ``"cost": null`` and a reason (ROADMAP A11), a
-    sequence-sharded cache too (A12); the CLI writes its records.
+    forward gets ``"cost": null`` and a reason (ROADMAP A11); the
+    production 16 x 16 ``decode_32k`` and ``prefill_32k`` cells of
+    starcoder2-7b and granite-34b, whose caches shard the sequence, record
+    a cost; the CLI writes its records.
 """
 import json
 import os
@@ -28,6 +33,7 @@ from repro_torch.launch import sharding as shd
 from repro_torch.launch import steps as S
 from repro_torch.launch.actctx import sharding_hints
 from repro_torch.launch.mesh import abstract_mesh
+from repro_torch.models import attention as TA
 from repro_torch.models import blocks as TB
 from repro_torch.models import layers as TL
 from repro_torch.models import lm as TLM
@@ -94,6 +100,47 @@ def test_one_fsdp_block_counts_by_hand():
     assert got["by_kind_bytes"]["reduce-scatter"] == int(W / 4 * 3)
 
 
+@pytest.mark.parametrize("mesh_shape", [(1, 4), (4, 1)])
+def test_one_sequence_sharded_decode_layer_counts_by_hand(mesh_shape):
+    """starcoder2's smoke config (4 q heads, 2 KV heads), batch 2, a
+    32-row cache: on (1, 4) the sequence over ``model`` (its KV heads do
+    not divide 4): q all-gathered over ``model``, the max of lse and the
+    weighted sum all-reduced over it, wo's and w_down's partial sums; on
+    (4, 1) the sequence over ``data`` (the batch is below the dp size):
+    the two merge all-reduces alone."""
+    cfg = get_smoke_config("starcoder2-7b").replace(num_layers=1)
+    mesh = abstract_mesh(mesh_shape, ("data", "model"))
+    B, n = 2, 4
+    shape = ShapeSpec("d", 32, B, "decode")
+    hints = S._serve_hints(cfg, mesh, shape)
+    assert hints["kv_seq"].n == n
+    params = TLM.init_params(cfg, 0, device="cpu")
+    local = shd.shard_tree(params, S.serve_param_shardings(cfg, mesh), mesh)
+    layer = TLM.layer_slice(local["stages"][0], 0)
+    hd, KV = cfg.resolved_head_dim, cfg.num_kv_heads
+    G = cfg.num_heads // KV
+    cache = TA.KVCache(torch.zeros(B, 32 // n, KV, hd),
+                       torch.zeros(B, 32 // n, KV, hd))
+    h = torch.randn(B, 1, cfg.d_model)
+
+    def run():
+        with TL.compute_precision(torch.float32), sharding_hints(**hints):
+            TB.block_decode(layer, cfg, h, cache, 9)
+    got = collective_bytes(run)
+    lse = B * KV * G * 4                        # f32 bytes
+    merged = B * KV * G * (hd + 1) * 4          # w * out and w
+    reduce = lse + merged
+    want = {"all-reduce": int(2 * reduce * (n - 1) / n)}
+    if mesh_shape == (1, 4):
+        rows = 2 * B * cfg.d_model * 4          # wo's and w_down's sums
+        want["all-reduce"] = int(2 * (reduce + rows) * (n - 1) / n)
+        want["all-gather"] = int(B * cfg.num_heads * hd * 4 * (n - 1) / n)
+    assert got["by_kind_bytes"] == want
+    assert got["by_kind_count"] == ({"all-reduce": 4, "all-gather": 1}
+                                    if mesh_shape == (1, 4)
+                                    else {"all-reduce": 2})
+
+
 def test_pod_axis_bytes_count_the_pod_link():
     mesh = abstract_mesh((2, 2, 2), ("pod", "data", "model"))
     from repro_torch.launch import mesh as M
@@ -143,12 +190,18 @@ def test_lower_cell_null_cost_without_tp_forward(arch):
         assert rec["memory"]["per_rank_gb"] > 0
 
 
-def test_lower_cell_null_cost_on_sequence_sharded_cache():
-    cfg = get_smoke_config("starcoder2-7b")      # 2 KV heads
-    mesh = abstract_mesh((1, 4), ("data", "model"))
-    rec = D.lower_cell("starcoder2-7b", ShapeSpec("d", 32, 4, "decode"),
-                       mesh, cfg=cfg)
-    assert rec["cost"] is None and "ROADMAP A12" in rec["reason"]
+@pytest.mark.parametrize("arch", ["starcoder2-7b", "granite-34b"])
+@pytest.mark.parametrize("shape", ["decode_32k", "prefill_32k"])
+def test_lower_cell_records_cost_on_sequence_sharded_cache(arch, shape):
+    """The production 16 x 16 cells: 4 KV heads (starcoder2-7b) and 1
+    (granite-34b) shard the cache's sequence over ``model``; rank 0's step
+    runs on "meta" with its 2048 rows and records its cost."""
+    from repro_torch.launch.mesh import make_production_mesh
+    mesh = make_production_mesh()
+    rec = D.lower_cell(arch, shape, mesh)
+    assert RECORD <= set(rec) and rec["ok"] and "reason" not in rec
+    assert rec["cost"]["flops"] > 0 and rec["cost"]["ops_without_cost"] == 0
+    assert rec["collectives"]["by_kind_count"]["all-reduce"] > 0
 
 
 def test_cli_writes_records(tmp_path):
@@ -156,10 +209,13 @@ def test_cli_writes_records(tmp_path):
     D.main(["--arch", "mamba2-780m,starcoder2-7b", "--shape",
             "decode_32k,long_500k", "--mesh", "both", "--out", str(out)])
     recs = json.loads(out.read_text())
-    # mamba2: decode_32k and long_500k; starcoder2: decode_32k (its 4 KV
-    # heads shard the sequence on 16-way TP); on both meshes
+    # mamba2: decode_32k and long_500k (no TP forward: no cost);
+    # starcoder2: decode_32k (its 4 KV heads shard the sequence on 16-way
+    # TP); on both meshes
     assert len(recs) == 6 and all(r["ok"] for r in recs)
-    assert all(RECORD <= set(r) and r["cost"] is None for r in recs)
+    assert all(RECORD <= set(r) for r in recs)
+    assert all((r["cost"] is None) == (r["arch"] == "mamba2-780m")
+               for r in recs)
     assert {tuple(r["mesh"]) for r in recs} == {(16, 16), (2, 16, 16)}
     assert D.DEFAULT_OUT.startswith("build" + os.sep) or \
         D.DEFAULT_OUT.startswith("build/")

@@ -87,6 +87,95 @@ def test_flash_decode_per_request_lengths(dt):
             interpret=True), dt)
 
 
+LSE_SHAPES = [(2, 2, 9, 64, 300), (1, 1, 48, 128, 256),
+              (2, 4, 1, 80, 130)]
+
+
+def _scores_f32(q, k):
+    """The reference's f32 scores (``flash_decode_ref``'s), as numpy."""
+    D = q.shape[-1]
+    scale = 1.0 / jnp.sqrt(jnp.asarray(D, jnp.float32))
+    return np.asarray(jnp.einsum("bhgd,bshd->bhgs", jnp.asarray(q),
+                                 jnp.asarray(k)) * scale, np.float64)
+
+
+@pytest.mark.parametrize("B,KV,G,D,S", LSE_SHAPES)
+def test_flash_decode_lse_matches_logsumexp(B, KV, G, D, S):
+    """The log-sum-exp instance's plain version: its lse within 1e-6 of a
+    numpy logsumexp of the reference's f32 scores over each request's
+    kv_len positions, its f32 output the reference's within 1e-5."""
+    rng = np.random.RandomState(9)
+    q, k, v = (rng.randn(*s).astype(np.float32) for s in (
+        (B, KV, G, D), (B, S, KV, D), (B, S, KV, D)))
+    lens = np.linspace(1, S, B).round().astype(np.int32)
+    out, lse = flash_decode_blocks(*(torch.from_numpy(a) for a in (q, k, v)),
+                                   torch.from_numpy(lens), lse=True)
+    assert out.dtype == lse.dtype == torch.float32
+    assert lse.shape == (B, KV, G)
+    sc = _scores_f32(q, k)
+    for b, n in enumerate(lens):
+        x = sc[b, ..., :n]
+        m = x.max(-1)
+        want = m + np.log(np.exp(x - m[..., None]).sum(-1))
+        np.testing.assert_allclose(lse[b].numpy(), want, atol=1e-6, rtol=0)
+        _close(out[b:b + 1], jref.flash_decode_ref(
+            q[b:b + 1], k[b:b + 1], v[b:b + 1], int(n)), "f32")
+
+
+def _merge(parts):
+    """The ranks' merge of ``launch.mesh.softmax_merge``, over a list of
+    (out, lse) pairs: the max lse, each weighted by exp(lse - max)."""
+    top = torch.stack([l for _, l in parts]).amax(0)
+    top = torch.where(torch.isinf(top), torch.zeros_like(top), top)
+    ws = [torch.exp(l - top)[..., None] for _, l in parts]
+    num = sum(w * o for w, (o, _) in zip(ws, parts))
+    return num / sum(ws).clamp(min=1e-30), ws
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_four_shards_merge_to_the_unsharded_output(dt):
+    """A 256-row cache cut into four 64-row shards, as sequence-sharded
+    decode cuts it, each attended with kv_len clamp(L - offset, 0, 64):
+    the merged f32 outputs within 1e-6 of the unsharded call's f32
+    output; a request of length 70 leaves shards 2 and 3 empty (zeros,
+    lse -inf, weight 0, no NaN)."""
+    rng = np.random.RandomState(11)
+    B, KV, G, D, S, n = 3, 2, 4, 32, 256, 4
+    q, k, v = (_pair(rng.randn(*s), dt)[1] for s in (
+        (B, KV, G, D), (B, S, KV, D), (B, S, KV, D)))
+    lens = torch.tensor([256, 70, 129], dtype=torch.int32)
+    whole, whole_lse = flash_decode_blocks(q, k, v, lens, lse=True)
+    sh = S // n
+    parts = []
+    for i in range(n):
+        kl = (lens - i * sh).clamp(0, sh)
+        parts.append(flash_decode_blocks(
+            q, k[:, i * sh:(i + 1) * sh].contiguous(),
+            v[:, i * sh:(i + 1) * sh].contiguous(), kl, lse=True))
+    got, ws = _merge(parts)
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got.numpy(), whole.numpy(), atol=1e-6, rtol=0)
+    for i in (2, 3):                # request 1 (70 rows) holds none there
+        o, l = parts[i]
+        assert bool(torch.isneginf(l[1]).all())
+        assert not bool(o[1].any()) and not bool(ws[i][1].any())
+    top = torch.stack([l for _, l in parts]).amax(0)
+    merged_lse = top + torch.log(sum(ws)[..., 0])
+    np.testing.assert_allclose(merged_lse.numpy(), whole_lse.numpy(),
+                               atol=1e-5, rtol=0)
+
+
+def test_empty_shard_gives_zero_and_minus_inf():
+    """kv_len 0 for every request (a rank that holds none of the
+    positions): zeros and lse -inf, and the merge with it alone is 0."""
+    q = torch.randn(2, 1, 3, 16)
+    k = torch.randn(2, 8, 1, 16)
+    out, lse = flash_decode_blocks(q, k, k, 0, lse=True)
+    assert not bool(out.any()) and bool(torch.isneginf(lse).all())
+    got, ws = _merge([(out, lse), (out, lse)])
+    assert not bool(got.any()) and not bool(torch.isnan(got).any())
+
+
 def _paged_case(G, dt, page, nblk, lens):
     """A shuffled pool of pages; table entries past each request's pages
     are the scratch page 0 (masked by kv_len), as the paged engine lays

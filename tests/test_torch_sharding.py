@@ -5,8 +5,10 @@ fallbacks included), ``cache_specs`` and ``batch_spec`` give the JAX
 package's specs over the same paths, for all ten archs on the abstract
 meshes (16, 16), (2, 16, 16), (2, 2), (1, 4) and (4, 1); the JAX side
 reads ``jax.eval_shape``'s parameter tree, the port's a "meta" tree.
-Also: ``local_shard`` cuts the tiles a spec names, and ``TPLayout``
-refuses a family with no TP forward.
+Also: ``local_shard`` cuts the tiles a spec names, ``TPLayout``
+refuses a family with no TP forward, ``kv_seq_axes`` reads the sequence
+entry of GQA and MLA cache specs, and the serving steps of zamba2 and
+paligemma on a sequence-sharded (4, 1) cache refuse naming A11.
 """
 import jax
 import numpy as np
@@ -140,3 +142,42 @@ def test_tp_layout_specs_follow_the_rules():
         tshd.P(None, None)
     assert np.all([e is None for e in lay16.spec(
         "wk", (cfg.d_model, cfg.num_kv_heads * hd))])
+
+
+@pytest.mark.parametrize("arch", ["starcoder2-7b", "deepseek-v2-lite-16b",
+                                  "zamba2-2.7b"])
+def test_kv_seq_axes_reads_the_sequence_entry(arch):
+    """The sequence entry of a GQA cache's (L, B, S, KV, D) spec and of an
+    MLA cache's (L, B, S, r): none on (4, 1) with a batch that divides the
+    dp size (the batch entry is sharded, not the sequence), "data" with a
+    batch of 1, and for starcoder2 on 16 x 16 "model" (4 KV heads against
+    16-way TP)."""
+    cfg = get_config(arch)
+    mesh = abstract_mesh((4, 1), ("data", "model"))
+    for batch, want in ((4, ()), (1, ("data",))):
+        specs = tshd.cache_specs(cfg, ShapeSpec("d", 32, batch, "decode"),
+                                 mesh)
+        assert tshd.kv_seq_axes(cfg, specs) == want, batch
+    if arch == "starcoder2-7b":
+        from repro_torch.configs import SHAPES as T_SHAPES
+        specs = tshd.cache_specs(cfg, T_SHAPES["decode_32k"],
+                                 abstract_mesh((16, 16), ("data", "model")))
+        assert tshd.kv_seq_axes(cfg, specs) == ("model",)
+
+
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "paligemma-3b"])
+def test_serving_steps_without_tp_forward_refuse_naming_a11(arch):
+    """zamba2 and paligemma on (4, 1) with batch 1 (a cache spec that
+    shards the sequence over ``data``): the serving steps refuse naming
+    A11, before any sequence-sharded layout is installed."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import steps as S
+    cfg = get_smoke_config(arch)
+    mesh = abstract_mesh((4, 1), ("data", "model"))
+    shape = ShapeSpec("d", 32, 1, "decode")
+    assert tshd.kv_seq_axes(cfg, tshd.cache_specs(cfg, shape, mesh)) == \
+        ("data",)
+    for make in (lambda: S.make_prefill_step(cfg, 32, mesh, shape),
+                 lambda: S.make_decode_step(cfg, mesh, shape)):
+        with pytest.raises(NotImplementedError, match="ROADMAP A11"):
+            make()

@@ -24,9 +24,10 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "..", "src"))
 
 from repro_torch import bridge  # noqa: E402
+from repro_torch.analysis.profile import collective_summary  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.configs.base import (AdapterConfig, MoEConfig,  # noqa: E402
-                                      TrainConfig)
+                                      ShapeSpec, TrainConfig)
 from repro_torch.core import adapters as A  # noqa: E402
 from repro_torch.core.masks import iter_leaves, map_leaves  # noqa: E402
 from repro_torch.launch import sharding as shd  # noqa: E402
@@ -202,6 +203,13 @@ def job_train(job):
 
 
 def job_serve(job):
+    """Prefill and greedy decode steps through the serving steps, the
+    cache of ``size`` rows laid out by ``kv_cache_spec`` for a batch of
+    the prompt's rows: by KV heads, or by sequence (KV heads that do not
+    divide ``model``; a batch below the dp size, which every rank then
+    serves whole). ``vector_pos``: each decode step's position as a (B,)
+    tensor, the per-request form. Also the collective bytes of the first
+    decode step and each rank's cache length."""
     cfg = make_cfg(job)
     mesh = mesh_of(job)
     params = bridge.params_from_numpy(job["params"], "cpu")
@@ -209,13 +217,12 @@ def job_serve(job):
     local = shd.shard_tree(params, pspecs, mesh)
     prompt = job["prompt"]
     B, S0 = prompt.shape
-    size = S0 + job["steps"] + 1
-    try:
-        prefill = S.make_prefill_step(cfg, size, mesh)
-        decode = S.make_decode_step(cfg, mesh)
-    except NotImplementedError as e:
-        return {"refused": str(e)}
-    toks = torch.from_numpy(rows_of(prompt, mesh))
+    size = job.get("size") or S0 + job["steps"] + 1
+    shape = ShapeSpec("serve", size, B, "decode")
+    prefill = S.make_prefill_step(cfg, size, mesh, shape)
+    decode = S.make_decode_step(cfg, mesh, shape)
+    split = shd.cache_batch_axes(cfg, shape, mesh)[0] is not None
+    toks = torch.from_numpy(rows_of(prompt, mesh) if split else prompt)
     out_t, out_l = [], []
     with TL.compute_precision(torch.float32):
         logits, caches = prefill(local, {"tokens": toks})
@@ -223,10 +230,22 @@ def job_serve(job):
             nxt = torch.argmax(logits, -1).to(torch.int32)[:, None]
             out_t.append(nxt)
             out_l.append(logits)
-            logits, caches = decode(local, caches, nxt, S0 + i)
+            pos = S0 + i
+            if job.get("vector_pos"):
+                pos = torch.full((toks.shape[0],), pos, dtype=torch.int32)
+            with M.record() as ev:
+                logits, caches = decode(local, caches, nxt, pos)
+            if i == 0:
+                coll = collective_summary(ev)
         out_l.append(logits)
-    return {"tokens": gather_rows(torch.cat(out_t, 1), mesh),
-            "logits": gather_rows(torch.stack(out_l, 1), mesh)}
+    toks, logits = torch.cat(out_t, 1), torch.stack(out_l, 1)
+    out = {"coll": coll, "cache_rows": int(caches[0].k.shape[2])}
+    if split:
+        out.update(tokens=gather_rows(toks, mesh),
+                   logits=gather_rows(logits, mesh))
+    else:               # every rank served the whole batch: rank 0's
+        out.update(tokens=toks.numpy(), logits=logits.float().numpy())
+    return out
 
 
 def job_collectives(job):
