@@ -315,17 +315,39 @@ prints its seconds on a "[time]" line:
                rank's collective bytes for a decode step, its wall beside
                its device time, flash_decode's log-sum-exp instance
                launched (its counts zeroed just before these cases);
-               (c) the dry run (launch.dryrun, one CPU process a cell,
+               then the last five families' TP forward (A11_CASES, full
+               width: deepseek-v2-lite at 2 layers, mamba2-780m at 2,
+               zamba2-2.7b at 6, paligemma-3b at 2 with its 256-row
+               prefix, hubert-xlarge at 2), each family's counts zeroed
+               just before it: the packed SHiRA step on (2, 2), A11_STEPS
+               = 2 steps (deepseek's base FSDP-sharded), f32 ce within
+               A11_TOL = 1e-4 of one rank's (two microbatches, the data
+               shards); prefill + 8 decode steps on (1, 4) (hubert's
+               encode), f32 greedy tokens equal one rank's and logits
+               within 1e-4, each rank's collective bytes for one decode
+               step; zamba2 also at batch 1 on (4, 1); launched:
+               scatter_apply in every SHiRA step, flash_decode's
+               log-sum-exp instance at D = 256 (paligemma) and D = 80
+               (zamba2), flash_prefill at D = 80 (zamba2's shared block,
+               hubert's non-causal encode); no attention kernel on MLA or
+               Mamba2. Cut for the script's time limit (each printed):
+               the fsdp full-finetune step of starcoder2-7b and
+               granite-moe to DIST4_FSDP_STEPS = 1 step;
+               (c) the dry run (launch.dryrun, one CPU process a group,
                after (b)): starcoder2-7b and granite-moe
                train_4k on the 16 x 16 and 2 x 16 x 16 meshes, --adapter
-               none and shira, and starcoder2-7b's decode_32k and
-               prefill_32k on 16 x 16 (DIST_SEQ_CELLS): GB, TFLOP and
-               collective GB a rank
+               none and shira, starcoder2-7b's decode_32k and
+               prefill_32k on 16 x 16 (DIST_SEQ_CELLS), and one cell a
+               family of the last five on 16 x 16 (DIST_A11_CELLS):
+               deepseek-v2-lite and paligemma-3b decode_32k, mamba2-780m
+               and zamba2-2.7b long_500k, hubert-xlarge prefill_32k: GB,
+               TFLOP and collective GB a rank
   35. summary   one JSON line of kernel numbers (the D = 80 instances of
                flash_decode and flash_prefill, flash_decode's D = 256
-               instance, its log-sum-exp instance and flash_prefill's
-               non-causal D = 80 case on rows of their own), the card
-               line, and last
+               instance, its log-sum-exp instance at D = 64/128, at
+               D = 256 and at D = 80, and flash_prefill's non-causal
+               D = 80 case on rows of their own), the card line, and
+               last
                {"ok": true, "device": {...}}, after "[time] total"
 
 Every engine run with no fault injected (phases 7, 8, 13, 14, the
@@ -413,9 +435,16 @@ LSE_SHAPES = ((1, 4, 9, 128, 8192),   # (B, KV, G, D, S): starcoder2-7b's
               (2, 1, 48, 128, 4096),  # decode_32k over 4 ranks,
                                       # granite-34b's gathered q (48 heads
                                       # over one KV head) over 4 ranks,
-              (8, 8, 2, 64, 2048))    # and granite-moe's decode_32k on
+              (8, 8, 2, 64, 2048),    # and granite-moe's decode_32k on
                                       # 16 x 16 (the D = 64 instance: 16
                                       # gathered q heads, 2,048 rows a rank)
+              (8, 1, 8, 256, 8192),   # paligemma-3b's decode_32k rows on
+                                      # (1, 4), its 8 q heads gathered over
+                                      # the one KV head (D = 256);
+              (1, 2, 1, 80, 32768),   # zamba2-2.7b's shared block at
+                                      # long_500k on 16 x 16 (2 KV heads, a
+                                      # 16th of 524,288 rows) and on (4, 1)
+              (1, 8, 1, 80, 8192))    # cut (8 KV heads, D = 80)
 RESTORE_TOL = 1e-5             # the JAX package's load/unload tolerance
 ADAMW_TOL = 1e-6               # rtol = atol: the JAX package's own, and the
                                # kernel rounds as its plain version does
@@ -454,14 +483,21 @@ SLO_LAYERS = 16                # slo-chaos's depth since the distributed
                                # slice, for the script's time limit (32
                                # before)
 FACTOR_KINDS = ("lora", "dora", "shira-dora")
+KINDS_CPU = ("shira-dora",)   # the factor kinds kinds-consistency holds
+                               # against the CPU (all three before the last
+                               # five families' TP forward; shira-dora runs
+                               # the DoRA magnitude and the LoRA factors
+                               # beside the SHiRA mask, and lora and dora
+                               # train on the card in train (kinds))
 NONE_BYTES = 20                # full finetuning, a parameter: f32 base,
                                # trainable copy, two moments and gradient
 NONE_HEADROOM = 8e9            # activations, logits, per-matrix AdamW
                                # outputs, the allocator's slack
 SWITCH_RANK, SWITCH_RUNS = 64, 5   # LoRA fuse vs SHiRA switch
 CKPT_STEPS, CKPT_PREEMPT = 6, 3    # checkpoint phase: ckpt_every 2, keep 2
-CKPT_LAYERS = 16               # its depth: half of starcoder2-7b's 32,
-                               # for the script's time limit
+CKPT_LAYERS = 8                # its depth: a quarter of starcoder2-7b's
+                               # 32, for the script's time limit (16 before
+                               # the last five families' TP forward)
 RESUME_TOL = 1e-6              # a resumed run's last loss against a clean
                                # run's: the JAX package's own (test_ft.py)
 WD_TOL = 1e-6                  # hook mode with weight decay, card vs CPU:
@@ -515,6 +551,7 @@ ENCODE_TOL = 1e-4              # audio-consistency: card against CPU encode
                                # 48 layers in another order)
 ATTN_KERNELS = ("flash_decode", "flash_decode_paged", "flash_prefill")
 RESIDENCY = {}                 # (arch, engine) -> resident requests per GB
+A11_LAUNCHES = {}              # arch -> (b)'s launches of its mesh steps
 DENSE_ARCHS = ("qwen1.5-32b", "deepseek-coder-33b", "granite-34b")
 DENSE_BUDGET = 60e9            # dense configs: f32 parameters, three
                                # adapters' packs and tables, KV
@@ -1773,7 +1810,7 @@ def lse_case(torch, flush, label, q, k, v, kl):
              q, k, v, lens, lse=True), 3, flush),
          "library_ms": cold_ms(torch, lambda: F.scaled_dot_product_attention(
              qs, ks, vs, attn_mask=mask, enable_gqa=True), 10, flush),
-         **bound_of(flash_decode_cost(q, k, v, kl, lse=True))}
+         **bound_of(flash_decode_cost(q, k, v, kl, lse=True)), "D": D}
     print(f"[kernels] {label}: max_abs_err={err:.3g} (tol {tol}) lse "
           f"err={lerr:.3g} (tol {LSE_TOL}) ms={r['ms']:.4f} (the existing "
           f"instance {r['base_ms']:.4f}) plain_ms={r['plain_ms']:.3f} "
@@ -1812,8 +1849,10 @@ def attention_kernels_phase(torch, flush):
     (8, 1024) and (1, 777) ("bidir"); the paged kernel must refuse
     D = 256 too. The log-sum-exp instance of flash_decode (sequence-
     sharded serving) runs at LSE_SHAPES, one rank's shard of
-    starcoder2-7b's decode_32k, granite-34b's gathered q and granite-moe's
-    decode_32k on 16 x 16 (its D = 64 instance), with kv_len
+    starcoder2-7b's decode_32k, granite-34b's gathered q, granite-moe's
+    decode_32k on 16 x 16 (its D = 64 instance), paligemma-3b's on (1, 4)
+    (D = 256) and zamba2-2.7b's shared block at long_500k (D = 80), with
+    kv_len
     S, 0 (a rank that holds none of the positions), 1 and 700 ("lse",
     ``lse_case``). The yardstick is one
     F.scaled_dot_product_attention(..., enable_gqa=True) call on the same
@@ -5101,8 +5140,10 @@ def checkpoint_phase(torch):
                          log=logs.append)["history"]
         restores = [m for m in logs if "preempted" in m]
         d = abs(clean[-1]["loss"] - resumed[-1]["loss"])
-        print(f"[checkpoint] full width, packed shira-wm, {TRAIN_BATCH}x"
-              f"{TRAIN_SEQ} tokens: clean losses "
+        print(f"[checkpoint] full width, {CKPT_LAYERS} of 32 layers "
+              f"(CKPT_LAYERS: cut for the script's time limit, 16 before the "
+              f"last five families' TP forward), packed shira-wm, "
+              f"{TRAIN_BATCH}x{TRAIN_SEQ} tokens: clean losses "
               f"{[h['loss'] for h in clean]}; preempted at step "
               f"{CKPT_PREEMPT}: {restores}, losses "
               f"{[h['loss'] for h in resumed]}; last loss diff {d:.3g} "
@@ -5197,9 +5238,11 @@ def kinds_consistency_phase(torch):
     """The kinds with the kernels in the loop against the same Trainer on the
     CPU, where the wrappers compute their plain versions: full width,
     KINDS_LAYERS layer(s), f32, one 16-token sequence a step (the CPU
-    side's size: a few seconds a step). lora, dora and shira-dora: CPU_STEPS
-    of losses to TRAIN_TOL, on the card's factors and mask. Hook mode
-    (shira-wm) with weight_decay 0.01, 2 steps: the weights that only decay
+    side's size: a few seconds a step). The kinds of KINDS_CPU (shira-dora;
+    lora, dora and shira-dora before the last five families' TP forward):
+    CPU_STEPS of losses to TRAIN_TOL, on the card's factors and mask. Hook
+    mode (shira-wm) with weight_decay 0.01, 2 steps: the weights that only
+    decay
     (every leaf off the mask) within WD_TOL of the largest weight of the
     CPU run's; the masked weights, which also move by -lr * U, as train-
     consistency holds trained values: to rtol = atol = TRAIN_TOL where the
@@ -5220,7 +5263,10 @@ def kinds_consistency_phase(torch):
     with layers.compute_precision(torch.float32):
         base = lm.init_params(cfg, seed=0, device="cuda")
         base_cpu = cpu(base)
-        for kind in FACTOR_KINDS:
+        print(f"[kinds-consistency] the factor kinds held against the CPU: "
+              f"{KINDS_CPU} (KINDS_CPU, of {FACTOR_KINDS}: cut for the "
+              f"script's time limit)", flush=True)
+        for kind in KINDS_CPU:
             run = RunConfig(model=cfg, shape=shape, adapter=AdapterConfig(
                 kind=kind, mask="wm", sparsity=0.98, rank=16),
                 train=TrainConfig(learning_rate=1e-3, total_steps=CPU_STEPS,
@@ -5912,6 +5958,9 @@ DIST_LAYERS = 4          # (a)'s depth at world size 1 (NCCL): full width
 DIST_STEPS = 3           # (a)'s train steps, mesh against mesh=None
 DIST4_LAYERS = 2         # (b)'s depth: four ranks share the one card
 DIST4_STEPS = 2          # (b)'s steps of each train step
+DIST4_FSDP_STEPS = 1     # of them the full-finetune (fsdp) step's: 2 before
+                         # the TP forward of the last five families, cut
+                         # for the script's time limit
 DIST_BATCH = (4, 256)    # a train batch: 4 x 256 tokens (data shards of 2)
 DIST_PROMPT = 128        # the serve checks' prompts: 4 x 128 tokens
 DIST_MOE_PROMPT = 32     # granite-moe's bf16 witness: 4 x 32 tokens, so
@@ -5942,38 +5991,70 @@ SEQ_CASES = (            # (arch, mesh, batch, cache rows, prompt lengths)
     ("granite-34b", (1, 4), 2, 16_384, (10_000,)),
 )
 DIST_SEQ_PATH = ("flash_prefill", "flash_decode", "flash_decode (lse)")
+A11_CASES = (            # (b)'s last five families' TP forward, full width:
+    ("deepseek-v2-lite-16b", 2),  # its dense layer and an MoE layer (64
+                                  # experts: 32 a rank on (2, 2), 16 on
+                                  # (1, 4)); its config's fsdp=True
+    ("mamba2-780m", 2),
+    ("zamba2-2.7b", 6),           # one group: the shared block once
+    ("paligemma-3b", 2),          # its 256-row patch prefix
+    ("hubert-xlarge", 2))         # the encode step for serving
+A11_STEPS = 2            # the packed SHiRA step's steps on (2, 2)
+A11_PROMPT = 64          # serving: 2 x 64 tokens (after the prefix) on
+A11_FRAMES = 256         # (1, 4), 8 greedy decode steps; hubert encodes
+                         # 2 x 256 frames; each rank routes at most 512
+                         # tokens a call, so no routing choice drops
+A11_SEQ = ("zamba2-2.7b", (4, 1))  # batch 1 on (4, 1): the shared block's
+                         # cache over ``data``, flash_decode's D = 80
+                         # log-sum-exp instance
+A11_TOL = 1e-4           # f32 cross-entropies and logits against one rank's
+DIST_A11_CELLS = (       # (c) on 16 x 16, one cell a family of the last
+    ("deepseek-v2-lite-16b,paligemma-3b", "decode_32k"),   # five: archs and
+    ("mamba2-780m,zamba2-2.7b", "long_500k"),              # a shape, one
+    ("hubert-xlarge", "prefill_32k"))                      # process a line
 
 
-def dist_inputs(torch, arch, layers, fsdp=False):
+def dist_inputs(torch, arch, layers, fsdp=None, steps=DIST_STEPS):
     """(cfg, global f32 params, the global rand pack at 0.99, the train
-    batches): the same on every rank, from seeds."""
+    batches): the same on every rank, from seeds; ``fsdp`` None keeps the
+    config's; ``steps`` batches of DIST_BATCH (a vision batch's patch
+    prefix ahead of its tokens)."""
     from repro_torch.configs import AdapterConfig, ShapeSpec, get_config
     from repro_torch.core import masks as MK
     from repro_torch.data.pipeline import make_batch
     from repro_torch.models import lm
-    cfg = get_config(arch).replace(num_layers=layers, fsdp=fsdp)
+    cfg = get_config(arch).replace(num_layers=layers)
+    if fsdp is not None:
+        cfg = cfg.replace(fsdp=fsdp)
     params = lm.init_params(cfg, seed=0, device="cuda")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
     acfg = AdapterConfig(kind="shira", mask="rand", sparsity=0.99)
     pack = MK.make_packed_indices(params, acfg, gen)
     B, S = DIST_BATCH
-    batches = [make_batch(cfg, ShapeSpec("dist", S, B, "train"), 0, i)
-               for i in range(DIST_STEPS)]
+    batches = [make_batch(cfg, ShapeSpec("dist", S + cfg.prefix_rows, B,
+                                         "train"), 0, i)
+               for i in range(steps)]
     return cfg, params, pack, acfg, batches
 
 
-def dist_rows(torch, batch, mesh):
-    """This rank's data-parallel rows of a numpy batch, on the card."""
-    n, i = mesh.shape.get("data", 1), mesh.coord("data")
-    per = batch["tokens"].shape[0] // n
-    return {k: torch.from_numpy(v[i * per:(i + 1) * per]).to("cuda").long()
-            for k, v in batch.items()}
+def dist_rows(torch, batch, mesh=None):
+    """A numpy batch on the card, its data-parallel rows on ``mesh`` (the
+    whole batch without one): tokens and labels as int64, embeddings as
+    f32."""
+    n, i = (1, 0) if mesh is None else (mesh.shape.get("data", 1),
+                                         mesh.coord("data"))
+    out = {}
+    for k, v in batch.items():
+        per = v.shape[0] // n
+        t = torch.from_numpy(v[i * per:(i + 1) * per]).to("cuda")
+        out[k] = t.float() if t.is_floating_point() else t.long()
+    return out
 
 
 def dist_shira_state(torch, params, pack, pspecs, mesh):
     """Shard-local indices split from the global pack (core.adapters.
-    split_packed: (L, DPC, TPC, Ks) over each leaf's tiles), this rank's
+    split_packed: (..., DPC, TPC, Ks) over each leaf's tiles), this rank's
     slice of them, and a zero train state of their values."""
     from repro_torch.core import adapters as A
     from repro_torch.core.masks import iter_leaves, map_leaves
@@ -5982,8 +6063,7 @@ def dist_shira_state(torch, params, pack, pspecs, mesh):
     specs, shapes = dict(iter_leaves(pspecs)), dict(iter_leaves(params))
     idx4 = {}
     for p, i in iter_leaves(pack):
-        s = list(specs[p]) + [None] * 3
-        tiles = (shd._axis_prod(mesh, s[1]), shd._axis_prod(mesh, s[2]))
+        tiles = shd.tile_counts(specs[p], shapes[p].ndim, mesh)
         idx4[p] = A.split_packed(i, torch.zeros(i.shape, device="cuda"),
                                  shapes[p].shape, tiles)[0]
     vspecs = S.value_specs(pspecs, idx4)
@@ -6183,21 +6263,19 @@ def dist_refs(torch):
             cfg, params, pack, acfg, batches = dist_inputs(
                 torch, arch, DIST4_LAYERS, fsdp=True)
             batches = batches[:DIST4_STEPS]
-            whole = lambda b: {k: torch.from_numpy(v).to("cuda").long()
-                               for k, v in b.items()}
             step = S.make_shira_train_step(cfg, tcfg, acfg)
             state = dist_state(torch, dist_zeros(torch, pack))
             shira = []
             for b in batches:
-                state, m = step(state, whole(b), params, pack)
+                state, m = step(state, dist_rows(torch, b), params, pack)
                 shira.append(dist_metrics(m))
             del state
             step = S.make_train_step(cfg, tcfg)
             state = dist_state(torch, map_leaves(lambda _, t: t.clone(),
                                                  params))
             full = []
-            for b in batches:
-                state, m = step(state, whole(b))
+            for b in batches[:DIST4_FSDP_STEPS]:
+                state, m = step(state, dist_rows(torch, b))
                 full.append(dist_metrics(m))
             del state
             torch.cuda.empty_cache()
@@ -6322,6 +6400,251 @@ def dist_seq_rank(torch, case, seq_refs):
     return out
 
 
+def a11_prompt(torch, cfg, batch):
+    """A serving batch, seeded: ``batch`` x A11_PROMPT tokens after a
+    vision model's patch prefix, or ``batch`` x A11_FRAMES frames."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    if cfg.modality == "audio":
+        return {"frame_embeds": torch.randn(
+            (batch, A11_FRAMES, cfg.d_model), generator=gen, device="cuda")}
+    out = {"tokens": torch.randint(0, cfg.vocab_size, (batch, A11_PROMPT),
+                                   generator=gen, device="cuda")}
+    if cfg.modality == "vision":
+        out["patch_embeds"] = torch.randn(
+            (batch, cfg.prefix_rows, cfg.d_model), generator=gen,
+            device="cuda") * 0.5
+    return out
+
+
+def a11_size(cfg, mesh_shape) -> int:
+    """The serving cache's rows: the prefix, the prompt and the decode
+    steps, rounded up to a multiple of the mesh's size (a sequence-sharded
+    cache divides over its ranks)."""
+    n = mesh_shape[0] * mesh_shape[1]
+    need = cfg.prefix_rows + A11_PROMPT + DIST_DECODE + 1
+    return -(-need // n) * n
+
+
+def a11_serve(torch, cfg, params, mesh, inputs, mesh_shape):
+    """f32 serving through the steps (mesh=None: the unsharded ones):
+    greedy prefill + DIST_DECODE decode steps, or an encoder's encode
+    step; the tokens, the logits, the collectives of the first decode
+    step (or of the encode) and the rows a rank's first KV cache holds."""
+    from repro_torch.analysis.profile import collective_summary
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import steps as S
+    from repro_torch.models import layers
+    B = next(iter(inputs.values())).shape[0]
+    with torch.no_grad(), layers.compute_precision(torch.float32):
+        if cfg.encoder_only:
+            shape = ShapeSpec("a11", A11_FRAMES, B, "prefill")
+            step = S.make_encode_step(cfg, mesh, shape)
+            with M.record() as ev:
+                logits = step(params, inputs)
+            return {"logits": logits.float().cpu(),
+                    "coll": collective_summary(ev)}
+        size = a11_size(cfg, mesh_shape)
+        shape = ShapeSpec("a11", size, B, "decode")
+        prefill = S.make_prefill_step(cfg, size, mesh, shape)
+        decode = S.make_decode_step(cfg, mesh, shape)
+        logits, caches = prefill(params, inputs)
+        at = cfg.prefix_rows + A11_PROMPT
+        toks, outs, coll = [], [logits], None
+        for i in range(DIST_DECODE):
+            nxt = torch.argmax(logits, -1)[:, None]
+            toks.append(nxt)
+            with M.record() as ev:
+                logits, caches = decode(params, caches, nxt, at + i)
+            coll = coll or collective_summary(ev)
+            outs.append(logits)
+    rows = None
+    for st in caches:
+        kv = st["attn"] if isinstance(st, dict) else st
+        if hasattr(kv, "k"):
+            rows = int(kv.k.shape[-3 if kv.k.ndim == 5 else -2])
+            break
+    return {"tokens": torch.cat(toks, 1).cpu(),
+            "logits": torch.stack(outs, 1).float().cpu(), "coll": coll,
+            "cache_rows": rows}
+
+
+def a11_refs(torch):
+    """The one-rank runs (b)'s A11_CASES are held against, f32, on the
+    card: the unsharded packed SHiRA step over two microbatches (the
+    mesh's data shards, each shard's MoE aux its own) on the same batches
+    and pack, and the unsharded serving steps (or encode) on the same
+    prompts; A11_SEQ's batch-1 serve too."""
+    from repro_torch.configs import TrainConfig
+    from repro_torch.launch import steps as S
+    from repro_torch.models import layers
+    tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=1, microbatch=2)
+    out = {}
+    for arch, n in A11_CASES:
+        with layers.compute_precision(torch.float32):
+            cfg, params, pack, acfg, batches = dist_inputs(
+                torch, arch, n, steps=A11_STEPS)
+            step = S.make_shira_train_step(cfg, tcfg, acfg)
+            state = dist_state(torch, dist_zeros(torch, pack))
+            shira = []
+            for b in batches:
+                state, m = step(state, dist_rows(torch, b), params, pack)
+                shira.append(dist_metrics(m))
+            del state
+        out[arch] = {"shira": shira, "serve": a11_serve(
+            torch, cfg, params, None, a11_prompt(torch, cfg, 2), (1, 4))}
+        if arch == A11_SEQ[0]:
+            out[arch]["seq"] = a11_serve(torch, cfg, params, None,
+                                         a11_prompt(torch, cfg, 1),
+                                         A11_SEQ[1])
+        del params, pack
+        torch.cuda.empty_cache()
+    return out
+
+
+def a11_rank(torch, mesh):
+    """(b) One rank's A11_CASES: per family, the counts zeroed just before
+    and read just after, the packed SHiRA step on the (2, 2) ``mesh``
+    (shard-local indices; deepseek-v2-lite's base FSDP-sharded as its
+    config trains), its ce, loss and one step's collectives; then the
+    serving steps (hubert's encode) on a (1, 4) mesh of the same ranks;
+    zamba2 also at batch 1 on (4, 1) (A11_SEQ)."""
+    from repro_torch.analysis.profile import collective_summary
+    from repro_torch.configs import TrainConfig
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch import steps as S
+    from repro_torch.models import layers
+    tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=1)
+    m14 = M.make_mesh((1, 4), ("data", "model"), "cuda")
+    out = {}
+    for arch, n in A11_CASES:
+        zero_counts()
+        r = out[arch] = {}
+        with layers.compute_precision(torch.float32):
+            cfg, params, pack, acfg, batches = dist_inputs(
+                torch, arch, n, steps=A11_STEPS)
+            pspecs = shd.param_specs(params, cfg, mesh)
+            base = shd.shard_tree(params, pspecs, mesh)
+            idx, state = dist_shira_state(torch, params, pack, pspecs, mesh)
+            step = S.make_shira_train_step(cfg, tcfg, acfg, mesh, pspecs)
+            r["shira"], walls = [], []
+            for b in batches:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with M.record() as ev:
+                    state, m = step(state, dist_rows(torch, b, mesh), base,
+                                    idx)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+                r["shira"].append(dist_metrics(m))
+            r["shira_coll"] = collective_summary(ev)
+            r["shira_wall_ms"] = walls
+            del state, idx, base
+        torch.cuda.empty_cache()
+        local = shd.shard_tree(params, S.serve_param_shardings(cfg, m14),
+                               m14)
+        r["serve"] = a11_serve(torch, cfg, local, m14,
+                               a11_prompt(torch, cfg, 2), (1, 4))
+        del local
+        if arch == A11_SEQ[0]:
+            mseq = M.make_mesh(A11_SEQ[1], ("data", "model"), "cuda")
+            local = shd.shard_tree(params, S.serve_param_shardings(
+                cfg, mseq), mseq)
+            r["seq"] = a11_serve(torch, cfg, local, mseq,
+                                 a11_prompt(torch, cfg, 1), A11_SEQ[1])
+            del local
+        del params, pack
+        torch.cuda.empty_cache()
+        r["counts"] = read_counts()
+    return out
+
+
+def a11_report(torch, ranks, refs, totals):
+    """(b) A11_CASES held: on rank 0 (its losses are the dp mean) the f32
+    cross-entropies of the SHiRA step within A11_TOL of one rank's; on
+    every rank the f32 greedy tokens equal one rank's and the logits (the
+    frame logits of hubert's encode) within A11_TOL; each rank's
+    collective bytes for one decode step (or the encode); the launch
+    check of each family's path (scatter_apply in every SHiRA step;
+    flash_decode's log-sum-exp instance on paligemma's cache, sequence-
+    sharded over ``model``, at D = 256, and on zamba2's over ``data`` at
+    D = 80; flash_prefill at D = 80 on zamba2's shared block and non-
+    causal on hubert's encode; no attention kernel on MLA or Mamba2), the
+    counts added to ``totals``. Returns the launches by (kernel, arch)."""
+    from repro_torch.configs import get_config
+    needed = {"deepseek-v2-lite-16b": ("scatter_apply",),
+              "mamba2-780m": ("scatter_apply",),
+              "zamba2-2.7b": ("scatter_apply", "flash_prefill",
+                              "flash_decode", "flash_decode (lse)"),
+              "paligemma-3b": ("scatter_apply", "flash_decode",
+                               "flash_decode (lse)"),
+              "hubert-xlarge": ("scatter_apply", "flash_prefill")}
+    absent = {"deepseek-v2-lite-16b": ATTN_KERNELS,
+              "mamba2-780m": ATTN_KERNELS,
+              "zamba2-2.7b": ("flash_decode_paged",),
+              "paligemma-3b": ("flash_decode_paged", "flash_prefill"),
+              "hubert-xlarge": ("flash_decode", "flash_decode_paged")}
+    by_arch = {}
+    for arch, n in A11_CASES:
+        counts = {}
+        for rr in ranks:
+            for k, v in rr["a11"][arch]["counts"].items():
+                counts[k] = counts.get(k, 0) + v
+        check_run(f"distributed (b) {arch}", counts, needed[arch], totals,
+                  absent[arch])
+        by_arch[arch] = counts
+        ref, r0 = refs[arch], ranks[0]["a11"][arch]
+        V = get_config(arch).vocab_size      # the pad columns are -1e30
+        d = max(abs(g["ce"] - w["ce"]) for g, w in zip(r0["shira"],
+                                                       ref["shira"]))
+        got_ce = [round(g["ce"], 6) for g in r0["shira"]]
+        want_ce = [round(w["ce"], 6) for w in ref["shira"]]
+        print(f"[distributed] (b) {arch} at full width, {n} layers: packed "
+              f"SHiRA on (2, 2), f32 ce {got_ce} against one rank's "
+              f"{want_ce}: max diff {d:.3g} (tol {A11_TOL}); step walls "
+              f"{[round(w, 1) for w in r0['shira_wall_ms']]} ms on rank 0; "
+              f"launches {({k: v for k, v in counts.items() if v})}",
+              flush=True)
+        if not d <= A11_TOL:
+            fail(f"distributed (b): {arch}'s sharded SHiRA step departs from "
+                 "one rank's")
+        for i, rr in enumerate(ranks):
+            c = rr["a11"][arch]["shira_coll"]
+            print(f"[distributed] (b)   rank {i} {tuple(rr['coords'])}: "
+                  f"SHiRA step collectives {c['total_bytes'] / 1e6:.2f} MB "
+                  f"({c['by_kind_count']})", flush=True)
+        cases = [("serve", "(1, 4)")]
+        if arch == A11_SEQ[0]:
+            cases.append(("seq", f"{A11_SEQ[1]}, batch 1"))
+        for key, where in cases:
+            want = ref[key]
+            got = [rr["a11"][arch][key] for rr in ranks]
+            ld = max(float((g["logits"][..., :V] - want["logits"][..., :V])
+                           .abs().max()) for g in got)
+            same = all(torch.equal(g["tokens"], want["tokens"]) for g in got
+                       if "tokens" in g)
+            what = (f"encode of 2 x {A11_FRAMES} frames" if "tokens" not in
+                    want else f"prefill + {DIST_DECODE} decode steps (cache "
+                    f"rows a rank {got[0]['cache_rows']}), greedy tokens "
+                    f"equal one rank's on every rank {same},")
+            print(f"[distributed] (b) {arch} {what} on {where}, f32: logits "
+                  f"max diff {ld:.3g} (tol {A11_TOL}, max |logit| "
+                  f"{float(want['logits'][..., :V].abs().max()):.3g})",
+                  flush=True)
+            for i, g in enumerate(got):
+                c = g["coll"]
+                print(f"[distributed] (b)   rank {i}: one "
+                      f"{'encode' if 'tokens' not in g else 'decode step'}'s "
+                      f"collectives {c['total_bytes']} bytes "
+                      f"({c['by_kind_count']})", flush=True)
+            if not (same and ld <= A11_TOL):
+                fail(f"distributed (b): {arch}'s serving on {where} departs "
+                     "from one rank's")
+    return by_arch
+
+
 def dist_probe(torch, mesh):
     """One call of each collective the steps use, on CUDA tensors through
     gloo, checked: all_reduce (sum, max), all_gather, reduce_scatter."""
@@ -6441,7 +6764,8 @@ def dist_rank(rank, world, tmp, out, ref_tokens, seq_refs):
     """(b) One of four ranks on cuda:0 through gloo, on a (2, 2) mesh;
     its decode is fed the single-rank run's tokens ``ref_tokens``. Then
     the sequence-sharded cases (SEQ_CASES, each on its own mesh of the
-    four ranks), held against ``seq_refs``."""
+    four ranks), held against ``seq_refs``, and the last five families
+    (A11_CASES, ``a11_rank``)."""
     import torch
     import torch.distributed as dist
     torch.cuda.set_device(0)
@@ -6524,7 +6848,7 @@ def dist_rank(rank, world, tmp, out, ref_tokens, seq_refs):
             step = S.make_train_step(cfg, tcfg, mesh, pspecs)
             state = dist_state(torch, local)
             r["full"], walls = [], []
-            for b in batches:
+            for b in batches[:DIST4_FSDP_STEPS]:
                 rows = dist_rows(torch, b, mesh)
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
@@ -6566,6 +6890,8 @@ def dist_rank(rank, world, tmp, out, ref_tokens, seq_refs):
     for case in SEQ_CASES:
         res[("seq",) + case[:2]] = dist_seq_rank(torch, case, seq_refs)
     res["seq_counts"] = read_counts()
+    # the last five families' TP forward, each family's counts on their own
+    res["a11"] = a11_rank(torch, mesh)
     allres = [None] * world
     dist.all_gather_object(allres, res)
     if rank == 0:
@@ -6574,11 +6900,12 @@ def dist_rank(rank, world, tmp, out, ref_tokens, seq_refs):
     dist.destroy_process_group()
 
 
-def dist_four(torch, tmp, refs, seq_refs):
+def dist_four(torch, tmp, refs, seq_refs, a11):
     """(b) Spawn four ranks on cuda:0 through gloo; hold their losses and
     decode logits against the single-rank runs, print their collective
     bytes and the gloo step's wall against its device time; then the
-    sequence-sharded cases (``dist_seq_report``)."""
+    sequence-sharded cases (``dist_seq_report``) and the last five
+    families against ``a11`` (``a11_report``)."""
     import torch.multiprocessing as mp
     out = f"{tmp}/four.pt"
     t0 = time.perf_counter()
@@ -6590,7 +6917,9 @@ def dist_four(torch, tmp, refs, seq_refs):
           f"{DIST4_LAYERS} layers at full width: "
           f"{time.perf_counter() - t0:.1f} s (spawn included); gloo "
           f"all_reduce, all_gather and "
-          f"reduce_scatter each probed on CUDA tensors", flush=True)
+          f"reduce_scatter each probed on CUDA tensors; the fsdp step "
+          f"{DIST4_FSDP_STEPS} of {DIST4_STEPS} steps (DIST4_FSDP_STEPS: cut "
+          f"for the script's time limit)", flush=True)
     counts, seq_counts = {}, {}
     for r in ranks:
         for total, key in ((counts, "counts"), (seq_counts, "seq_counts")):
@@ -6666,6 +6995,7 @@ def dist_four(torch, tmp, refs, seq_refs):
         if arch == DIST_MOE:
             dist_moe_bf16(torch, ranks, ref["bf16"], get_config(arch))
     dist_seq_report(torch, ranks, seq_refs)
+    A11_LAUNCHES.update(a11_report(torch, ranks, a11, counts))
     return counts
 
 
@@ -6816,37 +7146,32 @@ def dist_moe_bf16(torch, ranks, ref, cfg):
 
 
 def dist_dryrun_start():
-    """(c) The dry run's cells, one CPU process each (the machine's cores
-    are free once (b) is done): (process, out path) a cell."""
+    """(c) The dry run's cells, one CPU process a group of them (the
+    machine's 8 cores are free once (b) is done; 8 processes, so that none
+    waits for a core): (process, out path) a group. Each of DIST_CELLS'
+    archs with each adapter on both meshes, DIST_SEQ_CELLS, and each line
+    of DIST_A11_CELLS."""
     import os
-    outs = []
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1",
                CUDA_VISIBLE_DEVICES="")
-    for arch in DIST_CELLS[0]:
-        for mesh in ("single", "multi"):
-            for adapter in ("none", "shira"):
-                path = (ROOT / "build" / "dryrun"
-                        / f"chip_{arch}_{mesh}_{adapter}.json")
-                path.parent.mkdir(parents=True, exist_ok=True)
-                if path.exists():
-                    path.unlink()
-                cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
-                       "--arch", arch, "--shape", ",".join(DIST_CELLS[1]),
-                       "--mesh", mesh, "--adapter", adapter,
-                       "--out", str(path)]
-                outs.append((subprocess.Popen(
-                    cmd, env=env, cwd=str(ROOT), stdout=subprocess.PIPE,
-                    stderr=subprocess.STDOUT, text=True), path))
-    arch, shapes = DIST_SEQ_CELLS
-    path = ROOT / "build" / "dryrun" / f"chip_{arch}_seq.json"
-    if path.exists():
-        path.unlink()
-    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
-           "--shape", ",".join(shapes), "--mesh", "single", "--out",
-           str(path)]
-    outs.append((subprocess.Popen(
-        cmd, env=env, cwd=str(ROOT), stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True), path))
+    groups = [(arch, ",".join(DIST_CELLS[1]), "both", adapter)
+              for arch in DIST_CELLS[0] for adapter in ("none", "shira")]
+    groups.append((DIST_SEQ_CELLS[0], ",".join(DIST_SEQ_CELLS[1]), "single",
+                   "none"))
+    groups += [(archs, shape, "single", "none")
+               for archs, shape in DIST_A11_CELLS]
+    outs = []
+    for i, (archs, shapes, mesh, adapter) in enumerate(groups):
+        path = ROOT / "build" / "dryrun" / f"chip_cells_{i}.json"
+        path.parent.mkdir(parents=True, exist_ok=True)
+        if path.exists():
+            path.unlink()
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               archs, "--shape", shapes, "--mesh", mesh, "--adapter",
+               adapter, "--out", str(path)]
+        outs.append((subprocess.Popen(
+            cmd, env=env, cwd=str(ROOT), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True), path))
     return outs
 
 
@@ -6881,10 +7206,11 @@ def distributed_phase(torch):
         counts = dict(dist_world1(torch, tmp))
         refs = dist_refs(torch)
         seq_refs = dist_seq_refs(torch)
+        a11 = a11_refs(torch)
         torch.cuda.empty_cache()
         print(f"[distributed] (a) and the one-rank references: "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
-        for k, v in dist_four(torch, tmp, refs, seq_refs).items():
+        for k, v in dist_four(torch, tmp, refs, seq_refs, a11).items():
             counts[k] = counts.get(k, 0) + v
     t0 = time.perf_counter()
     procs = dist_dryrun_start()
@@ -6895,7 +7221,7 @@ def distributed_phase(torch):
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
-    print(f"[distributed] (c) {len(procs)} cells, one process each: "
+    print(f"[distributed] (c) {len(procs)} processes: "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     return counts
 
@@ -7096,16 +7422,29 @@ def main() -> None:
             "launches": by_slice[tag].get(name.split(" ")[0], 0),
             **{k: cases[0][k] for k in keys},
             "max_abs_err": max(r["max_abs_err"] for r in cases)})
-    # flash_decode's log-sum-exp instance (sequence-sharded serving): its
-    # bf16 case at one rank's shard of starcoder2-7b's decode_32k, the
-    # largest error over its cases, its launches on the mesh decode steps
-    kernels.append({
-        "name": "flash_decode (log-sum-exp)", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
-        "replaces": "src/repro/kernels/flash_decode.py:71",
-        "launches": launches.get("flash_decode (lse)", 0),
-        **{k: attn["lse"][0][k] for k in keys},
-        "max_abs_err": max(r["max_abs_err"] for r in attn["lse"])})
+    # flash_decode's log-sum-exp instance (sequence-sharded serving): at
+    # D = 64 and 128 its bf16 case at one rank's shard of starcoder2-7b's
+    # decode_32k, the largest error over those cases, its launches on the
+    # GQA text models' mesh decode steps; at D = 256 (paligemma-3b's cache
+    # over ``model``) and D = 80 (zamba2-2.7b's shared block at batch 1)
+    # the same from their cases and the launches of those families' mesh
+    # steps
+    a11_lse = {arch: A11_LAUNCHES.get(arch, {}).get("flash_decode (lse)", 0)
+               for arch in ("paligemma-3b", "zamba2-2.7b")}
+    for name, dims, n in (
+            ("flash_decode (log-sum-exp)", (64, 128),
+             launches.get("flash_decode (lse)", 0) - sum(a11_lse.values())),
+            ("flash_decode (log-sum-exp, D = 256)", (256,),
+             a11_lse["paligemma-3b"]),
+            ("flash_decode (log-sum-exp, D = 80)", (80,),
+             a11_lse["zamba2-2.7b"])):
+        cases = [r for r in attn["lse"] if r["D"] in dims]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_decode.cu",
+            "replaces": "src/repro/kernels/flash_decode.py:71",
+            "launches": n, **{k: cases[0][k] for k in keys},
+            "max_abs_err": max(r["max_abs_err"] for r in cases)})
     # masked_update's row: the hook path's case (f32 W, bool M)
     kernels.append({
         "name": "masked_update", "route": "cuda",

@@ -451,13 +451,15 @@ def materialize_sharded(params, values, indices, alpha: float = 1.0):
     """W_eff = W + alpha * scatter(values) with SHARD-LOCAL packed indices.
 
     ``params`` holds this rank's shards; an ``indices``/``values`` leaf is
-    (L, DPC, TPC, Ks) globally, per (dim 1, dim 2) tile of the stacked
-    (L, n, m) weight as its sharding spec splits it (DPC, TPC the
+    (..., DPC, TPC, Ks) globally, per (n, m) tile of the (..., n, m)
+    weight as its sharding spec splits it (a stack's leading dims, (L,) or
+    a hybrid stage's (G, k), or none, kept as they are; DPC, TPC the
     products of those entries' axis sizes), Ks flat indices into the
     LOCAL (n/DPC, m/TPC) tile. This rank holds its (L, 1, 1, Ks) slice and
     scatters it into its tile through the ``scatter_apply`` kernel, one
-    launch a leaf, with no communication (``_Materialize``: the gradient
-    is the gather of dW at the local indices, so the values' gradients
+    launch a leaf (its leading dims flattened), with no communication
+    (``_Materialize``: the gradient is the gather of dW at the local
+    indices, so the values' gradients
     are sharded as the weights are). The caller cut the tiles
     (``split_packed``, ``launch.sharding.local_shard``); the scatter needs
     neither the mesh nor the specs."""
@@ -467,9 +469,11 @@ def materialize_sharded(params, values, indices, alpha: float = 1.0):
     def leaf(p, w):
         if p not in idx or vals.get(p) is None:
             return w
-        L = w.shape[0]
-        return _Materialize.apply(w, idx[p].reshape(L, -1),
-                                  vals[p].reshape(L, -1), alpha)
+        w3 = w.reshape((-1,) + tuple(w.shape[-2:]))
+        L = w3.shape[0]
+        return _Materialize.apply(w3, idx[p].reshape(L, -1),
+                                  vals[p].reshape(L, -1), alpha
+                                  ).reshape(w.shape)
 
     return M.map_leaves(leaf, params)
 
@@ -484,16 +488,20 @@ def padding_mask(idx: torch.Tensor) -> torch.Tensor:
 
 def split_packed(idx: torch.Tensor, vals: torch.Tensor, shape, tiles
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """A global pack leaf, (L, K) ascending flat indices into (n, m) and
+    """A global pack leaf, (..., K) ascending flat indices into (n, m) and
     its values, split into shard-local tiles: ``tiles`` = (DPC, TPC), the
-    ways the leaf's spec splits dims 1 and 2 (``launch.sharding``). Returns
-    (indices, values, place), each (L, DPC, TPC, Ks) with Ks the most
+    ways the leaf's spec splits its (n, m) dims (``launch.sharding.
+    tile_counts``). Returns (indices, values, place), each (..., DPC, TPC,
+    Ks), the leading dims the pack's, with Ks the most
     entries any tile holds: a tile's entries in ascending local order
     ((r mod n/DPC) * m/TPC + c mod m/TPC), then padding (index 0, value
     0; ``padding_mask``), and ``place`` each entry's position in the
     global row (-1 at padding; ``join_packed`` reverses the split). Every
     tile must hold an entry: an empty tile's row would read as an entry
     at index 0."""
+    lead = tuple(idx.shape[:-1])
+    idx, vals = idx.reshape(-1, idx.shape[-1]), vals.reshape(-1,
+                                                            idx.shape[-1])
     L, K = idx.shape
     n, m = shape[-2:]
     dpc, tpc = tiles
@@ -522,18 +530,19 @@ def split_packed(idx: torch.Tensor, vals: torch.Tensor, shape, tiles
     out_i[dst] = local.reshape(-1)[order].to(torch.int32)
     out_v[dst] = vals.reshape(-1)[order]
     place[dst] = order % K
-    shp = (L, dpc, tpc, ks)
+    shp = lead + (dpc, tpc, ks)
     return out_i.reshape(shp), out_v.reshape(shp), place.reshape(shp)
 
 
 def join_packed(tile_vals: torch.Tensor, place: torch.Tensor, K: int
                 ) -> torch.Tensor:
-    """(L, DPC, TPC, Ks) tile values back to the (L, K) global row order
-    of ``split_packed``'s ``place``."""
-    L = tile_vals.shape[0]
+    """(..., DPC, TPC, Ks) tile values back to the (..., K) global row
+    order of ``split_packed``'s ``place``."""
+    lead = tuple(tile_vals.shape[:-3])
+    L = math.prod(lead)
     out = torch.zeros((L, K), dtype=tile_vals.dtype, device=tile_vals.device)
     pl = place.reshape(L, -1)
     keep = pl >= 0
     rows = torch.arange(L, device=pl.device)[:, None].expand_as(pl)
     out[rows[keep], pl[keep]] = tile_vals.reshape(L, -1)[keep]
-    return out
+    return out.reshape(lead + (K,))

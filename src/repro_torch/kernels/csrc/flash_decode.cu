@@ -814,15 +814,18 @@ int run_split(const SplitArgs& a, bool bf16) {
 // D = 80 (zamba2's shared block) and D = 256 (paligemma-3b) have
 // contiguous instances only: no path pages such a cache (the paged engine
 // refuses the hybrid and vision families). kLse: contiguous caches, and
-// only the head dims of the families with a TP forward (64: granite-moe;
-// 128: the dense GQA models), the ones that serve sequence-sharded.
+// only the head dims that serve sequence-sharded (64: granite-moe; 80:
+// zamba2's shared block at batch 1; 128: the dense GQA models; 256:
+// paligemma-3b's one KV head).
 template <bool kPaged, bool kQ8, bool kLse = false>
 int split_by_dim(const SplitArgs& a, int D, bool bf16) {
   static_assert(!(kLse && kPaged), "the log-sum-exp instance is contiguous");
   if constexpr (kLse) {
     switch (D) {
       case 64: return run_split<64, false, false, true>(a, bf16);
+      case 80: return run_split<80, false, false, true>(a, bf16);
       case 128: return run_split<128, false, false, true>(a, bf16);
+      case 256: return run_split<256, false, false, true>(a, bf16);
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   } else {

@@ -19,8 +19,8 @@ then ``launch.mesh.softmax_merge`` merges the ranks): it returns the
 output in f32 whatever q's dtype, and beside it lse = m + log(l), the
 softmax's max plus the log of its sum, f32 (B, KV, G); a request of
 kv_len 0 (a shard that holds none of its positions) gets zeros and lse
--inf. On the card it takes D in ``LSE_DIMS`` (64 and 128, the head dims of
-the families that serve sequence-sharded). Its launches are counted in
+-inf. On the card it takes D in ``LSE_DIMS`` (64, 80, 128 and 256, the
+head dims that serve sequence-sharded). Its launches are counted in
 ``flash_decode_blocks.lse_launches`` besides ``launches``.
 
 On CUDA tensors the wrappers launch ``csrc/flash_decode.cu`` (its note says
@@ -65,9 +65,10 @@ _DIMS = (16, 32, 64, 80, 128, 256)  # contiguous caches (80: zamba2's
 _PAGED_DIMS = (16, 32, 64, 128)     # page pools: no path pages D = 80 or
                                     # 256 (the paged engine refuses the
                                     # hybrid and vision families)
-LSE_DIMS = (64, 128)                # the log-sum-exp instance: the head
-                                    # dims of the families with a TP
-                                    # forward (granite-moe; dense GQA)
+LSE_DIMS = (64, 80, 128, 256)      # the log-sum-exp instance: the head
+                                    # dims that serve sequence-sharded
+                                    # (granite-moe; zamba2's shared block;
+                                    # dense GQA; paligemma-3b)
 SPLIT = 64                  # positions per CTA (kSplit, which the launch
                             # checks through nsplit)
 _TICKETS = {}               # (device, stream) -> the merge's int32 tickets

@@ -5,10 +5,9 @@ step builder installs hints here before it runs the model. The hints the
 port's model reads:
 
   "tp"           a ``launch.sharding.TPLayout``: the mesh and the leaf
-                 specs. With it set, the dense GQA and MoE-with-GQA
-                 families run their TP/FSDP forward on local shards
-                 (``models.layers``, ``attention``, ``lm``); the other
-                 families refuse a mesh that shards their leaves.
+                 specs. With it set, every family runs its TP/FSDP
+                 forward on local shards (``models.layers``,
+                 ``attention``, ``mamba2``, ``blocks``, ``moe``, ``lm``).
   "moe_ep_mesh"  (mesh, ep): expert-parallel MoE dispatch over the
                  ``model`` axis (``models.moe._moe_ffn_ep``) when the
                  expert count divides ep.

@@ -13,11 +13,9 @@ writes the reference's record fields from what it can know:
   * ``cost`` (``analysis.profile.program_cost``) and ``collectives``
     (``analysis.profile.collective_bytes``'s record): from running rank
     0's step on the "meta" device over the abstract mesh, where its
-    collectives communicate nothing and are counted at the ring model.
-    That runs where the family has its TP forward, whether the cell's
-    cache (if any) is sharded by KV heads or by sequence; the other
-    families' cells carry ``"cost": null`` and a ``reason`` (ROADMAP A11,
-    A13). No cell is skipped silently.
+    collectives communicate nothing and are counted at the ring model:
+    every cell, whether its cache (if any) is sharded by KV heads, by
+    latent columns or by sequence. No cell is skipped silently.
   * ``lower_s``: seconds to build the step and its abstract inputs;
     ``compile_s``: seconds of the meta run (0 where it did not run);
   * ``cost_xla_raw``: always null. The reference's is XLA's own aggregate
@@ -36,7 +34,7 @@ import math
 import os
 import time
 import traceback
-from typing import Any, Dict, Optional
+from typing import Any, Dict
 
 import torch
 
@@ -82,15 +80,6 @@ def _memory(**parts: int) -> Dict[str, Any]:
     out["total_bytes"] = int(total)
     out["per_rank_gb"] = total / 1e9
     return out
-
-
-def _why_not(cfg) -> Optional[str]:
-    """Why a cell's step cannot run on the mesh yet, or None."""
-    if not shd.has_tp_forward(cfg):
-        return (f"{cfg.family}/{cfg.attn_type}/{cfg.modality} has no TP "
-                "forward yet (ROADMAP A11); its cost waits for it "
-                "(ROADMAP A13)")
-    return None
 
 
 def _run(step, args):
@@ -182,12 +171,6 @@ def lower_cell(arch: str, shape_name: str, mesh, *, adapter: str = "none",
            "kind": shape.kind, "adapter": adapter, "variant": variant,
            "tags": extra_tags, "memory": memory, "cost": None,
            "cost_xla_raw": None, "collectives": None, "ok": True}
-    reason = _why_not(cfg)
-    if reason is not None:
-        rec["reason"] = reason
-        rec["lower_s"] = round(time.time() - t0, 1)
-        rec["compile_s"] = 0.0
-        return rec
     step, args = make()
     rec["lower_s"] = round(time.time() - t0, 1)
     cost, coll, secs = _run(step, args)
@@ -252,14 +235,10 @@ def main(argv=None) -> None:
                                      adapter=args.adapter,
                                      variant=args.variant)
                     gb = rec["memory"]["per_rank_gb"]
-                    if rec["cost"] is None:
-                        print(f"[dryrun]   ok: {gb:.2f} GB/rank, cost null: "
-                              f"{rec['reason']}", flush=True)
-                    else:
-                        print(f"[dryrun]   ok: {gb:.2f} GB/rank "
-                              f"flops={rec['cost']['flops']:.3e} "
-                              f"coll={rec['collectives']['total_gb']:.2f}GB "
-                              f"run={rec['compile_s']}s", flush=True)
+                    print(f"[dryrun]   ok: {gb:.2f} GB/rank "
+                          f"flops={rec['cost']['flops']:.3e} "
+                          f"coll={rec['collectives']['total_gb']:.2f}GB "
+                          f"run={rec['compile_s']}s", flush=True)
                 except Exception as e:  # noqa: BLE001 — record and go on
                     rec = {"arch": arch, "shape": shape_name,
                            "mesh": list(mesh.devices_shape),

@@ -28,7 +28,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeSpec
-from repro_torch.core.masks import iter_leaves, leaf_name
+from repro_torch.core.masks import leaf_name
 from repro_torch.launch import mesh as M
 from repro_torch.launch.mesh import axis_size, dp_axes
 
@@ -335,6 +335,13 @@ class SeqLayout:
         return self.index * local_len
 
 
+def tile_counts(spec: P, ndim: int, mesh) -> Tuple[int, int]:
+    """(DPC, TPC): the ways ``spec`` splits the trailing (n, m) dims of a
+    leaf of ``ndim`` dims (a stack's leading dims padded with None)."""
+    entries = list(spec) + [None] * (ndim - len(spec))
+    return _axis_prod(mesh, entries[-2]), _axis_prod(mesh, entries[-1])
+
+
 def local_shape(shape, spec: P, mesh) -> Tuple[int, ...]:
     """The shape of one rank's shard of a (global) ``shape``."""
     entries = list(spec) + [None] * (len(shape) - len(spec))
@@ -375,35 +382,16 @@ def shard_tree(tree, spec_tree, mesh,
 # The "tp" hint: how each leaf the model uses is laid out
 # ---------------------------------------------------------------------------
 
-TP_FAMILIES = ("dense", "moe")
-
-
-def has_tp_forward(cfg: ModelConfig) -> bool:
-    """The families with a TP/FSDP forward: dense GQA text models and the
-    MoE family with GQA attention."""
-    return (cfg.family in TP_FAMILIES and cfg.attn_type == "gqa"
-            and cfg.modality == "text" and not cfg.encoder_only)
-
-
-def shards_any(spec_tree) -> bool:
-    return any(isinstance(s, P) and s.axes() for _, s in iter_leaves(
-        spec_tree))
-
-
 class TPLayout:
     """The mesh and the leaf specs, as the model reads them: ``spec(name,
     shape)`` is the spec of a leaf ``name`` of (global, per-layer) shape
     ``shape``, by the rules above; ``weight`` turns the local leaf into
     the tensor a layer multiplies (a SHiRA bundle materialized; an FSDP
-    leaf gathered over ``data``, its gradient reduce-scattered)."""
+    leaf gathered over ``data``, its gradient reduce-scattered). Every
+    family reads it: dense GQA, MoE (GQA or MLA), Mamba2, the hybrid, and
+    the vision and audio stubs."""
 
     def __init__(self, cfg: ModelConfig, mesh):
-        if not has_tp_forward(cfg):
-            raise NotImplementedError(
-                f"{cfg.name} ({cfg.family}, attn_type {cfg.attn_type!r}, "
-                f"{cfg.modality}) has no TP forward yet: it runs on meshes "
-                "that shard none of its leaves (ROADMAP A11: the TP forward "
-                "of MLA, Mamba2, the hybrid and the vision/audio families)")
         self.cfg, self.mesh = cfg, mesh
         self.tp = axis_size(mesh, "model")
         self.rank = mesh.coord("model")

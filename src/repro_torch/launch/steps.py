@@ -20,15 +20,15 @@ TP/FSDP forward and expert-parallel dispatch issue them
     replicated leaves counted once;
   * AdamW is ``optim.adamw_update``, as the reference's steps use
     ``adamw_update``.
-The dense GQA and MoE-with-GQA families have the TP forward; the others
-run on meshes that shard none of their leaves and otherwise raise
-``NotImplementedError`` naming the ROADMAP item. Where the cache spec
-shards the KV *sequence* (KV heads that do not divide ``model``, or a
-batch below the dp size: ``sharding.kv_cache_spec``), the serving steps
-of the families with a TP forward install the "kv_seq" hint: each rank's
-cache holds its rows of the sequence, and decode merges the ranks'
-softmaxes (``models.attention``). The other families keep whole caches on
-every rank (their sequence-sharded form waits for A11).
+Every family has the TP forward: dense GQA, MoE with GQA or MLA
+attention, Mamba2, the hybrid, and the vision and audio families. Where
+the cache spec shards the KV *sequence* (KV heads that do not divide
+``model``, or a batch below the dp size: ``sharding.kv_cache_spec``), the
+serving steps install the "kv_seq" hint: each rank's cache holds its rows
+of the sequence, and decode merges the ranks' softmaxes
+(``models.attention``; an MLA cache's latent rows too). A Mamba2 state
+has no sequence: a batch below the dp size is served whole on every
+data rank.
 
 ``abstract_*`` build "meta" tensors of the global shapes (no data, no
 memory); ``local_meta`` cuts them to a rank's shard shapes, so the dry run
@@ -77,33 +77,14 @@ def act_spec_for(cfg: ModelConfig, shape: ShapeSpec, mesh) -> P:
 def sharding_hints_for(cfg: ModelConfig, shape: Optional[ShapeSpec], mesh
                        ) -> dict:
     """All hints for one cell (``launch.actctx``): the reference's "act"
-    and "loss_act" specs, "tp" (the mesh and the leaf specs) for the
-    families with a TP forward, and "moe_ep_mesh" where the expert count
-    divides ``model``."""
+    and "loss_act" specs, "tp" (the mesh and the leaf specs), and
+    "moe_ep_mesh" where the expert count divides ``model``."""
     b = _batch_axes(shape, mesh)
     hints: Dict[str, Any] = {"act": P(b, None, "model"),
-                             "loss_act": P(b, None)}
-    if shd.has_tp_forward(cfg):
-        hints["tp"] = shd.TPLayout(cfg, mesh)
+                             "loss_act": P(b, None),
+                             "tp": shd.TPLayout(cfg, mesh)}
     if cfg.moe and cfg.moe.num_experts % axis_size(mesh, "model") == 0:
         hints["moe_ep_mesh"] = (mesh, axis_size(mesh, "model"))
-    return hints
-
-
-def _mesh_hints(cfg: ModelConfig, mesh, specs, shape=None) -> dict:
-    """The hints of a step on ``mesh``; a family without a TP forward
-    refuses specs that shard any of its leaves."""
-    if mesh is None:
-        return {}
-    if not shd.has_tp_forward(cfg) and shd.shards_any(specs):
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}, attn_type {cfg.attn_type!r}, "
-            f"{cfg.modality}) has no TP forward yet: it runs on meshes that "
-            "shard none of its leaves (ROADMAP A11: the TP forward of MLA, "
-            "Mamba2, the hybrid and the vision/audio families)")
-    hints = sharding_hints_for(cfg, shape, mesh)
-    if not shd.has_tp_forward(cfg):
-        hints.pop("tp", None)
     return hints
 
 
@@ -142,7 +123,10 @@ def sharded_global_norm(grads: Dict[str, torch.Tensor], specs: Dict[str, P],
 def _value_and_grad(loss_of, trainable, batch, n_micro: int = 1):
     """(mean loss, {path: f32 grad}, mean "ce" and "aux") of ``loss_of(tree,
     batch)`` over the trainable tree's tensor leaves, accumulated over
-    ``n_micro`` contiguous slices of the batch (the reference's scan)."""
+    ``n_micro`` contiguous slices of the batch (the reference's scan). A
+    tree with no tensor leaf (a pack that adapts no leaf) gives no
+    gradient, and its loss is computed without autograd; a leaf the loss
+    does not read gets a zero gradient."""
     leaves = [(p, t.detach().requires_grad_(True))
               for p, t in iter_leaves(trainable)]
     live = dict(leaves)
@@ -156,9 +140,13 @@ def _value_and_grad(loss_of, trainable, batch, n_micro: int = 1):
                   for k, v in batch.items()} for i in range(n_micro)]
     sums, acc = None, None
     for mb in micro:
-        loss, m = loss_of(tree, mb)
-        gs = torch.autograd.grad(loss, xs)
-        gs = [g.float() for g in gs]
+        with torch.set_grad_enabled(bool(xs)):
+            loss, m = loss_of(tree, mb)
+        gs = torch.autograd.grad(loss, xs, allow_unused=True) if xs else []
+        # a leaf the loss never reads (an audio model's token embedding)
+        # gets a zero gradient, as autodiff in the reference gives it
+        gs = [torch.zeros(x.shape, device=x.device) if g is None
+              else g.float() for g, x in zip(gs, xs)]
         acc = gs if acc is None else [a + g for a, g in zip(acc, gs)]
         vals = [loss.detach(), m["ce"].detach(), m["aux"].detach()]
         sums = vals if sums is None else [a + v for a, v in zip(sums, vals)]
@@ -203,7 +191,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None,
     schedule = lr_schedule(tcfg)
     n_micro = max(tcfg.microbatch, 1)
     specs = dict(iter_leaves(pspecs)) if mesh is not None else {}
-    hints = _mesh_hints(cfg, mesh, pspecs)
+    hints = {} if mesh is None else sharding_hints_for(cfg, None, mesh)
 
     def loss_of(params, batch):
         return lm.train_loss(cast_compute(params), cfg, batch)
@@ -219,13 +207,14 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None,
 
 
 def value_specs(pspecs, indices) -> Dict[str, P]:
-    """The spec of each packed leaf of the shard-local values, (L, DPC,
-    TPC, Ks): its weight's first three entries, then None."""
+    """The spec of each packed leaf of the shard-local values, (..., DPC,
+    TPC, Ks): its weight's entries (the leading dims', then n's and m's),
+    then None."""
     w = dict(iter_leaves(pspecs))
     out = {}
-    for p, _ in iter_leaves(indices):
-        s = list(w[p]) + [None] * 3
-        out[p] = P(s[0], s[1], s[2], None)
+    for p, i in iter_leaves(indices):
+        s = list(w[p]) + [None] * (i.ndim - 1 - len(w[p]))
+        out[p] = P(*s, None)
     return out
 
 
@@ -237,7 +226,7 @@ def make_shira_train_step(cfg: ModelConfig, tcfg: TrainConfig,
 
     Without a mesh the indices are (..., K) per target leaf
     (``core.adapters.materialize``). With ``mesh`` they are shard-local,
-    (L, DPC, TPC, Ks) globally, this rank holding its (L, 1, 1, Ks)
+    (..., DPC, TPC, Ks) globally, this rank holding its (..., 1, 1, Ks)
     (``core.adapters.materialize_sharded``, ``split_packed``), and
     ``base`` holds this rank's shards of the leaves ``pspecs`` lays out:
     the scatter is local and the only gradient traffic left is the packed
@@ -249,7 +238,7 @@ def make_shira_train_step(cfg: ModelConfig, tcfg: TrainConfig,
     MoE aux its own."""
     schedule = lr_schedule(tcfg)
     n_micro = max(tcfg.microbatch, 1)
-    hints = _mesh_hints(cfg, mesh, pspecs)
+    hints = {} if mesh is None else sharding_hints_for(cfg, None, mesh)
 
     def train_step(state, batch, base, indices):
         lr = schedule(state["step"])
@@ -282,10 +271,8 @@ def _serve_hints(cfg: ModelConfig, mesh, shape: Optional[ShapeSpec],
     if mesh is None:
         return {}
     scfg = cfg.replace(fsdp=False)
-    specs = shd.param_specs(abstract_params(scfg), scfg, mesh)
-    hints = _mesh_hints(scfg, mesh, specs, shape)
-    if cache and shd.has_tp_forward(scfg):
-        # the other families keep whole caches on every rank (ROADMAP A11)
+    hints = sharding_hints_for(scfg, shape, mesh)
+    if cache:
         shape = shape or ShapeSpec("step", 1, _dp_size(mesh), "decode")
         seq = shd.SeqLayout(mesh, shd.kv_seq_axes(
             scfg, shd.cache_specs(scfg, shape, mesh)))
@@ -406,9 +393,7 @@ def abstract_shira_sharded(cfg: ModelConfig, acfg: AdapterConfig, mesh):
         if not is_target(path, leaf, acfg.target_modules) or leaf.ndim != 3:
             return None
         L, n, m = leaf.shape
-        spec = list(specs[path]) + [None] * 3
-        dpc = shd._axis_prod(mesh, spec[1])
-        tpc = shd._axis_prod(mesh, spec[2])
+        dpc, tpc = shd.tile_counts(specs[path], 3, mesh)
         ks = budget(n // dpc, m // tpc, acfg.sparsity)
         return torch.empty((L, dpc, tpc, ks), dtype=torch.int32,
                            device="meta")

@@ -34,7 +34,12 @@ Under the launch layer's "tp" hint (``launch.sharding.TPLayout``) the GQA
 train, prefill and decode paths run on one rank's heads: wq/wk/wv local
 columns (``_gqa_qkv_tp``), each local q head with its own KV head, the
 cache holding the rank's KV heads, wo row-parallel (``_out_proj``). The
-paged paths and MLA have no TP form.
+MLA paths run on the rank's heads too: wq, w_uk and w_uv column-parallel,
+w_dkv replicated (c_kv and k_rope through ``copy_to``), wo row-parallel,
+the latent cache holding the rank's columns of the rank dim; the absorbed
+decode all-gathers q over the heads and all-reduces the partial scores
+over the rank dim (``_mla_decode_tp``). The paged paths have no TP form:
+they stay single-rank.
 
 Under the "kv_seq" hint as well (``launch.sharding.SeqLayout``: KV heads
 that do not divide ``model``, or a batch below the dp size) each rank's
@@ -45,11 +50,12 @@ prompt as above and writes the rows it holds; ``gqa_decode`` writes the
 new row on the rank that holds its position, attends its shard with
 kv_len clamp(pos + 1 - offset, 0, local length) on the log-sum-exp
 instance of ``flash_decode_blocks`` and merges the ranks
-(``launch.mesh.softmax_merge``). Where the q heads are split over
-``model`` but the KV heads are not (the cache holds every KV head), each
-rank all-gathers q over ``model``, attends every head over its shard,
-merges and keeps its own heads for the row-parallel wo (the gather-q
-case).
+(``launch.mesh.softmax_merge``); ``mla_prefill`` and ``mla_decode`` do the
+same over their latent rows, the softmax in plain torch. Where the q
+heads are split over ``model`` but the KV heads are not (the cache holds
+every KV head), each rank all-gathers q over ``model``, attends every
+head over its shard, merges and keeps its own heads for the row-parallel
+wo (the gather-q case).
 
 MLA (DeepSeek-V2's multi-head latent attention) is plain torch, as the
 reference's is plain jnp: no TPU kernel computes it (the attention
@@ -85,7 +91,7 @@ from repro_torch.launch import mesh as MESH
 from repro_torch.launch.actctx import hint
 from repro_torch.models.layers import (apply_rope, compute_dtype, dense,
                                        glorot, init_rms_norm, rms_norm,
-                                       tp_layout, tp_row)
+                                       tp_column, tp_layout, tp_row)
 
 NEG_INF = -1e30
 
@@ -421,6 +427,31 @@ def gqa_decode(params, cfg: ModelConfig, x, cache: KVCache, pos
     return _out_proj(params, cfg, out.reshape(B, 1, -1)), cache
 
 
+def _write_shard(pairs, pos, positions, vector: bool, off: int):
+    """One decode step's rows into caches that hold the positions [off,
+    off + n) of the sequence, in place (off 0 and n the whole cache where
+    it is not sequence-sharded): each (cache (B, n, ...), row (B, 1, ...))
+    pair's row lands on the rank that holds its position, at the (B, 1)
+    per-request ``positions`` or at the shared index ``pos``. Returns the
+    rank's kv_len, clamp(pos + 1 - off, 0, n): a (B,) tensor or an int."""
+    cd = compute_dtype()
+    n = pairs[0][0].shape[1]
+    if vector:
+        p = positions[:, 0]
+        b = torch.arange(p.shape[0], device=p.device)
+        at = (p - off).clamp(0, n - 1)
+        mine = (p >= off) & (p < off + n)
+        for c, t in pairs:
+            m = mine.reshape((-1,) + (1,) * (c.ndim - 2))
+            c[b, at] = torch.where(m, t.to(cd)[:, 0], c[b, at])
+        return (p + 1 - off).clamp(0, n)
+    p = (pos if isinstance(pos, int) else int(pos)) - off
+    if 0 <= p < n:
+        for c, t in pairs:
+            c[:, p:p + 1] = t.to(cd)
+    return min(max(p + 1, 0), n)
+
+
 def _gqa_decode_seq(params, cfg: ModelConfig, x, cache: KVCache, pos,
                     positions, vector: bool, seq):
     """``gqa_decode`` on a cache that holds this rank's shard of the
@@ -432,22 +463,8 @@ def _gqa_decode_seq(params, cfg: ModelConfig, x, cache: KVCache, pos,
     B = x.shape[0]
     q, k, v = _gqa_qkv(params, cfg, x, positions, all_kv=True)
     cd = compute_dtype()
-    n = cache.k.shape[1]
-    off = seq.offset(n)
-    if vector:
-        p = positions[:, 0]
-        b = torch.arange(B, device=x.device)
-        at = (p - off).clamp(0, n - 1)
-        mine = ((p >= off) & (p < off + n))[:, None, None]
-        for c, t in ((cache.k, k), (cache.v, v)):
-            c[b, at] = torch.where(mine, t.to(cd)[:, 0], c[b, at])
-        kv_len = (p + 1 - off).clamp(0, n)
-    else:
-        p = (pos if isinstance(pos, int) else int(pos)) - off
-        if 0 <= p < n:
-            cache.k[:, p:p + 1] = k.to(cd)
-            cache.v[:, p:p + 1] = v.to(cd)
-        kv_len = min(max(p + 1, 0), n)
+    kv_len = _write_shard(((cache.k, k), (cache.v, v)), pos, positions,
+                          vector, seq.offset(cache.k.shape[1]))
     tp = tp_layout()
     q_sh, kv_sh = _head_split(cfg, tp)
     gather = q_sh and not kv_sh
@@ -561,19 +578,49 @@ def init_mla(gen: torch.Generator, cfg: ModelConfig, *, lead=(),
     return p
 
 
+def _mla_split(cfg: ModelConfig, tp) -> Tuple[bool, bool]:
+    """Under the "tp" hint: (the heads split over ``model``: wq, w_uk,
+    w_uv column-parallel and wo row-parallel, all by the same heads; the
+    latent cache's rank dim split over ``model``, as ``kv_cache_spec``
+    lays it out)."""
+    m = cfg.mla
+    H = cfg.num_heads
+    heads = tp.sharded(tp.spec("w_uk", (m.kv_lora_rank,
+                                        H * m.qk_nope_head_dim)), -1)
+    if heads and H % tp.tp:
+        raise ValueError(f"{cfg.name}: {H} MLA heads split over a model "
+                         f"axis of {tp.tp} would cut a head")
+    return heads, tp.tp > 1 and m.kv_lora_rank % tp.tp == 0
+
+
+def _mla_col(params, name: str, x, shape, tp, gather: bool = False):
+    """x @ params[name]; under the "tp" hint column-parallel (the rank's
+    columns, x through ``copy_to``), all-gathered over ``model`` with
+    ``gather``."""
+    if tp is None:
+        return dense(x, params[name])
+    y, col = tp_column(x, params[name], name, shape, tp)
+    if col and gather:
+        y = MESH.gather_from(tp.mesh, y, "model", -1)
+    return y
+
+
 def _mla_q(params, cfg: ModelConfig, x, positions):
     """(q_nope (B, S, H, nope), q_rope (B, S, H, rope) roped), in the
-    compute dtype."""
+    compute dtype; under the "tp" hint the rank's heads."""
     m = cfg.mla
-    B, S, _ = x.shape
+    B, S, d = x.shape
+    tp = tp_layout()
+    qk = m.qk_nope_head_dim + m.qk_rope_head_dim
+    H = cfg.num_heads
     if m.q_lora_rank:
-        qa = rms_norm(dense(x, params["wq_a"]), params["q_norm"]["scale"],
-                      cfg.norm_eps)
-        q = dense(qa, params["wq_b"])
+        qa = _mla_col(params, "wq_a", x, (d, m.q_lora_rank), tp,
+                      gather=True)
+        qa = rms_norm(qa, params["q_norm"]["scale"], cfg.norm_eps)
+        q = _mla_col(params, "wq_b", qa, (m.q_lora_rank, H * qk), tp)
     else:
-        q = dense(x, params["wq"])
-    q = q.reshape(B, S, cfg.num_heads,
-                  m.qk_nope_head_dim + m.qk_rope_head_dim)
+        q = _mla_col(params, "wq", x, (d, H * qk), tp)
+    q = q.reshape(B, S, -1, qk)
     q_nope, q_rope = torch.split(q, [m.qk_nope_head_dim, m.qk_rope_head_dim],
                                  dim=-1)
     return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
@@ -581,27 +628,60 @@ def _mla_q(params, cfg: ModelConfig, x, positions):
 
 def _mla_ckv(params, cfg: ModelConfig, x, positions):
     """(c_kv (B, S, rank) normed, k_rope (B, S, rope) roped as one head),
-    in the compute dtype."""
+    in the compute dtype. Under the "tp" hint every rank computes both
+    whole (``w_dkv`` is replicated over ``model``); where the heads are
+    split, each rank's heads use them, so they go through ``copy_to``."""
     m = cfg.mla
-    ckv_full = dense(x, params["w_dkv"])
+    tp = tp_layout()
+    w = params["w_dkv"]
+    if tp is not None:
+        w, _ = tp.weight(w, "w_dkv", (cfg.d_model,
+                                      m.kv_lora_rank + m.qk_rope_head_dim))
+    ckv_full = dense(x, w)
     c_kv, k_rope = torch.split(ckv_full, [m.kv_lora_rank,
                                           m.qk_rope_head_dim], dim=-1)
     c_kv = rms_norm(c_kv, params["kv_norm"]["scale"], cfg.norm_eps)
     k_rope = apply_rope(k_rope[:, :, None, :], positions,
                         cfg.rope_theta)[:, :, 0]
+    if tp is not None and _mla_split(cfg, tp)[0]:
+        c_kv = MESH.copy_to(tp.mesh, c_kv, "model")
+        k_rope = MESH.copy_to(tp.mesh, k_rope, "model")
     return c_kv, k_rope
+
+
+def _mla_up(params, cfg: ModelConfig, name: str, head_dim: int):
+    """The raw ``w_uk``/``w_uv`` leaf, (rank, H * head_dim); under the
+    "tp" hint the rank's heads' columns, FSDP rows gathered."""
+    w = params[name]
+    tp = tp_layout()
+    if tp is None:
+        return w
+    return tp.weight(w, name, (cfg.mla.kv_lora_rank,
+                               cfg.num_heads * head_dim))[0]
 
 
 def _mla_expand_kv(params, cfg: ModelConfig, c_kv, k_rope):
     """Per-head K (B, S, H, nope + rope) and V (B, S, H, v) from the
-    latents (train, prefill and chunk paths)."""
+    latents (train, prefill and chunk paths); under the "tp" hint the
+    rank's heads."""
     m = cfg.mla
     B, S = c_kv.shape[:2]
-    H = cfg.num_heads
-    k_nope = dense(c_kv, params["w_uk"]).reshape(B, S, H, m.qk_nope_head_dim)
-    v = dense(c_kv, params["w_uv"]).reshape(B, S, H, m.v_head_dim)
-    k_rope_b = k_rope[:, :, None, :].expand(B, S, H, m.qk_rope_head_dim)
+    k_nope = dense(c_kv, _mla_up(params, cfg, "w_uk", m.qk_nope_head_dim))
+    k_nope = k_nope.reshape(B, S, -1, m.qk_nope_head_dim)
+    v = dense(c_kv, _mla_up(params, cfg, "w_uv", m.v_head_dim))
+    v = v.reshape(B, S, -1, m.v_head_dim)
+    k_rope_b = k_rope[:, :, None, :].expand(B, S, v.shape[2],
+                                            m.qk_rope_head_dim)
     return torch.cat([k_nope, k_rope_b], dim=-1), v
+
+
+def _mla_out(params, cfg: ModelConfig, o):
+    """o @ wo; under the "tp" hint row-parallel over the heads."""
+    tp = tp_layout()
+    if tp is None:
+        return dense(o, params["wo"])
+    return tp_row(o, params["wo"], "wo",
+                  (cfg.num_heads * cfg.mla.v_head_dim, cfg.d_model), tp)
 
 
 def mla_train(params, cfg: ModelConfig, x, *, q_chunk=512, prefix_len=0):
@@ -613,12 +693,24 @@ def mla_train(params, cfg: ModelConfig, x, *, q_chunk=512, prefix_len=0):
     out = chunked_attention(torch.cat([q_nope, q_rope], dim=-1), k, v,
                             causal=cfg.causal, q_chunk=q_chunk,
                             prefix_len=prefix_len)
-    return dense(out.reshape(B, S, -1), params["wo"])
+    return _mla_out(params, cfg, out.reshape(B, S, -1))
+
+
+def _mla_cache_cols(cfg: ModelConfig, c_kv):
+    """The latent columns this rank's cache holds: all of them, or under
+    the "tp" hint with the rank dim split its slice."""
+    tp = tp_layout()
+    if tp is None or not _mla_split(cfg, tp)[1]:
+        return c_kv
+    rl = cfg.mla.kv_lora_rank // tp.tp
+    return c_kv[..., tp.rank * rl:(tp.rank + 1) * rl]
 
 
 def mla_prefill(params, cfg: ModelConfig, x, cache_size: int, *,
                 q_chunk=512) -> Tuple[torch.Tensor, KVCache]:
-    m = cfg.mla
+    """The prompt's attention and a latent cache of ``cache_size`` rows;
+    under the "tp" hint the rank's heads and its latent columns, under the
+    "kv_seq" hint the rows of the sequence the rank holds."""
     B, S, _ = x.shape
     positions = torch.arange(S, device=x.device)
     q_nope, q_rope = _mla_q(params, cfg, x, positions)
@@ -626,35 +718,46 @@ def mla_prefill(params, cfg: ModelConfig, x, cache_size: int, *,
     k, v = _mla_expand_kv(params, cfg, c_kv, k_rope)
     out = chunked_attention(torch.cat([q_nope, q_rope], dim=-1), k, v,
                             causal=True, q_chunk=q_chunk)
+    seq, start = seq_layout(), 0
+    if seq is not None:
+        cache_size = seq.local_len(cache_size)
+        start = min(seq.offset(cache_size), S)
+    c_kv = _mla_cache_cols(cfg, c_kv)
     cd = compute_dtype()
-    cc = torch.zeros((B, cache_size, m.kv_lora_rank), dtype=cd,
+    cc = torch.zeros((B, cache_size, c_kv.shape[-1]), dtype=cd,
                      device=x.device)
-    cr = torch.zeros((B, cache_size, m.qk_rope_head_dim), dtype=cd,
+    cr = torch.zeros((B, cache_size, k_rope.shape[-1]), dtype=cd,
                      device=x.device)
-    cc[:, :S] = c_kv.to(cd)
-    cr[:, :S] = k_rope.to(cd)
-    return dense(out.reshape(B, S, -1), params["wo"]), KVCache(cc, cr)
+    rows = min(S - start, cache_size)
+    cc[:, :rows] = c_kv[:, start:start + rows].to(cd)
+    cr[:, :rows] = k_rope[:, start:start + rows].to(cd)
+    return _mla_out(params, cfg, out.reshape(B, S, -1)), KVCache(cc, cr)
 
 
 def _mla_q_eff(params, cfg: ModelConfig, q_nope):
     """q_nope (B, 1, H, nope) taken into the latent space through the raw
-    f32 w_uk (rank, H, nope): (B, 1, H, rank), f32."""
+    f32 w_uk (rank, H, nope): (B, 1, H, rank), f32 (the rank's heads
+    under the "tp" hint)."""
     m = cfg.mla
-    w_uk = params["w_uk"].reshape(m.kv_lora_rank, cfg.num_heads,
-                                  m.qk_nope_head_dim)
+    w_uk = _mla_up(params, cfg, "w_uk", m.qk_nope_head_dim).reshape(
+        m.kv_lora_rank, -1, m.qk_nope_head_dim)
     return torch.einsum("bqhn,rhn->bqhr", q_nope.float(), w_uk.float())
+
+
+def _mla_scale(cfg: ModelConfig) -> float:
+    """1 / sqrt(qk_nope + qk_rope), rounded in f32."""
+    m = cfg.mla
+    return float(np.float32(1.0) / np.sqrt(
+        np.float32(m.qk_nope_head_dim + m.qk_rope_head_dim)))
 
 
 def _mla_latent_probs(cfg: ModelConfig, q_eff, q_rope, cc, cr, last):
     """Softmax of q_eff . c_kv + q_rope . k_rope, f32, scaled by
     1 / sqrt(qk_nope + qk_rope) rounded in f32, over positions <= ``last``
     (a scalar or (B, 1, 1, 1)): (B, H, 1, S)."""
-    m = cfg.mla
-    scale = float(np.float32(1.0) / np.sqrt(
-        np.float32(m.qk_nope_head_dim + m.qk_rope_head_dim)))
     scores = (torch.einsum("bqhr,bsr->bhqs", q_eff, cc.float())
               + torch.einsum("bqhd,bsd->bhqs", q_rope.float(),
-                             cr.float())) * scale
+                             cr.float())) * _mla_scale(cfg)
     valid = torch.arange(cc.shape[1], device=cc.device)[
         None, None, None, :] <= last
     return torch.softmax(scores.masked_fill(~valid, NEG_INF), dim=-1)
@@ -663,10 +766,16 @@ def _mla_latent_probs(cfg: ModelConfig, q_eff, q_rope, cc, cr, last):
 def _mla_latent_out(params, cfg: ModelConfig, probs, cc):
     """probs . c_kv, then out of the latent space through the raw f32
     w_uv (rank, H, v): (B, 1, H, v) in the compute dtype."""
-    m = cfg.mla
     out_lat = torch.einsum("bhqs,bsr->bqhr", probs, cc.float())
-    w_uv = params["w_uv"].reshape(m.kv_lora_rank, cfg.num_heads,
-                                  m.v_head_dim)
+    return _mla_uv(params, cfg, out_lat)
+
+
+def _mla_uv(params, cfg: ModelConfig, out_lat):
+    """(B, 1, H, rank) f32 latents out through the raw f32 w_uv: (B, 1,
+    H, v) in the compute dtype."""
+    m = cfg.mla
+    w_uv = _mla_up(params, cfg, "w_uv", m.v_head_dim).reshape(
+        m.kv_lora_rank, -1, m.v_head_dim)
     return torch.einsum("bqhr,rhv->bqhv", out_lat,
                         w_uv.float()).to(compute_dtype())
 
@@ -700,15 +809,72 @@ def mla_decode(params, cfg: ModelConfig, x, cache: KVCache, pos
                ) -> Tuple[torch.Tensor, KVCache]:
     """Matrix-absorbed decode. x: (B, 1, d); cache.k = c_kv (B, S, rank),
     cache.v = k_rope (B, S, rope); pos a scalar or (B,) per-request
-    indices. Writes the cache in place and returns it."""
+    indices. Writes the cache in place and returns it. Under the "tp"
+    hint, ``_mla_decode_tp``."""
     B = x.shape[0]
     positions, vector = _decode_positions(pos, B, x.device)
     q_nope, q_rope = _mla_q(params, cfg, x, positions)
     c_kv, k_rope = _mla_ckv(params, cfg, x, positions)
+    tp = tp_layout()
+    if tp is not None:
+        return _mla_decode_tp(params, cfg, tp, q_nope, q_rope, c_kv, k_rope,
+                              cache, pos, positions, vector), cache
     _mla_write(cache, c_kv, k_rope, pos, positions, vector)
     last = positions[:, 0, None, None, None] if vector else positions[0]
     return _mla_absorbed(params, cfg, q_nope, q_rope, cache.k, cache.v,
                          last), cache
+
+
+def _mla_decode_tp(params, cfg: ModelConfig, tp, q_nope, q_rope, c_kv,
+                   k_rope, cache: KVCache, pos, positions, vector: bool):
+    """The absorbed decode on one rank's shards: its heads of wq, w_uk,
+    w_uv and wo, its columns of the latent cache's rank dim (``model``),
+    and under the "kv_seq" hint its rows of the sequence. The scores
+    contract over the rank dim, which the cache splits, while the weights
+    split heads: q_eff and q_rope are all-gathered over ``model`` (every
+    head), each rank scores its latent columns and the partial scores are
+    all-reduced over ``model`` in f32, so every rank takes the same
+    softmax; its partial probs . c_kv is all-gathered over the rank dim,
+    and the rank keeps its own heads for w_uv and the row-parallel wo.
+    Over a sequence-sharded cache each rank's softmax covers its rows,
+    and the ranks' latent outputs merge by their log-sum-exp
+    (``launch.mesh.softmax_merge``) before w_uv."""
+    B = q_nope.shape[0]
+    heads, cols = _mla_split(cfg, tp)
+    seq = seq_layout()
+    n = cache.k.shape[1]
+    off = seq.offset(n) if seq is not None else 0
+    _write_shard(((cache.k, _mla_cache_cols(cfg, c_kv)), (cache.v, k_rope)),
+                 pos, positions, vector, off)
+    q_eff = _mla_q_eff(params, cfg, q_nope)               # (B, 1, hl, r)
+    hl = q_eff.shape[2]
+    if heads:
+        q_eff = MESH.all_gather(tp.mesh, q_eff, "model", dim=2)
+        q_rope = MESH.all_gather(tp.mesh, q_rope, "model", dim=2)
+    rl = cache.k.shape[-1]
+    if cols:
+        q_eff = q_eff[..., tp.rank * rl:(tp.rank + 1) * rl]
+    nope = torch.einsum("bqhr,bsr->bhqs", q_eff, cache.k.float())
+    if cols:
+        nope = MESH.all_reduce(tp.mesh, nope, "model")
+    scores = (nope + torch.einsum("bqhd,bsd->bhqs", q_rope.float(),
+                                  cache.v.float())) * _mla_scale(cfg)
+    last = positions[:, 0, None, None, None] if vector else positions[0]
+    valid = off + torch.arange(n, device=scores.device)[
+        None, None, None, :] <= last                       # (B|1,1,1,n)
+    scores = scores.masked_fill(~valid, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out_lat = torch.einsum("bhqs,bsr->bqhr", probs, cache.k.float())
+    if seq is not None:
+        lse = torch.logsumexp(scores, dim=-1).transpose(1, 2)  # (B, 1, H)
+        lse = lse.masked_fill(~valid.any(-1), float("-inf"))
+        out_lat = MESH.softmax_merge(seq.mesh, out_lat, lse, seq.axes)
+    if cols:
+        out_lat = MESH.all_gather(tp.mesh, out_lat, "model", dim=-1)
+    if heads:
+        out_lat = out_lat[:, :, tp.rank * hl:(tp.rank + 1) * hl]
+    out = _mla_uv(params, cfg, out_lat)
+    return _mla_out(params, cfg, out.reshape(B, 1, -1))
 
 
 def _mla_page_write(cache: KVCache, c_kv, k_rope, block_tables, positions,

@@ -25,7 +25,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba2
 from repro_torch.models.layers import (dense, glorot, init_mlp,
-                                       init_rms_norm, mlp, rms_norm)
+                                       init_rms_norm, mlp, rms_norm,
+                                       tp_layout)
 from repro_torch.models.moe import init_moe, moe_ffn
 
 
@@ -188,8 +189,15 @@ def init_shared_attn(gen: torch.Generator, cfg: ModelConfig,
 
 
 def _fuse(params, h, emb):
-    """u = concat(h, emb) . w_fuse (a side-delta or SHiRA bundle too)."""
-    return dense(torch.cat([h, emb], dim=-1), params["w_fuse"])
+    """u = concat(h, emb) . w_fuse (a side-delta or SHiRA bundle too).
+    Under the "tp" hint ``w_fuse`` is replicated over ``model`` (its FSDP
+    rows gathered): every rank computes u whole, and the block's
+    column-parallel projections take it through ``copy_to``."""
+    w = params["w_fuse"]
+    tp = tp_layout()
+    if tp is not None:
+        w, _ = tp.weight(w, "w_fuse", (2 * h.shape[-1], h.shape[-1]))
+    return dense(torch.cat([h, emb], dim=-1), w)
 
 
 def shared_attn_train(params, cfg: ModelConfig, h, emb):

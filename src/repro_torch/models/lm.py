@@ -27,10 +27,11 @@ reference's nested {"mamba": MambaCache (g, k, B, ...), "attn": KVCache
 leading dim off, so a hybrid stage slices the group, then the layer. The
 paged entry points cover the dense and MoE families and refuse the
 others, as the reference's do. Under the launch layer's "tp" hint
-(``launch.sharding.TPLayout``; the dense GQA and MoE-with-GQA families)
-the parameters are one rank's shards: the embedding is vocab-parallel
-(or d-sharded, the reference's fallback), the blocks tensor-parallel,
-the loss a vocab-parallel cross-entropy, the serving logits gathered. In training, ``jax.checkpoint`` around
+(``launch.sharding.TPLayout``; every family) the parameters are one
+rank's shards: the embedding is vocab-parallel (or d-sharded, the
+reference's fallback), the blocks tensor-parallel, the vision and audio
+stubs replicated activations, the loss a vocab-parallel cross-entropy,
+the serving logits gathered. In training, ``jax.checkpoint`` around
 the scanned layer becomes ``torch.utils.checkpoint`` around each layer
 (a hybrid stage's around each group, as the reference's), under
 ``cfg.remat`` ("full", "dots" or "none"), and around each chunk of the

@@ -22,6 +22,16 @@ Where the port differs from the reference:
     first decode step raises;
   - ``mamba_decode`` writes the new state and windows into the cache in
     place (the reference returns new arrays).
+Under the launch layer's "tp" hint (``launch.sharding.TPLayout``) the
+mixer runs on the rank's heads: ``in_z``, ``in_x`` and ``in_dt``
+column-parallel (u through ``copy_to``), ``conv_x`` its channels,
+``in_bc`` and ``conv_bc`` replicated (B and C through ``copy_to`` after
+the conv, before the rank's heads use them), the per-head ``A_log``,
+``D`` and ``dt_bias`` and the norm's scale replicated and sliced to the
+rank's range after ``copy_to``, each head's B/C group its global one
+(``_local_groups``), the gated RMSNorm's sum of squares all-reduced over
+``model`` and ``out_proj`` row-parallel; the cache holds the rank's
+heads' state and channels' windows.
 The profile ranges of chip_smoke.py wrap the helpers by name
 (``_project``, ``_causal_conv``, ``_ssd_intra``, ``_ssd_states``,
 ``_ssd_inter``, ``_gated_out``, ``_conv_step``, ``_ssm_step``).
@@ -35,8 +45,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch import mesh as MESH
 from repro_torch.models.layers import (compute_dtype, dense, glorot,
-                                       init_rms_norm)
+                                       init_rms_norm, tp_column, tp_layout,
+                                       tp_row)
 
 
 class MambaCache(NamedTuple):
@@ -105,9 +117,68 @@ def _softplus(x):
                                           device=x.device))
 
 
+class _Local(NamedTuple):
+    """The rank's share of a mixer under the "tp" hint: its first head
+    and head count, whether the heads are split over ``model``."""
+    tp: object
+    h0: int
+    hl: int
+    split: bool
+
+
+def _local(cfg) -> Optional[_Local]:
+    """Under the "tp" hint, the rank's share (``_Local``); else None."""
+    tp = tp_layout()
+    if tp is None:
+        return None
+    d_inner, n_heads, _ = dims(cfg)
+    d = cfg.d_model
+    split = [tp.sharded(tp.spec(name, shape), -1) for name, shape in (
+        ("in_x", (d, d_inner)), ("in_z", (d, d_inner)),
+        ("in_dt", (d, n_heads)))]
+    if any(split) and not (all(split) and n_heads % tp.tp == 0):
+        raise ValueError(f"{cfg.name}: {n_heads} SSD heads and {d_inner} "
+                         f"channels do not split alike over a model axis "
+                         f"of {tp.tp}")
+    if not split[0]:
+        return _Local(tp, 0, n_heads, False)
+    hl = n_heads // tp.tp
+    return _Local(tp, tp.rank * hl, hl, True)
+
+
+def _head_leaf(leaf, loc: Optional[_Local], width: int = 1):
+    """A replicated per-head (H,) leaf, or per-channel (H * width,), as the
+    rank uses it: its slice of the heads, after ``copy_to`` (each rank's
+    gradient reaches only its own slice)."""
+    if loc is None or not loc.split:
+        return leaf
+    leaf = MESH.copy_to(loc.tp.mesh, leaf, "model")
+    return leaf[loc.h0 * width:(loc.h0 + loc.hl) * width]
+
+
+def _local_groups(n_groups: int, n_heads: int, loc: Optional[_Local]):
+    """The B/C groups (global indices) the rank's heads read, such that
+    local head j reads entry j // (hl / len): the group of global head h is
+    h // (n_heads / n_groups). None where that is every group as it is."""
+    if loc is None or not loc.split:
+        return None
+    hg = n_heads // n_groups
+    ids = [(loc.h0 + j) // hg for j in range(loc.hl)]
+    if loc.hl % hg == 0 and loc.h0 % hg == 0:
+        sel = ids[::hg]
+    elif min(ids) == max(ids):
+        sel = ids[:1]
+    else:
+        sel = ids
+    return None if sel == list(range(n_groups)) else sel
+
+
 def _project(params, cfg, u):
     """u: (B, S, d) -> z, x_raw, bc_raw, dt (pre-conv; dt after softplus,
-    f32)."""
+    f32); under the "tp" hint z, x_raw and dt of the rank's heads."""
+    loc = _local(cfg)
+    if loc is not None:
+        return _project_tp(params, cfg, u, loc)
     z = dense(u, params["in_z"])
     x_raw = dense(u, params["in_x"])
     bc_raw = dense(u, params["in_bc"])
@@ -116,12 +187,43 @@ def _project(params, cfg, u):
     return z, x_raw, bc_raw, dt
 
 
+def _project_tp(params, cfg, u, loc: _Local):
+    d = cfg.d_model
+    d_inner, n_heads, bc_dim = dims(cfg)
+    tp = loc.tp
+    uc = MESH.copy_to(tp.mesh, u, "model") if loc.split else u
+    col = lambda name, width: tp_column(uc, params[name], name, (d, width),
+                                        tp, copied=True)[0]
+    z, x_raw, dt_raw = col("in_z", d_inner), col("in_x", d_inner), col(
+        "in_dt", n_heads)
+    bc_raw = dense(u, tp.weight(params["in_bc"], "in_bc", (d, bc_dim))[0])
+    dt = _softplus(dt_raw.float()
+                   + _head_leaf(params["dt_bias"], loc).float())
+    return z, x_raw, bc_raw, dt
+
+
 def _gated_out(params, cfg, y, z):
-    """RMSNorm(y * silu(z)) in f32, cast, then ``out_proj``."""
+    """RMSNorm(y * silu(z)) in f32, cast, then ``out_proj``. Under the
+    "tp" hint y and z are the rank's channels: the sum of squares is
+    all-reduced over ``model`` (forward and backward: every rank's outputs
+    read it) before the mean, the norm's scale sliced to the channels, and
+    ``out_proj`` row-parallel."""
     g = y.float() * F.silu(z.float())
-    var = torch.mean(g * g, dim=-1, keepdim=True)
-    g = g * torch.rsqrt(var + cfg.norm_eps) * params["norm"]["scale"].float()
-    return dense(g.to(compute_dtype()), params["out_proj"])
+    loc = _local(cfg)
+    if loc is None:
+        var = torch.mean(g * g, dim=-1, keepdim=True)
+        g = g * torch.rsqrt(var + cfg.norm_eps) * \
+            params["norm"]["scale"].float()
+        return dense(g.to(compute_dtype()), params["out_proj"])
+    d_inner = dims(cfg)[0]
+    ss = torch.sum(g * g, dim=-1, keepdim=True)
+    if loc.split:
+        mesh = loc.tp.mesh
+        ss = MESH.copy_to(mesh, MESH.reduce_from(mesh, ss, "model"), "model")
+    scale = _head_leaf(params["norm"]["scale"], loc, cfg.ssm.head_dim)
+    g = g * torch.rsqrt(ss / d_inner + cfg.norm_eps) * scale.float()
+    return tp_row(g.to(compute_dtype()), params["out_proj"], "out_proj",
+                  (d_inner, cfg.d_model), loc.tp)
 
 
 # ---------------------------------------------------------------------------
@@ -222,28 +324,44 @@ def ssd_chunked(x, dt, A, B, C, chunk: int,
 # Module entry points
 # ---------------------------------------------------------------------------
 
-def _ssd_from_parts(params, cfg, xBC_x, xBC_bc, dt, B_, S_):
+def _bc_groups(cfg, bc, lead, loc: Optional[_Local]):
+    """(B, C) of the conv'd bc (..., 2 g n) as (*lead, groups, n): the
+    groups the rank's heads read (``_local_groups``); under the "tp" hint
+    with the heads split, bc goes through ``copy_to`` first (every rank
+    computes it whole, each rank's heads use it)."""
     s = cfg.ssm
     _, n_heads, _ = dims(cfg)
-    x = xBC_x.reshape(B_, S_, n_heads, s.head_dim)
+    if loc is not None and loc.split:
+        bc = MESH.copy_to(loc.tp.mesh, bc, "model")
     gn = s.n_groups * s.d_state
-    Bm = xBC_bc[..., :gn].reshape(B_, S_, s.n_groups, s.d_state)
-    Cm = xBC_bc[..., gn:].reshape(B_, S_, s.n_groups, s.d_state)
-    A = -torch.exp(params["A_log"].float())
+    Bm = bc[..., :gn].reshape(tuple(lead) + (s.n_groups, s.d_state))
+    Cm = bc[..., gn:].reshape(tuple(lead) + (s.n_groups, s.d_state))
+    sel = _local_groups(s.n_groups, n_heads, loc)
+    if sel is not None:
+        idx = torch.tensor(sel, device=bc.device)
+        Bm, Cm = Bm.index_select(-2, idx), Cm.index_select(-2, idx)
+    return Bm, Cm
+
+
+def _ssd_from_parts(params, cfg, xBC_x, xBC_bc, dt, B_, S_):
+    s = cfg.ssm
+    loc = _local(cfg)
+    x = xBC_x.reshape(B_, S_, -1, s.head_dim)
+    Bm, Cm = _bc_groups(cfg, xBC_bc, (B_, S_), loc)
+    A = -torch.exp(_head_leaf(params["A_log"], loc).float())
     y, final_state = ssd_chunked(x, dt, A, Bm, Cm, s.chunk)
-    y = y + (params["D"].float()[None, None, :, None]
+    y = y + (_head_leaf(params["D"], loc).float()[None, None, :, None]
              * x.float()).to(compute_dtype())
     return y, final_state
 
 
 def mamba_train(params, cfg: ModelConfig, u):
-    d_inner, _, _ = dims(cfg)
     B_, S_, _ = u.shape
     z, x_raw, bc_raw, dt = _project(params, cfg, u)
     xx = _causal_conv(x_raw, params["conv_x_w"], params["conv_x_b"])
     bc = _causal_conv(bc_raw, params["conv_bc_w"], params["conv_bc_b"])
     y, _ = _ssd_from_parts(params, cfg, xx, bc, dt, B_, S_)
-    return _gated_out(params, cfg, y.reshape(B_, S_, d_inner), z)
+    return _gated_out(params, cfg, y.reshape(B_, S_, -1), z)
 
 
 def _window(raw, k1: int):
@@ -259,7 +377,6 @@ def _window(raw, k1: int):
 def mamba_prefill(params, cfg: ModelConfig, u
                   ) -> Tuple[torch.Tensor, MambaCache]:
     s = cfg.ssm
-    d_inner, _, _ = dims(cfg)
     B_, S_, _ = u.shape
     z, x_raw, bc_raw, dt = _project(params, cfg, u)
     conv_x_state = _window(x_raw, s.d_conv - 1)
@@ -267,7 +384,7 @@ def mamba_prefill(params, cfg: ModelConfig, u
     xx = _causal_conv(x_raw, params["conv_x_w"], params["conv_x_b"])
     bc = _causal_conv(bc_raw, params["conv_bc_w"], params["conv_bc_b"])
     y, final_state = _ssd_from_parts(params, cfg, xx, bc, dt, B_, S_)
-    out = _gated_out(params, cfg, y.reshape(B_, S_, d_inner), z)
+    out = _gated_out(params, cfg, y.reshape(B_, S_, -1), z)
     return out, MambaCache(ssm=final_state, conv_x=conv_x_state,
                            conv_bc=conv_bc_state)
 
@@ -299,7 +416,7 @@ def mamba_decode(params, cfg: ModelConfig, u, cache: MambaCache, pos
     ``pos`` is unused (the state is O(1) a request)."""
     del pos
     s = cfg.ssm
-    d_inner, n_heads, _ = dims(cfg)
+    loc = _local(cfg)
     B_ = u.shape[0]
     z, x_raw, bc_raw, dt = _project(params, cfg, u)       # (B,1,.)
     xx, new_conv_x = _conv_step(cache.conv_x, x_raw, params["conv_x_w"],
@@ -308,12 +425,10 @@ def mamba_decode(params, cfg: ModelConfig, u, cache: MambaCache, pos
                                  params["conv_bc_b"])
     cache.conv_x.copy_(new_conv_x)
     cache.conv_bc.copy_(new_conv_bc)
-    x = xx.reshape(B_, n_heads, s.head_dim)
-    gn = s.n_groups * s.d_state
-    Bm = bc[:, :gn].reshape(B_, s.n_groups, s.d_state)
-    Cm = bc[:, gn:].reshape(B_, s.n_groups, s.d_state)
-    A = -torch.exp(params["A_log"].float())
+    x = xx.reshape(B_, -1, s.head_dim)
+    Bm, Cm = _bc_groups(cfg, bc, (B_,), loc)
+    A = -torch.exp(_head_leaf(params["A_log"], loc).float())
     y = _ssm_step(cache.ssm, x, dt[:, 0], A, Bm, Cm)
-    y = y + params["D"].float()[None, :, None] * x.float()
-    y = y.reshape(B_, 1, d_inner).to(compute_dtype())
+    y = y + _head_leaf(params["D"], loc).float()[None, :, None] * x.float()
+    y = y.reshape(B_, 1, -1).to(compute_dtype())
     return _gated_out(params, cfg, y, z), cache

@@ -92,7 +92,10 @@ def flat(tree):
 
 
 def batches_of(cfg, steps, seed=0):
-    shape = JShapeSpec("t", S, B, "train")
+    """``steps`` train batches of B x S tokens (a vision batch's patches
+    in front of them)."""
+    prefix = cfg.num_prefix_embeds if cfg.modality == "vision" else 0
+    shape = JShapeSpec("t", S + prefix, B, "train")
     return [j_make_batch(cfg, shape, seed, i) for i in range(steps)]
 
 
@@ -206,17 +209,25 @@ def _job_key(name, mesh):
     return f"{name}@{mesh[0]}x{mesh[1]}"
 
 
-def _spawn(jobs, n, tmp):
+def _spawn(n, tmp):
+    """Start ``n`` ranks before their jobs exist (they import torch and
+    join the group meanwhile, then wait for the jobs file): (process, jobs
+    path, out path)."""
     jp, op = os.path.join(tmp, f"jobs{n}.pkl"), os.path.join(tmp,
                                                              f"out{n}.pkl")
-    with open(jp, "wb") as f:
-        pickle.dump(jobs, f)
     env = dict(os.environ, OMP_NUM_THREADS="1")
     proc = subprocess.Popen(
         [sys.executable, os.path.join(HERE, "torch_dist_worker.py"), jp, op,
          str(n)], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
         env=env)
-    return proc, op
+    return proc, jp, op
+
+
+def _post(jobs, jp):
+    """Hand the ranks their jobs: written whole, then renamed into place."""
+    with open(jp + ".part", "wb") as f:
+        pickle.dump(jobs, f)
+    os.replace(jp + ".part", jp)
 
 
 def _finish(proc, op):
@@ -276,58 +287,83 @@ def _extra_jobs(jobs, inputs):
     return references
 
 
-def run_cases(train, serve, nprocs, extras=False, seq=()):
+def run_cases(train, serve, nprocs, extras=False, seq=(), more_jobs=None,
+              ref_tcfg=None, vector_pos=SEQ_VECTOR_POS, tcfg=None,
+              steps=STEPS):
     """Spawn ``nprocs`` ranks on the jobs of these cases, compute the JAX
-    references while they run, and return (references, results)."""
+    references while they run, and return (references, results).
+    ``more_jobs(jobs)`` adds jobs and returns a function that fills in
+    their references; ``ref_tcfg`` ({name: TrainConfig fields}) sets a
+    train case's JAX reference apart from the mesh's step (microbatches
+    equal to the data shards, for an MoE model's aux); ``tcfg`` ({name:
+    TrainConfig fields}) sets both sides' apart from TCFG; the ``seq``
+    cases named in ``vector_pos`` decode at (B,) positions; each train
+    case takes ``steps`` steps."""
     tmp = tempfile.mkdtemp()
+    proc, jp, op = _spawn(nprocs, tmp)
     refs, jobs, inputs = {}, {}, {}
-    for name, spec, mode, mesh in train:
-        if name not in inputs:
-            cfg = j_cfg(spec)
-            params = JLM.init_params(cfg, jax.random.PRNGKey(0))
-            acfg = JAdapterConfig(kind="shira", mask="rand", sparsity=0.99)
-            inputs[name] = (params, batches_of(cfg, STEPS),
-                            shira_indices(params, acfg)
-                            if mode == "shira" else None)
-        params, batches, idx = inputs[name]
-        jobs[_job_key(name, mesh)] = {
-            "kind": "train", "cfg": spec, "mesh": mesh, "mode": mode,
-            "params": np_tree(params), "batches": batches, "tcfg": TCFG,
-            "indices": idx}
-    more = _extra_jobs(jobs, inputs) if extras else None
-    prompt = np.random.RandomState(5).randint(0, 200, (4, 6)).astype(
-        np.int32)
-    serve_params = {}
-    for key, spec, mesh in serve:
-        serve_params[key] = JLM.init_params(j_cfg(spec),
-                                            jax.random.PRNGKey(0))
-        jobs[key] = {"kind": "serve", "cfg": spec, "mesh": mesh,
-                     "params": np_tree(serve_params[key]), "prompt": prompt,
-                     "steps": 4}
-    seq_prompts = {}
-    for key, spec, mesh, batch in seq:
-        serve_params[key] = JLM.init_params(j_cfg(spec),
-                                            jax.random.PRNGKey(0))
-        seq_prompts[key] = np.random.RandomState(6).randint(
-            0, 100, (batch, SEQ_PROMPT)).astype(np.int32)
-        jobs[key] = {"kind": "serve", "cfg": spec, "mesh": mesh,
-                     "params": np_tree(serve_params[key]),
-                     "prompt": seq_prompts[key], "steps": SEQ_STEPS,
-                     "size": SEQ_CACHE, "vector_pos": key in SEQ_VECTOR_POS}
-    proc = _spawn(jobs, nprocs, tmp)
+    serve_params, seq_prompts = {}, {}
+    try:
+        for name, spec, mode, mesh in train:
+            if name not in inputs:
+                cfg = j_cfg(spec)
+                params = JLM.init_params(cfg, jax.random.PRNGKey(0))
+                acfg = JAdapterConfig(kind="shira", mask="rand",
+                                      sparsity=0.99)
+                inputs[name] = (params, batches_of(cfg, steps),
+                                shira_indices(params, acfg)
+                                if mode == "shira" else None)
+            params, batches, idx = inputs[name]
+            jobs[_job_key(name, mesh)] = {
+                "kind": "train", "cfg": spec, "mesh": mesh, "mode": mode,
+                "params": np_tree(params), "batches": batches,
+                "tcfg": {**TCFG, **(tcfg or {}).get(name, {})},
+                "indices": idx}
+        more = _extra_jobs(jobs, inputs) if extras else None
+        more_refs = more_jobs(jobs) if more_jobs is not None else None
+        prompt = np.random.RandomState(5).randint(0, 200, (4, 6)).astype(
+            np.int32)
+        for key, spec, mesh in serve:
+            serve_params[key] = JLM.init_params(j_cfg(spec),
+                                                jax.random.PRNGKey(0))
+            jobs[key] = {"kind": "serve", "cfg": spec, "mesh": mesh,
+                         "params": np_tree(serve_params[key]),
+                         "prompt": prompt, "steps": 4}
+        for key, spec, mesh, batch in seq:
+            serve_params[key] = JLM.init_params(j_cfg(spec),
+                                                jax.random.PRNGKey(0))
+            seq_prompts[key] = np.random.RandomState(6).randint(
+                0, 100, (batch, SEQ_PROMPT)).astype(np.int32)
+            jobs[key] = {"kind": "serve", "cfg": spec, "mesh": mesh,
+                         "params": np_tree(serve_params[key]),
+                         "prompt": seq_prompts[key], "steps": SEQ_STEPS,
+                         "size": SEQ_CACHE, "vector_pos": key in vector_pos}
+    except BaseException:   # the ranks wait for a jobs file: let them exit
+        _post({}, jp)
+        proc.communicate(timeout=400)
+        raise
+    _post(jobs, jp)
     # the JAX references, meanwhile
     for key, spec, _ in serve:
         refs[key] = jax_serve(spec, serve_params[key], prompt, 4)
-    for key, spec, _, _ in seq:
-        refs[key] = jax_serve(spec, serve_params[key], seq_prompts[key],
-                              SEQ_STEPS, SEQ_CACHE)
+    done = {}       # one JAX run for the meshes that share a spec and batch
+    for key, spec, _, batch in seq:
+        same = (spec[0], repr(spec[1]), batch)
+        if same not in done:
+            done[same] = jax_serve(spec, serve_params[key], seq_prompts[key],
+                                   SEQ_STEPS, SEQ_CACHE)
+        refs[key] = done[same]
     for name, spec, mode, mesh in train:
         if name not in refs:
-            refs[name] = jax_train(spec, mode, STEPS,
+            refs[name] = jax_train(spec, mode, steps,
+                                   {**(tcfg or {}).get(name, {}),
+                                    **(ref_tcfg or {}).get(name, {})},
                                    indices=inputs[name][2])[2]
     if more is not None:
         more(refs)
-    return refs, _finish(*proc)
+    if more_refs is not None:
+        more_refs(refs)
+    return refs, _finish(proc, op)
 
 
 @pytest.fixture(scope="module")

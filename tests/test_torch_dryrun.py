@@ -11,11 +11,11 @@
     gather and all-reduces worked out by hand;
   * ``launch.dryrun.lower_cell`` on smoke configs over an abstract (2, 2)
     mesh writes the reference's record fields, its per-rank memory equals
-    the bytes of the shards ``local_shard`` cuts, a family with no TP
-    forward gets ``"cost": null`` and a reason (ROADMAP A11); the
-    production 16 x 16 ``decode_32k`` and ``prefill_32k`` cells of
-    starcoder2-7b and granite-34b, whose caches shard the sequence, record
-    a cost; the CLI writes its records.
+    the bytes of the shards ``local_shard`` cuts, the families whose TP
+    forward came last (MLA, Mamba2, the hybrid, vision, audio) record a
+    cost too; the production 16 x 16 ``decode_32k`` and ``prefill_32k``
+    cells of starcoder2-7b and granite-34b, whose caches shard the
+    sequence, record a cost; the CLI writes its records.
 """
 import json
 import os
@@ -180,13 +180,18 @@ def test_lower_cell_records_cost_on_tp_families(arch, kind, adapter):
                                   "deepseek-v2-lite-16b", "paligemma-3b",
                                   "hubert-xlarge"])
 def test_lower_cell_null_cost_without_tp_forward(arch):
+    """No cell's cost is null any more: the train and prefill cells of
+    the five families that once had no TP forward run rank 0's step on
+    "meta" and record a cost (every op counted) and collectives."""
     cfg = get_smoke_config(arch)
     mesh = abstract_mesh((2, 2), ("data", "model"))
     for kind in ("train", "prefill"):
         rec = D.lower_cell(arch, ShapeSpec("t", 300, 4, kind), mesh,
                            cfg=cfg)
-        assert RECORD <= set(rec) and rec["ok"]
-        assert rec["cost"] is None and "ROADMAP A11" in rec["reason"]
+        assert RECORD <= set(rec) and rec["ok"] and "reason" not in rec
+        assert rec["cost"]["flops"] > 0
+        assert rec["cost"]["ops_without_cost"] == 0
+        assert rec["collectives"]["total_bytes"] > 0
         assert rec["memory"]["per_rank_gb"] > 0
 
 
@@ -209,12 +214,12 @@ def test_cli_writes_records(tmp_path):
     D.main(["--arch", "mamba2-780m,starcoder2-7b", "--shape",
             "decode_32k,long_500k", "--mesh", "both", "--out", str(out)])
     recs = json.loads(out.read_text())
-    # mamba2: decode_32k and long_500k (no TP forward: no cost);
-    # starcoder2: decode_32k (its 4 KV heads shard the sequence on 16-way
-    # TP); on both meshes
+    # mamba2: decode_32k and long_500k (batch 1: served whole on every
+    # data rank); starcoder2: decode_32k (its 4 KV heads shard the
+    # sequence on 16-way TP); on both meshes, each with a cost
     assert len(recs) == 6 and all(r["ok"] for r in recs)
     assert all(RECORD <= set(r) for r in recs)
-    assert all((r["cost"] is None) == (r["arch"] == "mamba2-780m")
+    assert all(r["cost"] is not None and r["cost"]["flops"] > 0
                for r in recs)
     assert {tuple(r["mesh"]) for r in recs} == {(16, 16), (2, 16, 16)}
     assert D.DEFAULT_OUT.startswith("build" + os.sep) or \

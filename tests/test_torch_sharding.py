@@ -5,10 +5,11 @@ fallbacks included), ``cache_specs`` and ``batch_spec`` give the JAX
 package's specs over the same paths, for all ten archs on the abstract
 meshes (16, 16), (2, 16, 16), (2, 2), (1, 4) and (4, 1); the JAX side
 reads ``jax.eval_shape``'s parameter tree, the port's a "meta" tree.
-Also: ``local_shard`` cuts the tiles a spec names, ``TPLayout``
-refuses a family with no TP forward, ``kv_seq_axes`` reads the sequence
-entry of GQA and MLA cache specs, and the serving steps of zamba2 and
-paligemma on a sequence-sharded (4, 1) cache refuse naming A11.
+Also: ``local_shard`` cuts the tiles a spec names, ``TPLayout`` lays
+out the leaves of every family (MLA, Mamba2, the hybrid, vision and
+audio as the dense ones), ``kv_seq_axes`` reads the sequence entry of
+GQA and MLA cache specs, and the serving steps of zamba2 and paligemma on
+a sequence-sharded (4, 1) cache install the "kv_seq" hint.
 """
 import jax
 import numpy as np
@@ -120,13 +121,54 @@ def test_local_shard_cuts_tiles():
                        v[4:6])
 
 
+# per arch, (leaf, per-layer shape of its semantic dims, the (1, 4) spec)
+TP_LEAVES = {
+    "mamba2-780m": [("in_x", (1536, 3072), (None, "model")),
+                    ("in_dt", (1536, 48), (None, "model")),
+                    ("in_bc", (1536, 256), (None, None)),
+                    ("out_proj", (3072, 1536), ("model", None)),
+                    ("conv_x_w", (4, 3072), (None, "model")),
+                    ("A_log", (48,), (None,))],
+    # trained with FSDP: the non-TP matrix dim over ``data``
+    "deepseek-v2-lite-16b": [("wq", (2048, 3072), ("data", "model")),
+                             ("w_dkv", (2048, 576), ("data", None)),
+                             ("w_uk", (512, 2048), ("data", "model")),
+                             ("w_uv", (512, 2048), ("data", "model")),
+                             ("wo", (2048, 2048), ("model", "data"))],
+    "zamba2-2.7b": [("in_z", (2560, 5120), (None, "model")),
+                    ("out_proj", (5120, 2560), ("model", None)),
+                    ("w_fuse", (5120, 2560), (None, None)),
+                    ("wk", (2560, 2560), (None, "model"))],
+    "paligemma-3b": [("wq", (2048, 2048), (None, "model")),
+                     ("wk", (2048, 256), (None, None)),
+                     ("wo", (2048, 2048), ("model", None))],
+    "hubert-xlarge": [("wq", (1280, 1280), (None, "model")),
+                      ("wk", (1280, 1280), (None, "model")),
+                      ("w_down", (5120, 1280), ("model", None))],
+}
+
+
 @pytest.mark.parametrize("arch", ["mamba2-780m", "deepseek-v2-lite-16b",
                                   "zamba2-2.7b", "paligemma-3b",
                                   "hubert-xlarge"])
 def test_tp_layout_refuses_families_without_tp_forward(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        tshd.TPLayout(get_config(arch), abstract_mesh((1, 4),
-                                                      ("data", "model")))
+    """No family is refused: ``TPLayout`` lays out the leaves of the five
+    families that once had no TP forward by the rules, on (1, 4) (MLA's
+    heads column-parallel and w_dkv replicated; the SSD heads split,
+    in_bc and the per-head leaves replicated; paligemma's one KV head
+    replicated beside its split q heads), and reads the serving step's
+    "tp" hint."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import steps as S
+    cfg = get_config(arch)
+    mesh = abstract_mesh((1, 4), ("data", "model"))
+    lay = tshd.TPLayout(cfg, mesh)
+    for name, shape, want in TP_LEAVES[arch]:
+        assert canon(lay.spec(name, shape)) == want, name
+    smoke = get_smoke_config(arch)
+    hints = S._serve_hints(smoke, mesh, ShapeSpec("d", 32, 4, "decode"),
+                           cache=not smoke.encoder_only)
+    assert isinstance(hints["tp"], tshd.TPLayout)
 
 
 def test_tp_layout_specs_follow_the_rules():
@@ -168,8 +210,9 @@ def test_kv_seq_axes_reads_the_sequence_entry(arch):
 @pytest.mark.parametrize("arch", ["zamba2-2.7b", "paligemma-3b"])
 def test_serving_steps_without_tp_forward_refuse_naming_a11(arch):
     """zamba2 and paligemma on (4, 1) with batch 1 (a cache spec that
-    shards the sequence over ``data``): the serving steps refuse naming
-    A11, before any sequence-sharded layout is installed."""
+    shards the sequence over ``data``): the serving steps build, and
+    install the "kv_seq" hint over ``data``, 8 rows of a 32-row cache a
+    rank; no step refuses a family."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.launch import steps as S
     cfg = get_smoke_config(arch)
@@ -177,7 +220,8 @@ def test_serving_steps_without_tp_forward_refuse_naming_a11(arch):
     shape = ShapeSpec("d", 32, 1, "decode")
     assert tshd.kv_seq_axes(cfg, tshd.cache_specs(cfg, shape, mesh)) == \
         ("data",)
-    for make in (lambda: S.make_prefill_step(cfg, 32, mesh, shape),
-                 lambda: S.make_decode_step(cfg, mesh, shape)):
-        with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-            make()
+    hints = S._serve_hints(cfg, mesh, shape)
+    assert hints["kv_seq"].axes == ("data",) and hints["kv_seq"].n == 4
+    assert hints["kv_seq"].local_len(32) == 8
+    S.make_prefill_step(cfg, 32, mesh, shape)
+    S.make_decode_step(cfg, mesh, shape)

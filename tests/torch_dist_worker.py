@@ -3,8 +3,9 @@ on the CPU, one file store.
 
     python tests/torch_dist_worker.py JOBS.pkl OUT.pkl NPROCS
 
-spawns NPROCS ranks; every rank runs every job of JOBS.pkl (a dict name
--> job, numpy inputs only) in order, and rank 0 writes {name: result} to
+spawns NPROCS ranks; every rank waits for JOBS.pkl to appear (the
+caller may start the ranks first), runs every job in it (a dict name ->
+job, numpy inputs only) in order, and rank 0 writes {name: result} to
 OUT.pkl. A job builds its mesh, cuts each rank's shards of the global
 inputs (``launch.sharding.local_shard``), runs the port's multi-rank
 code, and gathers what the test compares back to global arrays. It
@@ -14,6 +15,7 @@ import os
 import pickle
 import sys
 import tempfile
+import time
 import traceback
 
 import numpy as np
@@ -174,9 +176,8 @@ def job_train(job):
         gidx = job["indices"]
         idx4, place = {}, {}
         for path, i in gidx.items():
-            s = list(specs[path]) + [None] * 3
-            tiles = (shd._axis_prod(mesh, s[1]), shd._axis_prod(mesh, s[2]))
             shape = dict(iter_leaves(params))[path].shape
+            tiles = shd.tile_counts(specs[path], len(shape), mesh)
             ii, _, pl = A.split_packed(torch.from_numpy(i),
                                        torch.zeros(i.shape), shape, tiles)
             idx4[path], place[path] = ii, pl
@@ -202,14 +203,26 @@ def job_train(job):
         return out
 
 
+def kv_rows(caches):
+    """The rows a rank's first KV cache holds (a hybrid stage's shared
+    block's), or None for a model with none (Mamba2)."""
+    for st in caches:
+        kv = st["attn"] if isinstance(st, dict) else st
+        if hasattr(kv, "k"):
+            return int(kv.k.shape[-3 if kv.k.ndim == 5 else -2])
+    return None
+
+
 def job_serve(job):
     """Prefill and greedy decode steps through the serving steps, the
     cache of ``size`` rows laid out by ``kv_cache_spec`` for a batch of
     the prompt's rows: by KV heads, or by sequence (KV heads that do not
     divide ``model``; a batch below the dp size, which every rank then
     serves whole). ``vector_pos``: each decode step's position as a (B,)
-    tensor, the per-request form. Also the collective bytes of the first
-    decode step and each rank's cache length."""
+    tensor, the per-request form. ``patches``: a vision prefix of
+    (B, P, d) patch embeddings, the first P cache rows. Also the
+    collective bytes of the first decode step and each rank's cache
+    length."""
     cfg = make_cfg(job)
     mesh = mesh_of(job)
     params = bridge.params_from_numpy(job["params"], "cpu")
@@ -217,20 +230,26 @@ def job_serve(job):
     local = shd.shard_tree(params, pspecs, mesh)
     prompt = job["prompt"]
     B, S0 = prompt.shape
-    size = job.get("size") or S0 + job["steps"] + 1
+    patches = job.get("patches")
+    P0 = 0 if patches is None else patches.shape[1]
+    size = job.get("size") or P0 + S0 + job["steps"] + 1
     shape = ShapeSpec("serve", size, B, "decode")
     prefill = S.make_prefill_step(cfg, size, mesh, shape)
     decode = S.make_decode_step(cfg, mesh, shape)
     split = shd.cache_batch_axes(cfg, shape, mesh)[0] is not None
-    toks = torch.from_numpy(rows_of(prompt, mesh) if split else prompt)
+    mine = lambda a: torch.from_numpy(rows_of(a, mesh) if split else a)
+    toks = mine(prompt)
+    batch = {"tokens": toks}
+    if patches is not None:
+        batch["patch_embeds"] = mine(patches)
     out_t, out_l = [], []
     with TL.compute_precision(torch.float32):
-        logits, caches = prefill(local, {"tokens": toks})
+        logits, caches = prefill(local, batch)
         for i in range(job["steps"]):
             nxt = torch.argmax(logits, -1).to(torch.int32)[:, None]
             out_t.append(nxt)
             out_l.append(logits)
-            pos = S0 + i
+            pos = P0 + S0 + i
             if job.get("vector_pos"):
                 pos = torch.full((toks.shape[0],), pos, dtype=torch.int32)
             with M.record() as ev:
@@ -239,13 +258,30 @@ def job_serve(job):
                 coll = collective_summary(ev)
         out_l.append(logits)
     toks, logits = torch.cat(out_t, 1), torch.stack(out_l, 1)
-    out = {"coll": coll, "cache_rows": int(caches[0].k.shape[2])}
+    out = {"coll": coll, "cache_rows": kv_rows(caches)}
     if split:
         out.update(tokens=gather_rows(toks, mesh),
                    logits=gather_rows(logits, mesh))
     else:               # every rank served the whole batch: rank 0's
         out.update(tokens=toks.numpy(), logits=logits.float().numpy())
     return out
+
+
+def job_encode(job):
+    """The encode step (an encoder-only model's frame logits) on the mesh,
+    the batch's rows cut over the dp ranks; the logits gathered back."""
+    cfg = make_cfg(job)
+    mesh = mesh_of(job)
+    params = bridge.params_from_numpy(job["params"], "cpu")
+    local = shd.shard_tree(params, S.serve_param_shardings(cfg, mesh), mesh)
+    frames = job["frames"]
+    shape = ShapeSpec("encode", frames.shape[1], frames.shape[0], "prefill")
+    step = S.make_encode_step(cfg, mesh, shape)
+    with TL.compute_precision(torch.float32), M.record() as ev:
+        logits = step(local, {"frame_embeds": torch.from_numpy(
+            rows_of(frames, mesh))})
+    return {"logits": gather_rows(logits, mesh),
+            "coll": collective_summary(ev)}
 
 
 def job_collectives(job):
@@ -273,7 +309,7 @@ def job_collectives(job):
 
 
 JOBS = {"ep_moe": job_ep_moe, "materialize": job_materialize,
-        "train": job_train, "serve": job_serve,
+        "train": job_train, "serve": job_serve, "encode": job_encode,
         "collectives": job_collectives}
 
 
@@ -281,6 +317,8 @@ def _rank(rank, n, job_path, out_path, store):
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{store}",
                             rank=rank, world_size=n)
+    while not os.path.exists(job_path):     # the parent may still be
+        time.sleep(0.05)                    # building the jobs
     with open(job_path, "rb") as f:
         jobs = pickle.load(f)
     results = {}
