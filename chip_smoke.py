@@ -378,7 +378,10 @@ D = 256 instances paligemma-3b's decode takes ((8, 1, 8, 256) at S =
 1312, the lanes' rows with the prefix, (B,) and scalar kv_len) and the
 non-causal prefills of hubert-xlarge's encode ((8, 1024) and (1, 777) of
 16 heads of 80), and flash_decode_paged must refuse D = 80 and D = 256
-on the card. It prints every flash_decode instance's registers and
+on the card. starcoder2-7b's one request at 32k runs unsharded through
+the existing flash_decode instance and through flash_decode_paged over
+2,048 pages of 16, and every decode case prints its plan's splits a
+request (nsplit). It prints every flash_decode instance's registers and
 spills, and flash_prefill's, and fails if a flash_decode instance or a
 D = 80 flash_prefill instance spills. It also holds masked_update (the dense-mask apply of hook
 mode) against its plain version, bit for bit, at the stacked (32, 4608,
@@ -445,6 +448,7 @@ LSE_SHAPES = ((1, 4, 9, 128, 8192),   # (B, KV, G, D, S): starcoder2-7b's
                                       # long_500k on 16 x 16 (2 KV heads, a
                                       # 16th of 524,288 rows) and on (4, 1)
               (1, 8, 1, 80, 8192))    # cut (8 KV heads, D = 80)
+LONG_CACHE = 32768             # an unsharded request's cache at 32k
 RESTORE_TOL = 1e-5             # the JAX package's load/unload tolerance
 ADAMW_TOL = 1e-6               # rtol = atol: the JAX package's own, and the
                                # kernel rounds as its plain version does
@@ -1737,14 +1741,15 @@ def zamba_kernels(torch, flush):
 
 
 def attn_case(torch, flush, label, fn, plain, library, tol, cost,
-              iters=20):
+              iters=20, nsplit=None):
     """One attention kernel against its plain version on the same inputs:
     max_abs_err within ``tol``, then cold-L2 times of the kernel, the plain
     version and the library call, and the bound from the wrapper's
     ``cost()`` of this call: its bytes, and the score products (q . k) and
     value products (p . v) the function needs, all at the rate of the
     inputs' type, whatever a kernel does within (flash_prefill's bf16
-    p . v runs as two products, p = hi + lo, 1.5x these operations)."""
+    p . v runs as two products, p = hi + lo, 1.5x these operations).
+    ``nsplit``: a decode kernel's splits a request (its plan), printed."""
     got = fn()
     want = plain()
     err = float((got.float() - want.float()).abs().max())
@@ -1754,7 +1759,10 @@ def attn_case(torch, flush, label, fn, plain, library, tol, cost,
          "plain_ms": cold_ms(torch, plain, 3, flush),
          "library_ms": cold_ms(torch, library, 10, flush),
          **bound_of(cost)}
+    if nsplit is not None:
+        r["nsplit"] = nsplit
     print(f"[kernels] {label}: max_abs_err={err:.3g} (tol {tol}) "
+          f"{'' if nsplit is None else f'nsplit={nsplit} '}"
           f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.3f} library_ms(sdpa)="
           f"{r['library_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
           f"({r['bound_by']})", flush=True)
@@ -1769,12 +1777,14 @@ def lse_case(torch, flush, label, q, k, v, kl):
     where finite and -inf exactly where the plain version's is (kv_len 0,
     beside a zero output); its cold-L2 time beside the existing instance's
     on the same inputs, the plain version's, SDPA's and the bound of its
-    ``cost()``."""
+    ``cost()``, and the splits a request its launch took."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_decode import (decode_lengths,
+                                                  decode_splits,
                                                   flash_decode_blocks,
                                                   flash_decode_cost,
-                                                  flash_decode_plain)
+                                                  flash_decode_plain,
+                                                  sm_count)
     Bd, KV, G, D = q.shape
     S = k.shape[1]
     tol = ATTN_TOL["f32"]
@@ -1810,9 +1820,11 @@ def lse_case(torch, flush, label, q, k, v, kl):
              q, k, v, lens, lse=True), 3, flush),
          "library_ms": cold_ms(torch, lambda: F.scaled_dot_product_attention(
              qs, ks, vs, attn_mask=mask, enable_gqa=True), 10, flush),
-         **bound_of(flash_decode_cost(q, k, v, kl, lse=True)), "D": D}
+         **bound_of(flash_decode_cost(q, k, v, kl, lse=True)), "D": D,
+         "nsplit": decode_splits(q, S, sm_count("cuda"))}
     print(f"[kernels] {label}: max_abs_err={err:.3g} (tol {tol}) lse "
-          f"err={lerr:.3g} (tol {LSE_TOL}) ms={r['ms']:.4f} (the existing "
+          f"err={lerr:.3g} (tol {LSE_TOL}) nsplit={r['nsplit']} "
+          f"ms={r['ms']:.4f} (the existing "
           f"instance {r['base_ms']:.4f}) plain_ms={r['plain_ms']:.3f} "
           f"library_ms(sdpa)={r['library_ms']:.4f} bound_ms="
           f"{r['bound_ms']:.4f} ({r['bound_by']})", flush=True)
@@ -1854,19 +1866,27 @@ def attention_kernels_phase(torch, flush):
     (D = 256) and zamba2-2.7b's shared block at long_500k (D = 80), with
     kv_len
     S, 0 (a rank that holds none of the positions), 1 and 700 ("lse",
-    ``lse_case``). The yardstick is one
+    ``lse_case``). starcoder2-7b's one request at 32k on one card runs
+    unsharded in bf16 ("long"): the existing instance at S = LONG_CACHE
+    with kv_len S and 700, and the paged kernel over 2,048 pages of 16
+    with the same lengths. Every decode case prints the splits a request
+    its launch took (``decode_splits``, the wrapper's plan) beside its
+    times; paligemma-3b's batch-1 decode over 8,192 rows (128 splits of
+    one request, bf16 and f32) takes the kernel's two-level merge
+    ("long" too). The yardstick is one
     F.scaled_dot_product_attention(..., enable_gqa=True) call on the same
     inputs, laid out as it wants them beforehand (for paged: a gather of
     the pages, dequantized for int8 pools, then the call)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_decode import (decode_lengths,
+                                                  decode_splits,
                                                   flash_decode_blocks,
                                                   flash_decode_cost,
                                                   flash_decode_paged,
                                                   flash_decode_paged_cost,
                                                   flash_decode_paged_plain,
                                                   flash_decode_plain,
-                                                  paged_gather)
+                                                  paged_gather, sm_count)
     from repro_torch.kernels.flash_prefill import (flash_prefill_blocks,
                                                    flash_prefill_cost,
                                                    flash_prefill_plain)
@@ -1882,7 +1902,8 @@ def attention_kernels_phase(torch, flush):
     H = KV * G
     out = {"flash_decode": [], "flash_decode_paged": [], "flash_prefill": []}
     d80 = {"flash_decode": [], "flash_prefill": []}
-    d256, bidir, lse = [], [], []
+    d256, bidir, lse, long = [], [], [], []
+    sms = sm_count("cuda")
     spread = torch.linspace(1, CACHE, Bd, device="cuda").round().to(
         torch.int32)
     for dt in (torch.bfloat16, torch.float32):
@@ -1906,7 +1927,8 @@ def attention_kernels_phase(torch, flush):
                     lambda: flash_decode_plain(q, k, v, lens),
                     lambda: F.scaled_dot_product_attention(
                         qs, ks, vs, attn_mask=mask, enable_gqa=True), tol,
-                    flash_decode_cost(q, k, v, kl)))
+                    flash_decode_cost(q, k, v, kl),
+                    nsplit=decode_splits(q, S, sms)))
 
         def prefill(Bp, Sp, H, KV, D, causal=True):
             q, k, v = r(Bp, Sp, H, D), r(Bp, Sp, KV, D), r(Bp, Sp, KV, D)
@@ -1962,7 +1984,8 @@ def attention_kernels_phase(torch, flush):
                 lambda: flash_decode_paged(q, kp, vp, bt, lens),
                 lambda: flash_decode_paged_plain(q, kp, vp, bt, lens),
                 paged_sdpa, tol,
-                flash_decode_paged_cost(q, kp, vp, bt, lens)))
+                flash_decode_paged_cost(q, kp, vp, bt, lens),
+                nsplit=decode_splits(q, nblk * page, sms, quant)))
             out["flash_decode_paged"][-1]["int8"] = quant
 
         decode(Bd, KV, G, D, CACHE, (("(B,) kv_len 1..1056", spread),
@@ -2015,10 +2038,29 @@ def attention_kernels_phase(torch, flush):
                ((f"(B,) kv_len {VLM_PREFIX + 1}..{S256}", lanes),
                 (f"scalar kv_len {700 + VLM_PREFIX}", 700 + VLM_PREFIX)))
         d256 += out["flash_decode"][n0:]
+        # paligemma-3b's batch-1 decode over 8,192 rows: 128 splits of one
+        # request, whose merge goes in two levels (chunks of 8 splits)
+        n0 = len(out["flash_decode"])
+        decode(1, 1, 8, 256, 8192, (("kv_len 8192", 8192),
+                                    ("scalar kv_len 700", 700)))
+        long += out["flash_decode"][n0:]
         n0 = len(out["flash_prefill"])
         for Bp, Sp in ((B, ENCODE_FRAMES), (1, 777)):
             prefill(Bp, Sp, 16, 16, 80, causal=False)
         bidir += out["flash_prefill"][n0:]
+        if dt == torch.bfloat16:
+            # starcoder2-7b's one request at 32k on one card, unsharded:
+            # the existing instance over a contiguous cache, and over
+            # 2,048 pages of 16
+            n0 = {k: len(out[k]) for k in ("flash_decode",
+                                            "flash_decode_paged")}
+            decode(1, KV, G, D, LONG_CACHE,
+                   ((f"kv_len {LONG_CACHE}", LONG_CACHE),
+                    ("scalar kv_len 700", 700)))
+            for kl in (LONG_CACHE, 700):
+                paged(1, KV, G, D, LONG_CACHE, 16, f"kv_len {kl}", kl)
+            for k in n0:
+                long += out[k][n0[k]:]
         for Bl, kv, g, dd, Sl in LSE_SHAPES:
             q, k, v = r(Bl, kv, g, dd), r(Bl, Sl, kv, dd), r(Bl, Sl, kv, dd)
             for kl in (Sl, 0, 1, 700):
@@ -2043,6 +2085,7 @@ def attention_kernels_phase(torch, flush):
     out["d256"] = d256
     out["bidir"] = bidir
     out["lse"] = lse
+    out["long"] = long
     return out
 
 

@@ -24,14 +24,24 @@ head dims that serve sequence-sharded). Its launches are counted in
 ``flash_decode_blocks.lse_launches`` besides ``launches``.
 
 On CUDA tensors the wrappers launch ``csrc/flash_decode.cu`` (its note says
-what bounds it and how the design answers): split-K, for a contiguous
-cache and a page pool alike. Each CTA takes 64 of a request's positions
-(a pool's CTA looks up each position's page in the block table, so any
-page size works) for one KV head and any G, and writes f32 partials to
-scratch that the wrapper allocates; the last CTA of each (request, KV
-head) merges them, in one launch. The grid follows the cache's S or the
-table's nblk * page; neither wrapper reads kv_len or the block tables on
-the host.
+what bounds it, bytes, and how the design answers): split-K, for a
+contiguous cache and a page pool alike, in one launch, a CTA per (split,
+KV head and group of 16 query heads, request). ``decode_plan`` picks the
+splits a request from the shapes (B, KV, G, the cache's S or a table's
+nblk * page) and the card's SM count (read once): ``PER_SM`` CTAs an SM
+over the batch, two for caches of at most 1,536 positions and one for
+longer ones, no more than fit an SM (``ctas_per_sm``), at least
+``MIN_SPLITS`` and never more than S has 64-row tiles; f32 q on a short
+cache aims at ``F32_PER_SM`` (``plan_per_sm``). On the device each
+split takes an even share, in whole tiles, of its request's kv_len
+(``split_rows``), so neither wrapper reads kv_len or the block tables on
+the host, and splits past a short request's tiles exit at once. A CTA
+loops over its tiles with the next tiles' K and V rows in flight while one
+is scored (a pool's CTA looks up each position's page in the block table,
+so any page size works), and writes f32 partials to scratch that the
+wrapper allocates; the last CTA of each row of the grid merges them with
+all of its threads, in two levels (chunks of ``CHUNK`` splits first) where
+one would take many rounds of loads.
 ``flash_decode_paged`` also reads int8 page pools, the reference's
 ``QuantKV`` pages (``serving/kvcache.py``): pass each pool as a (codes,
 scales) pair, codes (P, page, KV, D) int8 and scales (P, page, KV, 1)
@@ -69,9 +79,18 @@ LSE_DIMS = (64, 80, 128, 256)      # the log-sum-exp instance: the head
                                     # dims that serve sequence-sharded
                                     # (granite-moe; zamba2's shared block;
                                     # dense GQA; paligemma-3b)
-SPLIT = 64                  # positions per CTA (kSplit, which the launch
-                            # checks through nsplit)
+SPLIT = 64                  # positions per tile (kSplit)
+GROUP = 16                  # query heads a CTA (kGroup)
+PER_SM = (2, 1)             # CTAs a plan aims at on each SM, for caches of
+LONG = 24                   # at most LONG tiles (1,536 positions) and for
+                            # longer ones
+F32_PER_SM = 8              # ... and with f32 q, for caches of at most LONG
+MIN_SPLITS = 4              # the splits a plan gives a request at least
+                            # (where S has the tiles), for batches of mixed
+                            # lengths
+CHUNK = 8                   # splits the merge's first level takes (kChunk)
 _TICKETS = {}               # (device, stream) -> the merge's int32 tickets
+_SMS = {}                   # device index -> its SM count
 
 
 def softmax_scale(d: int) -> float:
@@ -234,8 +253,8 @@ def _check_cuda(name, tensors, dims=_DIMS) -> None:
     B, KV, G, D = tensors[0].shape
     if D not in dims:
         raise ValueError(f"{name} takes D in {dims}, got D={D}")
-    if B > 65535 or KV > 65535:
-        raise ValueError(f"{name} grid too large for B={B}, KV={KV}")
+    if B > 65535 or KV * -(-G // GROUP) > 65535:
+        raise ValueError(f"{name} grid too large for B={B}, KV={KV}, G={G}")
 
 
 _P, _F, _I = ctypes.c_void_p, ctypes.c_float, ctypes.c_int
@@ -245,8 +264,8 @@ _ARGTYPES = {   # the C signatures of csrc/flash_decode.cu, stream last
                                + [_F, _P],
     "flash_decode_paged_launch": [_P] * 3 + [_I] + [_P] * 5 + [_I] * 7
                                  + [_F, _P],
-    "flash_decode_paged_q8_launch": [_P] * 5 + [_I] + [_P] * 5 + [_I] * 7
-                                    + [_F, _P],
+    "flash_decode_paged_q8_launch": [_P] * 5 + [ctypes.c_longlong, _I]
+                                    + [_P] * 5 + [_I] * 7 + [_F, _P],
 }
 
 
@@ -280,13 +299,109 @@ def _check_aligned(name: str, tensors) -> None:
                          f"be 16-byte aligned")
 
 
-def _partials(q: torch.Tensor, S: int):
-    """(nsplit, f32 scratch for the splits' partials or None) for a
-    request that can hold S positions."""
+def decode_plan(B: int, KV: int, G: int, S: int, sms: int,
+                per_sm: int) -> int:
+    """The splits a request of a (B, KV, G) decode over caches that can
+    hold S positions, so that the grid (nsplit, KV * ceil(G / 16), B) puts
+    ``per_sm`` CTAs on each of ``sms`` SMs (``plan_per_sm``), at least
+    MIN_SPLITS and at most one a 64-row tile of S. It never looks at
+    kv_len, so one grid serves every length."""
+    tiles = max(1, -(-S // SPLIT))
+    units = B * KV * -(-G // GROUP)
+    return max(1, min(tiles, max(MIN_SPLITS, per_sm * sms // max(1, units))))
+
+
+def plan_per_sm(S: int, D: int, bf16: bool, q8: bool = False) -> int:
+    """The CTAs an SM a plan aims at, for the kernel instance that q of
+    ``bf16`` (else f32) and head dim D takes over caches that can hold S
+    positions (``q8``: int8 pools). PER_SM's: two for caches of at most
+    LONG tiles, whose batches mix lengths (the lanes' 1,056 and 1,312
+    rows) and whose splits are short, one for longer ones, where a split's
+    share of the merge costs more than a second CTA an SM gains; never
+    more than fit an SM (``ctas_per_sm``: one at D = 256). f32 q on a
+    short cache: F32_PER_SM, more and shorter splits than fit at once,
+    since the FMA work, not the merge, bounds an f32 tile."""
+    if -(-S // SPLIT) > LONG:
+        return min(PER_SM[1], ctas_per_sm(D, bf16, q8))
+    if not bf16:
+        return F32_PER_SM
+    return min(PER_SM[0], ctas_per_sm(D, bf16, q8))
+
+
+def ctas_per_sm(D: int, bf16: bool, q8: bool = False) -> int:
+    """How many of the kernel's CTAs fit an SM's 228 KB of shared memory
+    (1 KB of it reserved a CTA): its ring of stages of 64 K and V rows
+    (``csrc/flash_decode.cu``'s ``stages``), q, p and the softmax's sums,
+    as ``run_split`` sizes them. One at D = 256."""
+    q8_stage = 2 * SPLIT * D + 2 * SPLIT * 4 + 2 * SPLIT  # codes, scales
+    if bf16:
+        stages = 4 if q8 or D <= 80 else 3
+        tile = 2 * 2 * SPLIT * (D + 8)
+        smem = (stages * q8_stage + tile if q8 else stages * tile) + 2 * (
+            GROUP * (D + 8) + 2 * GROUP * (SPLIT + 8)) + 4 * 2 * 4 * GROUP
+    else:
+        stages = 2 if q8 else (3 if D <= 64 else 2 if D <= 80 else 1)
+        tile = 4 * 2 * SPLIT * (D + 4)
+        smem = (stages * q8_stage + tile if q8 else stages * tile) + 4 * (
+            GROUP * D + GROUP * (SPLIT + 4) + 3 * GROUP)
+    return max(1, (228 << 10) // (smem + 1024))
+
+
+def split_rows(kv_len: int, nsplit: int) -> list:
+    """The positions [t0, t1) that each working split of a request of
+    ``kv_len`` positions attends, as the kernel deals them: its
+    nt = ceil(kv_len / 64) tiles evenly over nwork = min(nt, nsplit)
+    splits in whole tiles; splits past nwork take none (and exit)."""
+    nt = -(-kv_len // SPLIT)
+    nwork = min(nt, nsplit)
+    return [(s * nt // nwork * SPLIT, min((s + 1) * nt // nwork * SPLIT,
+                                          kv_len)) for s in range(nwork)]
+
+
+def part_stride(G: int, D: int) -> int:
+    """f32 floats of one split's partials in the scratch, for a CTA's
+    min(G, 16) query heads: acc (G, D), then m and l (G,) each, padded to
+    a multiple of 4 (16-byte blocks)."""
+    return -(-min(G, GROUP) * (D + 2) // 4) * 4
+
+
+def ticket_stride(nsplit: int) -> int:
+    """The merge's int32 tickets for each CTA row of the grid: one for
+    each chunk of 8 splits, whose last CTA merges the chunk, and one for
+    the row, whose last chunk merger writes the output."""
+    return -(-nsplit // CHUNK) + 1
+
+
+def sm_count(device) -> int:
+    """The SM count of ``device``, read once."""
+    idx = torch.device(device).index
+    idx = torch.cuda.current_device() if idx is None else idx
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
+
+
+def decode_splits(q: torch.Tensor, S: int, sms: int,
+                  q8: bool = False) -> int:
+    """The splits a request that a wrapper's launch for q (B, KV, G, D)
+    over caches that can hold S positions (``q8``: int8 pools) on ``sms``
+    SMs takes: ``decode_plan`` with the kernel's CTAs an SM."""
     B, KV, G, D = q.shape
-    nsplit = max(1, -(-S // SPLIT))
-    part = (torch.empty(B * KV * nsplit * G * (D + 2), dtype=torch.float32,
-                        device=q.device) if nsplit > 1 else None)
+    return decode_plan(B, KV, G, S, sms,
+                       plan_per_sm(S, D, q.dtype == torch.bfloat16, q8))
+
+
+def _partials(q: torch.Tensor, S: int, sms: int, q8: bool = False):
+    """(nsplit, f32 scratch for the splits' partials or None) for caches
+    that can hold S positions (``q8``: int8 pools), on ``sms`` SMs: a
+    block of ``part_stride(G, D)`` floats for each split of each CTA row
+    of the grid."""
+    B, KV, G, D = q.shape
+    nsplit = decode_splits(q, S, sms, q8)
+    ny = KV * -(-G // GROUP)
+    part = (torch.empty(B * ny * nsplit * part_stride(G, D),
+                        dtype=torch.float32, device=q.device)
+            if nsplit > 1 else None)
     return nsplit, part
 
 
@@ -316,12 +431,13 @@ def flash_decode_blocks(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                if lse else None)
     if out.numel() == 0:
         return (out, lse_out) if lse else out
-    nsplit, part = _partials(q, S)
+    nsplit, part = _partials(q, S, sm_count(q.device))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     head = (q.data_ptr(), k.data_ptr(), v.data_ptr(),
             int(q.dtype == torch.bfloat16), kv_len.data_ptr(), out.data_ptr())
     tail = (part.data_ptr() if part is not None else None,
-            _tickets(q.device, stream, B * KV).data_ptr(), B, KV, G, D, S,
+            _tickets(q.device, stream, B * KV * -(-G // GROUP)
+                     * ticket_stride(nsplit)).data_ptr(), B, KV, G, D, S,
             nsplit, softmax_scale(D), stream)
     if lse:
         _check_launch("flash_decode", _fn("flash_decode_lse_launch")(
@@ -365,24 +481,29 @@ def flash_decode_paged(q: torch.Tensor, k_pool, v_pool,
                 _PAGED_DIMS)
     _check_aligned("flash_decode_paged",
                    (q, k_pool[0], v_pool[0]) if q8 else (q, k_pool, v_pool))
+    if q8 and (k_pool[1].data_ptr() % 4 or v_pool[1].data_ptr() % 4):
+        raise ValueError("flash_decode_paged copies int8 pools' scales in "
+                         "4-byte words: they must be 4-byte aligned")
     B, KV, G, D = q.shape
     page = pools[0].shape[1]
     nblk = block_tables.shape[1]
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    nsplit, part = _partials(q, page * nblk)
+    nsplit, part = _partials(q, page * nblk, sm_count(q.device), q8)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     common = (int(q.dtype == torch.bfloat16), kv_len.data_ptr(),
               block_tables.data_ptr(), out.data_ptr(),
               part.data_ptr() if part is not None else None,
-              _tickets(q.device, stream, B * KV).data_ptr(), B, KV, G, D,
+              _tickets(q.device, stream, B * KV * -(-G // GROUP)
+                       * ticket_stride(nsplit)).data_ptr(), B, KV, G, D,
               page, nblk, nsplit, softmax_scale(D), stream)
     if q8:
         _check_launch("flash_decode_paged", _fn(
             "flash_decode_paged_q8_launch")(
                 q.data_ptr(), k_pool[0].data_ptr(), k_pool[1].data_ptr(),
-                v_pool[0].data_ptr(), v_pool[1].data_ptr(), *common))
+                v_pool[0].data_ptr(), v_pool[1].data_ptr(),
+                k_pool[1].numel(), *common))
         flash_decode_paged.int8_launches += 1
     else:
         _check_launch("flash_decode_paged", _fn("flash_decode_paged_launch")(
